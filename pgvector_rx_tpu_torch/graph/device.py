@@ -1,0 +1,702 @@
+"""Device (PyTorch) HNSW graph: flat tensors + batched serving engines.
+
+The serving half of ``pgvector_rx_tpu/graph/device.py``, in PyTorch. The
+graph is the same flat-array layout (``DeviceGraph``) on an explicit
+device, and the engines are the same algorithms:
+
+- **exact**: the fused FP32 sweep (kernel K1 on CUDA, its plain version
+  on the CPU);
+- **approx**: the binned bf16 sweep (kernel K2 on CUDA, its plain binned
+  version on the CPU) followed by an exact f32 rescore of the k winners
+  (``_rescore_true``);
+- **beam**: the batched best-first walk over layer 0
+  (``_ground_beam_seeds``), seeded by a bf16 sweep over the level >= 1
+  rows (``_search_batch_coarse``) or by the greedy upper-layer descent
+  (``_search_batch``). Plain torch, one batch-wide step per iteration.
+
+JAX's ``vmap`` over queries becomes an explicit batch dimension, and its
+``while_loop`` a Python loop whose finished queries are frozen by masks.
+Only the beam defaults are ported: one expansion per step, in-beam
+dedup (no visited bitmap) and f32 ranking.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from pgvector_rx_tpu.constants import hnsw_get_layer_m
+
+from ..ops import bruteforce
+
+#: the exact sweep's penalty on excluded rows (ops/bruteforce._NEG_BIG)
+_PENALTY = bruteforce._NEG_BIG
+
+# Above this many rows the exact sweep's FLOPs lose to the beam (engine
+# "auto"); same cutover as the JAX package.
+EXACT_ENGINE_MAX_ROWS = 4_000_000
+
+_INF = float("inf")
+
+
+def _serve_dtype_for(index):
+    """Serving value-array dtype (``PGV_SERVE_DTYPE``: auto | bf16 | f16 |
+    f32). "auto" keeps f32 rows plus a bf16 sweep copy, and one f16 array
+    for halfvec indexes."""
+    mode = os.environ.get("PGV_SERVE_DTYPE", "auto")
+    if mode == "bf16":
+        return torch.bfloat16
+    if mode == "f16":
+        return torch.float16
+    if mode == "f32":
+        return torch.float32
+    if index.kind == "dense" and index.dtype == np.float16:
+        return torch.float16
+    return torch.float32
+
+
+def _serve_value_arrays(v32, serve_dtype):
+    """(values, x2, values_bf16) under the dtype policy. ``v32`` is the
+    padded [cap+1, D] f32 row tensor; compact dtypes store one tensor and
+    derive x2 from the stored (rounded) values."""
+    if serve_dtype == torch.float32:
+        return dict(
+            values=v32,
+            x2=(v32 * v32).sum(dim=1),
+            values_bf16=v32.to(torch.bfloat16),
+        )
+    v = v32.to(serve_dtype)
+    vf = v.float()
+    return dict(values=v, x2=(vf * vf).sum(dim=1), values_bf16=None)
+
+
+def _tensor(arr, device):
+    """Tensor or numpy(-convertible) array -> tensor on ``device``. bf16
+    numpy arrays (ml_dtypes) go through f32, which holds them exactly."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    if not a.flags.writeable:  # e.g. a view of an immutable JAX buffer
+        a = a.copy()
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+_GRAPH_FIELDS = (
+    "neighbors0", "upper_neighbors", "upper_slot", "levels", "traversable",
+    "emit_tid", "tid_count",
+)
+_VALUE_FIELDS = ("values", "x2", "values_bf16")
+
+
+@dataclass
+class DeviceGraph:
+    """Flat-tensor mirror of a dense host index, on one device."""
+
+    kind: str
+    metric: str
+    cap: int  # number of element slots (tensors padded to cap+1)
+    m: int
+    entry: int  # -1 if empty
+    entry_level: int
+    neighbors0: torch.Tensor  # [cap+1, 2M] int32
+    upper_neighbors: torch.Tensor  # [U, LMAX*M] int32 (layer-major flat)
+    upper_slot: torch.Tensor  # [cap+1] int32
+    levels: torch.Tensor  # [cap+1] int32
+    traversable: torch.Tensor  # [cap+1] bool
+    emit_tid: torch.Tensor  # [cap+1] int32
+    tid_count: torch.Tensor  # [cap+1] int32
+    values: torch.Tensor | None = None  # [cap+1, D] serve dtype
+    # per-row ||x||^2 and a bf16 copy, so sweeps don't recompute per call
+    x2: torch.Tensor | None = None
+    values_bf16: torch.Tensor | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.neighbors0.device
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, *, kind: str, metric: str, cap: int,
+                   m: int, entry: int, entry_level: int, device):
+        """Build from arrays named like the fields: numpy arrays (e.g.
+        ``np.asarray`` of a JAX ``DeviceGraph``'s fields) or tensors.
+        Missing value fields stay None."""
+        if kind != "dense":
+            raise NotImplementedError(
+                f"DeviceGraph kind {kind!r} is not ported (dense only)"
+            )
+        tensors = {
+            f: _tensor(arrays[f], device)
+            for f in _GRAPH_FIELDS + _VALUE_FIELDS
+            if arrays.get(f) is not None
+        }
+        tensors["traversable"] = tensors["traversable"].bool()
+        return cls(kind=kind, metric=metric, cap=int(cap), m=int(m),
+                   entry=int(entry), entry_level=int(entry_level), **tensors)
+
+    @classmethod
+    def from_index(cls, index, device=None) -> "DeviceGraph":
+        """Flatten a host-graph index (``index.elements``) onto ``device``
+        (default: the index's own)."""
+        if index.kind != "dense":
+            raise NotImplementedError(
+                f"DeviceGraph kind {index.kind!r} is not ported (dense only)"
+            )
+        device = index.device if device is None else device
+        n = len(index.elements)
+        m = index.params.m
+        lm0 = hnsw_get_layer_m(m, 0)
+
+        neighbors0 = np.full((n + 1, lm0), -1, dtype=np.int32)
+        levels = np.full(n + 1, -1, dtype=np.int32)
+        traversable = np.zeros(n + 1, dtype=bool)
+        emit_tid = np.full(n + 1, -1, dtype=np.int32)
+        tid_count = np.zeros(n + 1, dtype=np.int32)
+        upper_rows = []
+        upper_slot = np.full(n + 1, -1, dtype=np.int32)
+        lmax = max(max((e.level for e in index.elements), default=0), 1)
+
+        for i, e in enumerate(index.elements):
+            levels[i] = e.level
+            traversable[i] = not e.deleted
+            tids = index.heap_tids[i]
+            tid_count[i] = len(tids)
+            if tids:
+                emit_tid[i] = tids[0]
+            if e.deleted:
+                continue
+            l0 = e.neighbors[0] if e.neighbors else []
+            for j, (_, nid) in enumerate(l0[:lm0]):
+                neighbors0[i, j] = nid
+            if e.level >= 1:
+                upper_slot[i] = len(upper_rows)
+                row = np.full(lmax * m, -1, dtype=np.int32)
+                for lc in range(1, e.level + 1):
+                    for j, (_, nid) in enumerate(e.neighbors[lc][:m]):
+                        row[(lc - 1) * m + j] = nid
+                upper_rows.append(row)
+        upper_neighbors = (
+            np.stack(upper_rows)
+            if upper_rows
+            else np.full((1, lmax * m), -1, dtype=np.int32)
+        )
+        vals = np.zeros((n + 1, index.dim), dtype=np.float32)
+        vals[:n] = index.store.rows[:n].astype(np.float32)
+        value_arrays = _serve_value_arrays(
+            _tensor(vals, device), _serve_dtype_for(index)
+        )
+        return cls.from_numpy(
+            dict(neighbors0=neighbors0, upper_neighbors=upper_neighbors,
+                 upper_slot=upper_slot, levels=levels,
+                 traversable=traversable, emit_tid=emit_tid,
+                 tid_count=tid_count, **value_arrays),
+            kind=index.kind, metric=index.metric, cap=n, m=m,
+            entry=index.entry if index.entry is not None else -1,
+            entry_level=(
+                index.elements[index.entry].level
+                if index.entry is not None else -1
+            ),
+            device=device,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Distances from a batch of queries to gathered graph rows
+# ---------------------------------------------------------------------------
+
+
+def _dist_ids(g: DeviceGraph, q, ids):
+    """Order-distances [B, W] from queries ``q`` [B, D] to rows ``ids``
+    [B, W] (dense metrics; ids clamped into range, callers mask)."""
+    cand = g.values[ids.clamp(0, g.cap).long()].float()  # [B, W, D]
+    qb = q[:, None, :]
+    if g.metric == "l2":
+        diff = cand - qb
+        return (diff * diff).sum(dim=-1)
+    if g.metric == "l1":
+        return (cand - qb).abs().sum(dim=-1)
+    dots = (cand * qb).sum(dim=-1)
+    if g.metric == "ip":
+        return -dots
+    if g.metric == "cosine":
+        return 1.0 - dots.clamp(-1.0, 1.0)
+    raise ValueError(f"bad metric {g.metric}")
+
+
+def _lexsort2(primary, secondary):
+    """Permutation sorting rows by (primary, secondary) ascending."""
+    o2 = torch.argsort(secondary, dim=1, stable=True)
+    o1 = torch.argsort(torch.gather(primary, 1, o2), dim=1, stable=True)
+    return torch.gather(o2, 1, o1)
+
+
+# ---------------------------------------------------------------------------
+# Beam search (batched; finished queries frozen by masks)
+# ---------------------------------------------------------------------------
+
+#: steps between host checks for "any query still active" (frozen
+#: queries are masked, so extra steps change nothing)
+_BEAM_SYNC_EVERY = 4
+
+
+def _beam_settings() -> None:
+    """Only the JAX package's default beam is ported; refuse the rest."""
+    for var, default in (("PGV_BEAM_EXPAND", "1"),
+                         ("PGV_BEAM_VISITED_MAX", "0"),
+                         ("PGV_BEAM_BF16", "0")):
+        val = os.environ.get(var, default)
+        if val != default:
+            raise NotImplementedError(
+                f"{var}={val} is not ported (the torch beam runs expand=1, "
+                "in-beam dedup and f32 ranking only)"
+            )
+
+
+def _greedy_descent(g: DeviceGraph, q, cur, cur_d, layer: int):
+    """ef=1 greedy search at an upper layer for every query (scan.rs
+    :492-510 analog): move to the nearest upper neighbour while it is
+    strictly nearer."""
+    off = (layer - 1) * g.m
+    rows = torch.arange(q.shape[0], device=q.device)
+    moved = torch.ones_like(cur, dtype=torch.bool)
+    while bool(moved.any()):
+        slot = g.upper_slot[cur.long()]
+        nbrs = g.upper_neighbors[slot.clamp(min=0).long(), off : off + g.m]
+        valid = (
+            (nbrs >= 0)
+            & (slot >= 0)[:, None]
+            & g.traversable[nbrs.clamp(0, g.cap).long()]
+        )
+        d = torch.where(valid, _dist_ids(g, q, nbrs), _INF)
+        best = torch.argmin(d, dim=1)
+        best_d = d[rows, best]
+        moved = moved & (best_d < cur_d)
+        cur = torch.where(moved, nbrs[rows, best], cur)
+        cur_d = torch.where(moved, best_d, cur_d)
+    return cur, cur_d
+
+
+def _ground_beam_seeds(g: DeviceGraph, q, seed_ids, seed_d, ef: int,
+                       max_steps: int):
+    """Best-first beam of width ef at layer 0 for a batch of queries.
+
+    ``seed_ids`` [B, S] (-1 = unused) occupy the first S beam slots. Each
+    step expands the nearest unexpanded beam member, scores its <= 2M
+    live neighbours, dedups by id (the expanded copy wins, so beam
+    members never re-expand) and keeps the ef nearest. A query stops when
+    its nearest unexpanded candidate is farther than its furthest beam
+    member (graph/mod.rs:186-192), or after ``max_steps``.
+
+    The beam key packs id*2 + (1 - expanded); invalid slots are -2.
+    Returns (dists [B, ef], ids [B, ef]) nearest first, and steps [B].
+    """
+    B, S = seed_ids.shape
+    dev = q.device
+    rows = torch.arange(B, device=dev)
+    ok = seed_ids >= 0
+    beam_d = torch.full((B, ef), _INF, device=dev)
+    beam_d[:, :S] = torch.where(ok, seed_d, _INF)
+    beam_key = torch.full((B, ef), -2, dtype=torch.int64, device=dev)
+    beam_key[:, :S] = torch.where(ok, seed_ids.long() * 2 + 1, -2)
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def unexpanded():
+        return torch.where(beam_key & 1 == 1, beam_d, _INF)
+
+    def active_now():
+        unexp = unexpanded()
+        best = unexp.min(dim=1).values
+        furthest = beam_d.max(dim=1).values  # inf while not full
+        return (best <= furthest) & torch.isfinite(best) & (steps < max_steps)
+
+    it = 0
+    while True:
+        active = active_now()
+        if it % _BEAM_SYNC_EVERY == 0 and not bool(active.any()):
+            break
+        it += 1
+        unexp = unexpanded()
+        pos = torch.argmin(unexp, dim=1)
+        sel_valid = torch.isfinite(unexp[rows, pos]) & active
+        key_pos = beam_key[rows, pos]
+        u = torch.where(sel_valid, key_pos >> 1, -1)
+        new_key = beam_key.clone()
+        new_key[rows, pos] = torch.where(sel_valid, key_pos & ~1, key_pos)
+
+        nbrs = g.neighbors0[u.clamp(min=0)].long()  # [B, 2M]
+        nbrs = torch.where(sel_valid[:, None], nbrs, -1)
+        mask = (nbrs >= 0) & g.traversable[nbrs.clamp(0, g.cap)]
+        d_new = torch.where(mask, _dist_ids(g, q, nbrs), _INF)
+        key_new = torch.where(mask, nbrs * 2 + 1, -2)
+
+        all_d = torch.cat([beam_d, d_new], dim=1)
+        all_key = torch.cat([new_key, key_new], dim=1)
+        # in-beam dedup by id, expanded copy first (key order IS the
+        # dedup order): kill later copies before the rank sort
+        o_key, order = torch.sort(all_key, dim=1, stable=True)
+        o_d = torch.gather(all_d, 1, order)
+        dup = torch.zeros_like(o_key, dtype=torch.bool)
+        dup[:, 1:] = (o_key[:, 1:] >> 1) == (o_key[:, :-1] >> 1)
+        o_d = torch.where(dup | (o_key < 0), _INF, o_d)
+        perm = _lexsort2(o_d, o_key)[:, :ef]
+        nd = torch.gather(o_d, 1, perm)
+        nk = torch.gather(o_key, 1, perm)
+        beam_d = torch.where(active[:, None], nd, beam_d)
+        beam_key = torch.where(active[:, None], nk, beam_key)
+        steps = steps + active.to(torch.int32)
+
+    beam_ids = torch.where(beam_key >= 0, beam_key >> 1, -1)
+    perm = _lexsort2(beam_d, beam_ids)
+    return (torch.gather(beam_d, 1, perm), torch.gather(beam_ids, 1, perm),
+            steps)
+
+
+def _search_batch(g: DeviceGraph, queries, ef: int, entry_level: int,
+                  max_steps: int):
+    """Full Algorithm-5 search: greedy descent through the upper layers
+    from the entry point, then the ground beam from where it lands."""
+    B = queries.shape[0]
+    cur = torch.full((B,), g.entry, dtype=torch.int64, device=queries.device)
+    cur_d = _dist_ids(g, queries, cur[:, None])[:, 0]
+    for layer in range(entry_level, 0, -1):
+        cur, cur_d = _greedy_descent(g, queries, cur, cur_d, layer)
+    return _ground_beam_seeds(g, queries, cur[:, None], cur_d[:, None], ef,
+                              max_steps)
+
+
+def upper_row_arrays(g: DeviceGraph):
+    """(ids [U] int64, rows [U, D] bf16, U) of the level >= 1 elements,
+    computed once per DeviceGraph and cached on it (coarse seeding)."""
+    cache = getattr(g, "_upper_cache", None)
+    if cache is not None:
+        return cache
+    slot = g.upper_slot[: g.cap]
+    ids = torch.nonzero(slot >= 0).flatten()
+    src = g.values_bf16 if g.values_bf16 is not None else g.values
+    g._upper_cache = (ids, src[ids], int(ids.numel()))
+    return g._upper_cache
+
+
+def _coarse_upper(g: DeviceGraph):
+    """(upper_ids, upper_rows) when coarse seeding applies, else None."""
+    if g.kind != "dense" or os.environ.get("PGV_BEAM_SEED") == "descent":
+        return None
+    ids, rows, count = upper_row_arrays(g)
+    # too few upper elements for the sweep to beat plain descent
+    if count < 8:
+        return None
+    return ids, rows
+
+
+def _search_batch_coarse(g: DeviceGraph, queries, upper_ids, upper_rows,
+                         ef: int, max_steps: int, n_seeds: int = 8):
+    """Coarse-seeded beam: one bf16 sweep over the level >= 1 rows picks
+    the n_seeds nearest upper elements, whose exact f32 distances seed the
+    ground beam (in place of the greedy upper-layer descent)."""
+    U = upper_rows.shape[0]
+    if g.metric == "l2":
+        uf = upper_rows.float()
+        a = (uf * uf).sum(dim=1)
+    else:
+        a = torch.zeros(U, dtype=torch.float32, device=queries.device)
+    scores = _exact_scores(g, queries, upper_rows, a)
+    valid = g.traversable[upper_ids]
+    scores = torch.where(valid[None, :], scores, _INF)
+    S = min(n_seeds, U, ef)  # seeds must fit the ef-wide beam
+    seed_d, slots = torch.topk(scores, S, dim=1, largest=False, sorted=True)
+    seed_ids = torch.where(torch.isfinite(seed_d), upper_ids[slots], -1)
+    # exact f32 seed distances: the bf16 coarse scores only rank
+    s_d = _dist_ids(g, queries, seed_ids)
+    return _ground_beam_seeds(g, queries, seed_ids, s_d, ef, max_steps)
+
+
+# ---------------------------------------------------------------------------
+# Exact / approx sweeps (dense)
+# ---------------------------------------------------------------------------
+
+
+def _exact_scores(g: DeviceGraph, queries, vals, a):
+    """[B, rows(vals)] order scores ``a - 2 q.x`` (l2) or ``a - q.x``
+    (ip/cosine) for a corpus slice; ``a`` is the row term. bf16-rounded
+    operands, f32 products and sums (the coarse seed sweep)."""
+    q = queries.to(torch.bfloat16).float()
+    v = vals.to(torch.bfloat16).float()
+    dots = q @ v.T
+    if g.metric == "l2":
+        return a[None, :] - 2.0 * dots
+    return a[None, :] - dots  # ip and cosine share the -dots order
+
+
+def _true_dists(g: DeviceGraph, queries, s):
+    """Recover true distances from order scores on [B, k] columns."""
+    if g.metric == "l2":
+        q2 = (queries * queries).sum(dim=1, keepdim=True)
+        return torch.clamp(s + q2, min=0.0)
+    if g.metric == "cosine":
+        # keep the inf dead-row sentinel (clip would map it to 2.0)
+        return torch.where(torch.isfinite(s), 1.0 - (-s).clamp(-1.0, 1.0), s)
+    return s  # ip: -dots IS the distance
+
+
+def _rescore_true(g: DeviceGraph, queries, s, ids):
+    """Exact f32 distances for the final [B, k] columns of the approx
+    sweep, re-sorted; bf16 order scores must not leak into returned
+    distance values. Dead/empty slots (non-finite ``s``) stay inf."""
+    rows = g.values[ids.clamp(0, g.cap).long()].float()  # [B, k, D]
+    qb = queries[:, None, :]
+    if g.metric == "l2":
+        diff = rows - qb
+        d = (diff * diff).sum(dim=-1)
+    else:
+        dots = (rows * qb).sum(dim=-1)
+        d = -dots if g.metric == "ip" else 1.0 - dots.clamp(-1.0, 1.0)
+    d = torch.where(torch.isfinite(s), d, _INF)
+    d, order = torch.sort(d, dim=1, stable=True)
+    return d, torch.gather(ids, 1, order)
+
+
+def _live_rows(g: DeviceGraph, row_mask):
+    live = g.traversable & (g.tid_count > 0)
+    return live if row_mask is None else live & row_mask
+
+
+def _exact_search_batch(g: DeviceGraph, queries, k: int, approx: bool = False,
+                        row_mask=None):
+    """Exact (or approximate) top-k over the index's live rows ->
+    (dists [B, k], element ids [B, k]) nearest first, -1 / inf padded.
+
+    The sweep is ``ops/bruteforce``'s: K1 (exact FP32) or K2 (binned
+    bf16) followed by the f32 rescore. Those wrappers alone choose the
+    kernel (CUDA tensors) or its plain version (CPU tensors)."""
+    if g.metric not in ("l2", "ip", "cosine"):
+        raise NotImplementedError(
+            f"exact/approx sweep for metric {g.metric!r} is not ported"
+        )
+    live = _live_rows(g, row_mask)
+    x2 = g.x2 if g.x2 is not None else (g.values.float() ** 2).sum(dim=1)
+    pen = torch.where(live, 0.0, _PENALTY)
+    a = ((x2 + pen) if g.metric == "l2" else pen).contiguous()
+    if approx:
+        vals = g.values_bf16 if g.values_bf16 is not None else g.values
+        s, ids = bruteforce.binned_sweep_topk(
+            vals.to(torch.bfloat16).contiguous(), a, queries, k, g.metric)
+        d, ids = _rescore_true(g, queries, s, ids)
+    else:
+        sd, ids = bruteforce._surrogate_topk(
+            g.values.float().contiguous(), a, queries.contiguous(), k)
+        # K1 scores a - 2 q.x: halve for the ip/cosine order a - q.x
+        d = _true_dists(g, queries, sd if g.metric == "l2" else sd * 0.5)
+    return d, torch.where(torch.isfinite(d), ids.long(), -1)
+
+
+# ---------------------------------------------------------------------------
+# Bulk serving
+# ---------------------------------------------------------------------------
+
+
+def _serve_chunk(g: DeviceGraph, qc, k: int, engine: str, ef: int,
+                 max_steps: int, upper, row_mask):
+    """Top-k of one query chunk through one engine (the body of the JAX
+    package's single-dispatch ``_serve_sweep``)."""
+    if engine != "beam":
+        return _exact_search_batch(g, qc, k, approx=engine == "approx",
+                                   row_mask=row_mask)
+    if upper is not None:
+        d, ids, _ = _search_batch_coarse(g, qc, upper[0], upper[1], ef,
+                                         max_steps)
+    else:
+        d, ids, _ = _search_batch(g, qc, ef, g.entry_level, max_steps)
+    if row_mask is not None:
+        # post-filter the ef-wide beam (the traversal stays unfiltered,
+        # like the reference's executor filter)
+        keep = row_mask[ids.clamp(min=0)] & (ids >= 0)
+        d = torch.where(keep, d, _INF)
+        d, order = torch.sort(d, dim=1, stable=True)
+        ids = torch.gather(ids, 1, order)
+        ids = torch.where(torch.isfinite(d), ids, -1)
+    return d[:, :k], ids[:, :k]
+
+
+def serve_topk(index, queries_dev, k: int, engine: str = "approx",
+               chunk: int = 1024, ef: int = 40, filter_mask=None):
+    """Bulk top-k over staged dense queries [B, dim] -> (dists [B,k] np,
+    element ids [B,k] np), in chunks of ``chunk`` queries.
+
+    The serving fast path: ``search()`` stays the semantically complete
+    per-call API (duplicate TID expansion, operator distances).
+    ``filter_mask``: optional bool array over element ids; exact/approx
+    pre-filter inside the sweep, beam post-filters its ef-wide result.
+    """
+    if engine not in ("exact", "approx", "beam"):
+        raise ValueError(f"unknown engine {engine!r}")
+    g = index.device_graph()
+    row_mask = _stage_filter_mask(g, filter_mask)
+    queries = torch.as_tensor(queries_dev).to(g.device, torch.float32)
+    ef_eff = max(ef, k)
+    upper = None
+    if engine == "beam":
+        _beam_settings()
+        upper = _coarse_upper(g)
+    out_d, out_i = [], []
+    for s in range(0, queries.shape[0], chunk):
+        d, ids = _serve_chunk(g, queries[s : s + chunk], k, engine, ef_eff,
+                              4 * ef_eff + 32, upper, row_mask)
+        out_d.append(d)
+        out_i.append(ids)
+    if not out_d:
+        return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
+    return (torch.cat(out_d).cpu().numpy(), torch.cat(out_i).cpu().numpy())
+
+
+def _stage_filter_mask(g: DeviceGraph, filter_mask):
+    """A user element-id filter mask as a [cap+1] bool tensor on the
+    graph's device (sentinel row False). Accepts None or a numpy / torch
+    bool array of length <= cap (unlisted tail ids are excluded)."""
+    if filter_mask is None:
+        return None
+    cap1 = g.traversable.shape[0]
+    m = torch.as_tensor(np.asarray(filter_mask, dtype=bool)
+                        if not isinstance(filter_mask, torch.Tensor)
+                        else filter_mask).to(g.device, torch.bool)
+    if m.shape[0] > cap1 - 1:
+        raise ValueError(
+            f"filter_mask length {m.shape[0]} exceeds index capacity {cap1 - 1}"
+        )
+    out = torch.zeros(cap1, dtype=torch.bool, device=g.device)
+    out[: m.shape[0]] = m
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def prepare_query_matrix(index, q: np.ndarray, device):
+    """Vectorized dense-query canonicalization. Cosine: rows are
+    L2-normalized; zero rows stay zero (vector.rs:688-711)."""
+    q = np.asarray(q, dtype=np.float32)
+    if index.metric == "cosine":
+        n = np.linalg.norm(q, axis=1, keepdims=True)
+        q = np.where(n > 0, q / np.where(n > 0, n, 1.0), 0.0).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(q)).to(device)
+
+
+def prepare_queries(index, qlist, device):
+    """Canonicalize dense queries to a [B, dim] f32 tensor on ``device``."""
+    if index.kind != "dense":
+        raise NotImplementedError(
+            f"queries of kind {index.kind!r} are not ported (dense only)"
+        )
+    if isinstance(qlist, torch.Tensor):
+        q = qlist.to(device, torch.float32)
+        if index.metric == "cosine":
+            n = torch.linalg.norm(q, dim=1, keepdim=True)
+            q = torch.where(n > 0, q / torch.where(n > 0, n, 1.0), 0.0)
+        return q
+    arr = np.asarray(qlist, dtype=np.float32)
+    if arr.ndim == 2 and arr.shape[1] == index.dim:
+        return prepare_query_matrix(index, arr, device)
+    rows = [
+        (p if p is not None else np.zeros(index.dim, np.float32)).astype(
+            np.float32
+        )
+        for p in (index.prepare_value(q) for q in qlist)
+    ]
+    return torch.from_numpy(np.stack(rows)).to(device)
+
+
+def search(index, qlist, k: int, params, engine: str = "auto",
+           filter_mask=None):
+    """Batched device k-NN -> (order-dists [B,k] f64, heap ids [B,k]).
+
+    engine: "beam" walks the HNSW graph, "exact" runs the exact sweep,
+    "approx" the bf16 binned sweep + rescore, "auto" picks exact up to
+    EXACT_ENGINE_MAX_ROWS and beam otherwise. ``filter_mask``: optional
+    bool array over element ids; exact/approx pre-filter inside the
+    sweep, the beam post-filters emissions.
+    """
+    g = index.device_graph()
+    row_mask = _stage_filter_mask(g, filter_mask)
+    B = len(qlist)
+    if g.entry < 0 or B == 0:
+        return (
+            np.full((B, k), np.inf, dtype=np.float64),
+            np.full((B, k), -1, dtype=np.int64),
+        )
+    queries = prepare_queries(index, qlist, g.device)
+    ef = max(params.ef_search, 1)
+    max_steps = 4 * ef + 32
+    if engine == "auto":
+        engine = "exact" if g.cap <= EXACT_ENGINE_MAX_ROWS else "beam"
+    if engine in ("exact", "approx"):
+        beam_d, beam_ids = _exact_search_batch(
+            g, queries, max(k, 1), approx=engine == "approx",
+            row_mask=row_mask,
+        )
+    else:
+        _beam_settings()
+        upper = _coarse_upper(g)
+        if upper is not None:
+            beam_d, beam_ids, _ = _search_batch_coarse(
+                g, queries, upper[0], upper[1], ef, max_steps
+            )
+        else:
+            beam_d, beam_ids, _ = _search_batch(
+                g, queries, ef, g.entry_level, max_steps
+            )
+    beam_d = beam_d.cpu().numpy().astype(np.float64)
+    beam_ids = beam_ids.cpu().numpy()
+
+    if row_mask is not None and engine not in ("exact", "approx"):
+        # beam emissions post-filtered by the element mask (the
+        # executor-filter analog); exact engines already pre-filtered
+        host_mask = row_mask.cpu().numpy()
+        keep = (beam_ids >= 0) & host_mask[np.maximum(beam_ids, 0)]
+        beam_d = np.where(keep, beam_d, np.inf)
+        beam_ids = np.where(keep, beam_ids, -1)
+        order = np.argsort(beam_d, axis=1, kind="stable")
+        beam_d = np.take_along_axis(beam_d, order, axis=1)
+        beam_ids = np.take_along_axis(beam_ids, order, axis=1)
+
+    tid_count = g.tid_count.cpu().numpy()
+    emit_tid = g.emit_tid.cpu().numpy()
+
+    # fast path: no duplicates / vacuumed slots among the candidates
+    W = beam_ids.shape[1]
+    safe = np.maximum(beam_ids, 0)
+    cnts = np.where(beam_ids >= 0, tid_count[safe], 1)
+    if W >= k and (cnts[:, :k] == 1).all() and (beam_ids[:, :k] >= 0).all():
+        out_d = beam_d[:, :k].copy()
+        out_ids = emit_tid[safe[:, :k]].astype(np.int64)
+        out_d[~np.isfinite(out_d)] = np.inf
+        out_ids[~np.isfinite(beam_d[:, :k])] = -1
+        return out_d, out_ids
+
+    out_d = np.full((B, k), np.inf, dtype=np.float64)
+    out_ids = np.full((B, k), -1, dtype=np.int64)
+    for b in range(B):
+        j = 0
+        for d, eid in zip(beam_d[b], beam_ids[b]):
+            if j >= k or eid < 0 or not np.isfinite(d):
+                break
+            cnt = int(tid_count[eid])
+            if cnt == 0:
+                continue
+            if cnt == 1:
+                out_d[b, j] = d
+                out_ids[b, j] = emit_tid[eid]
+                j += 1
+            else:
+                # duplicate element: emit its heap TIDs in slot order
+                for tid in reversed(index.heap_tids[int(eid)]):
+                    if j >= k:
+                        break
+                    out_d[b, j] = d
+                    out_ids[b, j] = tid
+                    j += 1
+    return out_d, out_ids

@@ -1,0 +1,283 @@
+"""Fused brute-force k-NN sweeps: the counterpart of
+``pgvector_rx_tpu/ops/pallas_bruteforce.py``.
+
+Two kernels, hand-written in CUDA for Hopper (``csrc/bruteforce.cu``):
+
+- **K1** (``_surrogate_topk``; ``l2_topk`` / ``ip_topk`` /
+  ``cosine_topk``): exact FP32 top-k of the surrogate score
+  ``a - 2 q.x`` without a [B, N] score matrix in device memory. Replaces
+  the Pallas ``_topk_kernel``.
+- **K2** (``binned_sweep_topk``): bf16 sweep keeping a running per-bin
+  minimum (bin = row mod ``tn``), then a top-k over the bins. Replaces the
+  Pallas ``_binned_kernel``.
+
+Every wrapper has its plain-torch version beside it (``*_plain``). A
+wrapper takes the plain version only for tensors on the CPU; for a CUDA
+tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
+launches per kernel name.
+
+``a`` is the per-row term, penalty included: ``||x||^2`` for l2 and 0 for
+ip/cosine, plus ``_NEG_BIG`` (3e38) on rows that must never be returned.
+Scores at or above ``_NEG_BIG / 2`` come back as id -1 / distance inf.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+_NEG_BIG = float(3.0e38)
+
+#: kernel name -> launches of that kernel by its wrapper in this process
+LAUNCHES = {"k1_topk": 0, "k2_binned": 0}
+
+_MAX_K = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _block_target(dev: torch.device) -> int:
+    """Blocks a sweep's grid aims for: ~4 per SM of the card it runs on."""
+    return 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _invalid_to_sentinel(sd, si):
+    """Excluded / empty slots -> (inf, -1)."""
+    bad = (si < 0) | (sd >= _NEG_BIG * 0.5)
+    return (
+        torch.where(bad, torch.full_like(sd, float("inf")), sd),
+        torch.where(bad, torch.full_like(si, -1), si),
+    )
+
+
+# ---------------------------------------------------------------------------
+# K1: exact fused top-k
+# ---------------------------------------------------------------------------
+
+#: corpus rows per block of the plain sweep (bounds its [B, rows] scores)
+_PLAIN_CHUNK = 1 << 18
+
+
+def _surrogate_topk_plain(base, a, queries, k: int):
+    """Plain version of K1: chunked FP32 matmul + top-k merge.
+    Returns (scores [B,k], ids [B,k] int32), ascending."""
+    n = base.shape[0]
+    q = queries.float()
+    parts_s, parts_i = [], []
+    for s in range(0, n, _PLAIN_CHUNK):
+        x = base[s : s + _PLAIN_CHUNK].float()
+        sc = a[s : s + _PLAIN_CHUNK].float()[None, :] - 2.0 * (q @ x.T)
+        kk = min(k, x.shape[0])
+        v, i = torch.topk(sc, kk, dim=1, largest=False, sorted=True)
+        parts_s.append(v)
+        parts_i.append(i + s)
+    sd = torch.cat(parts_s, dim=1)
+    si = torch.cat(parts_i, dim=1)
+    if sd.shape[1] > k:
+        sd, pos = torch.topk(sd, k, dim=1, largest=False, sorted=True)
+        si = torch.gather(si, 1, pos)
+    si = si.to(torch.int32)
+    if sd.shape[1] < k:  # fewer rows than k
+        pad = k - sd.shape[1]
+        sd = torch.cat([sd, sd.new_full((sd.shape[0], pad), float("inf"))], 1)
+        si = torch.cat([si, si.new_full((si.shape[0], pad), -1)], 1)
+    return sd, si
+
+
+def _check_cuda(name, t, dtype, ndim, device=None):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, base on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} (got {t.dtype})")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims (got {t.dim()})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _surrogate_topk_cuda(base, a, queries, k: int):
+    from . import _build
+
+    _check_cuda("base", base, torch.float32, 2)
+    _check_cuda("a", a, torch.float32, 1, base.device)
+    _check_cuda("queries", queries, torch.float32, 2, base.device)
+    n, d = base.shape
+    b = queries.shape[0]
+    if a.shape[0] != n or queries.shape[1] != d:
+        raise ValueError(f"shape mismatch: base {tuple(base.shape)}, "
+                         f"a {tuple(a.shape)}, queries {tuple(queries.shape)}")
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"k must be in [1, {_MAX_K}] (got {k})")
+    if n == 0 or b == 0 or d == 0:
+        raise ValueError("empty base, queries or feature dimension")
+    qtiles = -(-b // 64)
+    row_tiles = -(-n // 64)
+    target = _block_target(base.device)
+    splits = max(1, min(row_tiles, -(-target // qtiles)))
+    rows_per_split = -(-row_tiles // splits) * 64
+    splits = -(-n // rows_per_split)
+    dev = base.device
+    part_d = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):  # the C entry launches on the current one
+        rc = _build.lib().pgv_k1_surrogate_topk(
+            base.data_ptr(), a.data_ptr(), queries.data_ptr(), n, d, b, k,
+            splits, rows_per_split, part_d.data_ptr(), part_i.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "pgv_k1_surrogate_topk")
+    LAUNCHES["k1_topk"] += 1
+    return out_d, out_i
+
+
+def _surrogate_topk(base, a, queries, k: int):
+    """Exact top-k of ``a - 2 q.x`` -> (scores [B,k] f32, ids [B,k] i32),
+    ascending; excluded/empty slots are (inf, -1). CPU tensors take the
+    plain version, CUDA tensors the K1 kernel."""
+    if base.is_cuda:
+        sd, si = _surrogate_topk_cuda(base, a, queries, k)
+    else:
+        sd, si = _surrogate_topk_plain(base, a, queries, k)
+    return _invalid_to_sentinel(sd, si)
+
+
+def _row_term(base, use_x2: bool):
+    if use_x2:
+        xf = base.float()
+        return (xf * xf).sum(dim=1)
+    return torch.zeros(base.shape[0], dtype=torch.float32, device=base.device)
+
+
+def l2_topk(base, queries, k: int):
+    """Exact k nearest (squared l2) -> (dists [B,k], ids [B,k]), sorted."""
+    sd, si = _surrogate_topk(base, _row_term(base, True), queries, k)
+    qf = queries.float()
+    q2 = (qf * qf).sum(dim=1, keepdim=True)
+    d = torch.where(si >= 0, torch.clamp(sd + q2, min=0.0),
+                    torch.full_like(sd, float("inf")))
+    return d, si
+
+
+def ip_topk(base, queries, k: int):
+    """Exact k largest inner products -> IP order distances (-dot) + ids."""
+    sd, si = _surrogate_topk(base, _row_term(base, False), queries, k)
+    return torch.where(si >= 0, sd * 0.5, sd), si
+
+
+def cosine_topk(base_normed, queries_normed, k: int):
+    """Exact k nearest by cosine distance over PRE-NORMALIZED rows."""
+    sd, si = _surrogate_topk(
+        base_normed, _row_term(base_normed, False), queries_normed, k
+    )
+    d = 1.0 + torch.clamp(sd * 0.5, -1.0, 1.0)
+    return torch.where(si >= 0, d, sd), si
+
+
+# ---------------------------------------------------------------------------
+# K2: binned bf16 sweep
+# ---------------------------------------------------------------------------
+
+
+def _binned_plain(base, a, queries, k: int, tn: int):
+    """Plain version of K2: per-bin minimum over [B, N/tn, tn] of the
+    bf16-operand, f32-accumulated scores, then top-k over the tn bins.
+    Returns (scores [B,k] f32, ids [B,k] i32), ascending."""
+    n = base.shape[0]
+    b = queries.shape[0]
+    pn = (-n) % tn
+    # bf16-rounded operands, f32 products and sums (bf16 x bf16 is exact
+    # in f32): the K2 kernel's arithmetic up to summation order
+    q = queries.float().to(torch.bfloat16).float()
+    x = base.to(torch.bfloat16).float()
+    av = a.float()
+    if pn:
+        x = torch.cat([x, x.new_zeros((pn, x.shape[1]))])
+        av = torch.cat([av, av.new_full((pn,), _NEG_BIG)])
+    s = av[None, :] - 2.0 * (q @ x.T)  # [B, Np]
+    mn, tile = s.view(b, -1, tn).min(dim=1)  # [B, tn] per-bin minima
+    col = torch.arange(tn, device=s.device)
+    ids = tile * tn + col[None, :]
+    kk = min(k, tn)
+    sd, slot = torch.topk(mn, kk, dim=1, largest=False, sorted=True)
+    si = torch.gather(ids, 1, slot).to(torch.int32)
+    si = torch.where(si < n, si, torch.full_like(si, -1))
+    if kk < k:
+        sd = torch.cat([sd, sd.new_full((b, k - kk), float("inf"))], 1)
+        si = torch.cat([si, si.new_full((b, k - kk), -1)], 1)
+    return sd, si
+
+
+def _binned_cuda(base, a, queries, k: int, tn: int):
+    from . import _build
+
+    _check_cuda("base", base, torch.bfloat16, 2)
+    _check_cuda("a", a, torch.float32, 1, base.device)
+    _check_cuda("queries", queries, torch.bfloat16, 2, base.device)
+    n, d = base.shape
+    b = queries.shape[0]
+    if a.shape[0] != n or queries.shape[1] != d:
+        raise ValueError(f"shape mismatch: base {tuple(base.shape)}, "
+                         f"a {tuple(a.shape)}, queries {tuple(queries.shape)}")
+    if not 1 <= k <= min(_MAX_K, tn):
+        raise ValueError(f"k must be in [1, {min(_MAX_K, tn)}] (got {k})")
+    if tn <= 0 or tn % 128:
+        raise ValueError(f"tn must be a positive multiple of 128 (got {tn})")
+    if n == 0 or b == 0 or d == 0:
+        raise ValueError("empty base, queries or feature dimension")
+    ntiles = -(-n // tn)
+    blocks = -(-b // 64) * (tn // 128)
+    target = _block_target(base.device)
+    splits = max(1, min(ntiles, -(-target // blocks)))
+    tiles_per_split = -(-ntiles // splits)
+    splits = -(-ntiles // tiles_per_split)
+    dev = base.device
+    bins = torch.empty((b, tn), dtype=torch.int64, device=dev)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().pgv_k2_binned_topk(
+            base.data_ptr(), a.data_ptr(), queries.data_ptr(), n, d, b, k,
+            tn, splits, tiles_per_split, bins.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "pgv_k2_binned_topk")
+    LAUNCHES["k2_binned"] += 1
+    return out_d, out_i
+
+
+def binned_sweep_topk(base_bf16, a, queries, k: int, metric: str,
+                      tn: int = 1024):
+    """Fused bf16 sweep + binned top-k -> (distances [B,k], ids [B,k]).
+
+    Scores are bf16 operands with f32 accumulation; selection keeps the
+    best row per bin (bin = row mod tn), so two true top-k rows in one bin
+    keep only the nearer (expected recall loss ~ (k-1)/(2 tn)). Rows with
+    ``a >= _NEG_BIG`` come back as -1 / inf. Distances are restored per
+    metric from the bf16 scores: callers that return them rescore in f32.
+    """
+    if base_bf16.is_cuda:
+        q_bf = queries.float().to(torch.bfloat16).contiguous()
+        sd, si = _binned_cuda(base_bf16, a, q_bf, k, tn)
+    else:
+        sd, si = _binned_plain(base_bf16, a, queries, k, tn)
+    sd, si = _invalid_to_sentinel(sd, si)
+    if metric == "l2":
+        qf = queries.float()
+        true_d = torch.clamp(sd + (qf * qf).sum(dim=1, keepdim=True), min=0.0)
+    elif metric == "ip":
+        true_d = sd * 0.5
+    elif metric == "cosine":  # over pre-normalized rows
+        true_d = 1.0 + torch.clamp(sd * 0.5, -1.0, 1.0)
+    else:
+        raise ValueError(f"binned sweep supports l2/ip/cosine, not {metric!r}")
+    return torch.where(si >= 0, true_d, sd), si

@@ -1,0 +1,263 @@
+"""The port's brute-force sweeps (pgvector_rx_tpu_torch/ops/bruteforce.py)
+against the JAX package's Pallas kernels (interpret mode on the CPU).
+
+CPU tests hold the plain-torch versions against JAX; tests marked
+``cuda`` hold the CUDA kernels against the plain versions on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pgvector_rx_tpu.ops import pallas_bruteforce as jbf
+from pgvector_rx_tpu_torch.ops import bruteforce as tbf
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _same_sets_except_ties(ids_a, d_a, ids_b, d_b, atol):
+    """Per row, ids in one set and not the other must tie (within atol)
+    with the k-th distance."""
+    for r in range(ids_a.shape[0]):
+        sa, sb = set(ids_a[r].tolist()), set(ids_b[r].tolist())
+        da = dict(zip(ids_a[r].tolist(), d_a[r].tolist()))
+        db = dict(zip(ids_b[r].tolist(), d_b[r].tolist()))
+        for i in sa - sb:
+            assert abs(da[i] - d_b[r, -1]) <= atol, (r, i)
+        for i in sb - sa:
+            assert abs(db[i] - d_a[r, -1]) <= atol, (r, i)
+
+
+def _data(rng, n, d, b, metric):
+    base = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    if metric == "cosine":
+        base /= np.linalg.norm(base, axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return base, q
+
+
+# ---------------------------------------------------------------------------
+# K1 plain vs the Pallas _topk_kernel
+# ---------------------------------------------------------------------------
+
+_TOPK = {
+    "l2": (jbf.l2_topk, tbf.l2_topk),
+    "ip": (jbf.ip_topk, tbf.ip_topk),
+    "cosine": (jbf.cosine_topk, tbf.cosine_topk),
+}
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("n,d,b,k", [(600, 16, 12, 5), (257, 24, 3, 10)])
+def test_exact_topk_matches_jax(rng, metric, n, d, b, k):
+    base, q = _data(rng, n, d, b, metric)
+    jfn, tfn = _TOPK[metric]
+    jd, ji = jfn(jnp.asarray(base), jnp.asarray(q), k, tb=8, tn=128,
+                 interpret=True)
+    td, ti = tfn(torch.from_numpy(base), torch.from_numpy(q), k)
+    jd, ji = np.asarray(jd), np.asarray(ji)
+    td, ti = td.numpy(), ti.numpy()
+    assert ti.dtype == np.int32 and ((ti >= 0) & (ti < n)).all()
+    _same_sets_except_ties(ti, td, ji, jd, atol=1e-4)
+    np.testing.assert_allclose(td, jd, atol=1e-4)
+    assert (np.diff(td, axis=1) >= 0).all()
+
+
+def test_exact_topk_fewer_rows_than_k(rng):
+    base, q = _data(rng, 3, 8, 2, "l2")
+    d, i = tbf.l2_topk(torch.from_numpy(base), torch.from_numpy(q), 5)
+    assert (i[:, :3] >= 0).all() and (i[:, 3:] == -1).all()
+    assert torch.isinf(d[:, 3:]).all()
+
+
+def test_surrogate_penalty_rows_never_returned(rng):
+    base, q = _data(rng, 200, 16, 4, "l2")
+    live = rng.random(200) < 0.5
+    a = (base ** 2).sum(1) + np.where(live, 0.0, tbf._NEG_BIG)
+    sd, si = tbf._surrogate_topk(torch.from_numpy(base),
+                                 torch.from_numpy(a.astype(np.float32)),
+                                 torch.from_numpy(q), 8)
+    si = si.numpy()
+    assert (si >= 0).all() and live[si].all()
+    # all-dead corpus: every slot comes back empty
+    dead = np.full(200, tbf._NEG_BIG, np.float32)
+    sd, si = tbf._surrogate_topk(torch.from_numpy(base),
+                                 torch.from_numpy(dead),
+                                 torch.from_numpy(q), 8)
+    assert (si == -1).all() and torch.isinf(sd).all()
+
+
+# ---------------------------------------------------------------------------
+# K2 plain vs the Pallas _binned_kernel
+# ---------------------------------------------------------------------------
+
+
+def _binned_both(base, a, q, k, metric, tn):
+    jd, ji = jbf.binned_sweep_topk(
+        jnp.asarray(base), jnp.asarray(a), jnp.asarray(q), k, metric,
+        tb=16, tn=tn, interpret=True,
+    )
+    td, ti = tbf.binned_sweep_topk(
+        torch.from_numpy(base).to(torch.bfloat16), torch.from_numpy(a),
+        torch.from_numpy(q), k, metric, tn=tn,
+    )
+    return np.asarray(jd), np.asarray(ji), td.numpy(), ti.numpy()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("n,tn", [(200, 256), (1000, 256)])
+def test_binned_matches_jax(rng, metric, n, tn):
+    """Single tile (every row its own bin: exact selection) and multi-tile
+    (bin collisions): the same binned algorithm must pick the same ids."""
+    base, q = _data(rng, n, 24, 6, metric)
+    a = ((base ** 2).sum(1) if metric == "l2"
+         else np.zeros(n)).astype(np.float32)
+    jd, ji, td, ti = _binned_both(base, a, q, 5, metric, tn)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(td, jd, rtol=2e-2, atol=1e-5)
+    assert (np.diff(td, axis=1) >= -1e-6).all()
+
+
+def test_binned_mask_excludes_rows(rng):
+    base, q = _data(rng, 200, 16, 4, "l2")
+    live = rng.random(200) < 0.5
+    a = ((base ** 2).sum(1) + np.where(live, 0.0, tbf._NEG_BIG)).astype(
+        np.float32)
+    jd, ji, td, ti = _binned_both(base, a, q, 5, "l2", 256)
+    assert (ti >= 0).all() and live[ti].all()
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(td, jd, rtol=2e-2)
+
+
+def test_binned_k_exceeding_live_rows_pads_invalid(rng):
+    base, q = _data(rng, 50, 8, 2, "l2")
+    a = (base ** 2).sum(1).astype(np.float32)
+    a[3:] = tbf._NEG_BIG  # only 3 live rows
+    jd, ji, td, ti = _binned_both(base, a, q, 5, "l2", 256)
+    assert ((ti[:, 3:] == -1) & np.isinf(td[:, 3:])).all()
+    assert (ti[:, :3] >= 0).all() and (ti[:, :3] < 3).all()
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(td[:, :3], jd[:, :3], rtol=2e-2)
+
+
+def test_binned_plain_is_binned_not_exact(rng):
+    """Two rows in one bin keep only the nearer: the plain version is the
+    binned algorithm itself, not an exact top-k."""
+    base = np.zeros((256, 4), np.float32)
+    base[:, 0] = np.arange(256, dtype=np.float32) + 10.0
+    base[0, 0], base[128, 0] = 0.0, 0.5  # rows 0 and 128 share bin 0
+    q = np.zeros((1, 4), np.float32)
+    a = (base ** 2).sum(1).astype(np.float32)
+    d, i = tbf.binned_sweep_topk(torch.from_numpy(base).to(torch.bfloat16),
+                                 torch.from_numpy(a), torch.from_numpy(q), 2,
+                                 "l2", tn=128)
+    assert i[0, 0] == 0 and i[0, 1] != 128
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: plain only for CPU tensors, kernels or errors otherwise
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_plain_path(rng):
+    base, q = _data(rng, 300, 16, 4, "l2")
+    before = dict(tbf.LAUNCHES)
+    tbf.l2_topk(torch.from_numpy(base), torch.from_numpy(q), 5)
+    tbf.binned_sweep_topk(torch.from_numpy(base).to(torch.bfloat16),
+                          torch.from_numpy((base ** 2).sum(1)),
+                          torch.from_numpy(q), 5, "l2", tn=128)
+    assert tbf.LAUNCHES == before
+
+
+def test_kernel_entry_refuses_cpu_tensors(rng):
+    """The CUDA entry points never run a CPU tensor (no silent fallback)."""
+    base, q = _data(rng, 64, 8, 2, "l2")
+    x = torch.from_numpy(base)
+    a = (x * x).sum(1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tbf._surrogate_topk_cuda(x, a, torch.from_numpy(q), 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tbf._binned_cuda(x.to(torch.bfloat16), a,
+                         torch.from_numpy(q).to(torch.bfloat16), 4, 128)
+
+
+# ---------------------------------------------------------------------------
+# On the card: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,k", [(257, 8, 3, 4), (5000, 100, 130, 64),
+                                     (20000, 128, 1024, 10)])
+def test_k1_kernel_matches_plain(cuda, n, d, b, k):
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, d, generator=g).to(cuda)
+    q = torch.randn(b, d, generator=g).to(cuda)
+    a = (x * x).sum(1)
+    a[::7] += tbf._NEG_BIG
+    before = tbf.LAUNCHES["k1_topk"]
+    kd, ki = tbf._surrogate_topk(x, a, q, k)
+    assert tbf.LAUNCHES["k1_topk"] == before + 1
+    pd, pi = tbf._invalid_to_sentinel(*tbf._surrogate_topk_plain(x, a, q, k))
+    torch.cuda.synchronize()
+    kd, ki, pd, pi = (t.cpu().numpy() for t in (kd, ki, pd, pi))
+    q2max = float((q * q).sum(1).max())
+    np.testing.assert_allclose(kd, pd, rtol=1e-5, atol=1e-5 * q2max)
+    _same_sets_except_ties(ki, kd, pi, pd, atol=1e-5 * q2max)
+    assert (ki % 7 != 0).all()  # penalised rows never returned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,k,tn", [(50, 8, 2, 10, 256),
+                                        (1000, 24, 6, 5, 256),
+                                        (30000, 128, 1024, 10, 1024)])
+def test_k2_kernel_matches_plain(cuda, n, d, b, k, tn):
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, d, generator=g).to(cuda)
+    q = torch.randn(b, d, generator=g).to(cuda)
+    a = (x * x).sum(1)
+    a[::5] += tbf._NEG_BIG
+    xb = x.to(torch.bfloat16)
+    before = tbf.LAUNCHES["k2_binned"]
+    kd, ki = tbf.binned_sweep_topk(xb, a, q, k, "l2", tn=tn)
+    assert tbf.LAUNCHES["k2_binned"] == before + 1
+    pd, pi = tbf.binned_sweep_topk(xb.cpu(), a.cpu(), q.cpu(), k, "l2", tn=tn)
+    kd, ki = kd.cpu().numpy(), ki.cpu().numpy()
+    pd, pi = pd.numpy(), pi.numpy()
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(pd))
+    fin = np.isfinite(pd)
+    np.testing.assert_allclose(kd[fin], pd[fin], rtol=1e-2)
+    # bf16 products are exact in f32: only the summation order differs,
+    # so K1's scale holds, with twice its atol for the tensor cores
+    q2max = float((q * q).sum(1).max())
+    np.testing.assert_allclose(kd[fin], pd[fin], rtol=1e-5, atol=2e-5 * q2max)
+    _same_sets_except_ties(ki, kd, pi, pd, atol=2e-5 * q2max)
+    assert (ki[ki >= 0] % 5 != 0).all()
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.randn(300, 16, device=cuda)
+    q = torch.randn(4, 16, device=cuda)
+    a = (x * x).sum(1)
+    with pytest.raises(ValueError, match="float32"):
+        tbf._surrogate_topk(x.double(), a, q, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbf._surrogate_topk(x.t().contiguous().t(), a, q, 5)
+    with pytest.raises(ValueError, match="k must be"):
+        tbf._surrogate_topk(x, a, q, 65)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tbf._surrogate_topk(x, a[:10], q, 5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tbf.binned_sweep_topk(x, a, q, 5, "l2", tn=128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tbf.binned_sweep_topk(x.to(torch.bfloat16), a, q, 5, "l2", tn=100)

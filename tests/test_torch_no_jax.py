@@ -1,0 +1,47 @@
+"""The port runs without JAX: a fresh interpreter imports it, builds a
+native index on the CPU, serves all three engines and searches, and JAX
+never enters ``sys.modules``. A subprocess, because the test harness
+(tests/conftest.py) imports JAX into this one."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+import bench
+from pgvector_rx_tpu_torch import HnswIndex, SearchParams
+from pgvector_rx_tpu_torch.graph import device as device_mod
+
+data, queries = bench.make_dataset(2000, 16, 32, seed=0, n_clusters=20)
+idx = HnswIndex.build(data, metric="l2", method="native", host_graph=False,
+                      seed=1, device="cpu")
+_, gt = device_mod.serve_topk(idx, queries, 10, engine="exact")
+for engine in ("approx", "beam"):
+    _, ids = device_mod.serve_topk(idx, queries, 10, engine=engine)
+    rec = np.mean([len(set(ids[b]) & set(gt[b])) / 10 for b in range(32)])
+    assert rec >= 0.9, (engine, rec)
+for method in ("exact", "approx", "device"):
+    d, tids = idx.search(queries, 10, SearchParams(ef_search=40),
+                         method=method)
+    assert tids.shape == (32, 10) and np.isfinite(d).all()
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("NO_JAX_OK")
+"""
+
+
+def test_port_never_imports_jax():
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, "-c", _SCRIPT], cwd=root, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "NO_JAX_OK" in res.stdout
