@@ -1,0 +1,1104 @@
+"""Batched device bulk build of the PyTorch port: HNSW construction as
+tensor ops on one device.
+
+The counterpart of ``pgvector_rx_tpu/graph/device_build.py``, for the
+dense l2 / ip / cosine kinds below 512 dimensions (the JAX package's
+``ground == "ivf"`` arm). Construction runs in batches against a frozen
+graph snapshot; batch sizes double from 1 up to ``batch_max``:
+
+1. **Score and select** (``_score_select_step``). Ground-layer
+   candidates come from an exact sweep over the committed prefix while
+   fewer than ``_DESCENT_MIN_WIDTH`` rows are committed (the "ramp"), and
+   after that from the IVF member table: the members of the 16 nearest
+   committed upper-layer cells plus the layer-0 neighbours of the 16
+   nearest members (``_ivf_ground_candidates``). Upper layers score the
+   compact table of level >= 1 rows (and one sub-table per layer >= 2).
+   Every layer selects with the fixpoint-parallel Algorithm 4
+   (``_select_neighbors_parallel``).
+2. **Commit** (``_commit_all_step``): duplicate folding (<= 10 heap TIDs
+   per element), forward edges, the member-table append, entry promotion,
+   then the back edges of both layer kinds, grouped by target with stable
+   sorts and re-selected per target.
+
+The JAX names are kept so a reader can find each counterpart. What
+differs, in PyTorch idiom:
+
+- Plain functions on tensors on an explicit ``device``; the build state
+  (``BuildArrays``) is updated in place. ``run_all`` is a Python loop over
+  the batch schedule; no batch makes a host sync (all per-batch decisions
+  come from the host-side ``start``).
+- Adjacency is stored as separate id (int32) and pruning-distance
+  (bfloat16, as the JAX package stores them) tensors, so there is no
+  packed int32 layout. Ids stay int32 in the tables and widen at gathers.
+- Selections take an exact ``torch.topk`` where the JAX build takes
+  ``lax.approx_min_k`` (upper tables of 16,384 rows or more).
+- The finished ``DeviceGraph`` has ``cap`` = the number of built rows
+  (the JAX graph keeps the padded capacity); row ``cap`` is the sentinel.
+
+The ``PGV_BUILD_*`` environment variables of the JAX package are not read;
+a non-default value of one raises (``_build_settings``). Not ported, and
+refused with ``NotImplementedError``: the beam-descent ground (dim >= 512
+or l1), the bit kind, ``bulk_insert`` and ``consume_input``.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pgvector_rx_tpu.constants import HNSW_HEAPTIDS, hnsw_get_layer_m
+
+#: cap at/above which the back-edge commit honours 2 same-target adds per
+#: commit instead of 4 (see DeviceBuilder._be_k)
+_BE_K2_MIN_CAP = 1 << 19
+
+#: committed-prefix width at which ground candidates switch from the exact
+#: ramp sweep to the IVF member table (tests patch this module constant)
+_DESCENT_MIN_WIDTH = 65536
+
+#: IVF member-table geometry: members kept per upper cell, cells probed
+#: per query, member candidates whose layer-0 neighbours are scored
+_IVF_CAP = 64
+_IVF_PROBES = 16
+_IVF_HOP = 16
+
+_INF = float("inf")
+
+#: the JAX package's build knobs and their defaults; the port reads none
+#: of them and refuses a non-default value (an unset or empty one is fine)
+_BUILD_ENV_DEFAULTS = {
+    "PGV_BUILD_DESCENT_MIN": "65536", "PGV_BUILD_ALPHA": "1",
+    "PGV_BUILD_ALPHA_UPPER": "1", "PGV_BUILD_GROUND": "auto",
+    "PGV_BUILD_IVF_CAP": "64", "PGV_BUILD_IVF_PROBES": "16",
+    "PGV_BUILD_IVF_HOP": "16", "PGV_BUILD_IVF_HOP_STRIDE": "1",
+    "PGV_BUILD_BE_K": "0", "PGV_BUILD_BATCH": "0",
+    "PGV_BUILD_UPPER_STRATIFY": "0", "PGV_BUILD_SEED_CQ": "0",
+    "PGV_BUILD_IP_AUG": "0", "PGV_BUILD_STREAM": "1",
+}
+
+_ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13"
+_ROADMAP_BIT = "ROADMAP queue 1, item 14"
+
+
+def _build_settings() -> None:
+    """Refuse every ``PGV_BUILD_*`` variable set to a non-default value:
+    each changes the JAX package's graph, and the port builds only the
+    default one."""
+    for var, val in os.environ.items():
+        if not var.startswith("PGV_BUILD_") or val == "":
+            continue
+        default = _BUILD_ENV_DEFAULTS.get(var)
+        if default is not None:
+            try:
+                if float(val) == float(default):
+                    continue
+            except ValueError:
+                if val == default:
+                    continue
+        raise NotImplementedError(
+            f"{var}={val} is not ported: the torch device build reads no "
+            f"PGV_BUILD_* setting and builds the default graph only "
+            f"({_ROADMAP_OFF_PATH})"
+        )
+
+
+# ---------------------------------------------------------------------------
+# schedule and capacity helpers
+# ---------------------------------------------------------------------------
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 1).bit_length()
+
+
+def cap_pad_for(n: int) -> int:
+    """Padded array capacity for an n-row corpus (1/8-octave buckets, as
+    the JAX builder pads; the last padded row is the scatter dump row)."""
+    granule = max(4096, _next_pow2(n + 1) // 8)
+    return -(-(n + 1) // granule) * granule
+
+
+def batch_schedule(n: int, batch_max: int):
+    """Doubling schedule: 1, 1, 2, 4, ... capped at batch_max."""
+    out = []
+    pos = 1  # element 0 seeds the graph
+    size = 1
+    while pos < n:
+        take = min(size, batch_max, n - pos)
+        out.append((pos, take))
+        pos += take
+        size = min(size * 2, batch_max)
+    return out
+
+
+def batch_max_for(n: int) -> int:
+    """Batch width rule of the JAX bulk build: ~sqrt(n/16), 64..1024."""
+    return min(1024, max(64, (1 << max(n // 16, 1).bit_length()) >> 1))
+
+
+def _tids_array(ids) -> np.ndarray:
+    """Id sequence -> int64 array (range -> arange, no Python ints)."""
+    if isinstance(ids, range):
+        return np.arange(ids.start, ids.stop, ids.step, dtype=np.int64)
+    return np.asarray(list(ids) if not hasattr(ids, "__len__") else ids,
+                      dtype=np.int64)
+
+
+def _prepare_dense_bulk(index, data, ids):
+    """Vectorized dense prepare: shape check once, cosine normalize with
+    zero-norm rows skipped (build.rs:426-438), non-finite rows refused.
+    Returns (rows [n, dim] f32, tids [n] int64)."""
+    arr = np.asarray(data, dtype=np.float32)
+    if arr.ndim != 2 or arr.shape[1] != index.dim:
+        raise ValueError(f"expected {index.dim} dimensions")
+    tids = _tids_array(ids)
+    if index.metric == "cosine":
+        norms = np.sqrt(
+            np.sum(arr.astype(np.float64) ** 2, axis=1, keepdims=True)
+        )
+        keep = norms[:, 0] > 0.0
+        arr = (arr[keep].astype(np.float64) / norms[keep]).astype(np.float32)
+        tids = tids[keep]
+    if not np.isfinite(arr).all():
+        raise ValueError("NaN or infinity not allowed in vector")
+    return arr, tids
+
+
+def _prepare_dense_device(index, data: torch.Tensor, ids):
+    """The same prepare for a corpus tensor, on its own device: one sync
+    for the finite check and, for cosine, one download of the keep mask.
+    Cosine divides in f32 here (the numpy prepare divides in f64), so the
+    two may differ in the last ulp of normalized values. Halfvec indexes
+    round through float16. Returns (rows [n, dim] f32, tids [n] int64)."""
+    if data.dim() != 2 or data.shape[1] != index.dim:
+        raise ValueError(f"expected {index.dim} dimensions")
+    tids = _tids_array(ids)
+    v = data.float()
+    if not bool(torch.isfinite(v).all()):
+        raise ValueError("NaN or infinity not allowed in vector")
+    if index.metric == "cosine":
+        norm2 = (v * v).sum(dim=1)
+        keep = (norm2 > 0.0).cpu().numpy()
+        if not keep.all():
+            v = v[torch.from_numpy(keep).to(v.device)]
+            tids = tids[keep]
+        v = v / torch.sqrt((v * v).sum(dim=1, keepdim=True))
+    if index.dtype is not None and index.dtype == np.float16:
+        v = v.to(torch.float16).float()
+    return v.contiguous(), tids
+
+
+# ---------------------------------------------------------------------------
+# build state
+# ---------------------------------------------------------------------------
+
+
+class BuildData(NamedTuple):
+    """Per-build tensors that no batch changes."""
+
+    vectors: torch.Tensor  # [cap+1, D] f32
+    vectors_bf16: torch.Tensor  # [cap+1, D] bf16 (pair/pruning math)
+    x2: torch.Tensor  # [cap+1] f32, ||x||^2 per row
+    levels: torch.Tensor  # [cap+1] int32 (-1 on pad rows)
+    upper_slot: torch.Tensor  # [cap+1] int32 (-1: no upper layers)
+    # compact table of the level >= 1 rows, in shuffled slot order
+    upper_vectors: torch.Tensor  # [U+1, D] f32
+    upper_bf16: torch.Tensor  # [U+1, D] bf16 (order-score sweep copy)
+    upper_x2: torch.Tensor  # [U+1] f32
+    upper_ids: torch.Tensor  # [U+1] int32 element id per slot (pad = cap)
+    # per-layer sub-tables for layers >= 2: (ids [P_l], vecs, x2)
+    upper_sub: tuple = ()
+
+
+@dataclass
+class BuildArrays:
+    """The graph as it is built (updated in place batch by batch)."""
+
+    nb0_ids: torch.Tensor  # [cap+1, 2m] int32 layer-0 neighbours (-1 pad)
+    nb0_d: torch.Tensor  # [cap+1, 2m] bf16 pruning distances (+inf pad)
+    # upper layers flat, layer-major: column (layer-1)*m + j
+    up_ids: torch.Tensor  # [U+1, LMAX*m] int32
+    up_d: torch.Tensor  # [U+1, LMAX*m] bf16
+    alive: torch.Tensor  # [cap+1] bool: committed, not duplicate-folded
+    tid_counts: torch.Tensor  # [cap+1] int32 heap TIDs per element
+    absorb: torch.Tensor  # [cap+1] int32 duplicate-fold target (-1 none)
+    entry: torch.Tensor  # [] int64 (-1 empty)
+    entry_level: torch.Tensor  # [] int32
+    members: torch.Tensor  # [U+1, IVF_CAP] int32 cell members (-1 pad)
+    member_counts: torch.Tensor  # [U+1] int32
+
+
+# ---------------------------------------------------------------------------
+# distances and selection
+# ---------------------------------------------------------------------------
+
+
+def _pair_matrix(metric: str, rows):
+    """All-pairs order distances among rows [..., C, D] -> [..., C, C],
+    f32 products and sums of the (bf16) rows; l2 through the matmul
+    identity ||a-b||^2 = ||a||^2 + ||b||^2 - 2ab."""
+    r = rows.float()
+    dots = r @ r.transpose(-1, -2)
+    if metric == "l2":
+        sq = (r * r).sum(dim=-1)
+        return torch.clamp(sq[..., :, None] + sq[..., None, :] - 2.0 * dots,
+                           min=0.0)
+    if metric == "ip":
+        return -dots
+    if metric == "cosine":
+        return 1.0 - torch.clamp(dots, -1.0, 1.0)
+    raise ValueError(metric)
+
+
+def _select_neighbors_parallel(cand_d, cand_ids, pair, lm: int):
+    """Parallel relative-neighbourhood selection (Algorithm 4 as a
+    fixpoint, graph/mod.rs:269-308): candidate i is kept iff it is closer
+    to the query than to every closer KEPT candidate. Each round
+    recomputes every decision against the current keep set; log2(C) + 2
+    rounds reach the sequential chain's fixpoint. Kept candidates come
+    first in distance order, then the nearest discarded ones back-fill.
+
+    cand_d / cand_ids [B, C] sorted nearest first (+inf / -1 pads), pair
+    [B, C, C]. Returns (d, ids) [B, min(lm, C)]."""
+    B, C = cand_d.shape
+    dev = cand_d.device
+    pos = torch.arange(C, device=dev)
+    earlier = pos[:, None] < pos[None, :]  # [j, i]: j before i
+    pair_e = torch.where(earlier[None], pair, _INF)
+    valid = torch.isfinite(cand_d)
+    keep = valid
+    for _ in range(max(2, int(math.ceil(math.log2(max(C, 2)))) + 2)):
+        min_kept = torch.where(keep[:, :, None], pair_e, _INF).amin(dim=1)
+        keep = (min_kept > cand_d) & valid
+    keep = keep & (torch.cumsum(keep.to(torch.int32), dim=1) <= lm)
+    priority = torch.where(keep, 0, torch.where(valid, 1, 2))
+    order = torch.argsort(priority * C + pos[None, :], dim=1)[:, :lm]
+    out_d = torch.gather(cand_d, 1, order)
+    out_ids = torch.gather(cand_ids, 1, order)
+    fin = torch.isfinite(out_d)
+    return torch.where(fin, out_d, _INF), torch.where(fin, out_ids, -1)
+
+
+def _lexsort(*keys):
+    """Permutation sorting by keys[0], then keys[1], ..., ties kept in
+    input order (``lax.sort`` with ``num_keys=len(keys)``)."""
+    perm = None
+    for key in reversed(keys):
+        k = key if perm is None else key[perm]
+        o = torch.argsort(k, stable=True)
+        perm = o if perm is None else perm[o]
+    return perm
+
+
+def _group_rank(sorted_keys):
+    """(head, rank in group) of each row of a sorted key vector."""
+    n = sorted_keys.shape[0]
+    head = torch.ones(n, dtype=torch.bool, device=sorted_keys.device)
+    head[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    pos = torch.arange(n, device=sorted_keys.device)
+    base = torch.cummax(torch.where(head, pos, 0), dim=0).values
+    return head, pos - base
+
+
+def _window(s_key, s_src, s_d, K: int, same_extra=None):
+    """The K requests starting at each row that share its key: (add_ids
+    [R, K] (-1 pad), add_d [R, K] (+inf pad))."""
+    R = s_key.shape[0]
+    dev = s_key.device
+    win = torch.clamp(torch.arange(R, device=dev)[:, None]
+                      + torch.arange(K, device=dev)[None, :], max=R - 1)
+    same = s_key[win] == s_key[:, None]
+    if same_extra is not None:
+        same = same & (same_extra[win] == same_extra[:, None])
+    return (torch.where(same, s_src[win], -1),
+            torch.where(same, s_d[win], _INF))
+
+
+# ---------------------------------------------------------------------------
+# the builder
+# ---------------------------------------------------------------------------
+
+
+class DeviceBuilder:
+    """Owns the build tensors and the per-batch steps (dense l2 / ip /
+    cosine below 512 dimensions, IVF ground)."""
+
+    def __init__(self, metric: str, vectors: torch.Tensor, levels, m: int,
+                 ef_construction: int, batch_max: int = 1024):
+        if metric not in ("l2", "ip", "cosine") or vectors.shape[1] >= 512:
+            raise NotImplementedError(
+                f"the device build of {metric} at {vectors.shape[1]} "
+                "dimensions needs the beam-descent ground "
+                f"(_beam_ground_candidates), not ported ({_ROADMAP_OFF_PATH})"
+            )
+        dev = vectors.device
+        self.device = dev
+        self.metric = metric
+        self.m = m
+        self.efc = ef_construction
+        self.n = n = vectors.shape[0]
+        d = vectors.shape[1]
+        self.batch_max = batch_max
+        self.lm0 = hnsw_get_layer_m(m, 0)
+        self.descent_min = _DESCENT_MIN_WIDTH
+        self._members_ready = False
+
+        cap_pad = cap_pad_for(n)
+        self.cap = cap_pad - 1  # dump row (scatter sink / gather pad)
+        # levels above ln(cap)/ln(m) + 3 are clamped (build.rs:373-377)
+        self.lmax = max(
+            int(math.log(_next_pow2(cap_pad)) / math.log(max(m, 2))) + 3, 1
+        )
+        levels = np.minimum(np.asarray(levels, dtype=np.int32), self.lmax)
+
+        vec = torch.zeros((cap_pad, d), dtype=torch.float32, device=dev)
+        vec[:n] = vectors
+        self.vectors = vec
+        ups = np.nonzero(levels >= 1)[0]
+        n_upper = len(ups)
+        upper_pad = _next_pow2(n_upper + 1)
+        self.upper_dump = upper_pad - 1  # dump slot for upper scatters
+        # upper slots in a fixed-seed shuffled order, as the JAX builder
+        # assigns them (same numpy draws, so both packages agree)
+        perm = np.random.default_rng(0xA953).permutation(
+            max(n_upper, 1)
+        )[:n_upper].astype(np.int64)
+        lv_pad = np.full(cap_pad, -1, dtype=np.int32)
+        lv_pad[:n] = levels
+        upper_slot = np.full(cap_pad, -1, dtype=np.int32)
+        upper_slot[ups] = perm
+        up_ids = np.full(upper_pad, self.cap, dtype=np.int32)
+        up_ids[perm] = ups
+        ups_t = torch.from_numpy(ups).to(dev)
+        up_vecs = torch.zeros((upper_pad, d), dtype=torch.float32, device=dev)
+        up_vecs[torch.from_numpy(perm).to(dev)] = vec[ups_t]
+
+        # per-layer sub-tables for layers >= 2, each with its own shuffle
+        upper_sub = []
+        up_levels = levels[ups]
+        for lc in range(2, self.lmax + 1):
+            sel = np.nonzero(up_levels >= lc)[0]  # indices into ups
+            pad_l = max(128, _next_pow2(len(sel) + 1))
+            perm_l = np.random.default_rng(0xA953 + lc).permutation(
+                max(len(sel), 1)
+            )[: len(sel)]
+            ids_l = np.full(pad_l, self.cap, dtype=np.int32)
+            slots_l = np.full(pad_l, self.upper_dump, dtype=np.int64)
+            if len(sel):
+                ids_l[perm_l] = ups[sel]
+                slots_l[perm_l] = perm[sel]
+            v_l = up_vecs[torch.from_numpy(slots_l).to(dev)]
+            upper_sub.append(
+                (torch.from_numpy(ids_l).to(dev), v_l, (v_l * v_l).sum(dim=1))
+            )
+        self.data = BuildData(
+            vectors=vec,
+            vectors_bf16=vec.to(torch.bfloat16),
+            x2=(vec * vec).sum(dim=1),
+            levels=torch.from_numpy(lv_pad).to(dev),
+            upper_slot=torch.from_numpy(upper_slot).to(dev),
+            upper_vectors=up_vecs,
+            upper_bf16=up_vecs.to(torch.bfloat16),
+            upper_x2=(up_vecs * up_vecs).sum(dim=1),
+            upper_ids=torch.from_numpy(up_ids).to(dev),
+            upper_sub=tuple(upper_sub),
+        )
+        i32 = dict(dtype=torch.int32, device=dev)
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        self.arrays = BuildArrays(
+            nb0_ids=torch.full((cap_pad, self.lm0), -1, **i32),
+            nb0_d=torch.full((cap_pad, self.lm0), _INF, **bf),
+            up_ids=torch.full((upper_pad, self.lmax * m), -1, **i32),
+            up_d=torch.full((upper_pad, self.lmax * m), _INF, **bf),
+            alive=torch.zeros(cap_pad, dtype=torch.bool, device=dev),
+            tid_counts=torch.zeros(cap_pad, **i32),
+            absorb=torch.full((cap_pad,), -1, **i32),
+            entry=torch.tensor(-1, dtype=torch.int64, device=dev),
+            entry_level=torch.tensor(-1, **i32),
+            members=torch.full((upper_pad, _IVF_CAP), -1, **i32),
+            member_counts=torch.zeros(upper_pad, **i32),
+        )
+
+    # -- scoring -------------------------------------------------------------
+
+    def _score_all(self, q_rows, vectors, x2):
+        """Order distances [B, rows] from f32 queries to f32 rows."""
+        dots = q_rows @ vectors.T
+        if self.metric == "l2":
+            q2 = (q_rows * q_rows).sum(dim=1, keepdim=True)
+            return torch.clamp(q2 + x2[None, :] - 2.0 * dots, min=0.0)
+        if self.metric == "ip":
+            return -dots
+        return 1.0 - torch.clamp(dots, -1.0, 1.0)
+
+    def _upper_order_scores(self, data: BuildData, q_chunk, a_col):
+        """[Bq, width_u] ORDER scores over the upper table: bf16 operands
+        with f32 sums, dead columns folded into the per-column term
+        ``a_col`` (l2: x2 + pen, others: pen), per-query constants left
+        out. Monotone in the true distance per query; callers rescore the
+        selected columns exactly."""
+        q = q_chunk.to(torch.bfloat16).float()
+        dots = q @ data.upper_bf16.float().T
+        if self.metric == "l2":
+            return a_col[None, :] - 2.0 * dots
+        return a_col[None, :] - dots
+
+    def _dist_point_rows(self, q_rows, rows):
+        """True f32 distances q_rows [B, D] -> rows [B, K, D] (direct
+        differences, no matmul-identity cancellation)."""
+        if self.metric == "l2":
+            dlt = rows - q_rows[:, None, :]
+            return (dlt * dlt).sum(dim=-1)
+        dots = (rows * q_rows[:, None, :]).sum(dim=-1)
+        if self.metric == "ip":
+            return -dots
+        return 1.0 - torch.clamp(dots, -1.0, 1.0)
+
+    def _candidates_to_selection(self, data: BuildData, cand_d, cand_idx):
+        """Algorithm 4 over sorted candidates; pads to lm0 columns."""
+        cand_idx = torch.where(torch.isfinite(cand_d), cand_idx, -1)
+        rows = data.vectors_bf16[cand_idx.clamp(0, self.cap).long()]
+        pair = _pair_matrix(self.metric, rows)
+        bad = cand_idx < 0
+        pair = torch.where(bad[:, None, :] | bad[:, :, None], _INF, pair)
+        sd, sids = _select_neighbors_parallel(cand_d, cand_idx, pair,
+                                              self.lm0)
+        pad = self.lm0 - sd.shape[1]
+        if pad > 0:  # tiny corpus: fewer candidates than lm0
+            sd = torch.nn.functional.pad(sd, (0, pad), value=_INF)
+            sids = torch.nn.functional.pad(sids, (0, pad), value=-1)
+        return sd, sids
+
+    def _batch_ids(self, start: int, size: int):
+        """(mask [B], element ids [B] int64: the dump row past ``size``)."""
+        iota_b = torch.arange(self.batch_max, device=self.device)
+        mask = iota_b < size
+        return mask, torch.where(mask, start + iota_b, self.cap)
+
+    def _score_select_step(self, data: BuildData, arrays: BuildArrays,
+                           start: int, size: int, width: int):
+        """Candidate generation + Algorithm 4 selection for every layer of
+        the batch [start, start + size).
+
+        ``width`` != 0: the exact ramp over the first ``width`` rows.
+        ``width`` == 0: the IVF arm; one merged scan of the upper table
+        gives the probe cells and the layer-1 pool. Upper layers always
+        select from the upper table (layer 1) or the layer's sub-table.
+
+        Returns (sel_d, sel_ids [B, LMAX+1, lm0] (layer 0 = ground; upper
+        layers hold m slots), assign [B]: the nearest committed upper cell
+        for the member table, ``upper_dump`` outside the IVF arm)."""
+        alive = arrays.alive
+        B = self.batch_max
+        batch_mask, new_ids = self._batch_ids(start, size)
+        count = start
+        q_rows = data.vectors[new_ids]  # [B, D]
+        my_level = data.levels[new_ids]  # [B]
+
+        width_u = data.upper_vectors.shape[0]
+        u_ids = data.upper_ids
+        u_colmask = (u_ids < count) & alive[u_ids.long()]
+        kku = min(self.efc, width_u)
+        pool = kku
+
+        # the batch rows with upper layers (P(level >= 1) = 1/m), compacted
+        # into a 4x-margin budget: upper selection runs on RU2 rows, not B
+        RU2 = min(B, max(B * 4 // max(self.m, 1), 32))
+        has_up = (my_level >= 1) & batch_mask
+        order_u = torch.argsort((~has_up).to(torch.int8), stable=True)[:RU2]
+        u_pen = torch.where(u_colmask, 0.0, _INF)
+        a_col = data.upper_x2 + u_pen if self.metric == "l2" else u_pen
+
+        if width != 0:
+            # exact ramp over the committed prefix
+            kk = min(self.efc, width)
+            col_valid = (torch.arange(width, device=self.device) < count) & \
+                alive[:width]
+            scores = self._score_all(q_rows, data.vectors[:width],
+                                     data.x2[:width])
+            scores = torch.where(col_valid[None, :], scores, _INF)
+            cand_d, cand_idx = torch.topk(scores, kk, dim=1, largest=False,
+                                          sorted=True)
+            assign = torch.full((B,), self.upper_dump, dtype=torch.int64,
+                                device=self.device)
+        else:
+            # merged upper scan: probe cells (first SP columns) and the
+            # layer-1 pool (first `pool` columns) from one pass
+            SP = min(_IVF_PROBES, width_u)
+            KK = min(max(SP, pool), width_u)
+            ord_all, slots_all = torch.topk(
+                self._upper_order_scores(data, q_rows, a_col), KK, dim=1,
+                largest=False, sorted=True,
+            )
+            # exact f32 rescore + re-sort: selection needs true distances
+            d_exact = self._dist_point_rows(q_rows,
+                                            data.upper_vectors[slots_all])
+            d_exact = torch.where(torch.isfinite(ord_all), d_exact, _INF)
+            d_all, o = torch.sort(d_exact, dim=1, stable=True)
+            slots_all = torch.gather(slots_all, 1, o)
+            seed_sc = d_all[:, :SP]
+            seed_slots = slots_all[:, :SP]
+            cand_d, cand_idx = self._ivf_ground_candidates(
+                data, arrays, q_rows, seed_sc, seed_slots
+            )
+            assign = torch.where(torch.isfinite(seed_sc[:, 0]),
+                                 seed_slots[:, 0], self.upper_dump)
+        sel0_d, sel0_ids = self._candidates_to_selection(data, cand_d,
+                                                         cand_idx)
+
+        cvalid = has_up[order_u]
+        q_up = q_rows[order_u]
+        if width != 0:
+            # ramp arm: the layer-1 pool has its own order-score pass over
+            # the upper table (compacted rows only), then the exact rescore
+            o_p1, slot_p1 = torch.topk(
+                self._upper_order_scores(data, q_up, a_col), pool, dim=1,
+                largest=False, sorted=True,
+            )
+            r_d = self._dist_point_rows(q_up, data.upper_vectors[slot_p1])
+            r_d = torch.where(torch.isfinite(o_p1), r_d, _INF)
+            d_p1, o = torch.sort(r_d, dim=1, stable=True)
+            slot_p1 = torch.gather(slot_p1, 1, o)
+        else:
+            d_p1 = d_all[order_u][:, :pool]
+            slot_p1 = slots_all[order_u][:, :pool]
+
+        # layer 1 selects from the whole upper table, layers >= 2 from
+        # their own narrow sub-tables
+        sel_layers = [self._candidates_to_selection(
+            data, d_p1, u_ids[slot_p1].long())]
+        for lc in range(2, self.lmax + 1):
+            ids_l, v_l, x2_l = data.upper_sub[lc - 2]
+            s_l = self._score_all(q_up, v_l, x2_l)
+            colmask_l = (ids_l < count) & alive[ids_l.long()]
+            s_l = torch.where(colmask_l[None, :] & cvalid[:, None], s_l, _INF)
+            d_pl, slot_pl = torch.topk(s_l, min(kku, ids_l.shape[0]), dim=1,
+                                       largest=False, sorted=True)
+            sel_layers.append(self._candidates_to_selection(
+                data, d_pl, ids_l[slot_pl].long()))
+
+        selu_d_c = torch.stack([d for d, _ in sel_layers], dim=1)
+        selu_ids_c = torch.stack([i for _, i in sel_layers], dim=1)
+        # scatter the compacted upper selections back to their batch rows
+        scat = torch.where(cvalid, order_u, B)
+        selu_d = torch.full((B + 1, self.lmax, self.lm0), _INF,
+                            device=self.device)
+        selu_d[scat] = selu_d_c
+        selu_ids = torch.full((B + 1, self.lmax, self.lm0), -1,
+                              dtype=torch.int64, device=self.device)
+        selu_ids[scat] = selu_ids_c
+        sel_d = torch.cat([sel0_d[:, None], selu_d[:B]], dim=1)
+        sel_ids = torch.cat([sel0_ids.long()[:, None], selu_ids[:B]], dim=1)
+
+        # mask layers above each element's level; upper layers keep m slots
+        layer_iota = torch.arange(self.lmax + 1, device=self.device)
+        slot_iota = torch.arange(self.lm0, device=self.device)
+        act = batch_mask[:, None, None] & (
+            my_level[:, None, None] >= layer_iota[None, :, None]
+        )
+        width_ok = (layer_iota[None, :, None] == 0) | (
+            slot_iota[None, None, :] < self.m
+        )
+        keep = act & width_ok
+        return (torch.where(keep, sel_d, _INF), torch.where(keep, sel_ids, -1),
+                assign)
+
+    def _ivf_ground_candidates(self, data: BuildData, arrays: BuildArrays,
+                               q_rows, seed_sc, seed_slots):
+        """Ground candidates from the member table: the members of the
+        ``_IVF_PROBES`` nearest committed upper cells, scored exactly
+        (bf16 rows, f32 sums), plus the layer-0 neighbours of the
+        ``_IVF_HOP`` nearest members, deduplicated by a sort on id.
+
+        Returns (cand_d, cand_ids) [B, efc] sorted nearest first."""
+        B = q_rows.shape[0]
+        P = min(_IVF_PROBES, seed_slots.shape[1])
+        cap = self.cap
+        n_slots = arrays.members.shape[0]
+
+        def score_ids(ids):
+            safe = ids.clamp(0, cap).long()
+            rows = data.vectors_bf16[safe].float()  # [B, W, D]
+            qb = q_rows.to(torch.bfloat16).float()
+            dots = torch.bmm(rows, qb[:, :, None])[:, :, 0]
+            if self.metric == "l2":
+                q2 = (q_rows * q_rows).sum(dim=1, keepdim=True)
+                d = torch.clamp(q2 + data.x2[safe] - 2.0 * dots, min=0.0)
+            elif self.metric == "ip":
+                d = -dots
+            else:
+                d = 1.0 - torch.clamp(dots, -1.0, 1.0)
+            return torch.where(ids >= 0, d, _INF)
+
+        mem = arrays.members[seed_slots[:, :P].clamp(0, n_slots - 1)]
+        mem = torch.where(torch.isfinite(seed_sc[:, :P])[:, :, None], mem, -1)
+        mem = mem.reshape(B, -1)  # [B, P * IVF_CAP]
+        d = score_ids(mem)
+        kk = min(self.efc, d.shape[1])
+        cd, pos = torch.topk(d, kk, dim=1, largest=False, sorted=True)
+        cids = torch.gather(mem, 1, pos)
+        hop = min(_IVF_HOP, kk)
+        if hop:
+            # one hop: layer-0 neighbours of the nearest members bridge the
+            # cells the probe set missed
+            src = cids[:, :hop]
+            nb = arrays.nb0_ids[src.clamp(0, cap).long()]
+            hids = torch.where((src >= 0)[:, :, None], nb, -1).reshape(B, -1)
+            all_d = torch.cat([cd, score_ids(hids)], dim=1)
+            all_i = torch.cat([cids, hids], dim=1)
+            si, o = torch.sort(all_i, dim=1, stable=True)
+            sd = torch.gather(all_d, 1, o)
+            dup = torch.zeros_like(si, dtype=torch.bool)
+            dup[:, 1:] = si[:, 1:] == si[:, :-1]
+            sd = torch.where(dup | (si < 0), _INF, sd)
+            sd, o = torch.sort(sd, dim=1, stable=True)
+            si = torch.gather(si, 1, o)
+            cd, cids = sd[:, :kk], si[:, :kk]
+            cids = torch.where(torch.isfinite(cd), cids, -1)
+        return cd, cids.long()
+
+    # -- commit ----------------------------------------------------------------
+
+    def _fwd_commit_step(self, data: BuildData, arrays: BuildArrays,
+                         start: int, size: int, sel_d, sel_ids, assign):
+        """Duplicate folding + forward edges + member append + entry
+        promotion, on the device (no host round trip).
+
+        An element whose selected layer-0 neighbour holds an equal value
+        (and, for ip, whose row is zero: ip's distance is 0 only there)
+        folds its TID into that neighbour, up to 10 TIDs per element
+        (build.rs:474-510); folds into one target within a batch are
+        ranked by a sort so the cap holds."""
+        dump = self.cap
+        B = self.batch_max
+        dev = self.device
+        mask, new_ids = self._batch_ids(start, size)
+
+        q_rows = data.vectors[new_ids]
+        cand = sel_ids[:, 0, :]
+        zero = cand >= 0
+        if self.metric == "ip":
+            zero = zero & (data.x2[new_ids] == 0.0)[:, None]
+        cand_c = cand.clamp(0, dump)
+        eq = (data.vectors[cand_c] == q_rows[:, None, :]).all(dim=-1) & zero
+        ok = eq & (arrays.tid_counts[cand_c] >= 1) & mask[:, None]
+        has = ok.any(dim=1)
+        first = ok.to(torch.int8).argmax(dim=1)
+        target = torch.where(has, torch.gather(cand, 1, first[:, None])[:, 0],
+                             -1)
+
+        big = 2 ** 31 - 1
+        s_t, s_b = torch.sort(torch.where(has, target, big), stable=True)
+        _, rank = _group_rank(s_t)
+        room = HNSW_HEAPTIDS - arrays.tid_counts[s_t.clamp(0, dump)]
+        fold = torch.zeros(B, dtype=torch.bool, device=dev)
+        fold[s_b] = (s_t != big) & (rank < room)
+        alive = mask & ~fold
+
+        ones = torch.ones(B, dtype=torch.int32, device=dev)
+        arrays.tid_counts.index_add_(0, torch.where(fold, target, dump), ones)
+        arrays.tid_counts[torch.where(alive, new_ids, dump)] = 1
+        arrays.tid_counts[dump] = 0
+        arrays.absorb[torch.where(fold, new_ids, dump)] = target.to(
+            torch.int32)
+        arrays.absorb[dump] = -1
+
+        fwd_target = torch.where(alive, new_ids, dump)
+        arrays.nb0_ids[fwd_target] = sel_ids[:, 0, :].to(torch.int32)
+        arrays.nb0_d[fwd_target] = sel_d[:, 0, :].to(torch.bfloat16)
+        arrays.alive[fwd_target] = True
+        arrays.alive[dump] = False
+
+        if assign is not None:
+            # append each kept row to its nearest cell; rows past a cell's
+            # cap keep their edges but stop being candidates later
+            cap_m = _IVF_CAP
+            n_slots = arrays.members.shape[0]
+            a = torch.where(alive, assign, self.upper_dump)
+            s_a, o = torch.sort(a, stable=True)
+            s_id = new_ids[o]
+            _, rank_m = _group_rank(s_a)
+            slot_c = s_a.clamp(0, n_slots - 1)
+            slot_pos = arrays.member_counts[slot_c] + rank_m
+            keep_m = (s_a < self.upper_dump) & (slot_pos < cap_m)
+            flat = torch.where(
+                keep_m, slot_c * cap_m + slot_pos.clamp(0, cap_m - 1),
+                n_slots * cap_m - 1,  # dump: the dump slot's last cell
+            )
+            arrays.members.view(-1)[flat] = torch.where(keep_m, s_id,
+                                                        -1).to(torch.int32)
+            arrays.member_counts.index_add_(
+                0, torch.where(keep_m, s_a, n_slots - 1),
+                keep_m.to(torch.int32),
+            )
+
+        # entry promotion: the first alive element reaching the batch max
+        lv = torch.where(alive, data.levels[new_ids], -1)
+        batch_max = lv.max()
+        promote = batch_max > arrays.entry_level
+        first_e = (lv == batch_max).to(torch.int8).argmax()
+        arrays.entry = torch.where(promote, new_ids[first_e], arrays.entry)
+        arrays.entry_level = torch.where(promote, batch_max,
+                                         arrays.entry_level)
+
+    def _be_k(self, lm: int) -> int:
+        """Same-target back-edge adds honoured per commit: 2 at large caps
+        (collisions per target are rare there), 4 below."""
+        return min(lm, 2 if self.cap >= _BE_K2_MIN_CAP else 4)
+
+    def _resolve_backedges(self, data: BuildData, old_ids, old_d, add_ids,
+                           add_d, lm: int):
+        """Algorithm 4 re-selection of a target's list with its adds
+        (graph/mod.rs:442-489, batch-deterministic), for every request row
+        (callers keep the first row of each target group). old_ids / old_d
+        [R, lm]: the target's current list; add_ids / add_d [R, K]: the
+        window of same-target adds. Returns (ids, d) [R, lm]."""
+        cand_ids = torch.cat([old_ids.long(), add_ids.long()], dim=1)
+        cand_d = torch.cat([old_d.float(), add_d], dim=1)
+        cand_d = torch.where(cand_ids < 0, _INF, cand_d)
+        cand_d, o = torch.sort(cand_d, dim=1, stable=True)
+        cand_ids = torch.gather(cand_ids, 1, o)
+        rows = data.vectors_bf16[cand_ids.clamp(0, self.cap)]
+        pair = _pair_matrix(self.metric, rows)
+        bad = cand_ids < 0
+        pair = torch.where(bad[:, None, :] | bad[:, :, None], _INF, pair)
+        nd, nids = _select_neighbors_parallel(cand_d, cand_ids, pair, lm)
+        return nids, nd
+
+    def _backedge0_step(self, data: BuildData, arrays: BuildArrays,
+                        start: int, size: int, sel_d, sel_ids):
+        """Ground-layer back edges: every selected neighbour of a new
+        element gets the element offered to its own list."""
+        B = self.batch_max
+        lm = self.lm0
+        dump = self.cap
+        mask, new_ids = self._batch_ids(start, size)
+        alive = arrays.alive[new_ids] & mask
+        tgt = sel_ids[:, 0, :].reshape(-1)
+        dst = sel_d[:, 0, :].reshape(-1)
+        src = new_ids[:, None].expand(B, lm).reshape(-1)
+        valid = (tgt >= 0) & alive[:, None].expand(B, lm).reshape(-1)
+        tgt = torch.where(valid, tgt, dump)
+        dst = torch.where(valid, dst, _INF)
+        order = _lexsort(tgt, dst)
+        s_tgt, s_d, s_src = tgt[order], dst[order], src[order]
+        add_ids, add_d = _window(s_tgt, s_src, s_d, self._be_k(lm))
+        nids, nd = self._resolve_backedges(
+            data, arrays.nb0_ids[s_tgt], arrays.nb0_d[s_tgt], add_ids, add_d,
+            lm,
+        )
+        head, _ = _group_rank(s_tgt)
+        row = torch.where(head & (s_tgt != dump), s_tgt, dump)
+        arrays.nb0_ids[row] = nids.to(torch.int32)
+        arrays.nb0_d[row] = nd.to(torch.bfloat16)
+
+    def _backedge_upper_compact(self, data: BuildData, arrays: BuildArrays,
+                                start: int, size: int, sel_d, sel_ids):
+        """Upper-layer back edges over a compacted request list (only
+        ~B/m batch elements have upper layers): valid requests first in a
+        2B-row budget, grouped by (target, layer) with a stable 3-key
+        sort, re-selected per group and written into the target's slot
+        row at that layer's columns; then the batch's own forward upper
+        rows."""
+        B = self.batch_max
+        m = self.m
+        L = self.lmax
+        dump = self.cap
+        dump_slot = self.upper_dump
+        dev = self.device
+        mask, new_ids = self._batch_ids(start, size)
+        alive = arrays.alive[new_ids] & mask
+
+        lay_ids = sel_ids[:, 1:, :m]  # [B, L, m]
+        lay_d = sel_d[:, 1:, :m]
+        flat_t = lay_ids.reshape(-1)
+        flat_d = lay_d.reshape(-1)
+        flat_src = new_ids[:, None, None].expand(B, L, m).reshape(-1)
+        flat_layer = (torch.arange(L, device=dev) + 1)[None, :, None].expand(
+            B, L, m).reshape(-1)
+        flat_valid = (flat_t >= 0) & alive[:, None, None].expand(
+            B, L, m).reshape(-1)
+
+        RU = 2 * B
+        order = torch.argsort((~flat_valid).to(torch.int8), stable=True)[:RU]
+        ok = flat_valid[order]
+        u_tgt = torch.where(ok, flat_t[order], dump)
+        u_dst = torch.where(ok, flat_d[order], _INF)
+        u_src = torch.where(ok, flat_src[order], -1)
+        u_layer = torch.where(ok, flat_layer[order], L + 7)
+        perm = _lexsort(u_tgt, u_layer, u_dst)
+        s_tgt, s_layer = u_tgt[perm], u_layer[perm]
+        s_d, s_src = u_dst[perm], u_src[perm]
+        add_ids, add_d = _window(s_tgt, s_src, s_d, self._be_k(m),
+                                 same_extra=s_layer)
+
+        slot = data.upper_slot[s_tgt].long()
+        slot_c = slot.clamp(0, dump_slot)
+        lidx = (s_layer - 1).clamp(0, L - 1)
+        cols = lidx[:, None] * m + torch.arange(m, device=dev)[None, :]
+        old_ids = arrays.up_ids[slot_c[:, None], cols]
+        old_d = arrays.up_d[slot_c[:, None], cols]
+        nids, nd = self._resolve_backedges(data, old_ids, old_d, add_ids,
+                                           add_d, m)
+        head, _ = _group_rank(s_tgt * (L + 8) + s_layer)
+        row = torch.where(head & (s_tgt != dump) & (slot >= 0), slot_c,
+                          dump_slot)
+        arrays.up_ids[row[:, None], cols] = nids.to(torch.int32)
+        arrays.up_d[row[:, None], cols] = nd.to(torch.bfloat16)
+
+        # forward upper rows of the new elements (slots disjoint from the
+        # back-edge targets, which are all committed before this batch)
+        slot_new = data.upper_slot[new_ids].long()
+        srow = torch.where(alive & (slot_new >= 0), slot_new, dump_slot)
+        arrays.up_ids[srow] = lay_ids.reshape(B, -1).to(torch.int32)
+        arrays.up_d[srow] = lay_d.reshape(B, -1).to(torch.bfloat16)
+
+    def _commit_all_step(self, data: BuildData, arrays: BuildArrays,
+                         start: int, size: int, sel_d, sel_ids, assign):
+        self._fwd_commit_step(data, arrays, start, size, sel_d, sel_ids,
+                              assign)
+        self._backedge0_step(data, arrays, start, size, sel_d, sel_ids)
+        self._backedge_upper_compact(data, arrays, start, size, sel_d,
+                                     sel_ids)
+
+    def _init_members_step(self, data: BuildData, arrays: BuildArrays,
+                           count: int):
+        """One-time IVF member table at the ramp -> IVF transition: every
+        committed row goes to its nearest committed upper cell (exact f32
+        sweep in 1,024-row chunks), grouped by cell with a sort."""
+        cap_m = _IVF_CAP
+        n_slots = arrays.members.shape[0]
+        u_ids = data.upper_ids
+        u_colmask = (u_ids < count) & arrays.alive[u_ids.long()]
+        parts = []
+        for s in range(0, count, 1024):
+            ids_c = torch.arange(s, min(s + 1024, count), device=self.device)
+            sc = self._score_all(data.vectors[ids_c], data.upper_vectors,
+                                 data.upper_x2)
+            mn, slot = torch.where(u_colmask[None, :], sc, _INF).min(dim=1)
+            row_ok = arrays.alive[ids_c] & torch.isfinite(mn)
+            parts.append(torch.where(row_ok, slot, self.upper_dump))
+        s_a, s_id = torch.sort(torch.cat(parts), stable=True)
+        _, rank = _group_rank(s_a)
+        keep = (s_a < self.upper_dump) & (rank < cap_m)
+        flat = torch.where(keep, s_a * cap_m + rank.clamp(max=cap_m - 1),
+                           n_slots * cap_m - 1)
+        members = torch.full((n_slots * cap_m,), -1, dtype=torch.int32,
+                             device=self.device)
+        members[flat] = torch.where(keep, s_id, -1).to(torch.int32)
+        counts = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
+        counts.index_add_(0, torch.where(keep, s_a, n_slots - 1),
+                          keep.to(torch.int32))
+        arrays.members = members.view(n_slots, cap_m)
+        arrays.member_counts = counts
+
+    def _ensure_members(self, start: int) -> None:
+        if not self._members_ready:
+            self._members_ready = True
+            self._init_members_step(self.data, self.arrays, start)
+
+    # -- driver ----------------------------------------------------------------
+
+    def seed_first(self, first_id: int) -> None:
+        a = self.arrays
+        a.alive[first_id] = True
+        a.tid_counts[first_id] = 1
+        a.entry = torch.tensor(first_id, dtype=torch.int64,
+                               device=self.device)
+        a.entry_level = self.data.levels[first_id].clone()
+
+    def _width_for(self, start: int) -> int:
+        """Scored-prefix width of the batch at ``start``: the whole
+        capacity when it fits under the ramp, else the ramp width until
+        the ramp ends and 0 (the IVF arm) after it."""
+        cap1 = self.cap + 1
+        if cap1 <= self.descent_min:
+            return cap1
+        return 0 if start + 1 > self.descent_min else self.descent_min
+
+    def run_batch(self, start: int, size: int) -> None:
+        """Insert elements [start, start + size)."""
+        width = self._width_for(start)
+        if width == 0:
+            self._ensure_members(start)
+        sel_d, sel_ids, assign = self._score_select_step(
+            self.data, self.arrays, start, size, width
+        )
+        self._commit_all_step(self.data, self.arrays, start, size, sel_d,
+                              sel_ids, assign if width == 0 else None)
+
+    def run_all(self, schedule) -> None:
+        for start, size in schedule:
+            self.run_batch(start, size)
+
+    def host_adjacency(self):
+        """(nb0_ids [cap+1, lm0], nb0_d f32, up_ids [U+1, LMAX*m], up_d
+        f32) as numpy arrays."""
+        a = self.arrays
+        return (a.nb0_ids.cpu().numpy(), a.nb0_d.float().cpu().numpy(),
+                a.up_ids.cpu().numpy(), a.up_d.float().cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# entry point and finalize
+# ---------------------------------------------------------------------------
+
+
+class _HostRows:
+    """A device tensor that numpy reads by copying it to the host: backs a
+    serving-only store without a download until the host needs rows."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+        self.shape = tuple(t.shape)
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.t.detach().cpu().numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+def _resolve_device(dev) -> torch.device:
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def bulk_build(index, data, ids, host_graph: bool = True) -> None:
+    """``HnswIndex.build(method="device")`` of the port, dense kind.
+
+    ``data``: a numpy-convertible [N, dim] array (uploaded to
+    ``index.device``) or a tensor already on ``index.device`` (another
+    device raises ``ValueError``: the corpus is never moved silently).
+    Prepares values (cosine normalize / zero-norm skip), draws levels with
+    the index RNG, runs the batched build, folds the duplicate TIDs, then
+    either populates the host graph (``host_graph=True``: host search,
+    insert and delete work) or hands the index a ``DeviceGraph`` straight
+    from the build tensors (serving-only)."""
+    from pgvector_rx_tpu.graph.host import GraphElement
+
+    _build_settings()
+    if index.kind != "dense":
+        raise NotImplementedError(
+            f"the device build of the {index.kind} kind is not ported "
+            f"({_ROADMAP_BIT})"
+        )
+    if len(index.elements) or index.store.count:
+        raise ValueError("device bulk build requires an empty index")
+    device = _resolve_device(index.device)
+    host_rows = None
+    if isinstance(data, torch.Tensor):
+        if _resolve_device(data.device) != device:
+            raise ValueError(
+                f"build input is on {data.device}, the index on {device}: "
+                "move it first (the build never moves a corpus silently)"
+            )
+        vectors, kept_tids = _prepare_dense_device(index, data, ids)
+    else:
+        host_rows, kept_tids = _prepare_dense_bulk(index, data, ids)
+        if index.dtype is not None and index.dtype != np.float32:
+            # score the halfvec-STORED value (reload-equivalence)
+            host_rows = host_rows.astype(index.dtype).astype(np.float32)
+        vectors = torch.from_numpy(host_rows).to(device)
+    n = vectors.shape[0]
+    if n == 0:
+        return
+    levels = index.random_levels(n)
+    builder = DeviceBuilder(index.metric, vectors, levels, index.params.m,
+                            index.params.ef_construction,
+                            batch_max=batch_max_for(n))
+    del vectors
+    builder.seed_first(0)
+    builder.run_all(batch_schedule(n, builder.batch_max))
+
+    # one download of the fold decisions, applied in insertion order
+    heap_tids = [[t] for t in kept_tids.tolist()]
+    absorb = builder.arrays.absorb[:n].cpu().numpy()
+    for e in np.nonzero(absorb >= 0)[0]:
+        heap_tids[int(absorb[e])].extend(heap_tids[e])
+        heap_tids[e] = []
+    entry = int(builder.arrays.entry)
+    index.entry = entry if entry >= 0 else None
+    store_dtype = index.dtype or np.float32
+
+    if not host_graph:
+        if host_rows is not None:
+            index.store.bulk_load(host_rows.astype(store_dtype))
+        else:
+            index.store.bulk_load_device(_HostRows(builder.vectors), count=n)
+        index.heap_tids = heap_tids
+        index.serving_only = True
+        index._device = _device_graph_from_builder(index, builder, kept_tids)
+        # the graph holds what serving needs; drop the build-only state
+        builder.arrays = builder.data = builder.vectors = None
+        return
+
+    if host_rows is None:
+        host_rows = builder.vectors[:n].cpu().numpy()
+    nb0_ids, nb0_d, up_ids, up_d = builder.host_adjacency()
+    upper_nbrs = up_ids.reshape(up_ids.shape[0], builder.lmax, builder.m)
+    upper_dist = up_d.reshape(up_d.shape[0], builder.lmax, builder.m)
+    upper_slot = builder.data.upper_slot[:n].cpu().numpy()
+    levels = np.minimum(levels, builder.lmax)
+    for i in range(n):
+        e = GraphElement(level=int(levels[i]))
+        e.neighbors[0] = [(float(dd), int(v))
+                          for dd, v in zip(nb0_d[i], nb0_ids[i]) if v >= 0]
+        for lc in range(1, int(levels[i]) + 1):
+            s = upper_slot[i]
+            e.neighbors[lc] = [
+                (float(dd), int(v))
+                for dd, v in zip(upper_dist[s, lc - 1], upper_nbrs[s, lc - 1])
+                if v >= 0
+            ]
+        index.elements.append(e)
+    index.store.bulk_load(host_rows.astype(store_dtype))
+    index.heap_tids = heap_tids
+    index._invalidate_device()
+
+
+def _emit_tables_device(absorb, counts, first_tids, cap1: int):
+    """emit_tid [cap1]: an element emits its first TID unless it was
+    absorbed into a duplicate or never got a TID."""
+    col = torch.full((cap1,), -1, dtype=torch.int32, device=absorb.device)
+    col[: len(first_tids)] = torch.from_numpy(
+        np.asarray(first_tids, dtype=np.int32)).to(absorb.device)
+    return torch.where((absorb < 0) & (counts > 0), col, -1)
+
+
+def _device_graph_from_builder(index, builder: DeviceBuilder, first_tids):
+    """The serving ``DeviceGraph`` straight from the build tensors, cut to
+    the n built rows plus the sentinel row n (the build's padding past n
+    holds no element)."""
+    from .device import DeviceGraph, _serve_dtype_for, _serve_value_arrays
+
+    n = builder.n
+    a = builder.arrays
+    d = builder.data
+    nb0 = a.nb0_ids[: n + 1].clone()
+    nb0[n] = -1  # row n may be the build's dump row
+    up = a.up_ids.clone()
+    up[builder.upper_dump] = -1
+    return DeviceGraph(
+        kind=index.kind,
+        metric=index.metric,
+        cap=n,
+        m=index.params.m,
+        entry=int(a.entry),
+        entry_level=int(a.entry_level),
+        neighbors0=nb0,
+        upper_neighbors=up,
+        upper_slot=d.upper_slot[: n + 1],
+        levels=d.levels[: n + 1],
+        traversable=a.alive[: n + 1],
+        emit_tid=_emit_tables_device(a.absorb[: n + 1], a.tid_counts[: n + 1],
+                                     first_tids, n + 1),
+        tid_count=a.tid_counts[: n + 1],
+        **_serve_value_arrays(builder.vectors[: n + 1],
+                              _serve_dtype_for(index)),
+    )

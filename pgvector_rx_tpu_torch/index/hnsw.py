@@ -3,8 +3,8 @@
 A subclass of ``pgvector_rx_tpu.index.hnsw.HnswIndex`` that keeps the
 host-side semantics (validation, host graph, native C++ engine, vacuum,
 persistence of the host graph) and overrides only the device seams: the
-index lives on an explicit torch ``device``, ``build`` routes the
-serving-only native build into a torch ``DeviceGraph``, and
+index lives on an explicit torch ``device``, ``build`` routes the device
+build and the serving-only native build into a torch ``DeviceGraph``, and
 ``device_graph`` / ``search`` use the port's engines. The seams whose
 torch engines are not ported yet (``insert_bulk``, ``scan``, ``load``)
 raise instead of reaching the JAX package's.
@@ -21,10 +21,9 @@ from pgvector_rx_tpu import native as _native
 from pgvector_rx_tpu.config import IndexParams, SearchParams
 from pgvector_rx_tpu.index import hnsw as _base
 
-_DEVICE_BUILD_TODO = (
-    "the device build is not ported to torch yet (ROADMAP queue 1, item 7); "
-    "use method='native' or method='host'"
-)
+_ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13"
+_ROADMAP_KIND = {"bit": "ROADMAP queue 1, item 14",
+                 "sparse": "ROADMAP queue 1, item 15"}
 
 
 class HnswIndex(_base.HnswIndex):
@@ -54,48 +53,69 @@ class HnswIndex(_base.HnswIndex):
         consume_input: bool = False,
         device="cpu",
     ) -> "HnswIndex":
-        """Build an index from host data (ambuild analog).
+        """Build an index (ambuild analog) on ``device``.
 
-        ``method``: "native" (C++ engine), "host" (sequential reference
-        path) or "auto" (the JAX package's rule; where that rule picks the
-        device build, this raises). ``host_graph=False`` with "native":
-        serving-only index whose graph goes straight from the C++ arena to
-        a torch DeviceGraph on ``device``.
+        ``data``: an [N, D] array, or a torch tensor already on ``device``
+        (device-resident input; it takes the device build).
+        ``method``: "device" (the batched device build, dense kind),
+        "native" (C++ engine), "host" (sequential reference path) or
+        "auto" (the JAX package's rule: the device build for dense
+        corpora of 20,000 rows or more). ``host_graph=False`` with
+        "device" or "native": serving-only index whose graph goes straight
+        to a torch DeviceGraph on ``device``.
         """
-        if isinstance(data, torch.Tensor):
-            raise NotImplementedError(
-                "device-resident (torch.Tensor) build input needs the "
-                + _DEVICE_BUILD_TODO
-            )
         if consume_input:
-            raise NotImplementedError("consume_input needs the "
-                                      + _DEVICE_BUILD_TODO)
+            raise NotImplementedError(
+                "consume_input is not ported to torch yet "
+                f"({_ROADMAP_OFF_PATH})"
+            )
+        tensor_in = isinstance(data, torch.Tensor)
         kind = (
             "bit" if metric in _base.BIT_METRICS
+            else "dense" if tensor_in
             else "sparse" if _base._is_sparse_data(data) else "dense"
         )
-        n = len(data)
+        n = int(data.shape[0]) if tensor_in else len(data)
+        dim = (int(data.shape[1]) if tensor_in
+               else None if kind == "sparse" else np.asarray(data).shape[1])
+        if tensor_in:
+            if method not in ("device", "auto"):
+                raise ValueError(
+                    "device-resident build input requires method='device'"
+                )
+            method = "device"
         if method == "auto":
-            if kind in ("dense", "bit") and n >= 20000:
-                # the JAX package's "auto" picks its device build here
-                # (bit: when the unpacked rows fit; the port has neither)
-                raise NotImplementedError(_DEVICE_BUILD_TODO)
-            method = "native" if _native.available() else "host"
-        if method == "device":
-            raise NotImplementedError(_DEVICE_BUILD_TODO)
-        if method == "native" and not host_graph:
-            from .. import native as native_port
-
+            if kind == "dense" and n >= 20000:
+                method = "device"
+            elif kind == "bit" and n >= 20000 and n * dim * 4 <= (6 << 30):
+                raise NotImplementedError(
+                    "the bit kind's device build (the JAX package's 'auto' "
+                    f"choice here) is not ported ({_ROADMAP_KIND['bit']})"
+                )
+            else:
+                method = "native" if _native.available() else "host"
+        if method == "device" and kind != "dense":
+            raise NotImplementedError(
+                f"the device build of the {kind} kind is not ported "
+                f"({_ROADMAP_KIND[kind]})"
+            )
+        if method == "device" or (method == "native" and not host_graph):
             if kind != "dense":
                 raise NotImplementedError(
                     "serving-only torch builds support the dense kind"
                 )
-            arr = np.asarray(data)
-            idx = cls(arr.shape[1], metric=metric, kind=kind, params=params,
+            idx = cls(dim, metric=metric, kind=kind, params=params,
                       dtype=dtype, seed=seed, device=device)
-            native_port.native_bulk_build_serving(
-                idx, arr, ids if ids is not None else range(n)
-            )
+            ids = ids if ids is not None else range(n)
+            if method == "device":
+                from ..graph import device_build
+
+                device_build.bulk_build(idx, data, ids, host_graph=host_graph)
+            else:
+                from .. import native as native_port
+
+                native_port.native_bulk_build_serving(idx, np.asarray(data),
+                                                      ids)
             return idx
         idx = super().build(data, metric=metric, params=params, ids=ids,
                             dtype=dtype, seed=seed, method=method,

@@ -16,34 +16,7 @@ from pgvector_rx_tpu.constants import hnsw_get_layer_m
 from pgvector_rx_tpu.native import NativeGraph
 
 from .graph.device import DeviceGraph, _serve_dtype_for, _serve_value_arrays
-
-
-def _tids_array(ids) -> np.ndarray:
-    """Id sequence -> int64 array (range -> arange, no Python ints)."""
-    if isinstance(ids, range):
-        return np.arange(ids.start, ids.stop, ids.step, dtype=np.int64)
-    return np.asarray(list(ids) if not hasattr(ids, "__len__") else ids,
-                      dtype=np.int64)
-
-
-def _prepare_dense_bulk(index, data, ids):
-    """Vectorized dense prepare: shape check once, cosine normalize with
-    zero-norm rows skipped (build.rs:426-438), non-finite rows refused.
-    Returns (rows [n, dim] f32, tids [n] int64)."""
-    arr = np.asarray(data, dtype=np.float32)
-    if arr.ndim != 2 or arr.shape[1] != index.dim:
-        raise ValueError(f"expected {index.dim} dimensions")
-    tids = _tids_array(ids)
-    if index.metric == "cosine":
-        norms = np.sqrt(
-            np.sum(arr.astype(np.float64) ** 2, axis=1, keepdims=True)
-        )
-        keep = norms[:, 0] > 0.0
-        arr = (arr[keep].astype(np.float64) / norms[keep]).astype(np.float32)
-        tids = tids[keep]
-    if not np.isfinite(arr).all():
-        raise ValueError("NaN or infinity not allowed in vector")
-    return arr, tids
+from .graph.device_build import _prepare_dense_bulk
 
 
 def native_bulk_build_serving(index, data, ids) -> None:

@@ -41,6 +41,8 @@ _SIGNATURES = {
     # out_d, out_i, stream
     "pgv_k2_binned_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P],
+    # base, a, q, n, d, b, tn, nc, out, stream
+    "pgv_k3_tilemin": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -1,7 +1,7 @@
 """Fused brute-force k-NN sweeps: the counterpart of
 ``pgvector_rx_tpu/ops/pallas_bruteforce.py``.
 
-Two kernels, hand-written in CUDA for Hopper (``csrc/bruteforce.cu``):
+Three kernels, hand-written in CUDA for Hopper (``csrc/bruteforce.cu``):
 
 - **K1** (``_surrogate_topk``; ``l2_topk`` / ``ip_topk`` /
   ``cosine_topk``): exact FP32 top-k of the surrogate score
@@ -10,6 +10,10 @@ Two kernels, hand-written in CUDA for Hopper (``csrc/bruteforce.cu``):
 - **K2** (``binned_sweep_topk``): bf16 sweep keeping a running per-bin
   minimum (bin = row mod ``tn``), then a top-k over the bins. Replaces the
   Pallas ``_binned_kernel``.
+- **K3** (``tilemin_sweep_topk``): bf16 sweep emitting one packed int32
+  per (query, ``tn``-row tile) -- the tile's min score bits with the low
+  10 bits replaced by the winning column -- then a top-k over the tiles.
+  Replaces the Pallas ``_tilemin_kernel``.
 
 Every wrapper has its plain-torch version beside it (``*_plain``). A
 wrapper takes the plain version only for tensors on the CPU; for a CUDA
@@ -30,7 +34,7 @@ import torch
 _NEG_BIG = float(3.0e38)
 
 #: kernel name -> launches of that kernel by its wrapper in this process
-LAUNCHES = {"k1_topk": 0, "k2_binned": 0}
+LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0}
 
 _MAX_K = 64
 
@@ -270,7 +274,12 @@ def binned_sweep_topk(base_bf16, a, queries, k: int, metric: str,
         sd, si = _binned_cuda(base_bf16, a, q_bf, k, tn)
     else:
         sd, si = _binned_plain(base_bf16, a, queries, k, tn)
-    sd, si = _invalid_to_sentinel(sd, si)
+    return _restore_metric(*_invalid_to_sentinel(sd, si), queries, metric)
+
+
+def _restore_metric(sd, si, queries, metric: str):
+    """Surrogate scores ``a - 2 q.x`` -> metric distances (sweeps over
+    pre-normalized rows for cosine); empty slots stay (inf, -1)."""
     if metric == "l2":
         qf = queries.float()
         true_d = torch.clamp(sd + (qf * qf).sum(dim=1, keepdim=True), min=0.0)
@@ -279,5 +288,127 @@ def binned_sweep_topk(base_bf16, a, queries, k: int, metric: str,
     elif metric == "cosine":  # over pre-normalized rows
         true_d = 1.0 + torch.clamp(sd * 0.5, -1.0, 1.0)
     else:
-        raise ValueError(f"binned sweep supports l2/ip/cosine, not {metric!r}")
+        raise ValueError(f"bf16 sweeps support l2/ip/cosine, not {metric!r}")
     return torch.where(si >= 0, true_d, sd), si
+
+
+# ---------------------------------------------------------------------------
+# K3: packed tile-min bf16 sweep
+# ---------------------------------------------------------------------------
+
+#: low bits of a packed score that carry the column (so tn <= 1024)
+_ID_BITS = 10
+_ID_MASK = (1 << _ID_BITS) - 1
+
+
+def _check_tn(tn: int) -> None:
+    if tn <= 0 or tn % 128 or tn > 1 << _ID_BITS:
+        raise ValueError(
+            f"tn must be a multiple of 128 and at most {1 << _ID_BITS} (the "
+            f"packed id field has {_ID_BITS} bits), got {tn}"
+        )
+
+
+def _tilemin_prepare(base_bf16, a, queries):
+    """Operands of the tile-min sweep, as the TPU wrapper forms them:
+    bf16 queries pre-scaled by 2, the row term shifted so every live
+    score is positive (|2 q.x| <= q2 + x2), excluded rows (a >= 1.5e38)
+    kept unshifted. Returns (q2x bf16 [B, D], av f32 [N], shift f32 [])."""
+    qf = queries.float()
+    xf = base_bf16.float()
+    shift = (xf * xf).sum(dim=1).max() + (qf * qf).sum(dim=1).max() + 1.0
+    af = a.float()
+    av = torch.where(af >= _NEG_BIG * 0.5, af, af + shift)
+    return (2.0 * qf).to(torch.bfloat16).contiguous(), av.contiguous(), shift
+
+
+def _tilemin_packed_plain(base_bf16, av, q2x, tn: int):
+    """Plain version of K3's sweep: [B, ceil(N/tn)] int32, each the min
+    over a tile of (f32 score bits with the low 10 bits cleared) | col."""
+    n = base_bf16.shape[0]
+    pn = (-n) % tn
+    x = base_bf16.float()
+    if pn:
+        x = torch.cat([x, x.new_zeros((pn, x.shape[1]))])
+        av = torch.cat([av, av.new_full((pn,), _NEG_BIG)])
+    s = av[None, :] - q2x.float() @ x.T  # [B, Np], > 0 on live rows
+    col = torch.arange(s.shape[1], device=s.device, dtype=torch.int32) % tn
+    packed = (s.view(torch.int32) & ~_ID_MASK) | col[None, :]
+    return packed.view(s.shape[0], -1, tn).amin(dim=2)
+
+
+def _tilemin_packed_cuda(base_bf16, av, q2x, tn: int):
+    from . import _build
+
+    _check_cuda("base", base_bf16, torch.bfloat16, 2)
+    _check_cuda("a", av, torch.float32, 1, base_bf16.device)
+    _check_cuda("queries", q2x, torch.bfloat16, 2, base_bf16.device)
+    n, d = base_bf16.shape
+    b = q2x.shape[0]
+    if av.shape[0] != n or q2x.shape[1] != d:
+        raise ValueError(f"shape mismatch: base {tuple(base_bf16.shape)}, "
+                         f"a {tuple(av.shape)}, queries {tuple(q2x.shape)}")
+    if n == 0 or b == 0 or d == 0:
+        raise ValueError("empty base, queries or feature dimension")
+    if b > 64 * 65535:
+        raise ValueError(f"at most {64 * 65535} queries per call (got {b})")
+    nc = -(-n // tn)
+    dev = base_bf16.device
+    out = torch.empty((b, nc), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().pgv_k3_tilemin(
+            base_bf16.data_ptr(), av.data_ptr(), q2x.data_ptr(), n, d, b, tn,
+            nc, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "pgv_k3_tilemin")
+    LAUNCHES["k3_tilemin"] += 1
+    return out
+
+
+def _tilemin_unpack(packed, shift, n: int, k: int, tn: int):
+    """Top-k over the packed tile minima -> (scores [B,k] f32 with the
+    shift taken back off, ids [B,k] i32), ascending; pad columns and
+    excluded rows come back as (inf, -1)."""
+    b, nc = packed.shape
+    kk = min(k, nc)
+    v, slot = torch.topk(packed, kk, dim=1, largest=False, sorted=True)
+    sd = (v & ~_ID_MASK).view(torch.float32) - shift
+    si = slot.to(torch.int32) * tn + (v & _ID_MASK)
+    sd, si = _invalid_to_sentinel(sd, torch.where(si < n, si, -1))
+    if kk < k:
+        sd = torch.cat([sd, sd.new_full((b, k - kk), float("inf"))], 1)
+        si = torch.cat([si, si.new_full((b, k - kk), -1)], 1)
+    return sd, si
+
+
+def _tilemin_plain(base_bf16, a, queries, k: int, tn: int):
+    """Plain version of K3 end to end -> (scores [B,k], ids [B,k])."""
+    _check_tn(tn)
+    q2x, av, shift = _tilemin_prepare(base_bf16, a, queries)
+    packed = _tilemin_packed_plain(base_bf16, av, q2x, tn)
+    return _tilemin_unpack(packed, shift, base_bf16.shape[0], k, tn)
+
+
+def _tilemin_cuda(base_bf16, a, queries, k: int, tn: int):
+    """K3 end to end on the card -> (scores [B,k], ids [B,k])."""
+    _check_tn(tn)
+    q2x, av, shift = _tilemin_prepare(base_bf16, a, queries)
+    packed = _tilemin_packed_cuda(base_bf16, av, q2x, tn)
+    return _tilemin_unpack(packed, shift, base_bf16.shape[0], k, tn)
+
+
+def tilemin_sweep_topk(base_bf16, a, queries, k: int, metric: str,
+                       tn: int = 1024):
+    """Fused bf16 sweep + per-tile packed min -> (distances [B,k], ids).
+
+    One winner per ``tn``-row corpus tile (selection loss ~ (k-1) /
+    (2 N/tn), the binned regime with bins = tiles); the packing keeps ~13
+    mantissa bits of each score, so callers that return distances rescore
+    the k winners in f32. Rows with ``a >= _NEG_BIG`` come back as -1 /
+    inf. ``tn`` is at most 1024: the column lives in 10 bits (the TPU
+    wrapper also takes 2048 and then loses the column's top bit)."""
+    if base_bf16.is_cuda:
+        sd, si = _tilemin_cuda(base_bf16, a, queries, k, tn)
+    else:
+        sd, si = _tilemin_plain(base_bf16, a, queries, k, tn)
+    return _restore_metric(sd, si, queries, metric)

@@ -105,13 +105,16 @@ def test_serve_dtype_policy(monkeypatch):
 
 
 def test_device_build_not_ported_yet():
+    """The dense device build is ported (tests/test_torch_device_build.py);
+    what of it is not raises, naming its ROADMAP item."""
     data = _data(n=100)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TorchIndex.build(data, method="device")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 13"):
+        TorchIndex.build(data, method="device", consume_input=True)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TorchIndex.build((data > 0).astype(np.uint8), metric="hamming",
+                         method="device")
+    with pytest.raises(ValueError, match="method='device'"):
         TorchIndex.build(torch.from_numpy(data), method="native")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TorchIndex.build(np.zeros((20000, 4), np.float32), method="auto")
 
 
 def test_unported_seams_raise_instead_of_reaching_jax():

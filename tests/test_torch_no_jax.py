@@ -1,6 +1,7 @@
 """The port runs without JAX: a fresh interpreter imports it, builds a
-native index on the CPU, serves all three engines and searches, and JAX
-never enters ``sys.modules``. A subprocess, because the test harness
+native index and a device-built index on the CPU, serves all three
+engines, searches and runs the tile-min sweep, and JAX never enters
+``sys.modules``. A subprocess, because the test harness
 (tests/conftest.py) imports JAX into this one."""
 
 import os
@@ -30,6 +31,16 @@ for method in ("exact", "approx", "device"):
     d, tids = idx.search(queries, 10, SearchParams(ef_search=40),
                          method=method)
     assert tids.shape == (32, 10) and np.isfinite(d).all()
+dev = HnswIndex.build(torch.from_numpy(data), metric="l2", seed=1,
+                      host_graph=False)
+_, ids = device_mod.serve_topk(dev, queries, 10, engine="beam")
+rec = np.mean([len(set(ids[b]) & set(gt[b])) / 10 for b in range(32)])
+assert rec >= 0.9, ("device build", rec)
+from pgvector_rx_tpu_torch.ops import bruteforce as bf
+g = dev.device_graph()
+_, k3 = bf.tilemin_sweep_topk(g.values_bf16, g.x2, torch.from_numpy(queries),
+                              10, "l2", tn=128)
+assert k3.shape == (32, 10) and (k3 >= 0).all()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("NO_JAX_OK")
 """
