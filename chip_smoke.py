@@ -11,7 +11,8 @@ counts set to 0 just before it and read just after:
 1. print the card and its power limit, build the CUDA kernels from
    ``pgvector_rx_tpu_torch/csrc``;
 2. make a 1,000,000 x 128-d SIFT-like corpus and 16,384 queries
-   (``bench.make_dataset``, seed 0) and put the corpus on the card;
+   (``pgvector_rx_tpu_torch.data.make_dataset``, seed 0) and put the
+   corpus on the card;
 3. build an l2 HNSW index (m=16, ef_construction=64) from the CUDA tensor
    with the port's batched device build, serving-only; print build
    seconds and rows/s; check the graph's invariants on the card;
@@ -27,9 +28,13 @@ counts set to 0 just before it and read just after:
 Then, outside the counted paths:
 
 8. hold each kernel (K1, K2, K3) against its plain-torch version at the
-   main path's shapes (1,024 queries x every row, k=10) and time both; the
-   K2 check must reject a control whose sums are rounded to bf16, the K3
-   check a control that ORs the column into uncleared score bits.
+   main path's shapes (1,024 queries x every row, k=10) and time both,
+   beside the plain ``torch.matmul`` that makes the same [1,024, N] scores
+   (the product alone, not the same function); the K1 check must reject a
+   control whose operands are truncated to TF32, the K2 check a control
+   whose sums are rounded to bf16, the K3 check a control that ORs the
+   column into uncleared score bits. Each kernel's bound is computed from
+   the shapes and the card's published peaks (``PEAKS``).
 
 **Native path** (9-12, the first 100,000 rows): the native C++ host build
 into a serving-only torch index, its own K1 ground truth, and phases 5 and
@@ -57,8 +62,22 @@ EF = 40
 M, EF_CONSTRUCTION = 16, 64
 FLOORS = {"exact": 0.999, "approx": 0.98, "beam": 0.95}
 K3_FLOOR = 0.90
-SRC = "pgvector_rx_tpu_torch/csrc/bruteforce.cu"
+CSRC = "pgvector_rx_tpu_torch/csrc/"
 PALLAS = "pgvector_rx_tpu/ops/pallas_bruteforce.py"
+#: published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12}
+
+
+def bound(ops: float, peak: str, nbytes: float) -> dict:
+    """The least time the card could take: the larger of ``ops`` over the
+    ``peak`` rate and ``nbytes`` (each input read once, each output
+    written once) over the memory rate."""
+    t_ops = ops / PEAKS[peak] * 1e3
+    t_bytes = nbytes / PEAKS["bytes"] * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_peak=(f"{peak} {PEAKS[peak] / 1e12:g} TFLOP/s"
+                            if t_ops >= t_bytes else "3.35 TB/s"))
 
 
 def log(msg: str) -> None:
@@ -111,6 +130,23 @@ def tie_aware_mismatch(ids_a, d_a, ids_b, d_b, tol) -> int:
         )
         bad += not tie
     return bad
+
+
+def tf32_truncated(t):
+    """``t`` with the low 13 mantissa bits cleared: TF32 operands."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def k1_agreement(d, ids, p_d, p_ids, q2max) -> tuple[float, bool]:
+    """(max abs error, agrees) of K1-style surrogate scores ``(d, ids)``
+    against the plain FP32 sweep: rtol 1e-5 with atol ``1e-5 max(q2)``,
+    and id sets may differ only at ties within that tolerance."""
+    d, ids = d.cpu().numpy(), ids.cpu().numpy()
+    tol = 1e-5 * np.abs(p_d).max(axis=1) + 1e-5 * q2max
+    err = float(np.abs(d - p_d).max())
+    ok = (np.allclose(d, p_d, rtol=1e-5, atol=1e-5 * q2max)
+          and not tie_aware_mismatch(ids, d, p_ids, p_d, tol))
+    return err, ok
 
 
 def binned_bf16_sums(vb, a, qb, k, tn):
@@ -301,7 +337,7 @@ def search_vs_serve(index, queries_np, results, emit_tid, SearchParams, tag):
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
-    import bench
+    from pgvector_rx_tpu_torch.data import make_dataset
     from pgvector_rx_tpu_torch import HnswIndex, IndexParams, SearchParams
     from pgvector_rx_tpu_torch.graph import device as device_mod
     from pgvector_rx_tpu_torch.ops import _build
@@ -328,7 +364,7 @@ def main() -> int:
         _build.lib()
 
     with Phase("2 data"):
-        data, queries = bench.make_dataset(N_ROWS, DIM, N_QUERIES, seed=0)
+        data, queries = make_dataset(N_ROWS, DIM, N_QUERIES, seed=0)
         x_dev = torch.from_numpy(data).to(dev)
         q_dev = torch.from_numpy(queries).to(dev)
         log(f"corpus {data.shape} on {x_dev.device}, queries {queries.shape}")
@@ -400,23 +436,36 @@ def main() -> int:
         q2max = float((q1 * q1).sum(1).max())
         q2 = (q1 * q1).sum(1, keepdim=True)
 
-        k1_d, k1_i = bf._surrogate_topk_cuda(g.values, a, q1, K)
-        p1_d, p1_i = bf._surrogate_topk_plain(g.values, a, q1, K)
+        x32 = g.values
+        k1_d, k1_i = bf._surrogate_topk_cuda(x32, a, q1, K)
+        p1_d, p1_i = bf._surrogate_topk_plain(x32, a, q1, K)
+        c1_d, c1_i = bf._surrogate_topk_plain(tf32_truncated(x32), a,
+                                              tf32_truncated(q1), K)
         torch.cuda.synchronize()
-        k1_d, p1_d = k1_d.cpu().numpy(), p1_d.cpu().numpy()
-        k1_i, p1_i = k1_i.cpu().numpy(), p1_i.cpu().numpy()
-        tol = 1e-5 * np.abs(p1_d).max(axis=1) + 1e-5 * q2max
-        err1 = float(np.abs(k1_d - p1_d).max())
-        if not np.allclose(k1_d, p1_d, rtol=1e-5, atol=1e-5 * q2max):
-            raise RuntimeError(f"K1 distances disagree (max abs err {err1})")
-        if tie_aware_mismatch(k1_i, k1_d, p1_i, p1_d, tol):
-            raise RuntimeError("K1 id sets disagree beyond ties")
+        p1_d, p1_i = p1_d.cpu().numpy(), p1_i.cpu().numpy()
+        err1, ok1 = k1_agreement(k1_d, k1_i, p1_d, p1_i, q2max)
+        ctl1, ctl1_ok = k1_agreement(c1_d, c1_i, p1_d, p1_i, q2max)
+        log(f"K1 max abs err {err1} ({err1 / q2max:.3e} of max q2); control "
+            f"with TF32-truncated operands: {ctl1} ({ctl1 / q2max:.3e})")
+        if not ok1:
+            raise RuntimeError(f"K1 disagrees with its plain version "
+                               f"(max abs err {err1})")
+        if ctl1_ok:
+            raise RuntimeError("the K1 check passes TF32 operands: too loose "
+                               "for a 3xTF32 kernel")
+        del c1_d, c1_i
+        n_rows, b1 = x32.shape[0], q1.shape[0]
+        out_bytes = b1 * K * 8
         kernels["k1_topk"] = dict(
-            name="k1_topk", route="cuda", source=SRC,
+            name="k1_topk", route="cuda", source=CSRC + "k1_topk.cu",
             replaces=f"{PALLAS}:34", max_abs_err=err1,
-            ms=cuda_ms(lambda: bf._surrogate_topk_cuda(g.values, a, q1, K)),
-            plain_ms=cuda_ms(
-                lambda: bf._surrogate_topk_plain(g.values, a, q1, K)),
+            ms=cuda_ms(lambda: bf._surrogate_topk_cuda(x32, a, q1, K)),
+            plain_ms=cuda_ms(lambda: bf._surrogate_topk_plain(x32, a, q1, K)),
+            **bound(3 * 2.0 * b1 * n_rows * DIM, "tf32",
+                    (n_rows * DIM + n_rows + b1 * DIM) * 4 + out_bytes),
+            library_ms=None,
+            matmul_ms=cuda_ms(lambda: q1 @ x32.T),
+            matmul_of="q @ x.T alone in f32 (the product, not the function)",
         )
 
         qb = q1.to(torch.bfloat16)
@@ -437,11 +486,16 @@ def main() -> int:
         if ctl_ok:
             raise RuntimeError("the K2 check passes bf16-rounded sums: "
                                "too loose to catch a wrong kernel")
+        bf16_bytes = (n_rows * DIM + b1 * DIM) * 2 + n_rows * 4
         kernels["k2_binned"] = dict(
-            name="k2_binned", route="cuda", source=SRC,
+            name="k2_binned", route="cuda", source=CSRC + "k2_binned.cu",
             replaces=f"{PALLAS}:185", max_abs_err=err2,
             ms=cuda_ms(lambda: bf._binned_cuda(vb, a, qb, K, 1024)),
             plain_ms=cuda_ms(lambda: bf._binned_plain(vb, a, q1, K, 1024)),
+            **bound(2.0 * b1 * n_rows * DIM, "bf16", bf16_bytes + out_bytes),
+            library_ms=None,
+            matmul_ms=cuda_ms(lambda: qb @ vb.T),
+            matmul_of="q @ x.T alone in bf16 (the product, not the function)",
         )
 
         k3_d, k3_i = bf._tilemin_cuda(vb, a, q1, K, 1024)
@@ -464,14 +518,23 @@ def main() -> int:
             raise RuntimeError("the K3 check passes uncleared packing: too "
                                "loose to catch a wrong kernel")
         kernels["k3_tilemin"] = dict(
-            name="k3_tilemin", route="cuda", source=SRC,
+            name="k3_tilemin", route="cuda", source=CSRC + "bruteforce.cu",
             replaces=f"{PALLAS}:302", max_abs_err=err3,
             ms=cuda_ms(lambda: bf._tilemin_cuda(vb, a, q1, K, 1024)),
             plain_ms=cuda_ms(lambda: bf._tilemin_plain(vb, a, q1, K, 1024)),
+            **bound(2.0 * b1 * n_rows * DIM, "bf16",
+                    bf16_bytes + b1 * -(-n_rows // 1024) * 4),
+            library_ms=None,
+            matmul_ms=kernels["k2_binned"]["matmul_ms"],
+            matmul_of="q @ x.T alone in bf16 (the product, not the function)",
         )
         for kr in kernels.values():
+            kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
             log(f"{kr['name']}: kernel {kr['ms']:.4f} ms, plain "
-                f"{kr['plain_ms']:.4f} ms, max abs err {kr['max_abs_err']}")
+                f"{kr['plain_ms']:.4f} ms, product alone {kr['matmul_ms']:.4f}"
+                f" ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
+                f"{kr['bound_peak']}), share {kr['share_of_bound']:.4f}, "
+                f"max abs err {kr['max_abs_err']}")
 
     for name in kernels:
         kernels[name]["launches"] = main_launches[name]
@@ -483,7 +546,7 @@ def main() -> int:
     with Phase("9 native build"):
         nat = HnswIndex.build(
             data[:N_NATIVE], metric="l2", params=params, method="native",
-            host_graph=False, seed=1, device=dev,
+            host_graph=False, seed=1,  # no device named: the card
         )
         gn = nat.device_graph()
         log(f"graph: cap={gn.cap} entry={gn.entry} level={gn.entry_level} "
@@ -501,8 +564,10 @@ def main() -> int:
             raise RuntimeError(f"kernel {name} never ran on the native path")
     log(f"native path launches: {dict(bf.LAUNCHES)}")
 
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise RuntimeError("the port's path imported JAX")
+    foreign = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "pgvector_rx_tpu", "bench")]
+    if foreign:
+        raise RuntimeError(f"the port's path imported {sorted(foreign)[:5]}")
     log(json.dumps({"kernels": [kernels[k] for k in
                                 ("k1_topk", "k2_binned", "k3_tilemin")]}))
     log(json.dumps({"ok": True, "device": {

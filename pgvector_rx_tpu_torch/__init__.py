@@ -3,19 +3,24 @@
 It runs the serving path of ``pgvector_rx_tpu`` on an NVIDIA GPU (or on
 the CPU, through each kernel's plain-torch version): the flat-array
 ``DeviceGraph``, the exact / approx / beam engines, ``serve_topk`` and
-``HnswIndex.search``. The framework-free modules of ``pgvector_rx_tpu``
-(constants, config, types, the host graph, stores, the native C++
-engine) are imported, not copied; nothing here imports JAX.
+``HnswIndex.search``, and the batched device build. It stands alone: the
+framework-free modules of ``pgvector_rx_tpu`` are copied here at the same
+relative paths (constants, config, types, utils/rwlock, utils/stats,
+graph/host, index/stores, index/vacuum, the host half of index/scan and
+index/hnsw, the native engine with ``csrc/hnswcore.cpp``), and
+``tests/test_torch_standalone.py`` holds the copies to the originals.
+Nothing here imports JAX or ``pgvector_rx_tpu``.
 
-Every device is explicit: an index and its ``DeviceGraph`` live on the
-``device`` they were built with. TF32 stays off for matmuls and cuDNN,
-so FP32 products are full precision.
+An index and its ``DeviceGraph`` live on the ``device`` they were built
+with; ``device=None`` means the card (``"cuda"``) and raises where no
+CUDA device is visible, so a CPU run passes ``device="cpu"``. TF32 stays
+off for matmuls and cuDNN, so FP32 products are full precision.
 """
 
 import torch
 
-from pgvector_rx_tpu import constants
-from pgvector_rx_tpu.config import IndexParams, SearchParams
+from . import constants
+from .config import IndexParams, SearchParams
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pgvector_rx_tpu.constants import hnsw_get_layer_m
+from ..constants import hnsw_get_layer_m
 
 from ..ops import bruteforce
 

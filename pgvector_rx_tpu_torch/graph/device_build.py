@@ -51,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pgvector_rx_tpu.constants import HNSW_HEAPTIDS, hnsw_get_layer_m
+from ..constants import HNSW_HEAPTIDS, hnsw_get_layer_m
 
 #: cap at/above which the back-edge commit honours 2 same-target adds per
 #: commit instead of 4 (see DeviceBuilder._be_k)
@@ -980,7 +980,7 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
     either populates the host graph (``host_graph=True``: host search,
     insert and delete work) or hands the index a ``DeviceGraph`` straight
     from the build tensors (serving-only)."""
-    from pgvector_rx_tpu.graph.host import GraphElement
+    from .host import GraphElement
 
     _build_settings()
     if index.kind != "dense":

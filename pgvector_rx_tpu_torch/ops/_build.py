@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile at first use with ``nvcc`` into a shared library with
-a plain C interface under ``pgvector_rx_tpu_torch/_build/`` (named by the
-sources' hash, so an edited source never loads a stale library), and are
-bound with ``ctypes``. Nothing here runs at import time: the CPU tests
+The sources compile at first use with ``nvcc``, one object per ``.cu``
+file, all started together, and link into a shared library with a plain C
+interface under ``pgvector_rx_tpu_torch/_build/`` (named by the sources'
+hash, so an edited source never loads a stale library), bound with
+``ctypes``. Nothing here runs at import time: the CPU tests
 import every module on machines with no CUDA toolkit.
 
 A failed build raises with nvcc's stderr; there is no fallback.
@@ -20,11 +21,14 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCES = (_PKG / "csrc" / "bruteforce.cu",)
+_CSRC = _PKG / "csrc"
+_SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k2_binned.cu",
+                                     "bruteforce.cu"))
+_HEADERS = (_CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -33,10 +37,10 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # base, a, q, n, d, b, k, splits, rows_per_split, part_d, part_i,
-    # out_d, out_i, stream
-    "pgv_k1_surrogate_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P],
+    # base, a, q, q_big, q_small, n, d, b, k, kl, splits, rows_per_split,
+    # part_d, part_i, sel_d, sel_i, out_d, out_i, stream
+    "pgv_k1_surrogate_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P, _P, _P, _P, _P, _P, _P],
     # base, a, q, n, d, b, k, tn, splits, tiles_per_split, bins,
     # out_d, out_i, stream
     "pgv_k2_binned_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -59,25 +63,42 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha1()
-    for src in _SOURCES:
+    for src in (*_SOURCES, *_HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpgv_kernels-{h.hexdigest()[:12]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the first failure's
+    stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+
+
 def build() -> Path:
-    """Compile the kernels if this source hash has no library yet."""
+    """Compile the kernels if this source hash has no library yet: one
+    ``nvcc`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
+    nvcc = _nvcc()
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+              for src, o in zip(_SOURCES, objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out
 

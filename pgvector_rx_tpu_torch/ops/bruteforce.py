@@ -1,12 +1,15 @@
 """Fused brute-force k-NN sweeps: the counterpart of
 ``pgvector_rx_tpu/ops/pallas_bruteforce.py``.
 
-Three kernels, hand-written in CUDA for Hopper (``csrc/bruteforce.cu``):
+Three kernels, hand-written in CUDA for Hopper (``csrc/k1_topk.cu``,
+``csrc/k2_binned.cu``, ``csrc/bruteforce.cu``):
 
 - **K1** (``_surrogate_topk``; ``l2_topk`` / ``ip_topk`` /
   ``cosine_topk``): exact FP32 top-k of the surrogate score
-  ``a - 2 q.x`` without a [B, N] score matrix in device memory. Replaces
-  the Pallas ``_topk_kernel``.
+  ``a - 2 q.x`` without a [B, N] score matrix in device memory: three
+  tf32 ``wgmma`` products per FP32 product select k + 4 candidates per
+  query, rescored exactly in FP32. Replaces the Pallas
+  ``_topk_kernel``.
 - **K2** (``binned_sweep_topk``): bf16 sweep keeping a running per-bin
   minimum (bin = row mod ``tn``), then a top-k over the bins. Replaces the
   Pallas ``_binned_kernel``.
@@ -41,8 +44,55 @@ _MAX_K = 64
 
 @functools.lru_cache(maxsize=None)
 def _block_target(dev: torch.device) -> int:
-    """Blocks a sweep's grid aims for: ~4 per SM of the card it runs on."""
-    return 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    """Blocks a K1 / K2 grid aims for: one wave, two resident blocks per
+    SM of the card it runs on. More splits would only cost: each split's
+    blocks refill their top-k lists (K1) or write their bins (K2) again."""
+    return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+#: queries per block of K1 / K2, and K2's bins (corpus rows) per block
+_K1_QTILE, _K2_QTILE, _K2_BINS = 64, 128, 64
+#: list places K1 keeps beyond k for its exact rescoring
+_K1_SPARE = 4
+
+
+def _k1_plan(n: int, b: int, target: int):
+    """K1's grid: (query tiles, splits, rows per split), at most ``target``
+    blocks where the query tiles allow. Every split covers rows
+    [s * rows, min(n, (s + 1) * rows)), all non-empty; rows is a multiple
+    of 64 (the kernel's chunk)."""
+    qtiles = -(-b // _K1_QTILE)
+    chunks = -(-n // 64)
+    splits = max(1, min(chunks, 65535, target // qtiles))
+    rows = -(-chunks // splits) * 64
+    return qtiles, -(-n // rows), rows
+
+
+def _k2_plan(n: int, b: int, tn: int, target: int):
+    """K2's grid: (query tiles, bin groups, splits, tiles per split), at
+    most ``target`` blocks where the query tiles and bin groups allow.
+    Split s covers tiles [s * tps, min(ntiles, (s + 1) * tps)) of tn rows,
+    all non-empty; bin group g covers bins [64 g, 64 g + 64)."""
+    qtiles = -(-b // _K2_QTILE)
+    groups = tn // _K2_BINS
+    ntiles = -(-n // tn)
+    splits = max(1, min(ntiles, 65535, target // (qtiles * groups)))
+    tps = -(-ntiles // splits)
+    return qtiles, groups, -(-ntiles // tps), tps
+
+
+def _tf32_round(x):
+    """Round f32 to the nearest tf32 (ties away from zero), kept as f32
+    with the low 13 mantissa bits zero: the kernel's ``cvt.rna.tf32``."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(x):
+    """(big, small) tf32 halves of f32 ``x``: big = tf32(x), small =
+    tf32(x - big); big + small holds x to ~2^-22 of it."""
+    big = _tf32_round(x)
+    return big, _tf32_round(x - big)
 
 
 def reset_launches() -> None:
@@ -121,22 +171,23 @@ def _surrogate_topk_cuda(base, a, queries, k: int):
         raise ValueError(f"k must be in [1, {_MAX_K}] (got {k})")
     if n == 0 or b == 0 or d == 0:
         raise ValueError("empty base, queries or feature dimension")
-    qtiles = -(-b // 64)
-    row_tiles = -(-n // 64)
-    target = _block_target(base.device)
-    splits = max(1, min(row_tiles, -(-target // qtiles)))
-    rows_per_split = -(-row_tiles // splits) * 64
-    splits = -(-n // rows_per_split)
+    _, splits, rows_per_split = _k1_plan(n, b, _block_target(base.device))
+    q_big, q_small = _tf32_split(queries)
+    kl = min(_MAX_K, k + _K1_SPARE)
     dev = base.device
-    part_d = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
+    part_d = torch.empty((b, splits, kl), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, splits, kl), dtype=torch.int32, device=dev)
+    sel_d = torch.empty((b, kl), dtype=torch.float32, device=dev)
+    sel_i = torch.empty((b, kl), dtype=torch.int32, device=dev)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):  # the C entry launches on the current one
         rc = _build.lib().pgv_k1_surrogate_topk(
-            base.data_ptr(), a.data_ptr(), queries.data_ptr(), n, d, b, k,
-            splits, rows_per_split, part_d.data_ptr(), part_i.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
+            base.data_ptr(), a.data_ptr(), queries.data_ptr(),
+            q_big.data_ptr(), q_small.data_ptr(), n, d, b, k, kl, splits,
+            rows_per_split, part_d.data_ptr(), part_i.data_ptr(),
+            sel_d.data_ptr(), sel_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "pgv_k1_surrogate_topk")
@@ -238,12 +289,11 @@ def _binned_cuda(base, a, queries, k: int, tn: int):
         raise ValueError(f"tn must be a positive multiple of 128 (got {tn})")
     if n == 0 or b == 0 or d == 0:
         raise ValueError("empty base, queries or feature dimension")
-    ntiles = -(-n // tn)
-    blocks = -(-b // 64) * (tn // 128)
-    target = _block_target(base.device)
-    splits = max(1, min(ntiles, -(-target // blocks)))
-    tiles_per_split = -(-ntiles // splits)
-    splits = -(-ntiles // tiles_per_split)
+    if b > _K2_QTILE * 65535 or n + tn > 2**31:
+        raise ValueError(f"at most {_K2_QTILE * 65535} queries and 2^31 - "
+                         f"tn rows per call (got {b}, {n})")
+    _, _, splits, tiles_per_split = _k2_plan(n, b, tn,
+                                             _block_target(base.device))
     dev = base.device
     bins = torch.empty((b, tn), dtype=torch.int64, device=dev)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)

@@ -195,9 +195,75 @@ def test_kernel_entry_refuses_cpu_tensors(rng):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# K1 / K2 grid planners and K1's tf32 split (CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,b", [(1, 1), (63, 1), (64, 130), (65, 64),
+                                 (5000, 1025), (1_000_000, 1024),
+                                 (999_999, 7)])
+@pytest.mark.parametrize("target", [1, 264, 1056])
+def test_k1_plan_covers_every_row_once(n, b, target):
+    qtiles, splits, rows = tbf._k1_plan(n, b, target)
+    assert qtiles * tbf._K1_QTILE >= b > (qtiles - 1) * tbf._K1_QTILE
+    assert rows % 64 == 0 and 1 <= splits <= 65535
+    assert qtiles * splits <= max(target, qtiles)
+    cover = np.zeros(n, np.int64)
+    for s in range(splits):
+        lo, hi = s * rows, min(n, (s + 1) * rows)
+        assert hi > lo  # no empty split
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("n,b,tn", [(1, 1, 128), (40, 1, 1024),
+                                    (1000, 130, 256), (30000, 1024, 1024),
+                                    (1_000_000, 1024, 1024),
+                                    (1_000_001, 3, 128)])
+@pytest.mark.parametrize("target", [1, 264, 1056])
+def test_k2_plan_covers_every_row_once(n, b, tn, target):
+    qtiles, groups, splits, tps = tbf._k2_plan(n, b, tn, target)
+    assert qtiles * tbf._K2_QTILE >= b > (qtiles - 1) * tbf._K2_QTILE
+    assert groups * tbf._K2_BINS == tn and 1 <= splits <= 65535
+    assert qtiles * groups * splits <= max(target, qtiles * groups)
+    ntiles = -(-n // tn)
+    cover = np.zeros(ntiles * tn, np.int64)
+    for s in range(splits):
+        t0, t1 = s * tps, min(ntiles, (s + 1) * tps)
+        assert t1 > t0  # no empty split
+        for g in range(groups):
+            for t in range(t0, t1):  # chunk rows t*tn + 64g .. +63
+                cover[t * tn + 64 * g : t * tn + 64 * g + 64] += 1
+    assert (cover[:n] == 1).all()
+
+
+def test_tf32_split_keeps_fp32_accuracy():
+    """K1's arithmetic: big has the low 13 mantissa bits clear, and
+    big.big + big.small + small.big (each product exact in f32) holds the
+    FP32 product's accuracy, where tf32 alone does not."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((500, 128)).astype(np.float32))
+    qb, qs = tbf._tf32_split(q)
+    xb, xs = tbf._tf32_split(x)
+    for big, small, v in ((qb, qs, q), (xb, xs, x)):
+        assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
+        assert ((small.view(torch.int32) & 0x1FFF) == 0).all()
+        assert ((big + small - v).abs() <= 2.0 ** -21 * v.abs()).all()
+    ref = q.double() @ x.double().T
+    three = qs @ xb.T + qb @ xs.T + qb @ xb.T
+    one = qb @ xb.T
+    scale = q.abs().double() @ x.abs().double().T
+    assert ((three.double() - ref).abs() <= 1e-6 * scale).all()
+    assert ((one.double() - ref).abs() > 1e-5 * scale).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,b,k", [(257, 8, 3, 4), (5000, 100, 130, 64),
-                                     (20000, 128, 1024, 10)])
+                                     (20000, 128, 1024, 10),
+                                     (40, 16, 1, 10), (3000, 33, 5, 64),
+                                     (2000, 400, 70, 10)])
 def test_k1_kernel_matches_plain(cuda, n, d, b, k):
     g = torch.Generator().manual_seed(n)
     x = torch.randn(n, d, generator=g).to(cuda)
@@ -219,7 +285,12 @@ def test_k1_kernel_matches_plain(cuda, n, d, b, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,b,k,tn", [(50, 8, 2, 10, 256),
                                         (1000, 24, 6, 5, 256),
-                                        (30000, 128, 1024, 10, 1024)])
+                                        (30000, 128, 1024, 10, 1024),
+                                        (3000, 100, 130, 10, 256),
+                                        (3000, 33, 1, 10, 128),
+                                        (40, 16, 1, 10, 1024),
+                                        (5000, 64, 20, 64, 1024),
+                                        (1500, 1000, 3, 10, 128)])
 def test_k2_kernel_matches_plain(cuda, n, d, b, k, tn):
     g = torch.Generator().manual_seed(n)
     x = torch.randn(n, d, generator=g).to(cuda)
@@ -242,6 +313,26 @@ def test_k2_kernel_matches_plain(cuda, n, d, b, k, tn):
     np.testing.assert_allclose(kd[fin], pd[fin], rtol=1e-5, atol=2e-5 * q2max)
     _same_sets_except_ties(ki, kd, pi, pd, atol=2e-5 * q2max)
     assert (ki[ki >= 0] % 5 != 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tn", [128, 1024])
+def test_k2_ties_go_to_the_lower_row(cuda, tn):
+    """Rows that tie exactly in one bin (the same row repeated every tn
+    rows, within one block's range and across the grid's splits) keep the
+    lowest row."""
+    g = torch.Generator().manual_seed(tn)
+    n, d = 40 * tn + 17, 64
+    x = torch.randn(n, d, generator=g)
+    x[tn::tn] = x[0]  # every tn-th row repeats row 0, in bin 0
+    q = x[:130].clone()  # 130 queries: splits of more than one tile
+    q[1:] += 0.01 * torch.randn(129, d, generator=g)
+    a = (x * x).sum(1)
+    _, ki = tbf.binned_sweep_topk(x.to(cuda).to(torch.bfloat16), a.to(cuda),
+                                  q.to(cuda), 10, "l2", tn=tn)
+    ki = ki.cpu().numpy()
+    assert ki[0, 0] == 0, ki[0]
+    assert not np.isin(ki, np.arange(tn, n, tn)).any()
 
 
 @pytest.mark.cuda

@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-import bench
-from pgvector_rx_tpu.config import IndexParams, SearchParams
+from pgvector_rx_tpu.config import IndexParams
 from pgvector_rx_tpu.graph import device_build as jdb
 from pgvector_rx_tpu.index.hnsw import HnswIndex as JaxIndex
 from pgvector_rx_tpu_torch import HnswIndex as TorchIndex
+from pgvector_rx_tpu_torch.config import IndexParams as TIndexParams
+from pgvector_rx_tpu_torch.config import SearchParams as TSearchParams
+from pgvector_rx_tpu_torch.data import make_dataset
 from pgvector_rx_tpu_torch.graph import device as tdev
 from pgvector_rx_tpu_torch.graph import device_build as tdb
 
@@ -41,7 +43,7 @@ def cuda():
 def _carry(j):
     """A port index serving the JAX index's graph (same arrays)."""
     jg = j.device_graph()
-    t = TorchIndex(j.dim, metric=j.metric, params=j.params)
+    t = TorchIndex(j.dim, metric=j.metric, params=_tparams(j.params), device="cpu")
     t.serving_only = True
     t.entry = j.entry
     t.heap_tids = list(j.heap_tids)
@@ -53,11 +55,16 @@ def _carry(j):
     return t
 
 
+def _tparams(params):
+    """The port's IndexParams with the JAX side's values."""
+    return TIndexParams(m=params.m, ef_construction=params.ef_construction)
+
+
 def _both(data, metric, params, seed=3):
     j = JaxIndex.build(data, metric=metric, params=params, method="device",
                        seed=seed, host_graph=False)
-    t = TorchIndex.build(data, metric=metric, params=params,
-                         method="device", seed=seed, host_graph=False)
+    t = TorchIndex.build(data, metric=metric, params=_tparams(params),
+                         method="device", seed=seed, host_graph=False, device="cpu")
     return _carry(j), t
 
 
@@ -124,7 +131,7 @@ def _case(name):
     rows)."""
     params = IndexParams(m=8, ef_construction=32)
     if name in ("cosine", "ip"):
-        data, _ = bench.make_dataset(1200, 16, 1, seed=25, n_clusters=30)
+        data, _ = make_dataset(1200, 16, 1, seed=25, n_clusters=30)
         return (*_both(data, name, params), _queries(name, 16, 26), 1200)
     n = 3000 if name == "ramp" else 6000
     data = np.random.default_rng(21).standard_normal((n, 16))
@@ -183,7 +190,7 @@ def test_ivf_regime_matches_jax_entry_and_levels(ivf):
 def test_duplicate_folding_caps_at_10(host_graph):
     data = np.tile(np.array([[1.0, 2.0, 3.0]], dtype=np.float32), (20, 1))
     idx = TorchIndex.build(data, metric="l2", method="device",
-                           host_graph=host_graph)
+                           host_graph=host_graph, device="cpu")
     counts = sorted((len(t) for t in idx.heap_tids if t), reverse=True)
     assert counts[0] == 10 and idx.num_tuples == 20
     if not host_graph:
@@ -194,7 +201,7 @@ def test_duplicate_folding_caps_at_10(host_graph):
 
 def test_cosine_zero_norm_row_skipped():
     data = np.array([[1, 0], [0, 0], [0, 1], [1, 1]], dtype=np.float32)
-    idx = TorchIndex.build(data, metric="cosine", method="device")
+    idx = TorchIndex.build(data, metric="cosine", method="device", device="cpu")
     assert idx.num_tuples == 3
     assert 1 not in {t for tl in idx.heap_tids for t in tl}
 
@@ -202,7 +209,7 @@ def test_cosine_zero_norm_row_skipped():
 def test_host_graph_supports_search_insert_delete():
     rng = np.random.default_rng(54)
     data = rng.random((300, 8)).astype(np.float32)
-    idx = TorchIndex.build(data, metric="l2", method="device", seed=55)
+    idx = TorchIndex.build(data, metric="l2", method="device", seed=55, device="cpu")
     assert not idx.serving_only and len(idx.elements) == 300
     for e in idx.elements:
         assert len(e.neighbors[0]) <= 2 * idx.params.m
@@ -210,7 +217,7 @@ def test_host_graph_supports_search_insert_delete():
     idx.delete([0, 1, 2])
     _, ids = idx.search(data[5], 5, method="host")
     assert 5 in set(ids) and not ({0, 1, 2} & set(ids))
-    _, ids = idx.search(data[10:50], 1, SearchParams(ef_search=40),
+    _, ids = idx.search(data[10:50], 1, TSearchParams(ef_search=40),
                         method="device")
     assert (ids[:, 0] == np.arange(10, 50)).mean() >= 0.95
 
@@ -221,11 +228,11 @@ def _graph_tensors(idx):
 
 
 def test_tensor_input_gives_the_numpy_graph():
-    data, _ = bench.make_dataset(600, 16, 1, seed=27, n_clusters=30)
+    data, _ = make_dataset(600, 16, 1, seed=27, n_clusters=30)
     a = TorchIndex.build(data, metric="l2", method="device", seed=4,
-                         host_graph=False)
+                         host_graph=False, device="cpu")
     b = TorchIndex.build(torch.from_numpy(data), metric="l2", seed=4,
-                         host_graph=False)
+                         host_graph=False, device="cpu")
     ta, tb = _graph_tensors(a), _graph_tensors(b)
     for f in ta:
         assert torch.equal(ta[f], tb[f]), f
@@ -238,8 +245,8 @@ def test_two_builds_one_seed_are_identical(ivf):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tdb, "_DESCENT_MIN_WIDTH", 2048)
         again = TorchIndex.build(data.astype(np.float32), metric="l2",
-                                 params=IndexParams(m=8, ef_construction=32),
-                                 method="device", seed=3, host_graph=False)
+                                 params=TIndexParams(m=8, ef_construction=32),
+                                 method="device", seed=3, host_graph=False, device="cpu")
     ta, tb = _graph_tensors(ivf[1]), _graph_tensors(again)
     for f in ta:
         assert torch.equal(ta[f], tb[f]), f
@@ -251,10 +258,10 @@ def test_auto_picks_the_device_build_at_20000_rows(monkeypatch):
     monkeypatch.setattr(tdb, "bulk_build",
                         lambda idx, data, ids, host_graph: calls.append(
                             (len(data), host_graph)))
-    TorchIndex.build(np.zeros((20000, 4), np.float32), metric="l2")
+    TorchIndex.build(np.zeros((20000, 4), np.float32), metric="l2", device="cpu")
     assert calls == [(20000, True)]
     small = TorchIndex.build(np.random.default_rng(1).random((50, 4)),
-                             metric="l2")
+                             metric="l2", device="cpu")
     assert len(calls) == 1 and len(small.elements) == 50
 
 
@@ -274,13 +281,13 @@ def _data(n=100, d=8):
 def test_build_env_settings_raise(monkeypatch, var, val):
     monkeypatch.setenv(var, val)
     with pytest.raises(NotImplementedError, match=var):
-        TorchIndex.build(_data(), metric="l2", method="device")
+        TorchIndex.build(_data(), metric="l2", method="device", device="cpu")
 
 
 def test_default_env_settings_are_accepted(monkeypatch):
     monkeypatch.setenv("PGV_BUILD_GROUND", "auto")
     monkeypatch.setenv("PGV_BUILD_ALPHA", "1.0")
-    idx = TorchIndex.build(_data(), metric="l2", method="device")
+    idx = TorchIndex.build(_data(), metric="l2", method="device", device="cpu")
     assert idx.num_tuples == 100
 
 
@@ -288,7 +295,7 @@ def test_default_env_settings_are_accepted(monkeypatch):
                                              ("cosine", 512, "item 13")])
 def test_beam_descent_ground_raises(metric, dim, item):
     with pytest.raises(NotImplementedError, match=item):
-        TorchIndex.build(_data(40, dim), metric=metric, method="device")
+        TorchIndex.build(_data(40, dim), metric=metric, method="device", device="cpu")
 
 
 def test_tensor_on_another_device_raises():
@@ -306,15 +313,15 @@ def test_tensor_on_another_device_raises():
 
 @pytest.mark.cuda
 def test_card_build_invariants_and_recall(cuda):
-    data, queries = bench.make_dataset(20000, 32, NQ, seed=28)
+    data, queries = make_dataset(20000, 32, NQ, seed=28)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tdb, "_DESCENT_MIN_WIDTH", 4096)
         t = TorchIndex.build(torch.from_numpy(data).to(cuda), metric="l2",
-                             params=IndexParams(m=8, ef_construction=32),
+                             params=TIndexParams(m=8, ef_construction=32),
                              seed=3, host_graph=False, device=cuda)
         c = TorchIndex.build(data, metric="l2",
-                             params=IndexParams(m=8, ef_construction=32),
-                             method="device", seed=3, host_graph=False)
+                             params=TIndexParams(m=8, ef_construction=32),
+                             method="device", seed=3, host_graph=False, device="cpu")
     g = t.device_graph()
     assert g.device.type == "cuda"
     _check_invariants(g, 8, 20000)

@@ -109,17 +109,17 @@ def test_device_build_not_ported_yet():
     what of it is not raises, naming its ROADMAP item."""
     data = _data(n=100)
     with pytest.raises(NotImplementedError, match="item 13"):
-        TorchIndex.build(data, method="device", consume_input=True)
+        TorchIndex.build(data, method="device", consume_input=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         TorchIndex.build((data > 0).astype(np.uint8), metric="hamming",
-                         method="device")
+                         method="device", device="cpu")
     with pytest.raises(ValueError, match="method='device'"):
-        TorchIndex.build(torch.from_numpy(data), method="native")
+        TorchIndex.build(torch.from_numpy(data), method="native", device="cpu")
 
 
 def test_unported_seams_raise_instead_of_reaching_jax():
     t = TorchIndex.build(_data(n=200), method="native", host_graph=False,
-                         seed=1)
+                         seed=1, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         t.insert_bulk(_data(n=4))
     with pytest.raises(NotImplementedError, match="item 10"):

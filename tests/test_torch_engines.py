@@ -7,11 +7,13 @@ import numpy as np
 import pytest
 import torch
 
-import bench
 from pgvector_rx_tpu.config import SearchParams
 from pgvector_rx_tpu.graph import device as jdev
 from pgvector_rx_tpu.index.hnsw import HnswIndex as JaxIndex
 from pgvector_rx_tpu_torch import HnswIndex as TorchIndex
+from pgvector_rx_tpu_torch.config import IndexParams as TIndexParams
+from pgvector_rx_tpu_torch.config import SearchParams as TSearchParams
+from pgvector_rx_tpu_torch.data import make_dataset
 from pgvector_rx_tpu_torch.graph import device as tdev
 
 torch.set_num_threads(1)
@@ -32,7 +34,9 @@ def cuda():
 def _carry(j, device="cpu"):
     """A port index serving the JAX index's graph (same arrays)."""
     jg = j.device_graph()
-    t = TorchIndex(j.dim, metric=j.metric, params=j.params, device=device)
+    t = TorchIndex(j.dim, metric=j.metric, device=device,
+                   params=TIndexParams(m=j.params.m,
+                                       ef_construction=j.params.ef_construction))
     t.serving_only = True
     t.entry = j.entry
     t.heap_tids = list(j.heap_tids)
@@ -46,7 +50,7 @@ def _carry(j, device="cpu"):
 
 @pytest.fixture(scope="module", params=["l2", "cosine"])
 def pair(request):
-    data, queries = bench.make_dataset(N, DIM, NQ, seed=5, n_clusters=50)
+    data, queries = make_dataset(N, DIM, NQ, seed=5, n_clusters=50)
     if request.param == "cosine":
         queries /= np.linalg.norm(queries, axis=1, keepdims=True)
     j = JaxIndex.build(data, metric=request.param, method="native",
@@ -124,14 +128,14 @@ def test_beam_refuses_unported_variants(pair, monkeypatch):
 @pytest.mark.parametrize("method", ["exact", "approx", "device"])
 def test_index_search_matches_jax(pair, method):
     j, t, q = pair
-    params = SearchParams(ef_search=40)
+    params, tparams = SearchParams(ef_search=40), TSearchParams(ef_search=40)
     jd, ji = j.search(q[:16], K, params, method=method)
-    td, ti = t.search(q[:16], K, params, method=method)
+    td, ti = t.search(q[:16], K, tparams, method=method)
     assert ti.dtype == np.int64 and td.dtype == np.float64
     _assert_same_except_ties(ti, td, ji, jd, rtol=1e-5)
     np.testing.assert_allclose(td, jd, rtol=1e-4, atol=1e-5)
     # single query in, single row out
-    d1, i1 = t.search(q[0], K, params, method=method)
+    d1, i1 = t.search(q[0], K, tparams, method=method)
     assert i1.shape == (K,) and set(i1.tolist()) == set(ti[0].tolist())
 
 
@@ -139,9 +143,9 @@ def test_index_search_matches_jax(pair, method):
 def test_index_search_filter_mask_matches_jax(pair, method):
     j, t, q = pair
     mask = np.random.default_rng(7).random(N) < 0.3
-    params = SearchParams(ef_search=40)
+    params, tparams = SearchParams(ef_search=40), TSearchParams(ef_search=40)
     jd, ji = j.search(q[:16], K, params, method=method, filter_mask=mask)
-    td, ti = t.search(q[:16], K, params, method=method, filter_mask=mask)
+    td, ti = t.search(q[:16], K, tparams, method=method, filter_mask=mask)
     emit = t.device_graph().emit_tid.numpy()
     allowed = set(emit[:N][mask].tolist())
     assert all(i in allowed for i in ti[ti >= 0].tolist())
@@ -162,14 +166,15 @@ def test_serve_topk_filter_mask_prefilters(pair):
 
 
 def test_host_method_uses_shared_scan(pair):
-    """method="host" walks the shared reference scan on a host graph."""
+    """method="host" walks the port's copy of the reference scan on a host
+    graph and agrees with the JAX package's."""
     j, t, q = pair
-    data, _ = bench.make_dataset(400, DIM, 1, seed=6)
+    data, _ = make_dataset(400, DIM, 1, seed=6)
     jh = JaxIndex.build(data, metric="l2", method="native", seed=2)
-    th = TorchIndex.build(data, metric="l2", method="native", seed=2)
-    params = SearchParams(ef_search=40)
-    jd, ji = jh.search(q[:4], K, params, method="host")
-    td, ti = th.search(torch.from_numpy(q[:4]), K, params, method="host")
+    th = TorchIndex.build(data, metric="l2", method="native", seed=2, device="cpu")
+    jd, ji = jh.search(q[:4], K, SearchParams(ef_search=40), method="host")
+    td, ti = th.search(torch.from_numpy(q[:4]), K, TSearchParams(ef_search=40),
+                       method="host")
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_allclose(td, jd)
 
@@ -200,15 +205,15 @@ def test_engines_on_the_card_match_the_cpu(pair, cuda):
             same = np.mean([set(ci[r].tolist()) == set(pi[r].tolist())
                             for r in range(NQ)])
             assert same >= 0.99, same
-    td, ti = tc.search(q[:16], K, SearchParams(ef_search=40), method="exact")
-    cd, ci = t.search(q[:16], K, SearchParams(ef_search=40), method="exact")
+    td, ti = tc.search(q[:16], K, TSearchParams(ef_search=40), method="exact")
+    cd, ci = t.search(q[:16], K, TSearchParams(ef_search=40), method="exact")
     _assert_same_except_ties(ti, td, ci, cd, rtol=1e-5)
 
 
 def test_beam_l1_matches_jax_and_sweeps_refuse_l1():
     """l1 has no matmul identity: the beam serves it (gathered
     differences), the exact/approx sweeps are not ported for it."""
-    data, queries = bench.make_dataset(1500, 16, 32, seed=8, n_clusters=20)
+    data, queries = make_dataset(1500, 16, 32, seed=8, n_clusters=20)
     j = JaxIndex.build(data, metric="l1", method="native", host_graph=False,
                        seed=1)
     t = _carry(j)

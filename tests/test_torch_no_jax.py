@@ -1,7 +1,8 @@
 """The port runs without JAX: a fresh interpreter imports it, builds a
 native index and a device-built index on the CPU, serves all three
-engines, searches and runs the tile-min sweep, and JAX never enters
-``sys.modules``. A subprocess, because the test harness
+engines, searches and runs the tile-min sweep, and neither JAX nor the
+JAX package (``pgvector_rx_tpu``) nor its benchmark (``bench``) ever
+enters ``sys.modules``. A subprocess, because the test harness
 (tests/conftest.py) imports JAX into this one."""
 
 import os
@@ -15,11 +16,11 @@ import numpy as np
 import torch
 
 torch.set_num_threads(1)
-import bench
 from pgvector_rx_tpu_torch import HnswIndex, SearchParams
+from pgvector_rx_tpu_torch.data import make_dataset
 from pgvector_rx_tpu_torch.graph import device as device_mod
 
-data, queries = bench.make_dataset(2000, 16, 32, seed=0, n_clusters=20)
+data, queries = make_dataset(2000, 16, 32, seed=0, n_clusters=20)
 idx = HnswIndex.build(data, metric="l2", method="native", host_graph=False,
                       seed=1, device="cpu")
 _, gt = device_mod.serve_topk(idx, queries, 10, engine="exact")
@@ -32,7 +33,7 @@ for method in ("exact", "approx", "device"):
                          method=method)
     assert tids.shape == (32, 10) and np.isfinite(d).all()
 dev = HnswIndex.build(torch.from_numpy(data), metric="l2", seed=1,
-                      host_graph=False)
+                      host_graph=False, device="cpu")
 _, ids = device_mod.serve_topk(dev, queries, 10, engine="beam")
 rec = np.mean([len(set(ids[b]) & set(gt[b])) / 10 for b in range(32)])
 assert rec >= 0.9, ("device build", rec)
@@ -42,6 +43,9 @@ _, k3 = bf.tilemin_sweep_topk(g.values_bf16, g.x2, torch.from_numpy(queries),
                               10, "l2", tn=128)
 assert k3.shape == (32, 10) and (k3 >= 0).all()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+foreign = sorted(m for m in sys.modules if m == "bench"
+                 or m == "pgvector_rx_tpu" or m.startswith("pgvector_rx_tpu."))
+assert not foreign, foreign
 print("NO_JAX_OK")
 """
 

@@ -1,0 +1,133 @@
+"""The port stands alone: no module of ``pgvector_rx_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX, the JAX package or its benchmark, and its
+copies of the framework-free modules hold the JAX package's values and
+give its results. Its entry points default to the card."""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import bench
+from pgvector_rx_tpu import config as jconfig
+from pgvector_rx_tpu import constants as jconstants
+from pgvector_rx_tpu.index.hnsw import HnswIndex as JaxIndex
+from pgvector_rx_tpu_torch import HnswIndex as TorchIndex
+from pgvector_rx_tpu_torch import config as tconfig
+from pgvector_rx_tpu_torch import constants as tconstants
+from pgvector_rx_tpu_torch import data as tdata
+
+_ROOT = Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "bench", "pgvector_rx_tpu")
+
+
+def _port_sources():
+    files = sorted((_ROOT / "pgvector_rx_tpu_torch").rglob("*.py"))
+    return [*files, _ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    """Every module an ``import`` / ``from ... import`` names, at any
+    depth of the file (relative imports are the package's own)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(_ROOT)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in _FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_make_dataset_is_bench_make_dataset(seed):
+    a = tdata.make_dataset(3000, 24, 50, seed=seed, n_clusters=40)
+    b = bench.make_dataset(3000, 24, 50, seed=seed, n_clusters=40)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
+def test_native_build_gives_the_jax_package_layer0():
+    data, _ = tdata.make_dataset(1500, 16, 1, seed=3, n_clusters=20)
+    j = JaxIndex.build(data, metric="l2", method="native", seed=2)
+    t = TorchIndex.build(data, metric="l2", method="native", seed=2,
+                         device="cpu")
+    assert len(t.elements) == len(j.elements) and t.entry == j.entry
+    assert t.heap_tids == j.heap_tids
+    for te, je in zip(t.elements, j.elements):
+        assert te.level == je.level
+        assert [i for _, i in te.neighbors[0]] == \
+            [i for _, i in je.neighbors[0]]
+
+
+def test_native_library_builds_inside_the_port():
+    from pgvector_rx_tpu_torch import native
+
+    assert native.available(), native._error
+    assert native._lib_path().parent == _ROOT / "pgvector_rx_tpu_torch" / \
+        "_build"
+
+
+def _public(mod):
+    return {k: v for k, v in vars(mod).items()
+            if not k.startswith("_") and isinstance(v, (int, float, str))}
+
+
+def test_constants_and_config_hold_the_jax_values():
+    assert _public(tconstants) == _public(jconstants)
+    for m in (2, 16, 48, 100):
+        assert tconstants.hnsw_get_max_level(m) == \
+            jconstants.hnsw_get_max_level(m)
+        assert tconstants.hnsw_get_ml(m) == jconstants.hnsw_get_ml(m)
+        for lc in range(3):
+            assert tconstants.hnsw_get_layer_m(m, lc) == \
+                jconstants.hnsw_get_layer_m(m, lc)
+    for name in ("IndexParams", "SearchParams"):
+        tf = dataclasses.fields(getattr(tconfig, name))
+        jf = dataclasses.fields(getattr(jconfig, name))
+        assert [(f.name, f.default) for f in tf] == \
+            [(f.name, f.default) for f in jf]
+    with pytest.raises(ValueError):
+        tconfig.IndexParams(m=1).validate_for_build()
+    with pytest.raises(ValueError):
+        jconfig.IndexParams(m=1).validate_for_build()
+
+
+# ---------------------------------------------------------------------------
+# the entry points default to the card
+# ---------------------------------------------------------------------------
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_constructor_without_a_device_raises_without_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TorchIndex(8)
+    assert TorchIndex(8, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("method", ["device", "native", "host"])
+def test_build_without_a_device_raises_without_cuda(monkeypatch, method):
+    _no_cuda(monkeypatch)
+    data = np.random.default_rng(9).random((60, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TorchIndex.build(data, method=method)
+    idx = TorchIndex.build(data, method=method, device="cpu")
+    assert idx.device == torch.device("cpu") and idx.num_tuples == 60
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert TorchIndex(8).device == torch.device("cuda")
