@@ -27,14 +27,16 @@ counts set to 0 just before it and read just after:
 
 Then, outside the counted paths:
 
-8. hold each kernel (K1, K2, K3) against its plain-torch version at the
-   main path's shapes (1,024 queries x every row, k=10) and time both,
-   beside the plain ``torch.matmul`` that makes the same [1,024, N] scores
-   (the product alone, not the same function); the K1 check must reject a
-   control whose operands are truncated to TF32, the K2 check a control
-   whose sums are rounded to bf16, the K3 check a control that ORs the
-   column into uncleared score bits. Each kernel's bound is computed from
-   the shapes and the card's published peaks (``PEAKS``).
+8. hold each kernel (K1, K2, K3 and K3's shift reduction) against its
+   plain-torch version at the main path's shapes (1,024 queries x every
+   row, k=10) and time both, beside the plain ``torch.matmul`` that makes
+   the same [1,024, N] scores (the product alone, not the same function);
+   the K1 check must reject a control whose operands are truncated to
+   TF32, the K2 check a control whose sums are rounded to bf16, the K3
+   check a control that ORs the column into uncleared score bits. K3 is
+   timed end to end (``ms``) and its sweep kernel alone (``kernel_ms``).
+   Each kernel's bound is computed from the shapes and the card's
+   published peaks (``PEAKS``).
 
 **Native path** (9-12, the first 100,000 rows): the native C++ host build
 into a serving-only torch index, its own K1 ground truth, and phases 5 and
@@ -65,7 +67,7 @@ K3_FLOOR = 0.90
 CSRC = "pgvector_rx_tpu_torch/csrc/"
 PALLAS = "pgvector_rx_tpu/ops/pallas_bruteforce.py"
 #: published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
-PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12}
+PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def bound(ops: float, peak: str, nbytes: float) -> dict:
@@ -517,10 +519,13 @@ def main() -> int:
         if ctl3_ok:
             raise RuntimeError("the K3 check passes uncleared packing: too "
                                "loose to catch a wrong kernel")
+        q2x, av3, _ = bf._tilemin_prepare(vb, a, q1)
         kernels["k3_tilemin"] = dict(
-            name="k3_tilemin", route="cuda", source=CSRC + "bruteforce.cu",
+            name="k3_tilemin", route="cuda", source=CSRC + "k3_tilemin.cu",
             replaces=f"{PALLAS}:302", max_abs_err=err3,
             ms=cuda_ms(lambda: bf._tilemin_cuda(vb, a, q1, K, 1024)),
+            kernel_ms=cuda_ms(
+                lambda: bf._tilemin_packed_cuda(vb, av3, q2x, 1024)),
             plain_ms=cuda_ms(lambda: bf._tilemin_plain(vb, a, q1, K, 1024)),
             **bound(2.0 * b1 * n_rows * DIM, "bf16",
                     bf16_bytes + b1 * -(-n_rows // 1024) * 4),
@@ -528,13 +533,38 @@ def main() -> int:
             matmul_ms=kernels["k2_binned"]["matmul_ms"],
             matmul_of="q @ x.T alone in bf16 (the product, not the function)",
         )
+
+        # K3's shift: the largest f32 sum of squares of the bf16 rows. Two
+        # sums of DIM positive terms in any orders differ by at most
+        # 2 DIM 2^-24 of the sum.
+        x2k = float(bf._row_sq_max_cuda(vb))
+        x2p = float(bf._row_sq_max_plain(vb))
+        err4 = abs(x2k - x2p)
+        log(f"K3 shift reduction: {x2k} vs plain {x2p}, abs err {err4} "
+            f"(tolerance {2 * DIM * 2.0 ** -24 * x2p})")
+        if err4 > 2 * DIM * 2.0 ** -24 * x2p:
+            raise RuntimeError("the shift reduction disagrees with its plain "
+                               f"version (abs err {err4})")
+        kernels["k3_x2max"] = dict(
+            name="k3_x2max", route="cuda", source=CSRC + "k3_tilemin.cu",
+            replaces=f"{PALLAS}:372 (the XLA reduction beside the kernel)",
+            max_abs_err=err4,
+            ms=cuda_ms(lambda: bf._row_sq_max_cuda(vb)),
+            plain_ms=cuda_ms(lambda: bf._row_sq_max_plain(vb)),
+            **bound(2.0 * n_rows * DIM, "f32", n_rows * DIM * 2 + 4),
+            library_ms=None,
+            matmul_ms=None, matmul_of=None,
+        )
         for kr in kernels.values():
             kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
             log(f"{kr['name']}: kernel {kr['ms']:.4f} ms, plain "
-                f"{kr['plain_ms']:.4f} ms, product alone {kr['matmul_ms']:.4f}"
-                f" ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
+                f"{kr['plain_ms']:.4f} ms, product alone {kr['matmul_ms']} "
+                f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
                 f"{kr['bound_peak']}), share {kr['share_of_bound']:.4f}, "
                 f"max abs err {kr['max_abs_err']}")
+        k3 = kernels["k3_tilemin"]
+        log(f"k3_tilemin sweep kernel alone: {k3['kernel_ms']:.4f} ms, share "
+            f"of bound {k3['bound_ms'] / k3['kernel_ms']:.4f}")
 
     for name in kernels:
         kernels[name]["launches"] = main_launches[name]
@@ -569,7 +599,8 @@ def main() -> int:
     if foreign:
         raise RuntimeError(f"the port's path imported {sorted(foreign)[:5]}")
     log(json.dumps({"kernels": [kernels[k] for k in
-                                ("k1_topk", "k2_binned", "k3_tilemin")]}))
+                                ("k1_topk", "k2_binned", "k3_tilemin",
+                                 "k3_x2max")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 // Device helpers shared by the brute-force sweep kernels (k1_topk.cu,
-// k2_binned.cu, bruteforce.cu): the warp-cooperative sorted top-k list,
+// k2_binned.cu, k3_tilemin.cu): the warp-cooperative sorted top-k list,
 // the final top-k selection kernel, asynchronous copies (cp.async) into
 // the swizzled shared-memory layout that Hopper's wgmma reads, and the
 // wgmma instructions the sweeps issue. Everything is in an anonymous
@@ -332,6 +332,36 @@ __device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&d)[32],
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+#define PGV_ACC64(d)                                                        \
+  PGV_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define PGV_REGS64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, bf16 operands, f32 sums;
+// the accumulator layout extends acc_row / acc_col to i < 64.
+__device__ __forceinline__ void wgmma_bf16_m64n128k16(float (&d)[64],
+                                                      uint64_t da,
+                                                      uint64_t db,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PGV_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PGV_ACC64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T, tf32 operands (the low 13
 // mantissa bits of each f32 are ignored), f32 sums.
 __device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32],
@@ -345,7 +375,7 @@ __device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32],
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Accumulator cell i (0 <= i < 32) of an m64n64 wgmma lies at row
+// Accumulator cell i (0 <= i < N / 2) of an m64nN wgmma lies at row
 // acc_row(i) of the warp's 16 rows (warp w of the warpgroup owns rows
 // 16w .. 16w + 15) and column acc_col(i).
 __device__ __forceinline__ int acc_row(int i, int lane) {

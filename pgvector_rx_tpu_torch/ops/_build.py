@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k2_binned.cu",
-                                     "bruteforce.cu"))
+                                     "k3_tilemin.cu"))
 _HEADERS = (_CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -45,8 +45,10 @@ _SIGNATURES = {
     # out_d, out_i, stream
     "pgv_k2_binned_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P],
-    # base, a, q, n, d, b, tn, nc, out, stream
-    "pgv_k3_tilemin": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # base, a, q, n, d, b, tn, nc, splits, tiles_per_split, out, stream
+    "pgv_k3_tilemin": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # base, n, d, out, stream
+    "pgv_k3_x2max": [_P, _I, _I, _P, _P],
 }
 
 

@@ -2,7 +2,7 @@
 ``pgvector_rx_tpu/ops/pallas_bruteforce.py``.
 
 Three kernels, hand-written in CUDA for Hopper (``csrc/k1_topk.cu``,
-``csrc/k2_binned.cu``, ``csrc/bruteforce.cu``):
+``csrc/k2_binned.cu``, ``csrc/k3_tilemin.cu``):
 
 - **K1** (``_surrogate_topk``; ``l2_topk`` / ``ip_topk`` /
   ``cosine_topk``): exact FP32 top-k of the surrogate score
@@ -16,7 +16,9 @@ Three kernels, hand-written in CUDA for Hopper (``csrc/k1_topk.cu``,
 - **K3** (``tilemin_sweep_topk``): bf16 sweep emitting one packed int32
   per (query, ``tn``-row tile) -- the tile's min score bits with the low
   10 bits replaced by the winning column -- then a top-k over the tiles.
-  Replaces the Pallas ``_tilemin_kernel``.
+  Replaces the Pallas ``_tilemin_kernel``. Its shift's corpus term, the
+  largest squared row norm, comes from a one-pass reduction kernel over
+  the bf16 rows (``_row_sq_max``, launch count ``k3_x2max``).
 
 Every wrapper has its plain-torch version beside it (``*_plain``). A
 wrapper takes the plain version only for tensors on the CPU; for a CUDA
@@ -37,21 +39,22 @@ import torch
 _NEG_BIG = float(3.0e38)
 
 #: kernel name -> launches of that kernel by its wrapper in this process
-LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0}
+LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0, "k3_x2max": 0}
 
 _MAX_K = 64
 
 
 @functools.lru_cache(maxsize=None)
 def _block_target(dev: torch.device) -> int:
-    """Blocks a K1 / K2 grid aims for: one wave, two resident blocks per
-    SM of the card it runs on. More splits would only cost: each split's
-    blocks refill their top-k lists (K1) or write their bins (K2) again."""
+    """Blocks a K1 / K2 / K3 grid aims for: one wave, two resident blocks
+    per SM of the card it runs on. More splits would only cost: each
+    split's blocks refill their top-k lists (K1), write their bins (K2) or
+    reload their query tile (K3) again."""
     return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-#: queries per block of K1 / K2, and K2's bins (corpus rows) per block
-_K1_QTILE, _K2_QTILE, _K2_BINS = 64, 128, 64
+#: queries per block of K1 / K2 / K3, and K2's bins (corpus rows) per block
+_K1_QTILE, _K2_QTILE, _K2_BINS, _K3_QTILE = 64, 128, 64, 128
 #: list places K1 keeps beyond k for its exact rescoring
 _K1_SPARE = 4
 
@@ -79,6 +82,18 @@ def _k2_plan(n: int, b: int, tn: int, target: int):
     splits = max(1, min(ntiles, 65535, target // (qtiles * groups)))
     tps = -(-ntiles // splits)
     return qtiles, groups, -(-ntiles // tps), tps
+
+
+def _k3_plan(n: int, b: int, tn: int, target: int):
+    """K3's grid: (query tiles, splits, tiles per split), at most ``target``
+    blocks where the query tiles allow. Split s covers the whole tiles
+    [s * tps, min(ntiles, (s + 1) * tps)) of tn rows, all non-empty, so no
+    tile spans two blocks."""
+    qtiles = -(-b // _K3_QTILE)
+    ntiles = -(-n // tn)
+    splits = max(1, min(ntiles, 65535, target // qtiles))
+    tps = -(-ntiles // splits)
+    return qtiles, -(-ntiles // tps), tps
 
 
 def _tf32_round(x):
@@ -359,14 +374,52 @@ def _check_tn(tn: int) -> None:
         )
 
 
-def _tilemin_prepare(base_bf16, a, queries):
+def _row_sq_max_plain(base_bf16):
+    """Plain version of ``k3_x2max_kernel``: max over rows of the f32 sum
+    of squares -> 0-d f32 tensor."""
+    xf = base_bf16.float()
+    return (xf * xf).sum(dim=1).max()
+
+
+def _row_sq_max_cuda(base_bf16):
+    from . import _build
+
+    _check_cuda("base", base_bf16, torch.bfloat16, 2)
+    n, d = base_bf16.shape
+    if n == 0 or d == 0:
+        raise ValueError("empty base or feature dimension")
+    dev = base_bf16.device
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().pgv_k3_x2max(
+            base_bf16.data_ptr(), n, d, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "pgv_k3_x2max")
+    LAUNCHES["k3_x2max"] += 1
+    return out
+
+
+def _row_sq_max(base_bf16):
+    """max_r ||x_r||^2 (f32 sums) -> 0-d f32 tensor, in one pass over the
+    bf16 rows with no f32 copy of them on the card. CPU tensors take the
+    plain version, CUDA tensors the kernel."""
+    if base_bf16.is_cuda:
+        return _row_sq_max_cuda(base_bf16)
+    return _row_sq_max_plain(base_bf16)
+
+
+def _tilemin_prepare(base_bf16, a, queries, x2max=None):
     """Operands of the tile-min sweep, as the TPU wrapper forms them:
     bf16 queries pre-scaled by 2, the row term shifted so every live
     score is positive (|2 q.x| <= q2 + x2), excluded rows (a >= 1.5e38)
-    kept unshifted. Returns (q2x bf16 [B, D], av f32 [N], shift f32 [])."""
+    kept unshifted. ``x2max`` is the corpus's largest squared row norm
+    (``_row_sq_max`` when None). Returns (q2x bf16 [B, D], av f32 [N],
+    shift f32 [])."""
     qf = queries.float()
-    xf = base_bf16.float()
-    shift = (xf * xf).sum(dim=1).max() + (qf * qf).sum(dim=1).max() + 1.0
+    if x2max is None:
+        x2max = _row_sq_max(base_bf16)
+    shift = x2max + (qf * qf).sum(dim=1).max() + 1.0
     af = a.float()
     av = torch.where(af >= _NEG_BIG * 0.5, af, af + shift)
     return (2.0 * qf).to(torch.bfloat16).contiguous(), av.contiguous(), shift
@@ -400,15 +453,22 @@ def _tilemin_packed_cuda(base_bf16, av, q2x, tn: int):
                          f"a {tuple(av.shape)}, queries {tuple(q2x.shape)}")
     if n == 0 or b == 0 or d == 0:
         raise ValueError("empty base, queries or feature dimension")
-    if b > 64 * 65535:
-        raise ValueError(f"at most {64 * 65535} queries per call (got {b})")
+    _check_tn(tn)
+    # the grid's x dimension counts query tiles (at most 2^31 - 1 blocks),
+    # so the int query count bounds it; rows are int too
+    if b > 2**31 - _K3_QTILE or n + tn > 2**31:
+        raise ValueError(f"at most 2^31 - {_K3_QTILE} queries and 2^31 - "
+                         f"tn rows per call (got {b}, {n})")
+    _, splits, tiles_per_split = _k3_plan(n, b, tn,
+                                          _block_target(base_bf16.device))
     nc = -(-n // tn)
     dev = base_bf16.device
     out = torch.empty((b, nc), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.lib().pgv_k3_tilemin(
             base_bf16.data_ptr(), av.data_ptr(), q2x.data_ptr(), n, d, b, tn,
-            nc, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            nc, splits, tiles_per_split, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "pgv_k3_tilemin")
     LAUNCHES["k3_tilemin"] += 1
@@ -434,7 +494,8 @@ def _tilemin_unpack(packed, shift, n: int, k: int, tn: int):
 def _tilemin_plain(base_bf16, a, queries, k: int, tn: int):
     """Plain version of K3 end to end -> (scores [B,k], ids [B,k])."""
     _check_tn(tn)
-    q2x, av, shift = _tilemin_prepare(base_bf16, a, queries)
+    q2x, av, shift = _tilemin_prepare(base_bf16, a, queries,
+                                      _row_sq_max_plain(base_bf16))
     packed = _tilemin_packed_plain(base_bf16, av, q2x, tn)
     return _tilemin_unpack(packed, shift, base_bf16.shape[0], k, tn)
 
