@@ -10,16 +10,18 @@ counts set to 0 just before it and read just after:
 
 1. print the card and its power limit, build the CUDA kernels from
    ``pgvector_rx_tpu_torch/csrc``;
-2. make a 1,000,000 x 128-d SIFT-like corpus and 16,384 queries
+2. make a 1,065,536 x 128-d SIFT-like corpus and 16,384 queries
    (``pgvector_rx_tpu_torch.data.make_dataset``, seed 0) and put the
    corpus on the card;
-3. build an l2 HNSW index (m=16, ef_construction=64) from the CUDA tensor
-   with the port's batched device build, serving-only; print build
-   seconds and rows/s; check the graph's invariants on the card;
+3. build an l2 HNSW index (m=16, ef_construction=64) from the first
+   1,000,000 rows as a CUDA tensor with the port's batched device build,
+   serving-only; print build seconds and rows/s; check the graph's
+   invariants on the card;
 4. ground truth: K1 ``l2_topk`` over all queries in chunks of 1,024,
    checked against float64 numpy on 64 queries;
-5. ``serve_topk`` with the exact, approx and beam (ef=40) engines: one
-   warm call and one timed call each, recall@10 and qps against floors;
+5. ``serve_topk`` with the exact, approx and beam (ef=40, the walk kernel
+   K4) engines: one warm call and one timed call each, recall@10 and qps
+   against floors;
 6. the tile-min probe's A/B over all queries in 1,024-query chunks: K3 at
    tn=1024 then the f32 rescore, K2 at tn=1024, the approx engine;
 7. ``HnswIndex.search`` with exact / approx / device, held against
@@ -27,24 +29,59 @@ counts set to 0 just before it and read just after:
 
 Then, outside the counted paths:
 
-8. hold each kernel (K1, K2, K3 and K3's shift reduction) against its
-   plain-torch version at the main path's shapes (1,024 queries x every
-   row, k=10) and time both, beside the plain ``torch.matmul`` that makes
-   the same [1,024, N] scores (the product alone, not the same function);
-   the K1 check must reject a control whose operands are truncated to
-   TF32, the K2 check a control whose sums are rounded to bf16, the K3
-   check a control that ORs the column into uncleared score bits. K3 is
-   timed end to end (``ms``) and its sweep kernel alone (``kernel_ms``).
-   Each kernel's bound is computed from the shapes and the card's
-   published peaks (``PEAKS``).
+8. hold each sweep kernel (K1, K2, K3 and K3's shift reduction) against
+   its plain-torch version at the main path's shapes (1,024 queries x
+   every row, k=10) and time both, beside the plain ``torch.matmul`` that
+   makes the same [1,024, N] scores (the product alone, not the same
+   function); the K1 check must reject a control whose operands are
+   truncated to TF32, the K2 check a control whose sums are rounded to
+   bf16, the K3 check a control that ORs the column into uncleared score
+   bits. K3 is timed end to end (``ms``) and its sweep kernel alone
+   (``kernel_ms``). Each kernel's bound is computed from the shapes and
+   the card's published peaks (``PEAKS``).
 
-**Native path** (9-12, the first 100,000 rows): the native C++ host build
-into a serving-only torch index, its own K1 ground truth, and phases 5 and
-7 on it.
+**Insert-and-scan path** (9-12, on the index of phase 3):
 
-Every kernel must have run on the device-build path, and K1 and K2 on the
-native path. The last two lines of output are one JSON object per kernel
-list and the device line.
+9. ``insert_bulk`` the last 65,536 rows from a CUDA tensor; seconds,
+   rows/s, peak memory; the grown graph's invariants (cap 1,065,536);
+10. K1 ground truth over the grown corpus, the three engines against the
+    same floors, and each of 1,024 inserted rows among its own beam
+    top-10 (>= 0.99);
+11. scans: ``scan(method="auto")`` is ``DeviceScan`` (below the 4M
+    cutover): its first 100 tuples of 64 queries, and K1's top-160 in
+    rounds of 64 (its second block's path), equal the float64 exact order
+    but for ties, a check that must reject K1 rounds without their penalty;
+    the latency of each exact block (40 to 2,560 rows);
+    ``scan(method="beam")`` (the scan kernel K5) for 64
+    queries under the filters ``eid % 50 == 0`` and ``eid % 500 == 0``,
+    strict and relaxed order, LIMIT 20, ef_search=40: recall against the
+    tie-aware filtered exact set, p50/p99 ms to the 20th row, segments per
+    scan, against floors;
+12. the tests/t/044 contract at its own size on the card: 50,000 uniform
+    3-d rows (built serving-only, the graph of tests/test_iterative_50k.py),
+    20 queries, l2 and cosine, both orders, both filters, LIMIT 20, ef 40,
+    recall >= 0.99.
+
+Then, outside the counted paths:
+
+13. the walk kernel against its plain version on the grown graph: serving
+    mode (K4) for 1,024 queries at ef=40 from the coarse seeds (ids equal
+    but for ties and equal steps on >= 0.99 of queries, recall@10 within
+    0.002; the check must reject a control, the plain walk cut to ef / 4
+    steps), and scan mode (K5) for 32 queries over 3 segments fed the same
+    seeds and exclusion masks (beam and spill equal but for ties); each
+    timed beside its bound, the bytes its steps gather: every step's
+    neighbour ids and the rows it scores (the kernel counts them); and K1
+    timed at DeviceScan's shape (one query, k = 10, 40, 64).
+
+**Native path** (14-17, the first 100,000 rows): the native C++ host build
+into a serving-only torch index, its own K1 ground truth, and phases 5
+and 7 on it.
+
+Each path's kernels must have run on it: K1-K3, K3's shift reduction and
+K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
+path, K1, K2 and K4 on the native path. The last two lines of output are one
+JSON object per kernel list and the device line.
 """
 
 from __future__ import annotations
@@ -58,14 +95,25 @@ import numpy as np
 import torch
 
 N_ROWS, DIM, N_QUERIES, K, CHUNK = 1_000_000, 128, 16_384, 10, 1024
+N_INSERT = 65_536
 N_NATIVE = 100_000
 DEVICE = "cuda:0"
 EF = 40
 M, EF_CONSTRUCTION = 16, 64
 FLOORS = {"exact": 0.999, "approx": 0.98, "beam": 0.95}
 K3_FLOOR = 0.90
+#: inserted rows found among their own beam top-10
+SELF_FLOOR = 0.99
+#: beam-scan recall floors at 1M by (order, filter modulus), below the JAX
+#: package's 4M figures (strict 0.903 / 0.747, relaxed 0.928 at 0.2%)
+SCAN_Q, SCAN_LIMIT = 64, 20
+SCAN_FLOORS = {("strict_order", 50): 0.85, ("strict_order", 500): 0.70,
+               ("relaxed_order", 50): 0.90, ("relaxed_order", 500): 0.90}
+#: the tests/t/044 contract: rows, queries, recall floor
+C044_N, C044_Q, C044_FLOOR = 50_000, 20, 0.99
 CSRC = "pgvector_rx_tpu_torch/csrc/"
 PALLAS = "pgvector_rx_tpu/ops/pallas_bruteforce.py"
+JAX_DEVICE = "pgvector_rx_tpu/graph/device.py"
 #: published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
@@ -293,7 +341,7 @@ def recall_of(emit_tid, gt):
 def serve_engines(index, q_dev, recall, bf, device_mod, tag):
     results = {}
     for engine, kname in (("exact", "k1_topk"), ("approx", "k2_binned"),
-                          ("beam", None)):
+                          ("beam", "k4_beam")):
         with Phase(f"{tag} serve_topk {engine}"):
             before = dict(bf.LAUNCHES)
             device_mod.serve_topk(index, q_dev, K, engine=engine, ef=EF)
@@ -311,7 +359,7 @@ def serve_engines(index, q_dev, recall, bf, device_mod, tag):
                 raise RuntimeError(f"{engine}: non-finite or misshapen output")
             if rec < FLOORS[engine]:
                 raise RuntimeError(f"{engine}: recall {rec} < {FLOORS[engine]}")
-            if kname and bf.LAUNCHES[kname] <= before[kname]:
+            if bf.LAUNCHES[kname] <= before[kname]:
                 raise RuntimeError(f"{engine}: kernel {kname} did not launch")
     return results
 
@@ -336,13 +384,408 @@ def search_vs_serve(index, queries_np, results, emit_tid, SearchParams, tag):
                                    "serve_topk")
 
 
+def walk_agreement(ids_a, d_a, ids_b, d_b, rtol=1e-5):
+    """Per row of two walks' sorted outputs: the same ids, or the same
+    finite slots with distances equal position by position (``rtol``) and
+    id sets that differ only at ties of the cut (``tie_aware_mismatch``).
+    Returns (agreeing rows [rows] bool, max abs err over equal rows)."""
+    ok = np.zeros(ids_a.shape[0], bool)
+    err = 0.0
+    for r in range(ids_a.shape[0]):
+        fa, fb = np.isfinite(d_a[r]), np.isfinite(d_b[r])
+        if (fa != fb).any():
+            continue
+        da, db = d_a[r][fa], d_b[r][fb]
+        if (ids_a[r] == ids_b[r]).all():
+            ok[r] = True
+            if fa.any():
+                err = max(err, float(np.abs(da - db).max()))
+            continue
+        tol = rtol * np.abs(db) + 1e-6
+        ok[r] = bool((np.abs(da - db) <= tol).all()) and (
+            not fa.any() or not tie_aware_mismatch(
+                ids_a[r][fa][None], da[None], ids_b[r][fb][None], db[None],
+                [tol.max()]))
+    return ok, err
+
+
+def insert_rows(index, x_new, n_total):
+    """Phase 9: insert_bulk from a CUDA tensor, timed; the grown graph's
+    invariants."""
+    with Phase("9 insert_bulk"):
+        dev = x_new.device
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        added = index.insert_bulk(x_new)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        log(f"insert_bulk: {x_new.shape[0]} rows in {dt:.3f} s, "
+            f"{x_new.shape[0] / dt:.1f} rows/s, peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+            f"{added} elements added")
+        if added != x_new.shape[0]:
+            raise RuntimeError(f"insert_bulk added {added} elements")
+        g = index.device_graph()
+        check_graph(g, M, n_total)
+    return g
+
+
+def inserted_self_recall(index, x_dev, device_mod, n0):
+    """Each of 1,024 inserted rows as a query must find itself (tid = row)
+    among its beam top-10."""
+    _, ids = device_mod.serve_topk(index, x_dev[n0 : n0 + CHUNK], K,
+                                   engine="beam", ef=EF)
+    emit = index.device_graph().emit_tid.cpu().numpy()
+    tids = np.where(ids >= 0, emit[np.maximum(ids, 0)], -1)
+    hit = float(np.mean([(n0 + r) in set(tids[r].tolist())
+                         for r in range(CHUNK)]))
+    log(f"inserted rows found among their own beam top-10: {hit:.4f}")
+    if hit < SELF_FLOOR:
+        raise RuntimeError(f"inserted-row self recall {hit} < {SELF_FLOOR}")
+
+
+def rounds_without_penalty(bf, x, a, q, k):
+    """Control for the DeviceScan check: K1 in rounds of 64 that never
+    exclude a round's rows from the next (each round repeats the top-64)."""
+    parts = [bf._surrogate_topk_cuda(x, a, q, min(bf._MAX_K, k - s))
+             for s in range(0, k, bf._MAX_K)]
+    return (torch.cat([p[0] for p in parts], dim=1),
+            torch.cat([p[1] for p in parts], dim=1))
+
+
+def exact_order_mismatch(d, ids, ref_d, ref_i, q2max):
+    """Rows of squared-l2 lists ``(d, ids)`` [B, k] that differ from the
+    float64 exact order ``(ref_d, ref_i)``: a distance off its rank's by
+    more than ``1e-5 |d| + 1e-5 max(q2)`` (K1's scale), or an id set that
+    differs other than by ties at the k-th distance."""
+    tol = 1e-5 * np.abs(ref_d) + 1e-5 * q2max
+    off = (np.abs(d - ref_d) > tol).any(axis=1)
+    return int(off.sum()) + tie_aware_mismatch(ids[~off], d[~off],
+                                               ref_i[~off], ref_d[~off],
+                                               tol[~off].max(axis=1))
+
+
+def device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan):
+    """scan(method="auto") on the grown serving-only index is DeviceScan.
+    Held against the float64 exact order of every row on the card (no
+    kernel in the reference): its first 100 tuples, and K1's top-160 in
+    rounds of 64 (the path of its second block, ``l2_topk`` at k = 160).
+    The check must reject a control: the rounds without their penalty.
+    Then each exact block's latency (40, 160, 640, 2,560 rows)."""
+    n_take, k_round = 100, 4 * EF
+    q = q_dev[:SCAN_Q].contiguous()
+    emit = g.emit_tid.cpu().numpy()
+    x = g.values[: g.cap].contiguous()
+    x64, q64 = x.double(), q.double()
+    ref = ((q64 * q64).sum(1)[:, None] + (x64 * x64).sum(1)[None, :]
+           - 2.0 * q64 @ x64.T)
+    del x64
+    ref_d, ref_i = torch.topk(ref, k_round, dim=1, largest=False)
+    del ref
+    ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
+    ref_t = np.where(ref_i >= 0, emit[np.maximum(ref_i, 0)], -1)
+    q2 = (q * q).sum(1, keepdim=True)
+    q2max = float(q2.max())
+
+    k1_d, k1_i = bf.l2_topk(x, q, k_round)
+    a = (x * x).sum(1)
+    c_d, c_i = rounds_without_penalty(bf, x, a, q, k_round)
+    torch.cuda.synchronize()
+    bad_k1 = exact_order_mismatch(k1_d.cpu().numpy(), k1_i.cpu().numpy(),
+                                  ref_d, ref_i, q2max)
+    bad_ctl = exact_order_mismatch((c_d + q2).cpu().numpy(),
+                                   c_i.cpu().numpy(), ref_d, ref_i, q2max)
+    log(f"K1 top-{k_round} in rounds: {bad_k1} of {SCAN_Q} rows differ from "
+        f"the float64 exact order; control (rounds without the penalty): "
+        f"{bad_ctl} rows differ")
+    if bad_k1:
+        raise RuntimeError("K1's rounds disagree with the exact order")
+    if not bad_ctl:
+        raise RuntimeError("the exact-order check passes rounds that repeat "
+                           "their rows")
+
+    bad = 0
+    for b in range(SCAN_Q):
+        scan = index.scan(q[b], SearchParams(ef_search=EF), method="auto")
+        if not isinstance(scan, DeviceScan):
+            raise RuntimeError(f"scan(auto) is {type(scan).__name__}")
+        out = scan.take(n_take)
+        tids = np.array([[t for t, _ in out]])
+        d2 = np.array([[x for _, x in out]]) ** 2
+        if tids.shape[1] != n_take or (np.diff(d2[0]) < 0).any():
+            raise RuntimeError("DeviceScan stream is short or out of order")
+        bad += exact_order_mismatch(d2, tids, ref_d[b : b + 1, :n_take],
+                                    ref_t[b : b + 1, :n_take], q2max)
+    log(f"DeviceScan: {SCAN_Q} queries x {n_take} tuples, {bad} streams "
+        "differ from the float64 exact order other than at ties")
+    if bad:
+        raise RuntimeError("DeviceScan disagrees with the exact order")
+
+    # each block re-sweeps every row, in ceil(k / 64) K1 launches
+    ms = {EF * 4 ** i: [] for i in range(4)}
+    launches = {}
+    for b in range(8):
+        scan = index.scan(q[b], SearchParams(ef_search=EF), method="auto")
+        done = 0
+        for block in ms:
+            before = bf.LAUNCHES["k1_topk"]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            done += len(scan.take(block - done))
+            torch.cuda.synchronize()
+            ms[block].append((time.time() - t0) * 1e3)
+            launches[block] = bf.LAUNCHES["k1_topk"] - before
+    log("DeviceScan ms per exact block (mean of 8 queries; K1 launches): "
+        + ", ".join(f"{blk} rows {np.mean(t):.3f} ms ({launches[blk]})"
+                    for blk, t in ms.items()))
+
+
+def filtered_expected(vals, q, rows, limit):
+    """The tie-aware filtered exact sets (tests/t/044:99-104): every row of
+    ``rows`` at a distance <= the limit-th nearest filtered distance
+    (float64 on the card)."""
+    sub = vals[rows].double()
+    qd = q.double()
+    dist = ((qd * qd).sum(1)[:, None] + (sub * sub).sum(1)[None, :]
+            - 2.0 * qd @ sub.T)
+    kth = dist.sort(dim=1).values[:, limit - 1]
+    keep = dist <= kth[:, None] + 1e-9 * kth.abs()[:, None] + 1e-9
+    rows_h = rows.cpu().numpy()
+    return [set(rows_h[k].tolist()) for k in keep.cpu().numpy()]
+
+
+def scan_recall(index, queries, mask, expected, mode, SearchParams,
+                limit=SCAN_LIMIT):
+    """(recall, ms to the limit-th row per scan, segments per scan) of
+    beam scans under ``mask``."""
+    params = SearchParams(ef_search=EF, iterative_scan=mode)
+    correct, lat, segs = 0, [], []
+    for b in range(len(queries)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scan = index.scan(queries[b], params, method="beam",
+                          filter_mask=mask)
+        got = scan.take(limit)
+        lat.append((time.time() - t0) * 1e3)
+        segs.append(scan.scan_stats.resumes + 1)
+        if not all(mask[t] for t, _ in got):
+            raise RuntimeError("a beam scan emitted a filtered-out row")
+        correct += sum(1 for t, _ in got if t in expected[b])
+    return correct / (len(queries) * limit), np.array(lat), np.array(segs)
+
+
+def beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan):
+    """Beam scans on the grown index at 2% and 0.2% selectivity, strict
+    and relaxed order, against SCAN_FLOORS."""
+    q = q_dev[:SCAN_Q].contiguous()
+    eids = torch.arange(g.cap, device=q.device)
+    if not isinstance(index.scan(q[0], SearchParams(), method="beam"),
+                      DeviceBeamScan):
+        raise RuntimeError("scan(method='beam') is not DeviceBeamScan")
+    if bool((g.tid_count[: g.cap] != 1).any()):
+        raise RuntimeError("the grown corpus folded duplicates: element ids "
+                           "are not tids")
+    for c in (50, 500):
+        rows = torch.nonzero(eids % c == 0).flatten()
+        mask = (eids % c == 0).cpu().numpy()
+        expected = filtered_expected(g.values, q, rows, SCAN_LIMIT)
+        for mode in ("strict_order", "relaxed_order"):
+            rec, lat, segs = scan_recall(index, q, mask, expected, mode,
+                                         SearchParams)
+            log(f"beam scan {mode} eid % {c} == 0 ({100 / c:g}%): "
+                f"recall {rec:.4f}, ms to the {SCAN_LIMIT}th row p50 "
+                f"{np.percentile(lat, 50):.3f} p99 "
+                f"{np.percentile(lat, 99):.3f}, segments per scan mean "
+                f"{segs.mean():.2f} max {segs.max()}")
+            if rec < SCAN_FLOORS[(mode, c)]:
+                raise RuntimeError(f"beam scan recall {rec} < "
+                                   f"{SCAN_FLOORS[(mode, c)]}")
+
+
+def contract_044(HnswIndex, SearchParams, dev):
+    """tests/t/044 at its own size: 50,000 uniform 3-d rows (the data and
+    seed of tests/test_iterative_50k.py, built serving-only on the card),
+    20 queries, filters i % 50 and i % 500, LIMIT 20, ef 40, both orders,
+    l2 and cosine: recall >= 0.99."""
+    rng = np.random.default_rng(44)
+    data = rng.random((C044_N, 3)).astype(np.float32)
+    queries = rng.random((C044_Q, 3)).astype(np.float32)
+    for metric in ("l2", "cosine"):
+        idx = HnswIndex.build(data, metric=metric, method="device", seed=45,
+                              host_graph=False, device=dev)
+        for c in (50, 500):
+            mask = (np.arange(C044_N) % c) == 0
+            rows = np.flatnonzero(mask)
+            d = data[rows].astype(np.float64)
+            q = queries.astype(np.float64)
+            if metric == "l2":
+                dist = np.sqrt(((q[:, None, :] - d[None]) ** 2).sum(-1))
+            else:
+                dn = d / np.linalg.norm(d, axis=1, keepdims=True)
+                qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+                dist = 1.0 - qn @ dn.T
+            kth = np.sort(dist, axis=1)[:, SCAN_LIMIT - 1]
+            expected = [set(rows[dist[b] <= kth[b] + 1e-9].tolist())
+                        for b in range(C044_Q)]
+            for mode in ("strict_order", "relaxed_order"):
+                rec, lat, segs = scan_recall(idx, queries, mask, expected,
+                                             mode, SearchParams)
+                log(f"044 {metric} i % {c} {mode}: recall {rec:.4f}, ms p50 "
+                    f"{np.percentile(lat, 50):.3f}, segments mean "
+                    f"{segs.mean():.2f}")
+                if rec < C044_FLOOR:
+                    raise RuntimeError(f"044 {metric} c={c} {mode}: recall "
+                                       f"{rec} < {C044_FLOOR}")
+        del idx
+
+
+def walk_gather_bytes(steps, scored, L, flags):
+    """The bytes a walk must read from the graph: each step's L neighbour
+    ids (4 bytes), and for each row it scores the f32 row and its
+    ``flags`` one-byte flags (live; in scan mode also excluded). The flags
+    of a pad, dead or excluded neighbour are left out: a bound that counts
+    less stays a bound."""
+    return steps * L * 4 + scored * (DIM * 4 + flags)
+
+
+def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
+    """Phase 13: K4 and K5 against their plain versions on the grown
+    graph, timed beside their bounds."""
+    q1 = q_dev[:CHUNK].contiguous()
+    L = g.neighbors0.shape[1]
+    upper = device_mod._coarse_upper(g)
+    s_ids, s_d = device_mod._coarse_seeds(g, q1, upper[0], upper[1], 8)
+    s_ids = s_ids.to(torch.int32).contiguous()
+    graph = (g.values, g.neighbors0, g.traversable)
+    max_steps = 4 * EF + 32
+
+    def serve(walk, steps=max_steps):
+        raw = walk(*graph, None, "l2", q1, s_ids, s_d, width=EF, spill=0,
+                   max_steps=steps, scan=False)
+        return [t.cpu().numpy() for t in (*beam._serve_finish(*raw), raw[5])]
+
+    def recall(ids):
+        tids = np.where(ids >= 0, emit[np.maximum(ids, 0)], -1)[:, :K]
+        return float(np.mean([len(set(tids[b]) & set(gt[b])) / K
+                              for b in range(CHUNK)]))
+
+    kd, ki, ks, kn = serve(beam._walk_cuda)
+    pd, pi, ps, pn = serve(beam._walk_plain)
+    cd, ci, cs, cn = serve(beam._walk_plain, EF // 4)
+
+    def verdict(d, ids, st, n):
+        ok, err = walk_agreement(ids, d, pi, pd)
+        rec_gap = abs(recall(ids) - recall(pi))
+        same_st = float(np.mean((st == ps) & (n == pn)))
+        passed = ok.mean() >= 0.99 and same_st >= 0.99 and rec_gap <= 0.002
+        return ok.mean(), same_st, rec_gap, err, passed
+
+    k_same, k_steps, k_gap, k_err, k_ok = verdict(kd, ki, ks, kn)
+    c_same, c_steps, c_gap, _, c_ok = verdict(cd, ci, cs, cn)
+    log(f"K4 vs plain: {k_same:.4f} of queries equal but for ties, "
+        f"{k_steps:.4f} equal steps and rows scored, recall@10 "
+        f"{recall(ki):.4f} vs {recall(pi):.4f}, max abs err {k_err}; control "
+        f"(plain cut to {EF // 4} steps): {c_same:.4f} equal, {c_steps:.4f} "
+        f"steps, recall gap {c_gap:.4f}")
+    if not k_ok:
+        raise RuntimeError("K4 disagrees with its plain version")
+    if c_ok:
+        raise RuntimeError("the K4 check passes a walk cut to ef / 4 steps")
+    steps_total, scored_total = float(ks.sum()), float(kn.sum())
+    log(f"K4 rows scored: {scored_total / steps_total:.2f} per step of "
+        f"{L} slots ({scored_total / CHUNK:.1f} per query)")
+    walk_bytes = walk_gather_bytes(steps_total, scored_total, L, 1) + CHUNK * (
+        DIM * 4 + s_ids.shape[1] * 8 + EF * 8 + 8)
+    kernels["k4_beam"] = dict(
+        name="k4_beam", route="cuda", source=CSRC + "k4_beam.cu",
+        replaces=f"{JAX_DEVICE}:446 (_ground_beam_seeds, an XLA while-loop)",
+        max_abs_err=k_err,
+        ms=cuda_ms(lambda: beam._walk_cuda(
+            *graph, None, "l2", q1, s_ids, s_d, width=EF, spill=0,
+            max_steps=max_steps, scan=False)),
+        plain_ms=cuda_ms(lambda: beam._walk_plain(
+            *graph, None, "l2", q1, s_ids, s_d, width=EF, spill=0,
+            max_steps=max_steps, scan=False), iters=2),
+        **bound(scored_total * 3.0 * DIM, "f32", walk_bytes),
+        library_ms=None, matmul_ms=None, matmul_of=None,
+        steps_mean=steps_total / CHUNK, scored_mean=scored_total / CHUNK,
+    )
+
+    # K5: 32 queries, 3 segments, the plain version's state fed to both
+    nq, W = 32, 4 * EF
+    spill = max(2 * EF, 64) + (W - EF)
+    q32 = q1[:nq].contiguous()
+    seeds = (torch.nn.functional.pad(s_ids[:nq].long(), (0, spill - 8),
+                                     value=-1),
+             torch.nn.functional.pad(s_d[:nq], (0, spill - 8),
+                                     value=float("inf")))
+    excl = torch.zeros((nq, g.cap + 1), dtype=torch.bool, device=q1.device)
+    seg_args = None
+    bad = 0
+    err5 = 0.0
+    for seg in range(3):
+        args = (*graph, excl.clone(), "l2", q32,
+                seeds[0].to(torch.int32).contiguous(),
+                seeds[1].contiguous())
+        if seg == 0:
+            seg_args = args
+        p_raw = beam._walk_plain(*args, width=W, spill=spill,
+                                 max_steps=4 * W + 32, scan=True)
+        k_raw = beam._walk_cuda(*args, width=W, spill=spill,
+                                max_steps=4 * W + 32, scan=True)
+        p = beam._scan_finish(*p_raw, ef=EF, spill=spill)
+        k = beam._scan_finish(*k_raw, ef=EF, spill=spill)
+        ph = [t.cpu().numpy() for t in p]
+        kh = [t.cpu().numpy() for t in k]
+        ok_b, e1 = walk_agreement(kh[1], kh[0], ph[1], ph[0])
+        ok_s, e2 = walk_agreement(kh[3], kh[2], ph[3], ph[2])
+        bad += int((~(ok_b & ok_s)).sum())
+        err5 = max(err5, e1, e2)
+        log(f"K5 segment {seg}: {int(ok_b.sum())}/{nq} beams and "
+            f"{int(ok_s.sum())}/{nq} spills equal but for ties, steps "
+            f"kernel {kh[4].sum()} plain {ph[4].sum()}, rows scored kernel "
+            f"{int(k_raw[5].sum())} plain {int(p_raw[5].sum())}")
+        pad = g.cap
+        excl.scatter_(1, torch.where(p[1] >= 0, p[1], pad), True)
+        seeds = (p[3], p[2])
+    if bad:
+        raise RuntimeError(f"K5 disagrees with its plain version on {bad} "
+                           "(query, segment) pairs")
+    # timed at the main path's shape: one query (the first segment of
+    # query 0) per launch
+    excl0, _, _, s0_ids, s0_d = seg_args[3:]
+    one = (*graph, excl0[:1], "l2", q32[:1], s0_ids[:1], s0_d[:1])
+    raw1 = beam._walk_cuda(*one, width=W, spill=spill,
+                           max_steps=4 * W + 32, scan=True)
+    steps1, scored1 = float(raw1[4].sum()), float(raw1[5].sum())
+    log(f"K5 rows scored: {scored1 / steps1:.2f} per step of {L} slots")
+    seg_bytes = walk_gather_bytes(steps1, scored1, L, 2) + (
+        DIM * 4 + spill * 8 + (W + spill) * 8 + 8)
+    kernels["k5_beam_scan"] = dict(
+        name="k5_beam_scan", route="cuda", source=CSRC + "k4_beam.cu",
+        replaces=f"{JAX_DEVICE}:574 (_beam_scan_segment, an XLA "
+                 "while-loop)",
+        max_abs_err=err5,
+        ms=cuda_ms(lambda: beam._walk_cuda(
+            *one, width=W, spill=spill, max_steps=4 * W + 32, scan=True)),
+        plain_ms=cuda_ms(lambda: beam._walk_plain(
+            *one, width=W, spill=spill, max_steps=4 * W + 32, scan=True),
+            iters=2),
+        **bound(scored1 * 3.0 * DIM, "f32", seg_bytes),
+        library_ms=None, matmul_ms=None, matmul_of=None,
+        steps_mean=steps1, scored_mean=scored1,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
     from pgvector_rx_tpu_torch.data import make_dataset
     from pgvector_rx_tpu_torch import HnswIndex, IndexParams, SearchParams
     from pgvector_rx_tpu_torch.graph import device as device_mod
-    from pgvector_rx_tpu_torch.ops import _build
+    from pgvector_rx_tpu_torch.index.scan import DeviceBeamScan, DeviceScan
+    from pgvector_rx_tpu_torch.ops import _build, beam
     from pgvector_rx_tpu_torch.ops import bruteforce as bf
 
     dev = torch.device(DEVICE)
@@ -366,7 +809,8 @@ def main() -> int:
         _build.lib()
 
     with Phase("2 data"):
-        data, queries = make_dataset(N_ROWS, DIM, N_QUERIES, seed=0)
+        data, queries = make_dataset(N_ROWS + N_INSERT, DIM, N_QUERIES,
+                                     seed=0)
         x_dev = torch.from_numpy(data).to(dev)
         q_dev = torch.from_numpy(queries).to(dev)
         log(f"corpus {data.shape} on {x_dev.device}, queries {queries.shape}")
@@ -376,7 +820,7 @@ def main() -> int:
     with Phase("3 device build"):
         torch.cuda.synchronize()
         t0 = time.time()
-        index = HnswIndex.build(x_dev, metric="l2", params=params,
+        index = HnswIndex.build(x_dev[:N_ROWS], metric="l2", params=params,
                                 method="device", host_graph=False,
                                 device=dev, seed=1)
         torch.cuda.synchronize()
@@ -393,7 +837,7 @@ def main() -> int:
     vb = g.values_bf16
 
     with Phase("4 ground truth (K1 l2_topk)"):
-        gt = ground_truth(bf, data, queries, q_dev)
+        gt = ground_truth(bf, data[:N_ROWS], queries, q_dev)
     emit_tid = g.emit_tid.cpu().numpy()
     recall = recall_of(emit_tid, gt)
     results = serve_engines(index, q_dev, recall, bf, device_mod, "5")
@@ -429,8 +873,9 @@ def main() -> int:
     search_vs_serve(index, queries, results, emit_tid, SearchParams, "7")
     main_launches = dict(bf.LAUNCHES)
     log(f"device-build path launches: {main_launches}")
-    for name, n_launch in main_launches.items():
-        if n_launch <= 0:
+    for name in ("k1_topk", "k2_binned", "k3_tilemin", "k3_x2max",
+                 "k4_beam"):
+        if main_launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the main path")
 
     with Phase("8 kernels vs plain"):
@@ -566,14 +1011,63 @@ def main() -> int:
         log(f"k3_tilemin sweep kernel alone: {k3['kernel_ms']:.4f} ms, share "
             f"of bound {k3['bound_ms'] / k3['kernel_ms']:.4f}")
 
+    del g, vb, a
+    torch.cuda.empty_cache()
+
+    # ---- insert-and-scan path (the index of phase 3, grown) -----------------
+    n_all = N_ROWS + N_INSERT
+    bf.reset_launches()
+    g = insert_rows(index, x_dev[N_ROWS:], n_all)
+    with Phase("10 ground truth (K1 l2_topk) over the grown corpus"):
+        gt_all = ground_truth(bf, data, queries, q_dev)
+    emit_all = g.emit_tid.cpu().numpy()
+    serve_engines(index, q_dev, recall_of(emit_all, gt_all), bf, device_mod,
+                  "10")
+    with Phase("10 inserted rows find themselves"):
+        inserted_self_recall(index, x_dev, device_mod, N_ROWS)
+    with Phase("11 DeviceScan (scan method=auto)"):
+        device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan)
+    with Phase("11 beam scans, 2% and 0.2% filters"):
+        beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan)
+    with Phase("12 the t/044 contract, 50,000 x 3-d"):
+        contract_044(HnswIndex, SearchParams, dev)
+    scan_launches = dict(bf.LAUNCHES)
+    log(f"insert-and-scan path launches: {scan_launches}")
+    for name in ("k1_topk", "k2_binned", "k4_beam", "k5_beam_scan"):
+        if scan_launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never ran on the "
+                               "insert-and-scan path")
+
+    with Phase("13 walk kernel vs plain"):
+        x = g.values[: g.cap].contiguous()
+        a = (x * x).sum(1)
+        k1_one = {k: cuda_ms(lambda: bf._surrogate_topk_cuda(x, a, q_dev[:1],
+                                                             k))
+                  for k in (10, EF, bf._MAX_K)}
+        log("K1 at one query over every row (DeviceScan's shape), device ms "
+            "per launch: " + ", ".join(f"k={k} {t:.4f}"
+                                       for k, t in k1_one.items()))
+        del x, a
+        walk_vs_plain(g, q_dev, gt_all, emit_all, device_mod, beam, kernels)
+        for name in ("k4_beam", "k5_beam_scan"):
+            kr = kernels[name]
+            kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
+            log(f"{name}: kernel {kr['ms']:.4f} ms, plain "
+                f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
+                f"({kr['bound_by']}, {kr['bound_peak']}), share "
+                f"{kr['share_of_bound']:.4f}, {kr['steps_mean']:.1f} steps "
+                f"and {kr['scored_mean']:.1f} rows scored per query, max abs "
+                f"err {kr['max_abs_err']}")
+
     for name in kernels:
-        kernels[name]["launches"] = main_launches[name]
-    del index, g, x_dev, vb, a
+        kernels[name]["launches"] = (scan_launches if name == "k5_beam_scan"
+                                     else main_launches)[name]
+    del index, g, x_dev
     torch.cuda.empty_cache()
 
     # ---- native path (first N_NATIVE rows) ---------------------------------
     bf.reset_launches()
-    with Phase("9 native build"):
+    with Phase("14 native build"):
         nat = HnswIndex.build(
             data[:N_NATIVE], metric="l2", params=params, method="native",
             host_graph=False, seed=1,  # no device named: the card
@@ -583,13 +1077,13 @@ def main() -> int:
             f"upper rows={gn.upper_neighbors.shape[0]} on {gn.device}")
         if gn.device.type != dev.type or gn.cap != N_NATIVE:
             raise RuntimeError("the native graph is not on the card at size")
-    with Phase("10 ground truth (K1 l2_topk)"):
+    with Phase("15 ground truth (K1 l2_topk)"):
         gt_n = ground_truth(bf, data[:N_NATIVE], queries, q_dev)
     emit_n = gn.emit_tid.cpu().numpy()
     res_n = serve_engines(nat, q_dev, recall_of(emit_n, gt_n), bf,
-                          device_mod, "11")
-    search_vs_serve(nat, queries, res_n, emit_n, SearchParams, "12")
-    for name in ("k1_topk", "k2_binned"):
+                          device_mod, "16")
+    search_vs_serve(nat, queries, res_n, emit_n, SearchParams, "17")
+    for name in ("k1_topk", "k2_binned", "k4_beam"):
         if bf.LAUNCHES[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the native path")
     log(f"native path launches: {dict(bf.LAUNCHES)}")
@@ -600,7 +1094,7 @@ def main() -> int:
         raise RuntimeError(f"the port's path imported {sorted(foreign)[:5]}")
     log(json.dumps({"kernels": [kernels[k] for k in
                                 ("k1_topk", "k2_binned", "k3_tilemin",
-                                 "k3_x2max")]}))
+                                 "k3_x2max", "k4_beam", "k5_beam_scan")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,15 +9,20 @@ device, and the engines are the same algorithms:
 - **approx**: the binned bf16 sweep (kernel K2 on CUDA, its plain binned
   version on the CPU) followed by an exact f32 rescore of the k winners
   (``_rescore_true``);
-- **beam**: the batched best-first walk over layer 0
-  (``_ground_beam_seeds``), seeded by a bf16 sweep over the level >= 1
-  rows (``_search_batch_coarse``) or by the greedy upper-layer descent
-  (``_search_batch``). Plain torch, one batch-wide step per iteration.
+- **beam**: the best-first walk over layer 0 (``_ground_beam_seeds``:
+  kernel K4 on CUDA, one launch per query batch; its plain batched loop on
+  the CPU), seeded by a bf16 sweep over the level >= 1 rows
+  (``_search_batch_coarse``) or by the greedy upper-layer descent
+  (``_search_batch``).
 
-JAX's ``vmap`` over queries becomes an explicit batch dimension, and its
-``while_loop`` a Python loop whose finished queries are frozen by masks.
-Only the beam defaults are ported: one expansion per step, in-beam
-dedup (no visited bitmap) and f32 ranking.
+The resumable beam scan (``index/scan.py`` ``DeviceBeamScan``) runs one
+walk per segment under an exclusion mask with a spill buffer
+(``_beam_scan_segment``: kernel K5 on CUDA), seeded by
+``_coarse_seed_one`` or ``_descent_seed_one``.
+
+JAX's ``vmap`` over queries becomes an explicit batch dimension. Only the
+beam defaults are ported: one expansion per step, in-beam dedup (no
+visited bitmap) and f32 ranking.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from ..constants import hnsw_get_layer_m
 
-from ..ops import bruteforce
+from ..ops import beam, bruteforce
 
 #: the exact sweep's penalty on excluded rows (ops/bruteforce._NEG_BIG)
 _PENALTY = bruteforce._NEG_BIG
@@ -212,36 +217,12 @@ class DeviceGraph:
 def _dist_ids(g: DeviceGraph, q, ids):
     """Order-distances [B, W] from queries ``q`` [B, D] to rows ``ids``
     [B, W] (dense metrics; ids clamped into range, callers mask)."""
-    cand = g.values[ids.clamp(0, g.cap).long()].float()  # [B, W, D]
-    qb = q[:, None, :]
-    if g.metric == "l2":
-        diff = cand - qb
-        return (diff * diff).sum(dim=-1)
-    if g.metric == "l1":
-        return (cand - qb).abs().sum(dim=-1)
-    dots = (cand * qb).sum(dim=-1)
-    if g.metric == "ip":
-        return -dots
-    if g.metric == "cosine":
-        return 1.0 - dots.clamp(-1.0, 1.0)
-    raise ValueError(f"bad metric {g.metric}")
-
-
-def _lexsort2(primary, secondary):
-    """Permutation sorting rows by (primary, secondary) ascending."""
-    o2 = torch.argsort(secondary, dim=1, stable=True)
-    o1 = torch.argsort(torch.gather(primary, 1, o2), dim=1, stable=True)
-    return torch.gather(o2, 1, o1)
+    return beam.row_dists(g.values, g.metric, q, ids)
 
 
 # ---------------------------------------------------------------------------
-# Beam search (batched; finished queries frozen by masks)
+# Beam search
 # ---------------------------------------------------------------------------
-
-#: steps between host checks for "any query still active" (frozen
-#: queries are masked, so extra steps change nothing)
-_BEAM_SYNC_EVERY = 4
-
 
 def _beam_settings() -> None:
     """Only the JAX package's default beam is ported; refuse the rest."""
@@ -282,90 +263,33 @@ def _greedy_descent(g: DeviceGraph, q, cur, cur_d, layer: int):
 
 def _ground_beam_seeds(g: DeviceGraph, q, seed_ids, seed_d, ef: int,
                        max_steps: int):
-    """Best-first beam of width ef at layer 0 for a batch of queries.
+    """Best-first beam of width ef at layer 0 for a batch of queries
+    (``ops/beam.beam_walk``: kernel K4 on CUDA tensors, the plain loop on
+    CPU tensors). ``seed_ids`` [B, S] (-1 = unused, S <= ef) and their
+    distances seed the beam. Returns (dists [B, ef], ids [B, ef]) nearest
+    first, and steps [B]."""
+    return beam.beam_walk(g.values, g.neighbors0, g.traversable, g.metric, q,
+                          seed_ids, seed_d, ef, max_steps)
 
-    ``seed_ids`` [B, S] (-1 = unused) occupy the first S beam slots. Each
-    step expands the nearest unexpanded beam member, scores its <= 2M
-    live neighbours, dedups by id (the expanded copy wins, so beam
-    members never re-expand) and keeps the ef nearest. A query stops when
-    its nearest unexpanded candidate is farther than its furthest beam
-    member (graph/mod.rs:186-192), or after ``max_steps``.
 
-    The beam key packs id*2 + (1 - expanded); invalid slots are -2.
-    Returns (dists [B, ef], ids [B, ef]) nearest first, and steps [B].
-    """
-    B, S = seed_ids.shape
-    dev = q.device
-    rows = torch.arange(B, device=dev)
-    ok = seed_ids >= 0
-    beam_d = torch.full((B, ef), _INF, device=dev)
-    beam_d[:, :S] = torch.where(ok, seed_d, _INF)
-    beam_key = torch.full((B, ef), -2, dtype=torch.int64, device=dev)
-    beam_key[:, :S] = torch.where(ok, seed_ids.long() * 2 + 1, -2)
-    steps = torch.zeros(B, dtype=torch.int32, device=dev)
-
-    def unexpanded():
-        return torch.where(beam_key & 1 == 1, beam_d, _INF)
-
-    def active_now():
-        unexp = unexpanded()
-        best = unexp.min(dim=1).values
-        furthest = beam_d.max(dim=1).values  # inf while not full
-        return (best <= furthest) & torch.isfinite(best) & (steps < max_steps)
-
-    it = 0
-    while True:
-        active = active_now()
-        if it % _BEAM_SYNC_EVERY == 0 and not bool(active.any()):
-            break
-        it += 1
-        unexp = unexpanded()
-        pos = torch.argmin(unexp, dim=1)
-        sel_valid = torch.isfinite(unexp[rows, pos]) & active
-        key_pos = beam_key[rows, pos]
-        u = torch.where(sel_valid, key_pos >> 1, -1)
-        new_key = beam_key.clone()
-        new_key[rows, pos] = torch.where(sel_valid, key_pos & ~1, key_pos)
-
-        nbrs = g.neighbors0[u.clamp(min=0)].long()  # [B, 2M]
-        nbrs = torch.where(sel_valid[:, None], nbrs, -1)
-        mask = (nbrs >= 0) & g.traversable[nbrs.clamp(0, g.cap)]
-        d_new = torch.where(mask, _dist_ids(g, q, nbrs), _INF)
-        key_new = torch.where(mask, nbrs * 2 + 1, -2)
-
-        all_d = torch.cat([beam_d, d_new], dim=1)
-        all_key = torch.cat([new_key, key_new], dim=1)
-        # in-beam dedup by id, expanded copy first (key order IS the
-        # dedup order): kill later copies before the rank sort
-        o_key, order = torch.sort(all_key, dim=1, stable=True)
-        o_d = torch.gather(all_d, 1, order)
-        dup = torch.zeros_like(o_key, dtype=torch.bool)
-        dup[:, 1:] = (o_key[:, 1:] >> 1) == (o_key[:, :-1] >> 1)
-        o_d = torch.where(dup | (o_key < 0), _INF, o_d)
-        perm = _lexsort2(o_d, o_key)[:, :ef]
-        nd = torch.gather(o_d, 1, perm)
-        nk = torch.gather(o_key, 1, perm)
-        beam_d = torch.where(active[:, None], nd, beam_d)
-        beam_key = torch.where(active[:, None], nk, beam_key)
-        steps = steps + active.to(torch.int32)
-
-    beam_ids = torch.where(beam_key >= 0, beam_key >> 1, -1)
-    perm = _lexsort2(beam_d, beam_ids)
-    return (torch.gather(beam_d, 1, perm), torch.gather(beam_ids, 1, perm),
-            steps)
+def _descent_seeds(g: DeviceGraph, queries, entry_level: int):
+    """Greedy upper-layer descent from the entry point for every query ->
+    (seed ids [B, 1], seed distances [B, 1]): Algorithm 5's layer-0
+    entry."""
+    B = queries.shape[0]
+    cur = torch.full((B,), g.entry, dtype=torch.int64, device=queries.device)
+    cur_d = _dist_ids(g, queries, cur[:, None])[:, 0]
+    for layer in range(entry_level, 0, -1):
+        cur, cur_d = _greedy_descent(g, queries, cur, cur_d, layer)
+    return cur[:, None], cur_d[:, None]
 
 
 def _search_batch(g: DeviceGraph, queries, ef: int, entry_level: int,
                   max_steps: int):
     """Full Algorithm-5 search: greedy descent through the upper layers
     from the entry point, then the ground beam from where it lands."""
-    B = queries.shape[0]
-    cur = torch.full((B,), g.entry, dtype=torch.int64, device=queries.device)
-    cur_d = _dist_ids(g, queries, cur[:, None])[:, 0]
-    for layer in range(entry_level, 0, -1):
-        cur, cur_d = _greedy_descent(g, queries, cur, cur_d, layer)
-    return _ground_beam_seeds(g, queries, cur[:, None], cur_d[:, None], ef,
-                              max_steps)
+    seed_ids, seed_d = _descent_seeds(g, queries, entry_level)
+    return _ground_beam_seeds(g, queries, seed_ids, seed_d, ef, max_steps)
 
 
 def upper_row_arrays(g: DeviceGraph):
@@ -392,11 +316,11 @@ def _coarse_upper(g: DeviceGraph):
     return ids, rows
 
 
-def _search_batch_coarse(g: DeviceGraph, queries, upper_ids, upper_rows,
-                         ef: int, max_steps: int, n_seeds: int = 8):
-    """Coarse-seeded beam: one bf16 sweep over the level >= 1 rows picks
-    the n_seeds nearest upper elements, whose exact f32 distances seed the
-    ground beam (in place of the greedy upper-layer descent)."""
+def _coarse_seeds(g: DeviceGraph, queries, upper_ids, upper_rows,
+                  n_seeds: int):
+    """The n_seeds nearest upper elements of each query by one bf16 sweep
+    over the level >= 1 rows -> (seed ids [B, n] (-1 = none), exact f32
+    seed distances [B, n] (inf = none)): the bf16 scores only rank."""
     U = upper_rows.shape[0]
     if g.metric == "l2":
         uf = upper_rows.float()
@@ -406,12 +330,74 @@ def _search_batch_coarse(g: DeviceGraph, queries, upper_ids, upper_rows,
     scores = _exact_scores(g, queries, upper_rows, a)
     valid = g.traversable[upper_ids]
     scores = torch.where(valid[None, :], scores, _INF)
-    S = min(n_seeds, U, ef)  # seeds must fit the ef-wide beam
-    seed_d, slots = torch.topk(scores, S, dim=1, largest=False, sorted=True)
-    seed_ids = torch.where(torch.isfinite(seed_d), upper_ids[slots], -1)
-    # exact f32 seed distances: the bf16 coarse scores only rank
-    s_d = _dist_ids(g, queries, seed_ids)
-    return _ground_beam_seeds(g, queries, seed_ids, s_d, ef, max_steps)
+    seed_sc, slots = torch.topk(scores, n_seeds, dim=1, largest=False,
+                                sorted=True)
+    seed_ids = torch.where(torch.isfinite(seed_sc), upper_ids[slots], -1)
+    seed_d = torch.where(seed_ids >= 0, _dist_ids(g, queries, seed_ids), _INF)
+    return seed_ids, seed_d
+
+
+def _search_batch_coarse(g: DeviceGraph, queries, upper_ids, upper_rows,
+                         ef: int, max_steps: int, n_seeds: int = 8):
+    """Coarse-seeded beam: one bf16 sweep over the level >= 1 rows picks
+    the n_seeds nearest upper elements, whose exact f32 distances seed the
+    ground beam (in place of the greedy upper-layer descent)."""
+    S = min(n_seeds, upper_rows.shape[0], ef)  # seeds must fit the beam
+    seed_ids, seed_d = _coarse_seeds(g, queries, upper_ids, upper_rows, S)
+    return _ground_beam_seeds(g, queries, seed_ids, seed_d, ef, max_steps)
+
+
+# ---------------------------------------------------------------------------
+# Resumable beam scan (iterative-scan analog for beam-scale corpora)
+# ---------------------------------------------------------------------------
+
+
+def _beam_scan_segment(g: DeviceGraph, q, seed_ids, seed_d, excluded,
+                       ef: int, spill: int, max_steps: int,
+                       width: int | None = None):
+    """One iterative-scan segment for one prepared query ``q`` [D]: the
+    beam walk at internal width ``width`` (>= ef, default ef) from the
+    seeds [S] (-1 = unused) under the exclusion mask ``excluded`` [cap+1]
+    (already-emitted elements), capturing evicted candidates in a spill
+    buffer (``ops/beam.beam_scan_segment``: kernel K5 on CUDA tensors, the
+    plain loop on CPU tensors; the reference's discarded heap and shared
+    visited set, scan.rs:311-346, :538-577).
+
+    Returns (beam_d [ef], beam_ids [ef], spill_d [spill], spill_ids
+    [spill], steps []): the beam nearest first; the spill nearest first,
+    deduplicated by id, without the emitted beam's ids, with the
+    width - ef leftover of the beam merged in."""
+    out = beam.beam_scan_segment(
+        g.values, g.neighbors0, g.traversable, excluded[None], g.metric,
+        q[None], seed_ids[None], seed_d[None], ef,
+        ef if width is None else width, spill, max_steps)
+    return tuple(t[0] for t in out)
+
+
+def _mark_excluded(excluded, ids):
+    """Mark emitted element ids in the exclusion mask [cap+1], IN PLACE
+    (the JAX package returns a new mask); invalid (-1) ids land on the pad
+    row ``cap``, which is never admitted anyway. Returns ``excluded``."""
+    pad = excluded.shape[0] - 1
+    return excluded.index_fill_(0, torch.where(ids >= 0, ids, pad).long(),
+                                True)
+
+
+def _coarse_seed_one(g: DeviceGraph, q, upper_ids, upper_rows, n_seeds: int):
+    """Top-n_seeds level >= 1 elements for one query [D] -> (ids [n], exact
+    f32 distances [n]): the beam scan's first-segment entry points, the
+    beam engine's coarse seeding."""
+    n = min(n_seeds, upper_rows.shape[0])
+    seed_ids, seed_d = _coarse_seeds(g, q[None], upper_ids, upper_rows, n)
+    return seed_ids[0], seed_d[0]
+
+
+def _descent_seed_one(g: DeviceGraph, q, entry_level: int):
+    """Greedy upper-layer descent for one query [D] -> the single layer-0
+    entry (ids [1], distances [1]), for graphs without a usable upper
+    set."""
+    seed_ids, seed_d = _descent_seeds(g, q[None], entry_level)
+    return seed_ids[0], seed_d[0]
 
 
 # ---------------------------------------------------------------------------

@@ -35,10 +35,15 @@ differs, in PyTorch idiom:
 - The finished ``DeviceGraph`` has ``cap`` = the number of built rows
   (the JAX graph keeps the padded capacity); row ``cap`` is the sentinel.
 
+``bulk_insert`` (``HnswIndex.insert_bulk``) inserts into an existing index
+with the same builder: the graph is transplanted into fresh build tensors
+(``_seed_builder_from_graph``, edge distances recomputed exactly on the
+device) and the new rows run as doubling batches on top of it.
+
 The ``PGV_BUILD_*`` environment variables of the JAX package are not read;
 a non-default value of one raises (``_build_settings``). Not ported, and
 refused with ``NotImplementedError``: the beam-descent ground (dim >= 512
-or l1), the bit kind, ``bulk_insert`` and ``consume_input``.
+or l1), the bit kind and ``consume_input``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from ..constants import HNSW_HEAPTIDS, hnsw_get_layer_m
+from ..ops.beam import row_dists
 
 #: cap at/above which the back-edge commit honours 2 same-target adds per
 #: commit instead of 4 (see DeviceBuilder._be_k)
@@ -1102,3 +1108,225 @@ def _device_graph_from_builder(index, builder: DeviceBuilder, first_tids):
         **_serve_value_arrays(builder.vectors[: n + 1],
                               _serve_dtype_for(index)),
     )
+
+
+# ---------------------------------------------------------------------------
+# batched insert into an existing index
+# ---------------------------------------------------------------------------
+
+#: rows per chunk of ``_edge_distances`` (bounds its [CH, W, D] gather)
+_EDGE_CHUNK = 8192
+
+
+def _edge_distances(metric: str, vectors, src_ids, nbr_ids):
+    """Exact f32 order distances d(src, nbr) of adjacency rows: src_ids
+    [R], nbr_ids [R, W] (-1 pads -> inf), in chunks of ``_EDGE_CHUNK``
+    rows. The builder needs the current neighbour distances of a
+    transplanted graph for back-edge re-selection; recomputing them on the
+    device is exact and needs no host lists."""
+    cap = vectors.shape[0] - 1
+    out = []
+    for s in range(0, src_ids.shape[0], _EDGE_CHUNK):
+        src = src_ids[s : s + _EDGE_CHUNK].clamp(0, cap).long()
+        nb = nbr_ids[s : s + _EDGE_CHUNK]
+        d = row_dists(vectors, metric, vectors[src], nb)
+        out.append(torch.where(nb >= 0, d, _INF))
+    return torch.cat(out)
+
+
+def _seed_builder_from_graph(builder: DeviceBuilder, g, n0: int) -> None:
+    """Transplant an existing DeviceGraph (n0 committed elements) into a
+    fresh builder's tensors so batches can insert on top of it: layer-0
+    and upper adjacency (the upper rows moved from the graph's slots to
+    the builder's shuffled ones) with their pruning distances recomputed
+    exactly (stored bf16, as the build stores them), live flags, TID
+    counts and the entry."""
+    dev = builder.device
+    a = builder.arrays
+    lm0, m = builder.lm0, builder.m
+    cap1 = builder.cap + 1
+    a.nb0_ids[:n0] = g.neighbors0[:n0, :lm0].to(dev, torch.int32)
+    src = torch.arange(cap1, device=dev)
+    a.nb0_d.copy_(_edge_distances(builder.metric, builder.data.vectors, src,
+                                  a.nb0_ids).to(torch.bfloat16))
+
+    old_slot = g.upper_slot[:n0].to(dev).long()
+    lc_common = min(g.upper_neighbors.shape[1] // max(g.m, 1), builder.lmax)
+    eids = torch.nonzero(old_slot >= 0).flatten()
+    if eids.numel():
+        new_slot = builder.data.upper_slot[eids].long()
+        a.up_ids[new_slot, : lc_common * m] = g.upper_neighbors.to(dev)[
+            old_slot[eids], : lc_common * m].to(torch.int32)
+    a.up_d.copy_(_edge_distances(builder.metric, builder.data.vectors,
+                                 builder.data.upper_ids, a.up_ids).to(
+                                     torch.bfloat16))
+
+    a.alive[:n0] = g.traversable[:n0].to(dev)
+    a.tid_counts[:n0] = g.tid_count[:n0].to(dev, torch.int32)
+    a.absorb.fill_(-1)
+    a.entry = torch.tensor(g.entry, dtype=torch.int64, device=dev)
+    a.entry_level = torch.tensor(g.entry_level, dtype=torch.int32,
+                                 device=dev)
+
+
+def bulk_insert(index, data, ids) -> int:
+    """Batched device insert into an EXISTING dense index: aminsert at
+    bulk-build throughput (``HnswIndex.insert_bulk``).
+
+    The reference serializes inserts under UPDATE_LOCK (insert.rs:
+    1281-1313); here frozen-snapshot batches run with the bulk build's
+    machinery: the existing graph is transplanted into builder tensors,
+    new rows append to fresh slots, and each batch runs candidate search,
+    Algorithm-4 selection and the back edges on the device. Duplicate
+    folding works across old and new elements (10-TID cap); entry
+    promotion follows UPDATE_ENTRY_GREATER. Vacuumed free slots are NOT
+    reused (new slots append; the sequential ``insert()`` keeps slot
+    reuse). ``data``: an [n, dim] array, or a tensor on the index's device
+    (then the insert moves no corpus row to the host).
+
+    Returns the number of elements inserted (excluding folded TIDs)."""
+    from .host import GraphElement
+
+    _build_settings()
+    if index.kind != "dense":
+        raise ValueError("bulk_insert supports dense indexes only")
+    device = _resolve_device(index.device)
+    dev_in = isinstance(data, torch.Tensor)
+    if dev_in:
+        if _resolve_device(data.device) != device:
+            raise ValueError(
+                f"insert input is on {data.device}, the index on {device}: "
+                "move it first (the insert never moves rows silently)"
+            )
+        arr, kept_tids = _prepare_dense_device(index, data, ids)
+        new_rows = arr
+    else:
+        arr, kept_tids = _prepare_dense_bulk(index, data, ids)
+        if index.dtype is not None and index.dtype != np.float32:
+            arr = arr.astype(index.dtype).astype(np.float32)
+        new_rows = torch.from_numpy(arr).to(device)
+    n_new = int(arr.shape[0])
+    if n_new == 0:
+        return 0
+    n0 = len(index.elements) if not index.serving_only else index.store.count
+    if n0 == 0 or index.entry is None:
+        bulk_build(index, arr, kept_tids, host_graph=not index.serving_only)
+        return n_new
+
+    g = index.device_graph()
+    if g.cap != n0:
+        raise RuntimeError(f"device graph cap {g.cap} != {n0} index rows")
+    if dev_in:
+        # old rows come from the device graph itself: the whole insert
+        # stays on the device
+        old_rows = g.values[:n0].float()
+    else:
+        old_rows = torch.from_numpy(
+            np.asarray(index.store.rows[:n0], dtype=np.float32)).to(device)
+    vectors = torch.cat([old_rows, new_rows])
+    del old_rows, new_rows
+    old_levels = (
+        np.fromiter((e.level for e in index.elements), np.int32, n0)
+        if not index.serving_only
+        else g.levels[:n0].cpu().numpy()
+    )
+    levels = np.concatenate([old_levels.astype(np.int32),
+                             index.random_levels(n_new)])
+
+    # batches pad to batch_max rows: no wider than the largest batch of the
+    # doubling schedule below (the JAX package pads to 1024 always)
+    builder = DeviceBuilder(index.metric, vectors, levels, index.params.m,
+                            index.params.ef_construction,
+                            batch_max=min(1024, _next_pow2(max(n_new, 64))))
+    del vectors  # the builder holds its own padded copy
+    _seed_builder_from_graph(builder, g, n0)
+    levels_cl = builder.data.levels[: n0 + n_new].cpu().numpy()  # clamped
+
+    # Doubling sub-batches (64, 128, ... 1024): a large insert set can be
+    # mutually nearest (a new cluster); frozen-snapshot batches do not see
+    # each other, so later sub-batches must supply the intra-set edges
+    # earlier rows need to be reachable (the sequential aminsert chain
+    # gives this for free; doubling bounds the blind fraction).
+    sched = []
+    pos, size = n0, 64
+    while pos < n0 + n_new:
+        take = min(size, builder.batch_max, n0 + n_new - pos)
+        sched.append((pos, take))
+        pos += take
+        size = min(size * 2, builder.batch_max)
+    builder.run_all(sched)
+
+    # --- fold duplicate TIDs (old or new targets), in insertion order
+    absorb = builder.arrays.absorb[: n0 + n_new].cpu().numpy()
+    new_tids: list[list[int]] = [[t] for t in kept_tids.tolist()]
+
+    def tids_of(e):
+        return new_tids[e - n0] if e >= n0 else index.heap_tids[e]
+
+    for e in np.nonzero(absorb[n0:] >= 0)[0] + n0:
+        tids_of(int(absorb[e])).extend(new_tids[e - n0])
+        new_tids[e - n0] = []
+    entry = int(builder.arrays.entry)
+    index.entry = entry if entry >= 0 else None
+    index.stats["inserts"] += n_new
+    added = sum(1 for t in new_tids if t)
+    store_dtype = index.dtype or np.float32
+    # The JAX package's insert also appends the rows to an open append
+    # log here; the port has none (HnswIndex.enable_log raises).
+
+    if index.serving_only:
+        if dev_in and index.store._device_rows is not None:
+            # a device-backed store stays device-backed: adopt the grown
+            # corpus (the graph's own rows), still with no download
+            index.store.reset_device(_HostRows(builder.vectors[: n0 + n_new]))
+        else:
+            arr_host = arr.cpu().numpy() if dev_in else arr
+            for row in arr_host:
+                index.store.append(row.astype(store_dtype))
+        index.heap_tids.extend(new_tids)
+        first = [t[0] if t else -1 for t in index.heap_tids]
+        index._device = _device_graph_from_builder(index, builder, first)
+        return added
+
+    # --- host-graph update: append new elements; rewrite only the rows
+    # whose adjacency changed (back-edge targets)
+    arr_host = arr.cpu().numpy() if dev_in else arr
+    nb0_new, nb0d_new, up_new, upd_new = builder.host_adjacency()
+    upper_slot = builder.data.upper_slot.cpu().numpy()
+    old_nb0 = g.neighbors0[:n0, : builder.lm0].cpu().numpy()
+    changed = set(np.nonzero((nb0_new[:n0] != old_nb0).any(axis=1))[0]
+                  .tolist())
+    old_slot = g.upper_slot[:n0].cpu().numpy()
+    old_up = g.upper_neighbors.cpu().numpy()
+    lc = min(old_up.shape[1] // max(g.m, 1), builder.lmax) * builder.m
+    eids = np.nonzero(old_slot >= 0)[0]
+    diff = (up_new[upper_slot[eids], :lc] != old_up[old_slot[eids], :lc])
+    changed.update(eids[diff.any(axis=1)].tolist())
+
+    def lists_from_arrays(eid):
+        lev = int(levels_cl[eid])
+        e = GraphElement(level=lev)
+        e.neighbors[0] = [(float(d), int(v))
+                          for d, v in zip(nb0d_new[eid], nb0_new[eid])
+                          if v >= 0]
+        s = upper_slot[eid]
+        for lc_ in range(1, lev + 1):
+            cols = slice((lc_ - 1) * builder.m, lc_ * builder.m)
+            e.neighbors[lc_] = [(float(d), int(v))
+                                for d, v in zip(upd_new[s, cols],
+                                                up_new[s, cols])
+                                if v >= 0]
+        return e
+
+    for i in range(n_new):
+        index.store.append(arr_host[i].astype(store_dtype))
+        index.elements.append(lists_from_arrays(n0 + i))
+        index.heap_tids.append(new_tids[i])
+    for eid in changed:
+        if index.elements[eid].deleted:
+            continue
+        repl = lists_from_arrays(eid)
+        repl.version = index.elements[eid].version
+        index.elements[eid] = repl
+    index._invalidate_device()
+    return added

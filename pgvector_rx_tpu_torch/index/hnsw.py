@@ -6,9 +6,9 @@ sequential insert, delete and vacuum; reference ``src/index/build.rs`` and
 ``insert.rs``), with the device seams on torch: the index lives on a torch
 ``device``, ``build`` routes the batched device build and the
 serving-only native build into a torch ``DeviceGraph``, and
-``device_graph`` / ``search`` use the port's engines. The seams whose
-torch engines are not ported yet (``insert_bulk``, ``scan``, ``save``,
-``load``, ``enable_log``) raise.
+``device_graph`` / ``search`` / ``scan`` / ``insert_bulk`` use the port's
+engines. The persistence seams, whose torch versions are not ported yet
+(``save``, ``load``, ``enable_log``), raise.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 on a host with no CUDA device; pass ``device="cpu"`` to run on the CPU.
@@ -399,11 +399,20 @@ class HnswIndex:
             )
             return out
 
-    def insert_bulk(self, values, tids: Optional[Sequence[int]] = None):
-        raise NotImplementedError(
-            "batched device insert is not ported to torch yet "
-            "(ROADMAP queue 1, item 9)"
-        )
+    def insert_bulk(self, values, tids: Optional[Sequence[int]] = None) -> int:
+        """Batched device insert (dense): aminsert semantics at bulk-build
+        throughput, frozen-snapshot batches over the existing graph
+        (graph/device_build.bulk_insert). Works on serving-only indexes
+        too (swaps the device graph). ``values``: an [n, dim] array or a
+        tensor on the index's device. Returns elements added (folded
+        duplicate TIDs excluded)."""
+        from ..graph import device_build
+
+        with self._update_lock.exclusive():
+            if tids is None:
+                base = self.num_tuples
+                tids = range(base, base + len(values))
+            return device_build.bulk_insert(self, values, tids)
 
     def add_batch(self, values, tids: Optional[Sequence[int]] = None) -> None:
         """Sequential host bulk-load (ambuild's heap-scan loop,
@@ -537,10 +546,42 @@ class HnswIndex:
 
     def scan(self, query, params: SearchParams | None = None,
              method: str = "auto", filter_mask=None):
-        raise NotImplementedError(
-            "resumable scans are not ported to torch yet "
-            "(ROADMAP queue 1, item 10)"
+        """Begin a resumable scan (ambeginscan/amgettuple analog).
+
+        method="host": the reference-semantics graph scan (HnswScan).
+        method="device": the streaming exact scan (DeviceScan: exactly
+        ordered, recall 1.0; dense only; no ``filter_mask``).
+        method="beam": the resumable device beam scan (DeviceBeamScan:
+        spilled-candidate resume, the scan.rs:538-577 analog; dense only).
+        "auto" picks host when the host graph exists; on a serving-only
+        index DeviceScan up to the exact cutover, DeviceBeamScan above.
+        """
+        from ..graph.device import EXACT_ENGINE_MAX_ROWS
+        from .scan import DeviceBeamScan, DeviceScan, HnswScan
+
+        params = params or SearchParams()
+        if method == "beam":
+            return DeviceBeamScan(self, query, params,
+                                  filter_mask=filter_mask)
+        use_device = method == "device" or (
+            method == "auto" and self.serving_only
         )
+        if use_device:
+            if self.kind != "dense":
+                raise ValueError("device scan supports dense indexes only")
+            if method == "auto" and self.store.count > EXACT_ENGINE_MAX_ROWS:
+                # past the exact sweep's economics the beam scan is the
+                # only iterative device engine
+                return DeviceBeamScan(self, query, params,
+                                      filter_mask=filter_mask)
+            if filter_mask is not None:
+                raise ValueError(
+                    "DeviceScan does not take filter_mask; filter its "
+                    "exactly-ordered stream caller-side, use "
+                    "search(filter_mask=...), or scan(method='beam')"
+                )
+            return DeviceScan(self, query, params)
+        return HnswScan(self, query, params, filter_mask=filter_mask)
 
     # -- delete / vacuum (delegates to vacuum.py) ----------------------------
 

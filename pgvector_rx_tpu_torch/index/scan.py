@@ -8,6 +8,12 @@ The host half is the port's own copy of ``pgvector_rx_tpu/index/scan.py``
   with up to ef_search discarded candidates, shared visited set)
 - :class:`HnswScan` <-> HnswScanState + amgettuple (scan.rs:584-875).
 
+The device scans are the torch counterparts of the JAX package's:
+- :class:`DeviceScan`: geometrically growing exact blocks through the
+  exact engine (kernel K1 on the card), exactly ordered;
+- :class:`DeviceBeamScan`: the resumable beam scan, one walk per segment
+  under an exclusion mask with a spill buffer (kernel K5 on the card).
+
 :func:`search` routes batches to the torch device engines
 (``graph/device.py``) or walks :class:`HnswScan` per query.
 """
@@ -15,6 +21,7 @@ The host half is the port's own copy of ``pgvector_rx_tpu/index/scan.py``
 from __future__ import annotations
 
 import heapq
+import os
 from typing import Optional
 
 import numpy as np
@@ -244,6 +251,337 @@ class HnswScan:
             # copy (reversed so .pop() yields slot order like the
             # reference's pop-from-end of the loaded array)
             self._current = (dist, list(reversed(tids)))
+
+    def take(self, k: int) -> list[tuple]:
+        out = []
+        while len(out) < k:
+            item = self.next()
+            if item is None:
+                break
+            out.append(item)
+        return out
+
+
+class DeviceScan:
+    """Iterative scan that streams results in exactly ordered, geometrically
+    growing exact top-k blocks.
+
+    The structural analog of the reference's resumable iterative scan
+    (visited set + discarded heap re-entering the graph, scan.rs:538-577)
+    re-designed for a brute-force sweep: each resume re-runs the exact
+    sweep at 4x the previous k and emits the new tail. Results arrive in
+    true distance order, so strict_order and relaxed_order coincide and
+    the filtered-recall contracts (tests/t/043,044) hold at recall 1.0;
+    max_scan_tuples caps the stream exactly like the reference.
+
+    For corpora past the exact sweep's economics, DeviceBeamScan is the
+    iterative device engine.
+    """
+
+    def __init__(self, index, query, params: SearchParams):
+        self.index = index
+        self.params = params
+        self.query = query
+        self._block = max(params.ef_search, 16)
+        self._emitted = 0  # tuples emitted
+        self._buf: list = []  # pending (tid, dist), nearest first
+        self._buf_pos = 0
+        self._exhausted = False
+        self.scan_stats = ScanStats()
+        index.stats["scans"] += 1
+
+    def _fetch(self) -> None:
+        # the tuple count as one reduction over the device graph's TID
+        # counts (built from the same lists), not a host sum over every
+        # element's TID list (~40 ms at 1M rows)
+        total = max(int(self.index.device_graph().tid_count.sum()), 1)
+        # each exact block re-sweeps every stored row
+        self.scan_stats.distances_computed += self.index.store.count
+        k = min(self._block, total)
+        q = self.query
+        q = (q.float().reshape(1, -1) if isinstance(q, torch.Tensor)
+             else np.atleast_2d(np.asarray(q, dtype=np.float32)))
+        dists, ids = self.index.search(q, k, self.params, method="exact")
+        pairs = [
+            (int(t), float(d))
+            for t, d in zip(ids[0], dists[0])
+            if t >= 0 and np.isfinite(d)
+        ]
+        self._buf = pairs[self._buf_pos :]
+        self._buf_pos += len(self._buf)
+        if k >= total:  # the sweep covered everything there is
+            self._exhausted = True
+        self._block *= 4
+
+    def next(self):
+        """Next (heap_tid, operator_distance) or None."""
+        if self._emitted >= self.params.max_scan_tuples:
+            return None
+        while not self._buf:
+            if self._exhausted:
+                return None
+            if self._buf_pos > 0:  # re-entries only (first block isn't one)
+                self.scan_stats.resumes += 1
+            self.index.stats["resumes"] += 1
+            self._fetch()
+        tid, d = self._buf.pop(0)
+        self._emitted += 1
+        self.scan_stats.tuples_returned += 1
+        return tid, d
+
+    def take(self, k: int) -> list[tuple]:
+        out = []
+        while len(out) < k:
+            item = self.next()
+            if item is None:
+                break
+            out.append(item)
+        return out
+
+
+class DeviceBeamScan:
+    """Resumable device beam scan: the iterative scan for corpora past the
+    exact sweep's economics (> 4M rows, where beam is the only engine).
+
+    Structural port of the reference's spilled-candidate resume
+    (scan.rs:538-577) to the device beam: each segment runs the beam walk
+    (graph/device._beam_scan_segment) which CAPTURES its evicted
+    candidates (the discarded-heap analog) in a spill buffer; emitted
+    elements go into a device exclusion mask (the shared visited set's
+    role), updated in place; the next segment re-enters the ground layer
+    seeded by the spill. Per-resume traffic is O(ef) ids/distances, never
+    a corpus re-sweep.
+
+    Ordering: segments are internally sorted; across segments order can
+    regress exactly like the reference's relaxed_order; strict_order
+    suppresses out-of-order emissions (scan.rs:801-806).
+
+    Windowed strict order (default on; ``PGV_STRICT_BUFFER=0`` restores
+    the reference's drop-on-regression semantics): under strict_order,
+    emissions are held in a sorted buffer and the global minimum is
+    released only once the buffer holds more than L segments' worth of
+    results (L = PGV_STRICT_BUFFER, default 4), a sliding reorder window.
+    The order regressions are later segments discovering items below
+    what was emitted while exploring the spill; they are overwhelmingly
+    near-term, so an L-segment window reorders them instead of dropping
+    them. The emitted stream stays nondecreasing; regressions deeper than
+    L segments are still dropped. The first result waits ~L+1 segments.
+
+    The internal beam is ``PGV_BEAM_SCAN_WIDTH_MULT`` (default 4) times
+    ef wide, the device analog of Algorithm 2's unbounded to-expand heap.
+
+    ``filter_mask`` (element-id bool mask): masked elements consume tuple
+    budget and are dropped at emission, the reference's executor-filter
+    semantics (tests/t/043,044).
+    """
+
+    def __init__(self, index, query, params: SearchParams, filter_mask=None):
+        from ..graph import device as dm
+
+        if index.kind != "dense":
+            raise ValueError("DeviceBeamScan supports dense indexes only")
+        dm._beam_settings()
+        self.index = index
+        self.params = params
+        self.filter_mask = (
+            None if filter_mask is None else np.asarray(filter_mask, bool)
+        )
+        self._dm = dm
+        self.g = index.device_graph()
+        q = query.reshape(1, -1) if isinstance(query, torch.Tensor) else (
+            np.atleast_2d(np.asarray(query, dtype=np.float32)))
+        self.q = dm.prepare_queries(index, q, self.g.device)[0]
+        ef = max(params.ef_search, 1)
+        self._ef = ef
+        # internal beam wider than the emitted ef: keeps boundary
+        # candidates explorable within the segment so later segments
+        # rarely discover nearer items than ones already emitted
+        self._width = max(
+            ef * int(os.environ.get("PGV_BEAM_SCAN_WIDTH_MULT", 4)), ef
+        )
+        self._spill_w = max(2 * ef, 64) + (self._width - ef)
+        self._max_steps = 4 * self._width + 32
+        self._excluded = torch.zeros(self.g.traversable.shape[0],
+                                     dtype=torch.bool, device=self.g.device)
+        # first-segment seeds, padded to the spill width
+        if self.g.entry < 0:
+            self._seeds = None
+            self._exhausted = True
+        else:
+            upper = dm._coarse_upper(self.g)
+            if upper is not None:
+                s_ids, s_d = dm._coarse_seed_one(
+                    self.g, self.q, upper[0], upper[1], n_seeds=min(8, ef)
+                )
+            else:
+                s_ids, s_d = dm._descent_seed_one(
+                    self.g, self.q, self.g.entry_level
+                )
+            pad = self._spill_w - s_ids.shape[0]
+            self._seeds = (
+                torch.nn.functional.pad(s_ids, (0, pad), value=-1),
+                torch.nn.functional.pad(s_d, (0, pad), value=float("inf")),
+            )
+            self._exhausted = False
+        self._buf: list = []  # pending (dist, element id), nearest first
+        self._current: Optional[tuple] = None  # (dist, [remaining tids])
+        self._spill_host: Optional[list] = None  # drain-mode buffer
+        # strict-order holdback heap of (dist, id): the sliding window
+        self._hold: list = []
+        self._strict_window = max(
+            int(os.environ.get("PGV_STRICT_BUFFER", "4")), 0
+        )
+        self._pending = None  # launched-but-unread segment
+        self._first = True
+        self.tuples = 0
+        self.previous_distance = -np.inf
+        self.scan_stats = ScanStats()
+        index.stats["scans"] += 1
+
+    def _segment_dispatch(self) -> None:
+        """Launch one beam segment without reading its results back (CUDA
+        launches are asynchronous): the scan state (seeds, exclusion mask)
+        advances at once as device tensors."""
+        dm = self._dm
+        beam_d, beam_ids, sp_d, sp_ids, steps = dm._beam_scan_segment(
+            self.g, self.q, self._seeds[0], self._seeds[1], self._excluded,
+            self._ef, self._spill_w, self._max_steps, self._width,
+        )
+        # everything in the returned beam will be emitted: exclude it from
+        # future segments (one scatter on the device)
+        dm._mark_excluded(self._excluded, beam_ids)
+        self._seeds = (sp_ids, sp_d)
+        self._pending = (beam_d, beam_ids, sp_ids, steps)
+
+    def prefetch(self) -> None:
+        """Launch the next segment if one would be needed, without waiting
+        for its results."""
+        if (
+            self._pending is None
+            and not self._exhausted
+            and not self._buf
+            and self._seeds is not None
+        ):
+            self._first = False
+            self._segment_dispatch()
+
+    def _segment(self) -> None:
+        """Run one beam segment; refill the host buffer."""
+        if self._pending is None:
+            self._segment_dispatch()
+        beam_d, beam_ids, sp_ids, steps = self._pending
+        self._pending = None
+        d_host = beam_d.cpu().numpy().astype(np.float64)
+        i_host = beam_ids.cpu().numpy()
+        n_steps = int(steps)
+        self.scan_stats.beam_steps += n_steps
+        self.scan_stats.distances_computed += (
+            n_steps * self.g.neighbors0.shape[1]
+        )
+        keep = (i_host >= 0) & np.isfinite(d_host)
+        self._buf = list(zip(d_host[keep], i_host[keep]))
+        if not self._buf and not bool((sp_ids >= 0).any()):
+            # the segment found nothing new and the spill, the only fuel
+            # left, is empty: the scan is exhausted
+            self._exhausted = True
+
+    def _drain_one(self) -> None:
+        """Budget exhausted: emit spilled candidates one at a time without
+        further graph work (scan.rs:828-841 analog)."""
+        if self._spill_host is None:
+            sp_ids = self._seeds[0].cpu().numpy()
+            sp_d = self._seeds[1].cpu().numpy().astype(np.float64)
+            keep = (sp_ids >= 0) & np.isfinite(sp_d)
+            self._spill_host = list(zip(sp_d[keep], sp_ids[keep]))
+        if self._spill_host:
+            self._buf = [self._spill_host.pop(0)]
+        else:
+            self._exhausted = True
+
+    def next(self) -> Optional[tuple]:
+        """Next (heap_tid, operator_distance) or None."""
+        sqrt_out = self.index.metric == "l2"
+        strict = self.params.iterative_scan == HNSW_ITERATIVE_SCAN_STRICT
+        iterative = self.params.iterative_scan != HNSW_ITERATIVE_SCAN_OFF
+        buffered = strict and self._strict_window > 0
+        while True:
+            if self._current is not None:
+                dist, tids = self._current
+                if tids:
+                    tid = tids.pop()
+                    if strict:
+                        if dist < self.previous_distance:
+                            continue
+                        self.previous_distance = dist
+                    self.scan_stats.tuples_returned += 1
+                    if sqrt_out:
+                        return tid, float(np.sqrt(max(dist, 0.0)))
+                    return tid, dist
+                self._current = None
+
+            if buffered and self._buf:
+                for d_, i_ in self._buf:
+                    heapq.heappush(self._hold, (float(d_), int(i_)))
+                self._buf = []
+
+            ready = None
+            if buffered:
+                # sliding reorder window: emit the global minimum only once
+                # the hold exceeds L segments' worth of results (0 in drain
+                # mode: a sorted merge with the spill). A launched but
+                # unread segment is read first: its arrivals belong in the
+                # comparison.
+                cap = (
+                    0
+                    if self._spill_host is not None
+                    else self._strict_window * self._ef
+                )
+                if self._hold and self._pending is None and (
+                    self._exhausted or len(self._hold) > cap
+                ):
+                    ready = heapq.heappop(self._hold)
+            elif self._buf:
+                ready = self._buf.pop(0)
+
+            if ready is None:
+                if self._exhausted:
+                    if buffered and self._hold:  # exhaustion flush
+                        ready = heapq.heappop(self._hold)
+                    else:
+                        return None
+                elif self._pending is not None:
+                    self._segment()  # read a prefetched segment
+                    continue
+                elif self._first and self._seeds is not None:
+                    self._first = False
+                    self._segment()  # first segment
+                    continue
+                elif not iterative:
+                    if buffered and self._hold:
+                        # no further graph work will come: flush in order
+                        ready = heapq.heappop(self._hold)
+                    else:
+                        return None
+                elif self.tuples >= self.params.max_scan_tuples:
+                    self._drain_one()
+                    continue
+                else:
+                    self.index.stats["resumes"] += 1
+                    self.scan_stats.resumes += 1
+                    self._segment()
+                    continue
+
+            dist, idx = ready
+            idx = int(idx)
+            tids = self.index.heap_tids[idx]
+            if not tids:
+                continue
+            self.tuples += 1
+            if self.filter_mask is not None and not (
+                idx < len(self.filter_mask) and self.filter_mask[idx]
+            ):
+                continue  # executor-filtered tuple (budget already spent)
+            self._current = (float(dist), list(reversed(tids)))
 
     def take(self, k: int) -> list[tuple]:
         out = []

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k2_binned.cu",
-                                     "k3_tilemin.cu"))
+                                     "k3_tilemin.cu", "k4_beam.cu"))
 _HEADERS = (_CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -36,6 +36,7 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # base, a, q, q_big, q_small, n, d, b, k, kl, splits, rows_per_split,
     # part_d, part_i, sel_d, sel_i, out_d, out_i, stream
@@ -49,6 +50,12 @@ _SIGNATURES = {
     "pgv_k3_tilemin": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # base, n, d, out, stream
     "pgv_k3_x2max": [_P, _I, _I, _P, _P],
+    # values, dtype, stride, d, nbrs, L, trav, excl, excl_stride, cap,
+    # metric, q, seed_ids, seed_d, b, S, W, SP, max_steps, scan, beam_d,
+    # beam_key, spill_d, spill_key, steps, scored, stream
+    "pgv_k4_beam_walk": [_P, _I, _L, _I, _P, _I, _P, _P, _L, _I, _I, _P, _P,
+                         _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                         _P],
 }
 
 

@@ -39,7 +39,9 @@ import torch
 _NEG_BIG = float(3.0e38)
 
 #: kernel name -> launches of that kernel by its wrapper in this process
-LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0, "k3_x2max": 0}
+#: (the beam walk's two modes, ``ops/beam.py``, count here too)
+LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0, "k3_x2max": 0,
+            "k4_beam": 0, "k5_beam_scan": 0}
 
 _MAX_K = 64
 
@@ -210,14 +212,41 @@ def _surrogate_topk_cuda(base, a, queries, k: int):
     return out_d, out_i
 
 
+def _surrogate_topk_rounds(base, a, queries, k: int):
+    """K1 past its list length (k > 64), one query at a time: rounds of at
+    most 64, each round's rows excluded from the next by the penalty in a
+    copy of ``a`` (made once, its penalised rows restored after each
+    query), so round r returns ranks [64 r, 64 r + 64) in order. The path
+    of ``DeviceScan``'s growing exact blocks (one query): ceil(k / 64)
+    sweeps of every row."""
+    out_d, out_i = [], []
+    ab = a.clone()
+    for b in range(queries.shape[0]):
+        q = queries[b : b + 1]
+        parts_d, parts_i = [], []
+        for start in range(0, k, _MAX_K):
+            sd, si = _surrogate_topk_cuda(base, ab, q, min(_MAX_K, k - start))
+            parts_d.append(sd)
+            parts_i.append(si)
+            ab[si[si >= 0].long()] = _NEG_BIG
+        taken = torch.cat(parts_i, dim=1)
+        taken = taken[taken >= 0].long()
+        ab[taken] = a[taken]
+        out_d.append(torch.cat(parts_d, dim=1))
+        out_i.append(torch.cat(parts_i, dim=1))
+    return torch.cat(out_d), torch.cat(out_i)
+
+
 def _surrogate_topk(base, a, queries, k: int):
     """Exact top-k of ``a - 2 q.x`` -> (scores [B,k] f32, ids [B,k] i32),
     ascending; excluded/empty slots are (inf, -1). CPU tensors take the
-    plain version, CUDA tensors the K1 kernel."""
-    if base.is_cuda:
-        sd, si = _surrogate_topk_cuda(base, a, queries, k)
-    else:
+    plain version, CUDA tensors the K1 kernel (in rounds past k = 64)."""
+    if not base.is_cuda:
         sd, si = _surrogate_topk_plain(base, a, queries, k)
+    elif k > _MAX_K:
+        sd, si = _surrogate_topk_rounds(base, a, queries, k)
+    else:
+        sd, si = _surrogate_topk_cuda(base, a, queries, k)
     return _invalid_to_sentinel(sd, si)
 
 

@@ -345,7 +345,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tbf._surrogate_topk(x.t().contiguous().t(), a, q, 5)
     with pytest.raises(ValueError, match="k must be"):
-        tbf._surrogate_topk(x, a, q, 65)
+        tbf._surrogate_topk_cuda(x, a, q, 65)
+    # past k = 64 the wrapper runs the kernel in rounds: the plain top-65
+    d, i = tbf._surrogate_topk(x, a, q, 65)
+    pd, pi = tbf._surrogate_topk(x.cpu(), a.cpu(), q.cpu(), 65)
+    np.testing.assert_allclose(d.cpu().numpy(), pd.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    assert (i.cpu() == pi).float().mean() >= 0.99
     with pytest.raises(ValueError, match="shape mismatch"):
         tbf._surrogate_topk(x, a[:10], q, 5)
     with pytest.raises(ValueError, match="bfloat16"):

@@ -1,8 +1,8 @@
 """The port runs without JAX: a fresh interpreter imports it, builds a
 native index and a device-built index on the CPU, serves all three
-engines, searches and runs the tile-min sweep, and neither JAX nor the
-JAX package (``pgvector_rx_tpu``) nor its benchmark (``bench``) ever
-enters ``sys.modules``. A subprocess, because the test harness
+engines, searches, scans, inserts and runs the tile-min sweep, and neither
+JAX nor the JAX package (``pgvector_rx_tpu``) nor its benchmark
+(``bench``) ever enters ``sys.modules``. A subprocess, because the test harness
 (tests/conftest.py) imports JAX into this one."""
 
 import os
@@ -37,6 +37,11 @@ dev = HnswIndex.build(torch.from_numpy(data), metric="l2", seed=1,
 _, ids = device_mod.serve_topk(dev, queries, 10, engine="beam")
 rec = np.mean([len(set(ids[b]) & set(gt[b])) / 10 for b in range(32)])
 assert rec >= 0.9, ("device build", rec)
+scan = dev.scan(queries[0], SearchParams(ef_search=20,
+                                         iterative_scan="relaxed_order"),
+                method="beam")
+assert len(scan.take(30)) == 30
+assert dev.insert_bulk(queries[:8]) == 8
 from pgvector_rx_tpu_torch.ops import bruteforce as bf
 g = dev.device_graph()
 _, k3 = bf.tilemin_sweep_topk(g.values_bf16, g.x2, torch.from_numpy(queries),
