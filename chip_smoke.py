@@ -49,9 +49,11 @@ Then, outside the counted paths:
     top-10 (>= 0.99);
 11. scans: ``scan(method="auto")`` is ``DeviceScan`` (below the 4M
     cutover): its first 100 tuples of 64 queries, and K1's top-160 in
-    rounds of 64 (its second block's path), equal the float64 exact order
+    rounds of 60 (its second block's path), equal the float64 exact order
     but for ties, a check that must reject K1 rounds without their penalty;
-    the latency of each exact block (40 to 2,560 rows);
+    K1's top-64 holds a 3xTF32 near tie at ranks 64 / 65 (fault 3b: one
+    call would keep no spare place there); the latency of each exact block
+    (40 to 2,560 rows);
     ``scan(method="beam")`` (the scan kernel K5) for 64
     queries under the filters ``eid % 50 == 0`` and ``eid % 500 == 0``,
     strict and relaxed order, LIMIT 20, ef_search=40: recall against the
@@ -78,10 +80,32 @@ Then, outside the counted paths:
 into a serving-only torch index, its own K1 ground truth, and phases 5
 and 7 on it.
 
+**768-d cosine path** (18, BASELINE's first secondary configuration,
+``bench_suite.py``): a 1,000,000 x 768-d corpus (``make_dataset``, seed 0)
+built on the card with the beam-descent ground from a CUDA tensor (build
+seconds, rows/s, peak memory, device time of the candidate step, the walk
+and the commit), its invariants, K1 ground truth checked against float64
+on 64 queries, and the three engines against the same floors; then K1, K2
+and K4 at d = 768 against their plain versions, with ms, bound and share.
+
+**l1 path** (19, the first 262,144 rows of phase 2's corpus, cut from 1M
+for the run's time): the device build (l1 takes the beam ground), the
+exact engine against a float64 l1 top-10 on the card for 1,024 queries,
+the beam engine's recall at ef=40, and the l1 sweep (torch ops, queued as
+kernel K11) timed per 1,024 queries beside its bound.
+
+**Persistence** (20): the grown serving-only index of phase 9 saved, its
+checkpoint loaded with ``serving=True`` on the card, and every engine's
+ids held to the ones before the save; a 20,000-row host-graph index with
+an append log, inserts and deletes, reloaded with replay, and its
+``search`` ids held to the live index's. Save and load seconds and the
+checkpoint's bytes are printed.
+
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
-path, K1, K2 and K4 on the native path. The last two lines of output are one
-JSON object per kernel list and the device line.
+path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
+path. The last two lines of output are one JSON object per kernel list
+and the device line.
 """
 
 from __future__ import annotations
@@ -89,7 +113,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -111,6 +137,10 @@ SCAN_FLOORS = {("strict_order", 50): 0.85, ("strict_order", 500): 0.70,
                ("relaxed_order", 50): 0.90, ("relaxed_order", 500): 0.90}
 #: the tests/t/044 contract: rows, queries, recall floor
 C044_N, C044_Q, C044_FLOOR = 50_000, 20, 0.99
+#: the 768-d cosine path, the l1 path and the logged host-graph index
+N768, D768 = 1_000_000, 768
+N_L1 = 262_144
+N_LOG = 20_000
 CSRC = "pgvector_rx_tpu_torch/csrc/"
 PALLAS = "pgvector_rx_tpu/ops/pallas_bruteforce.py"
 JAX_DEVICE = "pgvector_rx_tpu/graph/device.py"
@@ -446,10 +476,9 @@ def inserted_self_recall(index, x_dev, device_mod, n0):
 
 
 def rounds_without_penalty(bf, x, a, q, k):
-    """Control for the DeviceScan check: K1 in rounds of 64 that never
-    exclude a round's rows from the next (each round repeats the top-64)."""
-    parts = [bf._surrogate_topk_cuda(x, a, q, min(bf._MAX_K, k - s))
-             for s in range(0, k, bf._MAX_K)]
+    """Control for the DeviceScan check: K1 in rounds of 60 that never
+    exclude a round's rows from the next (each round repeats the top-60)."""
+    parts = [bf._surrogate_topk_cuda(x, a, q, kr) for kr in bf._round_sizes(k)]
     return (torch.cat([p[0] for p in parts], dim=1),
             torch.cat([p[1] for p in parts], dim=1))
 
@@ -470,7 +499,7 @@ def device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan):
     """scan(method="auto") on the grown serving-only index is DeviceScan.
     Held against the float64 exact order of every row on the card (no
     kernel in the reference): its first 100 tuples, and K1's top-160 in
-    rounds of 64 (the path of its second block, ``l2_topk`` at k = 160).
+    rounds of 60 (the path of its second block, ``l2_topk`` at k = 160).
     The check must reject a control: the rounds without their penalty.
     Then each exact block's latency (40, 160, 640, 2,560 rows)."""
     n_take, k_round = 100, 4 * EF
@@ -522,7 +551,7 @@ def device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan):
     if bad:
         raise RuntimeError("DeviceScan disagrees with the exact order")
 
-    # each block re-sweeps every row, in ceil(k / 64) K1 launches
+    # each block re-sweeps every row, in ceil(k / 60) K1 launches
     ms = {EF * 4 ** i: [] for i in range(4)}
     launches = {}
     for b in range(8):
@@ -640,13 +669,13 @@ def contract_044(HnswIndex, SearchParams, dev):
         del idx
 
 
-def walk_gather_bytes(steps, scored, L, flags):
+def walk_gather_bytes(steps, scored, L, flags, dim=DIM):
     """The bytes a walk must read from the graph: each step's L neighbour
     ids (4 bytes), and for each row it scores the f32 row and its
     ``flags`` one-byte flags (live; in scan mode also excluded). The flags
     of a pad, dead or excluded neighbour are left out: a bound that counts
     less stays a bound."""
-    return steps * L * 4 + scored * (DIM * 4 + flags)
+    return steps * L * 4 + scored * (dim * 4 + flags)
 
 
 def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
@@ -776,6 +805,355 @@ def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
         library_ms=None, matmul_ms=None, matmul_of=None,
         steps_mean=steps1, scored_mean=scored1,
     )
+
+
+def tf32_tie_pair(bf, lo: float):
+    """Two f32 values one ulp apart above ``lo`` (x_a > x_b) that K1's
+    3xTF32 split (big + small of ``_tf32_split``) cannot tell apart."""
+    u = np.arange(1 << 14, dtype=np.int64) + int(np.float32(lo).view(np.int32))
+    vals = torch.from_numpy(u.astype(np.int32)).view(torch.float32)
+    big, small = bf._tf32_split(vals)
+    approx = (big.double() + small.double()).numpy()
+    i = int(np.nonzero(approx[1:] == approx[:-1])[0][0])
+    return float(vals[i + 1]), float(vals[i])
+
+
+def k1_near_tie_check(bf, dev) -> None:
+    """Fault 3b: K1's top-64 of a unit-axis query over rows whose ranks 64
+    and 65 are one ulp apart (7.8e-3 at |x| ~ 1e5) and equal after the
+    tf32 split, rank 65 in the first 64-row split. Every score is exact in
+    FP32 and float64, so the wrapper (rounds of 60) must return the float64
+    set; the control, one K1 call at k = 64 (no spare place, the path before
+    the repair), is reported."""
+    n, d = 1000, 64
+    x_a, x_b = tf32_tie_pair(bf, 98304.0)
+    g = torch.Generator().manual_seed(65)
+    x0 = torch.cat([
+        99000.0 + 10.0 * torch.arange(63, dtype=torch.float32),
+        97000.0 - 10.0 * torch.arange(n - 65, dtype=torch.float32),
+    ])[torch.randperm(n - 2, generator=g)]
+    x = torch.randn(n, d, generator=g)
+    x[:, 0] = torch.cat([torch.tensor([x_b]), x0[:63], torch.tensor([x_a]),
+                         x0[63:]])
+    q = torch.zeros(1, d)
+    q[0, 0] = 1.0
+    ref = torch.argsort(-(x.double() @ q.double().T)[:, 0])[:64]
+    want = set(ref.tolist())
+    xc, qc = x.to(dev), q.to(dev)
+    _, ki = bf.ip_topk(xc, qc, 64)
+    _, ci = bf._surrogate_topk_cuda(xc, torch.zeros(n, device=dev), qc, 64)
+    got, ctl = set(ki.cpu()[0].tolist()), set(ci.cpu()[0].tolist())
+    log(f"K1 top-64 near tie at ranks 64/65 (fault 3b): the wrapper's set "
+        f"{'equals' if got == want else 'differs from'} the float64 set; the "
+        f"control (one call at k = 64, no spare place) "
+        f"{'equals' if ctl == want else 'differs from'} it "
+        f"(rank 64 {'kept' if 64 in ctl else 'lost'}, rank 65 "
+        f"{'kept' if 0 in ctl else 'dropped'})")
+    if got != want:
+        raise RuntimeError("K1's top-64 loses the near tie at ranks 64/65")
+
+
+class SectionTimer:
+    """Device time of some ``DeviceBuilder`` steps during a build: each
+    wrapped method records a CUDA event pair on the current stream around
+    its launches; the pairs are read after the build's final sync, so the
+    build itself makes no extra sync. A section's time is its span on the
+    device's timeline, idle gaps between its launches included."""
+
+    def __init__(self, cls, names):
+        self.cls, self.names = cls, names
+        self.pairs = {n: [] for n in names}
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.cls, n) for n in self.names}
+        for n in self.names:
+            def wrapped(obj, *a, _f=self.orig[n], _n=n, **kw):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = _f(obj, *a, **kw)
+                e.record()
+                self.pairs[_n].append((s, e))
+                return out
+            setattr(self.cls, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.cls, n, f)
+        return False
+
+    def seconds(self) -> dict:
+        torch.cuda.synchronize()
+        return {n: sum(s.elapsed_time(e) for s, e in p) / 1e3
+                for n, p in self.pairs.items()}
+
+
+def timed_build(HnswIndex, db, x, metric, params, dev, n, tag):
+    """A serving-only device build from the CUDA tensor ``x``: seconds,
+    rows/s, peak memory, the device time of the candidate step (the beam
+    ground inside it) and of the commit; then the graph's invariants."""
+    with Phase(f"{tag} device build, {n:,} x {x.shape[1]}-d {metric}"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps = ("_score_select_step", "_beam_ground_candidates",
+                 "_commit_all_step")
+        with SectionTimer(db.DeviceBuilder, steps) as st:
+            t0 = time.time()
+            idx = HnswIndex.build(x, metric=metric, params=params,
+                                  method="device", host_graph=False,
+                                  device=dev, seed=1)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        sec = st.seconds()
+        log(f"{tag} device build: {dt:.3f} s, {n / dt:.1f} rows/s, peak "
+            f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+            f" GiB; device time: candidates and selection "
+            f"{sec['_score_select_step']:.3f} s (of which the beam ground "
+            f"{sec['_beam_ground_candidates']:.3f} s in "
+            f"{len(st.pairs['_beam_ground_candidates'])} batches), commit "
+            f"{sec['_commit_all_step']:.3f} s")
+        g = idx.device_graph()
+        check_graph(g, M, n)
+    return idx, g
+
+
+def kernel_row(name, err, ms, plain_ms, bnd):
+    row = dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
+    row["share_of_bound"] = row["bound_ms"] / ms
+    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bound_peak']}), "
+        f"share {row['share_of_bound']:.4f}, max abs err {err}")
+    return row
+
+
+def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
+               beam, dev):
+    """Phase 18: BASELINE's 768-d cosine configuration at 1,000,000 rows,
+    full width, on the card; then K1, K2 and K4 at d = 768 against their
+    plain versions."""
+    params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
+    with Phase("18 data, 1,000,000 x 768-d"):
+        data, queries = make_dataset(N768, D768, N_QUERIES, seed=0)
+        x = torch.from_numpy(data).to(dev)
+        del data
+        qn = torch.from_numpy(queries).to(dev)
+        qn = (qn / qn.norm(dim=1, keepdim=True)).contiguous()
+    bf.reset_launches()
+    idx, g = timed_build(HnswIndex, db, x, "cosine", params, dev, N768, "18")
+    del x
+    torch.cuda.empty_cache()
+    with Phase("18 ground truth (K1 cosine_topk)"):
+        xv = g.values[:N768]
+        gt = torch.cat([bf.cosine_topk(xv, qn[s : s + CHUNK], K)[1]
+                        for s in range(0, N_QUERIES, CHUNK)]).cpu().numpy()
+        ref = 1.0 - qn[:64].double() @ xv.double().T
+        ref_d = torch.topk(ref, K, dim=1, largest=False).values.cpu().numpy()
+        gt_d = np.sort(torch.gather(ref, 1, torch.from_numpy(gt[:64]).to(
+            dev).long()).cpu().numpy(), axis=1)
+        del ref
+        if (gt < 0).any() or not np.allclose(gt_d, ref_d, rtol=1e-5,
+                                             atol=1e-5):
+            raise RuntimeError("768-d ground truth disagrees with float64")
+        log(f"gt {gt.shape}, float64 check on 64 queries ok")
+    emit = g.emit_tid.cpu().numpy()
+    serve_engines(idx, qn, recall_of(emit, emit[gt]), bf, device_mod, "18")
+    launches = dict(bf.LAUNCHES)
+    log(f"768-d path launches: {launches}")
+    for name in ("k1_topk", "k2_binned", "k4_beam"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never ran on the 768-d path")
+
+    rows = []
+    with Phase("18 kernels vs plain at d = 768"):
+        q1 = qn[:CHUNK].contiguous()
+        live = g.traversable & (g.tid_count > 0)
+        a = torch.where(live, 0.0, bf._NEG_BIG).contiguous()
+        x32, vb = g.values, g.values_bf16
+        n_rows, b1 = x32.shape[0], q1.shape[0]
+        out_bytes = b1 * K * 8
+        k1_d, k1_i = bf._surrogate_topk_cuda(x32, a, q1, K)
+        p1_d, p1_i = bf._surrogate_topk_plain(x32, a, q1, K)
+        err1, ok1 = k1_agreement(k1_d, k1_i, p1_d.cpu().numpy(),
+                                 p1_i.cpu().numpy(), 1.0)
+        if not ok1:
+            raise RuntimeError(f"K1 at d = 768 disagrees with its plain "
+                               f"version (max abs err {err1})")
+        rows.append(kernel_row(
+            "k1_topk", err1,
+            cuda_ms(lambda: bf._surrogate_topk_cuda(x32, a, q1, K)),
+            cuda_ms(lambda: bf._surrogate_topk_plain(x32, a, q1, K), 3),
+            bound(3 * 2.0 * b1 * n_rows * D768, "tf32",
+                  (n_rows * D768 + n_rows + b1 * D768) * 4 + out_bytes)))
+        qb = q1.to(torch.bfloat16)
+        k2_d, k2_i = bf._binned_cuda(vb, a, qb, K, 1024)
+        p2_d, p2_i = bf._binned_plain(vb, a, q1, K, 1024)
+        err2, ok2 = k2_agreement(k2_d, k2_i, p2_d.cpu().numpy(),
+                                 p2_i.cpu().numpy(), 1.0)
+        if not ok2:
+            raise RuntimeError(f"K2 at d = 768 disagrees with its plain "
+                               f"version (max abs err {err2})")
+        rows.append(kernel_row(
+            "k2_binned", err2,
+            cuda_ms(lambda: bf._binned_cuda(vb, a, qb, K, 1024)),
+            cuda_ms(lambda: bf._binned_plain(vb, a, q1, K, 1024), 3),
+            bound(2.0 * b1 * n_rows * D768, "bf16",
+                  (n_rows * D768 + b1 * D768) * 2 + n_rows * 4 + out_bytes)))
+        upper = device_mod._coarse_upper(g)
+        s_ids, s_d = device_mod._coarse_seeds(g, q1, upper[0], upper[1], 8)
+        s_ids = s_ids.to(torch.int32).contiguous()
+        walk = (g.values, g.neighbors0, g.traversable, None, "cosine", q1,
+                s_ids, s_d)
+        kw = dict(width=EF, spill=0, max_steps=4 * EF + 32, scan=False)
+        raw_k = beam._walk_cuda(*walk, **kw)
+        raw_p = beam._walk_plain(*walk, **kw)
+        kd, ki, _ = (t.cpu().numpy() for t in beam._serve_finish(*raw_k))
+        pd, pi, _ = (t.cpu().numpy() for t in beam._serve_finish(*raw_p))
+        ok4, err4 = walk_agreement(ki, kd, pi, pd)
+        steps = float(raw_k[4].sum())
+        scored = float(raw_k[5].sum())
+        log(f"K4 at d = 768: {ok4.mean():.4f} of queries equal but for ties, "
+            f"{steps / CHUNK:.1f} steps and {scored / CHUNK:.1f} rows scored "
+            "per query")
+        if ok4.mean() < 0.99:
+            raise RuntimeError("K4 at d = 768 disagrees with its plain version")
+        rows.append(kernel_row(
+            "k4_beam", err4, cuda_ms(lambda: beam._walk_cuda(*walk, **kw)),
+            cuda_ms(lambda: beam._walk_plain(*walk, **kw), 2),
+            bound(scored * 3.0 * D768, "f32",
+                  walk_gather_bytes(steps, scored, g.neighbors0.shape[1], 1,
+                                    D768)
+                  + CHUNK * (D768 * 4 + s_ids.shape[1] * 8 + EF * 8 + 8))))
+    log(json.dumps({"d768": rows}))
+    del idx, g, xv, qn
+    torch.cuda.empty_cache()
+
+
+def l1_path(HnswIndex, IndexParams, device_mod, db, bf, data, q_dev, dev):
+    """Phase 19: an l1 index of the first N_L1 rows of the 128-d corpus,
+    built on the card (the beam ground), its exact engine against a
+    float64 l1 top-10 on the card, the beam engine's recall, and the l1
+    sweep timed beside its bound."""
+    params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
+    log(f"cut: the l1 path builds the first {N_L1:,} of the 1,000,000 "
+        "rows (the run's time); the descent still builds three quarters")
+    x = torch.from_numpy(data[:N_L1]).to(dev)
+    bf.reset_launches()
+    idx, g = timed_build(HnswIndex, db, x, "l1", params, dev, N_L1, "19")
+    sweep = device_mod.l1_sweep_topk
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return sweep(*a, **kw)
+
+    q1 = q_dev[:CHUNK].contiguous()
+    with Phase("19 l1 engines"):
+        device_mod.l1_sweep_topk = counted
+        try:
+            d, ids = device_mod.serve_topk(idx, q1, K, engine="exact")
+            _, ids_b = device_mod.serve_topk(idx, q1, K, engine="beam", ef=EF)
+        finally:
+            device_mod.l1_sweep_topk = sweep
+        ref = torch.cdist(q1.double(), x.double(), p=1)
+        ref_d, ref_i = torch.topk(ref, K, dim=1, largest=False)
+        del ref
+        ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
+        emit = g.emit_tid.cpu().numpy()
+        tids = np.where(ids >= 0, emit[np.maximum(ids, 0)], -1)
+        tol = 1e-5 * np.abs(ref_d).max(axis=1) + 1e-4
+        bad = tie_aware_mismatch(tids, d.astype(np.float64), ref_i, ref_d,
+                                 tol)
+        rec = recall_of(emit, ref_i)(ids_b)
+        log(f"l1 exact engine: {bad} of {CHUNK} rows differ from the float64 "
+            f"l1 top-{K} other than at ties, max abs distance err "
+            f"{float(np.abs(d - ref_d).max())}; beam engine (ef={EF}) recall@10 "
+            f"{rec:.4f}; l1 sweep calls {calls[0]}; launches {dict(bf.LAUNCHES)}")
+        if bad or not np.allclose(d, ref_d, rtol=1e-5, atol=1e-4):
+            raise RuntimeError("the l1 exact engine disagrees with float64")
+        if bf.LAUNCHES["k4_beam"] <= 0 or not calls[0]:
+            raise RuntimeError("the l1 path did not run K4 and the l1 sweep")
+        a = torch.where(g.traversable & (g.tid_count > 0), 0.0,
+                        float("inf"))
+        n_rows = g.values.shape[0]
+        row = dict(
+            name="k11_l1_sweep", route="torch ops",
+            source="pgvector_rx_tpu_torch/graph/device.py (l1_sweep_topk)",
+            replaces=f"{JAX_DEVICE}:1093 (the chunked l1 sweep, XLA)",
+            launches=calls[0],
+            ms=cuda_ms(lambda: sweep(g.values, a, q1, K), 3),
+            library_ms=cuda_ms(lambda: torch.cdist(q1, g.values, p=1), 3),
+            library_of="torch.cdist(p=1) alone (the scores, not the top-k)",
+            **bound(3.0 * CHUNK * n_rows * DIM, "f32",
+                    (n_rows * DIM + CHUNK * DIM + n_rows) * 4
+                    + CHUNK * K * 8))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        log(json.dumps({"torch_ops": [row]}))
+    del idx, g, x
+    torch.cuda.empty_cache()
+
+
+def persistence(index, q_dev, HnswIndex, IndexParams, SearchParams,
+                device_mod, data, dev):
+    """Phase 20: the grown serving-only index saved and loaded back on the
+    card, every engine's ids unchanged; a 20,000-row host-graph index with
+    an append log reloaded with replay, its search ids unchanged."""
+    q = q_dev[:4 * CHUNK].contiguous()
+    engines = ("exact", "approx", "beam")
+    with Phase("20 save and load the grown index"), \
+            tempfile.TemporaryDirectory() as tmp:
+        before = {e: device_mod.serve_topk(index, q, K, engine=e, ef=EF)[1]
+                  for e in engines}
+        ck = Path(tmp) / "grown"
+        t0 = time.time()
+        index.save(ck)
+        t_save = time.time() - t0
+        nbytes = sum(f.stat().st_size for f in ck.iterdir())
+        t0 = time.time()
+        back = HnswIndex.load(ck, serving=True, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.time() - t0
+        diff = {e: int((device_mod.serve_topk(back, q, K, engine=e,
+                                              ef=EF)[1] != before[e])
+                       .any(axis=1).sum()) for e in engines}
+        log(f"checkpoint of {back.device_graph().cap:,} rows: save "
+            f"{t_save:.3f} s, load {t_load:.3f} s, {nbytes:,} bytes; rows "
+            f"whose ids changed per engine: {diff}")
+        if any(diff.values()) or back.device_graph().device != dev:
+            raise RuntimeError("the reloaded index answers differently")
+        del back
+    log(f"cut: the logged host-graph index holds {N_LOG:,} rows (a Python "
+        "host graph; its inserts replay one by one)")
+    with Phase("20 host graph with an append log, reloaded with replay"), \
+            tempfile.TemporaryDirectory() as tmp:
+        idx = HnswIndex.build(data[:N_LOG], metric="l2",
+                              params=IndexParams(m=M, ef_construction=EF_CONSTRUCTION),
+                              method="device", host_graph=True, device=dev,
+                              seed=1)
+        ck = Path(tmp) / "host"
+        idx.save(ck)
+        idx.enable_log(ck / "log.jsonl")
+        for i in range(50):
+            idx.insert(data[N_LOG + i], N_LOG + i)
+        idx.delete(range(0, 200, 10))
+        t0 = time.time()
+        back = HnswIndex.load(ck, device=dev)
+        t_load = time.time() - t0
+        idx._log.close()
+        qh = q_dev[:64].cpu().numpy()
+        bad = {}
+        for method in ("exact", "device", "host"):
+            qm = qh[:8] if method == "host" else qh
+            _, a_ids = idx.search(qm, K, SearchParams(ef_search=EF),
+                                  method=method)
+            _, b_ids = back.search(qm, K, SearchParams(ef_search=EF),
+                                   method=method)
+            bad[method] = int((a_ids != b_ids).any(axis=1).sum())
+        log(f"logged host graph: {back.num_tuples} tuples after replay "
+            f"(live index {idx.num_tuples}), load with replay {t_load:.3f} s;"
+            f" rows whose search ids differ: {bad}")
+        if any(bad.values()) or back.num_tuples != idx.num_tuples:
+            raise RuntimeError("the replayed index answers differently")
 
 
 def main() -> int:
@@ -1027,6 +1405,8 @@ def main() -> int:
         inserted_self_recall(index, x_dev, device_mod, N_ROWS)
     with Phase("11 DeviceScan (scan method=auto)"):
         device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan)
+    with Phase("11 K1 near tie at ranks 64 / 65"):
+        k1_near_tie_check(bf, dev)
     with Phase("11 beam scans, 2% and 0.2% filters"):
         beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan)
     with Phase("12 the t/044 contract, 50,000 x 3-d"):
@@ -1062,11 +1442,13 @@ def main() -> int:
     for name in kernels:
         kernels[name]["launches"] = (scan_launches if name == "k5_beam_scan"
                                      else main_launches)[name]
-    del index, g, x_dev
+    del g, x_dev  # the grown index stays for phase 20
     torch.cuda.empty_cache()
 
     # ---- native path (first N_NATIVE rows) ---------------------------------
     bf.reset_launches()
+    log(f"cut: the native path builds the first {N_NATIVE:,} rows "
+        "(single-threaded host build)")
     with Phase("14 native build"):
         nat = HnswIndex.build(
             data[:N_NATIVE], metric="l2", params=params, method="native",
@@ -1087,6 +1469,18 @@ def main() -> int:
         if bf.LAUNCHES[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the native path")
     log(f"native path launches: {dict(bf.LAUNCHES)}")
+    del nat, gn
+    torch.cuda.empty_cache()
+
+    # ---- 768-d cosine, l1 and persistence ----------------------------------
+    from pgvector_rx_tpu_torch.graph import device_build as db
+
+    cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf, beam,
+               dev)
+    l1_path(HnswIndex, IndexParams, device_mod, db, bf, data, q_dev, dev)
+    persistence(index, q_dev, HnswIndex, IndexParams, SearchParams,
+                device_mod, data, dev)
+    del index
 
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pgvector_rx_tpu", "bench")]

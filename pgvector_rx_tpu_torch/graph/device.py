@@ -9,6 +9,10 @@ device, and the engines are the same algorithms:
 - **approx**: the binned bf16 sweep (kernel K2 on CUDA, its plain binned
   version on the CPU) followed by an exact f32 rescore of the k winners
   (``_rescore_true``);
+- l1, which has no matmul identity, takes the l1 sweep for both
+  (``l1_sweep_topk``: torch ops on every device; approx over the bf16
+  copy of the rows, then the rescore, selecting exactly where the JAX
+  package takes ``approx_min_k``);
 - **beam**: the best-first walk over layer 0 (``_ground_beam_seeds``:
   kernel K4 on CUDA, one launch per query batch; its plain batched loop on
   the CPU), seeded by a bf16 sweep over the level >= 1 rows
@@ -119,6 +123,16 @@ class DeviceGraph:
     # per-row ||x||^2 and a bf16 copy, so sweeps don't recompute per call
     x2: torch.Tensor | None = None
     values_bf16: torch.Tensor | None = None
+    # The capacity the JAX package's graph would report as its ``cap``:
+    # a device-built or grown graph there keeps its padded array capacity
+    # (``device_build.cap_pad_for(n) - 1``), here only the figure, not the
+    # padded tensors. ``search``'s engine choice and the filter-mask length
+    # check read it. None = ``cap``.
+    capacity: int | None = None
+
+    def __post_init__(self):
+        if self.capacity is None:
+            self.capacity = self.cap
 
     @property
     def device(self) -> torch.device:
@@ -408,7 +422,11 @@ def _descent_seed_one(g: DeviceGraph, q, entry_level: int):
 def _exact_scores(g: DeviceGraph, queries, vals, a):
     """[B, rows(vals)] order scores ``a - 2 q.x`` (l2) or ``a - q.x``
     (ip/cosine) for a corpus slice; ``a`` is the row term. bf16-rounded
-    operands, f32 products and sums (the coarse seed sweep)."""
+    operands, f32 products and sums (the coarse seed sweep). l1 has no
+    matmul identity: ``|q - x|_1 + a`` from the f32 queries and the
+    stored rows, as the JAX package scores it."""
+    if g.metric == "l1":
+        return torch.cdist(queries.float(), vals.float(), p=1) + a[None, :]
     q = queries.to(torch.bfloat16).float()
     v = vals.to(torch.bfloat16).float()
     dots = q @ v.T
@@ -425,7 +443,7 @@ def _true_dists(g: DeviceGraph, queries, s):
     if g.metric == "cosine":
         # keep the inf dead-row sentinel (clip would map it to 2.0)
         return torch.where(torch.isfinite(s), 1.0 - (-s).clamp(-1.0, 1.0), s)
-    return s  # ip: -dots IS the distance
+    return s  # ip: -dots IS the distance; l1: sums pass through
 
 
 def _rescore_true(g: DeviceGraph, queries, s, ids):
@@ -437,12 +455,47 @@ def _rescore_true(g: DeviceGraph, queries, s, ids):
     if g.metric == "l2":
         diff = rows - qb
         d = (diff * diff).sum(dim=-1)
+    elif g.metric == "l1":
+        d = (rows - qb).abs().sum(dim=-1)
     else:
         dots = (rows * qb).sum(dim=-1)
         d = -dots if g.metric == "ip" else 1.0 - dots.clamp(-1.0, 1.0)
     d = torch.where(torch.isfinite(s), d, _INF)
     d, order = torch.sort(d, dim=1, stable=True)
     return d, torch.gather(ids, 1, order)
+
+
+#: corpus rows per block of the l1 sweep (bounds its [B, rows] scores)
+_L1_CHUNK = 1 << 16
+
+
+def l1_sweep_topk(vals, a, queries, k: int):
+    """Exact top-k of the l1 order score ``|q - x|_1 + a`` (``a``: 0 on
+    live rows, inf on the rest) over the rows of ``vals`` -> (scores
+    [B, k] f32, row ids [B, k] int64), ascending. f32 sums of direct
+    differences (``torch.cdist(p=1)``: no [B, rows, D] temporary) per
+    block of ``_L1_CHUNK`` rows, merged into a running top-k. Torch ops on
+    every device: the kernel to hand-write is queued (ROADMAP queue 2,
+    K11)."""
+    q = queries.float()
+    best_d = q.new_empty((q.shape[0], 0))
+    best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
+    for s in range(0, vals.shape[0], _L1_CHUNK):
+        x = vals[s : s + _L1_CHUNK].float()
+        sc = torch.cdist(q, x, p=1) + a[None, s : s + _L1_CHUNK]
+        d_c, i_c = torch.topk(sc, min(k, x.shape[0]), dim=1, largest=False,
+                              sorted=True)
+        best_d = torch.cat([best_d, d_c], dim=1)
+        best_i = torch.cat([best_i, i_c + s], dim=1)
+        if best_d.shape[1] > k:
+            best_d, pos = torch.topk(best_d, k, dim=1, largest=False,
+                                     sorted=True)
+            best_i = torch.gather(best_i, 1, pos)
+    pad = k - best_d.shape[1]
+    if pad > 0:  # fewer rows than k
+        best_d = torch.nn.functional.pad(best_d, (0, pad), value=_INF)
+        best_i = torch.nn.functional.pad(best_i, (0, pad), value=-1)
+    return best_d, best_i
 
 
 def _live_rows(g: DeviceGraph, row_mask):
@@ -457,12 +510,19 @@ def _exact_search_batch(g: DeviceGraph, queries, k: int, approx: bool = False,
 
     The sweep is ``ops/bruteforce``'s: K1 (exact FP32) or K2 (binned
     bf16) followed by the f32 rescore. Those wrappers alone choose the
-    kernel (CUDA tensors) or its plain version (CPU tensors)."""
-    if g.metric not in ("l2", "ip", "cosine"):
-        raise NotImplementedError(
-            f"exact/approx sweep for metric {g.metric!r} is not ported"
-        )
+    kernel (CUDA tensors) or its plain version (CPU tensors). l1 has no
+    matmul identity and takes ``l1_sweep_topk`` (over the bf16 copy of the
+    rows, then the f32 rescore, for approx)."""
     live = _live_rows(g, row_mask)
+    if g.metric == "l1":
+        a = torch.where(live, 0.0, _INF)
+        vals = g.values
+        if approx and g.values_bf16 is not None:
+            vals = g.values_bf16
+        d, ids = l1_sweep_topk(vals, a, queries, k)
+        if approx:
+            d, ids = _rescore_true(g, queries, d, ids)
+        return d, torch.where(torch.isfinite(d), ids, -1)
     x2 = g.x2 if g.x2 is not None else (g.values.float() ** 2).sum(dim=1)
     pen = torch.where(live, 0.0, _PENALTY)
     a = ((x2 + pen) if g.metric == "l2" else pen).contiguous()
@@ -541,19 +601,22 @@ def serve_topk(index, queries_dev, k: int, engine: str = "approx",
 def _stage_filter_mask(g: DeviceGraph, filter_mask):
     """A user element-id filter mask as a [cap+1] bool tensor on the
     graph's device (sentinel row False). Accepts None or a numpy / torch
-    bool array of length <= cap (unlisted tail ids are excluded)."""
+    bool array of length <= the graph's capacity (unlisted tail ids are
+    excluded; ids past ``cap`` hold no element, so they are dropped)."""
     if filter_mask is None:
         return None
     cap1 = g.traversable.shape[0]
     m = torch.as_tensor(np.asarray(filter_mask, dtype=bool)
                         if not isinstance(filter_mask, torch.Tensor)
                         else filter_mask).to(g.device, torch.bool)
-    if m.shape[0] > cap1 - 1:
+    if m.shape[0] > g.capacity:
         raise ValueError(
-            f"filter_mask length {m.shape[0]} exceeds index capacity {cap1 - 1}"
+            f"filter_mask length {m.shape[0]} exceeds index capacity "
+            f"{g.capacity}"
         )
     out = torch.zeros(cap1, dtype=torch.bool, device=g.device)
-    out[: m.shape[0]] = m
+    n = min(m.shape[0], cap1 - 1)
+    out[:n] = m[:n]
     return out
 
 
@@ -618,7 +681,7 @@ def search(index, qlist, k: int, params, engine: str = "auto",
     ef = max(params.ef_search, 1)
     max_steps = 4 * ef + 32
     if engine == "auto":
-        engine = "exact" if g.cap <= EXACT_ENGINE_MAX_ROWS else "beam"
+        engine = "exact" if g.capacity <= EXACT_ENGINE_MAX_ROWS else "beam"
     if engine in ("exact", "approx"):
         beam_d, beam_ids = _exact_search_batch(
             g, queries, max(k, 1), approx=engine == "approx",

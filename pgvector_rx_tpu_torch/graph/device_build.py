@@ -2,18 +2,22 @@
 tensor ops on one device.
 
 The counterpart of ``pgvector_rx_tpu/graph/device_build.py``, for the
-dense l2 / ip / cosine kinds below 512 dimensions (the JAX package's
-``ground == "ivf"`` arm). Construction runs in batches against a frozen
-graph snapshot; batch sizes double from 1 up to ``batch_max``:
+dense kind (l2 / ip / cosine / l1). Construction runs in batches against a
+frozen graph snapshot; batch sizes double from 1 up to ``batch_max``:
 
 1. **Score and select** (``_score_select_step``). Ground-layer
    candidates come from an exact sweep over the committed prefix while
    fewer than ``_DESCENT_MIN_WIDTH`` rows are committed (the "ramp"), and
-   after that from the IVF member table: the members of the 16 nearest
-   committed upper-layer cells plus the layer-0 neighbours of the 16
-   nearest members (``_ivf_ground_candidates``). Upper layers score the
-   compact table of level >= 1 rows (and one sub-table per layer >= 2).
-   Every layer selects with the fixpoint-parallel Algorithm 4
+   after that from one of two grounds, chosen as the JAX package chooses
+   (``ground="auto"``: "ivf" for l2 / ip / cosine below 512 dimensions,
+   "beam" otherwise). "ivf": the members of the 16 nearest committed
+   upper-layer cells plus the layer-0 neighbours of the 16 nearest
+   members (``_ivf_ground_candidates``). "beam": an ef_construction-wide
+   best-first walk over the as-built layer 0 from the 16 nearest
+   committed upper rows and the entry, 16 fixed steps of 4 expansions
+   (``_beam_ground_candidates``). Upper layers score the compact table of
+   level >= 1 rows (and one sub-table per layer >= 2). Every layer
+   selects with the fixpoint-parallel Algorithm 4
    (``_select_neighbors_parallel``).
 2. **Commit** (``_commit_all_step``): duplicate folding (<= 10 heap TIDs
    per element), forward edges, the member-table append, entry promotion,
@@ -32,18 +36,24 @@ differs, in PyTorch idiom:
   packed int32 layout. Ids stay int32 in the tables and widen at gathers.
 - Selections take an exact ``torch.topk`` where the JAX build takes
   ``lax.approx_min_k`` (upper tables of 16,384 rows or more).
-- The finished ``DeviceGraph`` has ``cap`` = the number of built rows
-  (the JAX graph keeps the padded capacity); row ``cap`` is the sentinel.
+- ``vmap`` over queries becomes a batch dimension: the beam ground's walk
+  is [B, efc] tensors stepped a fixed number of times.
+- l1 scores go through ``torch.cdist(p=1)`` (direct differences, f32
+  sums, no [B, rows, D] temporary) where the JAX package materialises the
+  differences and leaves their fusion to XLA.
+- The finished ``DeviceGraph`` has ``cap`` = the number of built rows and
+  the JAX graph's padded capacity only as its ``capacity`` figure; row
+  ``cap`` is the sentinel.
 
 ``bulk_insert`` (``HnswIndex.insert_bulk``) inserts into an existing index
 with the same builder: the graph is transplanted into fresh build tensors
 (``_seed_builder_from_graph``, edge distances recomputed exactly on the
 device) and the new rows run as doubling batches on top of it.
 
-The ``PGV_BUILD_*`` environment variables of the JAX package are not read;
-a non-default value of one raises (``_build_settings``). Not ported, and
-refused with ``NotImplementedError``: the beam-descent ground (dim >= 512
-or l1), the bit kind and ``consume_input``.
+Of the JAX package's ``PGV_BUILD_*`` environment variables only
+``PGV_BUILD_GROUND`` is read; a non-default value of another raises
+(``_build_settings``). Not ported, and refused with
+``NotImplementedError``: the bit kind and ``consume_input``.
 """
 
 from __future__ import annotations
@@ -73,30 +83,44 @@ _IVF_CAP = 64
 _IVF_PROBES = 16
 _IVF_HOP = 16
 
+#: the beam ground's walk: fixed steps, expansions per step (the JAX
+#: package's PGV_BUILD_BEAM_STEPS = 0 -> 16 and PGV_BUILD_BEAM_EXPAND),
+#: and its upper-row seeds
+_BEAM_STEPS = 16
+_BEAM_EXPAND = 4
+_BEAM_SEEDS = 16
+
+#: rows per block of the l1 sweep (bounds its [B, rows] scores)
+_L1_CHUNK = 8192
+
 _INF = float("inf")
 
-#: the JAX package's build knobs and their defaults; the port reads none
-#: of them and refuses a non-default value (an unset or empty one is fine)
+#: the JAX package's build knobs and their defaults; the port reads only
+#: PGV_BUILD_GROUND (``DeviceBuilder``) and refuses a non-default value of
+#: the others (an unset or empty one is fine)
 _BUILD_ENV_DEFAULTS = {
     "PGV_BUILD_DESCENT_MIN": "65536", "PGV_BUILD_ALPHA": "1",
-    "PGV_BUILD_ALPHA_UPPER": "1", "PGV_BUILD_GROUND": "auto",
+    "PGV_BUILD_ALPHA_UPPER": "1",
     "PGV_BUILD_IVF_CAP": "64", "PGV_BUILD_IVF_PROBES": "16",
     "PGV_BUILD_IVF_HOP": "16", "PGV_BUILD_IVF_HOP_STRIDE": "1",
     "PGV_BUILD_BE_K": "0", "PGV_BUILD_BATCH": "0",
     "PGV_BUILD_UPPER_STRATIFY": "0", "PGV_BUILD_SEED_CQ": "0",
     "PGV_BUILD_IP_AUG": "0", "PGV_BUILD_STREAM": "1",
+    "PGV_BUILD_BEAM_STEPS": "0", "PGV_BUILD_BEAM_EXPAND": "4",
+    "PGV_BUILD_BEAM_DEDUP": "1", "PGV_BUILD_BEAM_MERGE": "sort",
 }
 
-_ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13"
+_ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13b"
 _ROADMAP_BIT = "ROADMAP queue 1, item 14"
 
 
 def _build_settings() -> None:
-    """Refuse every ``PGV_BUILD_*`` variable set to a non-default value:
-    each changes the JAX package's graph, and the port builds only the
-    default one."""
+    """Refuse every ``PGV_BUILD_*`` variable but ``PGV_BUILD_GROUND`` set
+    to a non-default value: each changes the JAX package's graph, and the
+    port builds only the default one."""
     for var, val in os.environ.items():
-        if not var.startswith("PGV_BUILD_") or val == "":
+        if (not var.startswith("PGV_BUILD_") or val == ""
+                or var == "PGV_BUILD_GROUND"):
             continue
         default = _BUILD_ENV_DEFAULTS.get(var)
         if default is not None:
@@ -247,8 +271,11 @@ class BuildArrays:
 def _pair_matrix(metric: str, rows):
     """All-pairs order distances among rows [..., C, D] -> [..., C, C],
     f32 products and sums of the (bf16) rows; l2 through the matmul
-    identity ||a-b||^2 = ||a||^2 + ||b||^2 - 2ab."""
+    identity ||a-b||^2 = ||a||^2 + ||b||^2 - 2ab; l1 (f32 rows) from
+    direct differences, reduced without a [..., C, C, D] temporary."""
     r = rows.float()
+    if metric == "l1":
+        return torch.cdist(r, r, p=1)
     dots = r @ r.transpose(-1, -2)
     if metric == "l2":
         sq = (r * r).sum(dim=-1)
@@ -332,16 +359,14 @@ def _window(s_key, s_src, s_d, K: int, same_extra=None):
 
 class DeviceBuilder:
     """Owns the build tensors and the per-batch steps (dense l2 / ip /
-    cosine below 512 dimensions, IVF ground)."""
+    cosine / l1; the IVF or the beam-descent ground past the ramp)."""
 
     def __init__(self, metric: str, vectors: torch.Tensor, levels, m: int,
-                 ef_construction: int, batch_max: int = 1024):
-        if metric not in ("l2", "ip", "cosine") or vectors.shape[1] >= 512:
-            raise NotImplementedError(
-                f"the device build of {metric} at {vectors.shape[1]} "
-                "dimensions needs the beam-descent ground "
-                f"(_beam_ground_candidates), not ported ({_ROADMAP_OFF_PATH})"
-            )
+                 ef_construction: int, batch_max: int = 1024,
+                 ground: str | None = None):
+        if metric not in ("l2", "ip", "cosine", "l1"):
+            raise ValueError(f"the dense device build has no metric "
+                             f"{metric!r}")
         dev = vectors.device
         self.device = dev
         self.metric = metric
@@ -349,6 +374,18 @@ class DeviceBuilder:
         self.efc = ef_construction
         self.n = n = vectors.shape[0]
         d = vectors.shape[1]
+        # the ground past the ramp, as the JAX package picks it: the IVF
+        # member table for the matmul metrics below 512 dimensions, the
+        # beam descent at 512 or more (where cell-local candidates miss
+        # the recall bar) and for l1 at any width
+        if ground is None:
+            ground = os.environ.get("PGV_BUILD_GROUND") or "auto"
+        if ground == "auto":
+            ground = ("ivf" if metric in ("l2", "ip", "cosine") and d < 512
+                      else "beam")
+        if ground not in ("ivf", "beam"):
+            raise ValueError(f"unknown build ground {ground!r}")
+        self.ivf = ground == "ivf"
         self.batch_max = batch_max
         self.lm0 = hnsw_get_layer_m(m, 0)
         self.descent_min = _DESCENT_MIN_WIDTH
@@ -433,7 +470,13 @@ class DeviceBuilder:
     # -- scoring -------------------------------------------------------------
 
     def _score_all(self, q_rows, vectors, x2):
-        """Order distances [B, rows] from f32 queries to f32 rows."""
+        """Order distances [B, rows] from f32 queries to f32 rows (l1: the
+        sweep in blocks of ``_L1_CHUNK`` rows)."""
+        if self.metric == "l1":
+            return torch.cat([
+                torch.cdist(q_rows, vectors[s : s + _L1_CHUNK], p=1)
+                for s in range(0, vectors.shape[0], _L1_CHUNK)
+            ], dim=1)
         dots = q_rows @ vectors.T
         if self.metric == "l2":
             q2 = (q_rows * q_rows).sum(dim=1, keepdim=True)
@@ -447,7 +490,10 @@ class DeviceBuilder:
         with f32 sums, dead columns folded into the per-column term
         ``a_col`` (l2: x2 + pen, others: pen), per-query constants left
         out. Monotone in the true distance per query; callers rescore the
-        selected columns exactly."""
+        selected columns exactly. l1: the f32 sweep plus ``a_col``."""
+        if self.metric == "l1":
+            return self._score_all(q_chunk, data.upper_vectors,
+                                   data.upper_x2) + a_col[None, :]
         q = q_chunk.to(torch.bfloat16).float()
         dots = q @ data.upper_bf16.float().T
         if self.metric == "l2":
@@ -460,15 +506,23 @@ class DeviceBuilder:
         if self.metric == "l2":
             dlt = rows - q_rows[:, None, :]
             return (dlt * dlt).sum(dim=-1)
-        dots = (rows * q_rows[:, None, :]).sum(dim=-1)
+        if self.metric == "l1":
+            return (rows - q_rows[:, None, :]).abs().sum(dim=-1)
+        dots = torch.bmm(rows, q_rows[:, :, None])[:, :, 0]
         if self.metric == "ip":
             return -dots
         return 1.0 - torch.clamp(dots, -1.0, 1.0)
 
+    def _pair_rows(self, data: BuildData, ids):
+        """Rows for Algorithm 4's pair distances: bf16 for the matmul
+        metrics, f32 for l1 (as the JAX package reads them)."""
+        rows = data.vectors if self.metric == "l1" else data.vectors_bf16
+        return rows[ids.clamp(0, self.cap).long()]
+
     def _candidates_to_selection(self, data: BuildData, cand_d, cand_idx):
         """Algorithm 4 over sorted candidates; pads to lm0 columns."""
         cand_idx = torch.where(torch.isfinite(cand_d), cand_idx, -1)
-        rows = data.vectors_bf16[cand_idx.clamp(0, self.cap).long()]
+        rows = self._pair_rows(data, cand_idx)
         pair = _pair_matrix(self.metric, rows)
         bad = cand_idx < 0
         pair = torch.where(bad[:, None, :] | bad[:, :, None], _INF, pair)
@@ -533,9 +587,12 @@ class DeviceBuilder:
             assign = torch.full((B,), self.upper_dump, dtype=torch.int64,
                                 device=self.device)
         else:
-            # merged upper scan: probe cells (first SP columns) and the
-            # layer-1 pool (first `pool` columns) from one pass
-            SP = min(_IVF_PROBES, width_u)
+            # merged upper scan: the IVF probe cells or the beam's seeds
+            # (first SP columns) and the layer-1 pool (first `pool`
+            # columns) from one pass; the S seeds plus the entry fit the
+            # efc-wide beam
+            S = min(_BEAM_SEEDS, width_u - 1, max(self.efc - 1, 1))
+            SP = min(max(S, _IVF_PROBES) if self.ivf else S, width_u)
             KK = min(max(SP, pool), width_u)
             ord_all, slots_all = torch.topk(
                 self._upper_order_scores(data, q_rows, a_col), KK, dim=1,
@@ -549,9 +606,16 @@ class DeviceBuilder:
             slots_all = torch.gather(slots_all, 1, o)
             seed_sc = d_all[:, :SP]
             seed_slots = slots_all[:, :SP]
-            cand_d, cand_idx = self._ivf_ground_candidates(
-                data, arrays, q_rows, seed_sc, seed_slots
-            )
+            if self.ivf:
+                cand_d, cand_idx = self._ivf_ground_candidates(
+                    data, arrays, q_rows, seed_sc, seed_slots
+                )
+            else:
+                fin = torch.isfinite(seed_sc[:, :S])
+                cand_d, cand_idx = self._beam_ground_candidates(
+                    data, arrays, q_rows, torch.where(fin, seed_sc[:, :S], _INF),
+                    torch.where(fin, u_ids[seed_slots[:, :S]].long(), -1),
+                )
             assign = torch.where(torch.isfinite(seed_sc[:, 0]),
                                  seed_slots[:, 0], self.upper_dump)
         sel0_d, sel0_ids = self._candidates_to_selection(data, cand_d,
@@ -614,6 +678,64 @@ class DeviceBuilder:
         return (torch.where(keep, sel_d, _INF), torch.where(keep, sel_ids, -1),
                 assign)
 
+    def _beam_ground_candidates(self, data: BuildData, arrays: BuildArrays,
+                                q_rows, seed_d, seed_ids):
+        """Ground candidates by batched beam descent: the reference's
+        layer-0 ef_construction search (graph/mod.rs:355-427) as
+        fixed-trip tensor ops over the as-built adjacency.
+
+        Each query keeps an efc-wide beam of packed keys ``id * 2 + (1 -
+        expanded)`` (-2: empty), seeded with the upper rows ``seed_ids``
+        [B, S] (-1 = none) at ``seed_d`` and the entry. Each of
+        ``_BEAM_STEPS`` steps marks the ``_BEAM_EXPAND`` best unexpanded
+        entries expanded, scores their layer-0 neighbours (bf16 rows, f32
+        sums) and merges by two stable sorts: by key, so the expanded copy
+        of an id comes first and its duplicates go to inf, then by
+        distance. ``vmap`` over queries becomes the batch dimension.
+
+        Returns (cand_d, cand_ids) [B, efc] sorted nearest first."""
+        B, S = seed_ids.shape
+        W = self.efc
+        cap = self.cap
+        dev = self.device
+        entry = arrays.entry.clamp(0, cap)
+        e_d = self._dist_point_rows(
+            q_rows, data.vectors[entry].expand(B, 1, -1))[:, 0]
+        bkey = torch.full((B, W), -2, dtype=torch.int64, device=dev)
+        bd = torch.full((B, W), _INF, device=dev)
+        seeds = torch.cat([seed_ids, arrays.entry.expand(B, 1)], dim=1)
+        bkey[:, : S + 1] = torch.where(seeds >= 0, seeds * 2 + 1, -2)
+        bd[:, :S] = seed_d
+        bd[:, S] = e_d
+        lead = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+        for _ in range(_BEAM_STEPS):
+            unexp = torch.where((bkey >= 0) & (bkey & 1 == 1), bd, _INF)
+            # the best unexpanded entries, lower slots first on ties
+            # (lax.top_k's order)
+            pos = torch.argsort(unexp, dim=1, stable=True)[:, :_BEAM_EXPAND]
+            sel_ok = torch.isfinite(torch.gather(unexp, 1, pos))
+            k_pos = torch.gather(bkey, 1, pos)
+            bkey = bkey.scatter(1, pos, torch.where(sel_ok, k_pos & ~1, k_pos))
+            u = torch.where(sel_ok, k_pos >> 1, -1)
+            nbrs = arrays.nb0_ids[u.clamp(0, cap)].long()  # [B, E, lm0]
+            nbrs = torch.where((u >= 0)[:, :, None], nbrs, -1).reshape(B, -1)
+            safe = nbrs.clamp(0, cap)
+            ok = (nbrs >= 0) & arrays.alive[safe]
+            d_new = self._dist_point_rows(q_rows,
+                                          data.vectors_bf16[safe].float())
+            all_key = torch.cat([bkey, torch.where(ok, nbrs * 2 + 1, -2)], 1)
+            all_d = torch.cat([bd, torch.where(ok, d_new, _INF)], 1)
+            o_key, o = torch.sort(all_key, dim=1, stable=True)
+            o_d = torch.gather(all_d, 1, o)
+            dup = torch.cat([lead, (o_key[:, 1:] >> 1) == (o_key[:, :-1] >> 1)],
+                            dim=1)
+            o_d = torch.where(dup | (o_key < 0), _INF, o_d)
+            sd, o = torch.sort(o_d, dim=1, stable=True)
+            bd = sd[:, :W]
+            bkey = torch.gather(o_key, 1, o[:, :W])
+        bids = torch.where(torch.isfinite(bd) & (bkey >= 0), bkey >> 1, -1)
+        return bd, bids
+
     def _ivf_ground_candidates(self, data: BuildData, arrays: BuildArrays,
                                q_rows, seed_sc, seed_slots):
         """Ground candidates from the member table: the members of the
@@ -630,6 +752,9 @@ class DeviceBuilder:
         def score_ids(ids):
             safe = ids.clamp(0, cap).long()
             rows = data.vectors_bf16[safe].float()  # [B, W, D]
+            if self.metric == "l1":
+                d = (rows - q_rows[:, None, :]).abs().sum(dim=-1)
+                return torch.where(ids >= 0, d, _INF)
             qb = q_rows.to(torch.bfloat16).float()
             dots = torch.bmm(rows, qb[:, :, None])[:, :, 0]
             if self.metric == "l2":
@@ -769,8 +894,7 @@ class DeviceBuilder:
         cand_d = torch.where(cand_ids < 0, _INF, cand_d)
         cand_d, o = torch.sort(cand_d, dim=1, stable=True)
         cand_ids = torch.gather(cand_ids, 1, o)
-        rows = data.vectors_bf16[cand_ids.clamp(0, self.cap)]
-        pair = _pair_matrix(self.metric, rows)
+        pair = _pair_matrix(self.metric, self._pair_rows(data, cand_ids))
         bad = cand_ids < 0
         pair = torch.where(bad[:, None, :] | bad[:, :, None], _INF, pair)
         nd, nids = _select_neighbors_parallel(cand_d, cand_ids, pair, lm)
@@ -930,13 +1054,14 @@ class DeviceBuilder:
     def run_batch(self, start: int, size: int) -> None:
         """Insert elements [start, start + size)."""
         width = self._width_for(start)
-        if width == 0:
+        members = width == 0 and self.ivf
+        if members:
             self._ensure_members(start)
         sel_d, sel_ids, assign = self._score_select_step(
             self.data, self.arrays, start, size, width
         )
         self._commit_all_step(self.data, self.arrays, start, size, sel_d,
-                              sel_ids, assign if width == 0 else None)
+                              sel_ids, assign if members else None)
 
     def run_all(self, schedule) -> None:
         for start, size in schedule:
@@ -1080,7 +1205,8 @@ def _emit_tables_device(absorb, counts, first_tids, cap1: int):
 def _device_graph_from_builder(index, builder: DeviceBuilder, first_tids):
     """The serving ``DeviceGraph`` straight from the build tensors, cut to
     the n built rows plus the sentinel row n (the build's padding past n
-    holds no element)."""
+    holds no element). Its ``capacity`` is the padded one the JAX package's
+    graph reports as ``cap``."""
     from .device import DeviceGraph, _serve_dtype_for, _serve_value_arrays
 
     n = builder.n
@@ -1107,6 +1233,7 @@ def _device_graph_from_builder(index, builder: DeviceBuilder, first_tids):
         tid_count=a.tid_counts[: n + 1],
         **_serve_value_arrays(builder.vectors[: n + 1],
                               _serve_dtype_for(index)),
+        capacity=builder.cap,
     )
 
 
@@ -1271,8 +1398,6 @@ def bulk_insert(index, data, ids) -> int:
     index.stats["inserts"] += n_new
     added = sum(1 for t in new_tids if t)
     store_dtype = index.dtype or np.float32
-    # The JAX package's insert also appends the rows to an open append
-    # log here; the port has none (HnswIndex.enable_log raises).
 
     if index.serving_only:
         if dev_in and index.store._device_rows is not None:
@@ -1329,4 +1454,8 @@ def bulk_insert(index, data, ids) -> int:
         repl.version = index.elements[eid].version
         index.elements[eid] = repl
     index._invalidate_device()
+    if index._log is not None:
+        with index._log.batch():  # group commit: one fsync per bulk
+            for row, tid in zip(arr_host, kept_tids.tolist()):
+                index._log.record_insert(row, tid)
     return added

@@ -7,8 +7,8 @@ sequential insert, delete and vacuum; reference ``src/index/build.rs`` and
 ``device``, ``build`` routes the batched device build and the
 serving-only native build into a torch ``DeviceGraph``, and
 ``device_graph`` / ``search`` / ``scan`` / ``insert_bulk`` use the port's
-engines. The persistence seams, whose torch versions are not ported yet
-(``save``, ``load``, ``enable_log``), raise.
+engines, and ``save`` / ``load`` / ``enable_log`` its copy of the
+checkpoint format (``index/storage.py``).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 on a host with no CUDA device; pass ``device="cpu"`` to run on the CPU.
@@ -35,8 +35,7 @@ DENSE_METRICS = ("l2", "ip", "cosine", "l1")
 BIT_METRICS = ("hamming", "jaccard")
 SPARSE_METRICS = DENSE_METRICS
 
-_ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13"
-_ROADMAP_PERSIST = "ROADMAP queue 1, item 12"
+_ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13b"
 _ROADMAP_KIND = {"bit": "ROADMAP queue 1, item 14",
                  "sparse": "ROADMAP queue 1, item 15"}
 
@@ -120,7 +119,7 @@ class HnswIndex:
         self.serving_only = False  # set by light device builds
         self._rng = np.random.default_rng(seed)
         self._device = None  # device graph cache (graph/device.py)
-        self._log = None  # append log: not ported (vacuum reads it)
+        self._log = None  # append log (storage.py attaches)
         self.stats = {"scans": 0, "inserts": 0, "duplicates": 0, "resumes": 0}
         # last batch-search ScanStats (EXPLAIN ANALYZE analog): host
         # searches fill it
@@ -150,8 +149,11 @@ class HnswIndex:
         """Live (non-deleted) element slots."""
         if self.serving_only and not self.elements:
             # serving-only builds keep no host GraphElements; the store
-            # count is the live-row count (no host mutation path exists)
-            return self.store.count
+            # count is the live-row count (no host mutation path exists).
+            # _serving_dead: rows already deleted in a host-graph
+            # checkpoint loaded with serving=True
+            # (storage._load_host_as_serving)
+            return self.store.count - getattr(self, "_serving_dead", 0)
         return sum(
             1 for e in self.elements if not e.deleted and e.level >= 0
         )
@@ -397,6 +399,9 @@ class HnswIndex:
             out = self._insert_prepared(
                 prepared, tid, C.HNSW_UPDATE_ENTRY_GREATER, level=level
             )
+            if self._log is not None:
+                with self._mutate_lock:
+                    self._log.record_insert(value, tid)
             return out
 
     def insert_bulk(self, values, tids: Optional[Sequence[int]] = None) -> int:
@@ -602,23 +607,29 @@ class HnswIndex:
         with self._update_lock.exclusive():
             return vacuum.run_vacuum(self)
 
-    # -- persistence (not ported) ---------------------------------------------
+    # -- persistence ---------------------------------------------------------
 
     def save(self, path) -> None:
-        raise NotImplementedError(
-            f"saving checkpoints from torch is not ported yet ({_ROADMAP_PERSIST})"
-        )
+        """Write a checkpoint (the JAX package's format) into ``path``."""
+        from . import storage
+
+        with self._update_lock.exclusive():  # checkpoint a quiescent graph
+            storage.save(self, path)
 
     @classmethod
-    def load(cls, path, serving: bool = False):
-        raise NotImplementedError(
-            f"loading checkpoints into torch is not ported yet ({_ROADMAP_PERSIST})"
-        )
+    def load(cls, path, serving: bool = False, device=None) -> "HnswIndex":
+        """Reload a checkpoint onto ``device`` (None: the card).
+        ``serving=True`` converts a host-graph checkpoint into a
+        serving-only index with vectorized numpy (see storage.load)."""
+        from . import storage
+
+        return storage.load(path, serving=serving, device=device)
 
     def enable_log(self, path) -> None:
-        raise NotImplementedError(
-            f"the append log is not ported to torch yet ({_ROADMAP_PERSIST})"
-        )
+        """Attach an append-only insert log (WAL analog)."""
+        from . import storage
+
+        self._log = storage.AppendLog(path, self)
 
     # -- device --------------------------------------------------------------
 

@@ -212,20 +212,32 @@ def _surrogate_topk_cuda(base, a, queries, k: int):
     return out_d, out_i
 
 
+#: the largest k that K1 answers in one call with all its spare places:
+#: its lists hold min(64, k + 4)
+_ROUND_K = _MAX_K - _K1_SPARE
+
+
+def _round_sizes(k: int) -> list[int]:
+    """The k of each K1 round for a top-k past ``_ROUND_K``: rounds of 60,
+    so that every round keeps its 4 spare places for the exact rescoring
+    (at k = 61-64 one call would keep none)."""
+    return [min(_ROUND_K, k - s) for s in range(0, k, _ROUND_K)]
+
+
 def _surrogate_topk_rounds(base, a, queries, k: int):
-    """K1 past its list length (k > 64), one query at a time: rounds of at
-    most 64, each round's rows excluded from the next by the penalty in a
-    copy of ``a`` (made once, its penalised rows restored after each
-    query), so round r returns ranks [64 r, 64 r + 64) in order. The path
-    of ``DeviceScan``'s growing exact blocks (one query): ceil(k / 64)
-    sweeps of every row."""
+    """K1 past ``_ROUND_K`` (k > 60), one query at a time: rounds of at
+    most 60 (``_round_sizes``), each round's rows excluded from the next
+    by the penalty in a copy of ``a`` (made once, its penalised rows
+    restored after each query), so round r returns ranks [60 r, 60 r + 60)
+    in order. The path of ``DeviceScan``'s growing exact blocks (one
+    query): ceil(k / 60) sweeps of every row."""
     out_d, out_i = [], []
     ab = a.clone()
     for b in range(queries.shape[0]):
         q = queries[b : b + 1]
         parts_d, parts_i = [], []
-        for start in range(0, k, _MAX_K):
-            sd, si = _surrogate_topk_cuda(base, ab, q, min(_MAX_K, k - start))
+        for kr in _round_sizes(k):
+            sd, si = _surrogate_topk_cuda(base, ab, q, kr)
             parts_d.append(sd)
             parts_i.append(si)
             ab[si[si >= 0].long()] = _NEG_BIG
@@ -240,10 +252,10 @@ def _surrogate_topk_rounds(base, a, queries, k: int):
 def _surrogate_topk(base, a, queries, k: int):
     """Exact top-k of ``a - 2 q.x`` -> (scores [B,k] f32, ids [B,k] i32),
     ascending; excluded/empty slots are (inf, -1). CPU tensors take the
-    plain version, CUDA tensors the K1 kernel (in rounds past k = 64)."""
+    plain version, CUDA tensors the K1 kernel (in rounds past k = 60)."""
     if not base.is_cuda:
         sd, si = _surrogate_topk_plain(base, a, queries, k)
-    elif k > _MAX_K:
+    elif k > _ROUND_K:
         sd, si = _surrogate_topk_rounds(base, a, queries, k)
     else:
         sd, si = _surrogate_topk_cuda(base, a, queries, k)

@@ -272,7 +272,9 @@ def test_k1_kernel_matches_plain(cuda, n, d, b, k):
     a[::7] += tbf._NEG_BIG
     before = tbf.LAUNCHES["k1_topk"]
     kd, ki = tbf._surrogate_topk(x, a, q, k)
-    assert tbf.LAUNCHES["k1_topk"] == before + 1
+    # past k = 60 the wrapper runs one query at a time in rounds
+    rounds = b * len(tbf._round_sizes(k)) if k > tbf._ROUND_K else 1
+    assert tbf.LAUNCHES["k1_topk"] == before + rounds
     pd, pi = tbf._invalid_to_sentinel(*tbf._surrogate_topk_plain(x, a, q, k))
     torch.cuda.synchronize()
     kd, ki, pd, pi = (t.cpu().numpy() for t in (kd, ki, pd, pi))
@@ -280,6 +282,73 @@ def test_k1_kernel_matches_plain(cuda, n, d, b, k):
     np.testing.assert_allclose(kd, pd, rtol=1e-5, atol=1e-5 * q2max)
     _same_sets_except_ties(ki, kd, pi, pd, atol=1e-5 * q2max)
     assert (ki % 7 != 0).all()  # penalised rows never returned
+
+
+@pytest.mark.parametrize("k", [1, 60, 61, 64, 65, 120, 160, 2560])
+def test_k1_rounds_keep_their_spare_places(k):
+    """Every K1 round asks for at most 60 rows, so its list of
+    min(64, k + 4) keeps the 4 spare places of the exact rescoring."""
+    sizes = tbf._round_sizes(k)
+    assert sum(sizes) == k and all(1 <= s <= tbf._ROUND_K for s in sizes)
+    assert all(min(tbf._MAX_K, s + tbf._K1_SPARE) == s + tbf._K1_SPARE
+               for s in sizes)
+    assert len(sizes) == -(-k // tbf._ROUND_K)
+
+
+def _tf32_tie_pair(lo: float):
+    """Two f32 values one ulp apart above ``lo`` that the 3xTF32 split
+    cannot tell apart: (x_a, x_b) with x_a > x_b but big + small of
+    ``_tf32_split`` equal (the split drops the lowest bit of x_b)."""
+    u = np.arange(1 << 14, dtype=np.int64) + int(np.float32(lo).view(np.int32))
+    vals = torch.from_numpy(u.astype(np.int32)).view(torch.float32)
+    big, small = tbf._tf32_split(vals)
+    approx = (big.double() + small.double()).numpy()
+    tie = np.nonzero(approx[1:] == approx[:-1])[0]
+    assert len(tie), "no 3xTF32 tie in the range"
+    i = int(tie[0])
+    return float(vals[i + 1]), float(vals[i])
+
+
+def test_tf32_tie_pair_exists():
+    """The data of the 3b card test: one ulp apart, equal after the tf32
+    split (CPU arithmetic of the split)."""
+    x_a, x_b = _tf32_tie_pair(98304.0)
+    assert x_a > x_b and x_a - x_b == np.spacing(np.float32(x_b))
+    big, small = tbf._tf32_split(torch.tensor([x_a, x_b]))
+    s = big.double() + small.double()
+    assert s[0] == s[1]
+
+
+@pytest.mark.cuda
+def test_k1_top64_holds_a_near_tie_at_ranks_64_65(cuda):
+    """Fault 3b: at k = 64 one K1 call keeps no spare place, so its exact
+    rescoring cannot bring back a true rank-64 row whose 3xTF32 score ties
+    rank 65. The query is a unit axis, so every FP32 and float64 score is
+    exact; the kernel's tf32 split makes the pair at ranks 64 / 65, one
+    ulp (7.8e-3 at |x| ~ 1e5, far above the 1e-5 q2max tie tolerance)
+    apart, equal. Rank 65 sits in the first 64-row split and rank 64 in
+    the second, so the kernel's merge, which keeps the first of equal
+    scores, would keep rank 65. Every other row is 10 apart."""
+    d, n = 64, 1000
+    x_a, x_b = _tf32_tie_pair(98304.0)
+    g = torch.Generator().manual_seed(65)
+    x0 = torch.cat([  # x_a, x_b lie in [98304, 98432)
+        99000.0 + 10.0 * torch.arange(63, dtype=torch.float32),
+        97000.0 - 10.0 * torch.arange(n - 65, dtype=torch.float32),
+    ])[torch.randperm(n - 2, generator=g)]
+    x = torch.randn(n, d, generator=g)
+    x[:, 0] = torch.cat([torch.tensor([x_b]), x0[:63], torch.tensor([x_a]),
+                         x0[63:]])
+    q = torch.zeros(1, d)
+    q[0, 0] = 1.0
+    ref = -(x.double() @ q.double().T)[:, 0]  # ip order distances, exact
+    order = torch.argsort(ref)
+    assert float(ref[order[64]] - ref[order[63]]) > 1e-5  # not a tie
+    kd, ki = tbf.ip_topk(x.to(cuda), q.to(cuda), 64)
+    ki = ki.cpu()[0].long()
+    assert set(ki.tolist()) == set(order[:64].tolist())
+    np.testing.assert_array_equal(kd.cpu()[0].double().numpy(),
+                                  ref[ki].numpy())
 
 
 @pytest.mark.cuda

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from pgvector_rx_tpu.config import IndexParams
+from pgvector_rx_tpu.graph import device as jdev
 from pgvector_rx_tpu.graph import device_build as jdb
 from pgvector_rx_tpu.index.hnsw import HnswIndex as JaxIndex
 from pgvector_rx_tpu_torch import HnswIndex as TorchIndex
@@ -253,6 +254,45 @@ def test_two_builds_one_seed_are_identical(ivf):
     assert (ivf[1].device_graph().entry == again.device_graph().entry)
 
 
+def test_capacity_picks_the_engine_and_bounds_masks_as_in_jax(monkeypatch):
+    """Fault 3a: a device-built serving-only graph reports the JAX graph's
+    padded capacity (``cap_pad_for(n) - 1``), so with the exact cutover
+    between n and that capacity both packages pick the beam engine for
+    ``search(method="auto")``, and both take a filter mask up to the
+    capacity and refuse a longer one."""
+    n = 600
+    data = np.random.default_rng(8).standard_normal((n, 8)).astype(np.float32)
+    j = JaxIndex.build(data, metric="l2", params=IndexParams(m=8),
+                       method="device", seed=2, host_graph=False)
+    t = TorchIndex.build(data, metric="l2", params=TIndexParams(m=8),
+                         method="device", seed=2, host_graph=False,
+                         device="cpu")
+    cap = tdb.cap_pad_for(n) - 1
+    assert j.device_graph().cap == t.device_graph().capacity == cap > n
+    calls = []
+    for name, mod in (("jax", jdev), ("torch", tdev)):
+        monkeypatch.setattr(mod, "EXACT_ENGINE_MAX_ROWS", (n + cap) // 2)
+        real = mod._exact_search_batch
+        monkeypatch.setattr(
+            mod, "_exact_search_batch",
+            lambda *a, _real=real, _name=name, **kw: (
+                calls.append(_name), _real(*a, **kw))[1])
+    q = data[:40] + 0.01
+    _, ji = j.search(q, 5)
+    _, ti = t.search(q, 5)
+    assert calls == []  # both walked the graph
+    np.testing.assert_array_equal(ti, ji)
+    for length in (n, cap):
+        mask = np.ones(length, bool)
+        _, ji = j.search(q, 5, method="exact", filter_mask=mask)
+        _, ti = t.search(q, 5, method="exact", filter_mask=mask)
+        np.testing.assert_array_equal(ti, ji)
+    for idx in (j, t):
+        with pytest.raises(ValueError, match="capacity"):
+            idx.search(q, 5, method="exact",
+                       filter_mask=np.ones(cap + 1, bool))
+
+
 def test_auto_picks_the_device_build_at_20000_rows(monkeypatch):
     calls = []
     monkeypatch.setattr(tdb, "bulk_build",
@@ -274,7 +314,7 @@ def _data(n=100, d=8):
     return np.random.default_rng(5).random((n, d)).astype(np.float32)
 
 
-@pytest.mark.parametrize("var,val", [("PGV_BUILD_GROUND", "beam"),
+@pytest.mark.parametrize("var,val", [("PGV_BUILD_ALPHA", "1.2"),
                                      ("PGV_BUILD_IVF_HOP", "32"),
                                      ("PGV_BUILD_DESCENT_MIN", "2048"),
                                      ("PGV_BUILD_TIMING", "1")])
@@ -289,13 +329,6 @@ def test_default_env_settings_are_accepted(monkeypatch):
     monkeypatch.setenv("PGV_BUILD_ALPHA", "1.0")
     idx = TorchIndex.build(_data(), metric="l2", method="device", device="cpu")
     assert idx.num_tuples == 100
-
-
-@pytest.mark.parametrize("metric,dim,item", [("l1", 8, "item 13"),
-                                             ("cosine", 512, "item 13")])
-def test_beam_descent_ground_raises(metric, dim, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TorchIndex.build(_data(40, dim), metric=metric, method="device", device="cpu")
 
 
 def test_tensor_on_another_device_raises():

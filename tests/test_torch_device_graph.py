@@ -105,30 +105,40 @@ def test_serve_dtype_policy(monkeypatch):
 
 
 def test_device_build_not_ported_yet():
-    """The dense device build is ported (tests/test_torch_device_build.py);
+    """The dense device build is ported at every width and metric
+    (tests/test_torch_device_build.py, tests/test_torch_beam_ground.py);
     what of it is not raises, naming its ROADMAP item."""
     data = _data(n=100)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         TorchIndex.build(data, method="device", consume_input=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         TorchIndex.build((data > 0).astype(np.uint8), metric="hamming",
+                         method="device", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        TorchIndex.build([(np.array([0, 3]), np.array([1.0, 2.0]))] * 4,
                          method="device", device="cpu")
     with pytest.raises(ValueError, match="method='device'"):
         TorchIndex.build(torch.from_numpy(data), method="native", device="cpu")
 
 
-def test_unported_seams_raise_instead_of_reaching_jax():
+def test_unported_seams_raise_instead_of_reaching_jax(tmp_path, monkeypatch):
     t = TorchIndex.build(_data(n=200), method="native", host_graph=False,
                          seed=1, device="cpu")
-    # items 9 and 10 are ported: the insert and the scan run in the port
+    # items 9, 10 and 12 are ported: the insert, the scan and persistence
+    # run in the port
     assert t.insert_bulk(_data(n=4, seed=4)) == 4
     assert t.scan(_data(n=1)[0]).take(1)[0][0] == 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t.save("unused")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t.enable_log("unused")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TorchIndex.load("unused")
+    t.save(tmp_path / "ck")
+    assert TorchIndex.load(tmp_path / "ck", device="cpu").num_tuples == 204
+    # the beam variants (13b) and the bit kind's checkpoints (14) raise
+    monkeypatch.setenv("PGV_BEAM_EXPAND", "4")
+    with pytest.raises(NotImplementedError, match="PGV_BEAM_EXPAND"):
+        t.search(_data(n=2), 5, method="device")
+    monkeypatch.delenv("PGV_BEAM_EXPAND")
+    bits = TorchIndex.build((_data(n=40) > 0.5).astype(np.uint8),
+                            metric="hamming", method="host", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        bits.save(tmp_path / "bits")
 
 
 @pytest.mark.cuda

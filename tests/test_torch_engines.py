@@ -212,7 +212,9 @@ def test_engines_on_the_card_match_the_cpu(pair, cuda):
 
 def test_beam_l1_matches_jax_and_sweeps_refuse_l1():
     """l1 has no matmul identity: the beam serves it (gathered
-    differences), the exact/approx sweeps are not ported for it."""
+    differences), and the exact/approx engines, which refused it before
+    the l1 sweep was ported, now serve it with that sweep
+    (tests/test_torch_l1.py holds them to JAX)."""
     data, queries = make_dataset(1500, 16, 32, seed=8, n_clusters=20)
     j = JaxIndex.build(data, metric="l1", method="native", host_graph=False,
                        seed=1)
@@ -224,5 +226,7 @@ def test_beam_l1_matches_jax_and_sweeps_refuse_l1():
                     for r in range(32)])
     assert same >= 0.99
     np.testing.assert_allclose(td, np.asarray(jd), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="l1"):
-        tdev.serve_topk(t, queries, K, engine="exact")
+    jd, ji = jdev.serve_topk(j, jnp.asarray(queries), K, engine="exact")
+    td, ti = tdev.serve_topk(t, queries, K, engine="exact")
+    _assert_same_except_ties(ti, td, np.asarray(ji), np.asarray(jd),
+                             rtol=1e-5)

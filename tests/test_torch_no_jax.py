@@ -1,6 +1,7 @@
 """The port runs without JAX: a fresh interpreter imports it, builds a
 native index and a device-built index on the CPU, serves all three
-engines, searches, scans, inserts and runs the tile-min sweep, and neither
+engines, searches, scans, inserts, runs the tile-min sweep, saves and
+loads a checkpoint and builds and searches an l1 index, and neither
 JAX nor the JAX package (``pgvector_rx_tpu``) nor its benchmark
 (``bench``) ever enters ``sys.modules``. A subprocess, because the test harness
 (tests/conftest.py) imports JAX into this one."""
@@ -47,6 +48,15 @@ g = dev.device_graph()
 _, k3 = bf.tilemin_sweep_topk(g.values_bf16, g.x2, torch.from_numpy(queries),
                               10, "l2", tn=128)
 assert k3.shape == (32, 10) and (k3 >= 0).all()
+import os, tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    dev.save(os.path.join(tmp, "ck"))
+    back = HnswIndex.load(os.path.join(tmp, "ck"), device="cpu")
+    assert back.num_tuples == dev.num_tuples
+l1 = HnswIndex.build(data[:600], metric="l1", method="device",
+                     host_graph=False, device="cpu")
+_, ids = l1.search(queries, 5, method="exact")
+assert (ids >= 0).all()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 foreign = sorted(m for m in sys.modules if m == "bench"
                  or m == "pgvector_rx_tpu" or m.startswith("pgvector_rx_tpu."))

@@ -77,6 +77,25 @@ def test_native_library_builds_inside_the_port():
         "_build"
 
 
+def test_storage_copy_writes_the_jax_format(tmp_path):
+    """The port's ``index/storage.py`` is a copy of the JAX package's: the
+    same format version, and the same log lines for the same mutations
+    (checkpoints: tests/test_torch_storage.py)."""
+    from pgvector_rx_tpu.index import storage as jstorage
+    from pgvector_rx_tpu_torch.index import storage as tstorage
+
+    assert tstorage.FORMAT_VERSION == jstorage.FORMAT_VERSION
+    row = np.random.default_rng(4).random(6).astype(np.float32)
+    for mod, idx, name in ((jstorage, JaxIndex(6), "j"),
+                           (tstorage, TorchIndex(6, device="cpu"), "t")):
+        log = mod.AppendLog(tmp_path / f"{name}.jsonl", idx, fsync=False)
+        log.record_insert(row, 7)
+        log.record_delete([7, 9])
+        log.close()
+    assert (tmp_path / "t.jsonl").read_bytes() == \
+        (tmp_path / "j.jsonl").read_bytes()
+
+
 def _public(mod):
     return {k: v for k, v in vars(mod).items()
             if not k.startswith("_") and isinstance(v, (int, float, str))}
