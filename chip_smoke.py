@@ -101,11 +101,38 @@ an append log, inserts and deletes, reloaded with replay, and its
 ``search`` ids held to the live index's. Save and load seconds and the
 checkpoint's bytes are printed.
 
+**Bit path** (21, BASELINE's bit(256) configuration, ``bench_suite.py``):
+sign bits of a 1,000,000 x 256-d corpus (``make_dataset``, seed 7,
+intrinsic 24) built serving-only on the card with hamming (the device
+build on unpacked rows, the beam ground; build seconds, rows/s, peak
+memory, device time of the beam ground and the commit), its invariants,
+K9 ground truth for 4,096 queries equal to numpy popcounts on 64 of them
+in (distance, id) order, ``serve_topk`` exact / approx / beam (ef=40, the
+walk's packed-word mode) with tie-aware recall@10 (a returned row counts
+if its distance is at most the 10th true one) against floors (1.0, 1.0,
+0.93), and ``search`` held to ``serve_topk``. Then K9 against its plain
+version at 1,024 queries (equal, tie order included; the check must
+reject a control whose ties put the higher id first), timed beside its
+bound and ``torch.cdist(p=0)``, and the packed-word walk against the
+plain walk (tie-aware; it must reject the plain walk cut to ef / 4 steps).
+
+**Jaccard path** (22, the first 262,144 bit rows, cut for the run's
+time): the device build, the exact engine against numpy jaccard on 1,024
+queries (f32 distances equal, ids equal but for ties), beam recall, and
+K9's jaccard mode against its plain version, timed.
+
+**Flat index and operator classes** (23): ``FlatIndex`` over the first
+100,000 rows of the main corpus (l2) and of the bit corpus (hamming)
+equals K1 / K9 over the same rows; each dense and bit operator class makes
+an index on the card with no device named, whose exact top-1 is the numpy
+nearest row and whose beam answers.
+
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
 path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
-path. The last two lines of output are one JSON object per kernel list
-and the device line.
+path, K9 and K4 (word mode) on the bit and the jaccard paths, K1, K9 and
+K4 in phase 23. The last two lines of output are one JSON object per
+kernel list and the device line.
 """
 
 from __future__ import annotations
@@ -145,7 +172,19 @@ CSRC = "pgvector_rx_tpu_torch/csrc/"
 PALLAS = "pgvector_rx_tpu/ops/pallas_bruteforce.py"
 JAX_DEVICE = "pgvector_rx_tpu/graph/device.py"
 #: published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
-PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12,
+         "int8": 1979e12}
+#: the bit path: BASELINE's bit(256) configuration (bench_suite.py:180-185)
+#: at 1M (hamming) and its first 262,144 rows (jaccard, cut for the run's
+#: time); the flat index's rows; the rows of each operator class's index
+N_BIT, NBITS, N_BIT_Q = 1_000_000, 256, 4_096
+N_JAC = 262_144
+N_FLAT, N_OPCLASS = 100_000, 500
+BIT_FLOORS = {"exact": 1.0, "approx": 1.0, "beam": 0.93}
+#: population counts per clock per SM on sm_90 (the CUDA programming
+#: guide's arithmetic-instruction throughput table) and the H100 SXM's
+#: published boost clock: the popcount form of K9's bound
+POPC_PER_CLK_SM, BOOST_HZ = 16, 1.98e9
 
 
 def bound(ops: float, peak: str, nbytes: float) -> dict:
@@ -154,9 +193,10 @@ def bound(ops: float, peak: str, nbytes: float) -> dict:
     written once) over the memory rate."""
     t_ops = ops / PEAKS[peak] * 1e3
     t_bytes = nbytes / PEAKS["bytes"] * 1e3
+    unit = "TOP/s" if peak == "int8" else "TFLOP/s"
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bound_peak=(f"{peak} {PEAKS[peak] / 1e12:g} TFLOP/s"
+                bound_peak=(f"{peak} {PEAKS[peak] / 1e12:g} {unit}"
                             if t_ops >= t_bytes else "3.35 TB/s"))
 
 
@@ -890,9 +930,11 @@ class SectionTimer:
 
 
 def timed_build(HnswIndex, db, x, metric, params, dev, n, tag):
-    """A serving-only device build from the CUDA tensor ``x``: seconds,
-    rows/s, peak memory, the device time of the candidate step (the beam
-    ground inside it) and of the commit; then the graph's invariants."""
+    """A serving-only device build from ``x`` (a CUDA tensor; a numpy 0/1
+    array for the bit kind): seconds, rows/s, peak memory, the device time
+    of the candidate step (the beam ground inside it) and of the commit;
+    then the graph's invariants. Returns (index, graph, the beam ground's
+    (device seconds, batches))."""
     with Phase(f"{tag} device build, {n:,} x {x.shape[1]}-d {metric}"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -915,7 +957,8 @@ def timed_build(HnswIndex, db, x, metric, params, dev, n, tag):
             f"{sec['_commit_all_step']:.3f} s")
         g = idx.device_graph()
         check_graph(g, M, n)
-    return idx, g
+    return idx, g, (sec["_beam_ground_candidates"],
+                    len(st.pairs["_beam_ground_candidates"]))
 
 
 def kernel_row(name, err, ms, plain_ms, bnd):
@@ -924,6 +967,33 @@ def kernel_row(name, err, ms, plain_ms, bnd):
     log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bound_peak']}), "
         f"share {row['share_of_bound']:.4f}, max abs err {err}")
+    return row
+
+
+def k8_row(db, ground_s, batches, b=CHUNK, dim=D768):
+    """The beam ground (K8, torch ops) of the 768-d build: its device span
+    per batch beside the bound of one b-row batch, worked out from
+    ``DeviceBuilder._beam_ground_candidates``: each of ``_BEAM_STEPS``
+    steps gathers, for each of ``_BEAM_EXPAND`` expanded entries, its 2m
+    layer-0 ids (4 bytes), their live flags (1 byte) and their bf16 rows
+    (every slot: the code gathers full lists), and scores them in f32 (a
+    multiply-add per value); each query reads its f32 row once and writes
+    ef_construction (distance, id) pairs."""
+    slots = b * db._BEAM_STEPS * db._BEAM_EXPAND * 2 * M
+    nbytes = slots * (4 + 1 + dim * 2) + b * (dim * 4 + EF_CONSTRUCTION * 12)
+    row = dict(
+        name="k8_beam_ground", route="torch ops",
+        source="pgvector_rx_tpu_torch/graph/device_build.py "
+               "(DeviceBuilder._beam_ground_candidates)",
+        replaces="pgvector_rx_tpu/graph/device_build.py:1052 (the beam "
+                 "ground, XLA)",
+        launches=batches, ms=ground_s / batches * 1e3,
+        ms_of="device span per batch (CUDA events, idle gaps included)",
+        library_ms=None, **bound(2.0 * slots * dim, "f32", nbytes))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log(f"k8_beam_ground: {row['ms']:.4f} ms per batch (span), bound of a "
+        f"{b}-row batch {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+        f"{nbytes:,} bytes), share {row['share_of_bound']:.4f}")
     return row
 
 
@@ -940,9 +1010,11 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
         qn = torch.from_numpy(queries).to(dev)
         qn = (qn / qn.norm(dim=1, keepdim=True)).contiguous()
     bf.reset_launches()
-    idx, g = timed_build(HnswIndex, db, x, "cosine", params, dev, N768, "18")
+    idx, g, (ground_s, ground_batches) = timed_build(
+        HnswIndex, db, x, "cosine", params, dev, N768, "18")
     del x
     torch.cuda.empty_cache()
+    k8 = k8_row(db, ground_s, ground_batches)
     with Phase("18 ground truth (K1 cosine_topk)"):
         xv = g.values[:N768]
         gt = torch.cat([bf.cosine_topk(xv, qn[s : s + CHUNK], K)[1]
@@ -1025,6 +1097,7 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
                                     D768)
                   + CHUNK * (D768 * 4 + s_ids.shape[1] * 8 + EF * 8 + 8))))
     log(json.dumps({"d768": rows}))
+    log(json.dumps({"torch_ops": [k8]}))
     del idx, g, xv, qn
     torch.cuda.empty_cache()
 
@@ -1039,7 +1112,7 @@ def l1_path(HnswIndex, IndexParams, device_mod, db, bf, data, q_dev, dev):
         "rows (the run's time); the descent still builds three quarters")
     x = torch.from_numpy(data[:N_L1]).to(dev)
     bf.reset_launches()
-    idx, g = timed_build(HnswIndex, db, x, "l1", params, dev, N_L1, "19")
+    idx, g, _ = timed_build(HnswIndex, db, x, "l1", params, dev, N_L1, "19")
     sweep = device_mod.l1_sweep_topk
     calls = [0]
 
@@ -1154,6 +1227,392 @@ def persistence(index, q_dev, HnswIndex, IndexParams, SearchParams,
             f" rows whose search ids differ: {bad}")
         if any(bad.values()) or back.num_tuples != idx.num_tuples:
             raise RuntimeError("the replayed index answers differently")
+
+
+def np_bit_topk(qbits, xbits, live, metric, k, chunk=64):
+    """The exact (distance, row) top-k by numpy popcounts, independent of
+    the port: popcount(q & x) as the product of the {0,1} rows (integer
+    sums below 2^24, exact in f32 in any order), the rows' popcounts as
+    their sums; hamming = |q| + |x| - 2 |q & x|, jaccard the JAX
+    package's f32 formula. Rows whose ``live`` flag is clear are left out.
+    -> (d [B, k] f32, rows [B, k] int64)."""
+    x = xbits.astype(np.float32)
+    xpop = x.sum(1)[None, :]
+    one = np.float32(1.0)
+    rows = np.arange(x.shape[0], dtype=np.int64)[None, :]
+    out_d, out_i = [], []
+    for s in range(0, qbits.shape[0], chunk):
+        q = qbits[s : s + chunk].astype(np.float32)
+        ab = q @ x.T
+        qpop = q.sum(1)[:, None]
+        if metric == "hamming":
+            d = qpop + xpop - np.float32(2.0) * ab
+        else:
+            union = qpop + xpop - ab
+            d = np.where(ab == 0, one,
+                         one - ab / np.where(union > 0, union, one))
+        keys = (d.astype(np.float32).view(np.int32).astype(np.int64) << 32) \
+            | rows
+        keys[:, ~live] = np.iinfo(np.int64).max
+        top = np.sort(np.partition(keys, k - 1, axis=1)[:, :k], axis=1)
+        out_d.append((top >> 32).astype(np.int32).view(np.float32))
+        out_i.append(top & 0xFFFFFFFF)
+    return np.concatenate(out_d), np.concatenate(out_i)
+
+
+def bit_recall(bits_mod, g, qw, ids, kth):
+    """Tie-aware recall@K: the share of returned rows whose true distance
+    (from the graph's words) is at most the query's K-th true distance
+    ``kth`` [B]; a missing row (-1) is a miss."""
+    t = torch.from_numpy(ids).to(qw.device)
+    d = bits_mod.gathered(g.metric, g.words, t, qw, base_pop=g.x2)
+    return float(((t >= 0) & (d <= kth[:, None])).float().mean())
+
+
+def tie_equal_rows(ids_a, d_a, ids_b, d_b):
+    """Per row of two sorted lists: the same distance at every rank, and
+    the same id wherever that distance is unique in the row (integer bit
+    distances tie as a rule)."""
+    ok = (d_a == d_b).all(axis=1)
+    for r in np.flatnonzero(ok):
+        vals, counts = np.unique(d_a[r], return_counts=True)
+        uniq = np.isin(d_a[r], vals[counts == 1])
+        ok[r] = bool((ids_a[r][uniq] == ids_b[r][uniq]).all())
+    return ok
+
+
+def bit_path(HnswIndex, IndexParams, SearchParams, make_dataset, device_mod,
+             db, bf, bits_mod, beam, dev, kernels):
+    """Phase 21: BASELINE's bit(256) hamming configuration at 1,000,000
+    rows built on the card; K9 ground truth against numpy; the three
+    engines and ``search``; then K9 and the walk's packed-word mode
+    against their plain versions. Returns the bits and packed queries."""
+    params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
+    with Phase("21 data, sign bits of 1,000,000 x 256-d"):
+        dense, dq = make_dataset(N_BIT, NBITS, N_BIT_Q, seed=7, intrinsic=24)
+        xbits, qbits = (dense > 0).astype(np.uint8), (dq > 0).astype(np.uint8)
+        del dense, dq
+        qw = bits_mod.as_words(bits_mod.pack_bits(qbits), dev)
+    bf.reset_launches()
+    idx, g, _ = timed_build(HnswIndex, db, xbits, "hamming", params, dev,
+                            N_BIT, "21")
+    if g.words is None or g.values is not None or g.words.device != dev:
+        raise RuntimeError("the bit graph holds no packed words on the card")
+    live = g.traversable & (g.tid_count > 0)
+    with Phase("21 ground truth (K9)"):
+        gt = [bits_mod.bits_topk(g.words, g.x2, live, qw[s : s + CHUNK], K,
+                                 "hamming")
+              for s in range(0, N_BIT_Q, CHUNK)]
+        gt_d = torch.cat([d for d, _ in gt])
+        gt_i = torch.cat([i for _, i in gt]).cpu().numpy()
+        ref_d, ref_i = np_bit_topk(qbits[:64], xbits,
+                                   live[:N_BIT].cpu().numpy(), "hamming", K)
+        same = (np.array_equal(gt_d[:64].cpu().numpy(), ref_d)
+                and np.array_equal(gt_i[:64], ref_i))
+        log(f"K9 ground truth {gt_i.shape}: 64 queries "
+            f"{'equal' if same else 'differ from'} the numpy popcounts in "
+            f"(distance, id) order; {int(live.sum())} live rows")
+        if not same or (gt_i < 0).any():
+            raise RuntimeError("K9 ground truth disagrees with numpy")
+    kth = gt_d[:, -1]
+    served = {}
+    for engine, kname in (("exact", "k9_bits"), ("approx", "k9_bits"),
+                          ("beam", "k4_beam")):
+        with Phase(f"21 serve_topk {engine}"):
+            before = bf.LAUNCHES[kname]
+            device_mod.serve_topk(idx, qw, K, engine=engine, ef=EF)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            d, ids = device_mod.serve_topk(idx, qw, K, engine=engine, ef=EF)
+            dt = time.time() - t0
+            rec = bit_recall(bits_mod, g, qw, ids, kth)
+            served[engine] = (d, ids)
+            log(f"21 {engine}: tie-aware recall@10={rec:.4f} "
+                f"qps={N_BIT_Q / dt:.1f} ({dt:.4f} s for {N_BIT_Q} queries)")
+            if d.shape != (N_BIT_Q, K) or not np.isfinite(d).all():
+                raise RuntimeError(f"{engine}: non-finite or misshapen output")
+            if rec < BIT_FLOORS[engine]:
+                raise RuntimeError(f"bit {engine}: recall {rec} < "
+                                   f"{BIT_FLOORS[engine]}")
+            if bf.LAUNCHES[kname] <= before:
+                raise RuntimeError(f"{engine}: kernel {kname} did not launch")
+    if not np.array_equal(served["exact"][1], gt_i):
+        raise RuntimeError("the exact engine is not K9's top-10")
+    with Phase("21 index.search on bit rows"):
+        emit = g.emit_tid.cpu().numpy()
+        tid_count = g.tid_count.cpu().numpy()
+        for method, engine in (("exact", "exact"), ("approx", "approx"),
+                               ("device", "beam")):
+            sd, stids = idx.search(qbits[:64], K, SearchParams(ef_search=EF),
+                                   method=method)
+            d, ids = served[engine]
+            # an element holding folded duplicates emits each of its tids
+            one = (tid_count[ids[:64]] == 1).all(axis=1)
+            same = ((sd == d[:64].astype(np.float64)).all(axis=1)
+                    & (stids == emit[ids[:64]]).all(axis=1))
+            log(f"21 search({method}): {int((one & ~same).sum())} of "
+                f"{int(one.sum())} bit queries without folded duplicates "
+                "differ from serve_topk")
+            if (one & ~same).any() or not one.sum():
+                raise RuntimeError(f"bit search({method}) disagrees with "
+                                   "serve_topk")
+    launches = dict(bf.LAUNCHES)
+    log(f"bit path launches: {launches}")
+    for name in ("k9_bits", "k4_beam"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never ran on the bit path")
+
+    with Phase("21 K9 and the packed-word walk vs plain"):
+        q1 = qw[:CHUNK].contiguous()
+        words, n1, w = g.words, g.words.shape[0], g.words.shape[1]
+
+        def k9(ww=words, lv=live):
+            return bits_mod._bits_topk_cuda(ww, None, lv, q1, K, "hamming")
+
+        def plain9(ww=words, lv=live):
+            return bits_mod._bits_topk_plain(ww, None, lv, q1, K, "hamming")
+
+        kd, ki = k9()
+        pd, pi = plain9()
+        cd, ci = plain9(words.flip(0), live.flip(0))
+        ci = torch.where(ci >= 0, n1 - 1 - ci, -1)
+        ok9 = torch.equal(kd, pd) and torch.equal(ki, pi)
+        ctl9 = torch.equal(cd, pd) and torch.equal(ci, pi)
+        tied = float((pd[:, 1:] == pd[:, :-1]).any(dim=1).float().mean())
+        log(f"K9 vs plain at {CHUNK} queries: {'equal' if ok9 else 'differ'} "
+            f"(distances and ids, tie order included; {tied:.4f} of rows "
+            f"hold a tie); control (ties higher id first): "
+            f"{'equal' if ctl9 else 'differs'}")
+        if not ok9:
+            raise RuntimeError("K9 disagrees with its plain version")
+        if ctl9:
+            raise RuntimeError("the K9 check passes a reversed tie order")
+        qf = bits_mod.unpack_words_bf16(q1).float()
+        xf = bits_mod.unpack_words_bf16(words).float()
+        lib_min = torch.where(live[None, :], torch.cdist(qf, xf, p=0),
+                              float("inf")).min(dim=1).values
+        if not torch.equal(lib_min, kd[:, 0]):
+            raise RuntimeError("torch.cdist(p=0) disagrees with K9's top-1")
+        del lib_min
+        pairs = float(CHUNK) * n1
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        kernels["k9_bits"] = dict(
+            name="k9_bits", route="cuda", source=CSRC + "k9_bits.cu",
+            replaces=f"{JAX_DEVICE}:1155 (_exact_search_bits, an XLA "
+                     "program)",
+            max_abs_err=float((kd - pd).abs().max()),
+            ms=cuda_ms(k9), plain_ms=cuda_ms(plain9, 2),
+            **bound(2.0 * pairs * NBITS, "int8",
+                    n1 * (w * 4 + 1) + CHUNK * (w * 4 + K * 12)),
+            library_ms=cuda_ms(lambda: torch.cdist(qf, xf, p=0), 2),
+            library_of="torch.cdist(p=0) over the unpacked f32 rows (the "
+                       "hamming scores, not the top-k)",
+            popcount_bound_ms=pairs * w / (POPC_PER_CLK_SM * sms * BOOST_HZ)
+            * 1e3,
+            launches=launches["k9_bits"])
+        del xf, qf
+
+        s_ids, s_d = device_mod._descent_seeds(g, q1, g.entry_level)
+        walk = (words, g.neighbors0, g.traversable, None, "hamming", q1,
+                s_ids.to(torch.int32).contiguous(), s_d.contiguous())
+        kw = dict(width=EF, spill=0, max_steps=4 * EF + 32, scan=False)
+
+        def finish(raw):
+            return [t.cpu().numpy() for t in beam._serve_finish(*raw)]
+
+        raw_k = beam._walk_cuda(*walk, **kw)
+        (kd4, ki4, ks4), (pd4, pi4, ps4) = (finish(raw_k),
+                                            finish(beam._walk_plain(*walk,
+                                                                    **kw)))
+        cd4, ci4, _ = finish(beam._walk_plain(*walk, **{**kw,
+                                                        "max_steps": EF // 4}))
+        ok4 = tie_equal_rows(ki4, kd4, pi4, pd4).mean()
+        okc = tie_equal_rows(ci4, cd4, pi4, pd4).mean()
+        log(f"K4 word mode vs plain: {ok4:.4f} of queries equal but for "
+            f"ties ({float((ki4 == pi4).all(axis=1).mean()):.4f} with every "
+            f"id equal), {float((ks4 == ps4).mean()):.4f} equal steps; "
+            f"control (plain cut to {EF // 4} steps): {okc:.4f}")
+        if ok4 < 0.99:
+            raise RuntimeError("K4's word mode disagrees with the plain walk")
+        if okc >= 0.99:
+            raise RuntimeError("the word-mode check passes a walk cut to "
+                               "ef / 4 steps")
+        steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
+        fin = np.isfinite(pd4)
+        kernels["k4_beam_words"] = dict(
+            name="k4_beam_words", route="cuda", source=CSRC + "k4_beam.cu",
+            replaces=f"{JAX_DEVICE}:446 (_ground_beam_seeds over packed bit "
+                     "rows, an XLA while-loop)",
+            max_abs_err=float(np.abs(kd4[fin] - pd4[fin]).max()),
+            ms=cuda_ms(lambda: beam._walk_cuda(*walk, **kw)),
+            plain_ms=cuda_ms(lambda: beam._walk_plain(*walk, **kw), 2),
+            **bound(2.0 * scored * NBITS, "int8",
+                    walk_gather_bytes(steps, scored, g.neighbors0.shape[1], 1,
+                                      w)
+                    + CHUNK * (w * 4 + walk[6].shape[1] * 8 + EF * 8 + 8)),
+            library_ms=None, steps_mean=steps / CHUNK,
+            scored_mean=scored / CHUNK, launches=launches["k4_beam"])
+        for name in ("k9_bits", "k4_beam_words"):
+            kr = kernels[name]
+            kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
+            log(f"{name}: kernel {kr['ms']:.4f} ms, plain "
+                f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']} ms, "
+                f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
+                f"{kr['bound_peak']}), share {kr['share_of_bound']:.4f}")
+        log(f"k9_bits popcount-rate bound: "
+            f"{kernels['k9_bits']['popcount_bound_ms']:.4f} ms")
+    del idx, g, live, words
+    torch.cuda.empty_cache()
+    return xbits, qbits, qw
+
+
+def jaccard_path(HnswIndex, IndexParams, device_mod, db, bf, bits_mod,
+                 xbits, qbits, qw, dev, kernels):
+    """Phase 22: jaccard over the first N_JAC bit rows built on the card:
+    the exact engine against numpy on 1,024 queries, beam recall, and K9's
+    jaccard mode against its plain version, timed."""
+    log(f"cut: the jaccard path builds the first {N_JAC:,} of the 1,000,000 "
+        "bit rows (the run's time)")
+    params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
+    bf.reset_launches()
+    idx, g, _ = timed_build(HnswIndex, db, xbits[:N_JAC], "jaccard", params,
+                            dev, N_JAC, "22")
+    live = g.traversable & (g.tid_count > 0)
+    with Phase("22 jaccard engines"):
+        d, ids = device_mod.serve_topk(idx, qw, K, engine="exact")
+        ref_d, ref_i = np_bit_topk(qbits[:CHUNK], xbits[:N_JAC],
+                                   live[:N_JAC].cpu().numpy(), "jaccard", K,
+                                   chunk=128)
+        same_d = np.array_equal(d[:CHUNK], ref_d)
+        ok = tie_equal_rows(ids[:CHUNK], d[:CHUNK], ref_i, ref_d).mean()
+        log(f"jaccard exact engine vs numpy on {CHUNK} queries: distances "
+            f"{'equal' if same_d else 'differ'} in f32, {ok:.4f} of rows "
+            f"with equal ids but for ties "
+            f"({float((ids[:CHUNK] == ref_i).all(axis=1).mean()):.4f} every "
+            "id)")
+        if not same_d or ok < 1.0:
+            raise RuntimeError("the jaccard exact engine disagrees with numpy")
+        kth = torch.from_numpy(d[:, -1]).to(dev)
+        device_mod.serve_topk(idx, qw, K, engine="beam", ef=EF)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, ids_b = device_mod.serve_topk(idx, qw, K, engine="beam", ef=EF)
+        dt = time.time() - t0
+        rec = bit_recall(bits_mod, g, qw, ids_b, kth)
+        launches = dict(bf.LAUNCHES)
+        log(f"22 beam (ef={EF}): tie-aware recall@10={rec:.4f} "
+            f"qps={N_BIT_Q / dt:.1f}; launches {launches}")
+        if rec < BIT_FLOORS["beam"]:
+            raise RuntimeError(f"jaccard beam recall {rec} < "
+                               f"{BIT_FLOORS['beam']}")
+        for name in ("k9_bits", "k4_beam"):
+            if launches[name] <= 0:
+                raise RuntimeError(f"kernel {name} never ran on the jaccard "
+                                   "path")
+    with Phase("22 K9 jaccard vs plain"):
+        q1 = qw[:CHUNK].contiguous()
+        args = (g.words, g.x2, live, q1, K, "jaccard")
+        kd, ki = bits_mod._bits_topk_cuda(*args)
+        pd, pi = bits_mod._bits_topk_plain(*args)
+        if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+            raise RuntimeError("K9's jaccard mode disagrees with its plain "
+                               "version")
+        n1, w = g.words.shape
+        k9 = kernels["k9_bits"]
+        k9["jaccard_rows"] = n1
+        k9["jaccard_ms"] = cuda_ms(lambda: bits_mod._bits_topk_cuda(*args))
+        k9["jaccard_plain_ms"] = cuda_ms(
+            lambda: bits_mod._bits_topk_plain(*args), 2)
+        k9["jaccard_bound_ms"] = bound(
+            2.0 * CHUNK * n1 * NBITS, "int8",
+            n1 * (w * 4 + 4 + 1) + CHUNK * (w * 4 + K * 12))["bound_ms"]
+        log(f"K9 jaccard at {n1:,} rows: equal to plain; kernel "
+            f"{k9['jaccard_ms']:.4f} ms, plain {k9['jaccard_plain_ms']:.4f} "
+            f"ms, bound {k9['jaccard_bound_ms']:.4f} ms")
+    del idx, g, live
+    torch.cuda.empty_cache()
+
+
+def np_order_dists(oc, q, rows):
+    """float64 order distances [B, N] of an operator class's metric from
+    queries ``q`` to the stored ``rows`` (dense rows rounded to the
+    class's dtype; bit rows 0/1)."""
+    if oc.kind == "bit":
+        a, b = q[:, None, :].astype(bool), rows[None, :, :].astype(bool)
+        if oc.metric == "hamming":
+            return (a != b).sum(-1).astype(np.float64)
+        inter, union = (a & b).sum(-1), (a | b).sum(-1)
+        return np.where(inter == 0, 1.0, 1.0 - inter / np.maximum(union, 1))
+    x = rows.astype(oc.dtype).astype(np.float64)
+    qq = q.astype(np.float64)
+    if oc.metric == "l2":
+        return ((qq[:, None, :] - x[None]) ** 2).sum(-1)
+    if oc.metric == "l1":
+        return np.abs(qq[:, None, :] - x[None]).sum(-1)
+    if oc.metric == "ip":
+        return -(qq @ x.T)
+    qn = qq / np.linalg.norm(qq, axis=1, keepdims=True)
+    return 1.0 - qn @ (x / np.linalg.norm(x, axis=1, keepdims=True)).T
+
+
+def flat_and_facade(data, queries, q_dev, xbits, qbits, qw, bf, bits_mod,
+                    SearchParams, dev):
+    """Phase 23: ``FlatIndex`` over the first N_FLAT rows of the main
+    corpus (l2) and of the bit corpus (hamming) equals K1 / K9 over the
+    same rows; each dense and bit operator class makes an index on the
+    card (no device named) whose exact search finds each query's nearest
+    row and whose beam answers."""
+    from pgvector_rx_tpu_torch.index.access_method import (
+        OPERATOR_CLASSES, create_index_for_opclass)
+    from pgvector_rx_tpu_torch.index.flat import FlatIndex
+
+    bf.reset_launches()
+    with Phase(f"23 flat index over {N_FLAT:,} rows"):
+        fl = FlatIndex.build(data[:N_FLAT], metric="l2")
+        fd, fi = fl.search(queries[:CHUNK], K)
+        kd, ki = bf.l2_topk(torch.from_numpy(data[:N_FLAT]).to(dev),
+                            q_dev[:CHUNK], K)
+        kd = np.sqrt(np.maximum(kd.cpu().numpy().astype(np.float64), 0.0))
+        ok_l2 = np.array_equal(fi, ki.cpu().numpy()) and np.array_equal(fd,
+                                                                         kd)
+        fb = FlatIndex.build(xbits[:N_FLAT], metric="hamming", kind="bit")
+        bd, bi = fb.search(qbits[:CHUNK], K)
+        words = bits_mod.as_words(bits_mod.pack_bits(xbits[:N_FLAT]), dev)
+        k9d, k9i = bits_mod.bits_topk(
+            words, None, torch.ones(N_FLAT, dtype=torch.bool, device=dev),
+            qw[:CHUNK], K, "hamming")
+        ok_bit = (np.array_equal(bi, k9i.cpu().numpy())
+                  and np.array_equal(bd, k9d.cpu().numpy().astype(np.float64)))
+        log(f"FlatIndex on {fl.device} / {fb.device}: l2 "
+            f"{'equals' if ok_l2 else 'differs from'} K1, hamming "
+            f"{'equals' if ok_bit else 'differs from'} K9 ({CHUNK} queries)")
+        if fl.device.type != dev.type or not (ok_l2 and ok_bit):
+            raise RuntimeError("FlatIndex disagrees with K1 / K9")
+    with Phase(f"23 operator classes, {N_OPCLASS} rows each"):
+        for name, oc in OPERATOR_CLASSES.items():
+            if oc.kind == "sparse":
+                continue
+            rows = (xbits if oc.kind == "bit" else data)[:N_OPCLASS]
+            q = (qbits if oc.kind == "bit" else queries)[:64]
+            idx = create_index_for_opclass(name, rows.shape[1])
+            idx.add_batch(rows)
+            _, tids = idx.search(q, K, method="exact")
+            _, tids_b = idx.search(q, K, SearchParams(ef_search=EF),
+                                   method="device")
+            ref = np_order_dists(oc, q, rows)
+            got = ref[np.arange(64), tids[:, 0]]
+            ok = (idx.device.type == dev.type and (tids >= 0).all()
+                  and (tids_b >= 0).all()
+                  and np.allclose(got, ref.min(axis=1), rtol=1e-3, atol=1e-3))
+            log(f"{name}: index on {idx.device}, exact top-1 "
+                f"{'is' if ok else 'is not'} the numpy nearest on 64 queries")
+            if not ok:
+                raise RuntimeError(f"the {name} index does not answer")
+    launches = dict(bf.LAUNCHES)
+    log(f"flat and facade launches: {launches}")
+    for name in ("k1_topk", "k9_bits", "k4_beam"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never ran in phase 23")
 
 
 def main() -> int:
@@ -1481,6 +1940,18 @@ def main() -> int:
     persistence(index, q_dev, HnswIndex, IndexParams, SearchParams,
                 device_mod, data, dev)
     del index
+    torch.cuda.empty_cache()
+
+    # ---- the bit kind, the flat index and the operator classes -------------
+    from pgvector_rx_tpu_torch.ops import bits as bits_mod
+
+    xbits, qbits, qw = bit_path(HnswIndex, IndexParams, SearchParams,
+                                make_dataset, device_mod, db, bf, bits_mod,
+                                beam, dev, kernels)
+    jaccard_path(HnswIndex, IndexParams, device_mod, db, bf, bits_mod, xbits,
+                 qbits, qw, dev, kernels)
+    flat_and_facade(data, queries, q_dev, xbits, qbits, qw, bf, bits_mod,
+                    SearchParams, dev)
 
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pgvector_rx_tpu", "bench")]
@@ -1488,7 +1959,8 @@ def main() -> int:
         raise RuntimeError(f"the port's path imported {sorted(foreign)[:5]}")
     log(json.dumps({"kernels": [kernels[k] for k in
                                 ("k1_topk", "k2_binned", "k3_tilemin",
-                                 "k3_x2max", "k4_beam", "k5_beam_scan")]}))
+                                 "k3_x2max", "k4_beam", "k5_beam_scan",
+                                 "k9_bits", "k4_beam_words")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,6 +38,13 @@
 // rows -> merge), so it is latency-bound; throughput comes from many
 // queries (blocks) in flight.
 //
+// Packed-word mode (the bit kind, serving only): rows are [cap + 1, W]
+// 32-bit words and the query is W words; hamming = popcount(q ^ x),
+// jaccard = ab == 0 ? 1 : 1 - ab / (popq + popx - ab) with ab =
+// popcount(q & x), popq counted once per query and popx from the gathered
+// words (IEEE division: the JAX package's f32 values). The bound counts the
+// gathered words the same way: scored * (W * 4 + 1) bytes.
+//
 // Design (sm_90a, plain CUDA, no tensor cores):
 // - 128 threads per block; the query, the double-buffered beam and spill,
 //   the neighbour list and the merge scratch live in shared memory
@@ -46,7 +53,10 @@
 //   flight together), 16-byte loads when the rows allow it (aligned base
 //   and row stride, d a multiple of 4 f32 / 8 f16 or bf16 values), scalar
 //   loads otherwise (odd d, a view offset by one element); a shuffle
-//   reduction per row. Rows may be f32, f16 or bf16; sums are f32.
+//   reduction per row. Rows may be f32, f16 or bf16; sums are f32. Word
+//   rows are short (8 words at 256 bits), so a warp splits into groups of
+//   the fewest lanes (a power of two) that cover a row's 16-byte chunks,
+//   and scores 32 / group rows at once.
 // - Merging: the new entries are rank-sorted (L^2 comparisons, L <= 256),
 //   then every entry finds its merged position with one binary search in
 //   the other sorted list (merge path), so beam and spill stay sorted with
@@ -60,6 +70,7 @@
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -157,7 +168,7 @@ struct Load<__nv_bfloat16, 8> {
 };
 
 // Metric codes as ops/beam.py passes them: 0 l2 (squared), 1 ip (-dot),
-// 2 cosine (1 - clamp(dot)), 3 l1.
+// 2 cosine (1 - clamp(dot)), 3 l1; on word rows 4 hamming, 5 jaccard.
 template <int M>
 __device__ __forceinline__ float term(float x, float q) {
   if (M == 0) {
@@ -221,6 +232,79 @@ __device__ void score_rows(const WalkArgs& a, const float* qs, const int* ids,
   }
 }
 
+template <int V>
+struct WordChunk;
+template <>
+struct WordChunk<4> {
+  using T = uint4;
+  __device__ static int pop(uint4 v) {
+    return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+  }
+  __device__ static uint4 op(uint4 a, uint4 b, bool both) {
+    return both ? make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w)
+                : make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+  }
+};
+template <>
+struct WordChunk<1> {
+  using T = unsigned;
+  __device__ static int pop(unsigned v) { return __popc(v); }
+  __device__ static unsigned op(unsigned a, unsigned b, bool both) {
+    return both ? (a & b) : (a ^ b);
+  }
+};
+
+// The packed-word mode's scoring: out[j] = hamming (JACC = 0) or jaccard
+// (JACC = 1) from the query words qs to row ids[j], +inf where not valid.
+// A warp works in groups of `lpr` lanes, one row per group; a group's
+// lanes stride over the row's V-word chunks.
+template <int V, int JACC>
+__device__ void score_words(const WalkArgs& a, const unsigned* qs,
+                            float qpop, const int* ids, const uint8_t* valid,
+                            float* out, int warp, int lane) {
+  using C = WordChunk<V>;
+  using T = typename C::T;
+  const unsigned* words = static_cast<const unsigned*>(a.values);
+  const int nchunks = a.d / V;
+  int lpr = 1;
+  while (lpr < nchunks && lpr < 32) lpr <<= 1;
+  const int rpw = 32 / lpr;
+  const int sub = lane / lpr, sl = lane % lpr;
+  for (int base = warp * rpw; base < a.L; base += kWarps * rpw) {
+    const int j = base + sub;
+    const bool use = j < a.L && valid[j];
+    int c1 = 0, c2 = 0;  // popcount(q op x), popcount(x)
+    if (use) {
+      const T* row = reinterpret_cast<const T*>(
+          words + static_cast<long long>(ids[j]) * a.stride);
+      const T* q = reinterpret_cast<const T*>(qs);
+      for (int c = sl; c < nchunks; c += lpr) {
+        const T x = __ldg(row + c);
+        c1 += C::pop(C::op(q[c], x, JACC));
+        if (JACC) c2 += C::pop(x);
+      }
+    }
+    for (int o = lpr >> 1; o; o >>= 1) {
+      c1 += __shfl_xor_sync(kFull, c1, o);
+      if (JACC) c2 += __shfl_xor_sync(kFull, c2, o);
+    }
+    if (sl == 0 && j < a.L) {
+      float dist = inf_f();
+      if (use) {
+        if (JACC) {
+          const float ab = static_cast<float>(c1);
+          dist = c1 == 0
+                     ? 1.0f
+                     : 1.0f - __fdiv_rn(ab, qpop + static_cast<float>(c2) - ab);
+        } else {
+          dist = static_cast<float>(c1);
+        }
+      }
+      out[j] = dist;
+    }
+  }
+}
+
 // Number of entries of the sorted list (ld, lk)[0, n) that come before
 // (d, k) -- strictly (`strict`) or also when equal.
 __device__ __forceinline__ int count_before(const float* ld, const int* lk,
@@ -277,8 +361,23 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   const uint8_t* excl =
       a.excl != nullptr ? a.excl + static_cast<long long>(b) * a.excl_stride
                         : nullptr;
-  const float* qg = a.q + static_cast<long long>(b) * a.d;
-  for (int i = tid; i < a.d; i += kThreads) qs[i] = qg[i];
+  // the query's bits, as they are (f32 values or packed words)
+  const int* qg = reinterpret_cast<const int*>(a.q) +
+                  static_cast<long long>(b) * a.d;
+  for (int i = tid; i < a.d; i += kThreads)
+    reinterpret_cast<int*>(qs)[i] = qg[i];
+  constexpr bool kWords = std::is_same<T, unsigned>::value;
+  __shared__ float qpop;  // the query's popcount (jaccard)
+  if (kWords) {
+    __syncthreads();
+    if (warp == 0) {
+      int s = 0;
+      for (int i = lane; i < a.d; i += 32)
+        s += __popc(reinterpret_cast<const unsigned*>(qs)[i]);
+      s = __reduce_add_sync(kFull, s);
+      if (lane == 0) qpop = static_cast<float>(s);
+    }
+  }
 
   // ---- seeds: admit, dedup by id, sort into the beam (and the spill)
   const long long s0 = static_cast<long long>(b) * S;
@@ -362,11 +461,19 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     }
     if (tid == 0) cbk[pos] &= ~1;  // expanded; read again after a barrier
 
-    switch (a.metric) {
-      case 0: score_rows<T, V, 0>(a, qs, nid, nvalid, nd, warp, lane); break;
-      case 1: score_rows<T, V, 1>(a, qs, nid, nvalid, nd, warp, lane); break;
-      case 2: score_rows<T, V, 2>(a, qs, nid, nvalid, nd, warp, lane); break;
-      default: score_rows<T, V, 3>(a, qs, nid, nvalid, nd, warp, lane); break;
+    if constexpr (kWords) {
+      const unsigned* qw = reinterpret_cast<const unsigned*>(qs);
+      if (a.metric == 5)
+        score_words<V, 1>(a, qw, qpop, nid, nvalid, nd, warp, lane);
+      else
+        score_words<V, 0>(a, qw, qpop, nid, nvalid, nd, warp, lane);
+    } else {
+      switch (a.metric) {
+        case 0: score_rows<T, V, 0>(a, qs, nid, nvalid, nd, warp, lane); break;
+        case 1: score_rows<T, V, 1>(a, qs, nid, nvalid, nd, warp, lane); break;
+        case 2: score_rows<T, V, 2>(a, qs, nid, nvalid, nd, warp, lane); break;
+        default: score_rows<T, V, 3>(a, qs, nid, nvalid, nd, warp, lane); break;
+      }
     }
     __syncthreads();
 
@@ -484,7 +591,7 @@ cudaError_t launch(const WalkArgs& a, int b, size_t smem,
 template <typename T>
 cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
                      cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = std::is_same<T, unsigned>::value ? 4 : 16 / sizeof(T);
   const bool vec = reinterpret_cast<uintptr_t>(a.values) % 16 == 0 &&
                    (a.stride * static_cast<long long>(sizeof(T))) % 16 == 0 &&
                    a.d % V == 0;
@@ -497,7 +604,9 @@ cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
 extern "C" {
 
 // The beam walk for b queries, one block each. dtype: 0 f32, 1 f16, 2 bf16
-// rows; metric: 0 l2, 1 ip, 2 cosine, 3 l1. scan = 0 (K4): S <= W, excl
+// rows with metric 0 l2, 1 ip, 2 cosine, 3 l1; 3 packed 32-bit words (d
+// words per row and per query) with metric 4 hamming, 5 jaccard, serving
+// mode only. scan = 0 (K4): S <= W, excl
 // null, SP = 0; scan = 1 (K5): excl [b, cap + 1] (row `excl_stride`), the
 // seeds past W go to the spill. Outputs as WalkArgs lists them.
 int pgv_k4_beam_walk(const void* values, int dtype, long long stride, int d,
@@ -508,9 +617,11 @@ int pgv_k4_beam_walk(const void* values, int dtype, long long stride, int d,
                      int max_steps, int scan, float* beam_d, int* beam_key,
                      float* spill_d, int* spill_key, int* steps, int* scored,
                      void* stream) {
+  const bool words = dtype == 3;
   if (b <= 0 || d <= 0 || L <= 0 || S < 0 || W <= 0 || SP < 0 ||
       (!scan && (S > W || SP != 0)) || (scan && excl == nullptr) ||
-      metric < 0 || metric > 3)
+      metric < 0 || metric > 5 || words != (metric >= 4) ||
+      (words && scan))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(d, L, S, W, SP);
   if (smem > static_cast<size_t>(kMaxSmem))
@@ -526,6 +637,8 @@ int pgv_k4_beam_walk(const void* values, int dtype, long long stride, int d,
     err = dispatch<__half>(a, b, smem, st);
   else if (dtype == 2)
     err = dispatch<__nv_bfloat16>(a, b, smem, st);
+  else if (dtype == 3)
+    err = dispatch<unsigned>(a, b, smem, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -13,6 +13,10 @@ device, and the engines are the same algorithms:
   (``l1_sweep_topk``: torch ops on every device; approx over the bf16
   copy of the rows, then the rescore, selecting exactly where the JAX
   package takes ``approx_min_k``);
+- the bit kind (hamming / jaccard over packed words, ``DeviceGraph.words``)
+  takes the bit sweep for both (``_exact_search_bits``: kernel K9 on CUDA,
+  ``ops/bits.bits_topk``), exact where the JAX package's approx engine
+  selects with ``approx_min_k``;
 - **beam**: the best-first walk over layer 0 (``_ground_beam_seeds``:
   kernel K4 on CUDA, one launch per query batch; its plain batched loop on
   the CPU), seeded by a bf16 sweep over the level >= 1 rows
@@ -39,7 +43,7 @@ import torch
 
 from ..constants import hnsw_get_layer_m
 
-from ..ops import beam, bruteforce
+from ..ops import beam, bits, bruteforce
 
 #: the exact sweep's penalty on excluded rows (ops/bruteforce._NEG_BIG)
 _PENALTY = bruteforce._NEG_BIG
@@ -99,12 +103,13 @@ _GRAPH_FIELDS = (
     "neighbors0", "upper_neighbors", "upper_slot", "levels", "traversable",
     "emit_tid", "tid_count",
 )
-_VALUE_FIELDS = ("values", "x2", "values_bf16")
+_VALUE_FIELDS = ("values", "x2", "values_bf16", "words")
+_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
 
 
 @dataclass
 class DeviceGraph:
-    """Flat-tensor mirror of a dense host index, on one device."""
+    """Flat-tensor mirror of a dense or bit host index, on one device."""
 
     kind: str
     metric: str
@@ -120,9 +125,13 @@ class DeviceGraph:
     emit_tid: torch.Tensor  # [cap+1] int32
     tid_count: torch.Tensor  # [cap+1] int32
     values: torch.Tensor | None = None  # [cap+1, D] serve dtype
-    # per-row ||x||^2 and a bf16 copy, so sweeps don't recompute per call
+    # per-row ||x||^2 (the bit kind: the row's popcount) and a bf16 copy,
+    # so sweeps don't recompute per call
     x2: torch.Tensor | None = None
     values_bf16: torch.Tensor | None = None
+    # the bit kind's rows: [cap+1, ceil(dim/32)] int32 words with the bits
+    # of ops/bits.pack_bits's uint32 words
+    words: torch.Tensor | None = None
     # The capacity the JAX package's graph would report as its ``cap``:
     # a device-built or grown graph there keeps its padded array capacity
     # (``device_build.cap_pad_for(n) - 1``), here only the figure, not the
@@ -138,22 +147,31 @@ class DeviceGraph:
     def device(self) -> torch.device:
         return self.neighbors0.device
 
+    @property
+    def rows(self) -> torch.Tensor:
+        """The rows the distances read: ``words`` (bit) or ``values``."""
+        return self.words if self.kind == "bit" else self.values
+
     @classmethod
     def from_numpy(cls, arrays: dict, *, kind: str, metric: str, cap: int,
                    m: int, entry: int, entry_level: int, device):
         """Build from arrays named like the fields: numpy arrays (e.g.
-        ``np.asarray`` of a JAX ``DeviceGraph``'s fields) or tensors.
-        Missing value fields stay None."""
-        if kind != "dense":
+        ``np.asarray`` of a JAX ``DeviceGraph``'s fields, uint32 words
+        included) or tensors. Missing value fields stay None, but for the
+        bit kind's popcounts (``x2``), counted here."""
+        if kind not in ("dense", "bit"):
             raise NotImplementedError(
-                f"DeviceGraph kind {kind!r} is not ported (dense only)"
+                f"DeviceGraph kind {kind!r} is not ported ({_ROADMAP_SPARSE})"
             )
         tensors = {
-            f: _tensor(arrays[f], device)
+            f: (bits.as_words(arrays[f], device) if f == "words"
+                else _tensor(arrays[f], device))
             for f in _GRAPH_FIELDS + _VALUE_FIELDS
             if arrays.get(f) is not None
         }
         tensors["traversable"] = tensors["traversable"].bool()
+        if kind == "bit" and "x2" not in tensors:
+            tensors["x2"] = bits.row_popcount(tensors["words"])
         return cls(kind=kind, metric=metric, cap=int(cap), m=int(m),
                    entry=int(entry), entry_level=int(entry_level), **tensors)
 
@@ -161,9 +179,10 @@ class DeviceGraph:
     def from_index(cls, index, device=None) -> "DeviceGraph":
         """Flatten a host-graph index (``index.elements``) onto ``device``
         (default: the index's own)."""
-        if index.kind != "dense":
+        if index.kind not in ("dense", "bit"):
             raise NotImplementedError(
-                f"DeviceGraph kind {index.kind!r} is not ported (dense only)"
+                f"DeviceGraph kind {index.kind!r} is not ported "
+                f"({_ROADMAP_SPARSE})"
             )
         device = index.device if device is None else device
         n = len(index.elements)
@@ -203,11 +222,16 @@ class DeviceGraph:
             if upper_rows
             else np.full((1, lmax * m), -1, dtype=np.int32)
         )
-        vals = np.zeros((n + 1, index.dim), dtype=np.float32)
-        vals[:n] = index.store.rows[:n].astype(np.float32)
-        value_arrays = _serve_value_arrays(
-            _tensor(vals, device), _serve_dtype_for(index)
-        )
+        if index.kind == "bit":
+            words = np.zeros((n + 1, -(-index.dim // 32)), dtype=np.uint32)
+            words[:n] = bits.bytes_to_words(index.store.rows[:n], index.dim)
+            value_arrays = dict(words=words)
+        else:
+            vals = np.zeros((n + 1, index.dim), dtype=np.float32)
+            vals[:n] = index.store.rows[:n].astype(np.float32)
+            value_arrays = _serve_value_arrays(
+                _tensor(vals, device), _serve_dtype_for(index)
+            )
         return cls.from_numpy(
             dict(neighbors0=neighbors0, upper_neighbors=upper_neighbors,
                  upper_slot=upper_slot, levels=levels,
@@ -229,9 +253,10 @@ class DeviceGraph:
 
 
 def _dist_ids(g: DeviceGraph, q, ids):
-    """Order-distances [B, W] from queries ``q`` [B, D] to rows ``ids``
-    [B, W] (dense metrics; ids clamped into range, callers mask)."""
-    return beam.row_dists(g.values, g.metric, q, ids)
+    """Order-distances [B, W] from queries ``q`` [B, D] (the bit kind:
+    packed words [B, W]) to rows ``ids`` [B, W] (ids clamped into range,
+    callers mask)."""
+    return beam.row_dists(g.rows, g.metric, q, ids)
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +307,7 @@ def _ground_beam_seeds(g: DeviceGraph, q, seed_ids, seed_d, ef: int,
     CPU tensors). ``seed_ids`` [B, S] (-1 = unused, S <= ef) and their
     distances seed the beam. Returns (dists [B, ef], ids [B, ef]) nearest
     first, and steps [B]."""
-    return beam.beam_walk(g.values, g.neighbors0, g.traversable, g.metric, q,
+    return beam.beam_walk(g.rows, g.neighbors0, g.traversable, g.metric, q,
                           seed_ids, seed_d, ef, max_steps)
 
 
@@ -472,30 +497,25 @@ _L1_CHUNK = 1 << 16
 def l1_sweep_topk(vals, a, queries, k: int):
     """Exact top-k of the l1 order score ``|q - x|_1 + a`` (``a``: 0 on
     live rows, inf on the rest) over the rows of ``vals`` -> (scores
-    [B, k] f32, row ids [B, k] int64), ascending. f32 sums of direct
-    differences (``torch.cdist(p=1)``: no [B, rows, D] temporary) per
-    block of ``_L1_CHUNK`` rows, merged into a running top-k. Torch ops on
-    every device: the kernel to hand-write is queued (ROADMAP queue 2,
-    K11)."""
+    [B, k] f32, row ids [B, k] int64) in (score, lower row first) order,
+    ``lax.top_k``'s; rows at inf and the tail past the rows come back as
+    (inf, -1). f32 sums of direct differences (``torch.cdist(p=1)``: no
+    [B, rows, D] temporary) per block of ``_L1_CHUNK`` rows, merged into a
+    running top-k of (score, row) keys. Torch ops on every device: the
+    kernel to hand-write is queued (ROADMAP queue 2, K11)."""
     q = queries.float()
-    best_d = q.new_empty((q.shape[0], 0))
-    best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
+    best = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
     for s in range(0, vals.shape[0], _L1_CHUNK):
         x = vals[s : s + _L1_CHUNK].float()
         sc = torch.cdist(q, x, p=1) + a[None, s : s + _L1_CHUNK]
-        d_c, i_c = torch.topk(sc, min(k, x.shape[0]), dim=1, largest=False,
-                              sorted=True)
-        best_d = torch.cat([best_d, d_c], dim=1)
-        best_i = torch.cat([best_i, i_c + s], dim=1)
-        if best_d.shape[1] > k:
-            best_d, pos = torch.topk(best_d, k, dim=1, largest=False,
-                                     sorted=True)
-            best_i = torch.gather(best_i, 1, pos)
-    pad = k - best_d.shape[1]
-    if pad > 0:  # fewer rows than k
-        best_d = torch.nn.functional.pad(best_d, (0, pad), value=_INF)
-        best_i = torch.nn.functional.pad(best_i, (0, pad), value=-1)
-    return best_d, best_i
+        rows = torch.arange(s, s + x.shape[0], device=q.device)
+        keys = torch.cat([best, bruteforce._order_keys(
+            sc, rows[None, :].expand(q.shape[0], -1))], dim=1)
+        best = torch.topk(keys, min(k, keys.shape[1]), dim=1, largest=False,
+                          sorted=True).values
+    if best.shape[1] < k:  # fewer rows than k
+        best = torch.nn.functional.pad(best, (0, k - best.shape[1]), value=-1)
+    return bruteforce._from_order_keys(best)
 
 
 def _live_rows(g: DeviceGraph, row_mask):
@@ -539,6 +559,27 @@ def _exact_search_batch(g: DeviceGraph, queries, k: int, approx: bool = False,
     return d, torch.where(torch.isfinite(d), ids.long(), -1)
 
 
+def _exact_search_bits(g: DeviceGraph, queries, k: int, approx: bool = False,
+                       row_mask=None):
+    """Exact top-k over the live packed-bit rows (hamming / jaccard) for
+    packed-word queries [B, W] -> (dists [B, k], element ids [B, k]) in
+    (distance, id) order, -1 / inf padded: the bit sweep (``ops/bits.
+    bits_topk``, kernel K9 on CUDA). ``approx`` selects exactly too, where
+    the JAX package takes ``approx_min_k`` over the same exact distances."""
+    del approx
+    d, ids = bits.bits_topk(g.words, g.x2, _live_rows(g, row_mask),
+                            queries, k, g.metric)
+    return d, torch.where(torch.isfinite(d), ids, -1)
+
+
+def _stage_queries(g: DeviceGraph, queries):
+    """Staged queries on the graph's device: f32 rows, or for the bit kind
+    packed words ([B, W] uint32 / int32, ``ops/bits.pack_bits``)."""
+    if g.kind == "bit":
+        return bits.as_words(queries, g.device).contiguous()
+    return torch.as_tensor(queries).to(g.device, torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Bulk serving
 # ---------------------------------------------------------------------------
@@ -549,8 +590,8 @@ def _serve_chunk(g: DeviceGraph, qc, k: int, engine: str, ef: int,
     """Top-k of one query chunk through one engine (the body of the JAX
     package's single-dispatch ``_serve_sweep``)."""
     if engine != "beam":
-        return _exact_search_batch(g, qc, k, approx=engine == "approx",
-                                   row_mask=row_mask)
+        sweep = _exact_search_bits if g.kind == "bit" else _exact_search_batch
+        return sweep(g, qc, k, approx=engine == "approx", row_mask=row_mask)
     if upper is not None:
         d, ids, _ = _search_batch_coarse(g, qc, upper[0], upper[1], ef,
                                          max_steps)
@@ -569,8 +610,10 @@ def _serve_chunk(g: DeviceGraph, qc, k: int, engine: str, ef: int,
 
 def serve_topk(index, queries_dev, k: int, engine: str = "approx",
                chunk: int = 1024, ef: int = 40, filter_mask=None):
-    """Bulk top-k over staged dense queries [B, dim] -> (dists [B,k] np,
-    element ids [B,k] np), in chunks of ``chunk`` queries.
+    """Bulk top-k over staged queries -> (dists [B,k] np, element ids [B,k]
+    np), in chunks of ``chunk`` queries. Dense metrics take [B, dim] rows;
+    hamming / jaccard take packed-word queries ([B, ceil(dim/32)] uint32 or
+    int32, as ``ops/bits.pack_bits`` makes them).
 
     The serving fast path: ``search()`` stays the semantically complete
     per-call API (duplicate TID expansion, operator distances).
@@ -581,7 +624,7 @@ def serve_topk(index, queries_dev, k: int, engine: str = "approx",
         raise ValueError(f"unknown engine {engine!r}")
     g = index.device_graph()
     row_mask = _stage_filter_mask(g, filter_mask)
-    queries = torch.as_tensor(queries_dev).to(g.device, torch.float32)
+    queries = _stage_queries(g, queries_dev)
     ef_eff = max(ef, k)
     upper = None
     if engine == "beam":
@@ -636,10 +679,16 @@ def prepare_query_matrix(index, q: np.ndarray, device):
 
 
 def prepare_queries(index, qlist, device):
-    """Canonicalize dense queries to a [B, dim] f32 tensor on ``device``."""
+    """Canonicalize queries: dense ones to a [B, dim] f32 tensor, bit ones
+    to packed int32 words [B, ceil(dim/32)], on ``device``."""
+    if index.kind == "bit":
+        if isinstance(qlist, torch.Tensor):
+            qlist = qlist.cpu().numpy()
+        packed = bits.prepare_rows(qlist, index.dim)
+        return bits.as_words(bits.bytes_to_words(packed, index.dim), device)
     if index.kind != "dense":
         raise NotImplementedError(
-            f"queries of kind {index.kind!r} are not ported (dense only)"
+            f"queries of kind {index.kind!r} are not ported ({_ROADMAP_SPARSE})"
         )
     if isinstance(qlist, torch.Tensor):
         q = qlist.to(device, torch.float32)
@@ -683,10 +732,9 @@ def search(index, qlist, k: int, params, engine: str = "auto",
     if engine == "auto":
         engine = "exact" if g.capacity <= EXACT_ENGINE_MAX_ROWS else "beam"
     if engine in ("exact", "approx"):
-        beam_d, beam_ids = _exact_search_batch(
-            g, queries, max(k, 1), approx=engine == "approx",
-            row_mask=row_mask,
-        )
+        sweep = _exact_search_bits if g.kind == "bit" else _exact_search_batch
+        beam_d, beam_ids = sweep(g, queries, max(k, 1),
+                                 approx=engine == "approx", row_mask=row_mask)
     else:
         _beam_settings()
         upper = _coarse_upper(g)

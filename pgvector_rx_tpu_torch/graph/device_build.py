@@ -2,7 +2,8 @@
 tensor ops on one device.
 
 The counterpart of ``pgvector_rx_tpu/graph/device_build.py``, for the
-dense kind (l2 / ip / cosine / l1). Construction runs in batches against a
+dense kind (l2 / ip / cosine / l1) and the bit kind (hamming / jaccard).
+Construction runs in batches against a
 frozen graph snapshot; batch sizes double from 1 up to ``batch_max``:
 
 1. **Score and select** (``_score_select_step``). Ground-layer
@@ -45,6 +46,15 @@ differs, in PyTorch idiom:
   the JAX graph's padded capacity only as its ``capacity`` figure; row
   ``cap`` is the sentinel.
 
+The bit kind builds on unpacked {0,1} f32 rows: hamming is squared l2
+over them (builder metric "l2"), and jaccard derives from the same
+identity (builder metric "jacbits", ``_l2_to_jaccard``); every score,
+Algorithm 4's pruning and the duplicate fold are exact there, and the
+serving graph's words are packed on the device (``_pack_words_device``).
+Bit corpora always take the beam ground (``_bit_ground_pin``). The bits
+are prepared in one vectorised pass (``ops/bits.prepare_rows``) where the
+JAX package calls ``prepare_value`` row by row.
+
 ``bulk_insert`` (``HnswIndex.insert_bulk``) inserts into an existing index
 with the same builder: the graph is transplanted into fresh build tensors
 (``_seed_builder_from_graph``, edge distances recomputed exactly on the
@@ -53,13 +63,14 @@ device) and the new rows run as doubling batches on top of it.
 Of the JAX package's ``PGV_BUILD_*`` environment variables only
 ``PGV_BUILD_GROUND`` is read; a non-default value of another raises
 (``_build_settings``). Not ported, and refused with
-``NotImplementedError``: the bit kind and ``consume_input``.
+``NotImplementedError``: ``consume_input``.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import warnings
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -67,6 +78,7 @@ import numpy as np
 import torch
 
 from ..constants import HNSW_HEAPTIDS, hnsw_get_layer_m
+from ..ops import bits
 from ..ops.beam import row_dists
 
 #: cap at/above which the back-edge commit honours 2 same-target adds per
@@ -111,7 +123,7 @@ _BUILD_ENV_DEFAULTS = {
 }
 
 _ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13b"
-_ROADMAP_BIT = "ROADMAP queue 1, item 14"
+_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
 
 
 def _build_settings() -> None:
@@ -268,19 +280,34 @@ class BuildArrays:
 # ---------------------------------------------------------------------------
 
 
+def _l2_to_jaccard(h, sq_a, sq_b):
+    """{0,1}-row squared l2 -> jaccard distance (builder metric
+    "jacbits"). For binary rows a, b: h = |a XOR b| = l2^2(a, b), popcounts
+    aa = ||a||^2, bb = ||b||^2, so jaccard = 2h / (aa + bb + h); two zero
+    rows (denominator 0) are 1.0, the reference's ab == 0 rule. Every term
+    is a small integer in f32."""
+    denom = sq_a + sq_b + h
+    return torch.where(denom > 0.0,
+                       2.0 * h / torch.where(denom > 0.0, denom, 1.0), 1.0)
+
+
 def _pair_matrix(metric: str, rows):
     """All-pairs order distances among rows [..., C, D] -> [..., C, C],
-    f32 products and sums of the (bf16) rows; l2 through the matmul
-    identity ||a-b||^2 = ||a||^2 + ||b||^2 - 2ab; l1 (f32 rows) from
-    direct differences, reduced without a [..., C, C, D] temporary."""
+    f32 products and sums of the (bf16) rows; l2 (and "jacbits" from it)
+    through the matmul identity ||a-b||^2 = ||a||^2 + ||b||^2 - 2ab; l1
+    (f32 rows) from direct differences, reduced without a [..., C, C, D]
+    temporary."""
     r = rows.float()
     if metric == "l1":
         return torch.cdist(r, r, p=1)
     dots = r @ r.transpose(-1, -2)
-    if metric == "l2":
+    if metric in ("l2", "jacbits"):
         sq = (r * r).sum(dim=-1)
-        return torch.clamp(sq[..., :, None] + sq[..., None, :] - 2.0 * dots,
-                           min=0.0)
+        h = torch.clamp(sq[..., :, None] + sq[..., None, :] - 2.0 * dots,
+                        min=0.0)
+        if metric == "jacbits":
+            return _l2_to_jaccard(h, sq[..., :, None], sq[..., None, :])
+        return h
     if metric == "ip":
         return -dots
     if metric == "cosine":
@@ -359,14 +386,14 @@ def _window(s_key, s_src, s_d, K: int, same_extra=None):
 
 class DeviceBuilder:
     """Owns the build tensors and the per-batch steps (dense l2 / ip /
-    cosine / l1; the IVF or the beam-descent ground past the ramp)."""
+    cosine / l1, and "jacbits" over unpacked bit rows; the IVF or the
+    beam-descent ground past the ramp)."""
 
     def __init__(self, metric: str, vectors: torch.Tensor, levels, m: int,
                  ef_construction: int, batch_max: int = 1024,
                  ground: str | None = None):
-        if metric not in ("l2", "ip", "cosine", "l1"):
-            raise ValueError(f"the dense device build has no metric "
-                             f"{metric!r}")
+        if metric not in ("l2", "ip", "cosine", "l1", "jacbits"):
+            raise ValueError(f"the device build has no metric {metric!r}")
         dev = vectors.device
         self.device = dev
         self.metric = metric
@@ -478,9 +505,12 @@ class DeviceBuilder:
                 for s in range(0, vectors.shape[0], _L1_CHUNK)
             ], dim=1)
         dots = q_rows @ vectors.T
-        if self.metric == "l2":
+        if self.metric in ("l2", "jacbits"):
             q2 = (q_rows * q_rows).sum(dim=1, keepdim=True)
-            return torch.clamp(q2 + x2[None, :] - 2.0 * dots, min=0.0)
+            h = torch.clamp(q2 + x2[None, :] - 2.0 * dots, min=0.0)
+            if self.metric == "jacbits":
+                return _l2_to_jaccard(h, q2, x2[None, :])
+            return h
         if self.metric == "ip":
             return -dots
         return 1.0 - torch.clamp(dots, -1.0, 1.0)
@@ -498,14 +528,26 @@ class DeviceBuilder:
         dots = q @ data.upper_bf16.float().T
         if self.metric == "l2":
             return a_col[None, :] - 2.0 * dots
+        if self.metric == "jacbits":
+            # the transform needs the true h per column, so the penalty
+            # comes after it (inf / inf would be NaN); bf16 dots of {0,1}
+            # rows are exact
+            q2 = (q_chunk * q_chunk).sum(dim=1, keepdim=True)
+            h = torch.clamp(q2 + data.upper_x2[None, :] - 2.0 * dots, min=0.0)
+            return (_l2_to_jaccard(h, q2, data.upper_x2[None, :])
+                    + a_col[None, :])
         return a_col[None, :] - dots
 
     def _dist_point_rows(self, q_rows, rows):
         """True f32 distances q_rows [B, D] -> rows [B, K, D] (direct
         differences, no matmul-identity cancellation)."""
-        if self.metric == "l2":
+        if self.metric in ("l2", "jacbits"):
             dlt = rows - q_rows[:, None, :]
-            return (dlt * dlt).sum(dim=-1)
+            h = (dlt * dlt).sum(dim=-1)
+            if self.metric == "jacbits":  # {0,1} rows: popcount == sum
+                return _l2_to_jaccard(h, q_rows.sum(dim=1, keepdim=True),
+                                      rows.sum(dim=-1))
+            return h
         if self.metric == "l1":
             return (rows - q_rows[:, None, :]).abs().sum(dim=-1)
         dots = torch.bmm(rows, q_rows[:, :, None])[:, :, 0]
@@ -801,8 +843,9 @@ class DeviceBuilder:
         promotion, on the device (no host round trip).
 
         An element whose selected layer-0 neighbour holds an equal value
-        (and, for ip, whose row is zero: ip's distance is 0 only there)
-        folds its TID into that neighbour, up to 10 TIDs per element
+        (and, for ip, whose row is zero: ip's distance is 0 only there; for
+        jaccard, whose row is not zero: two zero rows are 1.0 apart) folds
+        its TID into that neighbour, up to 10 TIDs per element
         (build.rs:474-510); folds into one target within a batch are
         ranked by a sort so the cap holds."""
         dump = self.cap
@@ -815,6 +858,8 @@ class DeviceBuilder:
         zero = cand >= 0
         if self.metric == "ip":
             zero = zero & (data.x2[new_ids] == 0.0)[:, None]
+        elif self.metric == "jacbits":
+            zero = zero & (data.x2[new_ids] > 0.0)[:, None]
         cand_c = cand.clamp(0, dump)
         eq = (data.vectors[cand_c] == q_rows[:, None, :]).all(dim=-1) & zero
         ok = eq & (arrays.tid_counts[cand_c] >= 1) & mask[:, None]
@@ -1100,30 +1145,74 @@ def _resolve_device(dev) -> torch.device:
     return dev
 
 
+def _bit_ground_pin():
+    """The ground of a bit corpus: always the beam descent (integer hamming
+    distances tie heavily, and the IVF member and hop pools collapse under
+    ties). Another ``PGV_BUILD_GROUND`` is ignored, and says so once."""
+    env = os.environ.get("PGV_BUILD_GROUND")
+    if env not in (None, "", "auto", "beam"):
+        warnings.warn(
+            f"PGV_BUILD_GROUND={env} ignored for bit corpora: the build "
+            "pins ground=beam (integer hamming ties collapse the ivf "
+            "member/hop pools)",
+            stacklevel=3,
+        )
+    return "beam"
+
+
+def _pack_words_device(vectors, w: int):
+    """[n1, D] f32 {0,1} rows -> [n1, w] int32 words with the bits of
+    ``ops/bits.pack_bits``'s uint32 words (MSB-first), on the rows' device:
+    a bit build never moves its rows to the host for the serving graph."""
+    n1, d = vectors.shape
+    shifts = 31 - torch.arange(32, device=vectors.device, dtype=torch.int64)
+    out = torch.empty((n1, w), dtype=torch.int32, device=vectors.device)
+    for i in range(w):  # one word at a time bounds the int64 temporary
+        b = (vectors[:, 32 * i : 32 * i + 32] > 0.5).to(torch.int64)
+        word = (b << shifts[: b.shape[1]]).sum(dim=1)
+        out[:, i] = torch.where(word >= 1 << 31, word - (1 << 32),
+                                word).to(torch.int32)
+    return out
+
+
 def bulk_build(index, data, ids, host_graph: bool = True) -> None:
-    """``HnswIndex.build(method="device")`` of the port, dense kind.
+    """``HnswIndex.build(method="device")`` of the port, dense and bit
+    kinds.
 
     ``data``: a numpy-convertible [N, dim] array (uploaded to
-    ``index.device``) or a tensor already on ``index.device`` (another
-    device raises ``ValueError``: the corpus is never moved silently).
-    Prepares values (cosine normalize / zero-norm skip), draws levels with
-    the index RNG, runs the batched build, folds the duplicate TIDs, then
-    either populates the host graph (``host_graph=True``: host search,
+    ``index.device``) or, for the dense kind, a tensor already on
+    ``index.device`` (another device raises ``ValueError``: the corpus is
+    never moved silently). Prepares values (cosine normalize / zero-norm
+    skip; bits packed, then unpacked to {0,1} f32 build rows), draws levels
+    with the index RNG, runs the batched build, folds the duplicate TIDs,
+    then either populates the host graph (``host_graph=True``: host search,
     insert and delete work) or hands the index a ``DeviceGraph`` straight
     from the build tensors (serving-only)."""
     from .host import GraphElement
 
     _build_settings()
-    if index.kind != "dense":
+    if index.kind not in ("dense", "bit"):
         raise NotImplementedError(
             f"the device build of the {index.kind} kind is not ported "
-            f"({_ROADMAP_BIT})"
+            f"({_ROADMAP_SPARSE})"
         )
     if len(index.elements) or index.store.count:
         raise ValueError("device bulk build requires an empty index")
     device = _resolve_device(index.device)
     host_rows = None
-    if isinstance(data, torch.Tensor):
+    packed = None  # the bit kind's [n, ceil(dim/8)] byte rows
+    metric, ground = index.metric, None
+    if index.kind == "bit":
+        if isinstance(data, torch.Tensor):
+            raise ValueError("device-resident build input is supported for "
+                             "dense metrics only")
+        packed = bits.prepare_rows(data, index.dim)
+        kept_tids = _tids_array(ids)[: len(packed)]
+        vectors = torch.from_numpy(np.unpackbits(packed, axis=1)[
+            :, : index.dim].astype(np.float32)).to(device)
+        metric = "l2" if index.metric == "hamming" else "jacbits"
+        ground = _bit_ground_pin()
+    elif isinstance(data, torch.Tensor):
         if _resolve_device(data.device) != device:
             raise ValueError(
                 f"build input is on {data.device}, the index on {device}: "
@@ -1140,9 +1229,9 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
     if n == 0:
         return
     levels = index.random_levels(n)
-    builder = DeviceBuilder(index.metric, vectors, levels, index.params.m,
+    builder = DeviceBuilder(metric, vectors, levels, index.params.m,
                             index.params.ef_construction,
-                            batch_max=batch_max_for(n))
+                            batch_max=batch_max_for(n), ground=ground)
     del vectors
     builder.seed_first(0)
     builder.run_all(batch_schedule(n, builder.batch_max))
@@ -1158,7 +1247,9 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
     store_dtype = index.dtype or np.float32
 
     if not host_graph:
-        if host_rows is not None:
+        if packed is not None:
+            index.store.bulk_load(packed)
+        elif host_rows is not None:
             index.store.bulk_load(host_rows.astype(store_dtype))
         else:
             index.store.bulk_load_device(_HostRows(builder.vectors), count=n)
@@ -1169,7 +1260,7 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
         builder.arrays = builder.data = builder.vectors = None
         return
 
-    if host_rows is None:
+    if host_rows is None and packed is None:
         host_rows = builder.vectors[:n].cpu().numpy()
     nb0_ids, nb0_d, up_ids, up_d = builder.host_adjacency()
     upper_nbrs = up_ids.reshape(up_ids.shape[0], builder.lmax, builder.m)
@@ -1188,7 +1279,8 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
                 if v >= 0
             ]
         index.elements.append(e)
-    index.store.bulk_load(host_rows.astype(store_dtype))
+    index.store.bulk_load(packed if packed is not None
+                          else host_rows.astype(store_dtype))
     index.heap_tids = heap_tids
     index._invalidate_device()
 
@@ -1216,6 +1308,16 @@ def _device_graph_from_builder(index, builder: DeviceBuilder, first_tids):
     nb0[n] = -1  # row n may be the build's dump row
     up = a.up_ids.clone()
     up[builder.upper_dump] = -1
+    if index.kind == "bit":
+        # the builder worked on unpacked {0,1} f32 rows; the serving graph
+        # wants packed words, packed on the device
+        words = _pack_words_device(builder.vectors[: n + 1],
+                                   -(-index.dim // 32))
+        words[n] = 0  # row n may be the build's dump row
+        values = dict(words=words, x2=bits.row_popcount(words))
+    else:
+        values = _serve_value_arrays(builder.vectors[: n + 1],
+                                     _serve_dtype_for(index))
     return DeviceGraph(
         kind=index.kind,
         metric=index.metric,
@@ -1231,8 +1333,7 @@ def _device_graph_from_builder(index, builder: DeviceBuilder, first_tids):
         emit_tid=_emit_tables_device(a.absorb[: n + 1], a.tid_counts[: n + 1],
                                      first_tids, n + 1),
         tid_count=a.tid_counts[: n + 1],
-        **_serve_value_arrays(builder.vectors[: n + 1],
-                              _serve_dtype_for(index)),
+        **values,
         capacity=builder.cap,
     )
 

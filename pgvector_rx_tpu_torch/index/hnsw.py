@@ -36,8 +36,7 @@ BIT_METRICS = ("hamming", "jaccard")
 SPARSE_METRICS = DENSE_METRICS
 
 _ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13b"
-_ROADMAP_KIND = {"bit": "ROADMAP queue 1, item 14",
-                 "sparse": "ROADMAP queue 1, item 15"}
+_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
 
 
 def resolve_device(device) -> torch.device:
@@ -456,14 +455,15 @@ class HnswIndex:
 
         ``data``: an [N, D] array, [N, nbits] 0/1 array for hamming /
         jaccard, a sequence of SparseVec / (indices, values), or a torch
-        tensor already on ``device`` (device-resident input; it takes the
-        device build).
-        ``method``: "device" (the batched device build, dense kind),
-        "native" (C++ engine), "host" (sequential reference path) or
-        "auto" (the device build for dense corpora of 20,000 rows or
-        more, else native when it builds, else host). ``host_graph=False``
-        with "device" or "native": serving-only index whose graph goes
-        straight to a torch DeviceGraph on ``device``.
+        tensor already on ``device`` (device-resident dense input; it
+        takes the device build).
+        ``method``: "device" (the batched device build, dense and bit
+        kinds), "native" (C++ engine), "host" (sequential reference path)
+        or "auto" (the device build for dense corpora of 20,000 rows or
+        more and for bit corpora of 20,000 rows or more whose unpacked f32
+        build rows fit 6 GiB, else native when it builds, else host).
+        ``host_graph=False`` with "device" or "native": serving-only index
+        whose graph goes straight to a torch DeviceGraph on ``device``.
         """
         if consume_input:
             raise NotImplementedError(
@@ -488,6 +488,11 @@ class HnswIndex:
             dim = (int(data.shape[1]) if tensor_in
                    else np.asarray(data).shape[1])
         if tensor_in:
+            if kind != "dense":
+                raise ValueError(
+                    "device-resident build input is supported for dense "
+                    "metrics only"
+                )
             if method not in ("device", "auto"):
                 raise ValueError(
                     "device-resident build input requires method='device'"
@@ -497,22 +502,22 @@ class HnswIndex:
             if kind == "dense" and n >= 20000:
                 method = "device"
             elif kind == "bit" and n >= 20000 and n * dim * 4 <= (6 << 30):
-                raise NotImplementedError(
-                    "the bit kind's device build (the JAX package's 'auto' "
-                    f"choice here) is not ported ({_ROADMAP_KIND['bit']})"
-                )
+                # hamming is squared l2 over {0,1} rows (and jaccard derives
+                # from it), so the bit build rides the device builder on
+                # unpacked f32 rows
+                method = "device"
             else:
                 from .. import native
 
                 method = "native" if native.available() else "host"
-        if method == "device" and kind != "dense":
+        if method == "device" and kind == "sparse":
             raise NotImplementedError(
-                f"the device build of the {kind} kind is not ported "
-                f"({_ROADMAP_KIND[kind]})"
+                f"the device build of the sparse kind is not ported "
+                f"({_ROADMAP_SPARSE})"
             )
-        if method == "native" and not host_graph and kind != "dense":
-            raise NotImplementedError(
-                "serving-only torch builds support the dense kind"
+        if method == "native" and not host_graph and kind == "sparse":
+            raise ValueError(
+                "serving-only native build supports dense and bit kinds"
             )
         idx = cls(dim, metric=metric, kind=kind, params=params, dtype=dtype,
                   seed=seed, device=device)

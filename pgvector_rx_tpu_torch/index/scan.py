@@ -599,7 +599,8 @@ def search(index, queries, k: int, params: SearchParams, method: str = "auto",
 
     method="host" walks the reference scan path per query;
     method="device" runs the batched beam over the device graph;
-    "exact" / "approx" the exact FP32 / binned bf16 sweeps (dense only);
+    "exact" / "approx" the exact FP32 / binned bf16 sweeps (the bit kind:
+    the bit sweep K9 for both, over packed query words);
     "auto" uses the device for dense batches >= 32 queries or serving-only
     indexes, and lets the device layer choose exact vs beam.
 

@@ -24,8 +24,7 @@ What differs from the JAX package:
   torn archive (the JAX package writes it in place);
 - ``save`` refuses a directory whose ``log.jsonl`` holds records: they
   are already in the index, and a load would replay them a second time;
-- the bit and sparse kinds are not ported (ROADMAP queue 1, items 14 and
-  15) and raise.
+- the sparse kind is not ported (ROADMAP queue 1, item 15) and raises.
 """
 
 from __future__ import annotations
@@ -43,16 +42,34 @@ from ..graph.host import GraphElement
 
 FORMAT_VERSION = 1
 
-_ROADMAP_KIND = {"bit": "ROADMAP queue 1, item 14",
-                 "sparse": "ROADMAP queue 1, item 15"}
+_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
 
 
-def _dense_only(kind: str) -> None:
-    if kind != "dense":
+def _no_sparse(kind: str) -> None:
+    if kind not in ("dense", "bit"):
         raise NotImplementedError(
             f"checkpoints of the {kind} kind are not ported "
-            f"({_ROADMAP_KIND.get(kind, 'ROADMAP queue 1')})"
+            f"({_ROADMAP_SPARSE})"
         )
+
+
+def _value_arrays(index, rows, n: int) -> dict:
+    """The serving graph's value tensors from the checkpoint's ``rows``
+    (n of them, plus the zero sentinel row): f32 values under the serving
+    dtype policy, or the bit kind's packed words (uint32, the layout of
+    ``ops/bits.pack_bits``) from its byte rows."""
+    from ..graph.device import _serve_dtype_for, _serve_value_arrays, _tensor
+    from ..ops.bits import bytes_to_words
+
+    if index.kind == "bit":
+        words = np.zeros((n + 1, -(-index.dim // 32)), dtype=np.uint32)
+        if n:
+            words[:n] = bytes_to_words(rows, index.dim)
+        return dict(words=words)
+    vals = np.zeros((n + 1, index.dim), dtype=np.float32)
+    vals[:n] = rows.astype(np.float32)
+    return _serve_value_arrays(_tensor(vals, index.device),
+                               _serve_dtype_for(index))
 
 
 def _refuse_live_log(path: Path) -> None:
@@ -83,7 +100,7 @@ def _write_meta(path: Path, meta: dict) -> None:
 
 def save(index, path) -> None:
     path = Path(path)
-    _dense_only(index.kind)
+    _no_sparse(index.kind)
     path.mkdir(parents=True, exist_ok=True)
     _refuse_live_log(path)
     if getattr(index, "serving_only", False):
@@ -141,7 +158,7 @@ def save(index, path) -> None:
 def _new_index(meta, device):
     from .hnsw import HnswIndex
 
-    _dense_only(meta["kind"])
+    _no_sparse(meta["kind"])
     return HnswIndex(
         meta["dim"],
         metric=meta["metric"],
@@ -239,12 +256,7 @@ def _load_host_as_serving(meta, path: Path, replay: bool, device):
     repeat/cumsum index arithmetic — O(edges) numpy, no Python loop over
     elements."""
     from ..constants import hnsw_get_layer_m
-    from ..graph.device import (
-        DeviceGraph,
-        _serve_dtype_for,
-        _serve_value_arrays,
-        _tensor,
-    )
+    from ..graph.device import DeviceGraph
 
     index = _new_index(meta, device)
     z = np.load(path / "arrays.npz")
@@ -307,9 +319,8 @@ def _load_host_as_serving(meta, path: Path, replay: bool, device):
     trav = np.zeros(n + 1, dtype=bool)
     trav[:n] = live
 
-    index.store.bulk_load(z["rows"])
-    vals = np.zeros((n + 1, meta["dim"]), dtype=np.float32)
-    vals[:n] = z["rows"].astype(np.float32)
+    rows = z["rows"]
+    index.store.bulk_load(rows)
     entry = int(meta["entry"]) if meta["entry"] is not None else -1
     index.entry = entry if entry >= 0 else None
     index.serving_only = True
@@ -318,8 +329,7 @@ def _load_host_as_serving(meta, path: Path, replay: bool, device):
         dict(neighbors0=neighbors0, upper_neighbors=upper,
              upper_slot=upper_slot, levels=levels_pad, traversable=trav,
              emit_tid=emit_tid, tid_count=tid_count_arr,
-             **_serve_value_arrays(_tensor(vals, index.device),
-                                   _serve_dtype_for(index))),
+             **_value_arrays(index, rows, n)),
         kind=meta["kind"], metric=meta["metric"], cap=n, m=m, entry=entry,
         entry_level=int(levels[entry]) if entry >= 0 else -1,
         device=index.device,
@@ -367,7 +377,7 @@ class AppendLog:
     """
 
     def __init__(self, path, index, fsync: bool | None = None):
-        _dense_only(index.kind)
+        _no_sparse(index.kind)
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._fh = open(self.path, "a", encoding="utf-8")
@@ -482,10 +492,20 @@ def replay_log(index, log_path) -> int:
 
 
 def _encode_value(index, value):
+    if index.kind == "bit":
+        v = np.asarray(value)
+        if (v.dtype == np.uint8 and v.ndim == 1
+                and v.shape[0] == index.store.nbytes):
+            return {"packed": v.tobytes().hex()}
+        return {"bits": v.astype(int).tolist()}
     return np.asarray(value, dtype=np.float32).tolist()
 
 
 def _decode_value(index, enc):
+    if index.kind == "bit":
+        if "packed" in enc:
+            return np.frombuffer(bytes.fromhex(enc["packed"]), dtype=np.uint8)
+        return np.asarray(enc["bits"], dtype=np.uint8)
     return np.asarray(enc, dtype=np.float32)
 
 
@@ -547,17 +567,13 @@ def _save_serving(index, path: Path) -> None:
 
 
 def _load_serving(meta, path: Path, device):
-    from ..graph.device import (
-        DeviceGraph,
-        _serve_dtype_for,
-        _serve_value_arrays,
-        _tensor,
-    )
+    from ..graph.device import DeviceGraph
 
     index = _new_index(meta, device)
     z = np.load(path / "arrays.npz")
     n = int(meta["n_elements"])
-    index.store.bulk_load(z["rows"])
+    rows = z["rows"]
+    index.store.bulk_load(rows)
     tid_counts = z["tid_counts"].astype(np.int64)
     flat_list = z["tid_flat"].tolist()
     offs = np.concatenate([[0], np.cumsum(tid_counts)]).tolist()
@@ -567,8 +583,6 @@ def _load_serving(meta, path: Path, device):
     tid_count[:n] = tid_counts
     has = tid_counts > 0
     emit_tid[:n][has] = z["tid_flat"][np.asarray(offs[:-1])[has]]
-    values = np.zeros((n + 1, meta["dim"]), dtype=np.float32)
-    values[:n] = z["rows"].astype(np.float32)
     index.serving_only = True
     index.entry = int(meta["entry"]) if int(meta["entry"]) >= 0 else None
     # the dtype-native serving policy applies on reload too (halfvec
@@ -582,8 +596,7 @@ def _load_serving(meta, path: Path, device):
              upper_slot=z["upper_slot"], levels=z["levels"],
              traversable=z["traversable"], emit_tid=emit_tid,
              tid_count=tid_count,
-             **_serve_value_arrays(_tensor(values, index.device),
-                                   _serve_dtype_for(index))),
+             **_value_arrays(index, rows, n)),
         kind=meta["kind"], metric=meta["metric"], cap=n, m=meta["m"],
         entry=int(meta["entry"]), entry_level=int(meta["entry_level"]),
         device=index.device,

@@ -674,23 +674,37 @@ def native_bulk_build(index, data, ids) -> None:
 def native_bulk_build_serving(index, data, ids) -> None:
     """Native C++ build -> serving-only index on ``index.device``: the
     graph goes from the C++ arena to flat tensors in one export call, with
-    no per-element Python objects (dense kind)."""
-    if index.kind != "dense":
-        raise NotImplementedError(
-            "the torch serving-only native build supports the dense kind"
+    no per-element Python objects (dense and bit kinds)."""
+    from .ops import bits
+
+    if index.kind == "sparse":
+        raise ValueError(
+            "serving-only native build supports dense and bit kinds"
         )
     m = index.params.m
     store_dtype = index.dtype or np.float32
-    rows, kept = _prepare_dense_bulk(index, data, ids)
-    if index.dtype is not None and index.dtype != np.float32:
-        # score the f16-STORED value (reload-equivalence)
-        rows = rows.astype(index.dtype).astype(np.float32)
-    n = len(rows)
-    if n == 0:
-        return
-    levels = index.random_levels(n)
-    ng = NativeGraph(index.dim, m, index.params.ef_construction, index.metric)
-    ng.bulk_insert(rows, levels, kept)
+    if index.kind == "bit":
+        rows = bits.prepare_rows(data, index.dim)  # packed bytes
+        kept = np.asarray(list(ids), dtype=np.int64)[: len(rows)]
+        if len(rows) == 0:
+            return
+        # the native engine's words reinterpret the bytes in place
+        # (``_bit_words`` of every row at once)
+        nat = np.ascontiguousarray(
+            np.pad(rows, ((0, 0), (0, (-rows.shape[1]) % 4)))).view(np.uint32)
+        ng = NativeGraph(nat.shape[1], m, index.params.ef_construction,
+                         index.metric, kind="bit")
+    else:
+        rows, kept = _prepare_dense_bulk(index, data, ids)
+        if index.dtype is not None and index.dtype != np.float32:
+            # score the f16-STORED value (reload-equivalence)
+            rows = rows.astype(index.dtype).astype(np.float32)
+        if len(rows) == 0:
+            return
+        nat = rows
+        ng = NativeGraph(index.dim, m, index.params.ef_construction,
+                         index.metric)
+    ng.bulk_insert(nat, index.random_levels(len(rows)), kept)
 
     flat = ng.export_flat(hnsw_get_layer_m(m, 0), m)
     n_el = flat["n"]
@@ -700,7 +714,8 @@ def native_bulk_build_serving(index, data, ids) -> None:
     first_tid = tid_flat[tid_off[:n_el]]
     order = np.argsort(kept, kind="stable")
     row_idx = order[np.searchsorted(kept[order], first_tid)]
-    index.store.bulk_load(rows[row_idx].astype(store_dtype))
+    index.store.bulk_load(rows[row_idx] if index.kind == "bit"
+                          else rows[row_idx].astype(store_dtype))
 
     # heap TID lists (multi-TID duplicate emission, <= 10 per element)
     counts = flat["tid_count"][:n_el]
@@ -710,12 +725,20 @@ def native_bulk_build_serving(index, data, ids) -> None:
         flat_list[offs[i] : offs[i] + int(counts[i])] for i in range(n_el)
     ]
 
-    vals = np.zeros((n_el + 1, index.dim), dtype=np.float32)
-    vals[:n_el] = rows[row_idx]
     device = index.device
-    value_arrays = _serve_value_arrays(
-        torch.from_numpy(vals).to(device), _serve_dtype_for(index)
-    )
+    if index.kind == "bit":
+        # the device engines read the ops/bits.pack_bits layout (MSB-first
+        # in each 32-bit word), not the native engine's byte-reinterpret
+        # words: repack from the byte rows
+        words = np.zeros((n_el + 1, -(-index.dim // 32)), dtype=np.uint32)
+        words[:n_el] = bits.bytes_to_words(rows[row_idx], index.dim)
+        value_arrays = dict(words=words)
+    else:
+        vals = np.zeros((n_el + 1, index.dim), dtype=np.float32)
+        vals[:n_el] = rows[row_idx]
+        value_arrays = _serve_value_arrays(
+            torch.from_numpy(vals).to(device), _serve_dtype_for(index)
+        )
     entry = ng.entry
     index.entry = entry if entry >= 0 else None
     index.serving_only = True

@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k2_binned.cu",
-                                     "k3_tilemin.cu", "k4_beam.cu"))
+                                     "k3_tilemin.cu", "k4_beam.cu",
+                                     "k9_bits.cu"))
 _HEADERS = (_CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -56,6 +57,10 @@ _SIGNATURES = {
     "pgv_k4_beam_walk": [_P, _I, _L, _I, _P, _I, _P, _P, _L, _I, _I, _P, _P,
                          _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                          _P],
+    # words, pop, live, q, lo, n, w, b, k, metric, qb, splits,
+    # rows_per_split, part, out, stream
+    "pgv_k9_bits_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P],
 }
 
 

@@ -6,7 +6,10 @@ versions beside them.
 They replace the JAX package's XLA while-loops ``_ground_beam_seeds`` (K4,
 ``pgvector_rx_tpu/graph/device.py:446``) and ``_beam_scan_segment`` (K5,
 ``:574``), at the defaults the port supports: one expansion per step,
-in-beam dedup by id (the expanded copy wins) and f32 ranking.
+in-beam dedup by id (the expanded copy wins) and f32 ranking. Rows are
+f32 / f16 / bf16 values (l2, ip, cosine, l1) or, for the bit kind, packed
+int32 words (hamming, jaccard: the walk's packed-word mode, serving only,
+as the JAX package's beam scan is dense-only).
 
 - :func:`beam_walk` (K4): ``B`` queries with ``S`` seeds each, a beam of
   width ``ef`` -> (dists [B, ef], ids [B, ef], steps [B]), sorted by
@@ -35,21 +38,34 @@ from __future__ import annotations
 
 import torch
 
+from . import bits
 from .bruteforce import LAUNCHES, _check_cuda
 
 _INF = float("inf")
-_METRIC_CODES = {"l2": 0, "ip": 1, "cosine": 2, "l1": 3}
-_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_METRIC_CODES = {"l2": 0, "ip": 1, "cosine": 2, "l1": 3, "hamming": 4,
+                 "jaccard": 5}
+#: row types: f32, f16, bf16 values; 3 = packed int32 words (bit metrics)
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
+                torch.int32: 3}
 
 #: steps between host checks for "any query still active" in the plain
 #: walk (frozen queries are masked, so extra steps change nothing)
 _SYNC_EVERY = 4
 
 
+def _queries(q, metric: str):
+    """The walk's query operand: packed int32 words for the bit metrics,
+    f32 rows otherwise."""
+    return q if metric in bits.BIT_METRICS else q.float()
+
+
 def row_dists(values, metric: str, q, ids):
     """Order distances [B, W] from queries ``q`` [B, D] to rows ``ids``
     [B, W] of ``values`` [cap+1, D] (ids clamped into range; callers mask).
-    f32 sums over the stored values."""
+    f32 sums over the stored values; for hamming / jaccard, ``values`` and
+    ``q`` are packed int32 words and the distances popcounts."""
+    if metric in bits.BIT_METRICS:
+        return bits.gathered(metric, values, ids, q)
     cand = values[ids.clamp(0, values.shape[0] - 1).long()].float()
     qb = q[:, None, :].float()
     if metric == "l2":
@@ -180,11 +196,18 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
         raise ValueError("values must be a CUDA [rows, D] tensor whose rows "
                          "are contiguous")
     if values.dtype not in _DTYPE_CODES:
-        raise ValueError(f"values must be f32, f16 or bf16 (got "
-                         f"{values.dtype})")
+        raise ValueError(f"values must be f32, f16 or bf16, or int32 words "
+                         f"(got {values.dtype})")
+    words = metric in bits.BIT_METRICS
+    if words != (values.dtype == torch.int32):
+        raise ValueError(f"metric {metric!r} does not take {values.dtype} "
+                         "rows (the bit metrics walk int32 words)")
+    if words and scan:
+        raise ValueError("the scan mode walks dense rows only")
     _check_cuda("neighbors0", neighbors0, torch.int32, 2, dev)
     _check_cuda("traversable", traversable, torch.bool, 1, dev)
-    _check_cuda("queries", q, torch.float32, 2, dev)
+    _check_cuda("queries", q, torch.int32 if words else torch.float32, 2,
+                dev)
     _check_cuda("seed_ids", seed_ids, torch.int32, 2, dev)
     _check_cuda("seed_d", seed_d, torch.float32, 2, dev)
     cap = traversable.shape[0] - 1
@@ -243,7 +266,8 @@ def _walk(*args, **kw):
 def beam_walk(values, neighbors0, traversable, metric: str, q, seed_ids,
               seed_d, ef: int, max_steps: int):
     """K4: best-first beam of width ``ef`` at layer 0 for a batch of
-    queries ``q`` [B, D]. ``seed_ids`` [B, S] (S <= ef, -1 = unused) and
+    queries ``q`` [B, D] (bit metrics: packed int32 words, over the words
+    ``values``). ``seed_ids`` [B, S] (S <= ef, -1 = unused) and
     their exact distances ``seed_d`` seed the beam. Each step expands the
     nearest unexpanded member, scores its live neighbours, dedups by id
     and keeps the ef nearest; a query stops when its nearest unexpanded
@@ -253,7 +277,8 @@ def beam_walk(values, neighbors0, traversable, metric: str, q, seed_ids,
     Returns (dists [B, ef], ids [B, ef] int64, steps [B] int32), sorted by
     (distance, id)."""
     raw = _walk(values, neighbors0, traversable, None, metric,
-                q.float().contiguous(), seed_ids.to(torch.int32).contiguous(),
+                _queries(q, metric).contiguous(),
+                seed_ids.to(torch.int32).contiguous(),
                 seed_d.float().contiguous(), width=ef, spill=0,
                 max_steps=max_steps, scan=False)
     return _serve_finish(*raw)
@@ -283,7 +308,8 @@ def beam_scan_segment(values, neighbors0, traversable, excluded, metric: str,
     (inf, -1)."""
     W = max(width, ef)
     raw = _walk(values, neighbors0, traversable, excluded, metric,
-                q.float().contiguous(), seed_ids.to(torch.int32).contiguous(),
+                _queries(q, metric).contiguous(),
+                seed_ids.to(torch.int32).contiguous(),
                 seed_d.float().contiguous(), width=W, spill=spill,
                 max_steps=max_steps, scan=True)
     return _scan_finish(*raw, ef=ef, spill=spill)

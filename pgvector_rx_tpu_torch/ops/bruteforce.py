@@ -39,9 +39,10 @@ import torch
 _NEG_BIG = float(3.0e38)
 
 #: kernel name -> launches of that kernel by its wrapper in this process
-#: (the beam walk's two modes, ``ops/beam.py``, count here too)
+#: (the beam walk's two modes, ``ops/beam.py``, and the bit sweep,
+#: ``ops/bits.py``, count here too)
 LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0, "k3_x2max": 0,
-            "k4_beam": 0, "k5_beam_scan": 0}
+            "k4_beam": 0, "k5_beam_scan": 0, "k9_bits": 0}
 
 _MAX_K = 64
 
@@ -115,6 +116,24 @@ def _tf32_split(x):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _order_keys(d, rows):
+    """(distance, row) pairs -> one int64 key each, ordered as the pairs:
+    the f32 bits of a non-negative distance above the row's 32 bits. A
+    top-k over the keys is the top-k in (distance, lower row first) order,
+    ``lax.top_k``'s, whatever order the rows came in (``+ 0.0`` turns a
+    -0.0 into +0.0, whose bits order right)."""
+    return ((d + 0.0).view(torch.int32).long() << 32) | rows
+
+
+def _from_order_keys(keys):
+    """Keys -> (distances f32, rows int64); the empty key (-1) and +inf
+    distances come back as (inf, -1)."""
+    d = (keys >> 32).to(torch.int32).view(torch.float32)
+    bad = (keys < 0) | torch.isinf(d)
+    return (torch.where(bad, float("inf"), d),
+            torch.where(bad, -1, keys & 0xFFFFFFFF))
 
 
 def _invalid_to_sentinel(sd, si):

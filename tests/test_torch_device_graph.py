@@ -111,9 +111,10 @@ def test_device_build_not_ported_yet():
     data = _data(n=100)
     with pytest.raises(NotImplementedError, match="item 13b"):
         TorchIndex.build(data, method="device", consume_input=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TorchIndex.build((data > 0).astype(np.uint8), metric="hamming",
-                         method="device", device="cpu")
+    # the bit kind's device build is ported (tests/test_torch_bit_index.py)
+    bits = TorchIndex.build((data > 0).astype(np.uint8), metric="hamming",
+                            method="device", device="cpu")
+    assert bits.kind == "bit" and bits.num_tuples == 100
     with pytest.raises(NotImplementedError, match="item 15"):
         TorchIndex.build([(np.array([0, 3]), np.array([1.0, 2.0]))] * 4,
                          method="device", device="cpu")
@@ -130,15 +131,20 @@ def test_unported_seams_raise_instead_of_reaching_jax(tmp_path, monkeypatch):
     assert t.scan(_data(n=1)[0]).take(1)[0][0] == 0
     t.save(tmp_path / "ck")
     assert TorchIndex.load(tmp_path / "ck", device="cpu").num_tuples == 204
-    # the beam variants (13b) and the bit kind's checkpoints (14) raise
+    # the beam variants (13b) and the sparse kind's checkpoints (15) raise;
+    # the bit kind's checkpoints are ported (item 14)
     monkeypatch.setenv("PGV_BEAM_EXPAND", "4")
     with pytest.raises(NotImplementedError, match="PGV_BEAM_EXPAND"):
         t.search(_data(n=2), 5, method="device")
     monkeypatch.delenv("PGV_BEAM_EXPAND")
     bits = TorchIndex.build((_data(n=40) > 0.5).astype(np.uint8),
                             metric="hamming", method="host", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        bits.save(tmp_path / "bits")
+    bits.save(tmp_path / "bits")
+    assert TorchIndex.load(tmp_path / "bits", device="cpu").num_tuples == 40
+    sparse = TorchIndex.build([(np.array([0, 3]), np.array([1.0, 2.0]))] * 4,
+                              method="host", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        sparse.save(tmp_path / "sparse")
 
 
 @pytest.mark.cuda

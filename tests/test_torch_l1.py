@@ -71,6 +71,32 @@ def test_serve_topk_matches_jax(engine):
     _same_but_ties(ti, td, np.asarray(ji), np.asarray(jd))
 
 
+@pytest.mark.parametrize("chunk", [1 << 16, 256])
+def test_exact_engine_orders_ties_as_jax(chunk, monkeypatch):
+    """Fault 3d: on integer rows, where l1 distances tie as a rule, the
+    exact engine returns JAX's ids in JAX's order (``lax.top_k``: the lower
+    row first), also when the sweep merges several blocks."""
+    rng = np.random.default_rng(43)
+    data = rng.integers(-2, 3, (1200, 6)).astype(np.float32)
+    queries = rng.integers(-2, 3, (24, 6)).astype(np.float32)
+    j = JaxIndex.build(data, metric="l1", method="native", seed=6,
+                       host_graph=False)
+    jg = j.device_graph()
+    t = TorchIndex(6, metric="l1", params=TIndexParams(), device="cpu")
+    t.serving_only, t.entry = True, j.entry
+    t.heap_tids = [list(x) for x in j.heap_tids]
+    t._device = tdev.DeviceGraph.from_numpy(
+        {f: np.asarray(getattr(jg, f)) for f in _FIELDS},
+        kind=jg.kind, metric=jg.metric, cap=jg.cap, m=jg.m, entry=jg.entry,
+        entry_level=jg.entry_level, device="cpu")
+    monkeypatch.setattr(tdev, "_L1_CHUNK", chunk)
+    jd, ji = jdev.serve_topk(j, queries, 15, engine="exact")
+    td, ti = tdev.serve_topk(t, queries, 15, engine="exact")
+    assert (np.diff(np.asarray(jd), axis=1) == 0).any()  # ties inside
+    np.testing.assert_array_equal(td, np.asarray(jd))
+    np.testing.assert_array_equal(ti, np.asarray(ji))
+
+
 def test_coarse_seeds_rank_by_l1():
     """The beam engine's coarse seeds are the 8 upper rows nearest in l1
     over the bf16 copy of the rows (the JAX package's

@@ -1,7 +1,9 @@
 """The port runs without JAX: a fresh interpreter imports it, builds a
 native index and a device-built index on the CPU, serves all three
 engines, searches, scans, inserts, runs the tile-min sweep, saves and
-loads a checkpoint and builds and searches an l1 index, and neither
+loads a checkpoint, builds and searches an l1 index, builds, serves and
+saves a bit index of each metric, runs the flat index, the cost model,
+the operator-class facade and the distance ops, and neither
 JAX nor the JAX package (``pgvector_rx_tpu``) nor its benchmark
 (``bench``) ever enters ``sys.modules``. A subprocess, because the test harness
 (tests/conftest.py) imports JAX into this one."""
@@ -57,6 +59,32 @@ l1 = HnswIndex.build(data[:600], metric="l1", method="device",
                      host_graph=False, device="cpu")
 _, ids = l1.search(queries, 5, method="exact")
 assert (ids >= 0).all()
+from pgvector_rx_tpu_torch.index.access_method import create_index_for_opclass
+from pgvector_rx_tpu_torch.index.cost import should_use_index
+from pgvector_rx_tpu_torch.index.flat import FlatIndex
+from pgvector_rx_tpu_torch.ops import bits, distances
+bitrows = (data[:600] > 0).astype(np.uint8)
+bq = (queries > 0).astype(np.uint8)
+for metric in ("hamming", "jaccard"):
+    bidx = HnswIndex.build(bitrows, metric=metric, method="device",
+                           host_graph=False, device="cpu")
+    for engine in ("exact", "approx", "beam"):
+        _, ids = device_mod.serve_topk(bidx, bits.pack_bits(bq), 5,
+                                       engine=engine)
+        assert (ids >= 0).all(), engine
+    _, ftids = FlatIndex.build(bitrows, metric=metric, kind="bit",
+                               device="cpu").search(bq, 5)
+    assert (ftids >= 0).all()
+    with tempfile.TemporaryDirectory() as tmp:
+        bidx.save(os.path.join(tmp, "bit"))
+        assert HnswIndex.load(os.path.join(tmp, "bit"),
+                              device="cpu").num_tuples == 600
+fam = create_index_for_opclass("vector_cosine_ops", 16, device="cpu")
+fam.add_batch(data[:100])
+assert not should_use_index(fam, True, 40)
+assert fam.search(queries[:2], 3, method="exact")[1].shape == (2, 3)
+assert distances.pairwise("l2", torch.from_numpy(data[:5]),
+                          torch.from_numpy(queries[:2])).shape == (2, 5)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 foreign = sorted(m for m in sys.modules if m == "bench"
                  or m == "pgvector_rx_tpu" or m.startswith("pgvector_rx_tpu."))

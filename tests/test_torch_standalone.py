@@ -121,6 +121,33 @@ def test_constants_and_config_hold_the_jax_values():
         jconfig.IndexParams(m=1).validate_for_build()
 
 
+def test_cost_and_access_method_copies_hold_the_jax_values():
+    """``index/cost.py`` and ``index/access_method.py`` are copies: the
+    same registry, flags and phases, and the same estimates (the flat
+    index, distance ops and facade: tests/test_torch_flat_am.py)."""
+    from pgvector_rx_tpu.index import access_method as jam
+    from pgvector_rx_tpu.index import cost as jcost
+    from pgvector_rx_tpu_torch.index import access_method as tam
+    from pgvector_rx_tpu_torch.index import cost as tcost
+
+    assert tam.AM_CAPABILITIES == jam.AM_CAPABILITIES
+    assert tam.PROGRESS_PHASES == jam.PROGRESS_PHASES
+    assert [dataclasses.astuple(v) for v in tam.OPERATOR_CLASSES.values()] \
+        == [dataclasses.astuple(v) for v in jam.OPERATOR_CLASSES.values()]
+    for n in (0.0, 1.0, 10.0, 5e4, 1e6, 1e9):
+        for m, ef in ((2, 1), (16, 40), (100, 1000)):
+            assert tcost.traversal_ratio(n, m, ef) == \
+                jcost.traversal_ratio(n, m, ef)
+        assert tcost.brute_force_cost(n, 2.5) == jcost.brute_force_cost(n, 2.5)
+    t, j = TorchIndex(8, device="cpu"), JaxIndex(8)
+    t.heap_tids = j.heap_tids = [[i] for i in range(5000)]
+    for order_by in (True, False):
+        assert dataclasses.astuple(tcost.estimate(t, order_by, 40)) == \
+            dataclasses.astuple(jcost.estimate(j, order_by, 40))
+        assert tcost.should_use_index(t, order_by, 40) == \
+            jcost.should_use_index(j, order_by, 40)
+
+
 # ---------------------------------------------------------------------------
 # the entry points default to the card
 # ---------------------------------------------------------------------------
@@ -150,3 +177,21 @@ def test_build_without_a_device_raises_without_cuda(monkeypatch, method):
 def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert TorchIndex(8).device == torch.device("cuda")
+
+
+def test_flat_index_and_facade_default_to_the_card(monkeypatch):
+    from pgvector_rx_tpu_torch.index.access_method import \
+        create_index_for_opclass
+    from pgvector_rx_tpu_torch.index.flat import FlatIndex
+
+    _no_cuda(monkeypatch)
+    for make in (lambda **kw: FlatIndex("bit", "hamming", 64, **kw),
+                 lambda **kw: create_index_for_opclass("bit_jaccard_ops", 64,
+                                                       **kw)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+        assert make(device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert FlatIndex("dense", "l2", 8).device == torch.device("cuda")
+    assert create_index_for_opclass("vector_l2_ops", 8).device == \
+        torch.device("cuda")

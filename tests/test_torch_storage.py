@@ -240,16 +240,35 @@ def test_tensor_built_serving_only_save_load(tmp_path):
 
 
 def test_bit_and_sparse_checkpoints_raise(tmp_path):
-    """The bit kind (tests/test_device_build.py's serving-only bit round
-    trip) and the sparse kind wait for items 14 and 15."""
-    bits = (np.random.default_rng(3).random((40, 32)) < 0.5).astype(np.uint8)
-    idx = HnswIndex.build(bits, metric="hamming", method="host", **CPU)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        idx.save(tmp_path / "bit")
-    j = JaxIndex.build(bits, metric="hamming", method="host")
+    """The sparse kind waits for item 15 and raises; the bit kind is ported
+    (item 14): tests/test_device_build.py's serving-only bit round trip,
+    and a JAX bit checkpoint loads with the same search ids (more in
+    tests/test_torch_bit_index.py)."""
+    from pgvector_rx_tpu.config import SearchParams as JSearchParams
+
+    bits = (np.random.default_rng(3).random((400, 64)) < 0.5).astype(np.uint8)
+    idx = HnswIndex.build(bits, metric="hamming", method="device", seed=3,
+                          host_graph=False, **CPU)
+    idx.save(tmp_path / "bit")
+    idx2 = HnswIndex.load(tmp_path / "bit", **CPU)
+    d1, t1 = idx.search(bits[:8], 5, SearchParams())
+    d2, t2 = idx2.search(bits[:8], 5, SearchParams())
+    np.testing.assert_array_equal(t1, t2)
+    np.testing.assert_allclose(d1, d2)
+    j = JaxIndex.build(bits[:40], metric="hamming", method="host")
     j.save(tmp_path / "jbit")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        HnswIndex.load(tmp_path / "jbit", **CPU)
+    back = HnswIndex.load(tmp_path / "jbit", **CPU)
+    np.testing.assert_array_equal(
+        back.search(bits[:8], 5, method="host")[1],
+        j.search(bits[:8], 5, JSearchParams(), method="host")[1])
+    sparse = HnswIndex.build([(np.array([0, 3]), np.array([1.0, 2.0]))] * 4,
+                             method="host", **CPU)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        sparse.save(tmp_path / "sparse")
+    JaxIndex.build([(np.array([0, 3]), np.array([1.0, 2.0]))] * 4,
+                   method="host").save(tmp_path / "jsparse")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        HnswIndex.load(tmp_path / "jsparse", **CPU)
 
 
 def test_insert_bulk_logs_one_group_commit(tmp_path, monkeypatch):
