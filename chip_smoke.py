@@ -127,12 +127,34 @@ equals K1 / K9 over the same rows; each dense and bit operator class makes
 an index on the card with no device named, whose exact top-1 is the numpy
 nearest row and whose beam answers.
 
+**Sparse path** (24, BASELINE's "sparsevec CSR l2, 100k x 30k-d",
+``bench_suite.py:7``, generator ``:222-241``, at its own size): the data
+(``make_sparse_dataset``, seed 9) and the native build of its 100,000
+rows (``HnswIndex.build``, m=16, ef_construction=64, seed 1: single-
+threaded, minutes) run in a CPU subprocess (``--sparse-build``) started
+after phase 1, beside the card phases; phase 24 loads its checkpoint onto
+the card (no device named) and checks the graph (cap 100,000, the
+padded-CSR rows on the card at the store's P, in row order); K10 ground
+truth for the first 1,024 rows as queries, held to a float64 scipy CSR
+product on 64 of them; ``index.search`` exact (floor 0.999), approx
+(0.98) and beam (ef=40, no floor at 30k-d: recall printed); the beam's
+walk (K4's sparse-row mode) against the plain walk from the same descent
+seeds (must reject the plain walk cut to ef / 4 steps); K10 against its
+plain version in l2, ip, cosine, l1 and approx mode (must reject the
+plain sweep with bf16-rounded values and one whose ip keys are raw f32
+bits), timed beside its bound and ``torch.sparse.mm``; t/028 at its own
+size (10,000 x 3-d sparse rows, 20 queries, k=20, four metrics) against
+its floors; ``FlatIndex`` over the 100,000 rows equal to K10; an index of
+each sparse operator class (500 rows, filled by the native bulk load);
+the t/028 l2 index saved and loaded, every engine's ids unchanged.
+
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
 path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
 path, K9 and K4 (word mode) on the bit and the jaccard paths, K1, K9 and
-K4 in phase 23. The last two lines of output are one JSON object per
-kernel list and the device line.
+K4 in phase 23, K10 and K4 (sparse mode) on the sparse path. The last
+two lines of output are one JSON object per kernel list and the device
+line.
 """
 
 from __future__ import annotations
@@ -185,6 +207,15 @@ BIT_FLOORS = {"exact": 1.0, "approx": 1.0, "beam": 0.93}
 #: guide's arithmetic-instruction throughput table) and the H100 SXM's
 #: published boost clock: the popcount form of K9's bound
 POPC_PER_CLK_SM, BOOST_HZ = 16, 1.98e9
+#: the sparse path (24): BASELINE's fourth configuration, "sparsevec CSR
+#: l2, 100k x 30k-d" (bench_suite.py:7, its generator :222-241): rows,
+#: dimension, draws per row, queries (the first rows), seed
+N_SP, DIM_SP, NNZ_SP, N_SP_Q, SEED_SP = 100_000, 30_000, 64, 1024, 9
+SPARSE_FLOORS = {"exact": 0.999, "approx": 0.98}
+#: tests/t/028 at its own size (tests/test_full_scale.py:156-190): rows,
+#: queries, k, and its floors (VECTOR_THRESH)
+T028_N, T028_Q, T028_K = 10_000, 20, 20
+T028_FLOORS = {"l2": 0.99, "cosine": 0.99, "l1": 0.99, "ip": 0.97}
 
 
 def bound(ops: float, peak: str, nbytes: float) -> dict:
@@ -1615,6 +1646,450 @@ def flat_and_facade(data, queries, q_dev, xbits, qbits, qw, bf, bits_mod,
             raise RuntimeError(f"kernel {name} never ran in phase 23")
 
 
+def sparse_build_child(out_dir: str) -> int:
+    """The sparse path's set-up, run as ``python3 chip_smoke.py
+    --sparse-build DIR`` in a CPU subprocess that ``main`` starts beside
+    the card phases (the single-threaded native build of 100,000 sparse
+    rows takes minutes): the data (``make_sparse_dataset``), the build
+    ``HnswIndex.build(rows, metric="l2", params, seed=1)`` (method auto:
+    the native engine), its checkpoint and the padded rows into DIR, and
+    one JSON line of seconds."""
+    from pgvector_rx_tpu_torch import HnswIndex, IndexParams, native
+    from pgvector_rx_tpu_torch.data import make_sparse_dataset
+    from pgvector_rx_tpu_torch.ops import sparse as sparse_mod
+
+    t0 = time.time()
+    rows, _ = make_sparse_dataset(N_SP, DIM_SP, N_SP_Q, NNZ_SP, seed=SEED_SP)
+    gen_s = time.time() - t0
+    if not native.available():
+        raise RuntimeError(f"the native engine does not build: "
+                           f"{native._error}")
+    t0 = time.time()
+    idx = HnswIndex.build(rows, metric="l2",
+                          params=IndexParams(m=M,
+                                             ef_construction=EF_CONSTRUCTION),
+                          seed=1, device="cpu")  # a CPU process: no card
+    build_s = time.time() - t0
+    t0 = time.time()
+    idx.save(Path(out_dir) / "sparse")
+    save_s = time.time() - t0
+    ind, val = sparse_mod.pad_rows(rows, idx.store.budget, "cpu")
+    np.savez(Path(out_dir) / "rows.npz", indices=ind.numpy(),
+             values=val.numpy())
+    print(json.dumps(dict(gen_s=gen_s, build_s=build_s, save_s=save_s,
+                          elements=len(idx.elements),
+                          budget=idx.store.budget)), flush=True)
+    return 0
+
+
+def start_sparse_build():
+    """Start the sparse path's build subprocess (``sparse_build_child``)
+    into a fresh temporary directory -> (process, directory). It dies with
+    the smoke (SIGKILL from the kernel if the smoke is killed; stopped at
+    exit otherwise), and the directory goes at exit."""
+    import atexit
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="pgv_sparse_")
+
+    def die_with_parent():
+        import ctypes
+        import signal
+
+        ctypes.CDLL("libc.so.6").prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+
+    with open(Path(tmp) / "child.out", "w") as out, \
+            open(Path(tmp) / "child.err", "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--sparse-build",
+             tmp], stdout=out, stderr=err, preexec_fn=die_with_parent)
+
+    def stop():
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return child, tmp
+
+
+def np_sparse_topk(csr, x2, live, qrows, k):
+    """The exact l2 (distance, row) top-k in float64 by scipy's CSR product,
+    independent of the port: |q|^2 + |x|^2 - 2 q.x over every row, rows
+    whose ``live`` flag is clear left out -> (d [B, k] f64, rows [B, k])."""
+    q = csr[qrows]
+    dots = (q @ csr.T).toarray()  # [B, N] f64
+    d = np.maximum(x2[qrows][:, None] + x2[None, :] - 2.0 * dots, 0.0)
+    d[:, ~live] = np.inf
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d, order, axis=1), order
+
+
+def sweep_agreement(kd, ki, pd, pi, tol):
+    """Two sorted top-k lists per query: distances within ``tol`` [B] at
+    every rank and ids equal but for ties (``tie_aware_mismatch``) ->
+    (agree, max abs err)."""
+    kd, ki, pd, pi = (t.cpu().numpy() if torch.is_tensor(t) else t
+                      for t in (kd, ki, pd, pi))
+    fin = np.isfinite(pd)
+    if (fin != np.isfinite(kd)).any():
+        return False, float("inf")
+    err = float(np.abs(kd[fin] - pd[fin]).max()) if fin.any() else 0.0
+    close = bool((np.abs(np.where(fin, kd - pd, 0.0))
+                  <= np.asarray(tol)[:, None]).all())
+    return close and not tie_aware_mismatch(ki, kd, pi, pd, tol), err
+
+
+def t028_data(rng):
+    """tests/t/028's rows and queries: vector(3) rows (random() * random()
+    coordinates) cast to sparsevec, zero coordinates dropped; uniform
+    queries -> (dense rows, dense queries, sparse rows, sparse queries)."""
+    dense = (rng.random((T028_N, 3)) * rng.random((T028_N, 3))).astype(
+        np.float32)
+    qdense = rng.random((T028_Q, 3)).astype(np.float32)
+
+    def sv(x):
+        nz = np.nonzero(x)[0].astype(np.int32)
+        return nz, x[nz]
+
+    return dense, qdense, [sv(x) for x in dense], [sv(q) for q in qdense]
+
+
+def np_dense_order(metric, q, x):
+    """float64 order distances [B, N] of dense rows (tests/test_index.py's
+    brute_force)."""
+    q, x = q.astype(np.float64), x.astype(np.float64)
+    if metric == "l2":
+        return ((q[:, None, :] - x[None]) ** 2).sum(-1)
+    if metric == "l1":
+        return np.abs(q[:, None, :] - x[None]).sum(-1)
+    if metric == "ip":
+        return -(q @ x.T)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    return 1.0 - qn @ (x / np.linalg.norm(x, axis=1, keepdims=True)).T
+
+
+def set_recall(ids, gt, k):
+    """recall@k of returned ids against ground-truth id lists."""
+    return float(np.mean([len(set(ids[b][ids[b] >= 0]) & set(gt[b][:k])) / k
+                          for b in range(len(gt))]))
+
+
+def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
+                dev, kernels):
+    """Phase 24: BASELINE's sparse configuration (100,000 x 30,000-d, 64
+    power-law draws per row, l2) built natively (in the subprocess started
+    at phase 1), loaded onto the card; K10 ground truth against scipy in
+    float64; the exact, approx and beam engines through ``index.search``;
+    the beam's walk (K4's sparse-row mode) against the plain walk; K10
+    against its plain version in four metrics and approx mode; t/028 at
+    its own size; ``FlatIndex`` and the four sparse operator classes; a
+    checkpoint round trip."""
+    import scipy.sparse
+
+    from pgvector_rx_tpu_torch import native
+    from pgvector_rx_tpu_torch.index.access_method import (
+        OPERATOR_CLASSES, create_index_for_opclass)
+    from pgvector_rx_tpu_torch.index.flat import FlatIndex
+    from pgvector_rx_tpu_torch.ops import sparse as sparse_mod
+
+    with Phase("24a sparse build (CPU subprocess) and load onto the card"):
+        t0 = time.time()
+        rc = child.wait(timeout=1000)
+        if rc != 0:
+            raise RuntimeError("the sparse build failed:\n" + (
+                Path(tmp) / "child.err").read_text()[-4000:])
+        info = json.loads((Path(tmp) / "child.out").read_text().strip()
+                          .splitlines()[-1])
+        log(f"sparse data {N_SP:,} x {DIM_SP:,}-d ({NNZ_SP} draws per row, "
+            f"seed {SEED_SP}): {info['gen_s']:.3f} s; native build "
+            f"{info['build_s']:.3f} s, {N_SP / info['build_s']:.1f} rows/s; "
+            f"checkpoint {info['save_s']:.3f} s; waited {time.time() - t0:.3f}"
+            " s for the subprocess")
+        bf.reset_launches()
+        t0 = time.time()
+        idx = HnswIndex.load(Path(tmp) / "sparse")  # no device named: card
+        g = idx.device_graph()
+        torch.cuda.synchronize()
+        z = np.load(Path(tmp) / "rows.npz")
+        ind, val = z["indices"], z["values"]
+        P = idx.store.budget
+        log(f"loaded and on the card in {time.time() - t0:.3f} s: cap="
+            f"{g.cap} P={P} entry={g.entry} level={g.entry_level} upper rows="
+            f"{g.upper_neighbors.shape[0]}")
+        if (g.kind != "sparse" or g.cap != N_SP or info["elements"] != N_SP
+                or g.sp_indices.device != dev or g.sp_values.device != dev
+                or tuple(g.sp_indices.shape) != (N_SP + 1, P)
+                or tuple(g.sp_values.shape) != (N_SP + 1, P)
+                or ind.shape != (N_SP, P)
+                or not np.array_equal(idx.store.indices[:N_SP], ind)
+                or not np.array_equal(idx.store.values[:N_SP], val)):
+            raise RuntimeError("the sparse graph is not on the card at size, "
+                               "in row order")
+        nnz = (ind != sparse_mod.PAD_INDEX).sum(1)
+        rows = [(ind[i, :nnz[i]], val[i, :nnz[i]]) for i in range(N_SP)]
+        queries = rows[:N_SP_Q]
+        log(f"non-zeros per row: mean {nnz.mean():.2f}, max {nnz.max()}")
+    live = g.traversable & (g.tid_count > 0)
+    live_np = live[:N_SP].cpu().numpy()
+    qi, qv = device_mod.prepare_queries(idx, queries, dev)
+
+    with Phase("24b ground truth (K10) against scipy float64"):
+        gt_d, gt_i = sparse_mod.sparse_topk(g.sp_indices, g.sp_values, live,
+                                            qi, qv, K, "l2")
+        rowptr = np.concatenate([[0], np.cumsum(nnz)])
+        mask = ind != sparse_mod.PAD_INDEX
+        csr = scipy.sparse.csr_matrix(
+            (val[mask].astype(np.float64), ind[mask], rowptr),
+            shape=(N_SP, DIM_SP))
+        x2 = np.asarray(csr.multiply(csr).sum(1)).ravel()
+        ref_d, ref_i = np_sparse_topk(csr, x2, live_np, np.arange(64), K)
+        tol64 = 1e-5 * (x2[:64] + x2.max())
+        ok, err = sweep_agreement(gt_d[:64].double(), gt_i[:64], ref_d,
+                                  ref_i, tol64)
+        log(f"K10 ground truth {tuple(gt_i.shape)}: 64 queries "
+            f"{'agree with' if ok else 'differ from'} scipy float64 (ids "
+            f"equal but for ties, distances within 1e-5 (|q|^2 + max|x|^2); "
+            f"max abs err {err})")
+        if not ok or (gt_i < 0).any():
+            raise RuntimeError("K10 ground truth disagrees with float64")
+    emit = g.emit_tid.cpu().numpy()
+    gt_t = emit[gt_i.cpu().numpy()]
+    params = SearchParams(ef_search=EF)
+    recall = {}
+    for method in ("exact", "approx", "device"):
+        with Phase(f"24c index.search {method}"):
+            idx.search(queries, K, params, method=method)  # warm
+            torch.cuda.synchronize()
+            t0 = time.time()
+            d, ids = idx.search(queries, K, params, method=method)
+            dt = time.time() - t0
+            recall[method] = rec = set_recall(ids, gt_t, K)
+            floor = SPARSE_FLOORS.get(method)
+            log(f"24 {method}: recall@10={rec:.4f} qps={N_SP_Q / dt:.1f} "
+                f"({dt:.4f} s for {N_SP_Q} queries; floor {floor})")
+            if d.shape != (N_SP_Q, K) or not np.isfinite(d).all():
+                raise RuntimeError(f"{method}: non-finite or misshapen output")
+            if floor is not None and rec < floor:
+                raise RuntimeError(f"sparse {method}: recall {rec} < {floor}")
+    launches = dict(bf.LAUNCHES)
+    log(f"sparse path launches: {launches}")
+    for name in ("k10_sparse", "k4_beam_sparse"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never ran on the sparse path")
+
+    with Phase("24c the sparse walk (K4) vs plain"):
+        q = (qi, qv)
+        s_ids, s_d = device_mod._descent_seeds(g, q, g.entry_level)
+        walk = (g.rows, g.neighbors0, g.traversable, None, "l2", q,
+                s_ids.to(torch.int32).contiguous(), s_d.float().contiguous())
+        kw = dict(width=EF, spill=0, max_steps=4 * EF + 32, scan=False)
+
+        def finish(raw):
+            return [t.cpu().numpy() for t in beam._serve_finish(*raw)]
+
+        raw_k = beam._walk_cuda(*walk, **kw)
+        (kd4, ki4, ks4), (pd4, pi4, ps4) = (
+            finish(raw_k), finish(beam._walk_plain(*walk, **kw)))
+        cd4, ci4, _ = finish(beam._walk_plain(*walk, **{**kw,
+                                                        "max_steps": EF // 4}))
+        ok4, err4 = walk_agreement(ki4, kd4, pi4, pd4)
+        okc, _ = walk_agreement(ci4, cd4, pi4, pd4)
+        beam_rec = set_recall(emit[np.maximum(ki4[:, :K], 0)], gt_t, K)
+        log(f"K4 sparse mode vs plain: {ok4.mean():.4f} of queries equal but "
+            f"for ties ({float((ki4 == pi4).all(axis=1).mean()):.4f} with "
+            f"every id equal), {float((ks4 == ps4).mean()):.4f} equal steps, "
+            f"max abs err {err4}; control (plain cut to {EF // 4} steps): "
+            f"{okc.mean():.4f}; the walk's recall@10 {beam_rec:.4f}")
+        if ok4.mean() < 0.99:
+            raise RuntimeError("K4's sparse mode disagrees with the plain "
+                               "walk")
+        if okc.mean() >= 0.99:
+            raise RuntimeError("the sparse walk check passes a walk cut to "
+                               "ef / 4 steps")
+        steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
+        fin = np.isfinite(pd4)
+        kernels["k4_beam_sparse"] = dict(
+            name="k4_beam_sparse", route="cuda", source=CSRC + "k4_beam.cu",
+            replaces=f"{JAX_DEVICE}:1861 (_search_one_sparse's _ground_beam "
+                     "over sparse rows, an XLA while-loop)",
+            max_abs_err=float(np.abs(kd4[fin] - pd4[fin]).max()),
+            ms=cuda_ms(lambda: beam._walk_cuda(*walk, **kw)),
+            plain_ms=cuda_ms(lambda: beam._walk_plain(*walk, **kw), 1),
+            **bound(3.0 * scored * float(nnz.mean()), "f32",
+                    walk_gather_bytes(steps, scored, g.neighbors0.shape[1], 1,
+                                      2 * P)
+                    + N_SP_Q * (2 * P * 4 + walk[6].shape[1] * 8 + EF * 8
+                                + 8)),
+            library_ms=None, steps_mean=steps / N_SP_Q,
+            scored_mean=scored / N_SP_Q, launches=launches["k4_beam_sparse"])
+
+    with Phase("24d K10 vs plain, four metrics and approx"):
+        ci, cv = g.sp_indices, g.sp_values
+        q2 = (qv * qv).sum(1)
+        qa = qv.abs().sum(1)
+        xmax = float((cv * cv).sum(1).max())
+        amax = float(cv.abs().sum(1).max())
+        tols = {"l2": 1e-5 * (q2 + xmax), "ip": 1e-5 * (q2 + xmax),
+                "cosine": torch.full_like(q2, 1e-5),
+                "l1": 1e-5 * (qa + amax)}
+
+        def k10(metric="l2", approx=False):
+            return sparse_mod._sparse_topk_cuda(ci, cv, live, qi, qv, K,
+                                                metric, approx)
+
+        def plain10(metric="l2", approx=False, ci=ci, cv=cv, qv=qv):
+            return sparse_mod._sparse_topk_plain(ci, cv, live, qi, qv, K,
+                                                 metric, approx, DIM_SP)
+
+        errs = {}
+        for metric, approx in (("l2", False), ("ip", False),
+                               ("cosine", False), ("l1", False),
+                               ("l2", True)):
+            tol = tols[metric].cpu().numpy()
+            ok, err = sweep_agreement(*k10(metric, approx),
+                                      *plain10(metric, approx), tol)
+            tag = f"{metric}{' approx' if approx else ''}"
+            errs[tag] = err
+            log(f"K10 {tag} vs plain at {N_SP_Q} queries x {N_SP + 1:,} "
+                f"rows: {'agree' if ok else 'DIFFER'} (max abs err {err})")
+            if not ok:
+                raise RuntimeError(f"K10 {tag} disagrees with its plain "
+                                   "version")
+        tol = tols["l2"].cpu().numpy()
+        c1, _ = sweep_agreement(*plain10("l2", False, cv=cv.bfloat16().float(),
+                                         qv=qv.bfloat16().float()),
+                                *plain10("l2"), tol)
+        order_keys, from_keys = sparse_mod._order_keys, sparse_mod._from_order_keys
+        try:  # the plain sweep on raw f32 bits as its keys
+            sparse_mod._order_keys = lambda d, r: (
+                ((d + 0.0).view(torch.int32).long() << 32) | r)
+            sparse_mod._from_order_keys = lambda k: (
+                torch.where(k < 0, float("inf"), (k >> 32).to(torch.int32)
+                            .view(torch.float32)),
+                torch.where(k < 0, -1, k & 0xFFFFFFFF))
+            raw_ip = plain10("ip")
+        finally:
+            sparse_mod._order_keys, sparse_mod._from_order_keys = (
+                order_keys, from_keys)
+        c2, _ = sweep_agreement(*raw_ip, *plain10("ip"),
+                                tols["ip"].cpu().numpy())
+        log(f"controls: bf16-rounded values {'PASS' if c1 else 'rejected'}; "
+            f"ip keys from raw f32 bits {'PASS' if c2 else 'rejected'}")
+        if c1 or c2:
+            raise RuntimeError("the K10 check passes a control: too loose")
+        entries = float(nnz.sum())
+        csr_t = torch.sparse_csr_tensor(
+            torch.from_numpy(rowptr).to(dev), torch.from_numpy(
+                ind[mask].astype(np.int64)).to(dev),
+            torch.from_numpy(val[mask]).to(dev), size=(N_SP, DIM_SP))
+        qd = sparse_mod.densify_queries(qi, qv, DIM_SP)[:, :DIM_SP]
+        qdt = qd.T.contiguous()
+        lib_dots = torch.sparse.mm(csr_t, qdt)  # [N, B]: the scores alone
+        want = torch.from_numpy((csr @ csr[:8].T).toarray()).to(dev)
+        if not torch.allclose(lib_dots[:, :8].double(), want, rtol=1e-5,
+                              atol=1e-4):
+            raise RuntimeError("torch.sparse.mm disagrees with scipy")
+        del lib_dots
+        kernels["k10_sparse"] = dict(
+            name="k10_sparse", route="cuda", source=CSRC + "k10_sparse.cu",
+            replaces=f"{JAX_DEVICE}:1313 (_exact_search_sparse, an XLA "
+                     "program)",
+            max_abs_err=errs["l2"], max_abs_err_by_mode=errs,
+            ms=cuda_ms(k10), plain_ms=cuda_ms(plain10, 2),
+            **bound(3.0 * N_SP_Q * entries, "f32",
+                    entries * 8 + (N_SP + 1) + N_SP_Q * (P * 8 + K * 12)),
+            library_ms=cuda_ms(lambda: torch.sparse.mm(csr_t, qdt), 3),
+            library_of="torch.sparse.mm of the CSR corpus and the densified "
+                       "queries (the dots, not the top-k)",
+            approx_ms=cuda_ms(lambda: k10("l2", True)),
+            launches=launches["k10_sparse"])
+        del csr_t, qd, qdt
+        for name in ("k10_sparse", "k4_beam_sparse"):
+            kr = kernels[name]
+            kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
+            log(f"{name}: kernel {kr['ms']:.4f} ms, plain "
+                f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']} ms, "
+                f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
+                f"{kr['bound_peak']}), share {kr['share_of_bound']:.4f}")
+
+    t028 = {}
+    with Phase(f"24e t/028 at {T028_N:,} x 3-d sparse, k={T028_K}"):
+        rng = np.random.default_rng(107)
+        dense, qdense, rows3, q3 = t028_data(rng)
+        for metric in ("l2", "cosine", "ip", "l1"):
+            t0 = time.time()
+            ti = HnswIndex.build(rows3, metric=metric, seed=108)  # the card
+            gt3 = np.argsort(np_dense_order(metric, qdense, dense), axis=1,
+                             kind="stable")[:, :T028_K]
+            recs = {}
+            for method in ("exact", "device"):
+                _, ids = ti.search(q3, T028_K, params, method=method)
+                recs[method] = set_recall(ids, gt3, T028_K)
+            log(f"t/028 {metric}: build {time.time() - t0:.3f} s, recall@20 "
+                f"exact {recs['exact']:.4f}, beam {recs['device']:.4f} "
+                f"(floor {T028_FLOORS[metric]}) on {ti.device}")
+            if (ti.device.type != dev.type
+                    or min(recs.values()) < T028_FLOORS[metric]):
+                raise RuntimeError(f"t/028 {metric} below its floor")
+            t028[metric] = ti
+
+    with Phase(f"24f FlatIndex over {N_SP:,} sparse rows, operator classes"):
+        fl = FlatIndex.build(rows, metric="l2", kind="sparse")
+        fd, fi = fl.search(queries, K)
+        want_d = np.sqrt(np.maximum(gt_d.cpu().numpy().astype(np.float64),
+                                    0.0))
+        ok = (fl.device.type == dev.type and np.array_equal(fi, gt_t)
+              and np.array_equal(fd, want_d))
+        log(f"FlatIndex on {fl.device}: {'equals' if ok else 'differs from'} "
+            f"K10 ({N_SP_Q} queries)")
+        if not ok:
+            raise RuntimeError("the sparse FlatIndex disagrees with K10")
+        del fl
+        xd = csr[:N_OPCLASS].toarray()
+        qd64 = csr[:64].toarray()
+        for name, oc in OPERATOR_CLASSES.items():
+            if oc.kind != "sparse":
+                continue
+            oi = create_index_for_opclass(name, DIM_SP)  # no device: card
+            # the native bulk load (the host insert path takes ~100 s for
+            # 500 such rows)
+            native.native_bulk_build(oi, rows[:N_OPCLASS], range(N_OPCLASS))
+            _, tids = oi.search(queries[:64], K, method="exact")
+            _, tids_b = oi.search(queries[:64], K, params, method="device")
+            if oc.metric == "l1":
+                ref = np.stack([np.abs(qq - xd).sum(1) for qq in qd64])
+            else:
+                ref = np_dense_order(oc.metric, qd64, xd)
+            got = ref[np.arange(64), tids[:, 0]]
+            ok = (oi.device.type == dev.type and (tids >= 0).all()
+                  and (tids_b >= 0).all()
+                  and np.allclose(got, ref.min(axis=1), rtol=1e-4, atol=1e-4))
+            log(f"{name}: index on {oi.device}, exact top-1 "
+                f"{'is' if ok else 'is not'} the float64 nearest of "
+                f"{N_OPCLASS} rows on 64 queries; the beam answers")
+            if not ok:
+                raise RuntimeError(f"the {name} index does not answer")
+
+    with Phase("24g t/028 l2 checkpoint round trip"), \
+            tempfile.TemporaryDirectory() as ck_dir:
+        ti = t028["l2"]
+        methods = ("exact", "approx", "device")
+        before = {m: ti.search(q3, T028_K, params, method=m)[1]
+                  for m in methods}
+        ti.save(Path(ck_dir) / "t028")
+        back = HnswIndex.load(Path(ck_dir) / "t028")
+        diff = {m: int((back.search(q3, T028_K, params, method=m)[1]
+                        != before[m]).any(axis=1).sum()) for m in methods}
+        log(f"reloaded on {back.device}: rows whose ids changed per engine: "
+            f"{diff}")
+        if any(diff.values()) or back.device.type != dev.type:
+            raise RuntimeError("the reloaded sparse index answers "
+                               "differently")
+    log(f"sparse path recall@10: {recall}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -1644,6 +2119,9 @@ def main() -> int:
             raise RuntimeError("TF32 must stay off in the port")
         log(f"kernel library: {_build.build()}")
         _build.lib()
+    # the sparse path's data and native build (phase 24) run on the CPU
+    # beside the card phases
+    sparse_child, sparse_tmp = start_sparse_build()
 
     with Phase("2 data"):
         data, queries = make_dataset(N_ROWS + N_INSERT, DIM, N_QUERIES,
@@ -1952,6 +2430,12 @@ def main() -> int:
                  qbits, qw, dev, kernels)
     flat_and_facade(data, queries, q_dev, xbits, qbits, qw, bf, bits_mod,
                     SearchParams, dev)
+    del data, queries, q_dev, xbits, qbits, qw
+    torch.cuda.empty_cache()
+
+    # ---- the sparse kind ----------------------------------------------------
+    sparse_path(sparse_child, sparse_tmp, HnswIndex, SearchParams, device_mod,
+                beam, bf, dev, kernels)
 
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pgvector_rx_tpu", "bench")]
@@ -1960,7 +2444,8 @@ def main() -> int:
     log(json.dumps({"kernels": [kernels[k] for k in
                                 ("k1_topk", "k2_binned", "k3_tilemin",
                                  "k3_x2max", "k4_beam", "k5_beam_scan",
-                                 "k9_bits", "k4_beam_words")]}))
+                                 "k9_bits", "k4_beam_words", "k10_sparse",
+                                 "k4_beam_sparse")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1968,4 +2453,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sparse-build"]:
+        sys.exit(sparse_build_child(sys.argv[2]))
     sys.exit(main())

@@ -45,6 +45,18 @@
 // words (IEEE division: the JAX package's f32 values). The bound counts the
 // gathered words the same way: scored * (W * 4 + 1) bytes.
 //
+// Sparse-row mode (the sparse kind, serving only): rows are padded CSR,
+// `values` [cap + 1, P] int32 indices (sorted, INT32_MAX pads) and
+// `values2` [cap + 1, P] f32 values; the query is its P indices followed
+// by the bits of its P values (2P words). Each scored row's entries are
+// looked up in the query's sorted indices (a binary search in shared
+// memory): dot over the matches, |x|^2 and sum|x| over the row, |q|^2,
+// sum|q| and the query's length once per query; l2 max(|q|^2 + |x|^2 -
+// 2 dot, 0), ip -dot, cosine 1 - clamp(dot / sqrt(|q|^2 |x|^2)) (0
+// similarity at a zero norm), l1 sum|q| + sum|x| + sum over matches of
+// |qv - xv| - |qv| - |xv| (ops/sparse.py, the JAX package's
+// _sparse_dist). The bound counts scored * (P * 8 + 1) bytes.
+//
 // Design (sm_90a, plain CUDA, no tensor cores):
 // - 128 threads per block; the query, the double-buffered beam and spill,
 //   the neighbour list and the merge scratch live in shared memory
@@ -82,6 +94,7 @@ constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory limit
 
 struct WalkArgs {
   const void* values;     // [>= cap + 1, d] rows, row stride `stride`
+  const void* values2;    // sparse rows: their [>= cap + 1, d] f32 values
   long long stride;       // elements between consecutive rows
   const int* nbrs;        // [cap + 1, L] layer-0 ids (-1 pad)
   const uint8_t* trav;    // [cap + 1] live rows
@@ -96,8 +109,13 @@ struct WalkArgs {
   int* spill_key;         // [b, SP]
   int* steps;             // [b]
   int* scored;            // [b] rows scored
-  int d, L, cap, metric, S, W, SP, max_steps, scan;
+  int d, qd, L, cap, metric, S, W, SP, max_steps, scan;  // qd: query words
 };
+
+// The sparse-row mode's row type (indices in `values`, values in
+// `values2`).
+struct SparseRow {};
+constexpr int kPadIndex = 0x7fffffff;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -305,6 +323,102 @@ __device__ void score_words(const WalkArgs& a, const unsigned* qs,
   }
 }
 
+// The first position of s[0, len) (ascending) whose value is >= c.
+__device__ __forceinline__ int lower_bound(const int* s, int len, int c) {
+  int lo = 0, n = len;
+  while (n > 0) {
+    const int h = n >> 1;
+    if (s[lo + h] < c) {
+      lo += h + 1;
+      n -= h + 1;
+    } else {
+      n = h;
+    }
+  }
+  return lo;
+}
+
+// Per-query terms of the sparse-row mode, computed once per block.
+struct SparseQuery {
+  int len;      // entries before the first pad
+  float sq;     // |q|^2
+  float abs1;   // sum |q|
+};
+
+// The sparse-row mode's scoring: out[j] = the distance (metric M, codes
+// 0-3) from the query (sorted indices qidx, values qval, in shared memory)
+// to padded-CSR row ids[j], +inf where not valid. Each warp takes
+// kRowsPerWarp rows at a time; the lanes stride over a row's entries and
+// look each up in the query's indices; a shuffle reduction per row.
+template <int M>
+__device__ void score_sparse(const WalkArgs& a, const int* qidx,
+                             const float* qval, const SparseQuery& sq,
+                             const int* ids, const uint8_t* valid, float* out,
+                             int warp, int lane) {
+  const int* ind = static_cast<const int*>(a.values);
+  const float* val = static_cast<const float*>(a.values2);
+  for (int base = warp * kRowsPerWarp; base < a.L;
+       base += kWarps * kRowsPerWarp) {
+    float dot[kRowsPerWarp], csq[kRowsPerWarp], cabs[kRowsPerWarp],
+        corr[kRowsPerWarp];
+    long long off[kRowsPerWarp];
+    bool use[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int j = base + r;
+      use[r] = j < a.L && valid[j];
+      off[r] = use[r] ? static_cast<long long>(ids[j]) * a.stride : 0LL;
+      dot[r] = csq[r] = cabs[r] = corr[r] = 0.0f;
+    }
+    for (int e = lane; e < a.d; e += 32) {
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        if (!use[r]) continue;  // warp-uniform
+        const int c = __ldg(ind + off[r] + e);
+        if (c == kPadIndex) continue;
+        const float x = __ldg(val + off[r] + e);
+        csq[r] += x * x;
+        if (M == 3) cabs[r] += fabsf(x);
+        const int pos = lower_bound(qidx, sq.len, c);
+        if (pos < sq.len && qidx[pos] == c) {
+          const float g = qval[pos];
+          dot[r] += g * x;
+          if (M == 3) corr[r] += fabsf(g - x) - fabsf(g) - fabsf(x);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+      for (int o = 16; o; o >>= 1) {
+        dot[r] += __shfl_xor_sync(kFull, dot[r], o);
+        csq[r] += __shfl_xor_sync(kFull, csq[r], o);
+        if (M == 3) {
+          cabs[r] += __shfl_xor_sync(kFull, cabs[r], o);
+          corr[r] += __shfl_xor_sync(kFull, corr[r], o);
+        }
+      }
+      if (lane == 0 && base + r < a.L) {
+        float dist = inf_f();
+        if (use[r]) {
+          if (M == 0) {
+            dist = fmaxf(sq.sq + csq[r] - 2.0f * dot[r], 0.0f);
+          } else if (M == 1) {
+            dist = -dot[r];
+          } else if (M == 2) {
+            const float den = sqrtf(sq.sq * csq[r]);
+            const float sim = den > 0.0f ? __fdiv_rn(dot[r], den) : 0.0f;
+            dist = 1.0f - fminf(fmaxf(sim, -1.0f), 1.0f);
+          } else {
+            dist = sq.abs1 + cabs[r] + corr[r];
+          }
+        }
+        out[base + r] = dist;
+      }
+    }
+  }
+}
+
 // Number of entries of the sorted list (ld, lk)[0, n) that come before
 // (d, k) -- strictly (`strict`) or also when equal.
 __device__ __forceinline__ int count_before(const float* ld, const int* lk,
@@ -323,8 +437,8 @@ __device__ __forceinline__ int count_before(const float* ld, const int* lk,
   return lo;
 }
 
-size_t smem_bytes(int d, int L, int S, int W, int SP) {
-  const size_t dpad = (static_cast<size_t>(d) + 3) & ~static_cast<size_t>(3);
+size_t smem_bytes(int qd, int L, int S, int W, int SP) {
+  const size_t dpad = (static_cast<size_t>(qd) + 3) & ~static_cast<size_t>(3);
   // q; beam x2 (d, key); new raw, new sorted, tail (d, key); spill x2;
   // seeds (d, key); neighbour ids and dup flags; neighbour live flags
   return 4 * (dpad + 4 * static_cast<size_t>(W) + 6 * L + 4 * SP + 2 * S +
@@ -342,7 +456,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   const float inf = inf_f();
 
   float* qs = reinterpret_cast<float*>(smem);
-  float* bd = qs + ((a.d + 3) & ~3);  // beam distances, 2 buffers of W
+  float* bd = qs + ((a.qd + 3) & ~3);  // beam distances, 2 buffers of W
   int* bk = reinterpret_cast<int*>(bd + 2 * W);
   float* nd = reinterpret_cast<float*>(bk + 2 * W);  // new, in list order
   int* nk = reinterpret_cast<int*>(nd + L);
@@ -361,12 +475,38 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   const uint8_t* excl =
       a.excl != nullptr ? a.excl + static_cast<long long>(b) * a.excl_stride
                         : nullptr;
-  // the query's bits, as they are (f32 values or packed words)
+  // the query's bits, as they are (f32 values, packed words, or sparse
+  // indices then value bits)
   const int* qg = reinterpret_cast<const int*>(a.q) +
-                  static_cast<long long>(b) * a.d;
-  for (int i = tid; i < a.d; i += kThreads)
+                  static_cast<long long>(b) * a.qd;
+  for (int i = tid; i < a.qd; i += kThreads)
     reinterpret_cast<int*>(qs)[i] = qg[i];
   constexpr bool kWords = std::is_same<T, unsigned>::value;
+  constexpr bool kSparse = std::is_same<T, SparseRow>::value;
+  const int* qidx = reinterpret_cast<const int*>(qs);  // sparse: [d]
+  const float* qval = qs + a.d;                          // sparse: [d]
+  __shared__ SparseQuery sq;
+  if (kSparse) {
+    __syncthreads();
+    if (warp == 0) {
+      float s2 = 0.0f, s1 = 0.0f;
+      int len = 0;
+      for (int i = lane; i < a.d; i += 32) {
+        if (qidx[i] != kPadIndex) {
+          s2 += qval[i] * qval[i];
+          s1 += fabsf(qval[i]);
+          ++len;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) {
+        s2 += __shfl_xor_sync(kFull, s2, o);
+        s1 += __shfl_xor_sync(kFull, s1, o);
+        len += __shfl_xor_sync(kFull, len, o);
+      }
+      if (lane == 0) sq = SparseQuery{len, s2, s1};
+    }
+  }
   __shared__ float qpop;  // the query's popcount (jaccard)
   if (kWords) {
     __syncthreads();
@@ -467,6 +607,13 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
         score_words<V, 1>(a, qw, qpop, nid, nvalid, nd, warp, lane);
       else
         score_words<V, 0>(a, qw, qpop, nid, nvalid, nd, warp, lane);
+    } else if constexpr (kSparse) {
+      switch (a.metric) {
+        case 0: score_sparse<0>(a, qidx, qval, sq, nid, nvalid, nd, warp, lane); break;
+        case 1: score_sparse<1>(a, qidx, qval, sq, nid, nvalid, nd, warp, lane); break;
+        case 2: score_sparse<2>(a, qidx, qval, sq, nid, nvalid, nd, warp, lane); break;
+        default: score_sparse<3>(a, qidx, qval, sq, nid, nvalid, nd, warp, lane); break;
+      }
     } else {
       switch (a.metric) {
         case 0: score_rows<T, V, 0>(a, qs, nid, nvalid, nd, warp, lane); break;
@@ -606,10 +753,14 @@ extern "C" {
 // The beam walk for b queries, one block each. dtype: 0 f32, 1 f16, 2 bf16
 // rows with metric 0 l2, 1 ip, 2 cosine, 3 l1; 3 packed 32-bit words (d
 // words per row and per query) with metric 4 hamming, 5 jaccard, serving
-// mode only. scan = 0 (K4): S <= W, excl
+// mode only; 4 padded-CSR rows (d int32 indices in `values`, d f32 values
+// in `values2`, the query d indices then d value bits: qd = 2d) with
+// metric 0-3, serving mode only. qd: the query's 32-bit words (d, or 2d
+// for sparse rows). scan = 0 (K4): S <= W, excl
 // null, SP = 0; scan = 1 (K5): excl [b, cap + 1] (row `excl_stride`), the
 // seeds past W go to the spill. Outputs as WalkArgs lists them.
-int pgv_k4_beam_walk(const void* values, int dtype, long long stride, int d,
+int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
+                     long long stride, int d, int qd,
                      const int* nbrs, int L, const uint8_t* trav,
                      const uint8_t* excl, long long excl_stride, int cap,
                      int metric, const float* q, const int* seed_ids,
@@ -617,18 +768,19 @@ int pgv_k4_beam_walk(const void* values, int dtype, long long stride, int d,
                      int max_steps, int scan, float* beam_d, int* beam_key,
                      float* spill_d, int* spill_key, int* steps, int* scored,
                      void* stream) {
-  const bool words = dtype == 3;
+  const bool words = dtype == 3, sparse = dtype == 4;
   if (b <= 0 || d <= 0 || L <= 0 || S < 0 || W <= 0 || SP < 0 ||
       (!scan && (S > W || SP != 0)) || (scan && excl == nullptr) ||
       metric < 0 || metric > 5 || words != (metric >= 4) ||
-      (words && scan))
+      ((words || sparse) && scan) || qd != (sparse ? 2 * d : d) ||
+      sparse != (values2 != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(d, L, S, W, SP);
+  const size_t smem = smem_bytes(qd, L, S, W, SP);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  WalkArgs a{values, stride, nbrs, trav, excl, excl_stride, q, seed_ids,
-             seed_d, beam_d, beam_key, spill_d, spill_key, steps, scored, d,
-             L, cap, metric, S, W, SP, max_steps, scan};
+  WalkArgs a{values, values2, stride, nbrs, trav, excl, excl_stride, q,
+             seed_ids, seed_d, beam_d, beam_key, spill_d, spill_key, steps,
+             scored, d, qd, L, cap, metric, S, W, SP, max_steps, scan};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
@@ -639,6 +791,8 @@ int pgv_k4_beam_walk(const void* values, int dtype, long long stride, int d,
     err = dispatch<__nv_bfloat16>(a, b, smem, st);
   else if (dtype == 3)
     err = dispatch<unsigned>(a, b, smem, st);
+  else if (dtype == 4)
+    err = launch<SparseRow, 1>(a, b, smem, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

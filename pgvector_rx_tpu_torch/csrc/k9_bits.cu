@@ -46,55 +46,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep_common.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int k9Warps = 8;
 constexpr int k9Threads = k9Warps * 32;
 constexpr int k9MaxQpw = 8;  // queries per warp (QB <= 64)
-constexpr int k9MaxK = 64;
 constexpr int k9MaxSmem = 200 * 1024;  // as ops/bits._k9_qtile assumes
-constexpr unsigned long long kEmpty = ~0ull;
-
-// Insert `key` (unique, smaller than l[k - 1]) into the ascending list
-// l[0, k), dropping the last; called by all 32 lanes with the same key.
-__device__ __forceinline__ void warp_insert_key(unsigned long long* l, int k,
-                                                unsigned long long key,
-                                                int lane) {
-  int p = 0;
-#pragma unroll
-  for (int base = 0; base < k9MaxK; base += 32) {
-    const int j = base + lane;
-    p += __popc(__ballot_sync(kFull, j < k && l[j] < key));
-  }
-  unsigned long long nv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = r * 32 + lane;
-    if (j < k) nv[r] = j < p ? l[j] : (j == p ? key : l[j - 1]);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = r * 32 + lane;
-    if (j < k) l[j] = nv[r];
-  }
-  __syncwarp();
-}
-
-// Each lane offers one key (kEmpty: none); those below the list's last
-// enter it.
-__device__ __forceinline__ void warp_offer_key(unsigned long long* l, int k,
-                                               unsigned long long key,
-                                               int lane) {
-  unsigned m = __ballot_sync(kFull, key < l[k - 1]);
-  while (m) {
-    const int src = __ffs(m) - 1;
-    m &= m - 1;
-    const unsigned long long ck = __shfl_sync(kFull, key, src);
-    if (ck < l[k - 1]) warp_insert_key(l, k, ck, lane);
-  }
-}
 
 template <int V>
 struct Words;
@@ -151,7 +110,7 @@ __global__ void __launch_bounds__(k9Threads) k9_bits_kernel(Args a) {
                 ? a.q[static_cast<long long>(q0 + j) * a.w + c]
                 : 0u;
   }
-  for (int i = tid; i < a.qb * a.k; i += k9Threads) lists[i] = kEmpty;
+  for (int i = tid; i < a.qb * a.k; i += k9Threads) lists[i] = kEmptyKey;
   __syncthreads();
   for (int j = warp; j < a.qb; j += k9Warps) {  // popq, one warp per query
     int s = 0;
@@ -170,8 +129,8 @@ __global__ void __launch_bounds__(k9Threads) k9_bits_kernel(Args a) {
   for (int j = 0; j < k9MaxQpw; ++j) {
     const int qi = q0 + my0 + j;
     const bool mine = j < qpw && qi < a.b;
-    lo[j] = !mine ? kEmpty : (a.lo != nullptr ? a.lo[qi] : 0ull);
-    thr[j] = kEmpty;
+    lo[j] = !mine ? kEmptyKey : (a.lo != nullptr ? a.lo[qi] : 0ull);
+    thr[j] = kEmptyKey;
     qp[j] = j < qpw ? qpop[my0 + j] : 0.f;
   }
   const int nv = a.w / V;
@@ -201,7 +160,7 @@ __global__ void __launch_bounds__(k9Threads) k9_bits_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < k9MaxQpw; ++j) {
       if (j >= qpw) break;  // warp-uniform
-      unsigned long long key = kEmpty;
+      unsigned long long key = kEmptyKey;
       if (ok) {
         float d;
         if (JACC) {
@@ -213,7 +172,7 @@ __global__ void __launch_bounds__(k9Threads) k9_bits_kernel(Args a) {
         }
         key = (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
               static_cast<unsigned>(row);
-        if (key < lo[j]) key = kEmpty;
+        if (key < lo[j]) key = kEmptyKey;
       }
       if (__any_sync(kFull, key < thr[j])) {
         unsigned long long* l = lists + (my0 + j) * a.k;
@@ -231,28 +190,6 @@ __global__ void __launch_bounds__(k9Threads) k9_bits_kernel(Args a) {
         a.part + (static_cast<long long>(qi) * gridDim.y + split) * a.k;
     for (int i = lane; i < a.k; i += 32) o[i] = l[i];
   }
-}
-
-constexpr int kSelWarps = 8;
-
-// The k smallest of each query's splits * k keys: one warp per query.
-__global__ void __launch_bounds__(kSelWarps * 32)
-    k9_select_kernel(const unsigned long long* __restrict__ part, int b,
-                     int c, int k, unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned long long sel[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned long long* l = sel + warp * k;
-  const int qi = blockIdx.x * kSelWarps + warp;
-  if (qi >= b) return;  // whole warp leaves; no block-wide barrier below
-  for (int j = lane; j < k; j += 32) l[j] = kEmpty;
-  __syncwarp();
-  const unsigned long long* row = part + static_cast<long long>(qi) * c;
-  for (int c0 = 0; c0 < c; c0 += 32) {
-    const int j = c0 + lane;
-    warp_offer_key(l, k, j < c ? row[j] : kEmpty, lane);
-  }
-  for (int j = lane; j < k; j += 32)
-    out[static_cast<long long>(qi) * k + j] = l[j];
 }
 
 size_t smem_bytes(int w, int qb, int k) {
@@ -288,7 +225,7 @@ int pgv_k9_bits_topk(const unsigned* words, const float* pop,
                      int metric, int qb, int splits, int rows_per_split,
                      unsigned long long* part, unsigned long long* out,
                      void* stream) {
-  if (n <= 0 || w <= 0 || b <= 0 || k < 1 || k > k9MaxK || qb <= 0 ||
+  if (n <= 0 || w <= 0 || b <= 0 || k < 1 || k > kMaxK || qb <= 0 ||
       qb % k9Warps || qb > k9Warps * k9MaxQpw || splits <= 0 ||
       rows_per_split <= 0 || metric < 0 || metric > 1 ||
       (metric == 1 && pop == nullptr))
@@ -306,9 +243,7 @@ int pgv_k9_bits_topk(const unsigned* words, const float* pop,
   else
     err = vec ? launch<0, 4>(a, grid, smem, st) : launch<0, 1>(a, grid, smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k9_select_kernel<<<(b + kSelWarps - 1) / kSelWarps, kSelWarps * 32,
-                     kSelWarps * k * 8, st>>>(part, b, splits * k, k, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_key_select(part, b, splits * k, k, out, st));
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// Device helpers shared by the brute-force sweep kernels (k1_topk.cu,
-// k2_binned.cu, k3_tilemin.cu): the warp-cooperative sorted top-k list,
-// the final top-k selection kernel, asynchronous copies (cp.async) into
+// Device helpers shared by the sweep kernels (k1_topk.cu, k2_binned.cu,
+// k3_tilemin.cu, k9_bits.cu, k10_sparse.cu): the warp-cooperative sorted
+// top-k lists (of (score, id) pairs, or of 64-bit keys), the final top-k
+// selection kernels, asynchronous copies (cp.async) into
 // the swizzled shared-memory layout that Hopper's wgmma reads, and the
 // wgmma instructions the sweeps issue. Everything is in an anonymous
 // namespace: each translation unit keeps its own copy.
@@ -86,6 +87,54 @@ __device__ __forceinline__ float key_float(unsigned key) {
 }
 
 // ---------------------------------------------------------------------------
+// Warp-cooperative sorted list of unique 64-bit keys (K9, K10): a key holds
+// a distance above a row, so the list's order never depends on the order
+// in which rows are offered
+// ---------------------------------------------------------------------------
+
+constexpr unsigned long long kEmptyKey = ~0ull;
+
+// Insert `key` (unique, smaller than l[k - 1]) into the ascending list
+// l[0, k), dropping the last; called by all 32 lanes with the same key.
+__device__ __forceinline__ void warp_insert_key(unsigned long long* l, int k,
+                                                unsigned long long key,
+                                                int lane) {
+  int p = 0;
+#pragma unroll
+  for (int base = 0; base < kMaxK; base += 32) {
+    const int j = base + lane;
+    p += __popc(__ballot_sync(kFull, j < k && l[j] < key));
+  }
+  unsigned long long nv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = r * 32 + lane;
+    if (j < k) nv[r] = j < p ? l[j] : (j == p ? key : l[j - 1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = r * 32 + lane;
+    if (j < k) l[j] = nv[r];
+  }
+  __syncwarp();
+}
+
+// Each lane offers one key (kEmptyKey: none); those below the list's last
+// enter it.
+__device__ __forceinline__ void warp_offer_key(unsigned long long* l, int k,
+                                               unsigned long long key,
+                                               int lane) {
+  unsigned m = __ballot_sync(kFull, key < l[k - 1]);
+  while (m) {
+    const int src = __ffs(m) - 1;
+    m &= m - 1;
+    const unsigned long long ck = __shfl_sync(kFull, key, src);
+    if (ck < l[k - 1]) warp_insert_key(l, k, ck, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // select_kernel: one warp per query, k smallest of c candidates
 // ---------------------------------------------------------------------------
 
@@ -143,6 +192,35 @@ cudaError_t launch_select(const float* cand_d, const int* cand_i,
   select_kernel<PACKED><<<(b + kSelWarps - 1) / kSelWarps, kSelWarps * 32,
                           kSelWarps * k * 8, st>>>(cand_d, cand_i, packed, b,
                                                    c, k, out_d, out_i);
+  return cudaGetLastError();
+}
+
+// The k smallest of each query's c keys (part [b, c]) -> out [b, k],
+// ascending, kEmptyKey past the keys: one warp per query (K9, K10).
+__global__ void __launch_bounds__(kSelWarps * 32)
+    key_select_kernel(const unsigned long long* __restrict__ part, int b,
+                      int c, int k, unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned long long key_sel_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long* l = key_sel_smem + warp * k;
+  const int qi = blockIdx.x * kSelWarps + warp;
+  if (qi >= b) return;  // whole warp leaves; no block-wide barrier below
+  for (int j = lane; j < k; j += 32) l[j] = kEmptyKey;
+  __syncwarp();
+  const unsigned long long* row = part + static_cast<long long>(qi) * c;
+  for (int c0 = 0; c0 < c; c0 += 32) {
+    const int j = c0 + lane;
+    warp_offer_key(l, k, j < c ? row[j] : kEmptyKey, lane);
+  }
+  for (int j = lane; j < k; j += 32)
+    out[static_cast<long long>(qi) * k + j] = l[j];
+}
+
+inline cudaError_t launch_key_select(const unsigned long long* part, int b,
+                                     int c, int k, unsigned long long* out,
+                                     cudaStream_t st) {
+  key_select_kernel<<<(b + kSelWarps - 1) / kSelWarps, kSelWarps * 32,
+                      kSelWarps * k * 8, st>>>(part, b, c, k, out);
   return cudaGetLastError();
 }
 

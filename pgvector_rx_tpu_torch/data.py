@@ -1,6 +1,7 @@
-"""Synthetic data of the port: a copy of ``bench.make_dataset`` (the JAX
-system's benchmark corpus), so the port's smoke and tests make the same
-arrays without importing the JAX package's benchmark."""
+"""Synthetic data of the port: copies of ``bench.make_dataset`` (the JAX
+system's benchmark corpus) and of ``bench_suite.run_sparse``'s sparse
+generator, so the port's smoke and tests make the same data without
+importing the JAX package's benchmarks."""
 
 from __future__ import annotations
 
@@ -36,3 +37,24 @@ def make_dataset(n, d, n_q, seed=0, n_clusters=1000, intrinsic=16):
         np.float32
     )
     return data.astype(np.float32), queries.astype(np.float32)
+
+
+def make_sparse_dataset(n, dim, n_q, nnz, seed=9):
+    """BM25/SPLADE-like sparse rows -> (rows [n] SparseVec, queries: the
+    first ``n_q`` rows).
+
+    ``bench_suite.run_sparse``'s generator: ``nnz`` draws per row from a
+    power-law index popularity (exponent 0.7), kept unique and sorted;
+    values U[0.1, 1.1) in f32."""
+    from .types import SparseVec
+
+    rng = np.random.default_rng(seed)
+    pop = (1.0 / np.arange(1, dim + 1)) ** 0.7
+    pop /= pop.sum()
+    rows = []
+    for _ in range(n):
+        ii = np.unique(rng.choice(dim, size=nnz, p=pop)).astype(np.int32)
+        rows.append(
+            SparseVec(dim, ii, rng.random(len(ii)).astype(np.float32) + 0.1)
+        )
+    return rows, rows[:n_q]

@@ -17,11 +17,17 @@ device, and the engines are the same algorithms:
   takes the bit sweep for both (``_exact_search_bits``: kernel K9 on CUDA,
   ``ops/bits.bits_topk``), exact where the JAX package's approx engine
   selects with ``approx_min_k``;
+- the sparse kind (padded CSR, ``DeviceGraph.sp_indices`` /
+  ``sp_values``) takes the sparse sweep for both (``_exact_search_sparse``:
+  kernel K10 on CUDA, ``ops/sparse.sparse_topk``), one formulation at every
+  dimension; approx rounds the dot's values to bf16 where the JAX package
+  takes its bf16 product, selects exactly, and rescores in f32;
 - **beam**: the best-first walk over layer 0 (``_ground_beam_seeds``:
   kernel K4 on CUDA, one launch per query batch; its plain batched loop on
   the CPU), seeded by a bf16 sweep over the level >= 1 rows
   (``_search_batch_coarse``) or by the greedy upper-layer descent
-  (``_search_batch``).
+  (``_search_batch``: the bit and sparse kinds, whose queries are packed
+  words or (indices, values) pairs).
 
 The resumable beam scan (``index/scan.py`` ``DeviceBeamScan``) runs one
 walk per segment under an exclusion mask with a spill buffer
@@ -43,7 +49,7 @@ import torch
 
 from ..constants import hnsw_get_layer_m
 
-from ..ops import beam, bits, bruteforce
+from ..ops import beam, bits, bruteforce, sparse
 
 #: the exact sweep's penalty on excluded rows (ops/bruteforce._NEG_BIG)
 _PENALTY = bruteforce._NEG_BIG
@@ -51,6 +57,13 @@ _PENALTY = bruteforce._NEG_BIG
 # Above this many rows the exact sweep's FLOPs lose to the beam (engine
 # "auto"); same cutover as the JAX package.
 EXACT_ENGINE_MAX_ROWS = 4_000_000
+#: the sparse kind's cutover (the JAX package's: its merge-join sweeps cost
+#: O(N P log P) per query batch)
+SPARSE_EXACT_MAX_ROWS = 200_000
+#: dim <= factor * P selects the JAX package's bf16 densified-corpus
+#: product for sparse approx serving (``_SPARSE_MATMUL_FACTOR``); here it
+#: decides where approx rounds the dot's values to bf16
+SPARSE_MATMUL_FACTOR = 1024
 
 _INF = float("inf")
 
@@ -103,13 +116,14 @@ _GRAPH_FIELDS = (
     "neighbors0", "upper_neighbors", "upper_slot", "levels", "traversable",
     "emit_tid", "tid_count",
 )
-_VALUE_FIELDS = ("values", "x2", "values_bf16", "words")
-_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
+_VALUE_FIELDS = ("values", "x2", "values_bf16", "words", "sp_indices",
+                 "sp_values")
 
 
 @dataclass
 class DeviceGraph:
-    """Flat-tensor mirror of a dense or bit host index, on one device."""
+    """Flat-tensor mirror of a dense, bit or sparse host index, on one
+    device."""
 
     kind: str
     metric: str
@@ -132,6 +146,10 @@ class DeviceGraph:
     # the bit kind's rows: [cap+1, ceil(dim/32)] int32 words with the bits
     # of ops/bits.pack_bits's uint32 words
     words: torch.Tensor | None = None
+    # the sparse kind's padded-CSR rows: [cap+1, P] int32 indices (sorted,
+    # ops/sparse.PAD_INDEX pads) and [cap+1, P] f32 values
+    sp_indices: torch.Tensor | None = None
+    sp_values: torch.Tensor | None = None
     # The capacity the JAX package's graph would report as its ``cap``:
     # a device-built or grown graph there keeps its padded array capacity
     # (``device_build.cap_pad_for(n) - 1``), here only the figure, not the
@@ -148,8 +166,11 @@ class DeviceGraph:
         return self.neighbors0.device
 
     @property
-    def rows(self) -> torch.Tensor:
-        """The rows the distances read: ``words`` (bit) or ``values``."""
+    def rows(self):
+        """The rows the distances read: ``words`` (bit), the pair
+        (``sp_indices``, ``sp_values``) (sparse) or ``values``."""
+        if self.kind == "sparse":
+            return self.sp_indices, self.sp_values
         return self.words if self.kind == "bit" else self.values
 
     @classmethod
@@ -159,10 +180,8 @@ class DeviceGraph:
         ``np.asarray`` of a JAX ``DeviceGraph``'s fields, uint32 words
         included) or tensors. Missing value fields stay None, but for the
         bit kind's popcounts (``x2``), counted here."""
-        if kind not in ("dense", "bit"):
-            raise NotImplementedError(
-                f"DeviceGraph kind {kind!r} is not ported ({_ROADMAP_SPARSE})"
-            )
+        if kind not in ("dense", "bit", "sparse"):
+            raise ValueError(f"unknown DeviceGraph kind {kind!r}")
         tensors = {
             f: (bits.as_words(arrays[f], device) if f == "words"
                 else _tensor(arrays[f], device))
@@ -179,11 +198,6 @@ class DeviceGraph:
     def from_index(cls, index, device=None) -> "DeviceGraph":
         """Flatten a host-graph index (``index.elements``) onto ``device``
         (default: the index's own)."""
-        if index.kind not in ("dense", "bit"):
-            raise NotImplementedError(
-                f"DeviceGraph kind {index.kind!r} is not ported "
-                f"({_ROADMAP_SPARSE})"
-            )
         device = index.device if device is None else device
         n = len(index.elements)
         m = index.params.m
@@ -226,6 +240,13 @@ class DeviceGraph:
             words = np.zeros((n + 1, -(-index.dim // 32)), dtype=np.uint32)
             words[:n] = bits.bytes_to_words(index.store.rows[:n], index.dim)
             value_arrays = dict(words=words)
+        elif index.kind == "sparse":
+            budget = index.store.budget
+            si = np.full((n + 1, budget), sparse.PAD_INDEX, dtype=np.int32)
+            sv = np.zeros((n + 1, budget), dtype=np.float32)
+            si[:n] = index.store.indices[:n]
+            sv[:n] = index.store.values[:n]
+            value_arrays = dict(sp_indices=si, sp_values=sv)
         else:
             vals = np.zeros((n + 1, index.dim), dtype=np.float32)
             vals[:n] = index.store.rows[:n].astype(np.float32)
@@ -254,9 +275,14 @@ class DeviceGraph:
 
 def _dist_ids(g: DeviceGraph, q, ids):
     """Order-distances [B, W] from queries ``q`` [B, D] (the bit kind:
-    packed words [B, W]) to rows ``ids`` [B, W] (ids clamped into range,
-    callers mask)."""
+    packed words [B, W]; the sparse kind: the (indices, values) pair) to
+    rows ``ids`` [B, W] (ids clamped into range, callers mask)."""
     return beam.row_dists(g.rows, g.metric, q, ids)
+
+
+def _lead(q) -> torch.Tensor:
+    """A query batch's first tensor (its batch size and device)."""
+    return q[0] if isinstance(q, tuple) else q
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +307,7 @@ def _greedy_descent(g: DeviceGraph, q, cur, cur_d, layer: int):
     :492-510 analog): move to the nearest upper neighbour while it is
     strictly nearer."""
     off = (layer - 1) * g.m
-    rows = torch.arange(q.shape[0], device=q.device)
+    rows = torch.arange(cur.shape[0], device=cur.device)
     moved = torch.ones_like(cur, dtype=torch.bool)
     while bool(moved.any()):
         slot = g.upper_slot[cur.long()]
@@ -315,8 +341,9 @@ def _descent_seeds(g: DeviceGraph, queries, entry_level: int):
     """Greedy upper-layer descent from the entry point for every query ->
     (seed ids [B, 1], seed distances [B, 1]): Algorithm 5's layer-0
     entry."""
-    B = queries.shape[0]
-    cur = torch.full((B,), g.entry, dtype=torch.int64, device=queries.device)
+    B = _lead(queries).shape[0]
+    cur = torch.full((B,), g.entry, dtype=torch.int64,
+                     device=_lead(queries).device)
     cur_d = _dist_ids(g, queries, cur[:, None])[:, 0]
     for layer in range(entry_level, 0, -1):
         cur, cur_d = _greedy_descent(g, queries, cur, cur_d, layer)
@@ -572,6 +599,34 @@ def _exact_search_bits(g: DeviceGraph, queries, k: int, approx: bool = False,
     return d, torch.where(torch.isfinite(d), ids, -1)
 
 
+def _exact_search_sparse(g: DeviceGraph, q_indices, q_values, k: int,
+                         dim: int = 0, row_mask=None, approx: bool = False):
+    """Exact (or approximate) top-k over the live padded-CSR rows for
+    padded-CSR queries [B, P] -> (dists [B, k], element ids [B, k]) in
+    (distance, id) order, -1 / inf padded: the sparse sweep
+    (``ops/sparse.sparse_topk``, kernel K10 on CUDA) at every ``dim``.
+
+    ``approx`` where the JAX package takes its bf16 densified-corpus
+    product (l2 / ip / cosine, ``dim <= SPARSE_MATMUL_FACTOR * P`` and the
+    dense queries affordable): the dot over bf16-rounded values, an exact
+    selection where JAX takes ``approx_min_k``, then the k winners rescored
+    in f32 (bf16 scores must not leak into returned distances); elsewhere
+    approx is the exact sweep, as in JAX."""
+    b, p = q_indices.shape
+    bf16 = (approx and g.metric != "l1" and sparse.dense_q_fits(dim, b)
+            and dim <= SPARSE_MATMUL_FACTOR * p)
+    d, ids = sparse.sparse_topk(g.sp_indices, g.sp_values,
+                                _live_rows(g, row_mask), q_indices, q_values,
+                                k, g.metric, approx=bf16, dim=dim)
+    if bf16:
+        exact = sparse.gathered(g.metric, g.sp_indices, g.sp_values, ids,
+                                q_indices, q_values)
+        d, order = torch.sort(torch.where(torch.isfinite(d), exact, _INF),
+                              dim=1, stable=True)
+        ids = torch.gather(ids, 1, order)
+    return d, torch.where(torch.isfinite(d), ids, -1)
+
+
 def _stage_queries(g: DeviceGraph, queries):
     """Staged queries on the graph's device: f32 rows, or for the bit kind
     packed words ([B, W] uint32 / int32, ``ops/bits.pack_bits``)."""
@@ -622,6 +677,10 @@ def serve_topk(index, queries_dev, k: int, engine: str = "approx",
     """
     if engine not in ("exact", "approx", "beam"):
         raise ValueError(f"unknown engine {engine!r}")
+    if index.kind == "sparse":
+        raise ValueError("serve_topk takes one query matrix; the sparse "
+                         "kind serves through search(), as in the JAX "
+                         "package")
     g = index.device_graph()
     row_mask = _stage_filter_mask(g, filter_mask)
     queries = _stage_queries(g, queries_dev)
@@ -680,16 +739,26 @@ def prepare_query_matrix(index, q: np.ndarray, device):
 
 def prepare_queries(index, qlist, device):
     """Canonicalize queries: dense ones to a [B, dim] f32 tensor, bit ones
-    to packed int32 words [B, ceil(dim/32)], on ``device``."""
+    to packed int32 words [B, ceil(dim/32)], sparse ones to the padded-CSR
+    pair (indices [B, P] int32, values [B, P] f32) at the store's budget P
+    (a query whose canonical form is skipped, a zero cosine query, stays all
+    pads), on ``device``."""
     if index.kind == "bit":
         if isinstance(qlist, torch.Tensor):
             qlist = qlist.cpu().numpy()
         packed = bits.prepare_rows(qlist, index.dim)
         return bits.as_words(bits.bytes_to_words(packed, index.dim), device)
-    if index.kind != "dense":
-        raise NotImplementedError(
-            f"queries of kind {index.kind!r} are not ported ({_ROADMAP_SPARSE})"
-        )
+    if index.kind == "sparse":
+        prepped = [index.prepare_value(q) for q in qlist]
+        budget = index.store.budget
+        qi = np.full((len(prepped), budget), sparse.PAD_INDEX, dtype=np.int32)
+        qv = np.zeros((len(prepped), budget), dtype=np.float32)
+        for r, p in enumerate(prepped):
+            if p is not None:
+                qi[r, : len(p[0])] = p[0]
+                qv[r, : len(p[1])] = p[1]
+        return (torch.from_numpy(qi).to(device),
+                torch.from_numpy(qv).to(device))
     if isinstance(qlist, torch.Tensor):
         q = qlist.to(device, torch.float32)
         if index.metric == "cosine":
@@ -712,11 +781,13 @@ def search(index, qlist, k: int, params, engine: str = "auto",
            filter_mask=None):
     """Batched device k-NN -> (order-dists [B,k] f64, heap ids [B,k]).
 
-    engine: "beam" walks the HNSW graph, "exact" runs the exact sweep,
-    "approx" the bf16 binned sweep + rescore, "auto" picks exact up to
-    EXACT_ENGINE_MAX_ROWS and beam otherwise. ``filter_mask``: optional
-    bool array over element ids; exact/approx pre-filter inside the
-    sweep, the beam post-filters emissions.
+    engine: "beam" walks the HNSW graph, "exact" runs the exact sweep
+    (K1, K9 for the bit kind, K10 for the sparse kind), "approx" the bf16
+    binned sweep + rescore (the bit kind: K9; the sparse kind: K10 over
+    bf16 values + rescore), "auto" picks exact up to EXACT_ENGINE_MAX_ROWS
+    (the sparse kind: SPARSE_EXACT_MAX_ROWS) and beam otherwise.
+    ``filter_mask``: optional bool array over element ids; exact/approx
+    pre-filter inside the sweep, the beam post-filters emissions.
     """
     g = index.device_graph()
     row_mask = _stage_filter_mask(g, filter_mask)
@@ -730,8 +801,14 @@ def search(index, qlist, k: int, params, engine: str = "auto",
     ef = max(params.ef_search, 1)
     max_steps = 4 * ef + 32
     if engine == "auto":
-        engine = "exact" if g.capacity <= EXACT_ENGINE_MAX_ROWS else "beam"
-    if engine in ("exact", "approx"):
+        limit = (SPARSE_EXACT_MAX_ROWS if g.kind == "sparse"
+                 else EXACT_ENGINE_MAX_ROWS)
+        engine = "exact" if g.capacity <= limit else "beam"
+    if engine in ("exact", "approx") and g.kind == "sparse":
+        beam_d, beam_ids = _exact_search_sparse(
+            g, queries[0], queries[1], max(k, 1), dim=index.dim,
+            row_mask=row_mask, approx=engine == "approx")
+    elif engine in ("exact", "approx"):
         sweep = _exact_search_bits if g.kind == "bit" else _exact_search_batch
         beam_d, beam_ids = sweep(g, queries, max(k, 1),
                                  approx=engine == "approx", row_mask=row_mask)

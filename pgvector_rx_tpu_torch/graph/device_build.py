@@ -123,7 +123,6 @@ _BUILD_ENV_DEFAULTS = {
 }
 
 _ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13b"
-_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
 
 
 def _build_settings() -> None:
@@ -1192,9 +1191,9 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
 
     _build_settings()
     if index.kind not in ("dense", "bit"):
-        raise NotImplementedError(
-            f"the device build of the {index.kind} kind is not ported "
-            f"({_ROADMAP_SPARSE})"
+        raise ValueError(
+            f"the {index.kind} kind has no device build (as in the JAX "
+            "package): build it with method='native' or 'host'"
         )
     if len(index.elements) or index.store.count:
         raise ValueError("device bulk build requires an empty index")

@@ -11,10 +11,13 @@ own sweeps on ``device`` (None: the card):
 - l2 / ip / cosine: K1 (``ops/bruteforce.l2_topk`` / ``ip_topk`` /
   ``cosine_topk``; cosine over rows normalised with ``max(norm, 1e-30)``);
 - l1: the l1 sweep (``graph/device.l1_sweep_topk``);
-- hamming / jaccard: K9 (``ops/bits.bits_topk``).
+- hamming / jaccard: K9 (``ops/bits.bits_topk``);
+- sparse (l2, ip, cosine, l1): K10 (``ops/sparse.sparse_topk``) over the
+  rows and queries padded to the most non-zeros seen (the JAX package's
+  budget), cosine over the raw values (the distance divides by both
+  norms).
 
-Ties come back lower row first, as ``lax.top_k`` orders them. The sparse
-kind is not ported (ROADMAP queue 1, item 15) and raises.
+Ties come back lower row first, as ``lax.top_k`` orders them.
 """
 
 from __future__ import annotations
@@ -24,18 +27,13 @@ import torch
 
 from ..config import SearchParams
 
-_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
-
 
 class FlatIndex:
-    """Exact k-NN over dense or bit rows."""
+    """Exact k-NN over dense, bit or sparse rows."""
 
     def __init__(self, kind: str, metric: str, dim: int, device=None):
         from .hnsw import resolve_device
 
-        if kind == "sparse":
-            raise NotImplementedError(
-                f"the sparse flat index is not ported ({_ROADMAP_SPARSE})")
         self.device = resolve_device(device)
         self.kind = kind
         self.metric = metric
@@ -46,12 +44,10 @@ class FlatIndex:
     @classmethod
     def build(cls, data, metric: str = "l2", ids=None, kind: str = "dense",
               device=None):
-        if kind == "sparse":
-            raise NotImplementedError(
-                f"the sparse flat index is not ported ({_ROADMAP_SPARSE})")
         data_arr = data if not isinstance(data, np.ndarray) else np.asarray(data)
         n = len(data_arr)
-        idx = cls(kind, metric, np.asarray(data_arr[0]).shape[-1],
+        idx = cls(kind, metric,
+                  np.asarray(data_arr[0]).shape[-1] if kind != "sparse" else 0,
                   device=device)
         if ids is None:
             ids = range(n)
@@ -60,7 +56,8 @@ class FlatIndex:
         return idx
 
     def insert(self, row, tid: int) -> None:
-        self._rows.append(np.asarray(row))
+        # sparse rows stay SparseVec / (indices, values) pairs
+        self._rows.append(row if self.kind == "sparse" else np.asarray(row))
         self._tids.append(tid)
 
     def delete(self, tids) -> int:
@@ -75,13 +72,23 @@ class FlatIndex:
     def num_tuples(self) -> int:
         return len(self._rows)
 
-    def _sweep(self, q: np.ndarray, kk: int):
+    def _sweep(self, q, kk: int):
         """(order distances [B, kk] f32, positions [B, kk] int64) of the
-        kk nearest rows, on the index's device."""
+        kk nearest rows, on the index's device (``q``: a query matrix, or
+        the sparse kind's list of queries)."""
         from ..graph.device import l1_sweep_topk
-        from ..ops import bits, bruteforce
+        from ..ops import bits, bruteforce, sparse
 
         dev = self.device
+        if self.kind == "sparse":
+            def nnz(v):
+                return len(v.indices if hasattr(v, "indices") else v[0])
+
+            budget = max(1, max(map(nnz, self._rows)), max(map(nnz, q)))
+            bi, bv = sparse.pad_rows(self._rows, budget, dev)
+            qi, qv = sparse.pad_rows(q, budget, dev)
+            live = torch.ones(bi.shape[0], dtype=torch.bool, device=dev)
+            return sparse.sparse_topk(bi, bv, live, qi, qv, kk, self.metric)
         if self.kind == "bit":
             words = bits.as_words(bits.pack_bits(np.stack(self._rows)), dev)
             qw = bits.as_words(bits.pack_bits(q.astype(np.uint8)), dev)
@@ -109,16 +116,23 @@ class FlatIndex:
 
     def search(self, queries, k: int, params: SearchParams | None = None):
         """Exact top-k: (operator distances [B,k], tids [B,k])."""
-        single = (
-            np.asarray(queries, dtype=object).ndim == 1
-            if self.kind != "dense"
-            else np.asarray(queries).ndim == 1
-        )
-        q = np.atleast_2d(
-            np.asarray(queries,
-                       dtype=np.float32 if self.kind == "dense" else None)
-        )
-        B = q.shape[0]
+        if self.kind == "sparse":
+            from ..types.sparsevec import SparseVec
+
+            single = isinstance(queries, (SparseVec, tuple))
+            q = [queries] if single else list(queries)
+            B = len(q)
+        else:
+            single = (
+                np.asarray(queries, dtype=object).ndim == 1
+                if self.kind != "dense"
+                else np.asarray(queries).ndim == 1
+            )
+            q = np.atleast_2d(
+                np.asarray(queries,
+                           dtype=np.float32 if self.kind == "dense" else None)
+            )
+            B = q.shape[0]
         n = self.num_tuples
         if n == 0:
             out_d = np.full((B, k), np.inf)

@@ -36,7 +36,6 @@ BIT_METRICS = ("hamming", "jaccard")
 SPARSE_METRICS = DENSE_METRICS
 
 _ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13b"
-_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
 
 
 def resolve_device(device) -> torch.device:
@@ -461,7 +460,8 @@ class HnswIndex:
         kinds), "native" (C++ engine), "host" (sequential reference path)
         or "auto" (the device build for dense corpora of 20,000 rows or
         more and for bit corpora of 20,000 rows or more whose unpacked f32
-        build rows fit 6 GiB, else native when it builds, else host).
+        build rows fit 6 GiB, else native when it builds, else host; the
+        sparse kind always builds on the host).
         ``host_graph=False`` with "device" or "native": serving-only index
         whose graph goes straight to a torch DeviceGraph on ``device``.
         """
@@ -511,9 +511,12 @@ class HnswIndex:
 
                 method = "native" if native.available() else "host"
         if method == "device" and kind == "sparse":
-            raise NotImplementedError(
-                f"the device build of the sparse kind is not ported "
-                f"({_ROADMAP_SPARSE})"
+            # the JAX package has no sparse device build either (its
+            # bulk_build stacks the prepared pairs as dense rows and fails)
+            raise ValueError(
+                "the sparse kind builds on the host: method='native' or "
+                "'host' (or 'auto'); its device_graph() then serves on the "
+                "card"
             )
         if method == "native" and not host_graph and kind == "sparse":
             raise ValueError(

@@ -23,8 +23,11 @@ What differs from the JAX package:
   ``os.replace``, as ``meta.json`` is, so a crash mid-write never leaves a
   torn archive (the JAX package writes it in place);
 - ``save`` refuses a directory whose ``log.jsonl`` holds records: they
-  are already in the index, and a load would replay them a second time;
-- the sparse kind is not ported (ROADMAP queue 1, item 15) and raises.
+  are already in the index, and a load would replay them a second time.
+
+The sparse kind's rows are saved as ``sp_indices`` / ``sp_values`` (the
+store's padded CSR); its checkpoints load host-graph only, as in the JAX
+package (``serving=True`` refuses them: no sparse index is serving-only).
 """
 
 from __future__ import annotations
@@ -41,16 +44,6 @@ from ..config import IndexParams
 from ..graph.host import GraphElement
 
 FORMAT_VERSION = 1
-
-_ROADMAP_SPARSE = "ROADMAP queue 1, item 15"
-
-
-def _no_sparse(kind: str) -> None:
-    if kind not in ("dense", "bit"):
-        raise NotImplementedError(
-            f"checkpoints of the {kind} kind are not ported "
-            f"({_ROADMAP_SPARSE})"
-        )
 
 
 def _value_arrays(index, rows, n: int) -> dict:
@@ -100,7 +93,6 @@ def _write_meta(path: Path, meta: dict) -> None:
 
 def save(index, path) -> None:
     path = Path(path)
-    _no_sparse(index.kind)
     path.mkdir(parents=True, exist_ok=True)
     _refuse_live_log(path)
     if getattr(index, "serving_only", False):
@@ -125,6 +117,11 @@ def save(index, path) -> None:
         tid_counts.append(len(tids))
         tid_flat.extend(tids)
 
+    if index.kind == "sparse":
+        rows = {"sp_indices": index.store.indices[:n],
+                "sp_values": index.store.values[:n]}
+    else:
+        rows = {"rows": index.store.rows[:n]}
     _write_arrays(path, {
         "levels": levels,
         "versions": versions,
@@ -135,7 +132,7 @@ def save(index, path) -> None:
         "tid_flat": np.array(tid_flat, dtype=np.int64),
         "tid_counts": np.array(tid_counts, dtype=np.int32),
         "free_slots": np.array(index.free_slots, dtype=np.int32),
-        "rows": index.store.rows[:n],
+        **rows,
     })
     _write_meta(path, {
         "magic": C.HNSW_MAGIC_NUMBER,
@@ -158,7 +155,6 @@ def save(index, path) -> None:
 def _new_index(meta, device):
     from .hnsw import HnswIndex
 
-    _no_sparse(meta["kind"])
     return HnswIndex(
         meta["dim"],
         metric=meta["metric"],
@@ -205,7 +201,13 @@ def load(path, replay: bool = True, serving: bool = False, device=None):
         )
     # NOTE: hoist every z[...] access out of loops — NpzFile re-decompresses
     # the WHOLE array on each __getitem__ (O(n^2) in a per-row loop)
-    index.store.bulk_load(z["rows"])
+    if meta["kind"] == "sparse":
+        sp_i, sp_v = z["sp_indices"], z["sp_values"]
+        for i in range(n):
+            keep = sp_i[i] != index.store.PAD
+            index.store.append((sp_i[i][keep], sp_v[i][keep]))
+    else:
+        index.store.bulk_load(z["rows"])
 
     # elements — plain-Python lists up front: per-element numpy scalar
     # boxing in the hot loop was the measured cost of host-graph loads
@@ -258,6 +260,8 @@ def _load_host_as_serving(meta, path: Path, replay: bool, device):
     from ..constants import hnsw_get_layer_m
     from ..graph.device import DeviceGraph
 
+    if meta["kind"] == "sparse":
+        raise ValueError("serving load supports dense and bit checkpoints")
     index = _new_index(meta, device)
     z = np.load(path / "arrays.npz")
     n = int(meta["n_elements"])
@@ -377,7 +381,6 @@ class AppendLog:
     """
 
     def __init__(self, path, index, fsync: bool | None = None):
-        _no_sparse(index.kind)
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._fh = open(self.path, "a", encoding="utf-8")
@@ -498,6 +501,10 @@ def _encode_value(index, value):
                 and v.shape[0] == index.store.nbytes):
             return {"packed": v.tobytes().hex()}
         return {"bits": v.astype(int).tolist()}
+    if index.kind == "sparse":
+        idx, val = ((value.indices, value.values)
+                    if hasattr(value, "indices") else value)
+        return {"i": np.asarray(idx).tolist(), "v": np.asarray(val).tolist()}
     return np.asarray(value, dtype=np.float32).tolist()
 
 
@@ -506,6 +513,9 @@ def _decode_value(index, enc):
         if "packed" in enc:
             return np.frombuffer(bytes.fromhex(enc["packed"]), dtype=np.uint8)
         return np.asarray(enc["bits"], dtype=np.uint8)
+    if index.kind == "sparse":
+        return (np.asarray(enc["i"], dtype=np.int32),
+                np.asarray(enc["v"], dtype=np.float32))
     return np.asarray(enc, dtype=np.float32)
 
 

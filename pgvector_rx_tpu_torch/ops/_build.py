@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k2_binned.cu",
                                      "k3_tilemin.cu", "k4_beam.cu",
-                                     "k9_bits.cu"))
+                                     "k9_bits.cu", "k10_sparse.cu"))
 _HEADERS = (_CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -51,16 +51,21 @@ _SIGNATURES = {
     "pgv_k3_tilemin": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # base, n, d, out, stream
     "pgv_k3_x2max": [_P, _I, _I, _P, _P],
-    # values, dtype, stride, d, nbrs, L, trav, excl, excl_stride, cap,
-    # metric, q, seed_ids, seed_d, b, S, W, SP, max_steps, scan, beam_d,
-    # beam_key, spill_d, spill_key, steps, scored, stream
-    "pgv_k4_beam_walk": [_P, _I, _L, _I, _P, _I, _P, _P, _L, _I, _I, _P, _P,
-                         _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                         _P],
+    # values, values2, dtype, stride, d, qd, nbrs, L, trav, excl,
+    # excl_stride, cap, metric, q, seed_ids, seed_d, b, S, W, SP,
+    # max_steps, scan, beam_d, beam_key, spill_d, spill_key, steps, scored,
+    # stream
+    "pgv_k4_beam_walk": [_P, _P, _I, _L, _I, _I, _P, _I, _P, _P, _L, _I, _I,
+                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                         _P, _P, _P],
     # words, pop, live, q, lo, n, w, b, k, metric, qb, splits,
     # rows_per_split, part, out, stream
     "pgv_k9_bits_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
+    # ci, cv, live, qi, qv, lo, n, p, b, k, metric, approx, qb, splits,
+    # rows_per_split, part, out, stream
+    "pgv_k10_sparse_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -7,9 +7,13 @@ They replace the JAX package's XLA while-loops ``_ground_beam_seeds`` (K4,
 ``pgvector_rx_tpu/graph/device.py:446``) and ``_beam_scan_segment`` (K5,
 ``:574``), at the defaults the port supports: one expansion per step,
 in-beam dedup by id (the expanded copy wins) and f32 ranking. Rows are
-f32 / f16 / bf16 values (l2, ip, cosine, l1) or, for the bit kind, packed
-int32 words (hamming, jaccard: the walk's packed-word mode, serving only,
-as the JAX package's beam scan is dense-only).
+f32 / f16 / bf16 values (l2, ip, cosine, l1); for the bit kind, packed
+int32 words (hamming, jaccard: the walk's packed-word mode); for the sparse
+kind, padded-CSR rows given as the pair (indices [cap+1, P] int32, values
+[cap+1, P] f32) with queries as the pair (indices [B, P], values [B, P])
+(l2, ip, cosine, l1: the sparse-row mode, ``_search_one_sparse``'s walk).
+The word and sparse modes serve only, as the JAX package's beam scan is
+dense-only.
 
 - :func:`beam_walk` (K4): ``B`` queries with ``S`` seeds each, a beam of
   width ``ef`` -> (dists [B, ef], ids [B, ef], steps [B]), sorted by
@@ -23,7 +27,8 @@ as the JAX package's beam scan is dense-only).
 
 Both wrappers take the plain version only for tensors on the CPU; for a
 CUDA tensor they launch the kernel or raise. ``bruteforce.LAUNCHES`` counts
-the launches under ``k4_beam`` and ``k5_beam_scan``.
+the launches under ``k4_beam`` (``k4_beam_sparse`` for sparse rows) and
+``k5_beam_scan``.
 
 Beam keys pack ``id * 2 + (1 - expanded)``; an invalid slot is -2, so
 ``cap`` must stay below 2^30. The walk's total order is (distance, key):
@@ -38,15 +43,17 @@ from __future__ import annotations
 
 import torch
 
-from . import bits
+from . import bits, sparse
 from .bruteforce import LAUNCHES, _check_cuda
 
 _INF = float("inf")
 _METRIC_CODES = {"l2": 0, "ip": 1, "cosine": 2, "l1": 3, "hamming": 4,
                  "jaccard": 5}
-#: row types: f32, f16, bf16 values; 3 = packed int32 words (bit metrics)
+#: row types: f32, f16, bf16 values; 3 = packed int32 words (bit metrics);
+#: 4 = padded-CSR rows (the pair of indices and values)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
                 torch.int32: 3}
+_SPARSE_ROWS = 4
 
 #: steps between host checks for "any query still active" in the plain
 #: walk (frozen queries are masked, so extra steps change nothing)
@@ -54,16 +61,22 @@ _SYNC_EVERY = 4
 
 
 def _queries(q, metric: str):
-    """The walk's query operand: packed int32 words for the bit metrics,
-    f32 rows otherwise."""
-    return q if metric in bits.BIT_METRICS else q.float()
+    """The walk's query operand, contiguous: packed int32 words for the bit
+    metrics, the (int32 indices, f32 values) pair for sparse rows, f32 rows
+    otherwise."""
+    if isinstance(q, tuple):
+        return q[0].to(torch.int32).contiguous(), q[1].float().contiguous()
+    return (q if metric in bits.BIT_METRICS else q.float()).contiguous()
 
 
 def row_dists(values, metric: str, q, ids):
     """Order distances [B, W] from queries ``q`` [B, D] to rows ``ids``
     [B, W] of ``values`` [cap+1, D] (ids clamped into range; callers mask).
     f32 sums over the stored values; for hamming / jaccard, ``values`` and
-    ``q`` are packed int32 words and the distances popcounts."""
+    ``q`` are packed int32 words and the distances popcounts; for sparse
+    rows both are (indices, values) pairs (``ops/sparse.gathered``)."""
+    if isinstance(values, tuple):
+        return sparse.gathered(metric, values[0], values[1], ids, q[0], q[1])
     if metric in bits.BIT_METRICS:
         return bits.gathered(metric, values, ids, q)
     cand = values[ids.clamp(0, values.shape[0] - 1).long()].float()
@@ -97,7 +110,7 @@ def _walk_plain(values, neighbors0, traversable, excluded, metric, q,
     [B, width]; spill dists, keys [B, spill]; steps [B]; scored [B], the
     rows read: live, not excluded neighbours of the expanded members)."""
     B, S = seed_ids.shape
-    dev = q.device
+    dev = seed_ids.device
     cap = traversable.shape[0] - 1
     W = width
     beam_d = torch.full((B, W), _INF, device=dev)
@@ -191,6 +204,16 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
     """The kernel: one launch for the whole walk of every query."""
     from . import _build
 
+    is_sparse = isinstance(values, tuple)
+    values2 = None
+    if is_sparse:
+        values, values2 = values
+        if values.dtype != torch.int32 or values2.dtype != torch.float32:
+            raise ValueError("sparse rows are (int32 indices, f32 values)")
+        if values2.shape != values.shape or values2.stride() != \
+                values.stride() or values2.device != values.device:
+            raise ValueError("sparse row indices and values must match in "
+                             "shape, strides and device")
     dev = values.device
     if not values.is_cuda or values.dim() != 2 or values.stride(1) != 1:
         raise ValueError("values must be a CUDA [rows, D] tensor whose rows "
@@ -199,23 +222,32 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
         raise ValueError(f"values must be f32, f16 or bf16, or int32 words "
                          f"(got {values.dtype})")
     words = metric in bits.BIT_METRICS
-    if words != (values.dtype == torch.int32):
+    if words != (values.dtype == torch.int32 and not is_sparse):
         raise ValueError(f"metric {metric!r} does not take {values.dtype} "
                          "rows (the bit metrics walk int32 words)")
-    if words and scan:
+    if (words or is_sparse) and scan:
         raise ValueError("the scan mode walks dense rows only")
+    if is_sparse:
+        qi, qv = q
+        _check_cuda("query indices", qi, torch.int32, 2, dev)
+        _check_cuda("query values", qv, torch.float32, 2, dev)
+        if qv.shape != qi.shape:
+            raise ValueError("query indices and values differ in shape")
+        # the kernel's query row: P indices, then the bits of P values
+        q = torch.cat([qi, qv.view(torch.int32)], dim=1)
     _check_cuda("neighbors0", neighbors0, torch.int32, 2, dev)
     _check_cuda("traversable", traversable, torch.bool, 1, dev)
-    _check_cuda("queries", q, torch.int32 if words else torch.float32, 2,
-                dev)
+    _check_cuda("queries", q,
+                torch.int32 if words or is_sparse else torch.float32, 2, dev)
     _check_cuda("seed_ids", seed_ids, torch.int32, 2, dev)
     _check_cuda("seed_d", seed_d, torch.float32, 2, dev)
     cap = traversable.shape[0] - 1
     B, S = seed_ids.shape
     d = values.shape[1]
+    qd = 2 * d if is_sparse else d
     L = neighbors0.shape[1]
     if (neighbors0.shape[0] != cap + 1 or values.shape[0] < cap + 1
-            or q.shape != (B, d) or seed_d.shape != (B, S)):
+            or q.shape != (B, qd) or seed_d.shape != (B, S)):
         raise ValueError(
             f"shape mismatch: values {tuple(values.shape)}, neighbors0 "
             f"{tuple(neighbors0.shape)}, traversable {cap + 1}, queries "
@@ -242,8 +274,10 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
     if B:
         with torch.cuda.device(dev):
             rc = _build.lib().pgv_k4_beam_walk(
-                values.data_ptr(), _DTYPE_CODES[values.dtype],
-                values.stride(0), d, neighbors0.data_ptr(), L,
+                values.data_ptr(),
+                values2.data_ptr() if is_sparse else None,
+                _SPARSE_ROWS if is_sparse else _DTYPE_CODES[values.dtype],
+                values.stride(0), d, qd, neighbors0.data_ptr(), L,
                 traversable.data_ptr(),
                 excluded.data_ptr() if scan else None,
                 cap + 1 if scan else 0, cap, _METRIC_CODES[metric],
@@ -254,20 +288,23 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(rc, "pgv_k4_beam_walk")
-        LAUNCHES["k5_beam_scan" if scan else "k4_beam"] += 1
+        LAUNCHES["k5_beam_scan" if scan else
+                 "k4_beam_sparse" if is_sparse else "k4_beam"] += 1
     return beam_d, beam_key.long(), sp_d, sp_key.long(), steps, scored
 
 
-def _walk(*args, **kw):
+def _walk(values, neighbors0, *args, **kw):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    return (_walk_cuda if args[0].is_cuda else _walk_plain)(*args, **kw)
+    return (_walk_cuda if neighbors0.is_cuda else _walk_plain)(
+        values, neighbors0, *args, **kw)
 
 
 def beam_walk(values, neighbors0, traversable, metric: str, q, seed_ids,
               seed_d, ef: int, max_steps: int):
     """K4: best-first beam of width ``ef`` at layer 0 for a batch of
     queries ``q`` [B, D] (bit metrics: packed int32 words, over the words
-    ``values``). ``seed_ids`` [B, S] (S <= ef, -1 = unused) and
+    ``values``; sparse rows: ``values`` and ``q`` are (indices, values)
+    pairs). ``seed_ids`` [B, S] (S <= ef, -1 = unused) and
     their exact distances ``seed_d`` seed the beam. Each step expands the
     nearest unexpanded member, scores its live neighbours, dedups by id
     and keeps the ef nearest; a query stops when its nearest unexpanded
@@ -277,7 +314,7 @@ def beam_walk(values, neighbors0, traversable, metric: str, q, seed_ids,
     Returns (dists [B, ef], ids [B, ef] int64, steps [B] int32), sorted by
     (distance, id)."""
     raw = _walk(values, neighbors0, traversable, None, metric,
-                _queries(q, metric).contiguous(),
+                _queries(q, metric),
                 seed_ids.to(torch.int32).contiguous(),
                 seed_d.float().contiguous(), width=ef, spill=0,
                 max_steps=max_steps, scan=False)
@@ -308,7 +345,7 @@ def beam_scan_segment(values, neighbors0, traversable, excluded, metric: str,
     (inf, -1)."""
     W = max(width, ef)
     raw = _walk(values, neighbors0, traversable, excluded, metric,
-                _queries(q, metric).contiguous(),
+                _queries(q, metric),
                 seed_ids.to(torch.int32).contiguous(),
                 seed_d.float().contiguous(), width=W, spill=spill,
                 max_steps=max_steps, scan=True)

@@ -277,14 +277,15 @@ def _in_rounds(one_round, k: int):
     """The k smallest keys per query from rounds of at most 64:
     ``one_round(kr, lo)`` returns the kr smallest keys at or after ``lo``
     [B] (None: from the start), empty keys (-1) past the rows; each round
-    starts after the previous round's last key."""
+    starts after the previous round's last key. The keys are compared as
+    the kernel compares them (K10's as unsigned), so only -1 is empty."""
     parts, lo = [], None
     for s in range(0, k, _K9_MAX_K):
         keys = one_round(min(_K9_MAX_K, k - s), lo)
         parts.append(keys)
         last = keys[:, -1]
         # an exhausted query (empty key) admits nothing more
-        lo = torch.where(last < 0, last, last + 1).contiguous()
+        lo = torch.where(last == -1, last, last + 1).contiguous()
     return torch.cat(parts, dim=1)
 
 

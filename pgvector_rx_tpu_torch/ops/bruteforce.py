@@ -39,10 +39,11 @@ import torch
 _NEG_BIG = float(3.0e38)
 
 #: kernel name -> launches of that kernel by its wrapper in this process
-#: (the beam walk's two modes, ``ops/beam.py``, and the bit sweep,
-#: ``ops/bits.py``, count here too)
+#: (the beam walk's modes, ``ops/beam.py``, the bit sweep, ``ops/bits.py``,
+#: and the sparse sweep, ``ops/sparse.py``, count here too)
 LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0, "k3_x2max": 0,
-            "k4_beam": 0, "k5_beam_scan": 0, "k9_bits": 0}
+            "k4_beam": 0, "k4_beam_sparse": 0, "k5_beam_scan": 0,
+            "k9_bits": 0, "k10_sparse": 0}
 
 _MAX_K = 64
 
@@ -120,18 +121,25 @@ def reset_launches() -> None:
 
 def _order_keys(d, rows):
     """(distance, row) pairs -> one int64 key each, ordered as the pairs:
-    the f32 bits of a non-negative distance above the row's 32 bits. A
-    top-k over the keys is the top-k in (distance, lower row first) order,
-    ``lax.top_k``'s, whatever order the rows came in (``+ 0.0`` turns a
-    -0.0 into +0.0, whose bits order right)."""
-    return ((d + 0.0).view(torch.int32).long() << 32) | rows
+    a signed 32-bit image of the distance above the row's 32 bits (rows
+    below 2^31). The image keeps a non-negative distance's f32 bits and
+    flips the 31 low bits of a negative one, so it orders as the floats do,
+    negative distances (the sparse kind's ``ip``) first; ``+ 0.0`` turns a
+    -0.0 into +0.0 first, so the two zeros tie. A top-k over the keys is
+    the top-k in (distance, lower row first) order, ``lax.top_k``'s,
+    whatever order the rows came in. No key of a row equals -1, the empty
+    key."""
+    bits = (d + 0.0).view(torch.int32)
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return (bits.long() << 32) | rows
 
 
 def _from_order_keys(keys):
     """Keys -> (distances f32, rows int64); the empty key (-1) and +inf
     distances come back as (inf, -1)."""
-    d = (keys >> 32).to(torch.int32).view(torch.float32)
-    bad = (keys < 0) | torch.isinf(d)
+    hi = (keys >> 32).to(torch.int32)
+    d = torch.where(hi < 0, hi ^ 0x7FFFFFFF, hi).view(torch.float32)
+    bad = (keys == -1) | torch.isinf(d)
     return (torch.where(bad, float("inf"), d),
             torch.where(bad, -1, keys & 0xFFFFFFFF))
 

@@ -1,0 +1,350 @@
+"""Sparse distances of the PyTorch port over padded-CSR rows, and the
+sparse sweep K10.
+
+The counterpart of ``pgvector_rx_tpu/ops/sparse.py``. Each sparse row is
+padded to a fixed non-zero budget ``P`` (HNSW caps nnz at 1,000,
+hnsw_constants.rs:7): ``indices [N, P] int32`` sorted ascending and padded
+with ``PAD_INDEX`` (int32 max, so rows stay sorted), ``values [N, P] f32``
+padded with 0. Every metric reduces to terms over the matched pairs (a row
+entry whose index the query holds too):
+
+- dot    = sum over matches of qv * xv
+- l2     = max(|q|^2 + |x|^2 - 2 dot, 0)
+- ip     = -dot
+- cosine = 1 - clip(dot / sqrt(|q|^2 |x|^2), -1, 1), similarity 0 when a
+  norm is 0
+- l1     = sum|q| + sum|x| + sum over matches of (|qv - xv| - |qv| - |xv|)
+
+The plain functions find each row entry's matched query value in one of
+two ways: a gather from the queries scattered dense (``pairwise_dense_q``,
+when the dimension is known and the dense queries fit) or a binary search
+in the query's sorted indices (``pairwise``, ``gathered``: any dimension).
+Both chunk the rows so that no ``[B, N, P]`` temporary is made.
+
+**K10** (``sparse_topk``): the exact top-k of those distances over the live
+rows, in (distance, row) order with the two zeros tied, ``lax.top_k``'s
+order. It replaces the XLA program ``_exact_search_sparse``
+(``pgvector_rx_tpu/graph/device.py:1313``), which has no Pallas ancestor
+and picks one of three formulations by the dimension; the kernel
+(``csrc/k10_sparse.cu``) is one formulation for every dimension, and its
+plain version is ``_sparse_topk_plain``. ``approx=True`` rounds the values
+of the dot to bf16 (f32 sums, the norms from the f32 values), as the JAX
+package's bf16 densified-corpus product does. The wrapper takes the plain
+version only for tensors on the CPU; for a CUDA tensor it launches the
+kernel or raises. ``bruteforce.LAUNCHES["k10_sparse"]`` counts the
+launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .bruteforce import (LAUNCHES, _block_target, _check_cuda,
+                         _from_order_keys, _order_keys)
+
+PAD_INDEX = np.int32(2**31 - 1)
+
+SPARSE_METRICS = ("l2", "ip", "cosine", "l1")
+
+#: above this dimension the dense query matrix of ``pairwise_dense_q`` is
+#: too large and the plain sweep searches the sorted indices instead (the
+#: JAX package's ``DENSE_Q_MAX_DIM``)
+DENSE_Q_MAX_DIM = 1 << 20
+
+#: elements of a [B, rows, P] gather per block (~256 MB of f32)
+_CHUNK_ELEMS = 1 << 26
+
+_INF = float("inf")
+
+
+def pad_rows(rows, budget: int, device=None):
+    """Pack a list of SparseVec (or (indices, values) pairs) into padded
+    CSR tensors on ``device`` (None: the card) -> (indices [n, budget]
+    int32, values [n, budget] f32)."""
+    from ..index.hnsw import resolve_device
+
+    n = len(rows)
+    indices = np.full((n, budget), PAD_INDEX, dtype=np.int32)
+    values = np.zeros((n, budget), dtype=np.float32)
+    for i, r in enumerate(rows):
+        idx, val = (r.indices, r.values) if hasattr(r, "indices") else r
+        k = len(idx)
+        if k > budget:
+            raise ValueError(
+                f"sparsevec cannot have more than {budget} non-zero elements "
+                "for hnsw index"
+            )
+        indices[i, :k] = idx
+        values[i, :k] = val
+    dev = resolve_device(device)
+    return torch.from_numpy(indices).to(dev), torch.from_numpy(values).to(dev)
+
+
+def densify_queries(query_indices, query_values, dim: int,
+                    dtype=torch.float32):
+    """Scatter padded-CSR rows [B, P] into a dense [B, dim + P] matrix.
+    Columns dim .. dim + P - 1 are dummy slots that stay 0: the p-th pad of
+    a row lands (a zero) in column dim + p, so every column a gather clips
+    to ``dim`` reads 0."""
+    b, p = query_indices.shape
+    valid = query_indices != PAD_INDEX
+    cols = torch.where(
+        valid, query_indices.clamp(0, dim - 1),
+        dim + torch.arange(p, dtype=query_indices.dtype,
+                           device=query_indices.device)[None, :])
+    vals = torch.where(valid, query_values, 0.0).to(dtype)
+    out = torch.zeros((b, dim + p), dtype=dtype, device=query_values.device)
+    return out.scatter_(1, cols.long(), vals)
+
+
+def _query_norms(query_values):
+    """(|q|^2 [B], sum|q| [B]) of padded rows (pads hold 0)."""
+    qv = query_values.float()
+    return (qv * qv).sum(-1), qv.abs().sum(-1)
+
+
+def _distances(metric: str, g, xv, q_sq, q_abs, xdot=None):
+    """Distances from matched query values ``g`` [..., P] (0 where the
+    query lacks a row entry's index) and the rows' values ``xv`` [..., P]
+    (pads 0); ``q_sq`` / ``q_abs`` broadcast against the leading dims.
+    ``xdot``: the row values the dot takes (default ``xv``; the approx
+    sweep's bf16-rounded ones)."""
+    dot = (g * (xv if xdot is None else xdot)).sum(-1)
+    c_sq = (xv * xv).sum(-1)
+    if metric == "l2":
+        return torch.clamp(q_sq + c_sq - 2.0 * dot, min=0.0)
+    if metric == "ip":
+        return -dot
+    if metric == "cosine":
+        denom = torch.sqrt(q_sq * c_sq)
+        sim = torch.where(denom > 0.0,
+                          dot / torch.where(denom > 0.0, denom, 1.0), 0.0)
+        return 1.0 - sim.clamp(-1.0, 1.0)
+    if metric == "l1":
+        corr = ((g - xv).abs() - g.abs() - xv.abs()).sum(-1)
+        return q_abs + xv.abs().sum(-1) + corr
+    raise ValueError(f"unknown sparse metric: {metric}")
+
+
+def _match_sorted(query_indices, query_values, row_indices):
+    """Matched query values for row entries: ``row_indices`` [B, M] (each
+    query's own entries) are searched in the sorted ``query_indices``
+    [B, P]; pads on either side match nothing -> [B, M] f32."""
+    p = query_indices.shape[1]
+    pos = torch.searchsorted(query_indices, row_indices)
+    pos_c = pos.clamp(max=p - 1)
+    found = ((pos < p) & (torch.gather(query_indices, 1, pos_c) == row_indices)
+             & (row_indices != PAD_INDEX))
+    return torch.where(found, torch.gather(query_values, 1, pos_c), 0.0)
+
+
+def _row_chunk(b: int, p: int) -> int:
+    return max(1, _CHUNK_ELEMS // max(b * p, 1))
+
+
+def _block_scores(metric, ci, cv, qi, qv, q_sq, q_abs, qd=None, dim=0,
+                  approx=False):
+    """[B, rows] distances of one block of rows ``ci`` / ``cv``: each row
+    entry's matched query value by the gather from the dense queries ``qd``
+    [B, dim + P] when they are given, else by the sorted search in ``qi`` /
+    ``qv``. ``approx``: bf16-rounded row values in the dot (the caller
+    rounds the query values)."""
+    xv = torch.where(ci != PAD_INDEX, cv.float(), 0.0)
+    if qd is not None:
+        g = qd[:, ci.clamp(0, dim).long()]  # [B, rows, P]
+    else:
+        flat = ci.reshape(1, -1).expand(qi.shape[0], -1).contiguous()
+        g = _match_sorted(qi, qv, flat).reshape(qi.shape[0], *ci.shape)
+    return _distances(metric, g, xv[None], q_sq[:, None], q_abs[:, None],
+                      _bf16(xv)[None] if approx else None)
+
+
+def pairwise_dense_q(metric: str, dim: int, base_indices, base_values,
+                     query_indices, query_values):
+    """[B, N] sparse distances by the gather from the queries scattered
+    dense (the JAX package's ``pairwise_dense_q``), in blocks of rows."""
+    qd = densify_queries(query_indices, query_values, dim)
+    q_sq, q_abs = _query_norms(query_values)
+    ch = _row_chunk(query_indices.shape[0], base_indices.shape[1])
+    return torch.cat([
+        _block_scores(metric, base_indices[s : s + ch],
+                      base_values[s : s + ch], None, None, q_sq, q_abs, qd,
+                      dim)
+        for s in range(0, base_indices.shape[0], ch)], dim=1)
+
+
+def pairwise(metric: str, base_indices, base_values, query_indices,
+             query_values):
+    """[B, N] sparse distances at any dimension: each row entry is found
+    by a binary search in the query's sorted indices, in blocks of rows."""
+    q_sq, q_abs = _query_norms(query_values)
+    qv = query_values.float()
+    ch = _row_chunk(query_indices.shape[0], base_indices.shape[1])
+    return torch.cat([
+        _block_scores(metric, base_indices[s : s + ch],
+                      base_values[s : s + ch], query_indices, qv, q_sq, q_abs)
+        for s in range(0, base_indices.shape[0], ch)], dim=1)
+
+
+def gathered(metric: str, base_indices, base_values, ids, query_indices,
+             query_values):
+    """Distances [B, K] from each query to its own rows ``ids`` [B, K]
+    (ids clamped into range; callers mask): the sparse beam's row
+    distances."""
+    safe = ids.clamp(0, base_indices.shape[0] - 1).long()
+    ci = base_indices[safe]  # [B, K, P]
+    cv = base_values[safe]
+    b, kk, p = ci.shape
+    q_sq, q_abs = _query_norms(query_values)
+    g = _match_sorted(query_indices, query_values.float(),
+                      ci.reshape(b, kk * p)).reshape(b, kk, p)
+    xv = torch.where(ci != PAD_INDEX, cv, 0.0)
+    return _distances(metric, g, xv, q_sq[:, None], q_abs[:, None])
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def dense_q_fits(dim: int, b: int) -> bool:
+    """Whether the [B, dim + 1] dense queries are affordable (the JAX
+    package's ``dense_q_ok``)."""
+    return 0 < dim <= DENSE_Q_MAX_DIM and b * (dim + 1) * 4 <= (1 << 30)
+
+
+# ---------------------------------------------------------------------------
+# K10: the sparse sweep
+# ---------------------------------------------------------------------------
+
+#: shared memory a block of the kernel may hold (mirrors k10_sparse.cu)
+_K10_SMEM = 200 * 1024
+
+
+def _sparse_topk_plain(ci, cv, live, qi, qv, k: int, metric: str,
+                       approx: bool = False, dim: int = 0):
+    """Plain version of K10: per block of rows, the distances by the
+    dense-query gather (``dim`` known and the dense queries affordable) or
+    the sorted search, dead rows at +inf, and a top-k over the (distance,
+    row) keys merged into a running top-k. ``approx``: bf16-rounded values
+    in the dot, the norms from the f32 values. Returns (d [B, k] f32, rows
+    [B, k] int64)."""
+    n, p = ci.shape
+    b = qi.shape[0]
+    q_sq, q_abs = _query_norms(qv)
+    qvd = _bf16(qv.float()) if approx else qv.float()
+    qd = densify_queries(qi, qvd, dim) if dense_q_fits(dim, b) else None
+    ch = _row_chunk(b, p)
+    best = torch.empty((b, 0), dtype=torch.int64, device=qi.device)
+    for s in range(0, n, ch):
+        d = _block_scores(metric, ci[s : s + ch], cv[s : s + ch], qi, qvd,
+                          q_sq, q_abs, qd, dim, approx)
+        d = torch.where(live[None, s : s + ch], d, _INF)
+        rows = torch.arange(s, s + d.shape[1], device=qi.device)
+        keys = torch.cat([best, _order_keys(d, rows.expand(b, -1))], 1)
+        best = torch.topk(keys, min(k, keys.shape[1]), dim=1, largest=False,
+                          sorted=True).values
+    if best.shape[1] < k:  # fewer rows than k
+        best = torch.nn.functional.pad(best, (0, k - best.shape[1]), value=-1)
+    return _from_order_keys(best)
+
+
+def _k10_qtile(p: int, kl: int) -> int:
+    """Queries per block: the most of 64, 32, 16, 8 whose sorted lists,
+    norms and top-k lists fit the block's shared memory (mirrors the
+    kernel's check)."""
+    for qb in (64, 32, 16, 8):
+        if qb * (p * 8 + 12 + kl * 8) <= _K10_SMEM:
+            return qb
+    raise ValueError(f"a budget of {p} non-zeros does not fit the sparse "
+                     "sweep")
+
+
+def _k10_plan(n: int, b: int, qb: int, target: int):
+    """K10's grid: (query tiles, splits, rows per split), at most
+    ``target`` blocks where the query tiles allow; every split covers rows
+    [s * rows, min(n, (s + 1) * rows)), all non-empty; rows is a multiple
+    of 32 (a warp's rows per step)."""
+    qtiles = -(-b // qb)
+    chunks = -(-n // 32)
+    splits = max(1, min(chunks, 65535, target // qtiles))
+    rows = -(-chunks // splits) * 32
+    return qtiles, -(-n // rows), rows
+
+
+def _sparse_round_cuda(ci, cv, live, qi, qv, k: int, metric: str,
+                       approx: bool, lo):
+    """One launch of the kernel and its merge pass: the k smallest keys
+    per query at or after ``lo`` [B] (None: from the start), in the
+    kernel's unsigned key order."""
+    from . import _build
+
+    n, p = ci.shape
+    b = qi.shape[0]
+    qb = _k10_qtile(p, k)
+    _, splits, rows = _k10_plan(n, b, qb, 2 * _block_target(ci.device))
+    dev = ci.device
+    part = torch.empty((b, splits, k), dtype=torch.int64, device=dev)
+    out = torch.empty((b, k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().pgv_k10_sparse_topk(
+            ci.data_ptr(), cv.data_ptr(), live.data_ptr(), qi.data_ptr(),
+            qv.data_ptr(), lo.data_ptr() if lo is not None else None, n, p,
+            b, k, SPARSE_METRICS.index(metric), int(approx), qb, splits,
+            rows, part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "pgv_k10_sparse_topk")
+    LAUNCHES["k10_sparse"] += 1
+    return out
+
+
+def _sparse_topk_cuda(ci, cv, live, qi, qv, k: int, metric: str,
+                      approx: bool = False):
+    """K10 on the card, in rounds of at most 64 (each admits only the keys
+    after the previous round's last). The kernel's keys are unsigned,
+    ``float_key(d) << 32 | row``; they become ``_order_keys``' signed keys
+    by flipping the top bit."""
+    from .bits import _in_rounds
+
+    _check_cuda("indices", ci, torch.int32, 2)
+    dev = ci.device
+    _check_cuda("values", cv, torch.float32, 2, dev)
+    _check_cuda("live", live, torch.bool, 1, dev)
+    _check_cuda("query indices", qi, torch.int32, 2, dev)
+    _check_cuda("query values", qv, torch.float32, 2, dev)
+    n, p = ci.shape
+    b = qi.shape[0]
+    if (cv.shape != ci.shape or live.shape[0] != n or qi.shape[1] != p
+            or qv.shape != qi.shape):
+        raise ValueError(f"shape mismatch: indices {tuple(ci.shape)}, values "
+                         f"{tuple(cv.shape)}, live {tuple(live.shape)}, "
+                         f"queries {tuple(qi.shape)} / {tuple(qv.shape)}")
+    if n == 0 or b == 0 or p == 0 or k < 1:
+        raise ValueError("empty rows, queries or k")
+    if n >= 1 << 31 or b > 65535 * 8:
+        raise ValueError(f"at most 2^31 - 1 rows and {65535 * 8} queries per "
+                         f"call (got {n}, {b})")
+    keys = _in_rounds(lambda kr, lo: _sparse_round_cuda(
+        ci, cv, live, qi, qv, kr, metric, approx, lo), k)
+    signed = torch.where(keys == -1, keys, keys ^ torch.iinfo(torch.int64).min)
+    return _from_order_keys(signed)
+
+
+def sparse_topk(ci, cv, live, qi, qv, k: int, metric: str,
+                approx: bool = False, dim: int = 0):
+    """K10: exact top-k over the padded-CSR rows ``ci`` / ``cv`` [N, P]
+    whose ``live`` [N] flag is set, for padded-CSR queries ``qi`` / ``qv``
+    [B, P] -> (distances [B, k] f32, rows [B, k] int64) in (distance, row)
+    order, -0.0 tied with +0.0, (inf, -1) past the live rows.
+    ``approx``: the dot over bf16-rounded values (l2, ip, cosine). ``dim``
+    picks the plain version's formulation (0: unknown). CPU tensors take
+    the plain version, CUDA tensors the kernel (in rounds of 64 past
+    k = 64)."""
+    if metric not in SPARSE_METRICS:
+        raise ValueError(f"unknown sparse metric: {metric}")
+    if approx and metric == "l1":
+        raise ValueError("the approx sparse sweep takes l2, ip or cosine")
+    if ci.is_cuda:
+        return _sparse_topk_cuda(ci, cv, live, qi, qv, k, metric, approx)
+    return _sparse_topk_plain(ci, cv, live, qi, qv, k, metric, approx, dim)

@@ -9,8 +9,8 @@ that re-compacts exact zeros (:1139-1173), and the btree total order
 (:1203-1297) which compares as-if-dense with sign-aware gap handling.
 
 Device-side, sparse rows are padded to a fixed nnz budget (HNSW enforces
-nnz <= 1000, hnsw_constants.rs:7) and distances use gather + segment ops
-— see :mod:`pgvector_rx_tpu.ops.sparse`.
+nnz <= 1000, hnsw_constants.rs:7) and distances match each row entry in
+the query's sorted indices — see :mod:`pgvector_rx_tpu_torch.ops.sparse`.
 """
 
 from __future__ import annotations

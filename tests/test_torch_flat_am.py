@@ -2,7 +2,7 @@
 ops/bits.py), cost model (index/cost.py) and access-method facade
 (index/access_method.py) against the JAX package's, on the same numpy
 inputs: the port's versions of tests/test_flat.py (dense and bit cases;
-the sparse ones raise until ROADMAP item 15), tests/test_cost_am.py and
+the sparse ones in tests/test_torch_sparse_index.py), tests/test_cost_am.py and
 the dense and bit classes of tests/test_ops.py."""
 
 import dataclasses
@@ -53,15 +53,31 @@ class TestFlat:
         assert ids[0] != 10
 
     def test_sparse_flat_waits_for_item_15(self, rng):
+        """Item 15 is ported: tests/test_flat.py's sparse cases (l2 over
+        1,000-d rows against the dense exact order, cosine at 64-d)."""
         from pgvector_rx_tpu_torch.types import SparseVec
 
-        rows = [SparseVec.from_dense(rng.standard_normal(20).astype(
-            np.float32)) for _ in range(5)]
-        for metric in ("l2", "cosine"):
-            with pytest.raises(NotImplementedError, match="item 15"):
-                FlatIndex.build(rows, metric=metric, kind="sparse", **CPU)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            FlatIndex("sparse", "l2", 20, **CPU)
+        rows = []
+        for _ in range(80):
+            dense = rng.standard_normal(1000).astype(np.float32)
+            dense[rng.random(1000) < 0.95] = 0.0
+            rows.append(SparseVec.from_dense(dense))
+        idx = FlatIndex.build(rows, metric="l2", kind="sparse", **CPU)
+        d, ids = idx.search(rows[11], 3)
+        assert ids[0] == 11
+        assert d[0] == pytest.approx(0.0, abs=1e-5)
+        densified = np.stack([r.to_dense() for r in rows])
+        true = np.argsort(((densified - densified[11]) ** 2).sum(1))[:3]
+        assert set(ids) == set(true)
+        rows = []
+        for _ in range(40):
+            dense = rng.standard_normal(64).astype(np.float32)
+            dense[rng.random(64) < 0.7] = 0.0
+            rows.append(SparseVec.from_dense(dense))
+        idx = FlatIndex.build(rows, metric="cosine", kind="sparse", **CPU)
+        d, ids = idx.search(rows[5], 2)
+        assert ids[0] == 5
+        assert d[0] == pytest.approx(0.0, abs=1e-5)
 
     def test_bit_flat(self, rng):
         b = rng.integers(0, 2, size=(100, 32)).astype(np.uint8)

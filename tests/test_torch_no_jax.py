@@ -2,7 +2,8 @@
 native index and a device-built index on the CPU, serves all three
 engines, searches, scans, inserts, runs the tile-min sweep, saves and
 loads a checkpoint, builds and searches an l1 index, builds, serves and
-saves a bit index of each metric, runs the flat index, the cost model,
+saves a bit index of each metric, builds, searches and saves a sparse
+index, runs the flat index (bit and sparse rows), the cost model,
 the operator-class facade and the distance ops, and neither
 JAX nor the JAX package (``pgvector_rx_tpu``) nor its benchmark
 (``bench``) ever enters ``sys.modules``. A subprocess, because the test harness
@@ -79,6 +80,19 @@ for metric in ("hamming", "jaccard"):
         bidx.save(os.path.join(tmp, "bit"))
         assert HnswIndex.load(os.path.join(tmp, "bit"),
                               device="cpu").num_tuples == 600
+from pgvector_rx_tpu_torch.data import make_sparse_dataset
+srows, sq = make_sparse_dataset(400, 500, 8, 12, seed=9)
+sidx = HnswIndex.build(srows, metric="ip", seed=1, device="cpu")
+for method in ("exact", "approx", "device"):
+    _, ids = sidx.search(sq, 5, method=method)
+    assert (ids >= 0).all(), method
+_, ftids = FlatIndex.build(srows, metric="l1", kind="sparse",
+                           device="cpu").search(sq, 5)
+assert (ftids >= 0).all()
+with tempfile.TemporaryDirectory() as tmp:
+    sidx.save(os.path.join(tmp, "sparse"))
+    assert HnswIndex.load(os.path.join(tmp, "sparse"),
+                          device="cpu").num_tuples == 400
 fam = create_index_for_opclass("vector_cosine_ops", 16, device="cpu")
 fam.add_batch(data[:100])
 assert not should_use_index(fam, True, 40)

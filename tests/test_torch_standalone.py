@@ -56,6 +56,34 @@ def test_make_dataset_is_bench_make_dataset(seed):
         np.testing.assert_array_equal(x, y)
 
 
+def test_make_sparse_dataset_is_bench_suites_generator(monkeypatch):
+    """``data.make_sparse_dataset`` against the generator inside
+    ``bench_suite.run_sparse`` itself, cut to 600 rows: the rows it hands
+    to its build are taken and the run stopped there."""
+    import bench_suite
+
+    class Stop(Exception):
+        pass
+
+    def take(name, builder):
+        cells = dict(zip(builder.__code__.co_freevars,
+                         (c.cell_contents for c in builder.__closure__)))
+        raise Stop(cells["rows"])
+
+    monkeypatch.setattr(bench_suite, "scaled", lambda n: 600)
+    monkeypatch.setattr(bench_suite, "build_or_load", take)
+    with pytest.raises(Stop) as stop:
+        bench_suite.run_sparse()
+    ref = stop.value.args[0]
+    rows, queries = tdata.make_sparse_dataset(600, 30_000, 1024, 64, seed=9)
+    assert len(rows) == len(ref) == 600 and len(queries) == 600
+    for a, b in zip(rows, ref):
+        assert a.dim == b.dim == 30_000
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.values, b.values)
+        assert a.values.dtype == b.values.dtype == np.float32
+
+
 def test_native_build_gives_the_jax_package_layer0():
     data, _ = tdata.make_dataset(1500, 16, 1, seed=3, n_clusters=20)
     j = JaxIndex.build(data, metric="l2", method="native", seed=2)

@@ -240,10 +240,12 @@ def test_tensor_built_serving_only_save_load(tmp_path):
 
 
 def test_bit_and_sparse_checkpoints_raise(tmp_path):
-    """The sparse kind waits for item 15 and raises; the bit kind is ported
-    (item 14): tests/test_device_build.py's serving-only bit round trip,
-    and a JAX bit checkpoint loads with the same search ids (more in
-    tests/test_torch_bit_index.py)."""
+    """Both kinds are ported, bit (item 14) and sparse (item 15):
+    tests/test_device_build.py's serving-only bit round trip, and a JAX
+    bit checkpoint loads with the same search ids (more in
+    tests/test_torch_bit_index.py); a sparse checkpoint moves both ways and
+    only its serving load raises, as JAX's does (more in
+    tests/test_torch_sparse_index.py)."""
     from pgvector_rx_tpu.config import SearchParams as JSearchParams
 
     bits = (np.random.default_rng(3).random((400, 64)) < 0.5).astype(np.uint8)
@@ -263,12 +265,14 @@ def test_bit_and_sparse_checkpoints_raise(tmp_path):
         j.search(bits[:8], 5, JSearchParams(), method="host")[1])
     sparse = HnswIndex.build([(np.array([0, 3]), np.array([1.0, 2.0]))] * 4,
                              method="host", **CPU)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        sparse.save(tmp_path / "sparse")
+    sparse.save(tmp_path / "sparse")
+    assert JaxIndex.load(tmp_path / "sparse").num_tuples == 4
     JaxIndex.build([(np.array([0, 3]), np.array([1.0, 2.0]))] * 4,
                    method="host").save(tmp_path / "jsparse")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        HnswIndex.load(tmp_path / "jsparse", **CPU)
+    back = HnswIndex.load(tmp_path / "jsparse", **CPU)
+    assert back.kind == "sparse" and back.num_tuples == 4
+    with pytest.raises(ValueError, match="dense and bit"):
+        HnswIndex.load(tmp_path / "jsparse", serving=True, **CPU)
 
 
 def test_insert_bulk_logs_one_group_commit(tmp_path, monkeypatch):
