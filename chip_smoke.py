@@ -57,8 +57,10 @@ Then, outside the counted paths:
     ``scan(method="beam")`` (the scan kernel K5) for 64
     queries under the filters ``eid % 50 == 0`` and ``eid % 500 == 0``,
     strict and relaxed order, LIMIT 20, ef_search=40: recall against the
-    tie-aware filtered exact set, p50/p99 ms to the 20th row, segments per
-    scan, against floors;
+    tie-aware filtered exact set, p50/p99 ms to the 20th row (the 0.2%
+    p50s beside the walk kernel's scan mode's, ``EARLIER_P50``), segments
+    per scan, against floors; then the 0.2% scans again with CUDA events
+    around every K5 launch: the kernel's share of each scan's wall time;
 12. the tests/t/044 contract at its own size on the card: 50,000 uniform
     3-d rows (built serving-only, the graph of tests/test_iterative_50k.py),
     20 queries, l2 and cosine, both orders, both filters, LIMIT 20, ef 40,
@@ -70,11 +72,14 @@ Then, outside the counted paths:
     mode (K4) for 1,024 queries at ef=40 from the coarse seeds (ids equal
     but for ties and equal steps on >= 0.99 of queries, recall@10 within
     0.002; the check must reject a control, the plain walk cut to ef / 4
-    steps), and scan mode (K5) for 32 queries over 3 segments fed the same
-    seeds and exclusion masks (beam and spill equal but for ties); each
-    timed beside its bound, the bytes its steps gather: every step's
-    neighbour ids and the rows it scores (the kernel counts them); and K1
-    timed at DeviceScan's shape (one query, k = 10, 40, 64).
+    steps), and K5 for 32 queries over 3 segments, each fed its own spill
+    and marks (beam and spill equal but for ties on every segment; the
+    check must reject the plain segment cut to ef / 4 steps); each timed
+    beside its bound, the bytes its steps gather: every step's neighbour
+    ids and the rows it scores (the kernel counts them); K5 per segment in
+    turns with the walk kernel's scan mode and the torch finish it needed
+    (its earlier form), and its microseconds per step; and K1 timed at
+    DeviceScan's shape (one query, k = 10, 40, 64).
 
 **Native path** (14-17, the first 100,000 rows): the native C++ host build
 into a serving-only torch index, its own K1 ground truth, and phases 5
@@ -135,26 +140,29 @@ threaded, minutes) run in a CPU subprocess (``--sparse-build``) started
 after phase 1, beside the card phases; phase 24 loads its checkpoint onto
 the card (no device named) and checks the graph (cap 100,000, the
 padded-CSR rows on the card at the store's P, in row order); K10 ground
-truth for the first 1,024 rows as queries, held to a float64 scipy CSR
-product on 64 of them; ``index.search`` exact (floor 0.999), approx
-(0.98) and beam (ef=40, no floor at 30k-d: recall printed); the beam's
-walk (K4's sparse-row mode) against the plain walk from the same descent
-seeds (must reject the plain walk cut to ef / 4 steps); K10 against its
-plain version in l2, ip, cosine, l1 and approx mode (must reject the
-plain sweep with bf16-rounded values and one whose ip keys are raw f32
-bits), timed beside its bound and ``torch.sparse.mm``; t/028 at its own
-size (10,000 x 3-d sparse rows, 20 queries, k=20, four metrics) against
-its floors; ``FlatIndex`` over the 100,000 rows equal to K10; an index of
-each sparse operator class (500 rows, filled by the native bulk load);
-the t/028 l2 index saved and loaded, every engine's ids unchanged.
+truth for the first 1,024 rows as queries (its dense-query form), held
+to a float64 scipy CSR product on 64 of them; ``index.search`` exact
+(floor 0.999), approx (0.98) and beam (ef=40, no floor at 30k-d: recall
+printed), and ``FlatIndex`` over the 100,000 rows (K10's lookup form:
+the flat index knows no dim), equal to that form's top-10; the beam's walk
+(K4's sparse-row mode) against the plain walk from the same descent
+seeds (must reject the plain walk cut to ef / 4 steps); both forms of
+K10 against their plain version in l2, ip, cosine, l1 and approx mode
+(must reject the plain sweep with bf16-rounded values and one whose ip
+keys are raw f32 bits), timed in turns with ``torch.sparse.mm`` composed
+with the l2 epilogue and ``torch.topk`` (the same function), beside the
+bound; t/028 at its own size (10,000 x 3-d sparse rows, 20 queries,
+k=20, four metrics) against its floors; an index of each sparse operator
+class (500 rows, filled by the native bulk load); the t/028 l2 index
+saved and loaded, every engine's ids unchanged.
 
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
 path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
 path, K9 and K4 (word mode) on the bit and the jaccard paths, K1, K9 and
-K4 in phase 23, K10 and K4 (sparse mode) on the sparse path. The last
-two lines of output are one JSON object per kernel list and the device
-line.
+K4 in phase 23, both forms of K10 and K4 (sparse mode) on the sparse
+path. The last two lines of output are one JSON object per kernel list
+and the device line.
 """
 
 from __future__ import annotations
@@ -184,6 +192,9 @@ SELF_FLOOR = 0.99
 SCAN_Q, SCAN_LIMIT = 64, 20
 SCAN_FLOORS = {("strict_order", 50): 0.85, ("strict_order", 500): 0.70,
                ("relaxed_order", 50): 0.90, ("relaxed_order", 500): 0.90}
+#: the 0.2% beam scans' p50 ms with the walk kernel's scan mode (K5's
+#: earlier form; PERF.md, NVIDIA H100 80GB HBM3 at 700 W), printed beside
+EARLIER_P50 = {"strict_order": 651.985, "relaxed_order": 520.864}
 #: the tests/t/044 contract: rows, queries, recall floor
 C044_N, C044_Q, C044_FLOOR = 50_000, 20, 0.99
 #: the 768-d cosine path, the l1 path and the logged host-graph index
@@ -675,9 +686,11 @@ def scan_recall(index, queries, mask, expected, mode, SearchParams,
     return correct / (len(queries) * limit), np.array(lat), np.array(segs)
 
 
-def beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan):
+def beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan, beam):
     """Beam scans on the grown index at 2% and 0.2% selectivity, strict
-    and relaxed order, against SCAN_FLOORS."""
+    and relaxed order, against SCAN_FLOORS; then the 0.2% scans again with
+    CUDA events around every K5 launch, for the kernel's share of each
+    scan's wall time."""
     q = q_dev[:SCAN_Q].contiguous()
     eids = torch.arange(g.cap, device=q.device)
     if not isinstance(index.scan(q[0], SearchParams(), method="beam"),
@@ -701,6 +714,50 @@ def beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan):
             if rec < SCAN_FLOORS[(mode, c)]:
                 raise RuntimeError(f"beam scan recall {rec} < "
                                    f"{SCAN_FLOORS[(mode, c)]}")
+            if c == 500:
+                log(f"  beside the walk kernel's scan mode: p50 "
+                    f"{np.percentile(lat, 50):.3f} ms against "
+                    f"{EARLIER_P50[mode]} ms")
+    # the kernel's share of each 0.2% scan's wall time
+    mask = (eids % 500 == 0).cpu().numpy()
+    launch = beam.scan_segment
+    events = []
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    beam.scan_segment = timed
+    try:
+        for mode in ("strict_order", "relaxed_order"):
+            share, seg_wall, seg_kernel = [], [], []
+            params = SearchParams(ef_search=EF, iterative_scan=mode)
+            for b in range(len(q)):
+                events.clear()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                scan = index.scan(q[b], params, method="beam",
+                                  filter_mask=mask)
+                scan.take(SCAN_LIMIT)
+                torch.cuda.synchronize()
+                wall = (time.time() - t0) * 1e3
+                kern = sum(a.elapsed_time(z) for a, z in events)
+                n = len(events)
+                share.append(kern / wall)
+                seg_wall.append(wall / n)
+                seg_kernel.append(kern / n)
+            log(f"beam scan {mode} 0.2%: K5's share of each scan's wall "
+                f"time mean {np.mean(share):.4f} p50 "
+                f"{np.percentile(share, 50):.4f} min {np.min(share):.4f}; "
+                f"per segment wall {np.mean(seg_wall):.4f} ms, kernel "
+                f"{np.mean(seg_kernel):.4f} ms (events around each launch)")
+    finally:
+        beam.scan_segment = launch
 
 
 def contract_044(HnswIndex, SearchParams, dev):
@@ -812,69 +869,108 @@ def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
         steps_mean=steps_total / CHUNK, scored_mean=scored_total / CHUNK,
     )
 
-    # K5: 32 queries, 3 segments, the plain version's state fed to both
+    # K5: 32 queries, 3 segments, each form fed its own spill and marks
     nq, W = 32, 4 * EF
     spill = max(2 * EF, 64) + (W - EF)
+    steps_w = 4 * W + 32
     q32 = q1[:nq].contiguous()
-    seeds = (torch.nn.functional.pad(s_ids[:nq].long(), (0, spill - 8),
-                                     value=-1),
+    seed0 = (torch.nn.functional.pad(s_ids[:nq], (0, spill - 8), value=-1),
              torch.nn.functional.pad(s_d[:nq], (0, spill - 8),
                                      value=float("inf")))
-    excl = torch.zeros((nq, g.cap + 1), dtype=torch.bool, device=q1.device)
-    seg_args = None
-    bad = 0
-    err5 = 0.0
-    for seg in range(3):
-        args = (*graph, excl.clone(), "l2", q32,
-                seeds[0].to(torch.int32).contiguous(),
-                seeds[1].contiguous())
-        if seg == 0:
-            seg_args = args
-        p_raw = beam._walk_plain(*args, width=W, spill=spill,
-                                 max_steps=4 * W + 32, scan=True)
-        k_raw = beam._walk_cuda(*args, width=W, spill=spill,
-                                max_steps=4 * W + 32, scan=True)
-        p = beam._scan_finish(*p_raw, ef=EF, spill=spill)
-        k = beam._scan_finish(*k_raw, ef=EF, spill=spill)
-        ph = [t.cpu().numpy() for t in p]
-        kh = [t.cpu().numpy() for t in k]
-        ok_b, e1 = walk_agreement(kh[1], kh[0], ph[1], ph[0])
-        ok_s, e2 = walk_agreement(kh[3], kh[2], ph[3], ph[2])
-        bad += int((~(ok_b & ok_s)).sum())
-        err5 = max(err5, e1, e2)
-        log(f"K5 segment {seg}: {int(ok_b.sum())}/{nq} beams and "
-            f"{int(ok_s.sum())}/{nq} spills equal but for ties, steps "
-            f"kernel {kh[4].sum()} plain {ph[4].sum()}, rows scored kernel "
-            f"{int(k_raw[5].sum())} plain {int(p_raw[5].sum())}")
-        pad = g.cap
-        excl.scatter_(1, torch.where(p[1] >= 0, p[1], pad), True)
-        seeds = (p[3], p[2])
+
+    def fed(run, n_seg=3):
+        """``run(excl, allowed, seeds)`` -> (report, spill_d, spill_ids),
+        3 segments, each fed the previous one's spill and marks."""
+        excl = torch.zeros((nq, g.cap + 1), dtype=torch.bool,
+                           device=q1.device)
+        allowed = beam.allowed_bits(g.traversable, excl)
+        seeds, out = seed0, []
+        for _ in range(n_seg):
+            rep, sp_d, sp_i = run(excl, allowed, seeds)
+            out.append([t.cpu().numpy() for t in (rep, sp_d, sp_i)])
+            seeds = (sp_i, sp_d)
+        return out
+
+    def kernel5(excl, allowed, seeds, ef=EF):
+        return beam.scan_segment(*graph, excl, "l2", q32, *seeds, ef, W,
+                                 spill, steps_w, allowed=allowed, mark=True)
+
+    def plain5(excl, allowed, seeds, max_steps=steps_w):
+        return beam._scan_plain(*graph, excl, "l2", q32,
+                                seeds[0].to(torch.int32).contiguous(),
+                                seeds[1].contiguous(), EF, W, spill,
+                                max_steps, True)
+
+    def seg_agreement(k, p):
+        """(queries whose beam and spill agree but for ties, max abs
+        err, steps equal)."""
+        kb_d, kb_i = k[0][:, :EF].view(np.float32), k[0][:, EF:2 * EF]
+        pb_d, pb_i = p[0][:, :EF].view(np.float32), p[0][:, EF:2 * EF]
+        ok_b, e1 = walk_agreement(kb_i, kb_d, pb_i, pb_d)
+        ok_s, e2 = walk_agreement(k[2], k[1], p[2], p[1])
+        return ok_b & ok_s, max(e1, e2), k[0][:, 2 * EF] == p[0][:, 2 * EF]
+
+    k5_runs, p5_runs = fed(kernel5), fed(plain5)
+    c5_runs = fed(lambda e, a, s_: plain5(e, a, s_, EF // 4))
+    bad, err5 = 0, 0.0
+    for seg, (k, p, c) in enumerate(zip(k5_runs, p5_runs, c5_runs)):
+        ok, e, same_steps = seg_agreement(k, p)
+        ok_c, _, _ = seg_agreement(c, p)
+        bad += int((~ok).sum())
+        err5 = max(err5, e)
+        log(f"K5 segment {seg}: {int(ok.sum())}/{nq} beams and spills equal "
+            f"but for ties, {int(same_steps.sum())}/{nq} equal steps (kernel "
+            f"{k[0][:, 2 * EF].sum()}, plain {p[0][:, 2 * EF].sum()}), rows "
+            f"scored kernel {k[0][:, 2 * EF + 1].sum()} plain "
+            f"{p[0][:, 2 * EF + 1].sum()}; control (plain cut to {EF // 4} "
+            f"steps): {int(ok_c.sum())}/{nq} equal")
+        if ok_c.mean() >= 0.99:
+            raise RuntimeError("the K5 check passes a walk cut to ef / 4 "
+                               "steps")
     if bad:
         raise RuntimeError(f"K5 disagrees with its plain version on {bad} "
                            "(query, segment) pairs")
     # timed at the main path's shape: one query (the first segment of
-    # query 0) per launch
-    excl0, _, _, s0_ids, s0_d = seg_args[3:]
-    one = (*graph, excl0[:1], "l2", q32[:1], s0_ids[:1], s0_d[:1])
-    raw1 = beam._walk_cuda(*one, width=W, spill=spill,
-                           max_steps=4 * W + 32, scan=True)
-    steps1, scored1 = float(raw1[4].sum()), float(raw1[5].sum())
-    log(f"K5 rows scored: {scored1 / steps1:.2f} per step of {L} slots")
+    # query 0) per launch, the staged bitmap as DeviceBeamScan stages it
+    excl0 = torch.zeros((1, g.cap + 1), dtype=torch.bool, device=q1.device)
+    allowed0 = beam.allowed_bits(g.traversable, excl0)
+    one = (*graph, excl0, "l2", q32[:1], seed0[0][:1].to(torch.int32),
+           seed0[1][:1])
+    rep1 = beam.scan_segment(*one, EF, W, spill, steps_w,
+                             allowed=allowed0)[0]
+    steps1, scored1 = float(rep1[0, 2 * EF]), float(rep1[0, 2 * EF + 1])
+    log(f"K5 rows scored: {scored1 / steps1:.2f} per step of {L} slots, "
+        f"{steps1:.0f} steps in the timed segment")
     seg_bytes = walk_gather_bytes(steps1, scored1, L, 2) + (
         DIM * 4 + spill * 8 + (W + spill) * 8 + 8)
+
+    def earlier():  # the walk kernel's scan mode and the finish in torch
+        return beam._scan_finish(*beam._walk_cuda(
+            *one, width=W, spill=spill, max_steps=steps_w, scan=True),
+            ef=EF, spill=spill)
+
+    turns = {"k5": [], "earlier": []}
+    for name in ("k5", "earlier", "earlier", "k5"):
+        turns[name].append(cuda_ms(
+            (lambda: beam.scan_segment(*one, EF, W, spill, steps_w,
+                                       allowed=allowed0))
+            if name == "k5" else earlier))
+    ms5 = float(np.mean(turns["k5"]))
+    log(f"K5 per segment (ms, in turns): {turns['k5']}; the walk kernel's "
+        f"scan mode and the torch finish it needed: {turns['earlier']}; "
+        f"{ms5 / steps1 * 1e3:.3f} us per step")
     kernels["k5_beam_scan"] = dict(
         name="k5_beam_scan", route="cuda", source=CSRC + "k4_beam.cu",
         replaces=f"{JAX_DEVICE}:574 (_beam_scan_segment, an XLA "
                  "while-loop)",
-        max_abs_err=err5,
-        ms=cuda_ms(lambda: beam._walk_cuda(
-            *one, width=W, spill=spill, max_steps=4 * W + 32, scan=True)),
-        plain_ms=cuda_ms(lambda: beam._walk_plain(
-            *one, width=W, spill=spill, max_steps=4 * W + 32, scan=True),
-            iters=2),
+        max_abs_err=err5, ms=ms5,
+        plain_ms=cuda_ms(lambda: beam._scan_plain(
+            *one, EF, W, spill, steps_w, False), iters=2),
         **bound(scored1 * 3.0 * DIM, "f32", seg_bytes),
         library_ms=None, matmul_ms=None, matmul_of=None,
         steps_mean=steps1, scored_mean=scored1,
+        us_per_step=ms5 / steps1 * 1e3,
+        earlier_form_ms=float(np.mean(turns["earlier"])),
     )
 
 
@@ -1837,7 +1933,7 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
 
     with Phase("24b ground truth (K10) against scipy float64"):
         gt_d, gt_i = sparse_mod.sparse_topk(g.sp_indices, g.sp_values, live,
-                                            qi, qv, K, "l2")
+                                            qi, qv, K, "l2", dim=DIM_SP)
         rowptr = np.concatenate([[0], np.cumsum(nnz)])
         mask = ind != sparse_mod.PAD_INDEX
         csr = scipy.sparse.csr_matrix(
@@ -1873,11 +1969,28 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
                 raise RuntimeError(f"{method}: non-finite or misshapen output")
             if floor is not None and rec < floor:
                 raise RuntimeError(f"sparse {method}: recall {rec} < {floor}")
+    with Phase(f"24c FlatIndex over {N_SP:,} sparse rows"):
+        fl = FlatIndex.build(rows, metric="l2", kind="sparse")
+        fd, fi = fl.search(queries, K)  # no dim: K10's lookup form
+        on_card = fl.device.type == dev.type
+        del fl
     launches = dict(bf.LAUNCHES)
     log(f"sparse path launches: {launches}")
-    for name in ("k10_sparse", "k4_beam_sparse"):
+    for name in ("k10_sparse", "k10_sparse_lookup", "k4_beam_sparse"):
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the sparse path")
+    # the flat index holds K10's lookup form over the same rows exactly
+    # (the dense form sums |q|^2 in another order: 24d holds both forms to
+    # the plain version)
+    lk_d, lk_i = sparse_mod.sparse_topk(g.sp_indices, g.sp_values, live, qi,
+                                        qv, K, "l2")
+    want_d = np.sqrt(np.maximum(lk_d.cpu().numpy().astype(np.float64), 0.0))
+    ok = (on_card and np.array_equal(fi, emit[lk_i.cpu().numpy()])
+          and np.array_equal(fd, want_d))
+    log(f"FlatIndex: {'equals' if ok else 'differs from'} K10's lookup form "
+        f"({N_SP_Q} queries)")
+    if not ok:
+        raise RuntimeError("the sparse FlatIndex disagrees with K10")
 
     with Phase("24c the sparse walk (K4) vs plain"):
         q = (qi, qv)
@@ -1925,7 +2038,7 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
             library_ms=None, steps_mean=steps / N_SP_Q,
             scored_mean=scored / N_SP_Q, launches=launches["k4_beam_sparse"])
 
-    with Phase("24d K10 vs plain, four metrics and approx"):
+    with Phase("24d K10's two forms vs plain, four metrics and approx"):
         ci, cv = g.sp_indices, g.sp_values
         q2 = (qv * qv).sum(1)
         qa = qv.abs().sum(1)
@@ -1934,29 +2047,38 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
         tols = {"l2": 1e-5 * (q2 + xmax), "ip": 1e-5 * (q2 + xmax),
                 "cosine": torch.full_like(q2, 1e-5),
                 "l1": 1e-5 * (qa + amax)}
+        # the dense-query form (dim known, the dense queries fit) and the
+        # lookup form (dim unknown), on the same inputs
+        forms = {"k10_sparse": DIM_SP, "k10_sparse_lookup": 0}
+        if (sparse_mod._k10_form(DIM_SP, N_SP_Q) != "dense"
+                or sparse_mod._k10_form(0, N_SP_Q) != "lookup"):
+            raise RuntimeError("K10's shape rule picks another form")
 
-        def k10(metric="l2", approx=False):
+        def k10(metric="l2", approx=False, form="k10_sparse"):
             return sparse_mod._sparse_topk_cuda(ci, cv, live, qi, qv, K,
-                                                metric, approx)
+                                                metric, approx, forms[form])
 
         def plain10(metric="l2", approx=False, ci=ci, cv=cv, qv=qv):
             return sparse_mod._sparse_topk_plain(ci, cv, live, qi, qv, K,
                                                  metric, approx, DIM_SP)
 
-        errs = {}
+        errs = {form: {} for form in forms}
         for metric, approx in (("l2", False), ("ip", False),
                                ("cosine", False), ("l1", False),
                                ("l2", True)):
             tol = tols[metric].cpu().numpy()
-            ok, err = sweep_agreement(*k10(metric, approx),
-                                      *plain10(metric, approx), tol)
+            want = plain10(metric, approx)
             tag = f"{metric}{' approx' if approx else ''}"
-            errs[tag] = err
-            log(f"K10 {tag} vs plain at {N_SP_Q} queries x {N_SP + 1:,} "
-                f"rows: {'agree' if ok else 'DIFFER'} (max abs err {err})")
-            if not ok:
-                raise RuntimeError(f"K10 {tag} disagrees with its plain "
-                                   "version")
+            for form in forms:
+                ok, err = sweep_agreement(*k10(metric, approx, form), *want,
+                                          tol)
+                errs[form][tag] = err
+                log(f"{form} {tag} vs plain at {N_SP_Q} queries x "
+                    f"{N_SP + 1:,} rows: {'agree' if ok else 'DIFFER'} (max "
+                    f"abs err {err})")
+                if not ok:
+                    raise RuntimeError(f"{form} {tag} disagrees with its "
+                                       "plain version")
         tol = tols["l2"].cpu().numpy()
         c1, _ = sweep_agreement(*plain10("l2", False, cv=cv.bfloat16().float(),
                                          qv=qv.bfloat16().float()),
@@ -1992,21 +2114,49 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
                               atol=1e-4):
             raise RuntimeError("torch.sparse.mm disagrees with scipy")
         del lib_dots
-        kernels["k10_sparse"] = dict(
-            name="k10_sparse", route="cuda", source=CSRC + "k10_sparse.cu",
-            replaces=f"{JAX_DEVICE}:1313 (_exact_search_sparse, an XLA "
-                     "program)",
-            max_abs_err=errs["l2"], max_abs_err_by_mode=errs,
-            ms=cuda_ms(k10), plain_ms=cuda_ms(plain10, 2),
-            **bound(3.0 * N_SP_Q * entries, "f32",
-                    entries * 8 + (N_SP + 1) + N_SP_Q * (P * 8 + K * 12)),
-            library_ms=cuda_ms(lambda: torch.sparse.mm(csr_t, qdt), 3),
-            library_of="torch.sparse.mm of the CSR corpus and the densified "
-                       "queries (the dots, not the top-k)",
-            approx_ms=cuda_ms(lambda: k10("l2", True)),
-            launches=launches["k10_sparse"])
+        x2 = (cv[:N_SP] * cv[:N_SP]).sum(1)
+        dead = ~live[:N_SP]
+
+        def library():  # the same function: the dots, l2, top-k
+            d = torch.sparse.mm(csr_t, qdt).mul_(-2.0).add_(
+                x2[:, None]).add_(q2[None]).clamp_(min=0.0)
+            return torch.topk(d.masked_fill_(dead[:, None], float("inf")),
+                              K, dim=0, largest=False)
+
+        ld, li = library()
+        ok_lib, _ = sweep_agreement(ld.T, li.T, *plain10(), tol)
+        log(f"the composed library call (sparse.mm, l2, topk) "
+            f"{'agrees with' if ok_lib else 'differs from'} the plain "
+            "version")
+        arms = {"k10_sparse": lambda: k10(),
+                "k10_sparse_lookup": lambda: k10(form="k10_sparse_lookup"),
+                "library": library}
+        turns = {name: [] for name in arms}
+        for name in [*arms, *reversed(list(arms))]:
+            turns[name].append(cuda_ms(arms[name], 3 if name == "library"
+                                       else 10))
+        log(f"K10 in turns (ms): {turns}; torch.sparse.mm alone "
+            f"{cuda_ms(lambda: torch.sparse.mm(csr_t, qdt), 3):.4f} ms")
+        plain_ms = cuda_ms(plain10, 2)
+        for form in forms:
+            kernels[form] = dict(
+                name=form, route="cuda", source=CSRC + "k10_sparse.cu",
+                replaces=f"{JAX_DEVICE}:1313 (_exact_search_sparse, an XLA "
+                         "program: " + ("its dense-query gather, :1481)"
+                                        if forms[form] else
+                                        "its searchsorted merge join, :1486)"),
+                max_abs_err=errs[form]["l2"], max_abs_err_by_mode=errs[form],
+                ms=float(np.mean(turns[form])), plain_ms=plain_ms,
+                **bound(3.0 * N_SP_Q * entries, "f32",
+                        entries * 8 + (N_SP + 1) + N_SP_Q * (P * 8 + K * 12)),
+                library_ms=float(np.mean(turns["library"])),
+                library_of="torch.sparse.mm of the CSR corpus and the "
+                           "densified queries, the l2 epilogue and "
+                           "torch.topk (the same function)",
+                approx_ms=cuda_ms(lambda: k10("l2", True, form)),
+                launches=launches[form])
         del csr_t, qd, qdt
-        for name in ("k10_sparse", "k4_beam_sparse"):
+        for name in ("k10_sparse", "k10_sparse_lookup", "k4_beam_sparse"):
             kr = kernels[name]
             kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
             log(f"{name}: kernel {kr['ms']:.4f} ms, plain "
@@ -2035,18 +2185,7 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
                 raise RuntimeError(f"t/028 {metric} below its floor")
             t028[metric] = ti
 
-    with Phase(f"24f FlatIndex over {N_SP:,} sparse rows, operator classes"):
-        fl = FlatIndex.build(rows, metric="l2", kind="sparse")
-        fd, fi = fl.search(queries, K)
-        want_d = np.sqrt(np.maximum(gt_d.cpu().numpy().astype(np.float64),
-                                    0.0))
-        ok = (fl.device.type == dev.type and np.array_equal(fi, gt_t)
-              and np.array_equal(fd, want_d))
-        log(f"FlatIndex on {fl.device}: {'equals' if ok else 'differs from'} "
-            f"K10 ({N_SP_Q} queries)")
-        if not ok:
-            raise RuntimeError("the sparse FlatIndex disagrees with K10")
-        del fl
+    with Phase("24f the sparse operator classes"):
         xd = csr[:N_OPCLASS].toarray()
         qd64 = csr[:64].toarray()
         for name, oc in OPERATOR_CLASSES.items():
@@ -2345,7 +2484,7 @@ def main() -> int:
     with Phase("11 K1 near tie at ranks 64 / 65"):
         k1_near_tie_check(bf, dev)
     with Phase("11 beam scans, 2% and 0.2% filters"):
-        beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan)
+        beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan, beam)
     with Phase("12 the t/044 contract, 50,000 x 3-d"):
         contract_044(HnswIndex, SearchParams, dev)
     scan_launches = dict(bf.LAUNCHES)
@@ -2445,7 +2584,7 @@ def main() -> int:
                                 ("k1_topk", "k2_binned", "k3_tilemin",
                                  "k3_x2max", "k4_beam", "k5_beam_scan",
                                  "k9_bits", "k4_beam_words", "k10_sparse",
-                                 "k4_beam_sparse")]}))
+                                 "k10_sparse_lookup", "k4_beam_sparse")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

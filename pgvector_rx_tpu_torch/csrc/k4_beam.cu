@@ -2,12 +2,12 @@
 //
 // No Pallas ancestor: it replaces two XLA `lax.while_loop` programs of the
 // JAX package, `_ground_beam_seeds` (pgvector_rx_tpu/graph/device.py:446,
-// the beam engine: K4, "serving mode") and `_beam_scan_segment` (:574, one
-// segment of the resumable beam scan: K5, "scan mode"). In torch each step
-// of the walk would be ~20 small kernel launches; here the whole walk is
-// one launch.
+// the beam engine: K4, `beam_walk_kernel` in serving mode) and
+// `_beam_scan_segment` (:574, one segment of the resumable beam scan: K5,
+// `beam_scan_kernel`). In torch each step of the walk would be ~20 small
+// kernel launches; here the whole walk is one launch.
 //
-// What it computes, per query b (the JAX semantics at the defaults:
+// What the walk computes, per query b (the JAX semantics at the defaults:
 // one expansion per step, in-beam dedup, f32 ranking):
 // - A beam of width W (K4: W = ef; K5: the scan's internal width), kept
 //   sorted by (distance, key), key = id * 2 + (1 - expanded), an invalid
@@ -24,19 +24,31 @@
 //   (the evicted tail) merge into a spill buffer of the SP nearest.
 // - The walk stops when the nearest unexpanded member is farther than the
 //   furthest member (or none is left), or after max_steps steps.
-// - Output: the raw beam [W] and spill [SP], both sorted by (distance,
-//   key), the step count and the number of rows scored (the live, not
-//   excluded neighbours whose rows the walk read: its bound's bytes). The wrapper (ops/beam.py) converts keys to
-//   ids and, in K5, folds the W - ef leftover into the spill and dedups it:
-//   a few [B, <= W + SP] sorts per segment, shared with the plain version.
+//
+// K4 (`beam_walk_kernel`): outputs the raw beam [W] sorted by (distance,
+// key), the step count and the number of rows scored (the live, not
+// excluded neighbours whose rows the walk read: its bound's bytes); the
+// wrapper (ops/beam.py) converts keys to ids. Its scan mode (`scan` = 1)
+// is K5's earlier form (raw beam and spill out, the segment's finish in
+// torch), kept as the measured baseline of K5's redesign.
+//
+// K5 (`beam_scan_kernel`, below): the segment and its finish in one launch
+// (the emitted top ef, the spill with the width - ef leftover merged in,
+// deduplicated by id and cleared of the emitted ids, and, on request, the
+// emitted ids marked in the exclusion mask), one small report for the
+// host. It keeps only finite entries (an entry JAX keeps at an infinite
+// distance changes no output) and is built for one query's latency: see
+// its comment.
 //
 // Bound on an H100 SXM: the bytes it gathers. Every step reads the L ids
 // of one neighbour list and the rows of its live neighbours (a -1 pad, a
 // dead or an excluded neighbour costs no row), so the walk moves
 // sum(steps) * L * 4 + scored * (d * 4 + 1) bytes for f32 rows, `scored`
-// being the rows it read (returned per query). A single walk is a chain of dependent steps (ids -> flags ->
-// rows -> merge), so it is latency-bound; throughput comes from many
-// queries (blocks) in flight.
+// being the rows it read (returned per query). A single walk is a chain of
+// dependent steps (ids -> flags -> rows -> merge), so it is also bound by
+// latency: steps x the dependent round trip (ids -> rows, ~0.3 us on an
+// H100 with K5's flags on chip; probes/k5_profile.py); throughput comes
+// from many queries (blocks) in flight.
 //
 // Packed-word mode (the bit kind, serving only): rows are [cap + 1, W]
 // 32-bit words and the query is W words; hamming = popcount(q ^ x),
@@ -57,7 +69,7 @@
 // |qv - xv| - |qv| - |xv| (ops/sparse.py, the JAX package's
 // _sparse_dist). The bound counts scored * (P * 8 + 1) bytes.
 //
-// Design (sm_90a, plain CUDA, no tensor cores):
+// K4's design (sm_90a, plain CUDA, no tensor cores):
 // - 128 threads per block; the query, the double-buffered beam and spill,
 //   the neighbour list and the merge scratch live in shared memory
 //   (~12 KB at W = 160, SP = 320, d = 128), so many blocks fit on an SM.
@@ -91,6 +103,57 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = 4;  // rows a warp scores with loads in flight
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory limit
+
+// The timing probe (probes/k5_profile.py) builds this file with
+// -DPGV_K5_PROFILE: thread 0 of every scan block then adds the SM clocks
+// it spends in each phase of the walk to a device buffer
+// (pgv_k5_profile), and the walk kernel's scan mode waits for the
+// neighbour ids at a block barrier of its own so that the ids and the
+// flags time apart. Slots: the phases below, then steps, clocks of the
+// whole block, its globaltimer nanoseconds and the blocks counted.
+enum K5Phase {
+  kPhSelect, kPhIds, kPhFlags, kPhRows, kPhDedup, kPhSort, kPhBeamMerge,
+  kPhSpillMerge, kPhStart, kPhFinish, kPhSteps, kPhClocks, kPhNs,
+  kPhBlocks, kPhSlots
+};
+#ifdef PGV_K5_PROFILE
+__device__ unsigned long long* g_k5_prof;
+__device__ __forceinline__ unsigned long long k5_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K5_PROF_BEGIN                                                  \
+  unsigned long long k5_acc[kPhSlots] = {}, k5_t0 = clock64(),        \
+                     k5_t = k5_t0, k5_n0 = k5_ns();
+#define K5_MARK(ph)                                                    \
+  do {                                                                 \
+    if (threadIdx.x == 0) {                                            \
+      const unsigned long long t_ = clock64();                         \
+      k5_acc[ph] += t_ - k5_t;                                         \
+      k5_t = t_;                                                       \
+    }                                                                  \
+  } while (0)
+#define K5_PROF_END(steps)                                             \
+  do {                                                                 \
+    if (threadIdx.x == 0 && g_k5_prof != nullptr) {                    \
+      k5_acc[kPhSteps] = (steps);                                      \
+      k5_acc[kPhClocks] = clock64() - k5_t0;                           \
+      k5_acc[kPhNs] = k5_ns() - k5_n0;                                 \
+      k5_acc[kPhBlocks] = 1;                                           \
+      for (int i_ = 0; i_ < kPhSlots; ++i_)                            \
+        atomicAdd(g_k5_prof + i_, k5_acc[i_]);                         \
+    }                                                                  \
+  } while (0)
+#else
+#define K5_PROF_BEGIN
+#define K5_MARK(ph) \
+  do {              \
+  } while (0)
+#define K5_PROF_END(steps) \
+  do {                     \
+  } while (0)
+#endif
 
 struct WalkArgs {
   const void* values;     // [>= cap + 1, d] rows, row stride `stride`
@@ -450,6 +513,7 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[kWarps];
+  K5_PROF_BEGIN
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int W = a.W, SP = a.SP, L = a.L, S = a.S;
@@ -562,6 +626,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   __syncthreads();
 
   int cur = 0, steps = 0, scored = 0;
+  K5_MARK(kPhStart);
   while (true) {
     float* cbd = bd + cur * W;
     int* cbk = bk + cur * W;
@@ -581,12 +646,17 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     if (pos == INT_MAX || steps >= a.max_steps || !(cbd[pos] <= cbd[W - 1]))
       break;  // the same decision in every thread
     const int u = min(cbk[pos] >> 1, a.cap);  // the sentinel row at worst
+    K5_MARK(kPhSelect);
 
     for (int j0 = 0; j0 < L; j0 += kThreads) {  // the same trips in every
       const int j = j0 + tid;                      // thread
       bool ok = false;
+      const int v = j < L ? a.nbrs[static_cast<long long>(u) * L + j] : -1;
+#ifdef PGV_K5_PROFILE
+      __syncthreads_or(v == INT_MIN);  // the ids have arrived
+      K5_MARK(kPhIds);
+#endif
       if (j < L) {
-        const int v = a.nbrs[static_cast<long long>(u) * L + j];
         ok = v >= 0;
         if (ok) {
           const int s = min(v, a.cap);
@@ -599,6 +669,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       }
       scored += __syncthreads_count(ok);
     }
+    K5_MARK(kPhFlags);
     if (tid == 0) cbk[pos] &= ~1;  // expanded; read again after a barrier
 
     if constexpr (kWords) {
@@ -623,6 +694,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       }
     }
     __syncthreads();
+    K5_MARK(kPhRows);
 
     // dedup: a neighbour whose id is in the beam, or earlier in the list
     for (int i = tid; i < W; i += kThreads) {
@@ -637,6 +709,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
         if (nk[i] == nk[j]) dup[j] = 1;
     }
     __syncthreads();
+    K5_MARK(kPhDedup);
 
     // rank-sort the new entries
     for (int j = tid; j < L; j += kThreads) {
@@ -651,6 +724,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       sk[r] = kj;
     }
     __syncthreads();
+    K5_MARK(kPhSort);
 
     // merge beam (W) and new (L): the first W are the next beam, the rest
     // the evicted tail
@@ -676,6 +750,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     }
     if (SP > 0) {
       __syncthreads();
+      K5_MARK(kPhBeamMerge);
       // merge spill (SP) and tail (L), keep the SP nearest
       const float* cpd = pd + cur * SP;
       const int* cpk = pk + cur * SP;
@@ -697,6 +772,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       }
     }
     __syncthreads();
+    K5_MARK(kPhSpillMerge);
     cur ^= 1;
     ++steps;
   }
@@ -717,6 +793,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     a.steps[b] = steps;
     a.scored[b] = scored;
   }
+  if (a.scan) K5_PROF_END(steps);
 }
 
 template <typename T, int V>
@@ -744,6 +821,675 @@ cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
                    a.d % V == 0;
   return vec ? launch<T, V>(a, b, smem, stream)
              : launch<T, 1>(a, b, smem, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K5: the scan segment, built for one query's latency
+// ---------------------------------------------------------------------------
+
+struct ScanArgs {
+  const void* values;     // [>= cap + 1, d] rows, row stride `stride`
+  long long stride;       // elements between consecutive rows
+  const int* nbrs;        // [cap + 1, L] layer-0 ids (-1 pad)
+  const uint8_t* trav;    // [cap + 1] live rows
+  uint8_t* excl;          // [b, cap + 1] excluded rows (row `excl_stride`)
+  long long excl_stride;
+  unsigned* allowed;      // [b, words] bits of trav & !excl, or null
+  const float* q;         // [b, d]
+  const int* seed_ids;    // [b, S] (-1 = unused)
+  const float* seed_d;    // [b, S]
+  int* report;            // [b, 2 ef + 3]
+  float* spill_d;         // [b, SP]
+  int* spill_ids;         // [b, SP]
+  int d, L, cap, words, S, W, ef, SP, max_steps, mark;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(src)
+               : "memory");
+}
+
+// log2 of the slots of K5's id sets: at least twice the most ids one
+// holds (the beam's W, the seeds' S, the finish's SP + W - ef), >= 64.
+__host__ __device__ inline int imax(int x, int y) { return x > y ? x : y; }
+
+__host__ __device__ int scan_set_bits(int W, int S, int mm) {
+  const int most = imax(W, imax(S, mm));
+  int bits = 6;
+  while ((1 << bits) < 2 * most) ++bits;
+  return bits;
+}
+
+// The seeds' sort buffer: a power of two >= S.
+__host__ __device__ int scan_sort_len(int S) {
+  int n = 1;
+  while (n < S) n <<= 1;
+  return n;
+}
+
+// Entries of the seeds' / finish's buffer: the seeds' sort, or the
+// leftover (W - ef) followed by its merge with the spill (SP + W - ef).
+__host__ __device__ int scan_buf_len(int S, int W, int ef, int SP) {
+  return imax(scan_sort_len(S), SP + 2 * (W - ef));
+}
+
+// The spill's pool: a power of two >= 2 SP, SP + L and 64, so that it
+// takes many steps' evicted entries between two sorts.
+__host__ __device__ int scan_pool_len(int SP, int L) {
+  return scan_sort_len(imax(64, imax(2 * SP, SP + L)));
+}
+
+size_t scan_smem_bytes(int words, int d, int L, int S, int W, int ef,
+                       int SP) {
+  const size_t dpad = (static_cast<size_t>(d) + 3) & ~static_cast<size_t>(3);
+  const size_t x = scan_buf_len(S, W, ef, SP);
+  const size_t tbl = static_cast<size_t>(1) << scan_set_bits(W, S, SP + W - ef);
+  // bitmap; q; beam x2; the spill's pool; new raw and kept; the beam's id
+  // set; the seeds' / finish's id set and first indices; the seeds' sort
+  // buffer, then the finish's merged spill
+  return 4 * (static_cast<size_t>(words) + dpad + 4 * static_cast<size_t>(W) +
+              2 * static_cast<size_t>(scan_pool_len(SP, L)) +
+              4 * static_cast<size_t>(L) + 3 * tbl + 2 * x);
+}
+
+// Open-addressing sets of ids (>= 0) in shared memory: 2^bits slots, -1
+// empty, -2 an erased id (probing goes on past it), linear probing from a
+// multiplicative hash.
+__device__ __forceinline__ unsigned set_home(int id, int bits) {
+  return (static_cast<unsigned>(id) * 2654435761u) >> (32 - bits);
+}
+
+// Insert id (any thread, concurrently); returns its slot. An id must not
+// be inserted while it sits past an erased slot of its chain (the walk's
+// set inserts only ids it lacks; the other sets erase nothing).
+__device__ __forceinline__ int set_insert(int* tbl, int bits, int id) {
+  const unsigned mask = (1u << bits) - 1u;
+  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
+    int v = tbl[s];
+    while (v < 0) {  // free: claim it, or look again at what took it
+      const int prev = atomicCAS(tbl + s, v, id);
+      if (prev == v) return static_cast<int>(s);
+      v = prev;
+    }
+    if (v == id) return static_cast<int>(s);
+  }
+}
+
+// The slot of id, or -1 if the set lacks it.
+__device__ __forceinline__ int set_find(const int* tbl, int bits, int id) {
+  const unsigned mask = (1u << bits) - 1u;
+  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
+    const int v = tbl[s];
+    if (v == id) return static_cast<int>(s);
+    if (v == -1) return -1;
+  }
+}
+
+// The sums of 8 rows ids[r] (the lanes r < 8 hold them; `okm` bit r: row
+// r is valid) against the query qs: lane l returns row (l >> 2) & 7's sum.
+// Each lane's loads of the 8 rows are in flight together.
+template <typename T, int V, int M>
+__device__ __forceinline__ float score8(const ScanArgs& a, const float* qs,
+                                        int v, unsigned okm, int lane) {
+  float acc[8];
+  const T* values = static_cast<const T*>(a.values);
+  const T* rows[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int id = __shfl_sync(kFull, v, r);
+    rows[r] = values + (((okm >> r) & 1u) ? static_cast<long long>(id) *
+                                                a.stride
+                                          : 0LL);
+    acc[r] = 0.0f;
+  }
+  const int nchunks = a.d / V;
+  for (int c = lane; c < nchunks; c += 32) {
+    float qv[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) qv[e] = qs[c * V + e];
+    float x[8][V];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if ((okm >> r) & 1u) Load<T, V>::run(rows[r], c, x[r]);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if ((okm >> r) & 1u)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[r] += term<M>(x[r][e], qv[e]);
+  }
+  // a transposed reduction: each exchange halves the values a lane holds,
+  // so lane l ends with row (l >> 2) & 7's sum (9 shuffles, not 40)
+  float v4[4], v2[2];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v4[i] = (b4 ? acc[i + 4] : acc[i]) +
+            __shfl_xor_sync(kFull, b4 ? acc[i] : acc[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    v2[i] = (b3 ? v4[i + 2] : v4[i]) +
+            __shfl_xor_sync(kFull, b3 ? v4[i] : v4[i + 2], 8);
+  float v1 = (b2 ? v2[1] : v2[0]) +
+             __shfl_xor_sync(kFull, b2 ? v2[0] : v2[1], 4);
+  v1 += __shfl_xor_sync(kFull, v1, 2);
+  v1 += __shfl_xor_sync(kFull, v1, 1);
+  return v1;
+}
+
+// Sort (d, k) [n] (n a power of two) by (distance, key) in place: a
+// bitonic sort by every thread of the block, a barrier per stage.
+__device__ __forceinline__ void block_sort(float* d, int* k, int n, int tid) {
+  for (int k2 = 2; k2 <= n; k2 <<= 1) {
+    for (int j2 = k2 >> 1; j2 > 0; j2 >>= 1) {
+      for (int i = tid; i < n / 2; i += kThreads) {
+        const int lo = (i / j2) * 2 * j2 + i % j2, hi = lo + j2;
+        if (before(d[hi], k[hi], d[lo], k[lo]) == ((lo & k2) == 0)) {
+          const float t = d[lo];
+          d[lo] = d[hi];
+          d[hi] = t;
+          const int tk = k[lo];
+          k[lo] = k[hi];
+          k[hi] = tk;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Sort the spill's pool [pc of pn] and keep its SP nearest (the padding
+// sorts last). Once SP are kept, the SP-th is (tau_d, tau_k): an entry
+// evicted later that is not nearer can never be among the SP nearest.
+__device__ __forceinline__ int pool_trim(float* d, int* k, int pc, int pn,
+                                         int SP, float& tau_d, int& tau_k,
+                                         int tid) {
+  for (int i = pc + tid; i < pn; i += kThreads) {
+    d[i] = inf_f();
+    k[i] = INT_MAX;
+  }
+  __syncthreads();
+  block_sort(d, k, pn, tid);
+  if (pc >= SP && SP > 0) {
+    tau_d = d[SP - 1];
+    tau_k = k[SP - 1];
+  }
+  return min(pc, SP);
+}
+
+// Merge the sorted lists A [na] and B [nb] into O [na + nb] (A before B
+// among equals, the JAX concatenation's order). Every thread of the block
+// calls it.
+__device__ __forceinline__ void merge_lists(const float* ad, const int* ak,
+                                            int na, const float* bd_,
+                                            const int* bk_, int nb, float* od,
+                                            int* ok, int tid) {
+  for (int i = tid; i < na + nb; i += kThreads) {
+    const bool from_a = i < na;
+    const int j = from_a ? i : i - na;
+    const float d = from_a ? ad[j] : bd_[j];
+    const int k = from_a ? ak[j] : bk_[j];
+    const int r = j + (from_a ? count_before(bd_, bk_, nb, d, k, true)
+                              : count_before(ad, ak, na, d, k, false));
+    od[r] = d;
+    ok[r] = k;
+  }
+}
+
+// A step's merge: the beam (cbd, cbk) [nb] and the kept new entries (sd,
+// sk) [nn] (sorted; no id in both) into (obd, obk), the first W kept. An
+// evicted entry nearer than (tau_d, tau_k) joins the spill's pool at
+// atomicAdd(pool_n); the id set follows the beam (the new entries that
+// stay enter, the beam entries that leave are erased and counted in
+// `erased`); the next member's new place goes to npos. Every thread of the
+// block calls it.
+__device__ __forceinline__ void merge_step(
+    const float* cbd, const int* cbk, int nb, const float* sd, const int* sk,
+    int nn, float* obd, int* obk, int W, float* pd, int* pk, int* pool_n,
+    float tau_d, int tau_k, int* set, int bits, int* erased, float nx_d,
+    int nx_k, int* npos, int tid) {
+  for (int i = tid; i < nb + nn; i += kThreads) {
+    const bool from_beam = i < nb;
+    const int j = from_beam ? i : i - nb;
+    const float d = from_beam ? cbd[j] : sd[j];
+    const int k = from_beam ? cbk[j] : sk[j];
+    const int r = j + (from_beam ? count_before(sd, sk, nn, d, k, true)
+                                 : count_before(cbd, cbk, nb, d, k, false));
+    if (r < W) {
+      obd[r] = d;
+      obk[r] = k;
+      if (!from_beam) set_insert(set, bits, k >> 1);
+    } else {
+      if (from_beam) {
+        set[set_find(set, bits, k >> 1)] = -2;
+        atomicAdd(erased, 1);
+      }
+      if (before(d, k, tau_d, tau_k)) {
+        const int p = atomicAdd(pool_n, 1);
+        pd[p] = d;
+        pk[p] = k;
+      }
+    }
+    if (k == nx_k && d == nx_d) *npos = r;
+  }
+}
+
+// One segment of the resumable beam scan for query b (one block): K4's
+// walk in the JAX order of _beam_scan_segment, built for one query's
+// latency. Only finite entries are kept: an entry JAX keeps at an infinite
+// distance (a duplicate, an invalid slot) changes no output (it sorts
+// after every finite one, so it never displaces one, and its id is then
+// also in the beam at a finite distance), so the beam holds its nb
+// nearest finite entries.
+// - The flags: `allowed` (bits of trav & !excl for this query) is staged in
+//   shared memory at the start, so admitting a neighbour reads no global
+//   memory (the global flags otherwise).
+// - The rows: the L neighbours' rows load at once, 8 per warp.
+// - The dedup: the beam's ids are kept in an id set (the merge inserts
+//   the entries that enter and erases those that leave; rebuilt when the
+//   erased slots fill it), so a new entry is one lookup; duplicates within
+//   the list by __match_any_sync; warp 0 ranks the kept entries by
+//   shuffles while the other warps find the beam's first unexpanded
+//   member.
+// - The ids: the next member to expand is the nearer of that member and
+//   the nearest kept entry, known before the merge, so its neighbour ids
+//   load while the merge runs.
+// - The spill: JAX keeps the SP nearest of the spill and each step's
+//   evicted tail, which is the SP nearest of everything evicted; the
+//   evicted entries are appended to a pool, sorted and cut to SP only
+//   when it fills and at the end, and once SP are kept an entry no nearer
+//   than the SP-th is not appended. Three block barriers a step.
+// Then the segment's finish (ops/beam._scan_finish): the top ef emitted
+// (-1 ids at infinite distances), the width - ef leftover merged into the
+// spill, the spill deduplicated by id (nearest copy) and cleared of the
+// emitted ids, and, with `mark`, the emitted ids set in `excl` and cleared
+// in `allowed`.
+template <typename T, int V, int M>
+__global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int red[kWarps];
+  __shared__ int s_npos, s_nn, s_ck, s_scored, s_pc, s_erased;
+  __shared__ float s_cd;
+  K5_PROF_BEGIN
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int W = a.W, SP = a.SP, L = a.L, S = a.S, ef = a.ef;
+  const int mm = SP + W - ef;
+  const int s2 = scan_sort_len(S);
+  const int pn = scan_pool_len(SP, L);
+  const int xn = scan_buf_len(S, W, ef, SP);
+  const int bits = scan_set_bits(W, S, mm);
+  const int tbl = 1 << bits;
+  const int nch = (L + 31) / 32;  // warp 0's chunks of new entries (<= 8)
+  const float inf = inf_f();
+  const bool use_bm = a.allowed != nullptr;
+
+  unsigned* bm = reinterpret_cast<unsigned*>(smem);
+  float* qs = reinterpret_cast<float*>(bm + (use_bm ? a.words : 0));
+  float* bd = qs + ((a.d + 3) & ~3);  // beam, 2 buffers of W
+  int* bk = reinterpret_cast<int*>(bd + 2 * W);
+  float* pd = reinterpret_cast<float*>(bk + 2 * W);  // the spill's pool
+  int* pk = reinterpret_cast<int*>(pd + pn);
+  float* nd = reinterpret_cast<float*>(pk + pn);  // new, list order
+  int* nk = reinterpret_cast<int*>(nd + L);
+  float* sd = reinterpret_cast<float*>(nk + L);  // new, kept and sorted
+  int* sk = reinterpret_cast<int*>(sd + L);
+  int* hs = sk + L;  // the beam's id set
+  int* fk = hs + tbl;  // the seeds' / finish's id set
+  int* fm = fk + tbl;  // its first index per id
+  float* xd = reinterpret_cast<float*>(fm + tbl);  // seeds, then the finish
+  int* xk = reinterpret_cast<int*>(xd + xn);
+
+  unsigned* gbm =
+      use_bm ? a.allowed + static_cast<long long>(b) * a.words : nullptr;
+  uint8_t* excl = a.excl + static_cast<long long>(b) * a.excl_stride;
+  if (use_bm) {
+    for (int i = tid * 4; i < a.words; i += kThreads * 4)
+      cp_async16(bm + i, gbm + i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  const float* qg = a.q + static_cast<long long>(b) * a.d;
+  for (int i = tid; i < a.d; i += kThreads) qs[i] = qg[i];
+  for (int i = tid; i < tbl; i += kThreads) {
+    hs[i] = -1;
+    fk[i] = -1;
+    fm[i] = INT_MAX;
+  }
+  if (tid == 0) s_scored = 0;
+  if (use_bm) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // row v (0 <= v <= cap) may be walked: live and not excluded
+  auto allowed = [&](int v) -> bool {
+    return use_bm ? ((bm[v >> 5] >> (v & 31)) & 1u) != 0
+                  : (a.trav[v] && !excl[v]);
+  };
+
+  // ---- seeds: the admitted ones sorted by (distance, key), the first
+  // copy of an id kept; the first W fill the beam, the next SP the spill
+  const long long s0 = static_cast<long long>(b) * S;
+  for (int i = tid; i < s2; i += kThreads) {
+    const int id = i < S ? a.seed_ids[s0 + i] : -1;
+    const float d = i < S ? a.seed_d[s0 + i] : inf;
+    const bool ok = id >= 0 && d < inf && allowed(min(id, a.cap));
+    xd[i] = ok ? d : inf;
+    xk[i] = ok ? 2 * id + 1 : INT_MAX;
+  }
+  __syncthreads();
+  block_sort(xd, xk, s2, tid);
+  for (int i = tid; i < s2; i += kThreads)
+    if (xk[i] != INT_MAX) atomicMin(fm + set_insert(fk, bits, xk[i] >> 1), i);
+  __syncthreads();
+  int nb = 0, pc = 0;
+  {
+    int kept = 0;
+    for (int base = 0; base < s2; base += kThreads) {
+      const int i = base + tid;
+      const bool keep = i < s2 && xk[i] != INT_MAX &&
+                        fm[set_find(fk, bits, xk[i] >> 1)] == i;
+      const unsigned bal = __ballot_sync(kFull, keep);
+      if (lane == 0) red[warp] = __popc(bal);
+      __syncthreads();
+      int r = kept + __popc(bal & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        r += w < warp ? red[w] : 0;
+        total += red[w];
+      }
+      if (keep && r < W) {
+        bd[r] = xd[i];
+        bk[r] = xk[i];
+        set_insert(hs, bits, xk[i] >> 1);
+      } else if (keep && r - W < SP) {
+        pd[r - W] = xd[i];
+        pk[r - W] = xk[i];
+      }
+      kept += total;
+      __syncthreads();
+    }
+    nb = min(kept, W);
+    pc = min(max(kept - W, 0), SP);
+  }
+
+  // ---- the walk; the first member to expand is the nearest seed
+  int cur = 0, steps = 0, scored_w = 0, pos = 0, erased = 0;
+  float tau_d = inf;  // the pool's cut, once it has one
+  int tau_k = INT_MAX;
+  bool go = nb > 0 && a.max_steps > 0 &&
+            bd[0] <= (nb == W ? bd[W - 1] : inf);
+  int u = go ? min(bk[0] >> 1, a.cap) : 0;
+  const int jp = warp * 8 + (lane & 7);  // the id this lane prefetches
+  int my_id = go && jp < L ? a.nbrs[static_cast<long long>(u) * L + jp] : -1;
+  K5_MARK(kPhStart);
+
+  while (go) {
+    float* cbd = bd + cur * W;
+    int* cbk = bk + cur * W;
+    if (tid == 0) {
+      cbk[pos] &= ~1;  // expanded; read after the next barrier
+      s_cd = inf;
+      s_ck = INT_MAX;
+    }
+    // (A) the id set rebuilt once erased slots fill a quarter of it; the
+    // expanded member's neighbours scored: warp w takes rows [8w, 8w + 8),
+    // then every 32nd group of 8
+    if (4 * (nb + erased) > 3 * tbl) {
+      for (int i = tid; i < tbl; i += kThreads) hs[i] = -1;
+      __syncthreads();
+      for (int i = tid; i < nb; i += kThreads) set_insert(hs, bits, cbk[i] >> 1);
+      erased = 0;
+    }
+#ifdef PGV_K5_PROFILE
+    __syncthreads_or(my_id == INT_MIN);  // the prefetched ids have arrived
+    K5_MARK(kPhIds);
+#endif
+    for (int g0 = warp * 8; g0 < L; g0 += kWarps * 8) {
+      const int j = g0 + (lane & 7);
+      const int v = g0 == warp * 8
+                        ? my_id
+                        : (j < L ? a.nbrs[static_cast<long long>(u) * L + j]
+                                 : -1);
+      const bool ok = lane < 8 && j < L && v >= 0 && allowed(min(v, a.cap));
+      const unsigned okm = __ballot_sync(kFull, ok);
+      K5_MARK(kPhFlags);
+      scored_w += __popc(okm);
+      const float sum = score8<T, V, M>(a, qs, v, okm, lane);
+      const int r = lane >> 2;  // the row whose sum this lane holds
+      const int vr = __shfl_sync(kFull, v, r);
+      if ((lane & 3) == 0 && g0 + r < L) {
+        const bool okr = (okm >> r) & 1u;
+        nd[g0 + r] = okr ? finish<M>(sum) : inf;
+        nk[g0 + r] = okr ? 2 * vr + 1 : -2;
+      }
+    }
+    __syncthreads();
+    K5_MARK(kPhRows);
+
+    // (B) warp 0: the new entries that are finite and no duplicate (of the
+    // beam, or of one earlier in the list), ranked; the other warps: the
+    // beam's first unexpanded member
+    if (warp == 0) {
+      // lane l holds entries l, 32 + l, ... (chunks; one at L <= 32)
+      float d_[8];
+      int k_[8];
+      unsigned kb[8];
+#pragma unroll 1
+      for (int c = 0; c < nch; ++c) {
+        const int j = c * 32 + lane;
+        d_[c] = j < L ? nd[j] : inf;
+        k_[c] = j < L ? nk[j] : -2;
+        bool keep = k_[c] >= 0 && d_[c] < inf;
+        const unsigned same = __match_any_sync(kFull, k_[c]);
+        if (same & ((1u << lane) - 1u)) keep = false;
+#pragma unroll 1
+        for (int c2 = 0; c2 < c; ++c2)
+          for (int i = 0; i < 32; ++i)
+            if (__shfl_sync(kFull, k_[c2], i) == k_[c]) keep = false;
+        if (keep && set_find(hs, bits, k_[c] >> 1) >= 0) keep = false;
+        kb[c] = __ballot_sync(kFull, keep);
+      }
+      K5_MARK(kPhDedup);
+      int nn = 0;
+#pragma unroll 1
+      for (int c = 0; c < nch; ++c) {
+        const float dc = d_[c];
+        const int kc = k_[c];
+        int r = 0;
+#pragma unroll 1
+        for (int c2 = 0; c2 < nch; ++c2) {
+          const float dc2 = d_[c2];
+          const int kc2 = k_[c2];
+          const unsigned kb2 = kb[c2];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const float di = __shfl_sync(kFull, dc2, i);
+            const int ki = __shfl_sync(kFull, kc2, i);
+            r += ((kb2 >> i) & 1u) && before(di, ki, dc, kc);
+          }
+        }
+        if ((kb[c] >> lane) & 1u) {
+          sd[r] = dc;
+          sk[r] = kc;
+          if (r == 0) {
+            s_cd = dc;
+            s_ck = kc;
+          }
+        }
+        nn += __popc(kb[c]);
+      }
+      if (lane == 0) s_nn = nn;
+      K5_MARK(kPhSort);
+    } else {
+      if (tid == 32) {  // read by every thread after the merge
+        s_npos = INT_MAX;
+        s_pc = pc;
+        s_erased = 0;
+      }
+      int local = INT_MAX;
+      for (int i = tid - 32; i < nb; i += kThreads - 32)
+        if (cbk[i] & 1) local = min(local, i);
+      local = __reduce_min_sync(kFull, local);
+      if (lane == 0) red[warp] = local;
+    }
+    __syncthreads();
+
+    // (C) the next member to expand, in every thread alike: the nearer of
+    // the beam's first unexpanded member and the nearest kept entry; its
+    // neighbour ids load now
+    int bc = INT_MAX;
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) bc = min(bc, red[w]);
+    const int nn = s_nn;
+    float nx_d = s_cd;
+    int nx_k = s_ck;
+    if (bc != INT_MAX && before(cbd[bc], cbk[bc], nx_d, nx_k)) {
+      nx_d = cbd[bc];
+      nx_k = cbk[bc];
+    }
+    const bool has_next = nx_d < inf;
+    const int un = has_next ? min(nx_k >> 1, a.cap) : 0;
+    if (has_next && jp < L)
+      my_id = a.nbrs[static_cast<long long>(un) * L + jp];
+    K5_MARK(kPhSelect);
+
+    // (D) the kept entries merged into the beam, the evicted nearer than
+    // the pool's cut appended to it (cut to the SP nearest first if it
+    // could overflow)
+    const int nb2 = min(W, nb + nn);
+    if (pc + nb + nn - nb2 > pn) {
+      pc = pool_trim(pd, pk, pc, pn, SP, tau_d, tau_k, tid);
+      if (tid == 0) s_pc = pc;
+      __syncthreads();
+      K5_MARK(kPhSpillMerge);
+    }
+    merge_step(cbd, cbk, nb, sd, sk, nn, bd + (cur ^ 1) * W,
+               bk + (cur ^ 1) * W, W, pd, pk, &s_pc, tau_d, tau_k, hs, bits,
+               &s_erased, nx_d, nx_k, &s_npos, tid);
+    __syncthreads();
+    K5_MARK(kPhBeamMerge);
+    pc = s_pc;
+    erased += s_erased;
+    nb = nb2;
+    cur ^= 1;
+    ++steps;
+    // (E) JAX's loop condition on the merged beam: its first unexpanded
+    // member is the next one, if that stayed in the beam
+    pos = s_npos;
+    const float* obd = bd + cur * W;
+    go = has_next && pos < nb && steps < a.max_steps &&
+         obd[pos] <= (nb == W ? obd[W - 1] : inf);
+    u = un;
+  }
+  // the spill, sorted
+  const int ns = pool_trim(pd, pk, pc, pn, SP, tau_d, tau_k, tid);
+  K5_MARK(kPhSpillMerge);
+
+  // ---- the segment's finish (ops/beam._scan_finish)
+  if (lane == 0) atomicAdd(&s_scored, scored_w);
+  const float* cbd = bd + cur * W;
+  const int* cbk = bk + cur * W;
+  int* rep = a.report + static_cast<long long>(b) * (2 * ef + 3);
+  // the beam is sorted by (distance, key): by (distance, id) too, as no
+  // id is in it twice
+  for (int i = tid; i < ef; i += kThreads) {
+    rep[i] = __float_as_int(i < nb ? cbd[i] : inf);
+    rep[ef + i] = i < nb ? cbk[i] >> 1 : -1;
+  }
+  // the leftover and the spill, as still-unexpanded keys, merged (spill
+  // first among equals, the JAX concatenation's order)
+  const int left = max(nb - ef, 0);
+  for (int i = tid; i < ns; i += kThreads) pk[i] |= 1;
+  for (int i = tid; i < left; i += kThreads) {
+    xd[i] = cbd[ef + i];  // the seeds' buffer is free
+    xk[i] = cbk[ef + i] | 1;
+  }
+  for (int i = tid; i < tbl; i += kThreads) {
+    fk[i] = -1;
+    fm[i] = INT_MAX;
+  }
+  __syncthreads();
+  float* ed = xd + left;  // the merged list, after the leftover
+  int* ek = xk + left;
+  const int ne = ns + left;
+  merge_lists(pd, pk, ns, xd, xk, left, ed, ek, tid);
+  for (int i = tid; i < min(ef, nb); i += kThreads)  // emitted: never kept
+    atomicMin(fm + set_insert(fk, bits, cbk[i] >> 1), -1);
+  __syncthreads();
+  for (int i = tid; i < ne; i += kThreads)
+    atomicMin(fm + set_insert(fk, bits, ek[i] >> 1), i);
+  __syncthreads();
+  // keep the first copy of each id that was not emitted; write in order
+  float* out_d = a.spill_d + static_cast<long long>(b) * SP;
+  int* out_i = a.spill_ids + static_cast<long long>(b) * SP;
+  int kept = 0;
+  for (int base = 0; base < ne; base += kThreads) {
+    const int i = base + tid;
+    const bool keep = i < ne && fm[set_find(fk, bits, ek[i] >> 1)] == i;
+    const unsigned bal = __ballot_sync(kFull, keep);
+    if (lane == 0) red[warp] = __popc(bal);
+    __syncthreads();
+    int r = kept + __popc(bal & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      r += w < warp ? red[w] : 0;
+      total += red[w];
+    }
+    if (keep && r < SP) {
+      out_d[r] = ed[i];
+      out_i[r] = ek[i] >> 1;
+    }
+    kept += total;
+    __syncthreads();
+  }
+  for (int r = min(kept, SP) + tid; r < SP; r += kThreads) {
+    out_d[r] = inf;
+    out_i[r] = -1;
+  }
+  if (a.mark) {  // the emitted ids leave the walk's rows for good
+    for (int i = tid; i < min(ef, nb); i += kThreads) {
+      const int v = min(cbk[i] >> 1, a.cap);
+      excl[v] = 1;
+      if (use_bm) atomicAnd(gbm + (v >> 5), ~(1u << (v & 31)));
+    }
+  }
+  if (tid == 0) {
+    rep[2 * ef] = steps;
+    rep[2 * ef + 1] = s_scored;
+    rep[2 * ef + 2] = min(kept, SP);
+  }
+  K5_MARK(kPhFinish);
+  K5_PROF_END(steps);
+}
+
+template <typename T, int V>
+cudaError_t launch_scan(const ScanArgs& a, int metric, int b, size_t smem,
+                        cudaStream_t stream) {
+  void (*kern)(ScanArgs);
+  switch (metric) {
+    case 0: kern = beam_scan_kernel<T, V, 0>; break;
+    case 1: kern = beam_scan_kernel<T, V, 1>; break;
+    case 2: kern = beam_scan_kernel<T, V, 2>; break;
+    default: kern = beam_scan_kernel<T, V, 3>; break;
+  }
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<b, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_scan(const ScanArgs& a, int metric, int b, size_t smem,
+                          cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(a.values) % 16 == 0 &&
+                   (a.stride * static_cast<long long>(sizeof(T))) % 16 == 0 &&
+                   a.d % V == 0;
+  return vec ? launch_scan<T, V>(a, metric, b, smem, stream)
+             : launch_scan<T, 1>(a, metric, b, smem, stream);
 }
 
 }  // namespace
@@ -797,5 +1543,48 @@ int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
+
+// K5: one scan segment for b queries, one block each, over dense rows
+// (dtype 0 f32, 1 f16, 2 bf16; metric 0 l2, 1 ip, 2 cosine, 3 l1) at
+// internal width W >= ef with a spill of SP: seeds [b, S] (int32 ids, -1
+// unused), excl [b, cap + 1] (row excl_stride); allowed [b, words] (words
+// a multiple of 4, the bits of trav & !excl) or null to read the flags
+// from global memory. Writes report [b, 2 ef + 3] (the ef emitted
+// distances' bits, their ids, steps, rows scored, spill entries kept),
+// spill_d / spill_ids [b, SP]; with mark, sets the emitted ids in excl and
+// clears them in allowed.
+int pgv_k5_beam_scan(const void* values, int dtype, long long stride, int d,
+                     const int* nbrs, int L, const uint8_t* trav,
+                     uint8_t* excl, long long excl_stride, unsigned* allowed,
+                     int words, int cap, int metric, const float* q,
+                     const int* seed_ids, const float* seed_d, int b, int S,
+                     int W, int ef, int SP, int max_steps, int mark,
+                     int* report, float* spill_d, int* spill_ids,
+                     void* stream) {
+  if (b <= 0 || d <= 0 || L <= 0 || S < 0 || ef <= 0 || W < ef || SP < 0 ||
+      metric < 0 || metric > 3 || excl == nullptr || cap < 0 ||
+      (allowed != nullptr && (words % 4 || words * 32LL < cap + 1LL)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = scan_smem_bytes(allowed != nullptr ? words : 0, d, L,
+                                      S, W, ef, SP);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ScanArgs a{values, stride, nbrs, trav, excl, excl_stride, allowed, q,
+             seed_ids, seed_d, report, spill_d, spill_ids, d, L, cap, words,
+             S, W, ef, SP, max_steps, mark};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(dispatch_scan<float>(a, metric, b, smem, st));
+  if (dtype == 1) return static_cast<int>(dispatch_scan<__half>(a, metric, b, smem, st));
+  if (dtype == 2)
+    return static_cast<int>(dispatch_scan<__nv_bfloat16>(a, metric, b, smem, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#ifdef PGV_K5_PROFILE
+// The timing probe's buffer of kPhSlots counters (null: off).
+int pgv_k5_profile(unsigned long long* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_k5_prof, &buf, sizeof(buf)));
+}
+#endif
 
 }  // extern "C"

@@ -19,9 +19,12 @@ device, and the engines are the same algorithms:
   selects with ``approx_min_k``;
 - the sparse kind (padded CSR, ``DeviceGraph.sp_indices`` /
   ``sp_values``) takes the sparse sweep for both (``_exact_search_sparse``:
-  kernel K10 on CUDA, ``ops/sparse.sparse_topk``), one formulation at every
-  dimension; approx rounds the dot's values to bf16 where the JAX package
-  takes its bf16 product, selects exactly, and rescores in f32;
+  kernel K10 on CUDA, ``ops/sparse.sparse_topk``): the JAX package's
+  dense-query gather wherever its dense queries fit, at every dimension
+  (JAX multiplies densified corpus chunks at dim <= 1024 P), a lookup in
+  the query's sorted indices elsewhere; approx rounds the dot's values to
+  bf16 where the JAX package takes its bf16 product, selects exactly, and
+  rescores in f32;
 - **beam**: the best-first walk over layer 0 (``_ground_beam_seeds``:
   kernel K4 on CUDA, one launch per query batch; its plain batched loop on
   the CPU), seeded by a bf16 sweep over the level >= 1 rows
@@ -31,8 +34,9 @@ device, and the engines are the same algorithms:
 
 The resumable beam scan (``index/scan.py`` ``DeviceBeamScan``) runs one
 walk per segment under an exclusion mask with a spill buffer
-(``_beam_scan_segment``: kernel K5 on CUDA), seeded by
-``_coarse_seed_one`` or ``_descent_seed_one``.
+(``_beam_scan_step``: kernel K5 on CUDA, which also finishes the segment
+and marks its emitted rows), seeded by ``_coarse_seed_one`` or
+``_descent_seed_one``.
 
 JAX's ``vmap`` over queries becomes an explicit batch dimension. Only the
 beam defaults are ported: one expansion per step, in-beam dedup (no
@@ -440,13 +444,27 @@ def _beam_scan_segment(g: DeviceGraph, q, seed_ids, seed_d, excluded,
     return tuple(t[0] for t in out)
 
 
+def _beam_scan_step(g: DeviceGraph, q, seed_ids, seed_d, excluded, allowed,
+                    ef: int, spill: int, max_steps: int, width: int):
+    """``_beam_scan_segment`` as ``DeviceBeamScan`` runs it: the emitted
+    ids set in ``excluded`` [cap+1] (and cleared in the staged bitmap
+    ``allowed``, ``ops/beam.allowed_bits``, or None) in place, and the
+    outputs as (report [2 ef + 3] int32, spill_d [spill], spill_ids
+    [spill] int32): one device-to-host copy of the report gives the host
+    what it reads (``ops/beam.scan_segment``)."""
+    report, sp_d, sp_ids = beam.scan_segment(
+        g.values, g.neighbors0, g.traversable, excluded[None], g.metric,
+        q[None], seed_ids[None], seed_d[None], ef, width, spill, max_steps,
+        allowed=allowed, mark=True)
+    return report[0], sp_d[0], sp_ids[0]
+
+
 def _mark_excluded(excluded, ids):
     """Mark emitted element ids in the exclusion mask [cap+1], IN PLACE
     (the JAX package returns a new mask); invalid (-1) ids land on the pad
     row ``cap``, which is never admitted anyway. Returns ``excluded``."""
-    pad = excluded.shape[0] - 1
-    return excluded.index_fill_(0, torch.where(ids >= 0, ids, pad).long(),
-                                True)
+    beam.mark_excluded(excluded[None], ids[None])
+    return excluded
 
 
 def _coarse_seed_one(g: DeviceGraph, q, upper_ids, upper_rows, n_seeds: int):
@@ -604,7 +622,8 @@ def _exact_search_sparse(g: DeviceGraph, q_indices, q_values, k: int,
     """Exact (or approximate) top-k over the live padded-CSR rows for
     padded-CSR queries [B, P] -> (dists [B, k], element ids [B, k]) in
     (distance, id) order, -1 / inf padded: the sparse sweep
-    (``ops/sparse.sparse_topk``, kernel K10 on CUDA) at every ``dim``.
+    (``ops/sparse.sparse_topk``, kernel K10 on CUDA; its form by
+    ``ops/sparse._k10_form(dim, B)``).
 
     ``approx`` where the JAX package takes its bf16 densified-corpus
     product (l2 / ip / cosine, ``dim <= SPARSE_MATMUL_FACTOR * P`` and the

@@ -33,6 +33,7 @@ from ..constants import (
     HNSW_ITERATIVE_SCAN_STRICT,
 )
 from ..graph import host
+from ..ops import beam
 from ..utils.stats import ScanStats
 
 
@@ -403,6 +404,15 @@ class DeviceBeamScan:
         self._max_steps = 4 * self._width + 32
         self._excluded = torch.zeros(self.g.traversable.shape[0],
                                      dtype=torch.bool, device=self.g.device)
+        # the kernel's staged bitmap of the rows the scan may walk, where
+        # K5's rule stages one (the card; the exclusion mask stays the truth)
+        self._allowed = None
+        if self.g.device.type == "cuda" and beam.k5_bitmap_fits(
+                self.g.cap, self.g.values.shape[1],
+                self.g.neighbors0.shape[1], self._spill_w, self._width,
+                ef, self._spill_w):
+            self._allowed = beam.allowed_bits(self.g.traversable,
+                                              self._excluded[None])
         # first-segment seeds, padded to the spill width
         if self.g.entry < 0:
             self._seeds = None
@@ -419,8 +429,10 @@ class DeviceBeamScan:
                 )
             pad = self._spill_w - s_ids.shape[0]
             self._seeds = (
-                torch.nn.functional.pad(s_ids, (0, pad), value=-1),
-                torch.nn.functional.pad(s_d, (0, pad), value=float("inf")),
+                torch.nn.functional.pad(s_ids.to(torch.int32), (0, pad),
+                                        value=-1),
+                torch.nn.functional.pad(s_d.float(), (0, pad),
+                                        value=float("inf")),
             )
             self._exhausted = False
         self._buf: list = []  # pending (dist, element id), nearest first
@@ -442,16 +454,15 @@ class DeviceBeamScan:
         """Launch one beam segment without reading its results back (CUDA
         launches are asynchronous): the scan state (seeds, exclusion mask)
         advances at once as device tensors."""
-        dm = self._dm
-        beam_d, beam_ids, sp_d, sp_ids, steps = dm._beam_scan_segment(
+        # everything in the returned beam will be emitted: the segment
+        # excludes it from future segments (on the device)
+        report, sp_d, sp_ids = self._dm._beam_scan_step(
             self.g, self.q, self._seeds[0], self._seeds[1], self._excluded,
-            self._ef, self._spill_w, self._max_steps, self._width,
+            self._allowed, self._ef, self._spill_w, self._max_steps,
+            self._width,
         )
-        # everything in the returned beam will be emitted: exclude it from
-        # future segments (one scatter on the device)
-        dm._mark_excluded(self._excluded, beam_ids)
         self._seeds = (sp_ids, sp_d)
-        self._pending = (beam_d, beam_ids, sp_ids, steps)
+        self._pending = report
 
     def prefetch(self) -> None:
         """Launch the next segment if one would be needed, without waiting
@@ -469,18 +480,19 @@ class DeviceBeamScan:
         """Run one beam segment; refill the host buffer."""
         if self._pending is None:
             self._segment_dispatch()
-        beam_d, beam_ids, sp_ids, steps = self._pending
+        report = self._pending.cpu().numpy()  # the segment's one copy
         self._pending = None
-        d_host = beam_d.cpu().numpy().astype(np.float64)
-        i_host = beam_ids.cpu().numpy()
-        n_steps = int(steps)
+        ef = self._ef
+        d_host = report[:ef].view(np.float32).astype(np.float64)
+        i_host = report[ef : 2 * ef].astype(np.int64)
+        n_steps = int(report[2 * ef])
         self.scan_stats.beam_steps += n_steps
         self.scan_stats.distances_computed += (
             n_steps * self.g.neighbors0.shape[1]
         )
         keep = (i_host >= 0) & np.isfinite(d_host)
         self._buf = list(zip(d_host[keep], i_host[keep]))
-        if not self._buf and not bool((sp_ids >= 0).any()):
+        if not self._buf and report[2 * ef + 2] == 0:
             # the segment found nothing new and the spill, the only fuel
             # left, is empty: the scan is exhausted
             self._exhausted = True

@@ -58,6 +58,12 @@ _SIGNATURES = {
     "pgv_k4_beam_walk": [_P, _P, _I, _L, _I, _I, _P, _I, _P, _P, _L, _I, _I,
                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                          _P, _P, _P],
+    # values, dtype, stride, d, nbrs, L, trav, excl, excl_stride, allowed,
+    # words, cap, metric, q, seed_ids, seed_d, b, S, W, ef, SP, max_steps,
+    # mark, report, spill_d, spill_ids, stream
+    "pgv_k5_beam_scan": [_P, _I, _L, _I, _P, _I, _P, _P, _L, _P, _I, _I, _I,
+                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                         _P],
     # words, pop, live, q, lo, n, w, b, k, metric, qb, splits,
     # rows_per_split, part, out, stream
     "pgv_k9_bits_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -66,6 +72,10 @@ _SIGNATURES = {
     # rows_per_split, part, out, stream
     "pgv_k10_sparse_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P, _P, _P],
+    # ci, cv, live, qd, qsq, qabs, lo, n, p, b, k, dim, ldq, metric, approx,
+    # warps, rc, splits, rows_per_split, part, out, stream
+    "pgv_k10_dense_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -1,7 +1,7 @@
 """The layer-0 best-first beam walk: kernels K4 (the beam engine) and K5
 (one segment of the resumable beam scan), hand-written in CUDA for Hopper
-(``csrc/k4_beam.cu``, one launch runs a whole walk), with their plain-torch
-versions beside them.
+(``csrc/k4_beam.cu``, one launch runs a whole walk; K5's launch also
+finishes the segment), with their plain-torch versions beside them.
 
 They replace the JAX package's XLA while-loops ``_ground_beam_seeds`` (K4,
 ``pgvector_rx_tpu/graph/device.py:446``) and ``_beam_scan_segment`` (K5,
@@ -18,17 +18,31 @@ dense-only.
 - :func:`beam_walk` (K4): ``B`` queries with ``S`` seeds each, a beam of
   width ``ef`` -> (dists [B, ef], ids [B, ef], steps [B]), sorted by
   (distance, id).
-- :func:`beam_scan_segment` (K5): the same walk under an exclusion mask,
-  with an internal width ``width`` >= ef, seeds past the width sent to a
-  spill buffer and the evicted candidates merged into it -> (beam dists
-  [B, ef], beam ids [B, ef], spill dists [B, spill], spill ids [B, spill],
-  steps [B]); the spill is deduplicated by id and holds no id of the
-  emitted beam.
+- :func:`scan_segment` (K5): the same walk under an exclusion mask, with
+  an internal width ``width`` >= ef, seeds past the width sent to a spill
+  buffer and the evicted candidates merged into it, and the segment's
+  finish: -> (report [B, 2 ef + 3] int32: the emitted top-ef's distance
+  bits and ids, the steps, the rows scored, the spill entries kept; spill
+  dists [B, spill]; spill ids [B, spill] int32); the spill is
+  deduplicated by id and holds no id of the emitted beam. With
+  ``mark=True`` the emitted ids are set in the exclusion mask (and
+  cleared in the kernel's staged bitmap ``allowed``). The host reads the
+  report with one copy. :func:`beam_scan_segment` returns the same as
+  (beam dists, beam ids, spill dists, spill ids, steps).
 
-Both wrappers take the plain version only for tensors on the CPU; for a
+The kernels walk under K5's rule for the flags (``k5_bitmap_fits``): a
+query's rows that may be walked (``traversable & ~excluded``) are staged as
+a bitmap in shared memory where (cap + 1) bits fit beside the segment's
+state, else read from the global flags.
+
+The wrappers take the plain version only for tensors on the CPU; for a
 CUDA tensor they launch the kernel or raise. ``bruteforce.LAUNCHES`` counts
 the launches under ``k4_beam`` (``k4_beam_sparse`` for sparse rows) and
-``k5_beam_scan``.
+``k5_beam_scan``. The walk kernel's own scan mode (``_walk_cuda(...,
+scan=True)``, the form K5 took before its redesign, raw state out and the
+finish in torch) stays as the measured baseline of K5's redesign
+(``chip_smoke.py`` phase 13, ``probes/k5_profile.py``), counted under
+``k5_beam_scan_walk``.
 
 Beam keys pack ``id * 2 + (1 - expanded)``; an invalid slot is -2, so
 ``cap`` must stay below 2^30. The walk's total order is (distance, key):
@@ -288,7 +302,7 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(rc, "pgv_k4_beam_walk")
-        LAUNCHES["k5_beam_scan" if scan else
+        LAUNCHES["k5_beam_scan_walk" if scan else
                  "k4_beam_sparse" if is_sparse else "k4_beam"] += 1
     return beam_d, beam_key.long(), sp_d, sp_key.long(), steps, scored
 
@@ -329,27 +343,206 @@ def _serve_finish(beam_d, beam_key, sp_d, sp_key, steps, scored=None):
     return torch.gather(beam_d, 1, perm), torch.gather(ids, 1, perm), steps
 
 
+#: a K5 block's shared memory limit (k4_beam.cu's kMaxSmem)
+_K5_MAX_SMEM = 232448
+
+
+def _k5_words(cap: int) -> int:
+    """32-bit words of a query's allowed-row bitmap over rows 0 .. cap, a
+    multiple of 4 (16-byte copies)."""
+    return -(-(cap + 1) // 128) * 4
+
+
+def _k5_smem(words: int, d: int, L: int, S: int, W: int, ef: int,
+             SP: int) -> int:
+    """A K5 block's shared memory in bytes (mirrors k4_beam.cu's
+    scan_smem_bytes): the bitmap, the query, two beams, the spill's pool
+    (a power of two >= 2 SP, SP + L and 64), the new entries (raw and
+    kept), two id sets (the beam's, the seeds' / finish's with its first
+    indices) of 2^bits slots, and the seeds' / finish's buffer."""
+    def pow2(n):
+        return 1 << max(n - 1, 0).bit_length()
+
+    mm = SP + W - ef
+    bits = 6
+    while (1 << bits) < 2 * max(W, S, mm):
+        bits += 1
+    buf = max(pow2(S), SP + 2 * (W - ef))
+    pool = pow2(max(64, 2 * SP, SP + L))
+    return 4 * (words + -(-d // 4) * 4 + 4 * W + 2 * pool + 4 * L
+                + 3 * (1 << bits) + 2 * buf)
+
+
+def k5_bitmap_fits(cap: int, d: int, L: int, S: int, W: int, ef: int,
+                   SP: int) -> bool:
+    """K5's rule for the flags: a query's (cap + 1)-bit bitmap of the rows
+    it may walk is staged in shared memory when it fits there beside the
+    segment's state (about 1.6M rows at the scan's defaults); above that
+    the kernel reads the global flags."""
+    return _k5_smem(_k5_words(cap), d, L, S, W, ef, SP) <= _K5_MAX_SMEM
+
+
+def allowed_bits(traversable, excluded):
+    """The bitmap K5 stages: bit v of query b's words (int32 [B, words], the
+    bits of uint32 words) set where row v is traversable and not
+    excluded."""
+    ok = traversable[None, :] & ~excluded
+    b, n = ok.shape
+    words = _k5_words(n - 1)
+    ok = torch.nn.functional.pad(ok, (0, words * 32 - n))
+    shift = torch.arange(32, dtype=torch.int64, device=ok.device)
+    w = (ok.view(b, words, 32).long() << shift).sum(-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def mark_excluded(excluded, ids):
+    """Set the emitted ids [B, k] in the exclusion masks [B, cap + 1], IN
+    PLACE; invalid (-1) ids land on the pad row ``cap``, which is never
+    walked. Returns ``excluded``."""
+    pad = excluded.shape[1] - 1
+    return excluded.scatter_(1, torch.where(ids >= 0, ids, pad).long(), True)
+
+
+def _scan_plain(values, neighbors0, traversable, excluded, metric, q,
+                seed_ids, seed_d, ef: int, width: int, spill: int,
+                max_steps: int, mark: bool):
+    """Plain version of K5: the plain walk, ``_scan_finish``, the marks,
+    and the report."""
+    raw = _walk_plain(values, neighbors0, traversable, excluded, metric, q,
+                      seed_ids, seed_d, width=width, spill=spill,
+                      max_steps=max_steps, scan=True)
+    beam_d, beam_ids, sp_d, sp_ids, steps = _scan_finish(*raw, ef=ef,
+                                                         spill=spill)
+    if mark:
+        mark_excluded(excluded, beam_ids)
+    # an id at an infinite distance is no emission (the kernel keeps only
+    # finite entries; such an id is also in the beam at a finite one)
+    beam_ids = torch.where(torch.isfinite(beam_d), beam_ids, -1)
+    report = torch.cat([beam_d.view(torch.int32), beam_ids.to(torch.int32),
+                        steps[:, None], raw[5][:, None],
+                        (sp_ids >= 0).sum(1, dtype=torch.int32)[:, None]],
+                       dim=1)
+    return report, sp_d, sp_ids.to(torch.int32)
+
+
+def _scan_cuda(values, neighbors0, traversable, excluded, allowed, metric,
+               q, seed_ids, seed_d, ef: int, width: int, spill: int,
+               max_steps: int, mark: bool):
+    """K5: one launch walks every query's segment and finishes it."""
+    from . import _build
+
+    if isinstance(values, tuple) or values.dtype not in (
+            torch.float32, torch.float16, torch.bfloat16):
+        raise ValueError("the scan mode walks dense rows only (f32, f16 or "
+                         "bf16)")
+    dev = values.device
+    if not values.is_cuda or values.dim() != 2 or values.stride(1) != 1:
+        raise ValueError("values must be a CUDA [rows, D] tensor whose rows "
+                         "are contiguous")
+    if metric not in ("l2", "ip", "cosine", "l1"):
+        raise ValueError(f"the scan takes l2, ip, cosine or l1 (got "
+                         f"{metric!r})")
+    _check_cuda("neighbors0", neighbors0, torch.int32, 2, dev)
+    _check_cuda("traversable", traversable, torch.bool, 1, dev)
+    _check_cuda("excluded", excluded, torch.bool, 2, dev)
+    _check_cuda("queries", q, torch.float32, 2, dev)
+    _check_cuda("seed_ids", seed_ids, torch.int32, 2, dev)
+    _check_cuda("seed_d", seed_d, torch.float32, 2, dev)
+    cap = traversable.shape[0] - 1
+    B, S = seed_ids.shape
+    d = values.shape[1]
+    L = neighbors0.shape[1]
+    if (neighbors0.shape[0] != cap + 1 or values.shape[0] < cap + 1
+            or q.shape != (B, d) or seed_d.shape != (B, S)
+            or excluded.shape != (B, cap + 1)):
+        raise ValueError(
+            f"shape mismatch: values {tuple(values.shape)}, neighbors0 "
+            f"{tuple(neighbors0.shape)}, traversable {cap + 1}, queries "
+            f"{tuple(q.shape)}, seeds {tuple(seed_ids.shape)}, excluded "
+            f"{tuple(excluded.shape)}")
+    if cap >= 1 << 30:
+        raise ValueError("packed beam keys need cap < 2^30 rows")
+    words = 0
+    if allowed is not None:
+        words = _k5_words(cap)
+        _check_cuda("allowed", allowed, torch.int32, 2, dev)
+        if allowed.shape != (B, words):
+            raise ValueError(f"allowed must be [{B}, {words}] (got "
+                             f"{tuple(allowed.shape)})")
+    if _k5_smem(words, d, L, S, width, ef, spill) > _K5_MAX_SMEM:
+        raise ValueError("the scan segment's state does not fit a block")
+    report = torch.empty((B, 2 * ef + 3), dtype=torch.int32, device=dev)
+    sp_d = torch.empty((B, spill), dtype=torch.float32, device=dev)
+    sp_ids = torch.empty((B, spill), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.lib().pgv_k5_beam_scan(
+            values.data_ptr(), _DTYPE_CODES[values.dtype], values.stride(0),
+            d, neighbors0.data_ptr(), L, traversable.data_ptr(),
+            excluded.data_ptr(), excluded.stride(0),
+            allowed.data_ptr() if allowed is not None else None, words, cap,
+            _METRIC_CODES[metric], q.data_ptr(), seed_ids.data_ptr(),
+            seed_d.data_ptr(), B, S, width, ef, spill, max_steps, int(mark),
+            report.data_ptr(), sp_d.data_ptr(), sp_ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "pgv_k5_beam_scan")
+    LAUNCHES["k5_beam_scan"] += 1
+    return report, sp_d, sp_ids
+
+
+def scan_segment(values, neighbors0, traversable, excluded, metric: str, q,
+                 seed_ids, seed_d, ef: int, width: int, spill: int,
+                 max_steps: int, allowed=None, mark: bool = False):
+    """K5: one iterative-scan segment for a batch of queries ``q`` [B, D]:
+    the beam walk at internal width ``width`` (>= ef) from seeds
+    ``seed_ids`` [B, S] (-1 = unused) under ``excluded`` [B, cap+1]
+    (already-emitted rows), capturing the evicted candidates in a spill
+    buffer of width ``spill``, then the segment's finish.
+
+    Returns (report [B, 2 ef + 3] int32: the emitted beam's distances as
+    f32 bits [:ef] and ids [ef:2ef] (-1 at an infinite distance), sorted by
+    (distance, id), then steps,
+    rows scored and the spill's entries kept; spill dists [B, spill]; spill
+    ids [B, spill] int32): the spill sorted likewise, deduplicated by id
+    (nearest copy), without the ids of the emitted beam and with the
+    width - ef leftover of the beam merged in (still fuel for the next
+    segment); empty slots are (inf, -1). ``mark``: set the emitted ids in
+    ``excluded`` (in place). ``allowed`` [B, words] (CUDA only,
+    ``allowed_bits``): the staged bitmap the kernel reads instead of the
+    flags, kept equal to ``traversable & ~excluded`` under ``mark``;
+    ``None`` reads the flags."""
+    W = max(width, ef)
+    seed_ids = seed_ids.to(torch.int32).contiguous()
+    seed_d = seed_d.float().contiguous()
+    q = _queries(q, metric)
+    if neighbors0.is_cuda:
+        return _scan_cuda(values, neighbors0, traversable, excluded,
+                          allowed, metric, q, seed_ids, seed_d, ef, W, spill,
+                          max_steps, mark)
+    if allowed is not None:
+        raise ValueError("the staged bitmap is the kernel's (CUDA only)")
+    return _scan_plain(values, neighbors0, traversable, excluded, metric, q,
+                       seed_ids, seed_d, ef, W, spill, max_steps, mark)
+
+
 def beam_scan_segment(values, neighbors0, traversable, excluded, metric: str,
                       q, seed_ids, seed_d, ef: int, width: int, spill: int,
                       max_steps: int):
-    """K5: one iterative-scan segment for a batch of queries: the beam walk
-    at internal width ``width`` (>= ef) from seeds ``seed_ids`` [B, S]
-    under ``excluded`` [B, cap+1] (already-emitted rows), capturing the
-    evicted candidates in a spill buffer of width ``spill``.
-
-    Returns (beam dists [B, ef], beam ids [B, ef], spill dists [B, spill],
-    spill ids [B, spill], steps [B]): the beam sorted by (distance, id);
-    the spill sorted likewise, deduplicated by id (nearest copy), without
-    the ids of the emitted beam, and with the width - ef leftover of the
-    beam merged in (still fuel for the next segment); empty slots are
-    (inf, -1)."""
-    W = max(width, ef)
-    raw = _walk(values, neighbors0, traversable, excluded, metric,
-                _queries(q, metric),
-                seed_ids.to(torch.int32).contiguous(),
-                seed_d.float().contiguous(), width=W, spill=spill,
-                max_steps=max_steps, scan=True)
-    return _scan_finish(*raw, ef=ef, spill=spill)
+    """K5 (``scan_segment``) with its report unpacked: (beam dists [B, ef],
+    beam ids [B, ef], spill dists [B, spill], spill ids [B, spill], steps
+    [B]). On the card the query's bitmap is staged where
+    ``k5_bitmap_fits``; nothing is marked."""
+    allowed = None
+    cap = traversable.shape[0] - 1
+    if neighbors0.is_cuda and torch.is_tensor(values) and k5_bitmap_fits(
+            cap, values.shape[1], neighbors0.shape[1], seed_ids.shape[1],
+            max(width, ef), ef, spill):
+        allowed = allowed_bits(traversable, excluded)
+    report, sp_d, sp_ids = scan_segment(
+        values, neighbors0, traversable, excluded, metric, q, seed_ids,
+        seed_d, ef, width, spill, max_steps, allowed)
+    return (report[:, :ef].view(torch.float32), report[:, ef:2 * ef], sp_d,
+            sp_ids, report[:, 2 * ef])
 
 
 def _scan_finish(beam_d, beam_key, sp_d, sp_key, steps, scored=None, *,

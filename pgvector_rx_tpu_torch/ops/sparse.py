@@ -25,14 +25,21 @@ Both chunk the rows so that no ``[B, N, P]`` temporary is made.
 rows, in (distance, row) order with the two zeros tied, ``lax.top_k``'s
 order. It replaces the XLA program ``_exact_search_sparse``
 (``pgvector_rx_tpu/graph/device.py:1313``), which has no Pallas ancestor
-and picks one of three formulations by the dimension; the kernel
-(``csrc/k10_sparse.cu``) is one formulation for every dimension, and its
-plain version is ``_sparse_topk_plain``. ``approx=True`` rounds the values
-of the dot to bf16 (f32 sums, the norms from the f32 values), as the JAX
-package's bf16 densified-corpus product does. The wrapper takes the plain
-version only for tensors on the CPU; for a CUDA tensor it launches the
-kernel or raises. ``bruteforce.LAUNCHES["k10_sparse"]`` counts the
-launches.
+and picks one of three formulations by the dimension. The kernel
+(``csrc/k10_sparse.cu``) has two forms, chosen by shapes alone
+(``_k10_form``): where the JAX package's dense queries fit
+(``dense_q_fits``, its ``dense_q_ok``) the dense-query form, a gather from
+the queries densified once per call as ``[dim + 1, B]`` (query-minor) with
+a fused top-k; elsewhere (dim unknown or too large) the lookup form, a
+binary search of each row entry in the query's sorted indices. Its plain
+version is ``_sparse_topk_plain``, which takes the same two formulations
+by the same rule. ``approx=True`` rounds the values of the dot to bf16
+(f32 sums, the norms from the f32 values), as the JAX package's bf16
+densified-corpus product does. The wrapper takes the plain version only
+for tensors on the CPU; for a CUDA tensor it launches the kernel or
+raises. ``bruteforce.LAUNCHES`` counts the launches of the dense-query
+form under ``k10_sparse`` and of the lookup form under
+``k10_sparse_lookup``.
 """
 
 from __future__ import annotations
@@ -224,16 +231,16 @@ _K10_SMEM = 200 * 1024
 def _sparse_topk_plain(ci, cv, live, qi, qv, k: int, metric: str,
                        approx: bool = False, dim: int = 0):
     """Plain version of K10: per block of rows, the distances by the
-    dense-query gather (``dim`` known and the dense queries affordable) or
-    the sorted search, dead rows at +inf, and a top-k over the (distance,
-    row) keys merged into a running top-k. ``approx``: bf16-rounded values
-    in the dot, the norms from the f32 values. Returns (d [B, k] f32, rows
-    [B, k] int64)."""
+    dense-query gather or the sorted search, as ``_k10_form`` picks, dead
+    rows at +inf, and a top-k over the (distance, row) keys merged into a
+    running top-k. ``approx``: bf16-rounded values in the dot, the norms
+    from the f32 values. Returns (d [B, k] f32, rows [B, k] int64)."""
     n, p = ci.shape
     b = qi.shape[0]
     q_sq, q_abs = _query_norms(qv)
     qvd = _bf16(qv.float()) if approx else qv.float()
-    qd = densify_queries(qi, qvd, dim) if dense_q_fits(dim, b) else None
+    qd = (densify_queries(qi, qvd, dim) if _k10_form(dim, b) == "dense"
+          else None)
     ch = _row_chunk(b, p)
     best = torch.empty((b, 0), dtype=torch.int64, device=qi.device)
     for s in range(0, n, ch):
@@ -295,16 +302,105 @@ def _sparse_round_cuda(ci, cv, live, qi, qv, k: int, metric: str,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "pgv_k10_sparse_topk")
+    LAUNCHES["k10_sparse_lookup"] += 1
+    return out
+
+
+def _k10_form(dim: int, b: int) -> str:
+    """K10's formulation for ``b`` queries over ``dim`` dimensions (0:
+    unknown): "dense" where the dense queries fit (``dense_q_fits``, the
+    JAX package's ``dense_q_ok``), else "lookup"."""
+    return "dense" if dense_q_fits(dim, b) else "lookup"
+
+
+#: the dense-query form's warps per block (a block's tile is 32 warps
+#: queries, one per thread)
+_K10D_WARPS = 4
+#: bytes of shared memory for the staged rows (both buffers)
+_K10D_STAGE_BYTES = 4096
+#: bytes of the splits' partial lists ([B, splits, k] keys)
+_K10D_PART_BYTES = 64 << 20
+
+
+def _k10_dense_plan(n: int, b: int, p: int, k: int, sms: int,
+                    warps: int = _K10D_WARPS,
+                    stage_bytes: int = _K10D_STAGE_BYTES):
+    """The dense-query form's launch: (warps, ldq, rc, splits,
+    rows_per_split). ``ldq``: the dense queries' row length, ``b`` rounded
+    up to the largest tile (so every k's tile divides it); ``rc``: rows
+    staged per chunk; shared memory (each thread's list and two staged
+    chunks, mirrors the kernel) within the block's limit, by fewer warps,
+    then fewer rows per chunk. At most 8 blocks per SM along the rows,
+    fewer where the splits' partial lists would pass ``_K10D_PART_BYTES``;
+    every split is non-empty."""
+    ldq = -(-b // (32 * warps)) * (32 * warps)
+    rc = max(1, min(32, stage_bytes // (16 * p)))
+
+    def smem():
+        return 8 * k * warps * 32 + 16 * rc * p
+
+    while smem() > _K10_SMEM:
+        if warps > 1:
+            warps //= 2
+        elif rc > 1:
+            rc //= 2
+        else:
+            raise ValueError(f"a budget of {p} non-zeros at k = {k} does "
+                             "not fit the dense sparse sweep")
+    splits = max(1, min(-(-n // rc), 8 * sms,
+                        _K10D_PART_BYTES // (b * k * 8)))
+    rows = -(-n // splits)
+    return warps, ldq, rc, -(-n // rows), rows
+
+
+def densify_queries_t(query_indices, query_values, dim: int, ldq: int,
+                      dtype=torch.float32):
+    """The dense-query form's operand: padded-CSR queries [B, P] scattered
+    into [dim + 1, ldq], query-minor (column b is query b; an index past the
+    dimension clamps to dim - 1, as ``densify_queries``); row ``dim``, which
+    pads read, and the columns past B stay 0."""
+    b, p = query_indices.shape
+    valid = query_indices != PAD_INDEX
+    rows = torch.where(valid, query_indices.clamp(0, dim - 1), dim).long()
+    cols = torch.arange(b, device=query_indices.device)[:, None].expand(b, p)
+    out = torch.zeros((dim + 1, ldq), dtype=dtype, device=query_values.device)
+    return out.index_put_((rows, cols),
+                          torch.where(valid, query_values, 0.0).to(dtype))
+
+
+def _dense_round_cuda(ci, cv, live, qd, q_sq, q_abs, b: int, k: int,
+                      metric: str, approx: bool, dim: int, plan, lo):
+    """One launch of the dense-query form and its merge pass: the k
+    smallest keys per query at or after ``lo`` [B] (None: from the start),
+    in the kernel's unsigned key order."""
+    from . import _build
+
+    n, p = ci.shape
+    warps, ldq, rc, splits, rows = plan
+    dev = ci.device
+    part = torch.empty((b, splits, k), dtype=torch.int64, device=dev)
+    out = torch.empty((b, k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc_ = _build.lib().pgv_k10_dense_topk(
+            ci.data_ptr(), cv.data_ptr(), live.data_ptr(), qd.data_ptr(),
+            q_sq.data_ptr(), q_abs.data_ptr(),
+            lo.data_ptr() if lo is not None else None, n, p, b, k, dim, ldq,
+            SPARSE_METRICS.index(metric), int(approx), warps, rc, splits,
+            rows, part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc_, "pgv_k10_dense_topk")
     LAUNCHES["k10_sparse"] += 1
     return out
 
 
 def _sparse_topk_cuda(ci, cv, live, qi, qv, k: int, metric: str,
-                      approx: bool = False):
-    """K10 on the card, in rounds of at most 64 (each admits only the keys
-    after the previous round's last). The kernel's keys are unsigned,
-    ``float_key(d) << 32 | row``; they become ``_order_keys``' signed keys
-    by flipping the top bit."""
+                      approx: bool = False, dim: int = 0):
+    """K10 on the card in the form ``_k10_form`` picks, in rounds of at
+    most 64 (each admits only the keys after the previous round's last;
+    the dense form densifies the queries once for all rounds). The
+    kernel's keys are unsigned, ``float_key(d) << 32 | row``; they become
+    ``_order_keys``' signed keys by flipping the top bit."""
     from .bits import _in_rounds
 
     _check_cuda("indices", ci, torch.int32, 2)
@@ -325,8 +421,22 @@ def _sparse_topk_cuda(ci, cv, live, qi, qv, k: int, metric: str,
     if n >= 1 << 31 or b > 65535 * 8:
         raise ValueError(f"at most 2^31 - 1 rows and {65535 * 8} queries per "
                          f"call (got {n}, {b})")
-    keys = _in_rounds(lambda kr, lo: _sparse_round_cuda(
-        ci, cv, live, qi, qv, kr, metric, approx, lo), k)
+    if _k10_form(dim, b) == "dense":
+        sms = _block_target(dev) // 2
+        qd = densify_queries_t(qi, qv, dim,
+                               _k10_dense_plan(n, b, p, 1, sms)[1],
+                               torch.bfloat16 if approx else torch.float32)
+        q_sq, q_abs = (t.contiguous() for t in _query_norms(qv))
+
+        def one_round(kr, lo):
+            return _dense_round_cuda(ci, cv, live, qd, q_sq, q_abs, b, kr,
+                                     metric, approx, dim,
+                                     _k10_dense_plan(n, b, p, kr, sms), lo)
+    else:
+        def one_round(kr, lo):
+            return _sparse_round_cuda(ci, cv, live, qi, qv, kr, metric,
+                                      approx, lo)
+    keys = _in_rounds(one_round, k)
     signed = torch.where(keys == -1, keys, keys ^ torch.iinfo(torch.int64).min)
     return _from_order_keys(signed)
 
@@ -338,13 +448,14 @@ def sparse_topk(ci, cv, live, qi, qv, k: int, metric: str,
     [B, P] -> (distances [B, k] f32, rows [B, k] int64) in (distance, row)
     order, -0.0 tied with +0.0, (inf, -1) past the live rows.
     ``approx``: the dot over bf16-rounded values (l2, ip, cosine). ``dim``
-    picks the plain version's formulation (0: unknown). CPU tensors take
-    the plain version, CUDA tensors the kernel (in rounds of 64 past
-    k = 64)."""
+    (0: unknown) and B pick the formulation (``_k10_form``) of the kernel
+    and of the plain version alike. CPU tensors take the plain version,
+    CUDA tensors the kernel (in rounds of 64 past k = 64)."""
     if metric not in SPARSE_METRICS:
         raise ValueError(f"unknown sparse metric: {metric}")
     if approx and metric == "l1":
         raise ValueError("the approx sparse sweep takes l2, ip or cosine")
     if ci.is_cuda:
-        return _sparse_topk_cuda(ci, cv, live, qi, qv, k, metric, approx)
+        return _sparse_topk_cuda(ci, cv, live, qi, qv, k, metric, approx,
+                                 dim)
     return _sparse_topk_plain(ci, cv, live, qi, qv, k, metric, approx, dim)

@@ -147,6 +147,66 @@ def test_mark_excluded_in_place_and_pad_row():
     np.testing.assert_array_equal(np.asarray(jex), ex.numpy())
 
 
+def test_k5_bitmap_rule():
+    """K5 stages a query's allowed-row bitmap where its (cap + 1) bits fit
+    a block beside the segment's state (the kernel's shared-memory
+    arithmetic, mirrored): the smoke's 1,065,536-row graph at ef 40 (width
+    160, spill 200, L 32, 128-d) fits, 1,900,000 rows do not; the words
+    are whole 16-byte copies covering every row."""
+    ef, w, sp = 40, 160, 200
+    assert tbeam.k5_bitmap_fits(1_065_536, 128, 32, sp, w, ef, sp)
+    assert not tbeam.k5_bitmap_fits(1_900_000, 128, 32, sp, w, ef, sp)
+    for cap in (0, 126, 127, 128, 1_065_536):
+        words = tbeam._k5_words(cap)
+        assert words % 4 == 0 and words * 32 >= cap + 1 > (words - 4) * 32
+    limit = max(c for c in range(1_000_000, 1_900_000, 1024)
+                if tbeam.k5_bitmap_fits(c, 128, 32, sp, w, ef, sp))
+    assert tbeam._k5_smem(tbeam._k5_words(limit), 128, 32, sp, w, ef, sp) \
+        <= tbeam._K5_MAX_SMEM < tbeam._k5_smem(
+            tbeam._k5_words(limit + 1024), 128, 32, sp, w, ef, sp)
+
+
+def test_allowed_bits_and_the_plain_segment_report():
+    """The staged bitmap holds traversable & ~excluded bit for bit; the
+    plain K5 (``scan_segment``) reports what ``beam_scan_segment`` returns,
+    and ``mark`` sets exactly the emitted ids in the mask."""
+    rng = np.random.default_rng(70)
+    trav = torch.from_numpy(rng.random(301) > 0.1)
+    excl = torch.from_numpy(rng.random((3, 301)) < 0.2)
+    bits = tbeam.allowed_bits(trav, excl)
+    assert bits.shape == (3, tbeam._k5_words(300)) and bits.dtype == torch.int32
+    v = np.arange(301)
+    words = bits.numpy().view(np.uint32)
+    got = (words[:, v >> 5] >> (v & 31)) & 1
+    np.testing.assert_array_equal(got.astype(bool),
+                                  (trav[None] & ~excl).numpy())
+    assert not (words[:, 301 >> 5] >> (301 & 31)).any()  # none past the rows
+    assert not words[:, (301 >> 5) + 1 :].any()
+    n, d, ef = 500, 8, 6
+    vals = torch.from_numpy(rng.random((n + 1, d)).astype(np.float32))
+    nb = torch.from_numpy(rng.integers(0, n, (n + 1, 8)).astype(np.int32))
+    tr = torch.ones(n + 1, dtype=torch.bool)
+    tr[n] = False
+    q = torch.from_numpy(rng.random((2, d)).astype(np.float32))
+    seeds = torch.from_numpy(rng.choice(n, (2, 30)).astype(np.int32))
+    sd = tbeam.row_dists(vals, "l2", q, seeds)
+    ex = torch.zeros((2, n + 1), dtype=torch.bool)
+    args = (vals, nb, tr, ex, "l2", q, seeds, sd, ef, 4 * ef, 40, 200)
+    b_d, b_i, s_d, s_i, st = tbeam.beam_scan_segment(*args)
+    assert not ex.any()
+    report, s_d2, s_i2 = tbeam.scan_segment(*args, mark=True)
+    assert torch.equal(report[:, :ef].view(torch.float32), b_d)
+    assert torch.equal(report[:, ef : 2 * ef], b_i)
+    assert torch.equal(report[:, 2 * ef], st) and bool((st > 0).all())
+    assert torch.equal(report[:, 2 * ef + 2], (s_i >= 0).sum(1).int())
+    assert torch.equal(s_d2, s_d) and torch.equal(s_i2, s_i)
+    want = torch.zeros_like(ex)
+    want.scatter_(1, b_i.long().clamp(min=0), True)
+    assert torch.equal(ex[:, :n], want[:, :n])
+    with pytest.raises(ValueError, match="CUDA only"):
+        tbeam.scan_segment(*args, allowed=tbeam.allowed_bits(tr, ex))
+
+
 def test_seeders_match_jax(pair):
     j, t, queries = pair
     jg, tg = j.device_graph(), t.device_graph()
@@ -492,13 +552,16 @@ def test_walk_kernel_scan_matches_plain(cuda, d, offset, overflow):
     k = tbeam.beam_scan_segment(vals, nb, trav, excl, "l2", q, ids, sd, ef,
                                 width, spill, 4 * width + 32)
     assert tbf.LAUNCHES["k5_beam_scan"] == before + 1
+    pr, p_d, p_i = tbeam._scan_plain(vals, nb, trav, excl, "l2", q, ids, sd,
+                                     ef, width, spill, 4 * width + 32, False)
+    p = (pr[:, :ef].view(torch.float32), pr[:, ef : 2 * ef], p_d, p_i,
+         pr[:, 2 * ef])
+    _assert_same(k, p)
+    # the walk kernel's scan mode (K5's earlier form): the raw state, steps
+    # and rows scored
     args = (vals, nb, trav, excl, "l2", q, ids, sd, width, spill,
             4 * width + 32, True)
-    k_raw = tbeam._walk_cuda(*args)
-    p_raw = tbeam._walk_plain(*args)
-    p = tbeam._scan_finish(*p_raw, ef=ef, spill=spill)
-    _assert_same(k, p)
-    _assert_same(k_raw, p_raw)  # raw state, steps and rows scored
+    _assert_same(tbeam._walk_cuda(*args), tbeam._walk_plain(*args))
     k = [x.cpu().numpy() for x in k]
     ex = excl.cpu().numpy()
     for r in range(q.shape[0]):
@@ -507,3 +570,41 @@ def test_walk_kernel_scan_matches_plain(cuda, d, offset, overflow):
         assert not ex[r, b].any() and not ex[r, s].any()
         assert not set(b.tolist()) & set(s.tolist())
         assert len(set(s.tolist())) == len(s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bitmap", [(2000, True), (1_900_000, False)])
+def test_k5_fed_segments_match_plain(cuda, n, bitmap):
+    """K5 against its plain version (``_walk_plain`` + ``_scan_finish``)
+    over 4 segments, each fed the previous one's spill and marks: the
+    report (emitted distances and ids, steps, rows scored, spill count),
+    the spill and the exclusion masks equal, and the staged bitmap stays
+    equal to traversable & ~excluded. With the bitmap staged (2,000 rows)
+    and without it (1,900,000 rows, above K5's rule)."""
+    from pgvector_rx_tpu_torch.ops import bruteforce as tbf
+
+    ef = 12
+    width, spill = 4 * ef, 64 + 3 * ef
+    vals, nb, trav, q, rng = _kernel_case(cuda, 16, torch.float32, False,
+                                          n=n, seed=9)
+    ids, sd = _seeds(vals, q, rng, spill, n, live=trav)
+    assert tbeam.k5_bitmap_fits(n, 16, nb.shape[1], spill, width, ef,
+                                spill) == bitmap
+    ek = torch.from_numpy(rng.random((q.shape[0], n + 1)) < 0.02).to(cuda)
+    ep = ek.clone()
+    allowed = tbeam.allowed_bits(trav, ek) if bitmap else None
+    feed_k = feed_p = (ids, sd)
+    before = tbf.LAUNCHES["k5_beam_scan"]
+    for seg in range(4):
+        kr, kd, ki = tbeam.scan_segment(vals, nb, trav, ek, "l2", q, *feed_k,
+                                        ef, width, spill, 4 * width + 32,
+                                        allowed=allowed, mark=True)
+        pr, pdd, pi = tbeam._scan_plain(vals, nb, trav, ep, "l2", q,
+                                        *feed_p, ef, width, spill,
+                                        4 * width + 32, True)
+        _assert_same((kr, kd, ki, ek), (pr, pdd, pi, ep))
+        assert int(pr[:, 2 * ef].min()) > 0, seg
+        if bitmap:
+            assert torch.equal(allowed, tbeam.allowed_bits(trav, ek))
+        feed_k, feed_p = (ki, kd), (pi, pdd)
+    assert tbf.LAUNCHES["k5_beam_scan"] == before + 4

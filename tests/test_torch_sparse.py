@@ -17,9 +17,13 @@ inputs.
 - Ties (integer values, rows that share no index with the query) come back
   in JAX's order exactly, in ip and cosine; a control sweep on the old
   order keys (raw f32 bits) does not.
-Card-only (``cuda``): K10 against its plain version in four metrics and
-approx mode, k = 10 and 100 (the kernel's rounds), and K4's sparse-row
-mode against the plain walk.
+- K10's form (``_k10_form``) is the dense-query form exactly where JAX's
+  sweep takes its dense-query gather (``dense_q_ok``), at, below and above
+  both sides of the cutover; the form's operand and launch plan.
+Card-only (``cuda``): both forms of K10 against their plain version in
+four metrics and approx mode, k = 10 and 100 (the kernel's rounds), the
+dense form with a zero row and the ip -0.0 tie and a dim on each side of
+the cutover; and K4's sparse-row mode against the plain walk.
 """
 
 import jax.numpy as jnp
@@ -332,6 +336,73 @@ def test_sparse_topk_refuses_bad_arguments():
 
 
 # ---------------------------------------------------------------------------
+# K10's two forms: the shape rule and the dense-query form's operands
+# ---------------------------------------------------------------------------
+
+# (dim, B): below, at and above each side of JAX's dense_q_ok cutover
+# (0 < dim <= DENSE_Q_MAX_DIM and B (dim + 1) 4 <= 2^30)
+_FORM_SHAPES = [(0, 4), (1, 1), (30_000, 1024), (262_143, 1024),
+                (262_144, 1024), (1 << 20, 255), (1 << 20, 256),
+                ((1 << 20) + 1, 1)]
+
+
+@pytest.mark.parametrize("dim,b", _FORM_SHAPES)
+def test_k10_form_follows_jax_dense_q_ok(dim, b, monkeypatch):
+    """K10 takes its dense-query form exactly where the JAX package's
+    sweep takes its dense-query gather: JAX's l1 sweep (which never takes
+    the densified-corpus product) is traced at the same shapes, abstractly
+    (no array of that size is made), and the branch it reaches is read."""
+    import jax
+
+    reached = []
+    for name in ("pairwise_dense_q", "pairwise"):
+        orig = getattr(jsparse, name)
+        monkeypatch.setattr(jsparse, name, lambda *a, _n=name, _o=orig:
+                            reached.append(_n) or _o(*a))
+    rows = _rows(np.random.default_rng(3), 20, 40, _P)
+    jg, _, _, _ = _graphs("l1", 40, rows, 4)
+    q = jax.ShapeDtypeStruct((b, _P), jnp.int32)
+    qv = jax.ShapeDtypeStruct((b, _P), jnp.float32)
+    jax.eval_shape(lambda g, qi_, qv_: jdev._exact_search_sparse.__wrapped__(
+        g, qi_, qv_, 10, dim=dim), jg, q, qv)
+    assert reached in (["pairwise_dense_q"], ["pairwise"])
+    want = "dense" if reached == ["pairwise_dense_q"] else "lookup"
+    assert tsparse._k10_form(dim, b) == want
+    assert tsparse.dense_q_fits(dim, b) == (want == "dense")
+
+
+def test_densify_queries_t_is_the_transposed_dense_queries():
+    """The dense-query form's operand [dim + 1, ldq] (query-minor) holds
+    ``densify_queries``' columns 0 .. dim - 1 transposed, a zero row
+    ``dim`` and zero columns past B; bf16 holds the bf16-rounded values."""
+    rows = _rows(np.random.default_rng(8), 9, 50, 6, empty_every=4)
+    qi, qv = tsparse.pad_rows(rows, 8, device="cpu")
+    t = tsparse.densify_queries_t(qi, qv, 50, 16)
+    assert t.shape == (51, 16) and t.dtype == torch.float32
+    assert torch.equal(t[:50, :9].T, tsparse.densify_queries(qi, qv, 50)[:, :50])
+    assert not t[50].any() and not t[:, 9:].any()
+    tb = tsparse.densify_queries_t(qi, qv, 50, 16, torch.bfloat16)
+    assert torch.equal(tb.float(), tsparse._bf16(t))
+
+
+@pytest.mark.parametrize("n,b,p,k", [(100_001, 1024, 64, 10),
+                                     (100_001, 1024, 64, 64),
+                                     (3000, 70, 64, 36), (50, 3, 8, 64),
+                                     (10, 1, 1000, 64), (7, 300, 5, 1)])
+def test_k10_dense_plan_fits_the_kernel(n, b, p, k):
+    """The dense-query form's launch keeps the kernel's rules: shared
+    memory within its limit, ldq a multiple of every tile the rounds may
+    take, non-empty splits covering every row."""
+    warps, ldq, rc, splits, rows = tsparse._k10_dense_plan(n, b, p, k, 132)
+    assert 1 <= warps <= 8 and rc >= 1
+    assert 8 * k * warps * 32 + 16 * rc * p <= tsparse._K10_SMEM
+    assert ldq >= b and ldq % (32 * warps) == 0
+    assert ldq == tsparse._k10_dense_plan(n, b, p, 1, 132)[1]
+    assert splits * rows >= n and (splits - 1) * rows < n
+    assert b * splits * k * 8 <= max(tsparse._K10D_PART_BYTES, b * k * 8)
+
+
+# ---------------------------------------------------------------------------
 # Card-only: K10 and K4's sparse-row mode against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -348,15 +419,58 @@ def test_k10_equals_plain_on_the_card(metric, approx, k, cuda):
     ci, cv = tsparse.pad_rows(rows, 64, cuda)
     qi, qv = tsparse.pad_rows(_rows(rng, 70, 5000, 64), 64, cuda)
     live = torch.rand(ci.shape[0], device=cuda) > 0.1
-    before = tbf.LAUNCHES["k10_sparse"]
+    before = tbf.LAUNCHES["k10_sparse_lookup"]
     kd, ki = tsparse.sparse_topk(ci, cv, live, qi, qv, k, metric, approx)
-    assert tbf.LAUNCHES["k10_sparse"] == before + -(-k // 64)
+    assert tbf.LAUNCHES["k10_sparse_lookup"] == before + -(-k // 64)
     pd, pi = tsparse._sparse_topk_plain(ci, cv, live, qi, qv, k, metric,
                                         approx, 5000)
     torch.cuda.synchronize()
     tol = 1e-5 * _scale(metric, qv.cpu().numpy(), cv.cpu().numpy())
     _equal_but_ties(ki.cpu().numpy(), kd.cpu().numpy(), pi.cpu().numpy(),
                     pd.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,approx", [("l2", False), ("ip", False),
+                                           ("cosine", False), ("l1", False),
+                                           ("l2", True), ("ip", True),
+                                           ("cosine", True)])
+@pytest.mark.parametrize("k", [10, 100])
+def test_k10_dense_form_equals_plain_on_the_card(metric, approx, k, cuda,
+                                                 monkeypatch):
+    """K10's dense-query form against its plain version (the same gather)
+    with a zero row, a row that shares no index with a query (ip: the
+    -0.0 tie) and dead rows; then a dim just past the cutover (the
+    cutover lowered by patching DENSE_Q_MAX_DIM) takes the lookup form."""
+    rng = np.random.default_rng(19)
+    dim = 5000
+    # index dim - 1 only in row 5 and query 0: every other row shares no
+    # index with query 0 (ip ties at -0.0 / +0.0, cosine at 1)
+    rows = _rows(rng, 3000, dim - 1, 64, empty_every=211)
+    queries = _rows(rng, 70, dim - 1, 64)
+    rows[5] = (np.array([dim - 1], np.int32), np.array([2.0], np.float32))
+    queries[0] = (np.array([dim - 1], np.int32), np.array([-1.0],
+                                                          np.float32))
+    ci, cv = tsparse.pad_rows(rows, 64, cuda)
+    qi, qv = tsparse.pad_rows(queries, 64, cuda)
+    live = torch.rand(ci.shape[0], device=cuda) > 0.1
+    live[5] = True
+    tol = 1e-5 * _scale(metric, qv.cpu().numpy(), cv.cpu().numpy())
+    for d, form in ((dim, "k10_sparse"), (dim + 1, "k10_sparse_lookup")):
+        monkeypatch.setattr(tsparse, "DENSE_Q_MAX_DIM", dim)
+        before = dict(tbf.LAUNCHES)
+        kd, ki = tsparse.sparse_topk(ci, cv, live, qi, qv, k, metric, approx,
+                                     dim=d)
+        assert tbf.LAUNCHES[form] == before[form] + -(-k // 64), form
+        pd, pi = tsparse._sparse_topk_plain(ci, cv, live, qi, qv, k, metric,
+                                            approx, d)
+        torch.cuda.synchronize()
+        _equal_but_ties(ki.cpu().numpy(), kd.cpu().numpy(), pi.cpu().numpy(),
+                        pd.cpu().numpy(), tol)
+        if metric in ("ip", "cosine"):  # query 0's rows tie exactly (all
+            # but row 5): the lowest live rows, in order
+            np.testing.assert_array_equal(ki[0].cpu().numpy(),
+                                          pi[0].cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -15,7 +15,7 @@ generator, at a small size).
 - Each of the four sparse operator classes makes an index that answers as
   JAX's does.
 - The port's native sparse build (its engine memoizes pair distances)
-  gives the JAX package's graph, distances included.
+  gives the JAX package's graph, its distances within 2 ulp.
 - The sparse kind builds on the host only: ``method="device"`` and the
   serving-only native build raise, as in the JAX package.
 """
@@ -236,15 +236,22 @@ def test_every_sparse_opclass_answers(name):
 @pytest.mark.parametrize("metric", METRICS)
 def test_native_build_gives_the_jax_package_graph(metric):
     """The port's native engine memoizes sparse pair distances during the
-    build; the graph (every layer's ids and distances) and the entry stay
-    the JAX package's, whose engine has no memo."""
+    build; the graph (every layer's ids, and its distances within 2 ulp)
+    and the entry stay the JAX package's, whose engine has no memo."""
     rows, _ = _data()
     j = _jax_index(metric)
     t = HnswIndex.build(rows, metric=metric, method="native", seed=1, **CPU)
     assert t.entry == j.entry and t.heap_tids == j.heap_tids
     for te, je in zip(t.elements, j.elements):
         assert te.level == je.level
-        assert te.neighbors == je.neighbors
+        assert len(te.neighbors) == len(je.neighbors)
+        for tl, jl in zip(te.neighbors, je.neighbors):
+            assert [i for _, i in tl] == [i for _, i in jl]
+            # the JAX package's committed binary and the port's build on
+            # this host may sum a distance in another order (-ffast-math)
+            np.testing.assert_array_max_ulp(
+                np.array([d for d, _ in tl], np.float32),
+                np.array([d for d, _ in jl], np.float32), maxulp=2)
 
 
 def test_sparse_builds_on_the_host_only():
