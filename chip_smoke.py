@@ -58,9 +58,10 @@ Then, outside the counted paths:
     queries under the filters ``eid % 50 == 0`` and ``eid % 500 == 0``,
     strict and relaxed order, LIMIT 20, ef_search=40: recall against the
     tie-aware filtered exact set, p50/p99 ms to the 20th row (the 0.2%
-    p50s beside the walk kernel's scan mode's, ``EARLIER_P50``), segments
-    per scan, against floors; then the 0.2% scans again with CUDA events
-    around every K5 launch: the kernel's share of each scan's wall time;
+    p50s beside those of K5's form before its redesign, ``EARLIER_P50``),
+    segments per scan, against floors, and, from CUDA events around every
+    K5 launch of the same scans, the kernel's share of each scan's wall
+    time;
 12. the tests/t/044 contract at its own size on the card: 50,000 uniform
     3-d rows (built serving-only, the graph of tests/test_iterative_50k.py),
     20 queries, l2 and cosine, both orders, both filters, LIMIT 20, ef 40,
@@ -76,9 +77,8 @@ Then, outside the counted paths:
     and marks (beam and spill equal but for ties on every segment; the
     check must reject the plain segment cut to ef / 4 steps); each timed
     beside its bound, the bytes its steps gather: every step's neighbour
-    ids and the rows it scores (the kernel counts them); K5 per segment in
-    turns with the walk kernel's scan mode and the torch finish it needed
-    (its earlier form), and its microseconds per step; and K1 timed at
+    ids and the rows it scores (the kernel counts them); K5 per segment
+    and its microseconds per step; and K1 timed at
     DeviceScan's shape (one query, k = 10, 40, 64).
 
 **Native path** (14-17, the first 100,000 rows): the native C++ host build
@@ -192,8 +192,9 @@ SELF_FLOOR = 0.99
 SCAN_Q, SCAN_LIMIT = 64, 20
 SCAN_FLOORS = {("strict_order", 50): 0.85, ("strict_order", 500): 0.70,
                ("relaxed_order", 50): 0.90, ("relaxed_order", 500): 0.90}
-#: the 0.2% beam scans' p50 ms with the walk kernel's scan mode (K5's
-#: earlier form; PERF.md, NVIDIA H100 80GB HBM3 at 700 W), printed beside
+#: the 0.2% beam scans' p50 ms with K5's form before its redesign (the
+#: walk kernel's scan mode and a torch finish; PERF.md, NVIDIA H100 80GB
+#: HBM3 at 700 W), printed beside this run's
 EARLIER_P50 = {"strict_order": 651.985, "relaxed_order": 520.864}
 #: the tests/t/044 contract: rows, queries, recall floor
 C044_N, C044_Q, C044_FLOOR = 50_000, 20, 0.99
@@ -667,12 +668,16 @@ def filtered_expected(vals, q, rows, limit):
 
 
 def scan_recall(index, queries, mask, expected, mode, SearchParams,
-                limit=SCAN_LIMIT):
-    """(recall, ms to the limit-th row per scan, segments per scan) of
-    beam scans under ``mask``."""
+                limit=SCAN_LIMIT, events=None):
+    """(recall, ms to the limit-th row per scan, segments per scan, K5's
+    (device ms, launches) per scan) of beam scans under ``mask``.
+    ``events``: the list into which a wrapped ``scan_segment`` puts the
+    (start, end) CUDA events of each launch (None: not read)."""
     params = SearchParams(ef_search=EF, iterative_scan=mode)
-    correct, lat, segs = 0, [], []
+    correct, lat, segs, kern = 0, [], [], []
     for b in range(len(queries)):
+        if events is not None:
+            events.clear()
         torch.cuda.synchronize()
         t0 = time.time()
         scan = index.scan(queries[b], params, method="beam",
@@ -680,17 +685,22 @@ def scan_recall(index, queries, mask, expected, mode, SearchParams,
         got = scan.take(limit)
         lat.append((time.time() - t0) * 1e3)
         segs.append(scan.scan_stats.resumes + 1)
+        if events is not None:
+            torch.cuda.synchronize()
+            kern.append((sum(a.elapsed_time(z) for a, z in events),
+                         len(events)))
         if not all(mask[t] for t, _ in got):
             raise RuntimeError("a beam scan emitted a filtered-out row")
         correct += sum(1 for t, _ in got if t in expected[b])
-    return correct / (len(queries) * limit), np.array(lat), np.array(segs)
+    return (correct / (len(queries) * limit), np.array(lat), np.array(segs),
+            np.array(kern))
 
 
 def beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan, beam):
     """Beam scans on the grown index at 2% and 0.2% selectivity, strict
-    and relaxed order, against SCAN_FLOORS; then the 0.2% scans again with
-    CUDA events around every K5 launch, for the kernel's share of each
-    scan's wall time."""
+    and relaxed order, against SCAN_FLOORS, with CUDA events around every
+    K5 launch for the kernel's share of each scan's wall time (one run of
+    the scans: the launches counted are the main path's own)."""
     q = q_dev[:SCAN_Q].contiguous()
     eids = torch.arange(g.cap, device=q.device)
     if not isinstance(index.scan(q[0], SearchParams(), method="beam"),
@@ -699,27 +709,6 @@ def beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan, beam):
     if bool((g.tid_count[: g.cap] != 1).any()):
         raise RuntimeError("the grown corpus folded duplicates: element ids "
                            "are not tids")
-    for c in (50, 500):
-        rows = torch.nonzero(eids % c == 0).flatten()
-        mask = (eids % c == 0).cpu().numpy()
-        expected = filtered_expected(g.values, q, rows, SCAN_LIMIT)
-        for mode in ("strict_order", "relaxed_order"):
-            rec, lat, segs = scan_recall(index, q, mask, expected, mode,
-                                         SearchParams)
-            log(f"beam scan {mode} eid % {c} == 0 ({100 / c:g}%): "
-                f"recall {rec:.4f}, ms to the {SCAN_LIMIT}th row p50 "
-                f"{np.percentile(lat, 50):.3f} p99 "
-                f"{np.percentile(lat, 99):.3f}, segments per scan mean "
-                f"{segs.mean():.2f} max {segs.max()}")
-            if rec < SCAN_FLOORS[(mode, c)]:
-                raise RuntimeError(f"beam scan recall {rec} < "
-                                   f"{SCAN_FLOORS[(mode, c)]}")
-            if c == 500:
-                log(f"  beside the walk kernel's scan mode: p50 "
-                    f"{np.percentile(lat, 50):.3f} ms against "
-                    f"{EARLIER_P50[mode]} ms")
-    # the kernel's share of each 0.2% scan's wall time
-    mask = (eids % 500 == 0).cpu().numpy()
     launch = beam.scan_segment
     events = []
 
@@ -734,28 +723,34 @@ def beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan, beam):
 
     beam.scan_segment = timed
     try:
-        for mode in ("strict_order", "relaxed_order"):
-            share, seg_wall, seg_kernel = [], [], []
-            params = SearchParams(ef_search=EF, iterative_scan=mode)
-            for b in range(len(q)):
-                events.clear()
-                torch.cuda.synchronize()
-                t0 = time.time()
-                scan = index.scan(q[b], params, method="beam",
-                                  filter_mask=mask)
-                scan.take(SCAN_LIMIT)
-                torch.cuda.synchronize()
-                wall = (time.time() - t0) * 1e3
-                kern = sum(a.elapsed_time(z) for a, z in events)
-                n = len(events)
-                share.append(kern / wall)
-                seg_wall.append(wall / n)
-                seg_kernel.append(kern / n)
-            log(f"beam scan {mode} 0.2%: K5's share of each scan's wall "
-                f"time mean {np.mean(share):.4f} p50 "
-                f"{np.percentile(share, 50):.4f} min {np.min(share):.4f}; "
-                f"per segment wall {np.mean(seg_wall):.4f} ms, kernel "
-                f"{np.mean(seg_kernel):.4f} ms (events around each launch)")
+        for c in (50, 500):
+            rows = torch.nonzero(eids % c == 0).flatten()
+            mask = (eids % c == 0).cpu().numpy()
+            expected = filtered_expected(g.values, q, rows, SCAN_LIMIT)
+            for mode in ("strict_order", "relaxed_order"):
+                rec, lat, segs, kern = scan_recall(
+                    index, q, mask, expected, mode, SearchParams,
+                    events=events)
+                log(f"beam scan {mode} eid % {c} == 0 ({100 / c:g}%): "
+                    f"recall {rec:.4f}, ms to the {SCAN_LIMIT}th row p50 "
+                    f"{np.percentile(lat, 50):.3f} p99 "
+                    f"{np.percentile(lat, 99):.3f}, segments per scan mean "
+                    f"{segs.mean():.2f} max {segs.max()}")
+                if rec < SCAN_FLOORS[(mode, c)]:
+                    raise RuntimeError(f"beam scan recall {rec} < "
+                                       f"{SCAN_FLOORS[(mode, c)]}")
+                kern_ms, n_launch = kern[:, 0], kern[:, 1]
+                share = kern_ms / lat
+                log(f"  K5's share of each scan's wall time mean "
+                    f"{np.mean(share):.4f} p50 {np.percentile(share, 50):.4f} "
+                    f"min {np.min(share):.4f}; per launch wall "
+                    f"{np.mean(lat / n_launch):.4f} ms, kernel "
+                    f"{np.mean(kern_ms / n_launch):.4f} ms (events around "
+                    f"each launch)")
+                if c == 500:
+                    log(f"  beside K5's form before its redesign: p50 "
+                        f"{np.percentile(lat, 50):.3f} ms against "
+                        f"{EARLIER_P50[mode]} ms")
     finally:
         beam.scan_segment = launch
 
@@ -786,8 +781,8 @@ def contract_044(HnswIndex, SearchParams, dev):
             expected = [set(rows[dist[b] <= kth[b] + 1e-9].tolist())
                         for b in range(C044_Q)]
             for mode in ("strict_order", "relaxed_order"):
-                rec, lat, segs = scan_recall(idx, queries, mask, expected,
-                                             mode, SearchParams)
+                rec, lat, segs, _ = scan_recall(idx, queries, mask,
+                                                expected, mode, SearchParams)
                 log(f"044 {metric} i % {c} {mode}: recall {rec:.4f}, ms p50 "
                     f"{np.percentile(lat, 50):.3f}, segments mean "
                     f"{segs.mean():.2f}")
@@ -944,21 +939,10 @@ def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
     seg_bytes = walk_gather_bytes(steps1, scored1, L, 2) + (
         DIM * 4 + spill * 8 + (W + spill) * 8 + 8)
 
-    def earlier():  # the walk kernel's scan mode and the finish in torch
-        return beam._scan_finish(*beam._walk_cuda(
-            *one, width=W, spill=spill, max_steps=steps_w, scan=True),
-            ef=EF, spill=spill)
-
-    turns = {"k5": [], "earlier": []}
-    for name in ("k5", "earlier", "earlier", "k5"):
-        turns[name].append(cuda_ms(
-            (lambda: beam.scan_segment(*one, EF, W, spill, steps_w,
-                                       allowed=allowed0))
-            if name == "k5" else earlier))
-    ms5 = float(np.mean(turns["k5"]))
-    log(f"K5 per segment (ms, in turns): {turns['k5']}; the walk kernel's "
-        f"scan mode and the torch finish it needed: {turns['earlier']}; "
-        f"{ms5 / steps1 * 1e3:.3f} us per step")
+    ms5 = cuda_ms(lambda: beam.scan_segment(*one, EF, W, spill, steps_w,
+                                            allowed=allowed0))
+    log(f"K5 per segment: {ms5:.4f} ms, {ms5 / steps1 * 1e3:.3f} us per "
+        f"step")
     kernels["k5_beam_scan"] = dict(
         name="k5_beam_scan", route="cuda", source=CSRC + "k4_beam.cu",
         replaces=f"{JAX_DEVICE}:574 (_beam_scan_segment, an XLA "
@@ -970,7 +954,6 @@ def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
         library_ms=None, matmul_ms=None, matmul_of=None,
         steps_mean=steps1, scored_mean=scored1,
         us_per_step=ms5 / steps1 * 1e3,
-        earlier_form_ms=float(np.mean(turns["earlier"])),
     )
 
 

@@ -28,9 +28,7 @@
 // K4 (`beam_walk_kernel`): outputs the raw beam [W] sorted by (distance,
 // key), the step count and the number of rows scored (the live, not
 // excluded neighbours whose rows the walk read: its bound's bytes); the
-// wrapper (ops/beam.py) converts keys to ids. Its scan mode (`scan` = 1)
-// is K5's earlier form (raw beam and spill out, the segment's finish in
-// torch), kept as the measured baseline of K5's redesign.
+// wrapper (ops/beam.py) converts keys to ids.
 //
 // K5 (`beam_scan_kernel`, below): the segment and its finish in one launch
 // (the emitted top ef, the spill with the width - ef leftover merged in,
@@ -70,9 +68,9 @@
 // _sparse_dist). The bound counts scored * (P * 8 + 1) bytes.
 //
 // K4's design (sm_90a, plain CUDA, no tensor cores):
-// - 128 threads per block; the query, the double-buffered beam and spill,
-//   the neighbour list and the merge scratch live in shared memory
-//   (~12 KB at W = 160, SP = 320, d = 128), so many blocks fit on an SM.
+// - 128 threads per block; the query, the double-buffered beam, the
+//   neighbour list and the merge scratch live in shared memory (~3.5 KB at
+//   W = 40, d = 128), so many blocks fit on an SM.
 // - Scoring: each warp scores 4 neighbour rows at once (their loads in
 //   flight together), 16-byte loads when the rows allow it (aligned base
 //   and row stride, d a multiple of 4 f32 / 8 f16 or bf16 values), scalar
@@ -83,9 +81,9 @@
 //   and scores 32 / group rows at once.
 // - Merging: the new entries are rank-sorted (L^2 comparisons, L <= 256),
 //   then every entry finds its merged position with one binary search in
-//   the other sorted list (merge path), so beam and spill stay sorted with
-//   no full sort per step. Ties in (distance, key) keep beam before new
-//   and spill before tail, as the JAX package's stable sorts do.
+//   the other sorted list (merge path), so the beam stays sorted with no
+//   full sort per step. Ties in (distance, key) keep beam before new, as
+//   the JAX package's stable sort does.
 // Measured: see PERF.md (K4 / K5 rows), timed by chip_smoke.py.
 
 #include <cuda_bf16.h>
@@ -107,9 +105,7 @@ constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory limit
 // The timing probe (probes/k5_profile.py) builds this file with
 // -DPGV_K5_PROFILE: thread 0 of every scan block then adds the SM clocks
 // it spends in each phase of the walk to a device buffer
-// (pgv_k5_profile), and the walk kernel's scan mode waits for the
-// neighbour ids at a block barrier of its own so that the ids and the
-// flags time apart. Slots: the phases below, then steps, clocks of the
+// (pgv_k5_profile). Slots: the phases below, then steps, clocks of the
 // whole block, its globaltimer nanoseconds and the blocks counted.
 enum K5Phase {
   kPhSelect, kPhIds, kPhFlags, kPhRows, kPhDedup, kPhSort, kPhBeamMerge,
@@ -161,18 +157,14 @@ struct WalkArgs {
   long long stride;       // elements between consecutive rows
   const int* nbrs;        // [cap + 1, L] layer-0 ids (-1 pad)
   const uint8_t* trav;    // [cap + 1] live rows
-  const uint8_t* excl;    // [b, cap + 1] excluded rows (scan mode) or null
-  long long excl_stride;  // elements between the queries' masks
   const float* q;         // [b, d]
   const int* seed_ids;    // [b, S] (-1 = unused)
   const float* seed_d;    // [b, S]
   float* beam_d;          // [b, W]
   int* beam_key;          // [b, W]
-  float* spill_d;         // [b, SP]
-  int* spill_key;         // [b, SP]
   int* steps;             // [b]
   int* scored;            // [b] rows scored
-  int d, qd, L, cap, metric, S, W, SP, max_steps, scan;  // qd: query words
+  int d, qd, L, cap, metric, S, W, max_steps;  // qd: query words
 };
 
 // The sparse-row mode's row type (indices in `values`, values in
@@ -500,23 +492,20 @@ __device__ __forceinline__ int count_before(const float* ld, const int* lk,
   return lo;
 }
 
-size_t smem_bytes(int qd, int L, int S, int W, int SP) {
+size_t smem_bytes(int qd, int L, int S, int W) {
   const size_t dpad = (static_cast<size_t>(qd) + 3) & ~static_cast<size_t>(3);
-  // q; beam x2 (d, key); new raw, new sorted, tail (d, key); spill x2;
-  // seeds (d, key); neighbour ids and dup flags; neighbour live flags
-  return 4 * (dpad + 4 * static_cast<size_t>(W) + 6 * L + 4 * SP + 2 * S +
-              2 * L) +
-         L;
+  // q; beam x2 (d, key); new raw, new sorted (d, key); seeds (d, key);
+  // neighbour ids and dup flags; neighbour live flags
+  return 4 * (dpad + 4 * static_cast<size_t>(W) + 4 * L + 2 * S + 2 * L) + L;
 }
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[kWarps];
-  K5_PROF_BEGIN
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int W = a.W, SP = a.SP, L = a.L, S = a.S;
+  const int W = a.W, L = a.L, S = a.S;
   const float inf = inf_f();
 
   float* qs = reinterpret_cast<float*>(smem);
@@ -526,19 +515,12 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   int* nk = reinterpret_cast<int*>(nd + L);
   float* sd = reinterpret_cast<float*>(nk + L);  // new, sorted
   int* sk = reinterpret_cast<int*>(sd + L);
-  float* td = reinterpret_cast<float*>(sk + L);  // evicted tail, sorted
-  int* tk = reinterpret_cast<int*>(td + L);
-  float* pd = reinterpret_cast<float*>(tk + L);  // spill, 2 buffers of SP
-  int* pk = reinterpret_cast<int*>(pd + 2 * SP);
-  float* xd = reinterpret_cast<float*>(pk + 2 * SP);  // seeds
+  float* xd = reinterpret_cast<float*>(sk + L);  // seeds
   int* xk = reinterpret_cast<int*>(xd + S);
   int* nid = xk + S;  // neighbour ids
   int* dup = nid + L;  // neighbour already in the beam / the list
   uint8_t* nvalid = reinterpret_cast<uint8_t*>(dup + L);
 
-  const uint8_t* excl =
-      a.excl != nullptr ? a.excl + static_cast<long long>(b) * a.excl_stride
-                        : nullptr;
   // the query's bits, as they are (f32 values, packed words, or sparse
   // indices then value bits)
   const int* qg = reinterpret_cast<const int*>(a.q) +
@@ -583,15 +565,11 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     }
   }
 
-  // ---- seeds: admit, dedup by id, sort into the beam (and the spill)
+  // ---- seeds: dedup by id, sort into the beam
   const long long s0 = static_cast<long long>(b) * S;
   for (int i = tid; i < S; i += kThreads) {
     const int id = a.seed_ids[s0 + i];
-    bool ok = id >= 0;
-    if (ok && a.scan) {
-      const int s = min(id, a.cap);
-      ok = a.trav[s] && !excl[s];
-    }
+    const bool ok = id >= 0;
     xd[i] = ok ? a.seed_d[s0 + i] : inf;
     xk[i] = ok ? 2 * id + 1 : -2;
   }
@@ -607,26 +585,16 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     for (int j = 0; j < S; ++j)
       r += before(xd[j], xk[j], xd[i], xk[i]) ||
            (j < i && xd[j] == xd[i] && xk[j] == xk[i]);
-    if (r < W) {
-      bd[r] = xd[i];
-      bk[r] = xk[i];
-    } else if (r - W < SP) {
-      pd[r - W] = xd[i];
-      pk[r - W] = xk[i];
-    }
+    bd[r] = xd[i];  // r < S <= W
+    bk[r] = xk[i];
   }
   for (int r = S + tid; r < W; r += kThreads) {
     bd[r] = inf;
     bk[r] = -2;
   }
-  for (int r = max(S - W, 0) + tid; r < SP; r += kThreads) {
-    pd[r] = inf;
-    pk[r] = -2;
-  }
   __syncthreads();
 
   int cur = 0, steps = 0, scored = 0;
-  K5_MARK(kPhStart);
   while (true) {
     float* cbd = bd + cur * W;
     int* cbk = bk + cur * W;
@@ -646,22 +614,13 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     if (pos == INT_MAX || steps >= a.max_steps || !(cbd[pos] <= cbd[W - 1]))
       break;  // the same decision in every thread
     const int u = min(cbk[pos] >> 1, a.cap);  // the sentinel row at worst
-    K5_MARK(kPhSelect);
 
     for (int j0 = 0; j0 < L; j0 += kThreads) {  // the same trips in every
       const int j = j0 + tid;                      // thread
       bool ok = false;
       const int v = j < L ? a.nbrs[static_cast<long long>(u) * L + j] : -1;
-#ifdef PGV_K5_PROFILE
-      __syncthreads_or(v == INT_MIN);  // the ids have arrived
-      K5_MARK(kPhIds);
-#endif
       if (j < L) {
-        ok = v >= 0;
-        if (ok) {
-          const int s = min(v, a.cap);
-          ok = a.trav[s] && !(excl != nullptr && excl[s]);
-        }
+        ok = v >= 0 && a.trav[min(v, a.cap)];
         nid[j] = v;
         nvalid[j] = ok;
         nk[j] = ok ? 2 * v + 1 : -2;
@@ -669,7 +628,6 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       }
       scored += __syncthreads_count(ok);
     }
-    K5_MARK(kPhFlags);
     if (tid == 0) cbk[pos] &= ~1;  // expanded; read again after a barrier
 
     if constexpr (kWords) {
@@ -694,7 +652,6 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       }
     }
     __syncthreads();
-    K5_MARK(kPhRows);
 
     // dedup: a neighbour whose id is in the beam, or earlier in the list
     for (int i = tid; i < W; i += kThreads) {
@@ -709,7 +666,6 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
         if (nk[i] == nk[j]) dup[j] = 1;
     }
     __syncthreads();
-    K5_MARK(kPhDedup);
 
     // rank-sort the new entries
     for (int j = tid; j < L; j += kThreads) {
@@ -724,18 +680,13 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       sk[r] = kj;
     }
     __syncthreads();
-    K5_MARK(kPhSort);
 
-    // merge beam (W) and new (L): the first W are the next beam, the rest
-    // the evicted tail
+    // merge beam (W) and new (L): the first W are the next beam
     for (int i = tid; i < W; i += kThreads) {
       const int r = i + count_before(sd, sk, L, cbd[i], cbk[i], true);
       if (r < W) {
         obd[r] = cbd[i];
         obk[r] = cbk[i];
-      } else {
-        td[r - W] = cbd[i];
-        tk[r - W] = cbk[i];
       }
     }
     for (int j = tid; j < L; j += kThreads) {
@@ -743,36 +694,9 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       if (r < W) {
         obd[r] = sd[j];
         obk[r] = sk[j];
-      } else {
-        td[r - W] = sd[j];
-        tk[r - W] = sk[j];
-      }
-    }
-    if (SP > 0) {
-      __syncthreads();
-      K5_MARK(kPhBeamMerge);
-      // merge spill (SP) and tail (L), keep the SP nearest
-      const float* cpd = pd + cur * SP;
-      const int* cpk = pk + cur * SP;
-      float* opd = pd + (cur ^ 1) * SP;
-      int* opk = pk + (cur ^ 1) * SP;
-      for (int i = tid; i < SP; i += kThreads) {
-        const int r = i + count_before(td, tk, L, cpd[i], cpk[i], true);
-        if (r < SP) {
-          opd[r] = cpd[i];
-          opk[r] = cpk[i];
-        }
-      }
-      for (int j = tid; j < L; j += kThreads) {
-        const int r = j + count_before(cpd, cpk, SP, td[j], tk[j], false);
-        if (r < SP) {
-          opd[r] = td[j];
-          opk[r] = tk[j];
-        }
       }
     }
     __syncthreads();
-    K5_MARK(kPhSpillMerge);
     cur ^= 1;
     ++steps;
   }
@@ -784,16 +708,10 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     a.beam_d[ob + i] = cbd[i];
     a.beam_key[ob + i] = cbk[i];
   }
-  const long long os = static_cast<long long>(b) * SP;
-  for (int i = tid; i < SP; i += kThreads) {
-    a.spill_d[os + i] = pd[cur * SP + i];
-    a.spill_key[os + i] = pk[cur * SP + i];
-  }
   if (tid == 0) {
     a.steps[b] = steps;
     a.scored[b] = scored;
   }
-  if (a.scan) K5_PROF_END(steps);
 }
 
 template <typename T, int V>
@@ -1502,31 +1420,26 @@ extern "C" {
 // mode only; 4 padded-CSR rows (d int32 indices in `values`, d f32 values
 // in `values2`, the query d indices then d value bits: qd = 2d) with
 // metric 0-3, serving mode only. qd: the query's 32-bit words (d, or 2d
-// for sparse rows). scan = 0 (K4): S <= W, excl
-// null, SP = 0; scan = 1 (K5): excl [b, cap + 1] (row `excl_stride`), the
-// seeds past W go to the spill. Outputs as WalkArgs lists them.
+// for sparse rows). S <= W seeds per query. Outputs as WalkArgs lists
+// them.
 int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
                      long long stride, int d, int qd,
-                     const int* nbrs, int L, const uint8_t* trav,
-                     const uint8_t* excl, long long excl_stride, int cap,
+                     const int* nbrs, int L, const uint8_t* trav, int cap,
                      int metric, const float* q, const int* seed_ids,
-                     const float* seed_d, int b, int S, int W, int SP,
-                     int max_steps, int scan, float* beam_d, int* beam_key,
-                     float* spill_d, int* spill_key, int* steps, int* scored,
-                     void* stream) {
+                     const float* seed_d, int b, int S, int W,
+                     int max_steps, float* beam_d, int* beam_key,
+                     int* steps, int* scored, void* stream) {
   const bool words = dtype == 3, sparse = dtype == 4;
-  if (b <= 0 || d <= 0 || L <= 0 || S < 0 || W <= 0 || SP < 0 ||
-      (!scan && (S > W || SP != 0)) || (scan && excl == nullptr) ||
+  if (b <= 0 || d <= 0 || L <= 0 || S < 0 || W <= 0 || S > W ||
       metric < 0 || metric > 5 || words != (metric >= 4) ||
-      ((words || sparse) && scan) || qd != (sparse ? 2 * d : d) ||
-      sparse != (values2 != nullptr))
+      qd != (sparse ? 2 * d : d) || sparse != (values2 != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(qd, L, S, W, SP);
+  const size_t smem = smem_bytes(qd, L, S, W);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  WalkArgs a{values, values2, stride, nbrs, trav, excl, excl_stride, q,
-             seed_ids, seed_d, beam_d, beam_key, spill_d, spill_key, steps,
-             scored, d, qd, L, cap, metric, S, W, SP, max_steps, scan};
+  WalkArgs a{values, values2, stride, nbrs, trav, q, seed_ids, seed_d,
+             beam_d, beam_key, steps, scored, d, qd, L, cap, metric, S, W,
+             max_steps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)

@@ -406,13 +406,10 @@ class DeviceBeamScan:
                                      dtype=torch.bool, device=self.g.device)
         # the kernel's staged bitmap of the rows the scan may walk, where
         # K5's rule stages one (the card; the exclusion mask stays the truth)
-        self._allowed = None
-        if self.g.device.type == "cuda" and beam.k5_bitmap_fits(
-                self.g.cap, self.g.values.shape[1],
-                self.g.neighbors0.shape[1], self._spill_w, self._width,
-                ef, self._spill_w):
-            self._allowed = beam.allowed_bits(self.g.traversable,
-                                              self._excluded[None])
+        self._allowed = beam.staged_bitmap(
+            self.g.values, self.g.neighbors0, self.g.traversable,
+            self._excluded[None], self._spill_w, self._width, ef,
+            self._spill_w)
         # first-segment seeds, padded to the spill width
         if self.g.entry < 0:
             self._seeds = None

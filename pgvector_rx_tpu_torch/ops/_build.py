@@ -51,13 +51,11 @@ _SIGNATURES = {
     "pgv_k3_tilemin": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # base, n, d, out, stream
     "pgv_k3_x2max": [_P, _I, _I, _P, _P],
-    # values, values2, dtype, stride, d, qd, nbrs, L, trav, excl,
-    # excl_stride, cap, metric, q, seed_ids, seed_d, b, S, W, SP,
-    # max_steps, scan, beam_d, beam_key, spill_d, spill_key, steps, scored,
-    # stream
-    "pgv_k4_beam_walk": [_P, _P, _I, _L, _I, _I, _P, _I, _P, _P, _L, _I, _I,
-                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                         _P, _P, _P],
+    # values, values2, dtype, stride, d, qd, nbrs, L, trav, cap, metric, q,
+    # seed_ids, seed_d, b, S, W, max_steps, beam_d, beam_key, steps,
+    # scored, stream
+    "pgv_k4_beam_walk": [_P, _P, _I, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P,
+                         _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # values, dtype, stride, d, nbrs, L, trav, excl, excl_stride, allowed,
     # words, cap, metric, q, seed_ids, seed_d, b, S, W, ef, SP, max_steps,
     # mark, report, spill_d, spill_ids, stream

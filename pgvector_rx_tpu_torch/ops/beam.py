@@ -30,19 +30,15 @@ dense-only.
   report with one copy. :func:`beam_scan_segment` returns the same as
   (beam dists, beam ids, spill dists, spill ids, steps).
 
-The kernels walk under K5's rule for the flags (``k5_bitmap_fits``): a
-query's rows that may be walked (``traversable & ~excluded``) are staged as
-a bitmap in shared memory where (cap + 1) bits fit beside the segment's
-state, else read from the global flags.
+K5 walks under its rule for the flags (``k5_bitmap_fits``, applied by
+``staged_bitmap``): a query's rows that may be walked (``traversable &
+~excluded``) are staged as a bitmap in shared memory where (cap + 1) bits
+fit beside the segment's state, else read from the global flags.
 
 The wrappers take the plain version only for tensors on the CPU; for a
 CUDA tensor they launch the kernel or raise. ``bruteforce.LAUNCHES`` counts
 the launches under ``k4_beam`` (``k4_beam_sparse`` for sparse rows) and
-``k5_beam_scan``. The walk kernel's own scan mode (``_walk_cuda(...,
-scan=True)``, the form K5 took before its redesign, raw state out and the
-finish in torch) stays as the measured baseline of K5's redesign
-(``chip_smoke.py`` phase 13, ``probes/k5_profile.py``), counted under
-``k5_beam_scan_walk``.
+``k5_beam_scan``.
 
 Beam keys pack ``id * 2 + (1 - expanded)``; an invalid slot is -2, so
 ``cap`` must stay below 2^30. The walk's total order is (distance, key):
@@ -215,8 +211,15 @@ def _walk_plain(values, neighbors0, traversable, excluded, metric, q,
 def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
                seed_ids, seed_d, width: int, spill: int, max_steps: int,
                scan: bool):
-    """The kernel: one launch for the whole walk of every query."""
+    """The kernel: one launch for the whole walk of every query. It takes
+    ``_walk_plain``'s arguments but serves only (no exclusion mask, no
+    spill: a scan segment is K5, ``scan_segment``); the spill it returns
+    is empty."""
     from . import _build
+
+    if scan or excluded is not None or spill:
+        raise ValueError("the walk kernel serves only; a scan segment is "
+                         "K5 (scan_segment)")
 
     is_sparse = isinstance(values, tuple)
     values2 = None
@@ -239,8 +242,6 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
     if words != (values.dtype == torch.int32 and not is_sparse):
         raise ValueError(f"metric {metric!r} does not take {values.dtype} "
                          "rows (the bit metrics walk int32 words)")
-    if (words or is_sparse) and scan:
-        raise ValueError("the scan mode walks dense rows only")
     if is_sparse:
         qi, qv = q
         _check_cuda("query indices", qi, torch.int32, 2, dev)
@@ -270,19 +271,12 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
         raise ValueError("packed beam keys need cap < 2^30 rows")
     if metric not in _METRIC_CODES:
         raise ValueError(f"bad metric {metric}")
-    if scan:
-        _check_cuda("excluded", excluded, torch.bool, 2, dev)
-        if excluded.shape != (B, cap + 1):
-            raise ValueError(f"excluded must be [{B}, {cap + 1}] (got "
-                             f"{tuple(excluded.shape)})")
-    elif S > width:
+    if S > width:
         raise ValueError(f"{S} seeds do not fit a beam of width {width}")
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     beam_d = torch.empty((B, width), **f32)
     beam_key = torch.empty((B, width), **i32)
-    sp_d = torch.empty((B, spill), **f32)
-    sp_key = torch.empty((B, spill), **i32)
     steps = torch.empty((B,), **i32)
     scored = torch.empty((B,), **i32)
     if B:
@@ -292,19 +286,16 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
                 values2.data_ptr() if is_sparse else None,
                 _SPARSE_ROWS if is_sparse else _DTYPE_CODES[values.dtype],
                 values.stride(0), d, qd, neighbors0.data_ptr(), L,
-                traversable.data_ptr(),
-                excluded.data_ptr() if scan else None,
-                cap + 1 if scan else 0, cap, _METRIC_CODES[metric],
+                traversable.data_ptr(), cap, _METRIC_CODES[metric],
                 q.data_ptr(), seed_ids.data_ptr(), seed_d.data_ptr(), B, S,
-                width, spill, max_steps, int(scan), beam_d.data_ptr(),
-                beam_key.data_ptr(), sp_d.data_ptr(), sp_key.data_ptr(),
+                width, max_steps, beam_d.data_ptr(), beam_key.data_ptr(),
                 steps.data_ptr(), scored.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(rc, "pgv_k4_beam_walk")
-        LAUNCHES["k5_beam_scan_walk" if scan else
-                 "k4_beam_sparse" if is_sparse else "k4_beam"] += 1
-    return beam_d, beam_key.long(), sp_d, sp_key.long(), steps, scored
+        LAUNCHES["k4_beam_sparse" if is_sparse else "k4_beam"] += 1
+    sp_d = torch.empty((B, 0), **f32)
+    return (beam_d, beam_key.long(), sp_d, sp_d.long(), steps, scored)
 
 
 def _walk(values, neighbors0, *args, **kw):
@@ -393,6 +384,19 @@ def allowed_bits(traversable, excluded):
     shift = torch.arange(32, dtype=torch.int64, device=ok.device)
     w = (ok.view(b, words, 32).long() << shift).sum(-1)
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def staged_bitmap(values, neighbors0, traversable, excluded, S: int, W: int,
+                  ef: int, SP: int):
+    """The bitmap K5 stages for the queries of ``excluded`` [B, cap + 1]
+    (``allowed_bits``) where its rule stages one: dense rows on the card
+    and ``k5_bitmap_fits``; else None (the kernel reads the flags, and the
+    plain version never takes a bitmap)."""
+    if not (neighbors0.is_cuda and torch.is_tensor(values)
+            and k5_bitmap_fits(traversable.shape[0] - 1, values.shape[1],
+                               neighbors0.shape[1], S, W, ef, SP)):
+        return None
+    return allowed_bits(traversable, excluded)
 
 
 def mark_excluded(excluded, ids):
@@ -530,14 +534,10 @@ def beam_scan_segment(values, neighbors0, traversable, excluded, metric: str,
                       max_steps: int):
     """K5 (``scan_segment``) with its report unpacked: (beam dists [B, ef],
     beam ids [B, ef], spill dists [B, spill], spill ids [B, spill], steps
-    [B]). On the card the query's bitmap is staged where
-    ``k5_bitmap_fits``; nothing is marked."""
-    allowed = None
-    cap = traversable.shape[0] - 1
-    if neighbors0.is_cuda and torch.is_tensor(values) and k5_bitmap_fits(
-            cap, values.shape[1], neighbors0.shape[1], seed_ids.shape[1],
-            max(width, ef), ef, spill):
-        allowed = allowed_bits(traversable, excluded)
+    [B]). The bitmap is staged by ``staged_bitmap``'s rule; nothing is
+    marked."""
+    allowed = staged_bitmap(values, neighbors0, traversable, excluded,
+                            seed_ids.shape[1], max(width, ef), ef, spill)
     report, sp_d, sp_ids = scan_segment(
         values, neighbors0, traversable, excluded, metric, q, seed_ids,
         seed_d, ef, width, spill, max_steps, allowed)

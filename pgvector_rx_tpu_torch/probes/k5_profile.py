@@ -1,17 +1,15 @@
 """Timing probe: where a step of K5 (the scan segment) spends its time, and
 the card's dependent round trip.
 
-    python -m pgvector_rx_tpu_torch.probes.k5_profile [--rows N]
+    python -m pgvector_rx_tpu_torch.probes.k5_profile [--rows N] [--queries N]
 
 Needs one NVIDIA Hopper card and ``nvcc``.
 
 1. Builds the kernel library a second time with ``-DPGV_K5_PROFILE`` into
    ``pgvector_rx_tpu_torch/_build/k5_profile/``: thread 0 of every scan
    block then adds the SM clocks of each phase of a step to a device
-   buffer (``csrc/k4_beam.cu``, ``K5_MARK``). In the walk kernel's scan
-   mode (K5's form before its redesign) an extra block barrier waits for
-   the neighbour ids, so the ids and the flags time apart; in the
-   redesigned kernel one waits for the prefetched ids.
+   buffer (``csrc/k4_beam.cu``, ``K5_MARK``); a block barrier of its own
+   waits for the prefetched neighbour ids, so the ids time apart.
 2. Builds the smoke's main graph on the card: ``N`` rows (default
    1,065,536) of ``make_dataset(N, 128, 64, seed=0)``, l2, m=16,
    ef_construction=64, the device build.
@@ -19,10 +17,9 @@ Needs one NVIDIA Hopper card and ``nvcc``.
    queries, filter ``eid % 500 == 0``, strict order, LIMIT 20, ef_search
    40: internal width 160, spill 200, the coarse seeds): each query runs
    the segments its ``DeviceBeamScan`` needs, fed its own spill and
-   marks, once with each form (``--forms``), in turns, twice. Prints per
-   form the clocks and microseconds per step of each phase (clocks scaled
-   by the blocks' own globaltimer; in the redesigned kernel "spill_merge"
-   is the spill pool's occasional sorts, "ids" a barrier that waits for
+   marks, twice. Prints per run the clocks and microseconds per step of
+   each phase (clocks scaled by the blocks' own globaltimer; "spill_merge"
+   is the spill pool's occasional sorts, "ids" the barrier that waits for
    the prefetched ids), steps per segment, and the kernel's microseconds
    per segment.
 4. A pointer chase (the kernel below, one warp, 4,096 hops from each of 8
@@ -139,9 +136,9 @@ def _segments(index, g, q, mask, dm, beam, SearchParams, DeviceBeamScan):
     return scan.scan_stats.resumes + 1
 
 
-def _replay(form, g, q, nseg, dm, beam):
-    """One query's segments with one form, each fed the previous one's
-    spill and marks (DeviceBeamScan's state)."""
+def _replay(g, q, nseg, dm, beam):
+    """One query's segments, each fed the previous one's spill and marks
+    (DeviceBeamScan's state)."""
     ef, width = 40, 160
     spill = max(2 * ef, 64) + width - ef
     upper = dm._coarse_upper(g)
@@ -155,18 +152,9 @@ def _replay(form, g, q, nseg, dm, beam):
     allowed = beam.allowed_bits(g.traversable, excl)
     args = (g.values, g.neighbors0, g.traversable)
     for _ in range(nseg):
-        if form == "redesigned":
-            _, sp_d, sp_ids = beam.scan_segment(
-                *args, excl, "l2", q[None], *seeds, ef, width, spill,
-                4 * width + 32, allowed=allowed, mark=True)
-        else:
-            raw = beam._walk_cuda(*args, excl, "l2", q[None], *seeds,
-                                  width=width, spill=spill,
-                                  max_steps=4 * width + 32, scan=True)
-            _, beam_ids, sp_d, sp_ids, _ = beam._scan_finish(*raw, ef=ef,
-                                                             spill=spill)
-            beam.mark_excluded(excl, beam_ids)
-            sp_ids = sp_ids.to(torch.int32)
+        _, sp_d, sp_ids = beam.scan_segment(
+            *args, excl, "l2", q[None], *seeds, ef, width, spill,
+            4 * width + 32, allowed=allowed, mark=True)
         seeds = (sp_ids, sp_d)
 
 
@@ -174,8 +162,6 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_065_536)
     ap.add_argument("--queries", type=int, default=64)
-    ap.add_argument("--forms", default="walk scan mode,redesigned",
-                    help="the forms to time, comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("the probe needs a CUDA card")
@@ -209,44 +195,41 @@ def main() -> int:
 
     lib0 = _build.lib()
     buf = torch.zeros(_SLOTS, dtype=torch.int64, device=dev)
-    stats = {}
+    runs = []
     try:
         _build._lib = prof_lib
-        forms = args.forms.split(",")
-        for form in forms + forms[::-1]:
+        for _ in range(2):
             buf.zero_()
             prof_lib.pgv_k5_profile(buf.data_ptr())
             torch.cuda.synchronize()
             t0 = time.time()
             for i in range(args.queries):
-                _replay(form, g, q_dev[i], nseg[i], dm, beam)
+                _replay(g, q_dev[i], nseg[i], dm, beam)
             torch.cuda.synchronize()
             wall = time.time() - t0
             prof_lib.pgv_k5_profile(None)
-            stats.setdefault(form, []).append((buf.cpu().numpy().copy(),
-                                               wall))
+            runs.append((buf.cpu().numpy().copy(), wall))
     finally:
         _build._lib = lib0
-    for form, runs in stats.items():
-        for c, wall in runs:
-            steps, clocks, ns, blocks = (int(x) for x in c[len(_PHASES):])
-            ns_per_clock = ns / clocks
-            split = {ph: {"clocks_per_step": c[i] / steps,
-                          "us_per_step": c[i] * ns_per_clock / steps / 1e3}
-                     for i, ph in enumerate(_PHASES) if ph not in
-                     ("start", "finish")}
-            per_seg = {ph: c[i] * ns_per_clock / blocks / 1e3
-                       for i, ph in enumerate(_PHASES)
-                       if ph in ("start", "finish")}
-            print(json.dumps({
-                "form": form, "segments": blocks, "steps": steps,
-                "steps_per_segment": steps / blocks,
-                "kernel_us_per_segment": ns / blocks / 1e3,
-                "us_per_step": ns / steps / 1e3,
-                "sm_ghz": clocks / ns, "split": split,
-                "us_per_segment_outside_steps": per_seg,
-                "host_wall_ms_per_segment": wall / blocks * 1e3}),
-                flush=True)
+    for run, (c, wall) in enumerate(runs):
+        steps, clocks, ns, blocks = (int(x) for x in c[len(_PHASES):])
+        ns_per_clock = ns / clocks
+        split = {ph: {"clocks_per_step": c[i] / steps,
+                      "us_per_step": c[i] * ns_per_clock / steps / 1e3}
+                 for i, ph in enumerate(_PHASES) if ph not in
+                 ("start", "finish")}
+        per_seg = {ph: c[i] * ns_per_clock / blocks / 1e3
+                   for i, ph in enumerate(_PHASES)
+                   if ph in ("start", "finish")}
+        print(json.dumps({
+            "run": run, "segments": blocks, "steps": steps,
+            "steps_per_segment": steps / blocks,
+            "kernel_us_per_segment": ns / blocks / 1e3,
+            "us_per_step": ns / steps / 1e3,
+            "sm_ghz": clocks / ns, "split": split,
+            "us_per_segment_outside_steps": per_seg,
+            "host_wall_ms_per_segment": wall / blocks * 1e3}),
+            flush=True)
 
     out = torch.zeros(2, dtype=torch.int64, device=dev)
     rng = np.random.default_rng(3)

@@ -205,6 +205,8 @@ def test_allowed_bits_and_the_plain_segment_report():
     assert torch.equal(ex[:, :n], want[:, :n])
     with pytest.raises(ValueError, match="CUDA only"):
         tbeam.scan_segment(*args, allowed=tbeam.allowed_bits(tr, ex))
+    # the staging rule stages nothing for CPU tensors
+    assert tbeam.staged_bitmap(vals, nb, tr, ex, 30, 4 * ef, ef, 200) is None
 
 
 def test_seeders_match_jax(pair):
@@ -557,11 +559,10 @@ def test_walk_kernel_scan_matches_plain(cuda, d, offset, overflow):
     p = (pr[:, :ef].view(torch.float32), pr[:, ef : 2 * ef], p_d, p_i,
          pr[:, 2 * ef])
     _assert_same(k, p)
-    # the walk kernel's scan mode (K5's earlier form): the raw state, steps
-    # and rows scored
-    args = (vals, nb, trav, excl, "l2", q, ids, sd, width, spill,
-            4 * width + 32, True)
-    _assert_same(tbeam._walk_cuda(*args), tbeam._walk_plain(*args))
+    # the walk kernel serves only: a scan segment is K5's
+    with pytest.raises(ValueError, match="serves only"):
+        tbeam._walk_cuda(vals, nb, trav, excl, "l2", q, ids, sd, width,
+                         spill, 4 * width + 32, True)
     k = [x.cpu().numpy() for x in k]
     ex = excl.cpu().numpy()
     for r in range(q.shape[0]):
