@@ -33,7 +33,12 @@ Then, outside the counted paths:
    its plain-torch version at the main path's shapes (1,024 queries x
    every row, k=10) and time both, beside the plain ``torch.matmul`` that
    makes the same [1,024, N] scores (the product alone, not the same
-   function); the K1 check must reject a control whose operands are
+   function) and the same function composed of PyTorch calls per
+   65,536-row block (the library yardstick: K1 f32 ``torch.mm`` + ``a`` +
+   ``torch.topk``; K2 bf16 ``torch.mm``, the per-bin ``torch.min``, then
+   ``torch.topk``; K3 bf16 ``torch.mm`` and the per-tile minimum, beside
+   its sweep kernel alone); the K1 check must reject a control whose
+   operands are
    truncated to TF32, the K2 check a control whose sums are rounded to
    bf16, the K3 check a control that ORs the column into uncleared score
    bits. K3 is timed end to end (``ms``) and its sweep kernel alone
@@ -115,16 +120,24 @@ K9 ground truth for 4,096 queries equal to numpy popcounts on 64 of them
 in (distance, id) order, ``serve_topk`` exact / approx / beam (ef=40, the
 walk's packed-word mode) with tie-aware recall@10 (a returned row counts
 if its distance is at most the 10th true one) against floors (1.0, 1.0,
-0.93), and ``search`` held to ``serve_topk``. Then K9 against its plain
-version at 1,024 queries (equal, tie order included; the check must
-reject a control whose ties put the higher id first), timed beside its
-bound and ``torch.cdist(p=0)``, and the packed-word walk against the
-plain walk (tie-aware; it must reject the plain walk cut to ef / 4 steps).
+0.93), and ``search`` held to ``serve_topk`` (8 queries too: K9's
+popcount form, JAX's B < 32; 64 and more take its int8 tensor-core form).
+Then both forms of K9 (the tensor-core form at 1,024 queries, the
+popcount form at 8 and at 1,024) against both plain versions (equal, tie
+order included; the check must reject a control whose ties put the higher
+id first) and against JAX's MXU form written in PyTorch (unpack to bf16,
+``torch.mm``, the formula, chunked ``torch.topk``: the library yardstick),
+timed beside their bounds; ``torch.cdist(p=0)`` must give K9's top-1.
+Then the bit beam's launch (the greedy descent in K4's launch, then the
+walk's packed-word mode) against the torch descent and the plain walk
+(the same landing ids and distances; the walks tie-aware equal; it must
+reject the plain walk cut to ef / 4 steps), with the split of the torch
+descent feeding the walk kernel beside the one launch.
 
 **Jaccard path** (22, the first 262,144 bit rows, cut for the run's
 time): the device build, the exact engine against numpy jaccard on 1,024
 queries (f32 distances equal, ids equal but for ties), beam recall, and
-K9's jaccard mode against its plain version, timed.
+both forms of K9's jaccard mode against the plain versions, timed.
 
 **Flat index and operator classes** (23): ``FlatIndex`` over the first
 100,000 rows of the main corpus (l2) and of the bit corpus (hamming)
@@ -144,9 +157,11 @@ truth for the first 1,024 rows as queries (its dense-query form), held
 to a float64 scipy CSR product on 64 of them; ``index.search`` exact
 (floor 0.999), approx (0.98) and beam (ef=40, no floor at 30k-d: recall
 printed), and ``FlatIndex`` over the 100,000 rows (K10's lookup form:
-the flat index knows no dim), equal to that form's top-10; the beam's walk
-(K4's sparse-row mode) against the plain walk from the same descent
-seeds (must reject the plain walk cut to ef / 4 steps); both forms of
+the flat index knows no dim), equal to that form's top-10; the beam's
+launch (the greedy descent in K4's launch, then the walk's sparse-row
+mode) against the torch descent and the plain walk from where it lands
+(must reject the plain walk cut to ef / 4 steps), with the split of the
+torch descent feeding the walk kernel beside the one launch; both forms of
 K10 against their plain version in l2, ip, cosine, l1 and approx mode
 (must reject the plain sweep with bf16-rounded values and one whose ip
 keys are raw f32 bits), timed in turns with ``torch.sparse.mm`` composed
@@ -159,8 +174,9 @@ saved and loaded, every engine's ids unchanged.
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
 path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
-path, K9 and K4 (word mode) on the bit and the jaccard paths, K1, K9 and
-K4 in phase 23, both forms of K10 and K4 (sparse mode) on the sparse
+path, both forms of K9 and K4 (word mode) on the bit path, K9's
+tensor-core form and K4 on the jaccard path, K1, K9's tensor-core form
+and K4 in phase 23, both forms of K10 and K4 (sparse mode) on the sparse
 path. The last two lines of output are one JSON object per kernel list
 and the device line.
 """
@@ -212,6 +228,8 @@ PEAKS = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12,
 #: at 1M (hamming) and its first 262,144 rows (jaccard, cut for the run's
 #: time); the flat index's rows; the rows of each operator class's index
 N_BIT, NBITS, N_BIT_Q = 1_000_000, 256, 4_096
+#: a few queries at once (K9's popcount form: JAX's B < 32)
+N_FEW_Q = 8
 N_JAC = 262_144
 N_FLAT, N_OPCLASS = 100_000, 500
 BIT_FLOORS = {"exact": 1.0, "approx": 1.0, "beam": 0.93}
@@ -375,6 +393,64 @@ def k3_agreement(bf, d, ids, p_d, p_ids, vb, a, q, q2, q2max):
           and bool((own_err <= tol).all())
           and not tie_aware_mismatch(ids, d, p_ids, p_d, tol.max(axis=1)))
     return float(err.max()), ok
+
+
+#: rows per block of the composed library calls (bounds their [B, rows]
+#: scores)
+LIB_ROWS = 65_536
+
+
+def k1_library(x, a, q, k):
+    """K1's function from PyTorch calls: per block of rows an f32
+    ``torch.mm`` (TF32 off), ``a - 2 q.x`` and ``torch.topk``, merged."""
+    best_d = best_i = None
+    for s in range(0, x.shape[0], LIB_ROWS):
+        xs = x[s : s + LIB_ROWS]
+        sc = a[None, s : s + LIB_ROWS] - 2.0 * torch.mm(q, xs.T)
+        d, i = torch.topk(sc, k, dim=1, largest=False)
+        if best_d is not None:
+            d, i = torch.cat([best_d, d], 1), torch.cat([best_i, i + s], 1)
+            d, j = torch.topk(d, k, dim=1, largest=False)
+            i = torch.gather(i, 1, j)
+        best_d, best_i = d, i
+    return best_d, best_i
+
+
+def k2_library(vb, a, qb, k, tn):
+    """K2's function from PyTorch calls: per block of rows a bf16
+    ``torch.mm`` (bf16 out), ``a - 2 q.x`` in f32 and each bin's (row mod
+    tn) minimum (``torch.min``), kept across blocks; then ``torch.topk``
+    over the bins."""
+    b = qb.shape[0]
+    best = torch.full((b, tn), float("inf"), device=qb.device)
+    rows = torch.zeros((b, tn), dtype=torch.int64, device=qb.device)
+    col = torch.arange(tn, device=qb.device)
+    for s in range(0, vb.shape[0], LIB_ROWS):
+        sc = lib_tiles(vb, a, qb, s, tn)
+        m, j = torch.min(sc, dim=1)
+        take = m < best
+        best = torch.where(take, m, best)
+        rows = torch.where(take, s + j * tn + col, rows)
+    d, c = torch.topk(best, k, dim=1, largest=False)
+    return d, torch.gather(rows, 1, c)
+
+
+def k3_library(vb, a, qb, tn):
+    """K3's sweep from PyTorch calls: per block of rows a bf16
+    ``torch.mm``, ``a - 2 q.x`` in f32 and each tile's minimum with its
+    column (``torch.min`` over tn-row tiles)."""
+    return [torch.min(lib_tiles(vb, a, qb, s, tn), dim=2)
+            for s in range(0, vb.shape[0], LIB_ROWS)]
+
+
+def lib_tiles(vb, a, qb, s, tn):
+    """The f32 scores ``a - 2 q.x`` of rows [s, s + LIB_ROWS) from a bf16
+    ``torch.mm``, as [B, tiles, tn] (a short last tile padded with +inf)."""
+    sc = a[None, s : s + LIB_ROWS] - 2.0 * torch.mm(
+        qb, vb[s : s + LIB_ROWS].T).float()
+    sc = torch.nn.functional.pad(sc, (0, -sc.shape[1] % tn),
+                                 value=float("inf"))
+    return sc.view(sc.shape[0], -1, tn)
 
 
 def check_graph(g, m: int, n: int) -> None:
@@ -1391,6 +1467,141 @@ def tie_equal_rows(ids_a, d_a, ids_b, d_b):
     return ok
 
 
+def bits_library(bits_mod, bf, words, live, q, k, metric):
+    """K9's function from PyTorch calls, JAX's MXU form: per block of rows
+    the rows and queries unpacked to bf16 {0,1}, ``torch.mm`` (its bf16
+    sums of 0/1 products are exact up to 256 bits), hamming ``popq + popx
+    - 2 ab`` or jaccard, dead rows at +inf, ``torch.topk`` over (distance,
+    row) keys, merged."""
+    qb = bits_mod.unpack_words_bf16(q)
+    qpop = bits_mod.row_popcount(q)[:, None]
+    best = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
+    for s in range(0, words.shape[0], LIB_ROWS):
+        x = words[s : s + LIB_ROWS]
+        ab = torch.mm(qb, bits_mod.unpack_words_bf16(x).T).float()
+        xpop = bits_mod.row_popcount(x)[None, :]
+        if metric == "hamming":
+            d = qpop + xpop - 2.0 * ab
+        else:
+            d = bits_mod._from_counts(metric, ab, qpop, xpop)
+        d = torch.where(live[None, s : s + LIB_ROWS], d, float("inf"))
+        rows = torch.arange(s, s + x.shape[0], device=q.device)
+        keys = torch.cat([best, bf._order_keys(d, rows.expand(q.shape[0],
+                                                              -1))], 1)
+        best = torch.topk(keys, min(k, keys.shape[1]), dim=1, largest=False,
+                          sorted=True).values
+    return bf._from_order_keys(best)
+
+
+def walk_vs_plain_descent(g, q, metric, device_mod, beam, kernels, name,
+                          launches, replaces, ops_per_row, peak, row_words,
+                          exact):
+    """The beam's launch (``ops/beam.descent_walk``: the greedy descent,
+    then the walk) on the card against its plain version
+    (``descent_plain`` + ``_walk_plain``) and against the torch descent
+    feeding the walk kernel: the same landings (ids; distances exactly for
+    bit rows, within 1e-5 relative for float sums), the walks equal but for
+    ties (``exact``: tie-aware by distance, bit rows), a control cut to
+    ef / 4 steps that must fail; each timed, with the descent's share of
+    the torch-descent path. Adds the kernel's row to ``kernels``."""
+    steps_max = 4 * EF + 32
+    B = (q[0] if isinstance(q, tuple) else q).shape[0]
+    qq = beam._queries(q, metric)
+    upper = (g.upper_slot, g.upper_neighbors, g.m, g.entry, g.entry_level)
+    seeds = torch.full((B, 1), -1, dtype=torch.int32, device=g.device)
+    zeros = torch.zeros((B, 1), device=g.device)
+
+    def launch():
+        return beam._launch_walk(g.rows, g.neighbors0, g.traversable, metric,
+                                 qq, seeds, zeros, EF, steps_max, upper)
+
+    def torch_descent():
+        return device_mod._descent_seeds(g, q, g.entry_level)
+
+    def walk_from(s_ids, s_d, cut=steps_max):
+        return beam._walk_plain(g.rows, g.neighbors0, g.traversable, None,
+                                metric, qq, s_ids.to(torch.int32), s_d,
+                                width=EF, spill=0, max_steps=cut, scan=False)
+
+    def finish(raw):
+        return [t.cpu().numpy() for t in beam._serve_finish(*raw)]
+
+    raw_k, land = launch()
+    s_ids, s_d = torch_descent()
+    same_id = float((land[:, 0].long() == s_ids[:, 0]).float().mean())
+    ld = land[:, 1].contiguous().view(torch.float32)
+    derr = float(((ld - s_d[:, 0]).abs()
+                  / s_d[:, 0].abs().clamp(min=1e-30)).max())
+    (kd, ki, ks), (pd, pi, ps) = finish(raw_k), finish(walk_from(s_ids, s_d))
+    cd, ci, _ = finish(walk_from(s_ids, s_d, EF // 4))
+    tk = device_mod._ground_beam_seeds(g, q, s_ids, s_d, EF, steps_max)
+    td, ti = (t.cpu().numpy() for t in tk[:2])
+    if exact:
+        ok = tie_equal_rows(ki, kd, pi, pd).mean()
+        okc = tie_equal_rows(ci, cd, pi, pd).mean()
+        okt = float((ti == ki).all(axis=1).mean())
+    else:
+        ok, err = walk_agreement(ki, kd, pi, pd)
+        okc, _ = walk_agreement(ci, cd, pi, pd)
+        ok, okc = ok.mean(), okc.mean()
+        okt = float(walk_agreement(ti, td, ki, kd)[0].mean())
+    log(f"{name}: descent in the launch vs torch: {same_id:.4f} of landings "
+        f"the same id (max rel distance err {derr:.3e}); the walk vs plain: "
+        f"{ok:.4f} of queries equal but for ties "
+        f"({float((ki == pi).all(axis=1).mean()):.4f} every id), "
+        f"{float((ks == ps).mean()):.4f} equal steps; vs the walk kernel "
+        f"from the torch descent {okt:.4f}; control (plain cut to "
+        f"{EF // 4} steps): {okc:.4f}")
+    if same_id < (1.0 if exact else 0.99) or (exact and derr > 0):
+        raise RuntimeError(f"{name}: the descent in the launch lands "
+                           "elsewhere than the torch descent")
+    if ok < 0.99 or okt < 0.99:
+        raise RuntimeError(f"{name} disagrees with the plain walk")
+    if okc >= 0.99:
+        raise RuntimeError(f"the {name} check passes a walk cut to ef / 4 "
+                           "steps")
+    steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
+    d_rows, moves = float(land[:, 2].sum()), float(land[:, 3].sum())
+    # the descent reads, per iteration, a node's upper slot and m ids; it
+    # scores the entry and the valid neighbours (d_rows)
+    iters = moves + B * g.entry_level
+    nbytes = (walk_gather_bytes(steps, scored, g.neighbors0.shape[1], 1,
+                                row_words)
+              + iters * (4 + 4 * g.m) + d_rows * (row_words * 4 + 1)
+              + B * (row_words * 4 + EF * 8 + 8))
+    ms_launch = cuda_ms(launch)
+    ms_desc = cuda_ms(torch_descent, 3)
+    ms_walk = cuda_ms(lambda: beam._walk_cuda(
+        g.rows, g.neighbors0, g.traversable, None, metric, qq,
+        s_ids.to(torch.int32), s_d, width=EF, spill=0, max_steps=steps_max,
+        scan=False))
+    fin = np.isfinite(pd)
+    kernels[name] = dict(
+        name=name, route="cuda", source=CSRC + "k4_beam.cu",
+        replaces=replaces, queries=B,
+        max_abs_err=float(np.abs(kd[fin] - pd[fin]).max()),
+        ms=ms_launch,
+        ms_of="one launch: the greedy descent and the walk",
+        walk_ms=ms_walk, torch_descent_ms=ms_desc,
+        plain_ms=cuda_ms(lambda: walk_from(*torch_descent()), 1),
+        **bound(ops_per_row * (scored + d_rows), peak, nbytes),
+        library_ms=None, steps_mean=steps / B, scored_mean=scored / B,
+        descent_rows_mean=d_rows / B, descent_moves_mean=moves / B,
+        launches=launches)
+    kr = kernels[name]
+    kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
+    share = ms_desc / (ms_desc + ms_walk)
+    log(f"{name} at {B} queries: one launch (descent + walk) "
+        f"{ms_launch:.4f} ms; the torch descent {ms_desc:.4f} ms + the walk "
+        f"kernel {ms_walk:.4f} ms (the descent {share:.4f} of that path); "
+        f"plain {kr['plain_ms']:.4f} ms; bound "
+        f"{kr['bound_ms']:.4f} ms ({kr['bound_by']}, {kr['bound_peak']}), "
+        f"share {kr['share_of_bound']:.4f}; {kr['steps_mean']:.1f} steps, "
+        f"{kr['scored_mean']:.1f} rows scored, descent "
+        f"{kr['descent_rows_mean']:.1f} rows and "
+        f"{kr['descent_moves_mean']:.1f} moves per query")
+
+
 def bit_path(HnswIndex, IndexParams, SearchParams, make_dataset, device_mod,
              db, bf, bits_mod, beam, dev, kernels):
     """Phase 21: BASELINE's bit(256) hamming configuration at 1,000,000
@@ -1426,7 +1637,7 @@ def bit_path(HnswIndex, IndexParams, SearchParams, make_dataset, device_mod,
             raise RuntimeError("K9 ground truth disagrees with numpy")
     kth = gt_d[:, -1]
     served = {}
-    for engine, kname in (("exact", "k9_bits"), ("approx", "k9_bits"),
+    for engine, kname in (("exact", "k9_bits_tc"), ("approx", "k9_bits_tc"),
                           ("beam", "k4_beam")):
         with Phase(f"21 serve_topk {engine}"):
             before = bf.LAUNCHES[kname]
@@ -1466,111 +1677,120 @@ def bit_path(HnswIndex, IndexParams, SearchParams, make_dataset, device_mod,
             if (one & ~same).any() or not one.sum():
                 raise RuntimeError(f"bit search({method}) disagrees with "
                                    "serve_topk")
+            if method == "exact":
+                # a few queries (K9's popcount form, B < 32) answer alike
+                sd8, st8 = idx.search(qbits[:N_FEW_Q], K,
+                                      SearchParams(ef_search=EF),
+                                      method=method)
+                if not (np.array_equal(sd8, sd[:N_FEW_Q])
+                        and np.array_equal(st8, stids[:N_FEW_Q])):
+                    raise RuntimeError(f"bit search of {N_FEW_Q} queries "
+                                       "disagrees with the batch of 64")
     launches = dict(bf.LAUNCHES)
     log(f"bit path launches: {launches}")
-    for name in ("k9_bits", "k4_beam"):
+    for name in ("k9_bits", "k9_bits_tc", "k4_beam"):
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the bit path")
 
-    with Phase("21 K9 and the packed-word walk vs plain"):
+    with Phase("21 K9's two forms vs plain"):
         q1 = qw[:CHUNK].contiguous()
         words, n1, w = g.words, g.words.shape[0], g.words.shape[1]
-
-        def k9(ww=words, lv=live):
-            return bits_mod._bits_topk_cuda(ww, None, lv, q1, K, "hamming")
-
-        def plain9(ww=words, lv=live):
-            return bits_mod._bits_topk_plain(ww, None, lv, q1, K, "hamming")
-
-        kd, ki = k9()
-        pd, pi = plain9()
-        cd, ci = plain9(words.flip(0), live.flip(0))
-        ci = torch.where(ci >= 0, n1 - 1 - ci, -1)
-        ok9 = torch.equal(kd, pd) and torch.equal(ki, pi)
-        ctl9 = torch.equal(cd, pd) and torch.equal(ci, pi)
-        tied = float((pd[:, 1:] == pd[:, :-1]).any(dim=1).float().mean())
-        log(f"K9 vs plain at {CHUNK} queries: {'equal' if ok9 else 'differ'} "
-            f"(distances and ids, tie order included; {tied:.4f} of rows "
-            f"hold a tie); control (ties higher id first): "
-            f"{'equal' if ctl9 else 'differs'}")
-        if not ok9:
-            raise RuntimeError("K9 disagrees with its plain version")
-        if ctl9:
-            raise RuntimeError("the K9 check passes a reversed tie order")
+        keys = bf._order_keys
+        forms = {}
+        for form, qq in (("k9_bits_tc", q1), ("k9_bits", q1),
+                         ("k9_bits", qw[:N_FEW_Q].contiguous())):
+            kd, ki = bits_mod._bits_topk_cuda(words, g.x2, live, qq, K,
+                                              "hamming", form=form)
+            got = keys(kd, ki)
+            # both plain versions, and a control whose ties put the higher
+            # row first
+            ok = all(torch.equal(got, keys(*p(words, g.x2, live, qq, K,
+                                              "hamming")))
+                     for p in (bits_mod._bits_topk_plain,
+                               bits_mod._bits_topk_plain_mm))
+            cd, ci = bits_mod._bits_topk_plain(words.flip(0), None,
+                                               live.flip(0), qq, K,
+                                               "hamming")
+            ctl = torch.equal(got, keys(cd, torch.where(ci >= 0,
+                                                        n1 - 1 - ci, -1)))
+            lib = keys(*bits_library(bits_mod, bf, words, live, qq, K,
+                                     "hamming"))
+            tied = float((kd[:, 1:] == kd[:, :-1]).any(dim=1).float().mean())
+            log(f"K9 {form} at {qq.shape[0]} queries vs both plain "
+                f"versions: {'equal' if ok else 'differ'} (distances and "
+                f"ids, tie order included; {tied:.4f} of rows hold a tie); "
+                f"control (ties higher id first): "
+                f"{'equal' if ctl else 'differs'}; the library call "
+                f"{'equals' if torch.equal(lib, got) else 'differs from'} "
+                "it")
+            if not ok or not torch.equal(lib, got):
+                raise RuntimeError(f"K9 {form} disagrees with its plain "
+                                   "version or the library call")
+            if ctl:
+                raise RuntimeError("the K9 check passes a reversed tie order")
+            forms[(form, qq.shape[0])] = (qq, kd)
+        # the check's old yardstick: cdist(p=0) computes the scores only
         qf = bits_mod.unpack_words_bf16(q1).float()
         xf = bits_mod.unpack_words_bf16(words).float()
         lib_min = torch.where(live[None, :], torch.cdist(qf, xf, p=0),
                               float("inf")).min(dim=1).values
-        if not torch.equal(lib_min, kd[:, 0]):
+        if not torch.equal(lib_min, forms[("k9_bits_tc", CHUNK)][1][:, 0]):
             raise RuntimeError("torch.cdist(p=0) disagrees with K9's top-1")
-        del lib_min
-        pairs = float(CHUNK) * n1
+        del lib_min, xf, qf
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        kernels["k9_bits"] = dict(
-            name="k9_bits", route="cuda", source=CSRC + "k9_bits.cu",
-            replaces=f"{JAX_DEVICE}:1155 (_exact_search_bits, an XLA "
-                     "program)",
-            max_abs_err=float((kd - pd).abs().max()),
-            ms=cuda_ms(k9), plain_ms=cuda_ms(plain9, 2),
-            **bound(2.0 * pairs * NBITS, "int8",
-                    n1 * (w * 4 + 1) + CHUNK * (w * 4 + K * 12)),
-            library_ms=cuda_ms(lambda: torch.cdist(qf, xf, p=0), 2),
-            library_of="torch.cdist(p=0) over the unpacked f32 rows (the "
-                       "hamming scores, not the top-k)",
-            popcount_bound_ms=pairs * w / (POPC_PER_CLK_SM * sms * BOOST_HZ)
-            * 1e3,
-            launches=launches["k9_bits"])
-        del xf, qf
 
-        s_ids, s_d = device_mod._descent_seeds(g, q1, g.entry_level)
-        walk = (words, g.neighbors0, g.traversable, None, "hamming", q1,
-                s_ids.to(torch.int32).contiguous(), s_d.contiguous())
-        kw = dict(width=EF, spill=0, max_steps=4 * EF + 32, scan=False)
+        def k9_row(form, b):
+            qq = forms[(form, b)][0]
+            pairs = float(b) * n1
+            plain = (bits_mod._bits_topk_plain_mm if form == "k9_bits_tc"
+                     else bits_mod._bits_topk_plain)
+            return dict(
+                name=form, route="cuda", source=CSRC + form + ".cu",
+                replaces=f"{JAX_DEVICE}:1155 (_exact_search_bits, an XLA "
+                         "program: its "
+                         + ("unpack + matmul form, B >= 32)"
+                            if form == "k9_bits_tc"
+                            else "popcount form, B < 32)"),
+                queries=b, max_abs_err=0.0,
+                ms=cuda_ms(lambda: bits_mod._bits_topk_cuda(
+                    words, g.x2, live, qq, K, "hamming", form=form)),
+                plain_ms=cuda_ms(lambda: plain(words, g.x2, live, qq, K,
+                                               "hamming"), 2),
+                **bound(2.0 * pairs * NBITS, "int8",
+                        n1 * (w * 4 + 1) + b * (w * 4 + K * 12)),
+                library_ms=cuda_ms(lambda: bits_library(
+                    bits_mod, bf, words, live, qq, K, "hamming"), 2),
+                library_of="JAX's MXU form in torch: per 65,536-row block "
+                           "unpack to bf16, torch.mm, popq + popx - 2 ab, "
+                           "torch.topk; merged",
+                popcount_bound_ms=pairs * w / (POPC_PER_CLK_SM * sms
+                                               * BOOST_HZ) * 1e3,
+                launches=launches[form])
 
-        def finish(raw):
-            return [t.cpu().numpy() for t in beam._serve_finish(*raw)]
-
-        raw_k = beam._walk_cuda(*walk, **kw)
-        (kd4, ki4, ks4), (pd4, pi4, ps4) = (finish(raw_k),
-                                            finish(beam._walk_plain(*walk,
-                                                                    **kw)))
-        cd4, ci4, _ = finish(beam._walk_plain(*walk, **{**kw,
-                                                        "max_steps": EF // 4}))
-        ok4 = tie_equal_rows(ki4, kd4, pi4, pd4).mean()
-        okc = tie_equal_rows(ci4, cd4, pi4, pd4).mean()
-        log(f"K4 word mode vs plain: {ok4:.4f} of queries equal but for "
-            f"ties ({float((ki4 == pi4).all(axis=1).mean()):.4f} with every "
-            f"id equal), {float((ks4 == ps4).mean()):.4f} equal steps; "
-            f"control (plain cut to {EF // 4} steps): {okc:.4f}")
-        if ok4 < 0.99:
-            raise RuntimeError("K4's word mode disagrees with the plain walk")
-        if okc >= 0.99:
-            raise RuntimeError("the word-mode check passes a walk cut to "
-                               "ef / 4 steps")
-        steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
-        fin = np.isfinite(pd4)
-        kernels["k4_beam_words"] = dict(
-            name="k4_beam_words", route="cuda", source=CSRC + "k4_beam.cu",
-            replaces=f"{JAX_DEVICE}:446 (_ground_beam_seeds over packed bit "
-                     "rows, an XLA while-loop)",
-            max_abs_err=float(np.abs(kd4[fin] - pd4[fin]).max()),
-            ms=cuda_ms(lambda: beam._walk_cuda(*walk, **kw)),
-            plain_ms=cuda_ms(lambda: beam._walk_plain(*walk, **kw), 2),
-            **bound(2.0 * scored * NBITS, "int8",
-                    walk_gather_bytes(steps, scored, g.neighbors0.shape[1], 1,
-                                      w)
-                    + CHUNK * (w * 4 + walk[6].shape[1] * 8 + EF * 8 + 8)),
-            library_ms=None, steps_mean=steps / CHUNK,
-            scored_mean=scored / CHUNK, launches=launches["k4_beam"])
-        for name in ("k9_bits", "k4_beam_words"):
+        kernels["k9_bits_tc"] = k9_row("k9_bits_tc", CHUNK)
+        kernels["k9_bits"] = k9_row("k9_bits", N_FEW_Q)
+        kernels["k9_bits"]["ms_at_1024"] = cuda_ms(
+            lambda: bits_mod._bits_topk_cuda(words, g.x2, live, q1, K,
+                                             "hamming", form="k9_bits"))
+        for name in ("k9_bits_tc", "k9_bits"):
             kr = kernels[name]
             kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
-            log(f"{name}: kernel {kr['ms']:.4f} ms, plain "
-                f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']} ms, "
-                f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
-                f"{kr['bound_peak']}), share {kr['share_of_bound']:.4f}")
-        log(f"k9_bits popcount-rate bound: "
-            f"{kernels['k9_bits']['popcount_bound_ms']:.4f} ms")
+            log(f"{name} at {kr['queries']} queries: kernel {kr['ms']:.4f} "
+                f"ms, plain {kr['plain_ms']:.4f} ms, library "
+                f"{kr['library_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
+                f"({kr['bound_by']}, {kr['bound_peak']}), share "
+                f"{kr['share_of_bound']:.4f}; popcount-rate bound "
+                f"{kr['popcount_bound_ms']:.4f} ms")
+        log(f"k9_bits (the popcount form) at {CHUNK} queries: "
+            f"{kernels['k9_bits']['ms_at_1024']:.4f} ms")
+
+    with Phase("21 the bit beam: the descent in K4's launch vs plain"):
+        walk_vs_plain_descent(g, q1, "hamming", device_mod, beam, kernels,
+                              "k4_beam_words", launches["k4_beam"],
+                              f"{JAX_DEVICE}:767 (_search_batch over packed "
+                              "bit rows: the greedy descent, then "
+                              "_ground_beam_seeds; XLA)",
+                              NBITS * 2.0, "int8", w, exact=True)
     del idx, g, live, words
     torch.cuda.empty_cache()
     return xbits, qbits, qw
@@ -1615,30 +1835,40 @@ def jaccard_path(HnswIndex, IndexParams, device_mod, db, bf, bits_mod,
         if rec < BIT_FLOORS["beam"]:
             raise RuntimeError(f"jaccard beam recall {rec} < "
                                f"{BIT_FLOORS['beam']}")
-        for name in ("k9_bits", "k4_beam"):
+        for name in ("k9_bits_tc", "k4_beam"):
             if launches[name] <= 0:
                 raise RuntimeError(f"kernel {name} never ran on the jaccard "
                                    "path")
-    with Phase("22 K9 jaccard vs plain"):
+    with Phase("22 K9 jaccard vs plain, both forms"):
         q1 = qw[:CHUNK].contiguous()
-        args = (g.words, g.x2, live, q1, K, "jaccard")
-        kd, ki = bits_mod._bits_topk_cuda(*args)
-        pd, pi = bits_mod._bits_topk_plain(*args)
-        if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
-            raise RuntimeError("K9's jaccard mode disagrees with its plain "
-                               "version")
         n1, w = g.words.shape
-        k9 = kernels["k9_bits"]
-        k9["jaccard_rows"] = n1
-        k9["jaccard_ms"] = cuda_ms(lambda: bits_mod._bits_topk_cuda(*args))
+        keys = bf._order_keys
+        args = (g.words, g.x2, live, q1, K, "jaccard")
+        want = keys(*bits_mod._bits_topk_plain(*args))
+        if not torch.equal(want, keys(*bits_mod._bits_topk_plain_mm(*args))):
+            raise RuntimeError("K9's two plain versions disagree on jaccard")
+        for form in ("k9_bits_tc", "k9_bits"):
+            got = keys(*bits_mod._bits_topk_cuda(*args, form=form))
+            if not torch.equal(got, want):
+                raise RuntimeError(f"K9 {form}'s jaccard mode disagrees "
+                                   "with its plain version")
+            k9 = kernels[form]
+            k9["jaccard_rows"] = n1
+            k9["jaccard_ms_at_1024"] = cuda_ms(
+                lambda: bits_mod._bits_topk_cuda(*args, form=form))
+            log(f"K9 {form} jaccard at {n1:,} rows, {CHUNK} queries: equal "
+                f"to plain; kernel {k9['jaccard_ms_at_1024']:.4f} ms")
+        k9 = kernels["k9_bits_tc"]
         k9["jaccard_plain_ms"] = cuda_ms(
-            lambda: bits_mod._bits_topk_plain(*args), 2)
+            lambda: bits_mod._bits_topk_plain_mm(*args), 2)
+        k9["jaccard_library_ms"] = cuda_ms(lambda: bits_library(
+            bits_mod, bf, g.words, live, q1, K, "jaccard"), 2)
         k9["jaccard_bound_ms"] = bound(
             2.0 * CHUNK * n1 * NBITS, "int8",
-            n1 * (w * 4 + 4 + 1) + CHUNK * (w * 4 + K * 12))["bound_ms"]
-        log(f"K9 jaccard at {n1:,} rows: equal to plain; kernel "
-            f"{k9['jaccard_ms']:.4f} ms, plain {k9['jaccard_plain_ms']:.4f} "
-            f"ms, bound {k9['jaccard_bound_ms']:.4f} ms")
+            n1 * (w * 4 + 1) + CHUNK * (w * 4 + K * 12))["bound_ms"]
+        log(f"K9 jaccard: plain {k9['jaccard_plain_ms']:.4f} ms, library "
+            f"{k9['jaccard_library_ms']:.4f} ms, bound "
+            f"{k9['jaccard_bound_ms']:.4f} ms")
     del idx, g, live
     torch.cuda.empty_cache()
 
@@ -1720,7 +1950,7 @@ def flat_and_facade(data, queries, q_dev, xbits, qbits, qw, bf, bits_mod,
                 raise RuntimeError(f"the {name} index does not answer")
     launches = dict(bf.LAUNCHES)
     log(f"flat and facade launches: {launches}")
-    for name in ("k1_topk", "k9_bits", "k4_beam"):
+    for name in ("k1_topk", "k9_bits_tc", "k4_beam"):
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran in phase 23")
 
@@ -1975,51 +2205,14 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
     if not ok:
         raise RuntimeError("the sparse FlatIndex disagrees with K10")
 
-    with Phase("24c the sparse walk (K4) vs plain"):
-        q = (qi, qv)
-        s_ids, s_d = device_mod._descent_seeds(g, q, g.entry_level)
-        walk = (g.rows, g.neighbors0, g.traversable, None, "l2", q,
-                s_ids.to(torch.int32).contiguous(), s_d.float().contiguous())
-        kw = dict(width=EF, spill=0, max_steps=4 * EF + 32, scan=False)
-
-        def finish(raw):
-            return [t.cpu().numpy() for t in beam._serve_finish(*raw)]
-
-        raw_k = beam._walk_cuda(*walk, **kw)
-        (kd4, ki4, ks4), (pd4, pi4, ps4) = (
-            finish(raw_k), finish(beam._walk_plain(*walk, **kw)))
-        cd4, ci4, _ = finish(beam._walk_plain(*walk, **{**kw,
-                                                        "max_steps": EF // 4}))
-        ok4, err4 = walk_agreement(ki4, kd4, pi4, pd4)
-        okc, _ = walk_agreement(ci4, cd4, pi4, pd4)
-        beam_rec = set_recall(emit[np.maximum(ki4[:, :K], 0)], gt_t, K)
-        log(f"K4 sparse mode vs plain: {ok4.mean():.4f} of queries equal but "
-            f"for ties ({float((ki4 == pi4).all(axis=1).mean()):.4f} with "
-            f"every id equal), {float((ks4 == ps4).mean()):.4f} equal steps, "
-            f"max abs err {err4}; control (plain cut to {EF // 4} steps): "
-            f"{okc.mean():.4f}; the walk's recall@10 {beam_rec:.4f}")
-        if ok4.mean() < 0.99:
-            raise RuntimeError("K4's sparse mode disagrees with the plain "
-                               "walk")
-        if okc.mean() >= 0.99:
-            raise RuntimeError("the sparse walk check passes a walk cut to "
-                               "ef / 4 steps")
-        steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
-        fin = np.isfinite(pd4)
-        kernels["k4_beam_sparse"] = dict(
-            name="k4_beam_sparse", route="cuda", source=CSRC + "k4_beam.cu",
-            replaces=f"{JAX_DEVICE}:1861 (_search_one_sparse's _ground_beam "
-                     "over sparse rows, an XLA while-loop)",
-            max_abs_err=float(np.abs(kd4[fin] - pd4[fin]).max()),
-            ms=cuda_ms(lambda: beam._walk_cuda(*walk, **kw)),
-            plain_ms=cuda_ms(lambda: beam._walk_plain(*walk, **kw), 1),
-            **bound(3.0 * scored * float(nnz.mean()), "f32",
-                    walk_gather_bytes(steps, scored, g.neighbors0.shape[1], 1,
-                                      2 * P)
-                    + N_SP_Q * (2 * P * 4 + walk[6].shape[1] * 8 + EF * 8
-                                + 8)),
-            library_ms=None, steps_mean=steps / N_SP_Q,
-            scored_mean=scored / N_SP_Q, launches=launches["k4_beam_sparse"])
+    with Phase("24c the sparse beam: the descent in K4's launch vs plain"):
+        walk_vs_plain_descent(g, (qi, qv), "l2", device_mod, beam, kernels,
+                              "k4_beam_sparse", launches["k4_beam_sparse"],
+                              f"{JAX_DEVICE}:1861 (_search_one_sparse: the "
+                              "greedy descent, then _ground_beam over sparse "
+                              "rows; XLA)",
+                              3.0 * float(nnz.mean()), "f32", 2 * P,
+                              exact=False)
 
     with Phase("24d K10's two forms vs plain, four metrics and approx"):
         ci, cv = g.sp_indices, g.sp_values
@@ -2347,7 +2540,9 @@ def main() -> int:
             plain_ms=cuda_ms(lambda: bf._surrogate_topk_plain(x32, a, q1, K)),
             **bound(3 * 2.0 * b1 * n_rows * DIM, "tf32",
                     (n_rows * DIM + n_rows + b1 * DIM) * 4 + out_bytes),
-            library_ms=None,
+            library_ms=cuda_ms(lambda: k1_library(x32, a, q1, K), 3),
+            library_of="per 65,536-row block: f32 torch.mm (TF32 off), "
+                       "a - 2 q.x, torch.topk; merged",
             matmul_ms=cuda_ms(lambda: q1 @ x32.T),
             matmul_of="q @ x.T alone in f32 (the product, not the function)",
         )
@@ -2377,7 +2572,10 @@ def main() -> int:
             ms=cuda_ms(lambda: bf._binned_cuda(vb, a, qb, K, 1024)),
             plain_ms=cuda_ms(lambda: bf._binned_plain(vb, a, q1, K, 1024)),
             **bound(2.0 * b1 * n_rows * DIM, "bf16", bf16_bytes + out_bytes),
-            library_ms=None,
+            library_ms=cuda_ms(lambda: k2_library(vb, a, qb, K, 1024), 3),
+            library_of="per 65,536-row block: bf16 torch.mm, a - 2 q.x in "
+                       "f32, torch.min per bin (row mod 1,024); torch.topk "
+                       "over the bins",
             matmul_ms=cuda_ms(lambda: qb @ vb.T),
             matmul_of="q @ x.T alone in bf16 (the product, not the function)",
         )
@@ -2411,7 +2609,10 @@ def main() -> int:
             plain_ms=cuda_ms(lambda: bf._tilemin_plain(vb, a, q1, K, 1024)),
             **bound(2.0 * b1 * n_rows * DIM, "bf16",
                     bf16_bytes + b1 * -(-n_rows // 1024) * 4),
-            library_ms=None,
+            library_ms=cuda_ms(lambda: k3_library(vb, a, qb, 1024), 3),
+            library_of="the sweep alone (compare kernel_ms): per 65,536-row "
+                       "block, bf16 torch.mm, a - 2 q.x in f32, torch.min "
+                       "per 1,024-row tile",
             matmul_ms=kernels["k2_binned"]["matmul_ms"],
             matmul_of="q @ x.T alone in bf16 (the product, not the function)",
         )
@@ -2440,7 +2641,8 @@ def main() -> int:
         for kr in kernels.values():
             kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
             log(f"{kr['name']}: kernel {kr['ms']:.4f} ms, plain "
-                f"{kr['plain_ms']:.4f} ms, product alone {kr['matmul_ms']} "
+                f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']} ms, "
+                f"product alone {kr['matmul_ms']} "
                 f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
                 f"{kr['bound_peak']}), share {kr['share_of_bound']:.4f}, "
                 f"max abs err {kr['max_abs_err']}")
@@ -2566,7 +2768,8 @@ def main() -> int:
     log(json.dumps({"kernels": [kernels[k] for k in
                                 ("k1_topk", "k2_binned", "k3_tilemin",
                                  "k3_x2max", "k4_beam", "k5_beam_scan",
-                                 "k9_bits", "k4_beam_words", "k10_sparse",
+                                 "k9_bits", "k9_bits_tc", "k4_beam_words",
+                                 "k10_sparse",
                                  "k10_sparse_lookup", "k4_beam_sparse")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,11 +102,12 @@ constexpr int kRowsPerWarp = 4;  // rows a warp scores with loads in flight
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory limit
 
-// The timing probe (probes/k5_profile.py) builds this file with
-// -DPGV_K5_PROFILE: thread 0 of every scan block then adds the SM clocks
-// it spends in each phase of the walk to a device buffer
-// (pgv_k5_profile). Slots: the phases below, then steps, clocks of the
-// whole block, its globaltimer nanoseconds and the blocks counted.
+// The timing probes (probes/k5_profile.py, probes/k4_words_profile.py)
+// build this file with -DPGV_K5_PROFILE: thread 0 of every block (K5's
+// scan blocks, K4's walk blocks) then adds the SM clocks it spends in each
+// phase of the walk to a device buffer (pgv_k5_profile). Slots: the
+// phases below, then steps, clocks of the whole block, its globaltimer
+// nanoseconds and the blocks counted.
 enum K5Phase {
   kPhSelect, kPhIds, kPhFlags, kPhRows, kPhDedup, kPhSort, kPhBeamMerge,
   kPhSpillMerge, kPhStart, kPhFinish, kPhSteps, kPhClocks, kPhNs,
@@ -165,6 +166,18 @@ struct WalkArgs {
   int* steps;             // [b]
   int* scored;            // [b] rows scored
   int d, qd, L, cap, metric, S, W, max_steps;  // qd: query words
+  // The greedy upper-layer descent in the launch (upper_slot != null):
+  // upper_slot [cap + 1] (-1: no upper row), upper [U, ustride] the upper
+  // layers' neighbour ids (layer l's m at (l - 1) m, -1 pad), the entry
+  // and its level; the walk is then seeded by where each query lands
+  // (seed_ids / seed_d unread, S = 1), and land [b, 4] receives the
+  // landing id, its distance's bits, the rows the descent scored and its
+  // moves.
+  const int* upper_slot;
+  const int* upper;
+  long long ustride;
+  int m, entry, entry_level;
+  int* land;
 };
 
 // The sparse-row mode's row type (indices in `values`, values in
@@ -260,23 +273,24 @@ __device__ __forceinline__ float finish(float acc) {
 }
 
 // out[j] = distance from the query (qs, in shared memory) to row ids[j]
-// for the valid j < L, +inf for the others. Each warp takes kRowsPerWarp
-// rows at a time; the lanes stride over the row's V-wide chunks.
-template <typename T, int V, int M>
+// for the valid j < count, +inf for the others. Each of the group's NW
+// warps takes kRowsPerWarp rows at a time; the lanes stride over the row's
+// V-wide chunks.
+template <typename T, int V, int M, int NW>
 __device__ void score_rows(const WalkArgs& a, const float* qs, const int* ids,
-                           const uint8_t* valid, float* out, int warp,
-                           int lane) {
+                           const uint8_t* valid, float* out, int count,
+                           int warp, int lane) {
   const T* values = static_cast<const T*>(a.values);
   const int nchunks = a.d / V;
-  for (int base = warp * kRowsPerWarp; base < a.L;
-       base += kWarps * kRowsPerWarp) {
+  for (int base = warp * kRowsPerWarp; base < count;
+       base += NW * kRowsPerWarp) {
     float acc[kRowsPerWarp];
     const T* rows[kRowsPerWarp];
     bool use[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int j = base + r;
-      use[r] = j < a.L && valid[j];
+      use[r] = j < count && valid[j];
       rows[r] = values + (use[r] ? static_cast<long long>(ids[j]) * a.stride
                                  : 0LL);
       acc[r] = 0.0f;
@@ -299,8 +313,8 @@ __device__ void score_rows(const WalkArgs& a, const float* qs, const int* ids,
       float s = acc[r];
 #pragma unroll
       for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-      if (lane == 0 && base + r < a.L) out[base + r] = use[r] ? finish<M>(s)
-                                                              : inf_f();
+      if (lane == 0 && base + r < count) out[base + r] = use[r] ? finish<M>(s)
+                                                                 : inf_f();
     }
   }
 }
@@ -328,13 +342,13 @@ struct WordChunk<1> {
 };
 
 // The packed-word mode's scoring: out[j] = hamming (JACC = 0) or jaccard
-// (JACC = 1) from the query words qs to row ids[j], +inf where not valid.
-// A warp works in groups of `lpr` lanes, one row per group; a group's
-// lanes stride over the row's V-word chunks.
-template <int V, int JACC>
+// (JACC = 1) from the query words qs to row ids[j] (j < count), +inf where
+// not valid. A warp works in groups of `lpr` lanes, one row per group; a
+// group's lanes stride over the row's V-word chunks.
+template <int V, int JACC, int NW>
 __device__ void score_words(const WalkArgs& a, const unsigned* qs,
                             float qpop, const int* ids, const uint8_t* valid,
-                            float* out, int warp, int lane) {
+                            float* out, int count, int warp, int lane) {
   using C = WordChunk<V>;
   using T = typename C::T;
   const unsigned* words = static_cast<const unsigned*>(a.values);
@@ -343,9 +357,9 @@ __device__ void score_words(const WalkArgs& a, const unsigned* qs,
   while (lpr < nchunks && lpr < 32) lpr <<= 1;
   const int rpw = 32 / lpr;
   const int sub = lane / lpr, sl = lane % lpr;
-  for (int base = warp * rpw; base < a.L; base += kWarps * rpw) {
+  for (int base = warp * rpw; base < count; base += NW * rpw) {
     const int j = base + sub;
-    const bool use = j < a.L && valid[j];
+    const bool use = j < count && valid[j];
     int c1 = 0, c2 = 0;  // popcount(q op x), popcount(x)
     if (use) {
       const T* row = reinterpret_cast<const T*>(
@@ -361,7 +375,7 @@ __device__ void score_words(const WalkArgs& a, const unsigned* qs,
       c1 += __shfl_xor_sync(kFull, c1, o);
       if (JACC) c2 += __shfl_xor_sync(kFull, c2, o);
     }
-    if (sl == 0 && j < a.L) {
+    if (sl == 0 && j < count) {
       float dist = inf_f();
       if (use) {
         if (JACC) {
@@ -402,18 +416,19 @@ struct SparseQuery {
 
 // The sparse-row mode's scoring: out[j] = the distance (metric M, codes
 // 0-3) from the query (sorted indices qidx, values qval, in shared memory)
-// to padded-CSR row ids[j], +inf where not valid. Each warp takes
-// kRowsPerWarp rows at a time; the lanes stride over a row's entries and
-// look each up in the query's indices; a shuffle reduction per row.
-template <int M>
+// to padded-CSR row ids[j] (j < count), +inf where not valid. Each of the
+// group's NW warps takes kRowsPerWarp rows at a time; the lanes stride over
+// the row's entries and look each up in the query's indices; a shuffle
+// reduction per row.
+template <int M, int NW>
 __device__ void score_sparse(const WalkArgs& a, const int* qidx,
                              const float* qval, const SparseQuery& sq,
                              const int* ids, const uint8_t* valid, float* out,
-                             int warp, int lane) {
+                             int count, int warp, int lane) {
   const int* ind = static_cast<const int*>(a.values);
   const float* val = static_cast<const float*>(a.values2);
-  for (int base = warp * kRowsPerWarp; base < a.L;
-       base += kWarps * kRowsPerWarp) {
+  for (int base = warp * kRowsPerWarp; base < count;
+       base += NW * kRowsPerWarp) {
     float dot[kRowsPerWarp], csq[kRowsPerWarp], cabs[kRowsPerWarp],
         corr[kRowsPerWarp];
     long long off[kRowsPerWarp];
@@ -421,7 +436,7 @@ __device__ void score_sparse(const WalkArgs& a, const int* qidx,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int j = base + r;
-      use[r] = j < a.L && valid[j];
+      use[r] = j < count && valid[j];
       off[r] = use[r] ? static_cast<long long>(ids[j]) * a.stride : 0LL;
       dot[r] = csq[r] = cabs[r] = corr[r] = 0.0f;
     }
@@ -453,7 +468,7 @@ __device__ void score_sparse(const WalkArgs& a, const int* qidx,
           corr[r] += __shfl_xor_sync(kFull, corr[r], o);
         }
       }
-      if (lane == 0 && base + r < a.L) {
+      if (lane == 0 && base + r < count) {
         float dist = inf_f();
         if (use[r]) {
           if (M == 0) {
@@ -492,6 +507,89 @@ __device__ __forceinline__ int count_before(const float* ld, const int* lk,
   return lo;
 }
 
+// The greedy descent through the upper layers, for one query (JAX's
+// _greedy_descent, pgvector_rx_tpu/graph/device.py:386, as its
+// _search_batch and _search_one_sparse run it from the entry): at each
+// layer entry_level .. 1, the current node's m neighbours at that layer
+// are scored where valid ((nbr >= 0) & (slot >= 0) & trav[min(nbr, cap)];
+// +inf otherwise), and the query moves to the first slot of their minimum
+// while it is strictly nearer. The entry's own distance is scored as it
+// is (no flags), as JAX scores it.
+//
+// It runs on a group of threads (a block, or one warp): `score(count)`
+// scores nid[0, count) by their nvalid flags into nd (the walk's own
+// row-distance code), `sync()` is the group's barrier, `rank` / `size` a
+// thread's place in the group and its width; the group's first warp picks
+// the minimum (bc: the group's broadcast slots). Every thread returns the
+// landing (cur, cur_d), the rows the descent scored and its moves.
+template <class Score, class Sync>
+__device__ void greedy_descent(const WalkArgs& a, int* nid, uint8_t* nvalid,
+                               float* nd, int* bc, Score score, Sync sync,
+                               int rank, int size, int& cur, float& cur_d,
+                               int& rows, int& moves) {
+  if (rank == 0) {
+    nid[0] = a.entry;
+    nvalid[0] = 1;
+  }
+  sync();
+  score(1);
+  sync();
+  cur = a.entry;
+  cur_d = nd[0];
+  rows = 1;
+  moves = 0;
+  for (int layer = a.entry_level; layer >= 1; --layer) {
+    const long long off = static_cast<long long>(layer - 1) * a.m;
+    while (true) {
+      const int slot = a.upper_slot[cur];
+      for (int j = rank; j < a.m; j += size) {
+        const int v = slot >= 0 ? a.upper[slot * a.ustride + off + j] : -1;
+        nid[j] = v;
+        nvalid[j] = v >= 0 && a.trav[min(v, a.cap)];
+      }
+      sync();
+      score(a.m);
+      sync();
+      if (rank < 32) {  // the first minimum: strict <, lowest slot first
+        float bd = inf_f();
+        int bj = 0, cnt = 0;
+        for (int j0 = 0; j0 < a.m; j0 += 32) {
+          const int j = j0 + rank;
+          const bool in = j < a.m;
+          cnt += __popc(__ballot_sync(kFull, in && nvalid[j]));
+          if (in && nd[j] < bd) {
+            bd = nd[j];
+            bj = j;
+          }
+        }
+#pragma unroll
+        for (int o = 16; o; o >>= 1) {
+          const float od = __shfl_xor_sync(kFull, bd, o);
+          const int oj = __shfl_xor_sync(kFull, bj, o);
+          if (od < bd || (od == bd && oj < bj)) {
+            bd = od;
+            bj = oj;
+          }
+        }
+        if (rank == 0) {
+          bc[0] = bj;
+          bc[1] = __float_as_int(bd);
+          bc[2] = cnt;
+        }
+      }
+      sync();
+      const int bj = bc[0];
+      const float bd = __int_as_float(bc[1]);
+      rows += bc[2];
+      if (!(bd < cur_d)) break;  // the same decision in every thread
+      cur = nid[bj];
+      cur_d = bd;
+      ++moves;
+      sync();  // every thread has read nid and bc before they change
+    }
+  }
+}
+
 size_t smem_bytes(int qd, int L, int S, int W) {
   const size_t dpad = (static_cast<size_t>(qd) + 3) & ~static_cast<size_t>(3);
   // q; beam x2 (d, key); new raw, new sorted (d, key); seeds (d, key);
@@ -499,7 +597,10 @@ size_t smem_bytes(int qd, int L, int S, int W) {
   return 4 * (dpad + 4 * static_cast<size_t>(W) + 4 * L + 2 * S + 2 * L) + L;
 }
 
-template <typename T, int V>
+// DESC: the greedy descent seeds the walk (upper_slot given); a separate
+// instantiation, so that the seeded walk (the dense beam engine's) keeps
+// the registers and the code it had without it.
+template <typename T, int V, bool DESC>
 __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[kWarps];
@@ -565,12 +666,58 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     }
   }
 
+  // nd[j] = the distance to row nid[j], j < count (+inf where !nvalid[j])
+  auto score = [&](int count) {
+    if constexpr (kWords) {
+      const unsigned* qw = reinterpret_cast<const unsigned*>(qs);
+      if (a.metric == 5)
+        score_words<V, 1, kWarps>(a, qw, qpop, nid, nvalid, nd, count, warp,
+                                  lane);
+      else
+        score_words<V, 0, kWarps>(a, qw, qpop, nid, nvalid, nd, count, warp,
+                                  lane);
+    } else if constexpr (kSparse) {
+      switch (a.metric) {
+        case 0: score_sparse<0, kWarps>(a, qidx, qval, sq, nid, nvalid, nd, count, warp, lane); break;
+        case 1: score_sparse<1, kWarps>(a, qidx, qval, sq, nid, nvalid, nd, count, warp, lane); break;
+        case 2: score_sparse<2, kWarps>(a, qidx, qval, sq, nid, nvalid, nd, count, warp, lane); break;
+        default: score_sparse<3, kWarps>(a, qidx, qval, sq, nid, nvalid, nd, count, warp, lane); break;
+      }
+    } else {
+      switch (a.metric) {
+        case 0: score_rows<T, V, 0, kWarps>(a, qs, nid, nvalid, nd, count, warp, lane); break;
+        case 1: score_rows<T, V, 1, kWarps>(a, qs, nid, nvalid, nd, count, warp, lane); break;
+        case 2: score_rows<T, V, 2, kWarps>(a, qs, nid, nvalid, nd, count, warp, lane); break;
+        default: score_rows<T, V, 3, kWarps>(a, qs, nid, nvalid, nd, count, warp, lane); break;
+      }
+    }
+  };
+  K5_PROF_BEGIN
+
+  // ---- the greedy descent (DESC): the walk's one seed
+  int land_id = -1;
+  float land_d = inf;
+  if constexpr (DESC) {
+    __shared__ int bc[3];
+    int rows = 0, moves = 0;
+    if (a.entry >= 0)
+      greedy_descent(a, nid, nvalid, nd, bc, score, [] { __syncthreads(); },
+                     tid, kThreads, land_id, land_d, rows, moves);
+    if (tid == 0) {
+      int* o = a.land + 4LL * b;
+      o[0] = land_id;
+      o[1] = __float_as_int(land_d);
+      o[2] = rows;
+      o[3] = moves;
+    }
+  }
+
   // ---- seeds: dedup by id, sort into the beam
   const long long s0 = static_cast<long long>(b) * S;
   for (int i = tid; i < S; i += kThreads) {
-    const int id = a.seed_ids[s0 + i];
+    const int id = DESC ? land_id : a.seed_ids[s0 + i];
     const bool ok = id >= 0;
-    xd[i] = ok ? a.seed_d[s0 + i] : inf;
+    xd[i] = ok ? (DESC ? land_d : a.seed_d[s0 + i]) : inf;
     xk[i] = ok ? 2 * id + 1 : -2;
   }
   __syncthreads();
@@ -594,6 +741,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   }
   __syncthreads();
 
+  K5_MARK(kPhStart);
   int cur = 0, steps = 0, scored = 0;
   while (true) {
     float* cbd = bd + cur * W;
@@ -614,6 +762,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     if (pos == INT_MAX || steps >= a.max_steps || !(cbd[pos] <= cbd[W - 1]))
       break;  // the same decision in every thread
     const int u = min(cbk[pos] >> 1, a.cap);  // the sentinel row at worst
+    K5_MARK(kPhSelect);
 
     for (int j0 = 0; j0 < L; j0 += kThreads) {  // the same trips in every
       const int j = j0 + tid;                      // thread
@@ -629,29 +778,11 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       scored += __syncthreads_count(ok);
     }
     if (tid == 0) cbk[pos] &= ~1;  // expanded; read again after a barrier
+    K5_MARK(kPhFlags);
 
-    if constexpr (kWords) {
-      const unsigned* qw = reinterpret_cast<const unsigned*>(qs);
-      if (a.metric == 5)
-        score_words<V, 1>(a, qw, qpop, nid, nvalid, nd, warp, lane);
-      else
-        score_words<V, 0>(a, qw, qpop, nid, nvalid, nd, warp, lane);
-    } else if constexpr (kSparse) {
-      switch (a.metric) {
-        case 0: score_sparse<0>(a, qidx, qval, sq, nid, nvalid, nd, warp, lane); break;
-        case 1: score_sparse<1>(a, qidx, qval, sq, nid, nvalid, nd, warp, lane); break;
-        case 2: score_sparse<2>(a, qidx, qval, sq, nid, nvalid, nd, warp, lane); break;
-        default: score_sparse<3>(a, qidx, qval, sq, nid, nvalid, nd, warp, lane); break;
-      }
-    } else {
-      switch (a.metric) {
-        case 0: score_rows<T, V, 0>(a, qs, nid, nvalid, nd, warp, lane); break;
-        case 1: score_rows<T, V, 1>(a, qs, nid, nvalid, nd, warp, lane); break;
-        case 2: score_rows<T, V, 2>(a, qs, nid, nvalid, nd, warp, lane); break;
-        default: score_rows<T, V, 3>(a, qs, nid, nvalid, nd, warp, lane); break;
-      }
-    }
+    score(L);
     __syncthreads();
+    K5_MARK(kPhRows);
 
     // dedup: a neighbour whose id is in the beam, or earlier in the list
     for (int i = tid; i < W; i += kThreads) {
@@ -666,6 +797,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
         if (nk[i] == nk[j]) dup[j] = 1;
     }
     __syncthreads();
+    K5_MARK(kPhDedup);
 
     // rank-sort the new entries
     for (int j = tid; j < L; j += kThreads) {
@@ -680,6 +812,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       sk[r] = kj;
     }
     __syncthreads();
+    K5_MARK(kPhSort);
 
     // merge beam (W) and new (L): the first W are the next beam
     for (int i = tid; i < W; i += kThreads) {
@@ -697,6 +830,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       }
     }
     __syncthreads();
+    K5_MARK(kPhBeamMerge);
     cur ^= 1;
     ++steps;
   }
@@ -712,12 +846,15 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     a.steps[b] = steps;
     a.scored[b] = scored;
   }
+  K5_MARK(kPhFinish);
+  K5_PROF_END(steps);
 }
 
 template <typename T, int V>
 cudaError_t launch(const WalkArgs& a, int b, size_t smem,
                    cudaStream_t stream) {
-  auto kern = beam_walk_kernel<T, V>;
+  auto kern = a.upper_slot != nullptr ? beam_walk_kernel<T, V, true>
+                                      : beam_walk_kernel<T, V, false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -728,8 +865,357 @@ cudaError_t launch(const WalkArgs& a, int b, size_t smem,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K4's packed-word mode, one warp per query
+// ---------------------------------------------------------------------------
+//
+// Rows of 8-32 words are short: a step's rows are one 16-byte load per
+// lane, so what bounds the block form's step is its bookkeeping (block
+// barriers and shared-memory round trips between four warps). Here one
+// warp walks one query, and a block holds kwQueries queries (warps) that
+// share nothing but the block:
+// - the beam (W <= 64) lives in registers, entry i in lane i % 32's slot
+//   i / 32, sorted by (distance, key); a mirror in the warp's shared
+//   memory serves the dedup's id test and the merge's scatter;
+// - a step: the nearest unexpanded member by two ballots; lane j loads
+//   neighbour j's id, its flag and its row words (the row's load does not
+//   wait for the flag: ids -> (flags, rows) is the step's one dependent
+//   round trip after the ids), in lane groups that cover a row's 16-byte
+//   chunks, all rows' loads in flight together; the id test against the
+//   beam's mirror and __match_any_sync for repeats in the list; a bitonic
+//   sort of the L new entries across the lanes; the merge by binary
+//   searches (shuffles over the new entries, the mirror over the beam)
+//   and one scatter into the mirror; __syncwarp only;
+// - the same order, dedup and stopping rules as the block form, so the
+//   raw outputs are the same.
+// Shapes: W <= 64, L <= 32, at most 32 words per row, S <= 32 seeds, m <=
+// 32 (kwFits); the block form takes the rest.
+
+constexpr int kwQueries = 4;   // queries (warps) per block
+constexpr int kwMaxW = 64, kwMaxL = 32, kwMaxWords = 32;
+
+struct WarpState {
+  alignas(16) unsigned q[kwMaxWords];
+  int nid[kwMaxL];
+  float nd[kwMaxL];
+  uint8_t nvalid[kwMaxL];
+  float bd[kwMaxW];  // the beam's mirror (keys past W stay -2)
+  alignas(16) int bk[kwMaxW];
+  int bc[3];
+};
+
+__host__ __device__ inline bool kw_fits(int words, int W, int L, int S,
+                                        int m, bool desc) {
+  return words <= kwMaxWords && W <= kwMaxW && L <= kwMaxL && S <= 32 &&
+         (!desc || m <= 32);
+}
+
+// Lane j's distance to neighbour row v_j (ok_j: valid; +inf otherwise):
+// hamming (JACC = 0) or jaccard (JACC = 1) from the query words qs. The
+// rows go `lpr` lanes to a row (the fewest, a power of two, that cover its
+// V-word chunks: one chunk a lane), 32 / lpr rows a pass; every pass's
+// load is issued before any is used. Rows with v_j >= 0 are read whatever
+// their flag, so the loads need not wait for the flags.
+template <int V, int JACC>
+__device__ __forceinline__ float warp_score_words(const WalkArgs& a,
+                                                  const unsigned* qs,
+                                                  float qpop, int v, bool ok,
+                                                  int lane) {
+  using C = WordChunk<V>;
+  using T = typename C::T;
+  constexpr int kMaxPass = kwMaxWords / V;  // lpr <= 32 / V
+  const unsigned* words = static_cast<const unsigned*>(a.values);
+  const int nchunks = a.d / V;
+  int lpr = 1;
+  while (lpr < nchunks) lpr <<= 1;
+  const int rpw = 32 / lpr, passes = lpr;
+  const int sub = lane / lpr, sl = lane % lpr;
+  const bool mine = sl < nchunks;
+  T x[kMaxPass];
+#pragma unroll
+  for (int p = 0; p < kMaxPass; ++p) {
+    if (p < passes) {
+      const int vj = __shfl_sync(kFull, v, p * rpw + sub);
+      x[p] = T{};
+      if (vj >= 0 && mine)
+        x[p] = __ldg(reinterpret_cast<const T*>(
+                         words + static_cast<long long>(min(vj, a.cap)) *
+                                     a.stride) +
+                     sl);
+    }
+  }
+  const T q = mine ? reinterpret_cast<const T*>(qs)[sl] : T{};
+  float dist = inf_f();
+#pragma unroll
+  for (int p = 0; p < kMaxPass; ++p) {
+    if (p < passes) {
+      int c1 = C::pop(C::op(q, x[p], JACC));
+      int c2 = JACC ? C::pop(x[p]) : 0;
+      for (int o = lpr >> 1; o; o >>= 1) {
+        c1 += __shfl_xor_sync(kFull, c1, o);
+        if (JACC) c2 += __shfl_xor_sync(kFull, c2, o);
+      }
+      float dp;
+      if (JACC) {
+        const float ab = static_cast<float>(c1);
+        dp = c1 == 0 ? 1.0f
+                     : 1.0f - __fdiv_rn(ab, qpop + static_cast<float>(c2) - ab);
+      } else {
+        dp = static_cast<float>(c1);
+      }
+      // row p * rpw + s is in group s: lane j takes group j % rpw of pass
+      // j / rpw
+      const float got = __shfl_sync(kFull, dp, (lane % rpw) * lpr);
+      if (p == lane / rpw) dist = got;
+    }
+  }
+  return ok ? dist : inf_f();
+}
+
+// Ascending bitonic sort of one (d, k) pair per lane across the warp.
+__device__ __forceinline__ void warp_sort(float& d, int& k, int lane) {
+#pragma unroll
+  for (int k2 = 2; k2 <= 32; k2 <<= 1) {
+#pragma unroll
+    for (int j2 = k2 >> 1; j2 > 0; j2 >>= 1) {
+      const float od = __shfl_xor_sync(kFull, d, j2);
+      const int ok = __shfl_xor_sync(kFull, k, j2);
+      const bool up = (lane & k2) == 0, low = (lane & j2) == 0;
+      // the lower lane of an ascending pair keeps the smaller
+      const bool take = (low == up) ? before(od, ok, d, k)
+                                    : before(d, k, od, ok);
+      if (take) {
+        d = od;
+        k = ok;
+      }
+    }
+  }
+}
+
+template <int V, int JACC>
+__global__ void __launch_bounds__(kwQueries * 32)
+    word_walk_kernel(WalkArgs a, int nq) {
+  __shared__ WarpState states[kwQueries];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kwQueries + warp;
+  if (b >= nq) return;  // the whole warp; no block barrier below
+  WarpState& ws = states[warp];
+  const int W = a.W, L = a.L;
+  const float inf = inf_f();
+  const unsigned lt = (1u << lane) - 1u;  // the lanes below this one
+
+  const unsigned* qg = reinterpret_cast<const unsigned*>(a.q) +
+                       static_cast<long long>(b) * a.qd;
+  int qp = 0;
+  for (int i = lane; i < a.d; i += 32) {
+    ws.q[i] = qg[i];
+    qp += __popc(qg[i]);
+  }
+  const float qpop = static_cast<float>(__reduce_add_sync(kFull, qp));
+  __syncwarp();
+  K5_PROF_BEGIN
+
+  // ---- seeds: the descent's landing, or the given ones
+  int sid = -1;
+  float sdist = inf;
+  int S = a.S;
+  if (a.upper_slot != nullptr) {
+    S = 1;
+    int rows = 0, moves = 0;
+    if (a.entry >= 0) {
+      auto score = [&](int count) {
+        const int v = lane < count ? ws.nid[lane] : -1;
+        const float d = warp_score_words<V, JACC>(
+            a, ws.q, qpop, v, lane < count && ws.nvalid[lane], lane);
+        if (lane < count) ws.nd[lane] = d;
+      };
+      greedy_descent(a, ws.nid, ws.nvalid, ws.nd, ws.bc, score,
+                     [] { __syncwarp(); }, lane, 32, sid, sdist, rows,
+                     moves);
+    }
+    if (lane == 0) {
+      int* o = a.land + 4LL * b;
+      o[0] = sid;
+      o[1] = __float_as_int(sdist);
+      o[2] = rows;
+      o[3] = moves;
+    }
+  } else if (lane < S) {
+    sid = a.seed_ids[static_cast<long long>(b) * S + lane];
+    sdist = a.seed_d[static_cast<long long>(b) * S + lane];
+  }
+  // dedup by id (a repeated seed: only its first copy lives), sort
+  const bool sok = lane < S && sid >= 0;
+  float d0 = sok ? sdist : inf;
+  int k0 = sok ? 2 * sid + 1 : -2;
+  const unsigned same = __match_any_sync(kFull, sok ? sid : -1 - lane);
+  if (sok && (same & lt)) d0 = inf;
+  if (lane >= S) k0 = INT_MAX;  // pads sort last
+  warp_sort(d0, k0, lane);
+  if (lane >= S) {
+    d0 = inf;
+    k0 = -2;
+  }
+  float d1 = inf;
+  int k1 = -2;
+  if (lane < W) {
+    ws.bd[lane] = d0;
+    ws.bk[lane] = k0;
+  }
+  if (lane >= W) ws.bk[lane] = -2;
+  ws.bk[32 + lane] = -2;
+  if (32 + lane < W) ws.bd[32 + lane] = d1;
+  __syncwarp();
+  K5_MARK(kPhStart);
+
+  int steps = 0, scored = 0;
+  while (true) {
+    // the nearest unexpanded member: the first in the beam's order
+    const unsigned m0 =
+        __ballot_sync(kFull, lane < W && (k0 & 1) && d0 < inf);
+    const unsigned m1 =
+        __ballot_sync(kFull, 32 + lane < W && (k1 & 1) && d1 < inf);
+    if (!(m0 | m1) || steps >= a.max_steps) break;
+    const int pos = m0 ? __ffs(m0) - 1 : 32 + __ffs(m1) - 1;
+    const float dpos = __shfl_sync(kFull, pos < 32 ? d0 : d1, pos & 31);
+    const float dlast = __shfl_sync(kFull, W > 32 ? d1 : d0, (W - 1) & 31);
+    if (!(dpos <= dlast)) break;
+    const int kpos = __shfl_sync(kFull, pos < 32 ? k0 : k1, pos & 31);
+    const int u = min(kpos >> 1, a.cap);  // the sentinel row at worst
+    if (lane == (pos & 31)) {  // expanded
+      if (pos < 32)
+        k0 &= ~1;
+      else
+        k1 &= ~1;
+      ws.bk[pos] = kpos & ~1;
+    }
+    __syncwarp();
+    K5_MARK(kPhSelect);
+
+    // neighbour j: its id, flag and distance in lane j
+    const int v = lane < L ? __ldg(a.nbrs + static_cast<long long>(u) * L +
+                                   lane)
+                           : -1;
+    const bool ok = v >= 0 && a.trav[min(v, a.cap)];
+    // the rows' loads go out with the flags' (nothing waits for ok first)
+    const float dv = warp_score_words<V, JACC>(a, ws.q, qpop, v, ok, lane);
+    scored += __popc(__ballot_sync(kFull, ok));
+    K5_MARK(kPhRows);
+
+    // dedup: an id in the beam (any copy), or earlier in the list; the
+    // mirror's keys four at a time, every load in flight together
+    bool dup = false;
+#pragma unroll
+    for (int i = 0; i < kwMaxW; i += 4) {
+      if (i < W) {  // the same in every lane
+        const int4 kb = *reinterpret_cast<const int4*>(ws.bk + i);
+        dup |= (kb.x >= 0 && (kb.x >> 1) == v) |
+               (kb.y >= 0 && (kb.y >> 1) == v) |
+               (kb.z >= 0 && (kb.z >> 1) == v) |
+               (kb.w >= 0 && (kb.w >> 1) == v);
+      }
+    }
+    dup = dup && ok;
+    const unsigned rep = __match_any_sync(kFull, ok ? v : -1 - lane);
+    dup |= ok && (rep & lt);
+    float nd = ok && !dup ? dv : inf;
+    int nk = ok ? 2 * v + 1 : -2;
+    if (lane >= L) nk = INT_MAX;  // pads sort last
+    K5_MARK(kPhDedup);
+    warp_sort(nd, nk, lane);
+    K5_MARK(kPhSort);
+
+    // merge beam (W) and new (L): the first W are the next beam
+    int r0 = lane, r1 = 32 + lane;  // ranks of the beam's entries
+    {
+      int c0 = 0, c1 = 0;  // new entries strictly before each
+#pragma unroll
+      for (int st = 16; st; st >>= 1) {
+        const float e0 = __shfl_sync(kFull, nd, c0 + st - 1);
+        const int f0 = __shfl_sync(kFull, nk, c0 + st - 1);
+        const float e1 = __shfl_sync(kFull, nd, c1 + st - 1);
+        const int f1 = __shfl_sync(kFull, nk, c1 + st - 1);
+        if (before(e0, f0, d0, k0)) c0 += st;
+        if (before(e1, f1, d1, k1)) c1 += st;
+      }
+      const float e0 = __shfl_sync(kFull, nd, c0);
+      const float e1 = __shfl_sync(kFull, nd, c1);
+      const int f0 = __shfl_sync(kFull, nk, c0);
+      const int f1 = __shfl_sync(kFull, nk, c1);
+      c0 += c0 == 31 && before(e0, f0, d0, k0);
+      c1 += c1 == 31 && before(e1, f1, d1, k1);
+      r0 += c0;
+      r1 += c1;
+    }
+    int rn = lane;  // rank of the new entry: lane + beam entries <= it
+    if (lane < L) {
+      int lo = 0, n = W;
+      while (n > 0) {
+        const int h = n >> 1;
+        if (!before(nd, nk, ws.bd[lo + h], ws.bk[lo + h])) {
+          lo += h + 1;
+          n -= h + 1;
+        } else {
+          n = h;
+        }
+      }
+      rn += lo;
+    }
+    __syncwarp();  // every read of the mirror is done
+    if (lane < W && r0 < W) {
+      ws.bd[r0] = d0;
+      ws.bk[r0] = k0;
+    }
+    if (32 + lane < W && r1 < W) {
+      ws.bd[r1] = d1;
+      ws.bk[r1] = k1;
+    }
+    if (lane < L && rn < W) {
+      ws.bd[rn] = nd;
+      ws.bk[rn] = nk;
+    }
+    __syncwarp();
+    if (lane < W) {
+      d0 = ws.bd[lane];
+      k0 = ws.bk[lane];
+    }
+    if (32 + lane < W) {
+      d1 = ws.bd[32 + lane];
+      k1 = ws.bk[32 + lane];
+    }
+    K5_MARK(kPhBeamMerge);
+    ++steps;
+  }
+
+  const long long ob = static_cast<long long>(b) * W;
+  if (lane < W) {
+    a.beam_d[ob + lane] = d0;
+    a.beam_key[ob + lane] = k0;
+  }
+  if (32 + lane < W) {
+    a.beam_d[ob + 32 + lane] = d1;
+    a.beam_key[ob + 32 + lane] = k1;
+  }
+  if (lane == 0) {
+    a.steps[b] = steps;
+    a.scored[b] = scored;
+  }
+  K5_MARK(kPhFinish);
+  K5_PROF_END(steps);
+}
+
+template <int V, int JACC>
+cudaError_t launch_word_walk(const WalkArgs& a, int b, cudaStream_t stream) {
+  word_walk_kernel<V, JACC>
+      <<<(b + kwQueries - 1) / kwQueries, kwQueries * 32, 0, stream>>>(a, b);
+  return cudaGetLastError();
+}
+
 // The vector width a row allows: 16-byte loads need a 16-byte aligned
 // base, a row stride of whole 16-byte units and d a multiple of the unit.
+// Word rows take the warp form where it fits (kw_fits), else the block
+// form.
 template <typename T>
 cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
                      cudaStream_t stream) {
@@ -737,6 +1223,17 @@ cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
   const bool vec = reinterpret_cast<uintptr_t>(a.values) % 16 == 0 &&
                    (a.stride * static_cast<long long>(sizeof(T))) % 16 == 0 &&
                    a.d % V == 0;
+#ifndef PGV_K4_WORDS_BLOCK  // probes/k4_words_profile.py's block-form build
+  if constexpr (std::is_same<T, unsigned>::value) {
+    if (kw_fits(a.d, a.W, a.L, a.S, a.m, a.upper_slot != nullptr)) {
+      if (a.metric == 5)
+        return vec ? launch_word_walk<4, 1>(a, b, stream)
+                   : launch_word_walk<1, 1>(a, b, stream);
+      return vec ? launch_word_walk<4, 0>(a, b, stream)
+                 : launch_word_walk<1, 0>(a, b, stream);
+    }
+  }
+#endif
   return vec ? launch<T, V>(a, b, smem, stream)
              : launch<T, 1>(a, b, smem, stream);
 }
@@ -1422,24 +1919,36 @@ extern "C" {
 // metric 0-3, serving mode only. qd: the query's 32-bit words (d, or 2d
 // for sparse rows). S <= W seeds per query. Outputs as WalkArgs lists
 // them.
+//
+// With upper_slot given, each query first descends the upper layers from
+// `entry` (level entry_level; -1: an empty graph, no seed) as WalkArgs
+// says, and the walk starts where it lands (S must be 1; seed_ids and
+// seed_d are not read); land [b, 4] receives the landing.
 int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
                      long long stride, int d, int qd,
                      const int* nbrs, int L, const uint8_t* trav, int cap,
                      int metric, const float* q, const int* seed_ids,
                      const float* seed_d, int b, int S, int W,
                      int max_steps, float* beam_d, int* beam_key,
-                     int* steps, int* scored, void* stream) {
+                     int* steps, int* scored, const int* upper_slot,
+                     const int* upper, long long ustride, int m, int entry,
+                     int entry_level, int* land, void* stream) {
   const bool words = dtype == 3, sparse = dtype == 4;
+  const bool desc = upper_slot != nullptr;
   if (b <= 0 || d <= 0 || L <= 0 || S < 0 || W <= 0 || S > W ||
       metric < 0 || metric > 5 || words != (metric >= 4) ||
-      qd != (sparse ? 2 * d : d) || sparse != (values2 != nullptr))
+      qd != (sparse ? 2 * d : d) || sparse != (values2 != nullptr) ||
+      (desc && (S != 1 || upper == nullptr || land == nullptr || m < 1 ||
+                m > L || entry > cap || ustride < static_cast<long long>(
+                                                      entry_level) * m)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(qd, L, S, W);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   WalkArgs a{values, values2, stride, nbrs, trav, q, seed_ids, seed_d,
              beam_d, beam_key, steps, scored, d, qd, L, cap, metric, S, W,
-             max_steps};
+             max_steps, upper_slot, upper, ustride, m, entry, entry_level,
+             land};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)

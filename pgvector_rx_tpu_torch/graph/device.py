@@ -30,7 +30,8 @@ device, and the engines are the same algorithms:
   the CPU), seeded by a bf16 sweep over the level >= 1 rows
   (``_search_batch_coarse``) or by the greedy upper-layer descent
   (``_search_batch``: the bit and sparse kinds, whose queries are packed
-  words or (indices, values) pairs).
+  words or (indices, values) pairs, and dense graphs without coarse
+  seeding; on CUDA the descent runs inside K4's launch).
 
 The resumable beam scan (``index/scan.py`` ``DeviceBeamScan``) runs one
 walk per segment under an exclusion mask with a spill buffer
@@ -284,11 +285,6 @@ def _dist_ids(g: DeviceGraph, q, ids):
     return beam.row_dists(g.rows, g.metric, q, ids)
 
 
-def _lead(q) -> torch.Tensor:
-    """A query batch's first tensor (its batch size and device)."""
-    return q[0] if isinstance(q, tuple) else q
-
-
 # ---------------------------------------------------------------------------
 # Beam search
 # ---------------------------------------------------------------------------
@@ -306,30 +302,6 @@ def _beam_settings() -> None:
             )
 
 
-def _greedy_descent(g: DeviceGraph, q, cur, cur_d, layer: int):
-    """ef=1 greedy search at an upper layer for every query (scan.rs
-    :492-510 analog): move to the nearest upper neighbour while it is
-    strictly nearer."""
-    off = (layer - 1) * g.m
-    rows = torch.arange(cur.shape[0], device=cur.device)
-    moved = torch.ones_like(cur, dtype=torch.bool)
-    while bool(moved.any()):
-        slot = g.upper_slot[cur.long()]
-        nbrs = g.upper_neighbors[slot.clamp(min=0).long(), off : off + g.m]
-        valid = (
-            (nbrs >= 0)
-            & (slot >= 0)[:, None]
-            & g.traversable[nbrs.clamp(0, g.cap).long()]
-        )
-        d = torch.where(valid, _dist_ids(g, q, nbrs), _INF)
-        best = torch.argmin(d, dim=1)
-        best_d = d[rows, best]
-        moved = moved & (best_d < cur_d)
-        cur = torch.where(moved, nbrs[rows, best], cur)
-        cur_d = torch.where(moved, best_d, cur_d)
-    return cur, cur_d
-
-
 def _ground_beam_seeds(g: DeviceGraph, q, seed_ids, seed_d, ef: int,
                        max_steps: int):
     """Best-first beam of width ef at layer 0 for a batch of queries
@@ -342,24 +314,27 @@ def _ground_beam_seeds(g: DeviceGraph, q, seed_ids, seed_d, ef: int,
 
 
 def _descent_seeds(g: DeviceGraph, queries, entry_level: int):
-    """Greedy upper-layer descent from the entry point for every query ->
-    (seed ids [B, 1], seed distances [B, 1]): Algorithm 5's layer-0
-    entry."""
-    B = _lead(queries).shape[0]
-    cur = torch.full((B,), g.entry, dtype=torch.int64,
-                     device=_lead(queries).device)
-    cur_d = _dist_ids(g, queries, cur[:, None])[:, 0]
-    for layer in range(entry_level, 0, -1):
-        cur, cur_d = _greedy_descent(g, queries, cur, cur_d, layer)
+    """Greedy upper-layer descent from the entry point for every query
+    (scan.rs:492-510 analog; torch ops, ``ops/beam.descent_plain``: a host
+    check per move) -> (seed ids [B, 1], seed distances [B, 1]):
+    Algorithm 5's layer-0 entry."""
+    cur, cur_d = beam.descent_plain(g.rows, g.traversable, g.upper_slot,
+                                    g.upper_neighbors, g.m, g.metric,
+                                    queries, g.entry, entry_level)
     return cur[:, None], cur_d[:, None]
 
 
 def _search_batch(g: DeviceGraph, queries, ef: int, entry_level: int,
                   max_steps: int):
     """Full Algorithm-5 search: greedy descent through the upper layers
-    from the entry point, then the ground beam from where it lands."""
-    seed_ids, seed_d = _descent_seeds(g, queries, entry_level)
-    return _ground_beam_seeds(g, queries, seed_ids, seed_d, ef, max_steps)
+    from the entry point, then the ground beam from where it lands
+    (``ops/beam.descent_walk``: on CUDA tensors one launch of kernel K4
+    does both; on CPU tensors ``_descent_seeds`` then the plain walk).
+    Returns (dists [B, ef], ids [B, ef], steps [B])."""
+    return beam.descent_walk(g.rows, g.neighbors0, g.traversable,
+                             g.upper_slot, g.upper_neighbors, g.m, g.entry,
+                             entry_level, g.metric, queries, ef,
+                             max_steps)[:3]
 
 
 def upper_row_arrays(g: DeviceGraph):

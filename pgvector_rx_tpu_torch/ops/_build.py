@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k2_binned.cu",
                                      "k3_tilemin.cu", "k4_beam.cu",
-                                     "k9_bits.cu", "k10_sparse.cu"))
+                                     "k9_bits.cu", "k9_bits_tc.cu",
+                                     "k10_sparse.cu"))
 _HEADERS = (_CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -53,9 +54,11 @@ _SIGNATURES = {
     "pgv_k3_x2max": [_P, _I, _I, _P, _P],
     # values, values2, dtype, stride, d, qd, nbrs, L, trav, cap, metric, q,
     # seed_ids, seed_d, b, S, W, max_steps, beam_d, beam_key, steps,
-    # scored, stream
+    # scored, upper_slot, upper, ustride, m, entry, entry_level, land,
+    # stream
     "pgv_k4_beam_walk": [_P, _P, _I, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P,
-                         _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+                         _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I,
+                         _I, _I, _P, _P],
     # values, dtype, stride, d, nbrs, L, trav, excl, excl_stride, allowed,
     # words, cap, metric, q, seed_ids, seed_d, b, S, W, ef, SP, max_steps,
     # mark, report, spill_d, spill_ids, stream
@@ -66,6 +69,12 @@ _SIGNATURES = {
     # rows_per_split, part, out, stream
     "pgv_k9_bits_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
+    # words, live, q, lo, n, w, b, k, metric, splits, rows_per_split, part,
+    # shared, out, stream
+    "pgv_k9_bits_tc_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P],
+    # w, k, resident (out) -> shared memory bytes
+    "pgv_k9_tc_smem": [_I, _I, _P],
     # ci, cv, live, qi, qv, lo, n, p, b, k, metric, approx, qb, splits,
     # rows_per_split, part, out, stream
     "pgv_k10_sparse_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

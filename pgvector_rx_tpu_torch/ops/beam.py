@@ -18,6 +18,12 @@ dense-only.
 - :func:`beam_walk` (K4): ``B`` queries with ``S`` seeds each, a beam of
   width ``ef`` -> (dists [B, ef], ids [B, ef], steps [B]), sorted by
   (distance, id).
+- :func:`descent_walk` (K4 with the greedy upper-layer descent in its
+  launch: the JAX package's ``_search_batch`` / ``_search_one_sparse``,
+  ``:767`` / ``:1861``): each query descends from the entry, then walks
+  from where it lands; plain version :func:`descent_plain` then the plain
+  walk. Packed words of up to 32 words at ef <= 64 walk with one warp per
+  query (the beam in registers), everything else one block per query.
 - :func:`scan_segment` (K5): the same walk under an exclusion mask, with
   an internal width ``width`` >= ef, seeds past the width sent to a spill
   buffer and the evicted candidates merged into it, and the segment's
@@ -215,11 +221,22 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
     ``_walk_plain``'s arguments but serves only (no exclusion mask, no
     spill: a scan segment is K5, ``scan_segment``); the spill it returns
     is empty."""
-    from . import _build
-
     if scan or excluded is not None or spill:
         raise ValueError("the walk kernel serves only; a scan segment is "
                          "K5 (scan_segment)")
+    return _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
+                        seed_d, width, max_steps)[0]
+
+
+def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
+                 seed_d, width: int, max_steps: int, descent=None):
+    """One launch of K4: the raw walk state (beam dists, keys [B, width];
+    an empty spill; steps [B]; rows scored [B]) and, with ``descent`` =
+    (upper_slot, upper_neighbors, m, entry, entry_level), the greedy
+    descent in the launch seeding each query's walk (``seed_ids`` [B, 1]
+    and ``seed_d`` are then not read) and its landing [B, 4] int32 (id,
+    the distance's f32 bits, rows scored, moves); else None."""
+    from . import _build
 
     is_sparse = isinstance(values, tuple)
     values2 = None
@@ -279,6 +296,23 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
     beam_key = torch.empty((B, width), **i32)
     steps = torch.empty((B,), **i32)
     scored = torch.empty((B,), **i32)
+    land = None
+    upper = (None, None, 0, 0, -1, 0)
+    if descent is not None:
+        upper_slot, upper_nb, m, entry, entry_level = descent
+        _check_cuda("upper_slot", upper_slot, torch.int32, 1, dev)
+        _check_cuda("upper_neighbors", upper_nb, torch.int32, 2, dev)
+        if (S != 1 or upper_slot.shape[0] != cap + 1 or not 1 <= m <= L
+                or upper_nb.shape[1] < max(entry_level, 0) * m
+                or entry > cap):
+            raise ValueError(
+                f"the descent takes one seed per query, upper_slot of "
+                f"{cap + 1} rows, 1 <= m <= {L} and {entry_level} layers of "
+                f"m ids (got {S} seeds, {upper_slot.shape[0]} rows, m = {m}, "
+                f"upper rows of {upper_nb.shape[1]}, entry {entry})")
+        land = torch.empty((B, 4), **i32)
+        upper = (upper_slot.data_ptr(), upper_nb.data_ptr(),
+                 upper_nb.stride(0), m, entry, entry_level)
     if B:
         with torch.cuda.device(dev):
             rc = _build.lib().pgv_k4_beam_walk(
@@ -289,13 +323,14 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
                 traversable.data_ptr(), cap, _METRIC_CODES[metric],
                 q.data_ptr(), seed_ids.data_ptr(), seed_d.data_ptr(), B, S,
                 width, max_steps, beam_d.data_ptr(), beam_key.data_ptr(),
-                steps.data_ptr(), scored.data_ptr(),
+                steps.data_ptr(), scored.data_ptr(), *upper,
+                land.data_ptr() if land is not None else None,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(rc, "pgv_k4_beam_walk")
         LAUNCHES["k4_beam_sparse" if is_sparse else "k4_beam"] += 1
     sp_d = torch.empty((B, 0), **f32)
-    return (beam_d, beam_key.long(), sp_d, sp_d.long(), steps, scored)
+    return (beam_d, beam_key.long(), sp_d, sp_d.long(), steps, scored), land
 
 
 def _walk(values, neighbors0, *args, **kw):
@@ -324,6 +359,74 @@ def beam_walk(values, neighbors0, traversable, metric: str, q, seed_ids,
                 seed_d.float().contiguous(), width=ef, spill=0,
                 max_steps=max_steps, scan=False)
     return _serve_finish(*raw)
+
+
+def descent_plain(values, traversable, upper_slot, upper_neighbors,
+                  m: int, metric: str, q, entry: int, entry_level: int):
+    """Plain version of the descent in K4's launch, the JAX package's
+    ``_greedy_descent`` (``pgvector_rx_tpu/graph/device.py:386``) from the
+    entry for every query: at each layer ``entry_level .. 1``, score the
+    current node's ``m`` neighbours at that layer where valid (``nbr >= 0``,
+    an upper slot, ``traversable``), move to the first of their minimum
+    while it is strictly nearer (a host check per move). Returns (landing
+    ids [B] int64, their distances [B] f32)."""
+    lead = q[0] if isinstance(q, tuple) else q
+    B, dev = lead.shape[0], lead.device
+    cap = traversable.shape[0] - 1
+    rows = torch.arange(B, device=dev)
+    cur = torch.full((B,), entry, dtype=torch.int64, device=dev)
+    cur_d = row_dists(values, metric, q, cur[:, None])[:, 0]
+    for layer in range(entry_level, 0, -1):
+        off = (layer - 1) * m
+        moved = torch.ones_like(cur, dtype=torch.bool)
+        while bool(moved.any()):
+            slot = upper_slot[cur.long()]
+            nbrs = upper_neighbors[slot.clamp(min=0).long(), off : off + m]
+            valid = ((nbrs >= 0) & (slot >= 0)[:, None]
+                     & traversable[nbrs.clamp(0, cap).long()])
+            d = torch.where(valid, row_dists(values, metric, q, nbrs), _INF)
+            best = torch.argmin(d, dim=1)  # the first minimal slot
+            best_d = d[rows, best]
+            moved = moved & (best_d < cur_d)
+            cur = torch.where(moved, nbrs[rows, best].long(), cur)
+            cur_d = torch.where(moved, best_d, cur_d)
+    return cur, cur_d
+
+
+def descent_walk(values, neighbors0, traversable, upper_slot,
+                 upper_neighbors, m: int, entry: int, entry_level: int,
+                 metric: str, q, ef: int, max_steps: int):
+    """K4 with the greedy upper-layer descent in its launch: the JAX
+    package's ``_search_batch`` (``pgvector_rx_tpu/graph/device.py:767``)
+    and ``_search_one_sparse`` (``:1861``), the descent from ``entry``
+    (level ``entry_level``) through ``upper_neighbors`` [U, LMAX * m]
+    (``upper_slot`` [cap + 1]: a node's row, -1 none) then the walk of
+    :func:`beam_walk` from where each query lands. Every row mode (dense
+    rows, packed words, sparse rows). CUDA tensors: one launch;
+    CPU tensors: ``descent_plain`` then the plain walk.
+
+    Returns (dists [B, ef], ids [B, ef] int64, steps [B] int32, landing
+    ids [B] int64, landing distances [B] f32)."""
+    q = _queries(q, metric)
+    lead = q[0] if isinstance(q, tuple) else q
+    B, dev = lead.shape[0], lead.device
+    if neighbors0.is_cuda:
+        seeds = torch.full((B, 1), -1, dtype=torch.int32, device=dev)
+        raw, land = _launch_walk(
+            values, neighbors0, traversable, metric, q, seeds,
+            torch.zeros((B, 1), dtype=torch.float32, device=dev), ef,
+            max_steps, (upper_slot, upper_neighbors, m, entry, entry_level))
+        land_ids = land[:, 0].long()
+        land_d = land[:, 1].contiguous().view(torch.float32)
+    else:
+        land_ids, land_d = descent_plain(values, traversable, upper_slot,
+                                         upper_neighbors, m, metric, q,
+                                         entry, entry_level)
+        raw = _walk_plain(values, neighbors0, traversable, None, metric, q,
+                          land_ids[:, None].to(torch.int32),
+                          land_d[:, None].float(), width=ef, spill=0,
+                          max_steps=max_steps, scan=False)
+    return (*_serve_finish(*raw), land_ids, land_d)
 
 
 def _serve_finish(beam_d, beam_key, sp_d, sp_key, steps, scored=None):

@@ -14,11 +14,21 @@ arithmetic).
 jaccard ``ab == 0 ? 1 : 1 - ab / union`` (``ab = popcount(q & x)``,
 ``union = popq + popx - ab``, f32) over the live rows, in (distance, row)
 order. It replaces the XLA program ``_exact_search_bits``
-(``pgvector_rx_tpu/graph/device.py:1155``), which has no Pallas ancestor:
-the kernel is ``csrc/k9_bits.cu``, its plain version
-``_bits_topk_plain``. The wrapper takes the plain version only for tensors
-on the CPU; for a CUDA tensor it launches the kernel or raises.
-``bruteforce.LAUNCHES["k9_bits"]`` counts the launches.
+(``pgvector_rx_tpu/graph/device.py:1155``), which has no Pallas ancestor,
+in its two forms, chosen as the JAX package chooses them (``_k9_form``:
+``mxu = B >= 32``):
+
+- at 32 queries or more, the int8 tensor-core form (``csrc/k9_bits_tc.cu``:
+  ``ab`` as the u8 product of the unpacked {0,1} rows, hamming ``popq +
+  popx - 2 ab``; JAX's unpack + matmul branch), plain version
+  ``_bits_topk_plain_mm``; launches under ``LAUNCHES["k9_bits_tc"]``;
+- below 32, the popcount form (``csrc/k9_bits.cu``: XOR / AND and
+  population counts on the words), plain version ``_bits_topk_plain``;
+  launches under ``LAUNCHES["k9_bits"]``.
+
+Both give the same integers and the same keys. The wrapper takes the plain
+version only for tensors on the CPU; for a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -169,6 +179,13 @@ _K9_MAX_K = 64
 _PLAIN_ELEMS = 1 << 25
 #: rows per block of the kernel's grid split (one per lane of a warp)
 _K9_ROWS = 32
+#: a block's shared memory limit and the blocks its registers allow on an
+#: SM (k9_bits_tc.cu's tcMaxSmem, tcBlocksPerSm)
+_K9_TC_MAX_SMEM, _K9_TC_PER_SM = 232448, 3
+#: the tensor-core form: from this many queries (JAX's ``mxu = B >= 32``);
+#: queries and rows per block (wgmma's m64 and n128)
+_K9_TC_MIN_B = 32
+_K9_TC_QTILE, _K9_TC_ROWS = 64, 128
 
 
 def _bits_topk_plain(words, pop, live, queries, k: int, metric: str):
@@ -194,6 +211,49 @@ def _bits_topk_plain(words, pop, live, queries, k: int, metric: str):
     if best.shape[1] < k:  # fewer rows than k
         best = torch.nn.functional.pad(best, (0, k - best.shape[1]), value=-1)
     return _from_order_keys(best)
+
+
+def _bits_topk_plain_mm(words, pop, live, queries, k: int, metric: str):
+    """Plain version of K9's tensor-core form, JAX's MXU branch step for
+    step: each block of rows unpacked to {0,1} (``unpack_words_bf16``), one
+    f32 product with the unpacked queries (``ab = popcount(q & x)``, exact:
+    0/1 products, sums below 2^24), the rows' popcounts recounted per
+    block as JAX does (``pop`` is not read), hamming ``(popx + pen) - 2 ab``
+    restored by ``popq``, jaccard the same formula as the popcount form;
+    dead rows at +inf; a top-k over the (distance, row) keys per block
+    merged into a running top-k. Returns (d [B, k] f32, rows [B, k]
+    int64), key for key ``_bits_topk_plain``'s."""
+    del pop
+    n, w = words.shape
+    b = queries.shape[0]
+    qpop = row_popcount(queries)[:, None]
+    qf = unpack_words_bf16(queries).float()
+    ch = max(1, _PLAIN_ELEMS // max(b, 32 * w))
+    best = torch.empty((b, 0), dtype=torch.int64, device=queries.device)
+    for s in range(0, n, ch):
+        x = words[s : s + ch]
+        bb = row_popcount(x)[None, :]
+        ab = qf @ unpack_words_bf16(x).float().T  # [B, rows]
+        lv = live[None, s : s + ch]
+        if metric == "hamming":
+            d = (bb + torch.where(lv, 0.0, _INF)) - 2.0 * ab + qpop
+        else:
+            d = torch.where(lv, _from_counts(metric, ab, qpop, bb), _INF)
+        rows = torch.arange(s, s + x.shape[0], device=words.device)
+        keys = torch.cat([best, _order_keys(d, rows.expand(b, -1))], 1)
+        best = torch.topk(keys, min(k, keys.shape[1]), dim=1, largest=False,
+                          sorted=True).values
+    if best.shape[1] < k:  # fewer rows than k
+        best = torch.nn.functional.pad(best, (0, k - best.shape[1]), value=-1)
+    return _from_order_keys(best)
+
+
+def _k9_form(b: int) -> str:
+    """K9's form for a batch of ``b`` queries, the JAX package's rule
+    (``mxu = B >= 32``, ``pgvector_rx_tpu/graph/device.py:1214``): the
+    int8 tensor-core form (``"k9_bits_tc"``) at 32 or more, the popcount
+    form (``"k9_bits"``) below."""
+    return "k9_bits_tc" if b >= _K9_TC_MIN_B else "k9_bits"
 
 
 def _k9_qtile(w: int, kl: int) -> int:
@@ -243,10 +303,63 @@ def _bits_round_cuda(words, pop, live, queries, k: int, metric: str, lo):
     return out
 
 
-def _bits_topk_cuda(words, pop, live, queries, k: int, metric: str):
-    """K9 on the card, in rounds of at most 64: each round admits only the
-    keys after the previous round's last, which is exact because the
-    (distance, row) order is total."""
+def _k9_tc_plan(n: int, b: int, blocks: int):
+    """The tensor-core form's grid: (query tiles, splits, rows per split)
+    for at most ``blocks`` blocks where the query tiles allow; every split
+    covers rows [s * rows, min(n, (s + 1) * rows)), all non-empty; rows is
+    a multiple of 128 (a chunk)."""
+    qtiles = -(-b // _K9_TC_QTILE)
+    chunks = -(-n // _K9_TC_ROWS)
+    splits = max(1, min(chunks, 65535, blocks // qtiles))
+    rows = -(-chunks // splits) * _K9_TC_ROWS
+    return qtiles, -(-n // rows), rows
+
+
+def _bits_round_tc(words, live, queries, k: int, metric: str, lo):
+    """One launch of the tensor-core form and its merge pass: the k
+    smallest keys per query at or after ``lo`` [B] int64 (None: from the
+    start)."""
+    import ctypes
+
+    from . import _build
+
+    n, w = words.shape
+    b = queries.shape[0]
+    lib = _build.lib()
+    resident = ctypes.c_int()
+    smem = lib.pgv_k9_tc_smem(w, k, ctypes.byref(resident))
+    if smem > _K9_TC_MAX_SMEM:
+        raise ValueError(f"{w} words per row at k = {k} do not fit the "
+                         "tensor-core bit sweep's block")
+    per_sm = max(1, min(_K9_TC_MAX_SMEM // smem, _K9_TC_PER_SM))
+    _, splits, rows = _k9_tc_plan(
+        n, b, per_sm * torch.cuda.get_device_properties(
+            words.device).multi_processor_count)
+    dev = words.device
+    part = torch.empty((b, splits, k), dtype=torch.int64, device=dev)
+    shared = torch.full((b,), -1, dtype=torch.int64, device=dev)
+    out = torch.empty((b, k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.pgv_k9_bits_tc_topk(
+            words.data_ptr(), live.data_ptr(), queries.data_ptr(),
+            lo.data_ptr() if lo is not None else None, n, w, b, k,
+            BIT_METRICS.index(metric), splits, rows, part.data_ptr(),
+            shared.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "pgv_k9_bits_tc_topk")
+    LAUNCHES["k9_bits_tc"] += 1
+    return out
+
+
+def _bits_topk_cuda(words, pop, live, queries, k: int, metric: str,
+                    form: str | None = None):
+    """K9 on the card in the form ``_k9_form`` picks (``form``: that one
+    instead, to compare the two at one batch size), in rounds of at most
+    64: each round admits only the keys after the previous round's last,
+    which is exact because the (distance, row) order is total. The
+    tensor-core form counts each row's popcount from its words and reads
+    no ``pop``."""
     _check_cuda("words", words, torch.int32, 2)
     _check_cuda("live", live, torch.bool, 1, words.device)
     _check_cuda("queries", queries, torch.int32, 2, words.device)
@@ -267,10 +380,16 @@ def _bits_topk_cuda(words, pop, live, queries, k: int, metric: str):
     if n >= 1 << 31 or b > 65535 * 8:
         raise ValueError(f"at most 2^31 - 1 rows and {65535 * 8} queries per "
                          f"call (got {n}, {b})")
-    pop = pop if metric == "jaccard" else None
-    return _from_order_keys(_in_rounds(
-        lambda kr, lo: _bits_round_cuda(words, pop, live, queries, kr,
-                                        metric, lo), k))
+    if (form or _k9_form(b)) == "k9_bits_tc":
+        def one_round(kr, lo):
+            return _bits_round_tc(words, live, queries, kr, metric, lo)
+    else:
+        pop = pop if metric == "jaccard" else None
+
+        def one_round(kr, lo):
+            return _bits_round_cuda(words, pop, live, queries, kr, metric,
+                                    lo)
+    return _from_order_keys(_in_rounds(one_round, k))
 
 
 def _in_rounds(one_round, k: int):
@@ -293,11 +412,14 @@ def bits_topk(words, pop, live, queries, k: int, metric: str):
     """K9: exact top-k over the rows of ``words`` [N, W] (int32 words) whose
     ``live`` [N] flag is set -> (distances [B, k] f32, rows [B, k] int64)
     in (distance, row) order, (inf, -1) past the live rows. ``queries``
-    [B, W] int32 words; ``pop`` [N] f32: the rows' popcounts (jaccard;
-    None for hamming). CPU tensors take the plain version, CUDA tensors
-    the kernel (in rounds of 64 past k = 64)."""
+    [B, W] int32 words; ``pop`` [N] f32: the rows' popcounts (jaccard's
+    popcount form; None for hamming). CPU tensors take the plain version
+    of the form ``_k9_form`` picks, CUDA tensors that form's kernel (in
+    rounds of 64 past k = 64)."""
     if metric not in BIT_METRICS:
         raise ValueError(f"unknown bit metric: {metric}")
     if words.is_cuda:
         return _bits_topk_cuda(words, pop, live, queries, k, metric)
-    return _bits_topk_plain(words, pop, live, queries, k, metric)
+    plain = (_bits_topk_plain_mm if _k9_form(queries.shape[0]) ==
+             "k9_bits_tc" else _bits_topk_plain)
+    return plain(words, pop, live, queries, k, metric)

@@ -7,8 +7,10 @@ Jaccard distance = 1 - |A∩B| / |A∪B| with the |A∩B|=0 -> 1.0 edge case
 HNSW cap of 64000 bits = HNSW_MAX_DIM * 32 (bitvec.rs:180-187).
 
 Storage here is packed ``uint8`` MSB-first (the same byte layout as
-PostgreSQL varbit), padded with zero bits. Device kernels pack further
-into int32 lanes for VPU popcounts — see :mod:`pgvector_rx_tpu.ops.bits`.
+PostgreSQL varbit), padded with zero bits. The device sweeps pack further
+into 32-bit words (int32 tensors with the bits of the words), which the
+bit sweep K9 either counts with population counts or unpacks to {0,1}
+bytes for the int8 tensor cores — see :mod:`pgvector_rx_tpu_torch.ops.bits`.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ element validation — NaN/Inf rejected (vector.rs:77-84), dim caps
 clamp-to-[-1,1] discipline (vector.rs:541-556,:645).
 
 Host (numpy) scalar-pair functions live here for SQL-function parity;
-batched device kernels are in :mod:`pgvector_rx_tpu.ops.distances`.
+batched device distances are in :mod:`pgvector_rx_tpu_torch.ops.distances`.
 """
 
 from __future__ import annotations

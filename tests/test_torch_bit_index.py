@@ -240,6 +240,88 @@ def test_engines_on_a_jax_checkpoint_give_jax_ids(metric, tmp_path):
         np.testing.assert_array_equal(td, jd, err_msg=method)
 
 
+@pytest.mark.parametrize("metric", ["hamming", "jaccard"])
+def test_search_batch_gives_jax_search_batch(metric):
+    """The port's ``_search_batch`` (the greedy descent, then the walk: on
+    the CPU ``_descent_seeds`` and the plain walk) on a JAX graph gives
+    JAX's ``_search_batch`` at every rank of the ef-wide beam, distances
+    and ids, ties included, and JAX's landing (``_descent_seed_one``)."""
+    j, _, q = _jax_native(metric)
+    jg, t = j.device_graph(), _carry(j)
+    tg = t.device_graph()
+    assert tg.entry_level >= 1
+    qw = tbits.pack_bits(q)
+    steps = 4 * EF + 32
+    jd, ji, _ = jdev._search_batch(jg, jnp.asarray(qw), EF, jg.entry_level,
+                                   steps)
+    td, ti, _ = tdev._search_batch(tg, tbits.as_words(qw), EF,
+                                   tg.entry_level, steps)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    land_i, land_d = tdev._descent_seeds(tg, tbits.as_words(qw),
+                                         tg.entry_level)
+    for r in range(0, len(qw), 8):
+        ji1, jd1 = jdev._descent_seed_one(jg, jnp.asarray(qw[r]),
+                                          jg.entry_level)
+        assert int(land_i[r, 0]) == int(ji1[0])
+        assert float(land_d[r, 0]) == float(jd1[0])
+
+
+def _tied_upper_graph():
+    """A bit graph (32 bits, query 0: a row's distance is its popcount)
+    whose upper layers tie: at layer 2 the entry (popcount 4) sees rows 3
+    (4: equal, no move), 1 and 2 (3: tied, slot 1 first); row 1 sees 4 (3:
+    equal); at layer 1 row 1 sees 7 (1, dead), 5 and 6 (2: tied); row 5
+    sees 6 (2: equal). The descent lands on 5 only by the first-slot and
+    strict-< rules (the last slot would give 2 then 6, <= would move on)."""
+    pops = [4, 3, 3, 4, 3, 2, 2, 1, 3, 4, 5, 6]
+    n, m = len(pops), 4
+    words = np.zeros((n + 1, 1), np.uint32)
+    for i, p in enumerate(pops):
+        words[i, 0] = (1 << p) - 1
+    upper = np.full((4, 2 * m), -1, np.int32)
+    slot = np.full(n + 1, -1, np.int32)
+    levels = np.zeros(n + 1, np.int32)
+    for row, (node, lvl, l1, l2) in enumerate([
+            (0, 2, [3, 1, 2, -1], [3, 1, 2, -1]), (1, 2, [7, 5, 6, 0],
+                                                   [0, 4, -1, -1]),
+            (5, 1, [6, 1, -1, -1], []), (4, 2, [1, -1, -1, -1],
+                                         [1, -1, -1, -1])]):
+        slot[node], levels[node] = row, lvl
+        upper[row, :len(l1)] = l1
+        upper[row, m : m + len(l2)] = l2
+    nb0 = np.full((n + 1, 2 * m), -1, np.int32)
+    for i in range(n):
+        nb0[i, :3] = [(i + 1) % n, (i + 5) % n, (i + 7) % n]
+    trav = np.ones(n + 1, bool)
+    trav[7] = trav[n] = False
+    return dict(neighbors0=nb0, upper_neighbors=upper, upper_slot=slot,
+                levels=levels, traversable=trav,
+                emit_tid=np.arange(n + 1, dtype=np.int32),
+                tid_count=np.ones(n + 1, np.int32), words=words), n, m
+
+
+def test_descent_ties_land_where_jax_lands():
+    """On tied upper neighbours the descent keeps JAX's rules: the first
+    slot of the minimum, and no move on an equal distance."""
+    arrays, n, m = _tied_upper_graph()
+    jg = jdev.DeviceGraph(kind="bit", metric="hamming", cap=n, m=m, entry=0,
+                          entry_level=2,
+                          **{f: jnp.asarray(v) for f, v in arrays.items()})
+    tg = tdev.DeviceGraph.from_numpy(arrays, kind="bit", metric="hamming",
+                                     cap=n, m=m, entry=0, entry_level=2,
+                                     **CPU)
+    q = np.zeros((3, 1), np.uint32)
+    ji, jd = jdev._descent_seed_one(jg, jnp.asarray(q[0]), 2)
+    assert int(ji[0]) == 5 and float(jd[0]) == 2.0
+    ti, td = tdev._descent_seeds(tg, tbits.as_words(q), 2)
+    assert ti[:, 0].tolist() == [5, 5, 5] and td[:, 0].tolist() == [2.0] * 3
+    jd, ji, _ = jdev._search_batch(jg, jnp.asarray(q), 8, 2, 64)
+    td, ti, _ = tdev._search_batch(tg, tbits.as_words(q), 8, 2, 64)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
 @pytest.mark.parametrize("serving", [False, True])
 def test_checkpoints_move_both_ways(serving, tmp_path):
     """A port bit checkpoint loads in JAX and a JAX one in the port, host

@@ -6,12 +6,16 @@ the same numpy inputs.
   popcount equals numpy's ``unpackbits(...).sum()``;
 - ``pairwise`` / ``gathered`` / ``unpack_words_bf16`` equal JAX's exactly
   (popcounts are integers, jaccard one f32 division);
-- K9's plain version (``_bits_topk_plain``) equals ``_exact_search_bits``
-  at B = 8 (JAX's popcount form) and B = 48 (its unpack + matmul form),
-  both metrics, with dead rows and a row mask: equal distances and equal
-  ids, tie order included; k = 100 through the kernel's rounds.
-Card-only (``cuda``): K9 and the walk kernel's packed-word mode against
-their plain versions.
+- K9's plain versions (``_bits_topk_plain``, the popcount form, and
+  ``_bits_topk_plain_mm``, the tensor-core form's) equal
+  ``_exact_search_bits`` at B = 8 (JAX's popcount form) and B = 48 (its
+  unpack + matmul form), both metrics, with dead rows and a row mask:
+  equal distances and equal ids, tie order included; k = 100 through the
+  kernel's rounds; the two plain versions give the same keys at 2 and 9
+  words per row; ``_k9_form`` is JAX's ``B >= 32`` rule.
+Card-only (``cuda``): both forms of K9 and the walk kernel's packed-word
+mode (with the greedy descent in its launch) against their plain
+versions.
 """
 
 import jax.numpy as jnp
@@ -139,14 +143,14 @@ def test_prepare_rows_equals_prepare_value():
 _N, _NBITS = 1500, 72
 
 
-def _graph(metric, seed=11):
+def _graph(metric, seed=11, nbits=_NBITS):
     """A JAX bit DeviceGraph (no edges: the sweep reads rows and flags
     only) with dead rows, untupled rows and heavy ties (few set bits)."""
     rng = np.random.default_rng(seed)
-    bits = _bits(rng, _N, _NBITS, 0.08)
+    bits = _bits(rng, _N, nbits, 0.08)
     bits[7] = bits[3]  # an exact duplicate
     bits[9] = 0  # a zero row
-    words = np.zeros((_N + 1, -(-_NBITS // 32)), np.uint32)
+    words = np.zeros((_N + 1, -(-nbits // 32)), np.uint32)
     words[:_N] = jbits.pack_bits(bits)
     trav = rng.random(_N + 1) > 0.05
     trav[_N] = False
@@ -185,6 +189,51 @@ def test_k9_plain_equals_exact_search_bits(metric, b, masked):
     td, ti = _port_sweep(words, live, q, 10, metric, mask)
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("nbits", [64, 288])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k9_plain_mm_equals_plain_and_jax_mxu(metric, nbits, masked):
+    """The tensor-core form's plain version (JAX's MXU branch) against the
+    popcount form's, key for key, and against ``_exact_search_bits`` at
+    B = 48 (JAX's MXU branch): 2 and 9 words per row (not a multiple of
+    4), dead rows, a row mask, k = 10 and k = 100 (the kernel's rounds)."""
+    g, words, live, rng = _graph(metric, seed=nbits, nbits=nbits)
+    q = words[rng.integers(0, _N, 48)]
+    q[1] = 0
+    mask = rng.random(_N + 1) < 0.6 if masked else None
+    lv = torch.from_numpy(live if mask is None else live & mask)
+    w, qw = tbits.as_words(words), tbits.as_words(q)
+    for k in (10, 100):
+        md, mi = tbits._bits_topk_plain_mm(w, None, lv, qw, k, metric)
+        pd, pi = tbits._bits_topk_plain(w, tbits.row_popcount(w), lv, qw, k,
+                                        metric)
+        assert torch.equal(tbf._order_keys(md, mi), tbf._order_keys(pd, pi))
+        jd, ji = jdev._exact_search_bits(
+            g, jnp.asarray(q), k,
+            row_mask=None if mask is None else jnp.asarray(mask))
+        np.testing.assert_array_equal(md.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(mi.numpy(), np.asarray(ji))
+    # bits_topk on the CPU takes the form's plain version at B = 48
+    bd, bi = tbits.bits_topk(w, tbits.row_popcount(w), lv, qw, 10, metric)
+    md, mi = tbits._bits_topk_plain_mm(w, None, lv, qw, 10, metric)
+    assert torch.equal(bd, md) and torch.equal(bi, mi)
+
+
+@pytest.mark.parametrize("b", [1, 31, 32, 4096])
+def test_k9_form_is_the_jax_rule(b):
+    """``_k9_form`` picks the tensor-core form exactly where JAX's
+    ``_exact_search_bits`` takes its matmul (``mxu = B >= 32``), read from
+    the traced program: a ``dot_general`` appears at those B only."""
+    import jax
+
+    g, words, _, _ = _graph("hamming", seed=3)
+    jaxpr = jax.make_jaxpr(lambda q: jdev._exact_search_bits(g, q, 10))(
+        jax.ShapeDtypeStruct((b, words.shape[1]), jnp.uint32))
+    mxu = "dot_general" in str(jaxpr)
+    assert mxu == (b >= 32)
+    assert tbits._k9_form(b) == ("k9_bits_tc" if mxu else "k9_bits")
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -267,12 +316,46 @@ def test_k9_kernel_matches_plain(cuda, metric, nbits, n, b, k):
     live = torch.from_numpy(rng.random(n) > 0.1).to(cuda)
     q = tbits.as_words(tbits.pack_bits(_bits(rng, b, nbits, 0.05)), cuda)
     pop = tbits.row_popcount(words)
-    before = tbf.LAUNCHES["k9_bits"]
+    form = tbits._k9_form(b)
+    before = tbf.LAUNCHES[form]
     kd, ki = tbits.bits_topk(words, pop, live, q, k, metric)
-    assert tbf.LAUNCHES["k9_bits"] == before + -(-k // 64)
+    assert tbf.LAUNCHES[form] == before + -(-k // 64)
     pd, pi = tbits._bits_topk_plain(words, pop, live, q, k, metric)
     np.testing.assert_array_equal(kd.cpu().numpy(), pd.cpu().numpy())
     np.testing.assert_array_equal(ki.cpu().numpy(), pi.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("w,n,b,k", [
+    (1, 1_000, 32, 1), (2, 5_001, 33, 10), (8, 20_000, 1024, 10),
+    (9, 3_001, 64, 64), (32, 2_500, 100, 100), (8, 130, 40, 64),
+    (64, 777, 33, 10)])
+def test_k9_tensor_form_matches_plain(cuda, metric, w, n, b, k):
+    """The tensor-core form against both plain versions, key for key (few
+    set bits: ties everywhere), and a control that orders ties by the
+    higher row must not pass: w = 1, 2, 9 words take 4-byte copies, 64
+    words stream the queries beside the corpus; n not a multiple of the
+    128-row chunk, 10% dead rows, k = 100 in two rounds."""
+    rng = np.random.default_rng(w * 7 + n)
+    words = tbits.as_words(tbits.pack_bits(_bits(rng, n, 32 * w, 0.05)), cuda)
+    live = torch.from_numpy(rng.random(n) > 0.1).to(cuda)
+    q = tbits.as_words(tbits.pack_bits(_bits(rng, b, 32 * w, 0.05)), cuda)
+    pop = tbits.row_popcount(words)
+    assert tbits._k9_form(b) == "k9_bits_tc"
+    before = dict(tbf.LAUNCHES)
+    kd, ki = tbits.bits_topk(words, pop, live, q, k, metric)
+    torch.cuda.synchronize()
+    assert tbf.LAUNCHES["k9_bits_tc"] == before["k9_bits_tc"] + -(-k // 64)
+    assert tbf.LAUNCHES["k9_bits"] == before["k9_bits"]
+    keys = tbf._order_keys(kd, ki)
+    for plain in (tbits._bits_topk_plain, tbits._bits_topk_plain_mm):
+        pd, pi = plain(words, pop, live, q, k, metric)
+        assert torch.equal(keys, tbf._order_keys(pd, pi)), plain.__name__
+    cd, ci = tbits._bits_topk_plain(words.flip(0), pop.flip(0), live.flip(0),
+                                    q, k, metric)
+    ci = torch.where(ci >= 0, n - 1 - ci, -1)
+    assert not torch.equal(keys, tbf._order_keys(cd, ci))
 
 
 @pytest.mark.cuda
@@ -303,6 +386,22 @@ def _word_case(cuda, w, n=2000, m=8, seed=0):
     q = tbits.as_words(tbits.pack_bits(_bits(rng, 24, 32 * w, 0.1)), cuda)
     return words, torch.from_numpy(nb).to(cuda), \
         torch.from_numpy(trav).to(cuda), q, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("w", [8, 3, 32, 40])
+def test_walk_kernel_word_mode_descends_in_its_launch(cuda, metric, w):
+    """Packed words (the warp form at 3, 8 and 32 words, the block form at
+    40): the descent in K4's launch lands where the plain descent lands
+    (the same id and distance), and the walk from there equals the plain
+    walk; the check rejects the walk cut to ef / 4 steps."""
+    from test_torch_scan import _upper_case, assert_descent_walk_matches_plain
+
+    words, nb, trav, q, rng = _word_case(cuda, w)
+    upper = _upper_case(rng, 2000, 8, cuda)
+    assert assert_descent_walk_matches_plain(words, nb, trav, upper, 8,
+                                             metric, q) > 0
 
 
 @pytest.mark.cuda

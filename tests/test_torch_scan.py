@@ -507,10 +507,74 @@ def _seeds(vals, q, rng, S, n, metric="l2", live=None):
     return torch.gather(ids, 1, perm), torch.gather(d, 1, perm)
 
 
+def _upper_case(rng, n, m, device, top=3):
+    """Random upper layers over rows 0 .. n - 1 for the descent: a quarter
+    of the rows at level >= 1 (geometric levels up to ``top``), each
+    layer's m ids drawn from the rows at or above it (10% -1 pads), row 0
+    the entry at level ``top``. -> (upper_slot [n + 1], upper_neighbors
+    [U, top * m], entry, entry_level) on ``device``."""
+    lv = np.minimum(rng.geometric(0.75, n) - 1, top)
+    lv[0] = top
+    up = np.flatnonzero(lv >= 1)
+    slot = np.full(n + 1, -1, np.int32)
+    slot[up] = np.arange(len(up))
+    upper = np.full((len(up), top * m), -1, np.int32)
+    for r, i in enumerate(up):
+        for layer in range(1, lv[i] + 1):
+            pool = np.flatnonzero(lv >= layer)
+            c = rng.choice(pool, min(m, len(pool)), replace=False)
+            c[rng.random(len(c)) < 0.1] = -1
+            upper[r, (layer - 1) * m : (layer - 1) * m + len(c)] = c
+    return (torch.from_numpy(slot).to(device),
+            torch.from_numpy(upper).to(device), 0, top)
+
+
+def assert_descent_walk_matches_plain(values, nb, trav, upper, m, metric, q,
+                                      ef=40, max_steps=192):
+    """K4 with the descent in its launch against ``descent_plain`` and the
+    plain walk from where it lands: the landing ids and distances equal,
+    the beams (distances, ids, steps) equal; one launch; the check must
+    reject the plain walk cut to ef / 4 steps. Returns the moves."""
+    from pgvector_rx_tpu_torch.ops import bruteforce as tbf
+
+    name = "k4_beam_sparse" if isinstance(values, tuple) else "k4_beam"
+    before = tbf.LAUNCHES[name]
+    out = tbeam.descent_walk(values, nb, trav, *upper[:2], m, *upper[2:],
+                             metric, q, ef, max_steps)
+    assert tbf.LAUNCHES[name] == before + 1
+    qq = tbeam._queries(q, metric)
+    li, ld = tbeam.descent_plain(values, trav, *upper[:2], m, metric, qq,
+                                 *upper[2:])
+    assert torch.equal(out[3], li) and torch.equal(out[4], ld)
+    walk = (values, nb, trav, None, metric, qq, li[:, None].to(torch.int32),
+            ld[:, None].float())
+    plain = tbeam._serve_finish(*tbeam._walk_plain(
+        *walk, width=ef, spill=0, max_steps=max_steps, scan=False))
+    _assert_same(out[:3], plain)
+    cut = tbeam._serve_finish(*tbeam._walk_plain(
+        *walk, width=ef, spill=0, max_steps=ef // 4, scan=False))
+    assert not torch.equal(out[1], cut[1])
+    return int((li != upper[2]).sum())
+
+
 def _assert_same(kernel, plain):
     """Every output of the two walks equal, element by element."""
     for k, p in zip(kernel, plain):
         np.testing.assert_array_equal(k.cpu().numpy(), p.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,metric", [
+    (128, torch.float32, "l2"), (20, torch.float32, "l1"),
+    (24, torch.float16, "cosine"), (13, torch.float32, "ip")])
+def test_walk_kernel_descends_in_its_launch(cuda, d, dtype, metric):
+    """Dense rows (the grid keeps every distance exact): the descent in
+    K4's launch lands where the plain descent lands, and the walk from
+    there equals the plain walk."""
+    vals, nb, trav, q, rng = _kernel_case(cuda, d, dtype, metric=metric)
+    upper = _upper_case(rng, 2000, 8, cuda)
+    assert assert_descent_walk_matches_plain(vals, nb, trav, upper, 8,
+                                             metric, q) > 0
 
 
 @pytest.mark.cuda

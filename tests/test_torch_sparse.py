@@ -475,6 +475,31 @@ def test_k10_dense_form_equals_plain_on_the_card(metric, approx, k, cuda,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
+def test_k4_sparse_mode_descends_in_its_launch(metric, cuda):
+    """Sparse rows on a graph the native build made, their values on a
+    grid of sixteenths (every distance then rounds alike in both
+    versions): the descent in K4's launch lands where the plain descent
+    lands, and the walk from there equals the plain walk."""
+    from pgvector_rx_tpu_torch import HnswIndex
+    from pgvector_rx_tpu_torch.data import make_sparse_dataset
+    from pgvector_rx_tpu_torch.types import SparseVec
+
+    from test_torch_scan import assert_descent_walk_matches_plain
+
+    rows, qs = make_sparse_dataset(2000, 3000, 64, 32, seed=9)
+    rows, qs = ([SparseVec(r.dim, r.indices, np.round(r.values * 16) / 16)
+                 for r in part] for part in (rows, qs))
+    idx = HnswIndex.build(rows, metric=metric, seed=1, device=cuda)
+    g = idx.device_graph()
+    assert g.entry_level >= 1
+    q = tdev.prepare_queries(idx, qs, cuda)
+    upper = (g.upper_slot, g.upper_neighbors, g.entry, g.entry_level)
+    assert assert_descent_walk_matches_plain(
+        g.rows, g.neighbors0, g.traversable, upper, g.m, metric, q) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
 def test_k4_sparse_mode_equals_the_plain_walk(metric, cuda):
     from pgvector_rx_tpu_torch import HnswIndex
     from pgvector_rx_tpu_torch.data import make_sparse_dataset

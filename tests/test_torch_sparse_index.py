@@ -111,6 +111,37 @@ def test_engines_on_a_jax_checkpoint_give_jax_ids(metric, tmp_path):
         _equal_but_ties(ti, _order(metric, td), ji, _order(metric, jd), tol)
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_search_batch_gives_jax_search_one_sparse(metric, tmp_path):
+    """The port's ``_search_batch`` (the greedy descent, then the walk's
+    sparse rows) on a JAX sparse graph gives JAX's ``_search_one_sparse``
+    (the same descent, ``pgvector_rx_tpu/graph/device.py:1861``) over the
+    ef-wide beam: ids but for ties, distances within the metric's
+    tolerance."""
+    import jax
+    import jax.numpy as jnp
+
+    from pgvector_rx_tpu.graph import device as jdev
+
+    j = _jax_index(metric)
+    j.save(tmp_path / "ck")
+    t = HnswIndex.load(tmp_path / "ck", **CPU)
+    rows, queries = _data()
+    jg, tg = j.device_graph(), t.device_graph()
+    assert tg.entry_level >= 1
+    steps = 4 * EF + 32
+    qi, qv = jdev.prepare_queries(j, _jax_rows(queries))
+    jd, ji, _ = jax.vmap(lambda a, b: jdev._search_one_sparse(
+        jg, (a, b), EF, steps))(jnp.asarray(qi), jnp.asarray(qv))
+    tq = tdev.prepare_queries(t, queries, "cpu")
+    td, ti, _ = tdev._search_batch(tg, tq, EF, tg.entry_level, steps)
+    fin = np.isfinite(np.asarray(jd))
+    np.testing.assert_array_equal(np.isfinite(td.numpy()), fin)
+    _equal_but_ties(np.where(fin, ti.numpy(), -1), td.numpy(),
+                    np.where(fin, np.asarray(ji), -1), np.asarray(jd),
+                    1e-5 * _scale(metric, rows))
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_checkpoints_move_both_ways(metric, tmp_path):
     rows, queries = _data()
