@@ -171,6 +171,30 @@ k=20, four metrics) against its floors; an index of each sparse operator
 class (500 rows, filled by the native bulk load); the t/028 l2 index
 saved and loaded, every engine's ids unchanged.
 
+**The beam's variants** (25, its own path, on the grown graph of phase 9,
+the bit graph of phase 21 and the sparse graph of phase 24): ``serve_topk``
+beam (ef=40, 16,384 queries) with E = 2, E = 4, the visited bitmap
+(``_VISITED_MAX_ROWS`` above the graph's capacity + 1), bf16 ranking and
+E = 4 with bf16, each beside the default in the same run (recall >= 0.95);
+the 0.2% filtered scans (16 queries, strict and relaxed) with E = 4 and
+bf16 beside the default; K4 in each mode against its plain version at
+1,024 queries, each check rejecting a control (the plain walk at E = 1,
+with the in-beam dedup, ranking in f32); K5 with E = 4 and with bf16 over
+3 fed segments against its plain segment; the bit graph's word walk with
+E = 4 and the bitmap (tie-aware recall) and the sparse graph's walk with
+the bitmap, each against its plain version; every mode timed beside its
+byte bound.
+
+**Halfvec path** (26, BASELINE's halfvec(1024) inner-product
+configuration, ``bench_suite.py:141-170``, uncut): 1,000,000 x 1,024-d
+(``make_dataset``, seed 6, intrinsic 32) built on the card with an f16
+store (build s, rows/s), K1 ground truth over the f16 store in chunks held
+to float64 on 64 queries, exact / approx / beam over 4,096 queries (floors
+1.0 / 0.98 / 0.80) with each call's peak device memory above the graph
+(the exact call below 1.5 chunk casts), the same engines over the rows
+staged as a bf16 store, and K1 / K2 at d = 1,024 against their plain
+versions (a ``{"d1024": ...}`` line).
+
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
 path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
@@ -183,7 +207,9 @@ and the device line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -246,6 +272,17 @@ SPARSE_FLOORS = {"exact": 0.999, "approx": 0.98}
 #: queries, k, and its floors (VECTOR_THRESH)
 T028_N, T028_Q, T028_K = 10_000, 20, 20
 T028_FLOORS = {"l2": 0.99, "cosine": 0.99, "l1": 0.99, "ip": 0.97}
+#: phase 25's filtered scans per variant (the first queries of phase 11's)
+VARIANT_SCAN_Q = 16
+#: the halfvec path (26): BASELINE's third configuration, halfvec(1024)
+#: inner product at 1M with an f16 store (bench_suite.py:141-170), and its
+#: recall floors (beam: printed, failing below 0.80)
+N_HV, D_HV, N_HV_Q = 1_000_000, 1024, 4096
+HV_FLOORS = {"exact": 1.0, "approx": 0.98, "beam": 0.80}
+#: the same rows in a bf16 store, held to the f16 store's ground truth:
+#: bf16 rounds away what ranks near neighbours (the JAX package's bf16
+#: opt-in test holds its exact engine to 0.95)
+HV_BF16_FLOORS = {"exact": 0.95, "approx": 0.95, "beam": 0.80}
 
 
 def bound(ops: float, peak: str, nbytes: float) -> dict:
@@ -527,18 +564,22 @@ def recall_of(emit_tid, gt):
     return recall
 
 
+def timed_serve(device_mod, index, q, engine, ef=EF):
+    """(dists, ids, seconds) of a timed ``serve_topk`` after a warm call."""
+    device_mod.serve_topk(index, q, K, engine=engine, ef=ef)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    d, ids = device_mod.serve_topk(index, q, K, engine=engine, ef=ef)
+    return d, ids, time.time() - t0
+
+
 def serve_engines(index, q_dev, recall, bf, device_mod, tag):
     results = {}
     for engine, kname in (("exact", "k1_topk"), ("approx", "k2_binned"),
                           ("beam", "k4_beam")):
         with Phase(f"{tag} serve_topk {engine}"):
             before = dict(bf.LAUNCHES)
-            device_mod.serve_topk(index, q_dev, K, engine=engine, ef=EF)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            d, ids = device_mod.serve_topk(index, q_dev, K, engine=engine,
-                                           ef=EF)
-            dt = time.time() - t0
+            d, ids, dt = timed_serve(device_mod, index, q_dev, engine)
             rec = recall(ids)
             results[engine] = (d, ids)
             log(f"{tag} {engine}: recall@10={rec:.4f} "
@@ -1641,11 +1682,7 @@ def bit_path(HnswIndex, IndexParams, SearchParams, make_dataset, device_mod,
                           ("beam", "k4_beam")):
         with Phase(f"21 serve_topk {engine}"):
             before = bf.LAUNCHES[kname]
-            device_mod.serve_topk(idx, qw, K, engine=engine, ef=EF)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            d, ids = device_mod.serve_topk(idx, qw, K, engine=engine, ef=EF)
-            dt = time.time() - t0
+            d, ids, dt = timed_serve(device_mod, idx, qw, engine)
             rec = bit_recall(bits_mod, g, qw, ids, kth)
             served[engine] = (d, ids)
             log(f"21 {engine}: tie-aware recall@10={rec:.4f} "
@@ -1791,6 +1828,7 @@ def bit_path(HnswIndex, IndexParams, SearchParams, make_dataset, device_mod,
                               "bit rows: the greedy descent, then "
                               "_ground_beam_seeds; XLA)",
                               NBITS * 2.0, "int8", w, exact=True)
+    bit_variants(idx, g, qw, kth, bits_mod, device_mod, beam, bf, kernels)
     del idx, g, live, words
     torch.cuda.empty_cache()
     return xbits, qbits, qw
@@ -2213,6 +2251,8 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
                               "rows; XLA)",
                               3.0 * float(nnz.mean()), "f32", 2 * P,
                               exact=False)
+    sparse_visited(idx, g, queries, (qi, qv), device_mod, beam, bf, kernels,
+                   lambda ids: set_recall(ids, gt_t, K), float(nnz.mean()))
 
     with Phase("24d K10's two forms vs plain, four metrics and approx"):
         ci, cv = g.sp_indices, g.sp_values
@@ -2403,6 +2443,602 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
             raise RuntimeError("the reloaded sparse index answers "
                                "differently")
     log(f"sparse path recall@10: {recall}")
+
+
+class BeamMode:
+    """The beam's variant as a user sets it: ``PGV_BEAM_EXPAND`` in the
+    environment (read at every call) and the two switches the port reads
+    at import (``_VISITED_MAX_ROWS``, ``_BEAM_BF16``) on its module;
+    restored on exit."""
+
+    def __init__(self, device_mod, expand=1, visited_max=0, bf16=False):
+        self.dm, self.mode = device_mod, (expand, visited_max, bf16)
+
+    def __enter__(self):
+        self.saved = (os.environ.get("PGV_BEAM_EXPAND"),
+                      self.dm._VISITED_MAX_ROWS, self.dm._BEAM_BF16)
+        os.environ["PGV_BEAM_EXPAND"] = str(self.mode[0])
+        self.dm._VISITED_MAX_ROWS, self.dm._BEAM_BF16 = self.mode[1:]
+        return self
+
+    def __exit__(self, *exc):
+        env = self.saved[0]
+        if env is None:
+            os.environ.pop("PGV_BEAM_EXPAND", None)
+        else:
+            os.environ["PGV_BEAM_EXPAND"] = env
+        self.dm._VISITED_MAX_ROWS, self.dm._BEAM_BF16 = self.saved[1:]
+        return False
+
+
+def mode_verdict(k, p, c, recall, exact=False):
+    """K4 in a mode against its plain version and a control, each the
+    walk's sorted outputs with its rows scored (dists, ids, steps, scored,
+    numpy): (queries equal but for ties, queries whose steps and rows
+    scored are equal, the recall gap, max abs err, passed) for the kernel
+    and for the control. ``exact``: integer distances, ties by distance."""
+    def one(x):
+        if exact:
+            ok, err = tie_equal_rows(x[1], x[0], p[1], p[0]), 0.0
+        else:
+            ok, err = walk_agreement(x[1], x[0], p[1], p[0])
+        same_st = float(np.mean((x[2] == p[2]) & (x[3] == p[3])))
+        gap = abs(recall(x[1]) - recall(p[1])) if recall else 0.0
+        passed = ok.mean() >= 0.99 and same_st >= 0.99 and gap <= 0.002
+        return float(ok.mean()), same_st, gap, err, passed
+    return one(k), one(c)
+
+
+def mode_bytes(steps, scored, L, B, *, expand=1, row_bytes, words=0,
+               rank_rows=0, seeds=8, d=DIM):
+    """A mode's walk bytes: each step's E L neighbour ids and, with the
+    bitmap, a 4-byte word per id; each scored row and its live flag; each
+    query's f32 row, its seeds, its ef outputs, its bitmap's words
+    (cleared by the launch) and, ranking in bf16, the f32 rows of its
+    re-scored beam (``rank_rows``)."""
+    per_id = 4 + (4 if words else 0)
+    return (steps * expand * L * per_id + scored * (row_bytes + 1)
+            + B * (d * 4 + seeds * 8 + EF * 8 + 8 + words * 4
+                   + rank_rows * d * 4))
+
+
+def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
+                  SearchParams):
+    """Phase 25: the beam's variants on the grown graph, through
+    ``serve_topk`` and the scans as a user sets them (its own path: the
+    counts set to 0 before and read after); then K4 in each mode and K5
+    with E = 4 and with bf16 against their plain versions, timed beside
+    their bounds."""
+    recall = recall_of(emit, gt)
+    vis_max = g.capacity + 2
+    log(f"25 graph capacity {g.capacity:,} (rows {g.cap:,}); visited "
+        f"bitmap mode with _VISITED_MAX_ROWS = {vis_max:,} > capacity + 1 = "
+        f"{g.capacity + 1:,}")
+    modes = {"default": BeamMode(device_mod),
+             "expand2": BeamMode(device_mod, expand=2),
+             "expand4": BeamMode(device_mod, expand=4),
+             "visited": BeamMode(device_mod, visited_max=vis_max),
+             "bf16": BeamMode(device_mod, bf16=True),
+             "expand4_bf16": BeamMode(device_mod, expand=4, bf16=True)}
+    served, launches = {}, {}
+    bf.reset_launches()
+    for name, mode in modes.items():
+        with Phase(f"25 serve_topk beam, {name}"), mode:
+            before = bf.LAUNCHES["k4_beam"]
+            d, ids, dt = timed_serve(device_mod, index, q_dev, "beam")
+            launches[name] = bf.LAUNCHES["k4_beam"] - before
+            rec = recall(ids)
+            served[name] = (rec, N_QUERIES / dt)
+            log(f"25 beam {name}: recall@10={rec:.4f} "
+                f"qps={N_QUERIES / dt:.1f} ({dt:.4f} s for {N_QUERIES} "
+                f"queries; default {served['default'][0]:.4f} at "
+                f"{served['default'][1]:.1f} qps in this run), "
+                f"{launches[name]} K4 launches")
+            if d.shape != (N_QUERIES, K) or not np.isfinite(d).all():
+                raise RuntimeError(f"beam {name}: non-finite or misshapen "
+                                   "output")
+            if rec < FLOORS["beam"]:
+                raise RuntimeError(f"beam {name}: recall {rec} < "
+                                   f"{FLOORS['beam']}")
+            if launches[name] <= 0:
+                raise RuntimeError(f"beam {name}: K4 did not launch")
+
+    # K5's modes: the 0.2% filtered scans, strict and relaxed, beside the
+    # default on the same queries
+    q_scan = q_dev[:VARIANT_SCAN_Q].contiguous()
+    eids = torch.arange(g.cap, device=q_dev.device)
+    rows = torch.nonzero(eids % 500 == 0).flatten()
+    mask = (eids % 500 == 0).cpu().numpy()
+    expected = filtered_expected(g.values, q_scan, rows, SCAN_LIMIT)
+    scans = {}
+    for name in ("default", "expand4", "bf16"):
+        with Phase(f"25 beam scans at 0.2%, {name}"), modes[name]:
+            before = bf.LAUNCHES["k5_beam_scan"]
+            for order in ("strict_order", "relaxed_order"):
+                rec, lat, segs, _ = scan_recall(index, q_scan, mask,
+                                                expected, order,
+                                                SearchParams)
+                scans[(name, order)] = (rec, float(np.percentile(lat, 50)))
+                log(f"25 beam scan {name} {order} eid % 500 == 0: recall "
+                    f"{rec:.4f}, ms to the {SCAN_LIMIT}th row p50 "
+                    f"{scans[(name, order)][1]:.3f} (default "
+                    f"{scans[('default', order)][0]:.4f}, p50 "
+                    f"{scans[('default', order)][1]:.3f} ms), segments mean "
+                    f"{segs.mean():.2f}")
+                if rec < SCAN_FLOORS[(order, 500)] - 0.1:
+                    raise RuntimeError(f"beam scan {name} {order}: recall "
+                                       f"{rec}")
+            launches["k5_" + name] = bf.LAUNCHES["k5_beam_scan"] - before
+            if launches["k5_" + name] <= 0:
+                raise RuntimeError(f"beam scan {name}: K5 did not launch")
+    log(f"25 launches: {launches}")
+
+    # K4 in each mode against its plain version and a control, at 1,024
+    # queries from the coarse seeds
+    q1 = q_dev[:CHUNK].contiguous()
+    L = g.neighbors0.shape[1]
+    upper = device_mod._coarse_upper(g)
+    s_ids, s_d = device_mod._coarse_seeds(g, q1, upper[0], upper[1], 8)
+    s_ids = s_ids.to(torch.int32).contiguous()
+    walk = (g.values, g.neighbors0, g.traversable, None, "l2", q1, s_ids, s_d)
+    kw = dict(width=EF, spill=0, max_steps=4 * EF + 32, scan=False)
+    words = beam.visited_words(g.cap)
+
+    def recall1(ids):
+        return recall_of(emit, gt[:CHUNK])(ids[:, :K])
+
+    def finished(raw):
+        return [t.cpu().numpy() for t in (*beam._serve_finish(*raw), raw[5])]
+
+    checks = {  # row -> (mode, control, its label, launches of)
+        "k4_beam_expand4": (dict(expand=4), {}, "the plain walk at E = 1",
+                            "expand4"),
+        "k4_beam_visited": (dict(visited=True), {},
+                            "the plain walk with the in-beam dedup",
+                            "visited"),
+        "k4_beam_bf16": (dict(rank=g.values_bf16), {},
+                         "the plain walk ranking in f32", "bf16"),
+    }
+    with Phase("25 K4's modes vs plain"):
+        for name, (mk, ck, label, of) in checks.items():
+            raw_k = beam._walk_cuda(*walk, **kw, **mk)
+            k = finished(raw_k)
+            p = finished(beam._walk_plain(*walk, **kw, **mk))
+            c = finished(beam._walk_plain(*walk, **kw, **ck))
+            (k_ok, k_st, k_gap, k_err, k_pass), (c_ok, c_st, c_gap, _,
+                                                 c_pass) = mode_verdict(
+                k, p, c, recall1)
+            steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
+            log(f"25 {name} vs plain: {k_ok:.4f} of queries equal but for "
+                f"ties, {k_st:.4f} equal steps and rows scored, recall@10 "
+                f"{recall1(k[1]):.4f} vs {recall1(p[1]):.4f}, max abs err "
+                f"{k_err}; control ({label}): {c_ok:.4f} equal, {c_st:.4f} "
+                f"steps, recall gap {c_gap:.4f}; {steps / CHUNK:.1f} steps "
+                f"and {scored / CHUNK:.1f} rows scored per query")
+            if not k_pass:
+                raise RuntimeError(f"{name} disagrees with its plain version")
+            if c_pass:
+                raise RuntimeError(f"the {name} check passes {label}")
+            nbytes = mode_bytes(
+                steps, scored, L, CHUNK, expand=mk.get("expand", 1),
+                row_bytes=DIM * (2 if "rank" in mk else 4),
+                words=words if mk.get("visited") else 0,
+                rank_rows=EF if "rank" in mk else 0)
+            kernels[name] = dict(
+                name=name, route="cuda", source=CSRC + "k4_beam.cu",
+                replaces=f"{JAX_DEVICE}:446 (_ground_beam_seeds, an XLA "
+                         f"while-loop; the {of} variant)",
+                max_abs_err=k_err,
+                ms=cuda_ms(lambda: beam._walk_cuda(*walk, **kw, **mk)),
+                plain_ms=cuda_ms(lambda: beam._walk_plain(*walk, **kw, **mk),
+                                 iters=1),
+                **bound(scored * 3.0 * DIM, "f32", nbytes),
+                library_ms=None, steps_mean=steps / CHUNK,
+                scored_mean=scored / CHUNK, launches=launches[of])
+
+    # K5 with E = 4 and with bf16 ranking against its plain segment: 32
+    # queries, 3 segments, each form fed its own spill and marks
+    nq, W = 32, 4 * EF
+    spill = max(2 * EF, 64) + (W - EF)
+    steps_w = 4 * W + 32
+    q32 = q1[:nq].contiguous()
+    seed0 = (torch.nn.functional.pad(s_ids[:nq], (0, spill - 8), value=-1),
+             torch.nn.functional.pad(s_d[:nq], (0, spill - 8),
+                                     value=float("inf")))
+    graph = (g.values, g.neighbors0, g.traversable)
+    with Phase("25 K5's modes vs plain"):
+        for name, mk, of in (("k5_beam_scan_expand4", dict(expand=4),
+                              "k5_expand4"),
+                             ("k5_beam_scan_bf16",
+                              dict(rank=g.values_bf16), "k5_bf16")):
+            def kernel5(excl, allowed, seeds):
+                return beam.scan_segment(*graph, excl, "l2", q32, *seeds, EF,
+                                         W, spill, steps_w, allowed=allowed,
+                                         mark=True, **mk)
+
+            def plain5(excl, allowed, seeds):
+                return beam._scan_plain(
+                    *graph, excl, "l2", q32,
+                    seeds[0].to(torch.int32).contiguous(),
+                    seeds[1].contiguous(), EF, W, spill, steps_w, True,
+                    mk.get("expand", 1), mk.get("rank"))
+
+            rank = "rank" in mk
+            runs = []
+            for run in (kernel5, plain5):
+                excl = torch.zeros((nq, g.cap + 1), dtype=torch.bool,
+                                   device=q1.device)
+                allowed = beam.staged_bitmap(*graph, excl, spill, W, EF,
+                                             spill, mk.get("expand", 1),
+                                             rank)
+                seeds, out = seed0, []
+                for _ in range(3):
+                    rep, sp_d, sp_i = run(excl, allowed, seeds)
+                    out.append([t.cpu().numpy() for t in (rep, sp_d, sp_i)])
+                    seeds = (sp_i, sp_d)
+                runs.append(out)
+            bad, err5 = 0, 0.0
+            for seg, (k, p) in enumerate(zip(*runs)):
+                kb_d, kb_i = k[0][:, :EF].view(np.float32), k[0][:, EF:2 * EF]
+                pb_d, pb_i = p[0][:, :EF].view(np.float32), p[0][:, EF:2 * EF]
+                ok_b, e1 = walk_agreement(kb_i, kb_d, pb_i, pb_d)
+                ok_s, e2 = walk_agreement(k[2], k[1], p[2], p[1])
+                ok = ok_b & ok_s
+                bad += int((~ok).sum())
+                err5 = max(err5, e1, e2)
+                log(f"25 {name} segment {seg}: {int(ok.sum())}/{nq} beams "
+                    f"and spills equal but for ties, steps kernel "
+                    f"{k[0][:, 2 * EF].sum()} plain {p[0][:, 2 * EF].sum()}")
+            if bad:
+                raise RuntimeError(f"{name} disagrees with its plain version "
+                                   f"on {bad} (query, segment) pairs")
+            excl0 = torch.zeros((1, g.cap + 1), dtype=torch.bool,
+                                device=q1.device)
+            allowed0 = beam.staged_bitmap(*graph, excl0, spill, W, EF, spill,
+                                          mk.get("expand", 1), rank)
+            one = (*graph, excl0, "l2", q32[:1], seed0[0][:1].to(torch.int32),
+                   seed0[1][:1])
+            rep1 = beam.scan_segment(*one, EF, W, spill, steps_w,
+                                     allowed=allowed0, **mk)[0]
+            steps1, scored1 = float(rep1[0, 2 * EF]), float(rep1[0, 2 * EF + 1])
+            ms5 = cuda_ms(lambda: beam.scan_segment(
+                *one, EF, W, spill, steps_w, allowed=allowed0, **mk))
+            nbytes = mode_bytes(steps1, scored1, L, 1,
+                                expand=mk.get("expand", 1),
+                                row_bytes=DIM * (2 if rank else 4) + 1,
+                                rank_rows=W if rank else 0, seeds=spill
+                                ) + (W + spill) * 8
+            kernels[name] = dict(
+                name=name, route="cuda", source=CSRC + "k4_beam.cu",
+                replaces=f"{JAX_DEVICE}:574 (_beam_scan_segment, an XLA "
+                         "while-loop; the "
+                         + ("E = 4" if not rank else "bf16 ranking")
+                         + " variant)",
+                max_abs_err=err5, ms=ms5,
+                plain_ms=cuda_ms(lambda: beam._scan_plain(
+                    *one, EF, W, spill, steps_w, False, mk.get("expand", 1),
+                    mk.get("rank")), iters=1),
+                **bound(scored1 * 3.0 * DIM, "f32", nbytes),
+                library_ms=None, steps_mean=steps1, scored_mean=scored1,
+                us_per_step=ms5 / steps1 * 1e3, launches=launches[of])
+            log(f"25 {name} per segment: {ms5:.4f} ms, "
+                f"{ms5 / steps1 * 1e3:.3f} us per step, {steps1:.0f} steps")
+    for name in ("k4_beam_expand4", "k4_beam_visited", "k4_beam_bf16",
+                 "k5_beam_scan_expand4", "k5_beam_scan_bf16"):
+        kr = kernels[name]
+        kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
+        log(f"{name}: kernel {kr['ms']:.4f} ms, plain {kr['plain_ms']:.4f} "
+            f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
+            f"{kr['bound_peak']}), share {kr['share_of_bound']:.4f}, "
+            f"{kr['launches']} launches")
+
+
+def descent_mode_check(g, q, metric, beam, device_mod, kernels, name,
+                       mode, control, label, launches, replaces, exact,
+                       row_bytes, ops_per_row, peak):
+    """A mode of the walk's launch (the descent in K4's launch, then the
+    walk: packed words or sparse rows) against the plain walk in the same
+    mode from the torch descent's landing, and a control (the plain walk
+    in ``control``); timed beside its bound. Adds the kernel's row."""
+    steps_max = 4 * EF + 32
+    B = (q[0] if isinstance(q, tuple) else q).shape[0]
+    qq = beam._queries(q, metric)
+    upper = (g.upper_slot, g.upper_neighbors, g.m, g.entry, g.entry_level)
+    seeds = torch.full((B, 1), -1, dtype=torch.int32, device=g.device)
+    zeros = torch.zeros((B, 1), device=g.device)
+
+    def launch():
+        return beam._launch_walk(g.rows, g.neighbors0, g.traversable, metric,
+                                 qq, seeds, zeros, EF, steps_max, upper,
+                                 **mode)
+
+    s_ids, s_d = device_mod._descent_seeds(g, q, g.entry_level)
+
+    def plain(**kw):
+        raw = beam._walk_plain(g.rows, g.neighbors0, g.traversable, None,
+                               metric, qq, s_ids.to(torch.int32), s_d,
+                               width=EF, spill=0, max_steps=steps_max,
+                               scan=False, **kw)
+        return [t.cpu().numpy() for t in (*beam._serve_finish(*raw), raw[5])]
+
+    raw_k, land = launch()
+    if not torch.equal(land[:, 0].long(), s_ids[:, 0]):
+        raise RuntimeError(f"{name}: the descent lands elsewhere")
+    k = [t.cpu().numpy() for t in (*beam._serve_finish(*raw_k), raw_k[5])]
+    p = plain(**mode)
+    (k_ok, k_st, _, _, k_pass), (c_ok, c_st, _, _, c_pass) = mode_verdict(
+        k, p, plain(**control), None, exact=exact)
+    log(f"{name} vs plain: {k_ok:.4f} of queries equal but for ties, "
+        f"{k_st:.4f} equal steps and rows scored; control ({label}): "
+        f"{c_ok:.4f} equal, {c_st:.4f} steps")
+    if not k_pass:
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    if c_pass:
+        raise RuntimeError(f"the {name} check passes {label}")
+    steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
+    d_rows, moves = float(land[:, 2].sum()), float(land[:, 3].sum())
+    iters = moves + B * g.entry_level
+    words = beam.visited_words(g.cap) if mode.get("visited") else 0
+    nbytes = (mode_bytes(steps, scored, g.neighbors0.shape[1], B,
+                         expand=mode.get("expand", 1), row_bytes=row_bytes,
+                         words=words, seeds=0, d=0)
+              + iters * (4 + 4 * g.m) + d_rows * (row_bytes + 1)
+              + B * row_bytes)
+    fin = np.isfinite(p[0])
+    kernels[name] = dict(
+        name=name, route="cuda", source=CSRC + "k4_beam.cu",
+        replaces=replaces, queries=B,
+        max_abs_err=float(np.abs(k[0][fin] - p[0][fin]).max()),
+        ms=cuda_ms(launch), ms_of="one launch: the greedy descent and the "
+                                  "walk",
+        plain_ms=cuda_ms(lambda: plain(**mode), 1),
+        **bound(ops_per_row * (scored + d_rows), peak, nbytes),
+        library_ms=None, steps_mean=steps / B, scored_mean=scored / B,
+        launches=launches)
+    kr = kernels[name]
+    kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
+    log(f"{name} at {B} queries: {kr['ms']:.4f} ms, plain "
+        f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
+        f"({kr['bound_by']}, {kr['bound_peak']}), share "
+        f"{kr['share_of_bound']:.4f}, {kr['steps_mean']:.1f} steps and "
+        f"{kr['scored_mean']:.1f} rows scored per query, {launches} "
+        "launches")
+
+
+def bit_variants(idx, g, qw, kth, bits_mod, device_mod, beam, bf, kernels):
+    """Phase 25 on the bit graph of phase 21: ``serve_topk`` beam with
+    E = 4 and with the visited bitmap through the word walk (tie-aware
+    recall), then each mode of the word walk against its plain version."""
+    vis_max = g.capacity + 2
+    launches = {}
+    bf.reset_launches()
+    for name, mode in (("expand4", BeamMode(device_mod, expand=4)),
+                       ("visited", BeamMode(device_mod,
+                                            visited_max=vis_max))):
+        with Phase(f"25 bit serve_topk beam, {name}"), mode:
+            before = bf.LAUNCHES["k4_beam"]
+            d, ids, dt = timed_serve(device_mod, idx, qw, "beam")
+            launches[name] = bf.LAUNCHES["k4_beam"] - before
+            rec = bit_recall(bits_mod, g, qw, ids, kth)
+            log(f"25 bit beam {name}: tie-aware recall@10={rec:.4f} "
+                f"qps={N_BIT_Q / dt:.1f}, {launches[name]} K4 launches")
+            if not np.isfinite(d).all() or rec < BIT_FLOORS["beam"]:
+                raise RuntimeError(f"bit beam {name}: recall {rec}")
+            if launches[name] <= 0:
+                raise RuntimeError(f"bit beam {name}: K4 did not launch")
+    q1 = qw[:CHUNK].contiguous()
+    w = g.words.shape[1]
+    with Phase("25 the word walk's modes vs plain"):
+        for name, mode, label, of in (
+                ("k4_words_expand4", dict(expand=4), "the plain walk at "
+                 "E = 1", "expand4"),
+                ("k4_words_visited", dict(visited=True), "the plain walk "
+                 "with the in-beam dedup", "visited")):
+            descent_mode_check(
+                g, q1, "hamming", beam, device_mod, kernels, name, mode, {},
+                label, launches[of],
+                f"{JAX_DEVICE}:767 (_search_batch over packed bit rows; the "
+                f"{of} variant; XLA)", True, w * 4, NBITS * 2.0, "int8")
+
+
+def sparse_visited(idx, g, queries, qt, device_mod, beam, bf, kernels,
+                   recall, nnz_mean):
+    """Phase 25 on the sparse graph of phase 24: ``search`` with the
+    visited bitmap through the sparse-row walk (recall against K10's
+    ground truth), then that mode against its plain version."""
+    from pgvector_rx_tpu_torch import SearchParams
+
+    vis_max = g.capacity + 2
+    bf.reset_launches()
+    with Phase("25 sparse search, visited"), BeamMode(
+            device_mod, visited_max=vis_max):
+        _, ids = idx.search(queries, K, SearchParams(ef_search=EF),
+                            method="device")
+        n = bf.LAUNCHES["k4_beam_sparse"]
+        log(f"25 sparse beam visited: recall@10={recall(ids):.4f}, {n} K4 "
+            "launches")
+        if n <= 0:
+            raise RuntimeError("sparse visited: K4 did not launch")
+    with Phase("25 the sparse-row walk's visited mode vs plain"):
+        descent_mode_check(
+            g, qt, "l2", beam, device_mod, kernels, "k4_sparse_visited",
+            dict(visited=True), {}, "the plain walk with the in-beam dedup",
+            n, f"{JAX_DEVICE}:1861 (_search_one_sparse; the visited "
+               "variant; XLA)", False, g.sp_indices.shape[1] * 8,
+            3.0 * nnz_mean, "f32")
+
+
+def halfvec_path(HnswIndex, IndexParams, make_dataset, device_mod, bf, dev,
+                 kernels):
+    """Phase 26: BASELINE's halfvec(1024) inner-product configuration at
+    1,000,000 rows (bench_suite.py:141-170), uncut: built on the card with
+    an f16 store (the beam-descent ground), K1 ground truth over the f16
+    store in chunks held to float64, the three engines over 4,096 queries
+    with the exact call's peak memory above the graph, the same engines
+    over a bf16 store of the same rows (``PGV_SERVE_DTYPE=bf16``), and K1
+    and K2 at d = 1,024 against their plain versions."""
+    from pgvector_rx_tpu_torch.graph import device_build as db
+
+    params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
+    with Phase("26 data, 1,000,000 x 1,024-d"):
+        data, queries = make_dataset(N_HV, D_HV, N_HV_Q, seed=6,
+                                     intrinsic=32)
+        x = torch.from_numpy(data).to(dev)
+        del data
+        q = torch.from_numpy(queries).to(dev)
+    with Phase(f"26 device build, {N_HV:,} x {D_HV}-d ip, f16 store"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        idx = HnswIndex.build(x, metric="ip", params=params, method="device",
+                              dtype=np.float16, host_graph=False, device=dev,
+                              seed=1)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        g = idx.device_graph()
+        log(f"26 device build: {dt:.3f} s, {N_HV / dt:.1f} rows/s, peak "
+            f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+            f" GiB; store {g.values.dtype}, {g.values.numel() * 2 / 2**30:.2f}"
+            " GiB")
+        if g.values.dtype != torch.float16 or g.values_bf16 is not None:
+            raise RuntimeError("the halfvec graph is not one f16 array")
+        check_graph(g, M, N_HV)
+    del x
+    torch.cuda.empty_cache()
+    live = g.traversable & (g.tid_count > 0)
+    pen = torch.where(live, 0.0, bf._NEG_BIG).contiguous()
+    ch = device_mod._EXACT_SWEEP_CHUNK
+    with Phase("26 ground truth (K1 over the f16 store, in chunks)"):
+        keys = []
+        for s in range(0, g.values.shape[0], ch):
+            xc = g.values[s : s + ch].float()
+            part = [bf._surrogate_topk(xc, pen[s : s + ch],
+                                       q[b : b + CHUNK], K)
+                    for b in range(0, N_HV_Q, CHUNK)]
+            sd = torch.cat([p[0] for p in part])
+            si = torch.cat([p[1] for p in part]).long()
+            keys.append(bf._order_keys(torch.where(si >= 0, sd, float("inf")),
+                                       torch.where(si >= 0, si + s,
+                                                   (1 << 31) - 1)))
+            del xc
+        gt_d, gt = bf._from_order_keys(torch.topk(
+            torch.cat(keys, 1), K, dim=1, largest=False).values)
+        gt = gt.cpu().numpy()
+        stored = g.values[:N_HV].double()
+        ref = -(q[:64].double() @ stored.T)
+        ref_d = torch.topk(ref, K, dim=1, largest=False).values.cpu().numpy()
+        got_d = np.sort(torch.gather(ref, 1, torch.from_numpy(gt[:64]).to(
+            dev)).cpu().numpy(), axis=1)
+        del ref, stored
+        if (gt < 0).any() or not np.allclose(got_d, ref_d, rtol=1e-5,
+                                             atol=1e-4):
+            raise RuntimeError("halfvec ground truth disagrees with float64")
+        log(f"gt {gt.shape}, float64 check over the stored f16 values on 64 "
+            "queries ok")
+    emit = g.emit_tid.cpu().numpy()
+
+    def recall(ids):
+        tids = np.where(ids >= 0, emit[np.maximum(ids, 0)], -1)
+        return float(np.mean([len(set(tids[b]) & set(emit[gt[b]])) / K
+                              for b in range(N_HV_Q)]))
+
+    def engines(tag, graph_bytes, floors):
+        bf.reset_launches()
+        out = {}
+        for engine, kname in (("exact", "k1_topk"), ("approx", "k2_binned"),
+                              ("beam", "k4_beam")):
+            with Phase(f"26 serve_topk {engine}, {tag}"):
+                device_mod.serve_topk(idx, q, K, engine=engine, ef=EF)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.time()
+                d, ids = device_mod.serve_topk(idx, q, K, engine=engine,
+                                               ef=EF)
+                dt = time.time() - t0
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                rec = recall(ids)
+                out[engine] = (rec, N_HV_Q / dt, peak)
+                log(f"26 {tag} {engine}: recall@10={rec:.4f} "
+                    f"qps={N_HV_Q / dt:.1f} ({dt:.4f} s for {N_HV_Q} "
+                    f"queries); peak device memory above the graph "
+                    f"({graph_bytes / 2**30:.2f} GiB resident) "
+                    f"{peak / 2**20:.1f} MiB")
+                if d.shape != (N_HV_Q, K) or not np.isfinite(d).all():
+                    raise RuntimeError(f"{engine}: non-finite output")
+                if rec < floors[engine]:
+                    raise RuntimeError(f"halfvec {tag} {engine}: recall "
+                                       f"{rec} < {floors[engine]}")
+                if engine == "exact" and peak > 1.5 * ch * D_HV * 4:
+                    raise RuntimeError(
+                        f"the exact call took {peak / 2**30:.2f} GiB above "
+                        "the graph: more than one chunk's f32 transient")
+        log(f"26 {tag} launches: {dict(bf.LAUNCHES)}")
+        for name in ("k1_topk", "k2_binned", "k4_beam"):
+            if bf.LAUNCHES[name] <= 0:
+                raise RuntimeError(f"kernel {name} never ran on the "
+                                   f"halfvec path ({tag})")
+        return out
+
+    engines("f16 store", g.values.numel() * 2, HV_FLOORS)
+    # the same rows served from a bf16 store, as PGV_SERVE_DTYPE=bf16 stages
+    # them
+    os.environ["PGV_SERVE_DTYPE"] = "bf16"
+    try:
+        fields = {f.name: getattr(g, f.name) for f in dataclasses.fields(g)}
+        fields.update(device_mod._serve_value_arrays(
+            g.values.float(), device_mod._serve_dtype_for(idx)))
+        g16 = g
+        idx._device = g = device_mod.DeviceGraph(**fields)
+        torch.cuda.empty_cache()
+        if g.values.dtype != torch.bfloat16:
+            raise RuntimeError("PGV_SERVE_DTYPE=bf16 staged no bf16 store")
+        engines("bf16 store", g.values.numel() * 2, HV_BF16_FLOORS)
+    finally:
+        del os.environ["PGV_SERVE_DTYPE"]
+
+    with Phase("26 K1 and K2 at d = 1,024 vs plain"):
+        rows = []
+        q1 = q[:CHUNK].contiguous()
+        x32 = g16.values[:ch].float()
+        a = pen[:ch].contiguous()
+        n_rows, b1 = x32.shape[0], q1.shape[0]
+        out_bytes = b1 * K * 8
+        k1_d, k1_i = bf._surrogate_topk_cuda(x32, a, q1, K)
+        p1_d, p1_i = bf._surrogate_topk_plain(x32, a, q1, K)
+        err1, ok1 = k1_agreement(k1_d, k1_i, p1_d.cpu().numpy(),
+                                 p1_i.cpu().numpy(),
+                                 float((q1 * q1).sum(1).max()))
+        if not ok1:
+            raise RuntimeError(f"K1 at d = 1,024 disagrees with its plain "
+                               f"version (max abs err {err1})")
+        rows.append(kernel_row(
+            "k1_topk", err1,
+            cuda_ms(lambda: bf._surrogate_topk_cuda(x32, a, q1, K)),
+            cuda_ms(lambda: bf._surrogate_topk_plain(x32, a, q1, K), 3),
+            bound(3 * 2.0 * b1 * n_rows * D_HV, "tf32",
+                  (n_rows * D_HV + n_rows + b1 * D_HV) * 4 + out_bytes)))
+        vb = g16.values[:ch].to(torch.bfloat16)
+        qb = q1.to(torch.bfloat16)
+        k2_d, k2_i = bf._binned_cuda(vb, a, qb, K, 1024)
+        p2_d, p2_i = bf._binned_plain(vb, a, q1, K, 1024)
+        err2, ok2 = k2_agreement(k2_d, k2_i, p2_d.cpu().numpy(),
+                                 p2_i.cpu().numpy(),
+                                 float((q1 * q1).sum(1).max()))
+        if not ok2:
+            raise RuntimeError(f"K2 at d = 1,024 disagrees with its plain "
+                               f"version (max abs err {err2})")
+        rows.append(kernel_row(
+            "k2_binned", err2,
+            cuda_ms(lambda: bf._binned_cuda(vb, a, qb, K, 1024)),
+            cuda_ms(lambda: bf._binned_plain(vb, a, q1, K, 1024), 3),
+            bound(2.0 * b1 * n_rows * D_HV, "bf16",
+                  (n_rows * D_HV + b1 * D_HV) * 2 + n_rows * 4 + out_bytes)))
+        for r in rows:
+            r["rows"] = n_rows
+    log(json.dumps({"d1024": rows}))
+    del idx, g, g16, q, x32, vb
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2703,6 +3339,8 @@ def main() -> int:
     for name in kernels:
         kernels[name]["launches"] = (scan_launches if name == "k5_beam_scan"
                                      else main_launches)[name]
+    beam_variants(index, g, q_dev, emit_all, gt_all, device_mod, beam, bf,
+                  kernels, SearchParams)
     del g, x_dev  # the grown index stays for phase 20
     torch.cuda.empty_cache()
 
@@ -2743,6 +3381,8 @@ def main() -> int:
                 device_mod, data, dev)
     del index
     torch.cuda.empty_cache()
+    halfvec_path(HnswIndex, IndexParams, make_dataset, device_mod, bf, dev,
+                 kernels)
 
     # ---- the bit kind, the flat index and the operator classes -------------
     from pgvector_rx_tpu_torch.ops import bits as bits_mod
@@ -2770,7 +3410,12 @@ def main() -> int:
                                  "k3_x2max", "k4_beam", "k5_beam_scan",
                                  "k9_bits", "k9_bits_tc", "k4_beam_words",
                                  "k10_sparse",
-                                 "k10_sparse_lookup", "k4_beam_sparse")]}))
+                                 "k10_sparse_lookup", "k4_beam_sparse",
+                                 "k4_beam_expand4", "k4_beam_visited",
+                                 "k4_beam_bf16", "k4_words_expand4",
+                                 "k4_words_visited", "k4_sparse_visited",
+                                 "k5_beam_scan_expand4",
+                                 "k5_beam_scan_bf16")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

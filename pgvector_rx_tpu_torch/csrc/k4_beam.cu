@@ -8,7 +8,10 @@
 // kernel launches; here the whole walk is one launch.
 //
 // What the walk computes, per query b (the JAX semantics at the defaults:
-// one expansion per step, in-beam dedup, f32 ranking):
+// one expansion per step, in-beam dedup, f32 ranking; the variants, JAX's
+// PGV_BEAM_EXPAND, PGV_BEAM_VISITED_MAX and PGV_BEAM_BF16, are modes of the
+// same kernels, described at beam_walk_kernel, the word walk and
+// beam_scan_kernel):
 // - A beam of width W (K4: W = ef; K5: the scan's internal width), kept
 //   sorted by (distance, key), key = id * 2 + (1 - expanded), an invalid
 //   slot (inf, -2). The seeds are sorted into it at the start; K5 admits
@@ -42,7 +45,11 @@
 // of one neighbour list and the rows of its live neighbours (a -1 pad, a
 // dead or an excluded neighbour costs no row), so the walk moves
 // sum(steps) * L * 4 + scored * (d * 4 + 1) bytes for f32 rows, `scored`
-// being the rows it read (returned per query). A single walk is a chain of
+// being the rows it read (returned per query); the modes add the visited
+// bitmap's words (a 4-byte word read per neighbour id, the (cap + 1) / 8
+// bytes of each query's bitmap cleared per launch) and, ranking in bf16,
+// rows of d * 2 bytes plus the f32 re-score of the final beam (W rows).
+// A single walk is a chain of
 // dependent steps (ids -> flags -> rows -> merge), so it is also bound by
 // latency: steps x the dependent round trip (ids -> rows, ~0.3 us on an
 // H100 with K5's flags on chip; probes/k5_profile.py); throughput comes
@@ -178,7 +185,21 @@ struct WalkArgs {
   long long ustride;
   int m, entry, entry_level;
   int* land;
+  // The beam's variants (JAX's PGV_BEAM_*): E members expanded a step;
+  // vis [b, vwords] zeroed visited bitmaps (null: the in-beam dedup); with
+  // `exact` given (bf16 ranking), `values` are the bf16 rows that rank and
+  // `exact` [>= cap + 1, d] the f32 rows (row stride exact_stride) the
+  // surviving beam is re-scored from.
+  int E;
+  unsigned* vis;
+  int vwords;
+  const void* exact;
+  long long exact_stride;
 };
+
+// The most new entries a step takes (E * L): the rank sort and the merges
+// are sized for it (ops/beam.MAX_NEW).
+constexpr int kMaxNew = 256;
 
 // The sparse-row mode's row type (indices in `values`, values in
 // `values2`).
@@ -265,6 +286,25 @@ __device__ __forceinline__ float term(float x, float q) {
   return x * q;
 }
 
+// The bf16 ranking's term (JAX's _dist_ids_rank, the row and the query
+// rounded to bf16): l2 squares the difference rounded to bf16, ip and
+// cosine take the product rounded to bf16. A term has an 8-bit mantissa
+// (its square 16 bits), so the terms are summed exactly in f64 and the sum
+// rounded once to f32: the same f32 in any order (ops/beam.rank_dists,
+// the plain version, sums alike).
+template <int M>
+__device__ __forceinline__ double term_rank(float x, float q) {
+  if (M == 0) {
+    const double t = __bfloat162float(__float2bfloat16_rn(x - q));
+    return t * t;
+  }
+  return __bfloat162float(__float2bfloat16_rn(x * q));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 template <int M>
 __device__ __forceinline__ float finish(float acc) {
   if (M == 1) return -acc;
@@ -272,28 +312,30 @@ __device__ __forceinline__ float finish(float acc) {
   return acc;
 }
 
-// out[j] = distance from the query (qs, in shared memory) to row ids[j]
-// for the valid j < count, +inf for the others. Each of the group's NW
-// warps takes kRowsPerWarp rows at a time; the lanes stride over the row's
-// V-wide chunks.
-template <typename T, int V, int M, int NW>
-__device__ void score_rows(const WalkArgs& a, const float* qs, const int* ids,
+// out[j] = distance from the query (qs, in shared memory) to row ids[j] of
+// `values` (row stride `stride`, d values) for the valid j < count, +inf
+// for the others; RANK: the bf16 ranking's terms (qs then holds the query
+// rounded to bf16). Each of the group's NW warps takes kRowsPerWarp rows
+// at a time; the lanes stride over the row's V-wide chunks.
+template <typename T, int V, int M, int NW, bool RANK = false>
+__device__ void score_rows(const T* values, long long stride, int d,
+                           const float* qs, const int* ids,
                            const uint8_t* valid, float* out, int count,
                            int warp, int lane) {
-  const T* values = static_cast<const T*>(a.values);
-  const int nchunks = a.d / V;
+  const int nchunks = d / V;
+  using Acc = typename std::conditional<RANK, double, float>::type;
   for (int base = warp * kRowsPerWarp; base < count;
        base += NW * kRowsPerWarp) {
-    float acc[kRowsPerWarp];
+    Acc acc[kRowsPerWarp];
     const T* rows[kRowsPerWarp];
     bool use[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int j = base + r;
       use[r] = j < count && valid[j];
-      rows[r] = values + (use[r] ? static_cast<long long>(ids[j]) * a.stride
+      rows[r] = values + (use[r] ? static_cast<long long>(ids[j]) * stride
                                  : 0LL);
-      acc[r] = 0.0f;
+      acc[r] = 0;
     }
     for (int c = lane; c < nchunks; c += 32) {
       float qv[V];
@@ -305,16 +347,21 @@ __device__ void score_rows(const WalkArgs& a, const float* qs, const int* ids,
         float x[V];
         Load<T, V>::run(rows[r], c, x);
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[r] += term<M>(x[e], qv[e]);
+        for (int e = 0; e < V; ++e) {
+          if constexpr (RANK)
+            acc[r] += term_rank<M>(x[e], qv[e]);
+          else
+            acc[r] += term<M>(x[e], qv[e]);
+        }
       }
     }
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      float s = acc[r];
+      Acc s = acc[r];
 #pragma unroll
       for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-      if (lane == 0 && base + r < count) out[base + r] = use[r] ? finish<M>(s)
-                                                                 : inf_f();
+      if (lane == 0 && base + r < count)
+        out[base + r] = use[r] ? finish<M>(static_cast<float>(s)) : inf_f();
     }
   }
 }
@@ -518,21 +565,22 @@ __device__ __forceinline__ int count_before(const float* ld, const int* lk,
 //
 // It runs on a group of threads (a block, or one warp): `score(count)`
 // scores nid[0, count) by their nvalid flags into nd (the walk's own
-// row-distance code), `sync()` is the group's barrier, `rank` / `size` a
+// row-distance code; `score0` the entry's, exact where the walk ranks in
+// bf16, as JAX scores it), `sync()` is the group's barrier, `rank` / `size` a
 // thread's place in the group and its width; the group's first warp picks
 // the minimum (bc: the group's broadcast slots). Every thread returns the
 // landing (cur, cur_d), the rows the descent scored and its moves.
-template <class Score, class Sync>
+template <class Score0, class Score, class Sync>
 __device__ void greedy_descent(const WalkArgs& a, int* nid, uint8_t* nvalid,
-                               float* nd, int* bc, Score score, Sync sync,
-                               int rank, int size, int& cur, float& cur_d,
-                               int& rows, int& moves) {
+                               float* nd, int* bc, Score0 score0, Score score,
+                               Sync sync, int rank, int size, int& cur,
+                               float& cur_d, int& rows, int& moves) {
   if (rank == 0) {
     nid[0] = a.entry;
     nvalid[0] = 1;
   }
   sync();
-  score(1);
+  score0(1);
   sync();
   cur = a.entry;
   cur_d = nd[0];
@@ -590,44 +638,79 @@ __device__ void greedy_descent(const WalkArgs& a, int* nid, uint8_t* nvalid,
   }
 }
 
-size_t smem_bytes(int qd, int L, int S, int W) {
+size_t smem_bytes(int qd, int L, int S, int W, int E, bool rank) {
   const size_t dpad = (static_cast<size_t>(qd) + 3) & ~static_cast<size_t>(3);
-  // q; beam x2 (d, key); new raw, new sorted (d, key); seeds (d, key);
-  // neighbour ids and dup flags; neighbour live flags
-  return 4 * (dpad + 4 * static_cast<size_t>(W) + 4 * L + 2 * S + 2 * L) + L;
+  const size_t nl = static_cast<size_t>(E) * L;
+  // q (and its bf16 rounding when ranking in bf16); beam x2 (d, key); new
+  // raw, new sorted (d, key); seeds (d, key); neighbour ids and dup flags;
+  // the members a step expands (E > 1); neighbour live flags
+  return 4 * (dpad * (rank ? 2 : 1) + 4 * static_cast<size_t>(W) + 4 * nl +
+              2 * S + 2 * nl + (E > 1 ? E : 0)) +
+         nl;
 }
 
 // DESC: the greedy descent seeds the walk (upper_slot given); a separate
 // instantiation, so that the seeded walk (the dense beam engine's) keeps
-// the registers and the code it had without it.
-template <typename T, int V, bool DESC>
+// the registers and the code it had without it. RANK: the bf16 ranking
+// (T is bf16; the beam is re-scored from `exact` at the end). VAR: E and
+// the visited bitmap are read from the arguments; without it E = 1 and no
+// bitmap, at compile time, so the default walk keeps its registers.
+//
+// The variants, as JAX's _ground_beam_seeds runs them:
+// - E > 1: a step pops the first E unexpanded members of the beam's order
+//   (lax.top_k: the E nearest, lower slot first at equal distance), marks
+//   them expanded and takes their E L neighbours in that order; a repeat
+//   of an id earlier among them is masked (the first copy kept), and the
+//   merge takes E L new entries (E L <= kMaxNew).
+// - vis: a neighbour whose bit is set is masked, every neighbour id >= 0
+//   then sets its bit (live or not; the seeds' at the start), and the
+//   in-beam dedup is skipped (with E = 1 a repeat within one list stays,
+//   as in JAX). The bitmap is global, one per query ((cap + 1) / 32
+//   words, zeroed by the wrapper): a shared-memory id set would have to
+//   hold S + max_steps E L ids (24,584 at ef = 40, E = 4), 196 KB as a
+//   hash of twice the slots, one block per SM; the bitmap's word is read
+//   beside the live flag, so it adds no dependent round trip to a step.
+// - RANK: new candidates are ranked over the bf16 rows against the query
+//   rounded to bf16 (term_rank), the descent too but for the entry; the
+//   surviving beam's entries with an id are re-scored in f32 at the end
+//   (the wrapper sorts by (distance, id)).
+template <typename T, int V, bool DESC, bool RANK, bool VAR>
 __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[kWarps];
+  __shared__ int s_nsel;
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int W = a.W, L = a.L, S = a.S;
+  const int W = a.W, L = a.L, S = a.S, E = VAR ? a.E : 1, NL = E * L;
   const float inf = inf_f();
+  const int qpad = (a.qd + 3) & ~3;
 
   float* qs = reinterpret_cast<float*>(smem);
-  float* bd = qs + ((a.qd + 3) & ~3);  // beam distances, 2 buffers of W
+  float* qr = RANK ? qs + qpad : qs;  // the query rounded to bf16 (RANK)
+  float* bd = qs + (RANK ? 2 : 1) * qpad;  // beam distances, 2 buffers of W
   int* bk = reinterpret_cast<int*>(bd + 2 * W);
   float* nd = reinterpret_cast<float*>(bk + 2 * W);  // new, in list order
-  int* nk = reinterpret_cast<int*>(nd + L);
-  float* sd = reinterpret_cast<float*>(nk + L);  // new, sorted
-  int* sk = reinterpret_cast<int*>(sd + L);
-  float* xd = reinterpret_cast<float*>(sk + L);  // seeds
+  int* nk = reinterpret_cast<int*>(nd + NL);
+  float* sd = reinterpret_cast<float*>(nk + NL);  // new, sorted
+  int* sk = reinterpret_cast<int*>(sd + NL);
+  float* xd = reinterpret_cast<float*>(sk + NL);  // seeds
   int* xk = reinterpret_cast<int*>(xd + S);
   int* nid = xk + S;  // neighbour ids
-  int* dup = nid + L;  // neighbour already in the beam / the list
-  uint8_t* nvalid = reinterpret_cast<uint8_t*>(dup + L);
+  int* dup = nid + NL;  // neighbour already in the beam / the list
+  int* sel = dup + NL;  // the members a step expands (E > 1)
+  uint8_t* nvalid = reinterpret_cast<uint8_t*>(sel + (E > 1 ? E : 0));
+  unsigned* vis = VAR && a.vis != nullptr
+                      ? a.vis + static_cast<long long>(b) * a.vwords
+                      : nullptr;
 
   // the query's bits, as they are (f32 values, packed words, or sparse
   // indices then value bits)
   const int* qg = reinterpret_cast<const int*>(a.q) +
                   static_cast<long long>(b) * a.qd;
-  for (int i = tid; i < a.qd; i += kThreads)
+  for (int i = tid; i < a.qd; i += kThreads) {
     reinterpret_cast<int*>(qs)[i] = qg[i];
+    if (RANK) qr[i] = round_bf16(__int_as_float(qg[i]));
+  }
   constexpr bool kWords = std::is_same<T, unsigned>::value;
   constexpr bool kSparse = std::is_same<T, SparseRow>::value;
   const int* qidx = reinterpret_cast<const int*>(qs);  // sparse: [d]
@@ -666,7 +749,8 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     }
   }
 
-  // nd[j] = the distance to row nid[j], j < count (+inf where !nvalid[j])
+  // nd[j] = the distance to row nid[j], j < count (+inf where !nvalid[j]):
+  // the walk's ranking distance
   auto score = [&](int count) {
     if constexpr (kWords) {
       const unsigned* qw = reinterpret_cast<const unsigned*>(qs);
@@ -683,13 +767,34 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
         case 2: score_sparse<2, kWarps>(a, qidx, qval, sq, nid, nvalid, nd, count, warp, lane); break;
         default: score_sparse<3, kWarps>(a, qidx, qval, sq, nid, nvalid, nd, count, warp, lane); break;
       }
-    } else {
+    } else if constexpr (RANK) {
+      const T* v = static_cast<const T*>(a.values);
       switch (a.metric) {
-        case 0: score_rows<T, V, 0, kWarps>(a, qs, nid, nvalid, nd, count, warp, lane); break;
-        case 1: score_rows<T, V, 1, kWarps>(a, qs, nid, nvalid, nd, count, warp, lane); break;
-        case 2: score_rows<T, V, 2, kWarps>(a, qs, nid, nvalid, nd, count, warp, lane); break;
-        default: score_rows<T, V, 3, kWarps>(a, qs, nid, nvalid, nd, count, warp, lane); break;
+        case 0: score_rows<T, V, 0, kWarps, true>(v, a.stride, a.d, qr, nid, nvalid, nd, count, warp, lane); break;
+        case 1: score_rows<T, V, 1, kWarps, true>(v, a.stride, a.d, qr, nid, nvalid, nd, count, warp, lane); break;
+        default: score_rows<T, V, 2, kWarps, true>(v, a.stride, a.d, qr, nid, nvalid, nd, count, warp, lane); break;
       }
+    } else {
+      const T* v = static_cast<const T*>(a.values);
+      switch (a.metric) {
+        case 0: score_rows<T, V, 0, kWarps>(v, a.stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+        case 1: score_rows<T, V, 1, kWarps>(v, a.stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+        case 2: score_rows<T, V, 2, kWarps>(v, a.stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+        default: score_rows<T, V, 3, kWarps>(v, a.stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+      }
+    }
+  };
+  // the exact f32 distances (RANK: the entry's, and the final re-score)
+  auto score_exact = [&](int count) {
+    if constexpr (RANK) {
+      const float* v = static_cast<const float*>(a.exact);
+      switch (a.metric) {
+        case 0: score_rows<float, 1, 0, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+        case 1: score_rows<float, 1, 1, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+        default: score_rows<float, 1, 2, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+      }
+    } else {
+      score(count);
     }
   };
   K5_PROF_BEGIN
@@ -701,8 +806,9 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     __shared__ int bc[3];
     int rows = 0, moves = 0;
     if (a.entry >= 0)
-      greedy_descent(a, nid, nvalid, nd, bc, score, [] { __syncthreads(); },
-                     tid, kThreads, land_id, land_d, rows, moves);
+      greedy_descent(a, nid, nvalid, nd, bc, score_exact, score,
+                     [] { __syncthreads(); }, tid, kThreads, land_id, land_d,
+                     rows, moves);
     if (tid == 0) {
       int* o = a.land + 4LL * b;
       o[0] = land_id;
@@ -712,13 +818,14 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     }
   }
 
-  // ---- seeds: dedup by id, sort into the beam
+  // ---- seeds: dedup by id, sort into the beam (vis: their bits set)
   const long long s0 = static_cast<long long>(b) * S;
   for (int i = tid; i < S; i += kThreads) {
     const int id = DESC ? land_id : a.seed_ids[s0 + i];
     const bool ok = id >= 0;
     xd[i] = ok ? (DESC ? land_d : a.seed_d[s0 + i]) : inf;
     xk[i] = ok ? 2 * id + 1 : -2;
+    if (vis != nullptr && ok) atomicOr(vis + (id >> 5), 1u << (id & 31));
   }
   __syncthreads();
   for (int i = tid; i < S; i += kThreads) {
@@ -749,62 +856,128 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     float* obd = bd + (cur ^ 1) * W;
     int* obk = bk + (cur ^ 1) * W;
 
-    // the nearest unexpanded member: the first in the beam's order
-    int local = INT_MAX;
-    for (int i = tid; i < W; i += kThreads)
-      if ((cbk[i] & 1) && cbd[i] < inf) local = min(local, i);
-    local = __reduce_min_sync(kFull, local);
-    if (lane == 0) red[warp] = local;
-    __syncthreads();
-    int pos = red[0];
+    // the members to expand: the first E unexpanded in the beam's order
+    int pos, nsel = 1;
+    if (E == 1) {
+      int local = INT_MAX;
+      for (int i = tid; i < W; i += kThreads)
+        if ((cbk[i] & 1) && cbd[i] < inf) local = min(local, i);
+      local = __reduce_min_sync(kFull, local);
+      if (lane == 0) red[warp] = local;
+      __syncthreads();
+      pos = red[0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) pos = min(pos, red[w]);
+      for (int w = 1; w < kWarps; ++w) pos = min(pos, red[w]);
+    } else {
+      if (warp == 0) {
+        const unsigned lt = (1u << lane) - 1u;
+        int got = 0;
+        for (int base = 0; base < W && got < E; base += 32) {
+          const int i = base + lane;
+          const unsigned mk =
+              __ballot_sync(kFull, i < W && (cbk[i] & 1) && cbd[i] < inf);
+          const int r = got + __popc(mk & lt);
+          if (((mk >> lane) & 1u) && r < E) sel[r] = i;
+          got = min(E, got + __popc(mk));
+        }
+        if (lane == 0) s_nsel = got;
+      }
+      __syncthreads();
+      nsel = s_nsel;
+      pos = nsel > 0 ? sel[0] : INT_MAX;
+    }
     if (pos == INT_MAX || steps >= a.max_steps || !(cbd[pos] <= cbd[W - 1]))
       break;  // the same decision in every thread
     const int u = min(cbk[pos] >> 1, a.cap);  // the sentinel row at worst
     K5_MARK(kPhSelect);
 
-    for (int j0 = 0; j0 < L; j0 += kThreads) {  // the same trips in every
-      const int j = j0 + tid;                      // thread
-      bool ok = false;
-      const int v = j < L ? a.nbrs[static_cast<long long>(u) * L + j] : -1;
-      if (j < L) {
-        ok = v >= 0 && a.trav[min(v, a.cap)];
+    for (int j0 = 0; j0 < NL; j0 += kThreads) {  // the same trips in every
+      const int j = j0 + tid;                       // thread
+      int v = -1;
+      if (j < NL) {
+        if (E == 1) {
+          v = a.nbrs[static_cast<long long>(u) * L + j];
+        } else {
+          const int e = j / L;
+          if (e < nsel)
+            v = a.nbrs[static_cast<long long>(min(cbk[sel[e]] >> 1, a.cap)) *
+                           L +
+                       (j - e * L)];
+        }
+      }
+      bool ok = v >= 0 && a.trav[min(v, a.cap)];
+      if (vis != nullptr && ok) ok = !((__ldcg(vis + (v >> 5)) >> (v & 31)) & 1u);
+      if (j < NL) {
         nid[j] = v;
         nvalid[j] = ok;
         nk[j] = ok ? 2 * v + 1 : -2;
         dup[j] = 0;
       }
-      scored += __syncthreads_count(ok);
+      if (E == 1)
+        scored += __syncthreads_count(ok);
+      else
+        __syncthreads();
     }
-    if (tid == 0) cbk[pos] &= ~1;  // expanded; read again after a barrier
+    if (E > 1) {  // a repeat of an earlier id of the step: masked
+      for (int j = tid; j < NL; j += kThreads) {
+        if (!nvalid[j]) continue;
+        const int v = nid[j];
+        for (int i = 0; i < j; ++i) {
+          if (nid[i] == v) {
+            nvalid[j] = 0;
+            nk[j] = -2;
+            break;
+          }
+        }
+      }
+      __syncthreads();
+      for (int j0 = 0; j0 < NL; j0 += kThreads)
+        scored += __syncthreads_count(j0 + tid < NL && nvalid[j0 + tid]);
+    }
+    if (vis != nullptr) {  // every id seen this step, after every test
+      for (int j = tid; j < NL; j += kThreads) {
+        const int v = nid[j];
+        if (v >= 0) atomicOr(vis + (v >> 5), 1u << (v & 31));
+      }
+    }
+    // expanded; read again after a barrier
+    if (E == 1) {
+      if (tid == 0) cbk[pos] &= ~1;
+    } else if (tid < nsel) {
+      cbk[sel[tid]] &= ~1;
+    }
     K5_MARK(kPhFlags);
 
-    score(L);
+    score(NL);
     __syncthreads();
     K5_MARK(kPhRows);
 
-    // dedup: a neighbour whose id is in the beam, or earlier in the list
-    for (int i = tid; i < W; i += kThreads) {
-      const int k = cbk[i];
-      if (k < 0) continue;
-      for (int j = 0; j < L; ++j)
-        if (nk[j] >= 0 && (nk[j] >> 1) == (k >> 1)) dup[j] = 1;
+    // dedup (no visited bitmap): a neighbour whose id is in the beam, or
+    // earlier in the list (E = 1; E > 1 masked those above)
+    if (vis == nullptr) {
+      for (int i = tid; i < W; i += kThreads) {
+        const int k = cbk[i];
+        if (k < 0) continue;
+        for (int j = 0; j < NL; ++j)
+          if (nk[j] >= 0 && (nk[j] >> 1) == (k >> 1)) dup[j] = 1;
+      }
+      if (E == 1) {
+        for (int j = tid; j < NL; j += kThreads) {
+          if (nk[j] < 0) continue;
+          for (int i = 0; i < j; ++i)
+            if (nk[i] == nk[j]) dup[j] = 1;
+        }
+      }
+      __syncthreads();
     }
-    for (int j = tid; j < L; j += kThreads) {
-      if (nk[j] < 0) continue;
-      for (int i = 0; i < j; ++i)
-        if (nk[i] == nk[j]) dup[j] = 1;
-    }
-    __syncthreads();
     K5_MARK(kPhDedup);
 
     // rank-sort the new entries
-    for (int j = tid; j < L; j += kThreads) {
+    for (int j = tid; j < NL; j += kThreads) {
       const float dj = dup[j] ? inf : nd[j];
       const int kj = nk[j];
       int r = 0;
-      for (int i = 0; i < L; ++i) {
+      for (int i = 0; i < NL; ++i) {
         const float di = dup[i] ? inf : nd[i];
         r += before(di, nk[i], dj, kj) || (i < j && di == dj && nk[i] == kj);
       }
@@ -814,15 +987,15 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     __syncthreads();
     K5_MARK(kPhSort);
 
-    // merge beam (W) and new (L): the first W are the next beam
+    // merge beam (W) and new (NL): the first W are the next beam
     for (int i = tid; i < W; i += kThreads) {
-      const int r = i + count_before(sd, sk, L, cbd[i], cbk[i], true);
+      const int r = i + count_before(sd, sk, NL, cbd[i], cbk[i], true);
       if (r < W) {
         obd[r] = cbd[i];
         obk[r] = cbk[i];
       }
     }
-    for (int j = tid; j < L; j += kThreads) {
+    for (int j = tid; j < NL; j += kThreads) {
       const int r = j + count_before(cbd, cbk, W, sd[j], sk[j], false);
       if (r < W) {
         obd[r] = sd[j];
@@ -835,12 +1008,27 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     ++steps;
   }
 
-  const float* cbd = bd + cur * W;
-  const int* cbk = bk + cur * W;
+  float* fbd = bd + cur * W;
+  const int* fbk = bk + cur * W;
+  if constexpr (RANK) {  // the surviving beam's exact distances
+    for (int base = 0; base < W; base += NL) {
+      const int cnt = min(NL, W - base);
+      for (int j = tid; j < cnt; j += kThreads) {
+        const int k = fbk[base + j];
+        nid[j] = k >= 0 ? min(k >> 1, a.cap) : 0;
+        nvalid[j] = k >= 0;
+      }
+      __syncthreads();
+      score_exact(cnt);
+      __syncthreads();
+      for (int j = tid; j < cnt; j += kThreads) fbd[base + j] = nd[j];
+      __syncthreads();
+    }
+  }
   const long long ob = static_cast<long long>(b) * W;
   for (int i = tid; i < W; i += kThreads) {
-    a.beam_d[ob + i] = cbd[i];
-    a.beam_key[ob + i] = cbk[i];
+    a.beam_d[ob + i] = fbd[i];
+    a.beam_key[ob + i] = fbk[i];
   }
   if (tid == 0) {
     a.steps[b] = steps;
@@ -850,11 +1038,17 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   K5_PROF_END(steps);
 }
 
-template <typename T, int V>
+template <typename T, int V, bool RANK>
 cudaError_t launch(const WalkArgs& a, int b, size_t smem,
                    cudaStream_t stream) {
-  auto kern = a.upper_slot != nullptr ? beam_walk_kernel<T, V, true>
-                                      : beam_walk_kernel<T, V, false>;
+  const bool desc = a.upper_slot != nullptr;
+  void (*kern)(WalkArgs) = desc ? beam_walk_kernel<T, V, true, RANK, true>
+                                : beam_walk_kernel<T, V, false, RANK, true>;
+  if constexpr (!RANK) {  // the default walk: its own instantiation
+    if (a.E == 1 && a.vis == nullptr)
+      kern = desc ? beam_walk_kernel<T, V, true, false, false>
+                  : beam_walk_kernel<T, V, false, false, false>;
+  }
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -891,6 +1085,14 @@ cudaError_t launch(const WalkArgs& a, int b, size_t smem,
 //   raw outputs are the same.
 // Shapes: W <= 64, L <= 32, at most 32 words per row, S <= 32 seeds, m <=
 // 32 (kwFits); the block form takes the rest.
+//
+// The variants: with E > 1 a step marks its first E unexpanded members
+// (two ballots' ranks) and merges their neighbour lists one after the
+// other into the beam, which keeps the same beam as one merge of all E L
+// entries (the first W of a union), and masks a repeat of an id earlier
+// in the step (the list of the step's ids in shared memory, JAX's batch
+// dedup); the visited bitmap as in the block form (a list's bits set
+// after its tests).
 
 constexpr int kwQueries = 4;   // queries (warps) per block
 constexpr int kwMaxW = 64, kwMaxL = 32, kwMaxWords = 32;
@@ -903,6 +1105,8 @@ struct WarpState {
   float bd[kwMaxW];  // the beam's mirror (keys past W stay -2)
   alignas(16) int bk[kwMaxW];
   int bc[3];
+  int sel_u[kwMaxW];      // the rows of the members a step expands
+  int step_ids[kMaxNew];  // the step's neighbour ids so far (E > 1)
 };
 
 __host__ __device__ inline bool kw_fits(int words, int W, int L, int S,
@@ -993,7 +1197,7 @@ __device__ __forceinline__ void warp_sort(float& d, int& k, int lane) {
   }
 }
 
-template <int V, int JACC>
+template <int V, int JACC, bool VAR>
 __global__ void __launch_bounds__(kwQueries * 32)
     word_walk_kernel(WalkArgs a, int nq) {
   __shared__ WarpState states[kwQueries];
@@ -1030,7 +1234,7 @@ __global__ void __launch_bounds__(kwQueries * 32)
             a, ws.q, qpop, v, lane < count && ws.nvalid[lane], lane);
         if (lane < count) ws.nd[lane] = d;
       };
-      greedy_descent(a, ws.nid, ws.nvalid, ws.nd, ws.bc, score,
+      greedy_descent(a, ws.nid, ws.nvalid, ws.nd, ws.bc, score, score,
                      [] { __syncwarp(); }, lane, 32, sid, sdist, rows,
                      moves);
     }
@@ -1047,6 +1251,10 @@ __global__ void __launch_bounds__(kwQueries * 32)
   }
   // dedup by id (a repeated seed: only its first copy lives), sort
   const bool sok = lane < S && sid >= 0;
+  unsigned* vis = VAR && a.vis != nullptr
+                      ? a.vis + static_cast<long long>(b) * a.vwords
+                      : nullptr;
+  if (vis != nullptr && sok) atomicOr(vis + (sid >> 5), 1u << (sid & 31));
   float d0 = sok ? sdist : inf;
   int k0 = sok ? 2 * sid + 1 : -2;
   const unsigned same = __match_any_sync(kFull, sok ? sid : -1 - lane);
@@ -1070,6 +1278,7 @@ __global__ void __launch_bounds__(kwQueries * 32)
   K5_MARK(kPhStart);
 
   int steps = 0, scored = 0;
+  const int E = VAR ? a.E : 1;
   while (true) {
     // the nearest unexpanded member: the first in the beam's order
     const unsigned m0 =
@@ -1081,110 +1290,132 @@ __global__ void __launch_bounds__(kwQueries * 32)
     const float dpos = __shfl_sync(kFull, pos < 32 ? d0 : d1, pos & 31);
     const float dlast = __shfl_sync(kFull, W > 32 ? d1 : d0, (W - 1) & 31);
     if (!(dpos <= dlast)) break;
-    const int kpos = __shfl_sync(kFull, pos < 32 ? k0 : k1, pos & 31);
-    const int u = min(kpos >> 1, a.cap);  // the sentinel row at worst
-    if (lane == (pos & 31)) {  // expanded
-      if (pos < 32)
-        k0 &= ~1;
-      else
-        k1 &= ~1;
-      ws.bk[pos] = kpos & ~1;
+    // the members to expand: the first E unexpanded, marked expanded
+    const int c0 = __popc(m0);
+    const int r0 = __popc(m0 & lt), r1 = c0 + __popc(m1 & lt);
+    const int nsel = min(E, c0 + __popc(m1));
+    if (((m0 >> lane) & 1u) && r0 < E) {
+      ws.sel_u[r0] = min(k0 >> 1, a.cap);  // the sentinel row at worst
+      k0 &= ~1;
+      ws.bk[lane] = k0;
+    }
+    if (((m1 >> lane) & 1u) && r1 < E) {
+      ws.sel_u[r1] = min(k1 >> 1, a.cap);
+      k1 &= ~1;
+      ws.bk[32 + lane] = k1;
     }
     __syncwarp();
     K5_MARK(kPhSelect);
 
-    // neighbour j: its id, flag and distance in lane j
-    const int v = lane < L ? __ldg(a.nbrs + static_cast<long long>(u) * L +
-                                   lane)
-                           : -1;
-    const bool ok = v >= 0 && a.trav[min(v, a.cap)];
-    // the rows' loads go out with the flags' (nothing waits for ok first)
-    const float dv = warp_score_words<V, JACC>(a, ws.q, qpop, v, ok, lane);
-    scored += __popc(__ballot_sync(kFull, ok));
-    K5_MARK(kPhRows);
-
-    // dedup: an id in the beam (any copy), or earlier in the list; the
-    // mirror's keys four at a time, every load in flight together
-    bool dup = false;
-#pragma unroll
-    for (int i = 0; i < kwMaxW; i += 4) {
-      if (i < W) {  // the same in every lane
-        const int4 kb = *reinterpret_cast<const int4*>(ws.bk + i);
-        dup |= (kb.x >= 0 && (kb.x >> 1) == v) |
-               (kb.y >= 0 && (kb.y >> 1) == v) |
-               (kb.z >= 0 && (kb.z >> 1) == v) |
-               (kb.w >= 0 && (kb.w >> 1) == v);
+    for (int e = 0; e < nsel; ++e) {
+      const int u = ws.sel_u[e];
+      // neighbour j: its id, flag and distance in lane j
+      const int v = lane < L ? __ldg(a.nbrs + static_cast<long long>(u) * L +
+                                     lane)
+                             : -1;
+      bool ok = v >= 0 && a.trav[min(v, a.cap)];
+      if (vis != nullptr && ok)
+        ok = !((__ldcg(vis + (v >> 5)) >> (v & 31)) & 1u);
+      const unsigned rep = __match_any_sync(kFull, v >= 0 ? v : -1 - lane);
+      if (E > 1) {  // a repeat of an id earlier in the step: masked
+        for (int i = 0; i < e * L && ok; ++i) ok = ws.step_ids[i] != v;
+        ok = ok && !(rep & lt);
+        if (lane < L) ws.step_ids[e * L + lane] = v;
       }
-    }
-    dup = dup && ok;
-    const unsigned rep = __match_any_sync(kFull, ok ? v : -1 - lane);
-    dup |= ok && (rep & lt);
-    float nd = ok && !dup ? dv : inf;
-    int nk = ok ? 2 * v + 1 : -2;
-    if (lane >= L) nk = INT_MAX;  // pads sort last
-    K5_MARK(kPhDedup);
-    warp_sort(nd, nk, lane);
-    K5_MARK(kPhSort);
-
-    // merge beam (W) and new (L): the first W are the next beam
-    int r0 = lane, r1 = 32 + lane;  // ranks of the beam's entries
-    {
-      int c0 = 0, c1 = 0;  // new entries strictly before each
-#pragma unroll
-      for (int st = 16; st; st >>= 1) {
-        const float e0 = __shfl_sync(kFull, nd, c0 + st - 1);
-        const int f0 = __shfl_sync(kFull, nk, c0 + st - 1);
-        const float e1 = __shfl_sync(kFull, nd, c1 + st - 1);
-        const int f1 = __shfl_sync(kFull, nk, c1 + st - 1);
-        if (before(e0, f0, d0, k0)) c0 += st;
-        if (before(e1, f1, d1, k1)) c1 += st;
+      // the rows' loads go out with the flags' (nothing waits for ok first)
+      const float dv = warp_score_words<V, JACC>(a, ws.q, qpop, v, ok, lane);
+      scored += __popc(__ballot_sync(kFull, ok));
+      if (vis != nullptr) {  // this list's ids, after its tests
+        __syncwarp();
+        if (v >= 0) atomicOr(vis + (v >> 5), 1u << (v & 31));
       }
-      const float e0 = __shfl_sync(kFull, nd, c0);
-      const float e1 = __shfl_sync(kFull, nd, c1);
-      const int f0 = __shfl_sync(kFull, nk, c0);
-      const int f1 = __shfl_sync(kFull, nk, c1);
-      c0 += c0 == 31 && before(e0, f0, d0, k0);
-      c1 += c1 == 31 && before(e1, f1, d1, k1);
-      r0 += c0;
-      r1 += c1;
-    }
-    int rn = lane;  // rank of the new entry: lane + beam entries <= it
-    if (lane < L) {
-      int lo = 0, n = W;
-      while (n > 0) {
-        const int h = n >> 1;
-        if (!before(nd, nk, ws.bd[lo + h], ws.bk[lo + h])) {
-          lo += h + 1;
-          n -= h + 1;
-        } else {
-          n = h;
+      K5_MARK(kPhRows);
+
+      // dedup (no visited bitmap): an id in the beam (any copy), or
+      // earlier in the list (E = 1); the mirror's keys four at a time,
+      // every load in flight together
+      bool dup = false;
+      if (vis == nullptr) {
+#pragma unroll
+        for (int i = 0; i < kwMaxW; i += 4) {
+          if (i < W) {  // the same in every lane
+            const int4 kb = *reinterpret_cast<const int4*>(ws.bk + i);
+            dup |= (kb.x >= 0 && (kb.x >> 1) == v) |
+                   (kb.y >= 0 && (kb.y >> 1) == v) |
+                   (kb.z >= 0 && (kb.z >> 1) == v) |
+                   (kb.w >= 0 && (kb.w >> 1) == v);
+          }
         }
+        dup = dup && ok;
+        if (E == 1) dup |= ok && (rep & lt);
       }
-      rn += lo;
+      float nd = ok && !dup ? dv : inf;
+      int nk = ok ? 2 * v + 1 : -2;
+      if (lane >= L) nk = INT_MAX;  // pads sort last
+      K5_MARK(kPhDedup);
+      warp_sort(nd, nk, lane);
+      K5_MARK(kPhSort);
+
+      // merge beam (W) and new (L): the first W are the next beam
+      int ra = lane, rb = 32 + lane;  // ranks of the beam's entries
+      {
+        int ca = 0, cb = 0;  // new entries strictly before each
+#pragma unroll
+        for (int st = 16; st; st >>= 1) {
+          const float e0 = __shfl_sync(kFull, nd, ca + st - 1);
+          const int f0 = __shfl_sync(kFull, nk, ca + st - 1);
+          const float e1 = __shfl_sync(kFull, nd, cb + st - 1);
+          const int f1 = __shfl_sync(kFull, nk, cb + st - 1);
+          if (before(e0, f0, d0, k0)) ca += st;
+          if (before(e1, f1, d1, k1)) cb += st;
+        }
+        const float e0 = __shfl_sync(kFull, nd, ca);
+        const float e1 = __shfl_sync(kFull, nd, cb);
+        const int f0 = __shfl_sync(kFull, nk, ca);
+        const int f1 = __shfl_sync(kFull, nk, cb);
+        ca += ca == 31 && before(e0, f0, d0, k0);
+        cb += cb == 31 && before(e1, f1, d1, k1);
+        ra += ca;
+        rb += cb;
+      }
+      int rn = lane;  // rank of the new entry: lane + beam entries <= it
+      if (lane < L) {
+        int lo = 0, n = W;
+        while (n > 0) {
+          const int h = n >> 1;
+          if (!before(nd, nk, ws.bd[lo + h], ws.bk[lo + h])) {
+            lo += h + 1;
+            n -= h + 1;
+          } else {
+            n = h;
+          }
+        }
+        rn += lo;
+      }
+      __syncwarp();  // every read of the mirror is done
+      if (lane < W && ra < W) {
+        ws.bd[ra] = d0;
+        ws.bk[ra] = k0;
+      }
+      if (32 + lane < W && rb < W) {
+        ws.bd[rb] = d1;
+        ws.bk[rb] = k1;
+      }
+      if (lane < L && rn < W) {
+        ws.bd[rn] = nd;
+        ws.bk[rn] = nk;
+      }
+      __syncwarp();
+      if (lane < W) {
+        d0 = ws.bd[lane];
+        k0 = ws.bk[lane];
+      }
+      if (32 + lane < W) {
+        d1 = ws.bd[32 + lane];
+        k1 = ws.bk[32 + lane];
+      }
+      K5_MARK(kPhBeamMerge);
     }
-    __syncwarp();  // every read of the mirror is done
-    if (lane < W && r0 < W) {
-      ws.bd[r0] = d0;
-      ws.bk[r0] = k0;
-    }
-    if (32 + lane < W && r1 < W) {
-      ws.bd[r1] = d1;
-      ws.bk[r1] = k1;
-    }
-    if (lane < L && rn < W) {
-      ws.bd[rn] = nd;
-      ws.bk[rn] = nk;
-    }
-    __syncwarp();
-    if (lane < W) {
-      d0 = ws.bd[lane];
-      k0 = ws.bk[lane];
-    }
-    if (32 + lane < W) {
-      d1 = ws.bd[32 + lane];
-      k1 = ws.bk[32 + lane];
-    }
-    K5_MARK(kPhBeamMerge);
     ++steps;
   }
 
@@ -1207,8 +1438,9 @@ __global__ void __launch_bounds__(kwQueries * 32)
 
 template <int V, int JACC>
 cudaError_t launch_word_walk(const WalkArgs& a, int b, cudaStream_t stream) {
-  word_walk_kernel<V, JACC>
-      <<<(b + kwQueries - 1) / kwQueries, kwQueries * 32, 0, stream>>>(a, b);
+  auto kern = a.E == 1 && a.vis == nullptr ? word_walk_kernel<V, JACC, false>
+                                           : word_walk_kernel<V, JACC, true>;
+  kern<<<(b + kwQueries - 1) / kwQueries, kwQueries * 32, 0, stream>>>(a, b);
   return cudaGetLastError();
 }
 
@@ -1234,8 +1466,13 @@ cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
     }
   }
 #endif
-  return vec ? launch<T, V>(a, b, smem, stream)
-             : launch<T, 1>(a, b, smem, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.exact != nullptr)
+      return vec ? launch<T, V, true>(a, b, smem, stream)
+                 : launch<T, 1, true>(a, b, smem, stream);
+  }
+  return vec ? launch<T, V, false>(a, b, smem, stream)
+             : launch<T, 1, false>(a, b, smem, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1257,6 +1494,9 @@ struct ScanArgs {
   float* spill_d;         // [b, SP]
   int* spill_ids;         // [b, SP]
   int d, L, cap, words, S, W, ef, SP, max_steps, mark;
+  int E;                  // members expanded a step
+  const void* exact;      // bf16 ranking: the f32 rows (or null)
+  long long exact_stride;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -1267,11 +1507,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 
 // log2 of the slots of K5's id sets: at least twice the most ids one
-// holds (the beam's W, the seeds' S, the finish's SP + W - ef), >= 64.
+// holds (the beam's W, the seeds' S, the finish's SP + W - ef; the beam's
+// set holds up to W + NL within a step of NL new entries), >= 64.
 __host__ __device__ inline int imax(int x, int y) { return x > y ? x : y; }
 
-__host__ __device__ int scan_set_bits(int W, int S, int mm) {
-  const int most = imax(W, imax(S, mm));
+__host__ __device__ int scan_set_bits(int W, int S, int mm, int NL) {
+  const int most = imax(imax(W, W + NL), imax(S, mm));
   int bits = 6;
   while ((1 << bits) < 2 * most) ++bits;
   return bits;
@@ -1285,28 +1526,37 @@ __host__ __device__ int scan_sort_len(int S) {
 }
 
 // Entries of the seeds' / finish's buffer: the seeds' sort, or the
-// leftover (W - ef) followed by its merge with the spill (SP + W - ef).
-__host__ __device__ int scan_buf_len(int S, int W, int ef, int SP) {
-  return imax(scan_sort_len(S), SP + 2 * (W - ef));
+// leftover (W - ef) followed by its merge with the spill (SP + W - ef);
+// when ranking in bf16 also the re-scored beam's sort (a power of two
+// >= W).
+__host__ __device__ int scan_buf_len(int S, int W, int ef, int SP,
+                                     bool rank) {
+  return imax(imax(scan_sort_len(S), SP + 2 * (W - ef)),
+              rank ? scan_sort_len(W) : 0);
 }
 
-// The spill's pool: a power of two >= 2 SP, SP + L and 64, so that it
-// takes many steps' evicted entries between two sorts.
-__host__ __device__ int scan_pool_len(int SP, int L) {
-  return scan_sort_len(imax(64, imax(2 * SP, SP + L)));
+// The spill's pool: a power of two >= 2 SP, SP + NL and 64 (NL = E L the
+// new entries of a step), so that it takes many steps' evicted entries
+// between two sorts.
+__host__ __device__ int scan_pool_len(int SP, int NL) {
+  return scan_sort_len(imax(64, imax(2 * SP, SP + NL)));
 }
 
 size_t scan_smem_bytes(int words, int d, int L, int S, int W, int ef,
-                       int SP) {
+                       int SP, int E, bool rank) {
   const size_t dpad = (static_cast<size_t>(d) + 3) & ~static_cast<size_t>(3);
-  const size_t x = scan_buf_len(S, W, ef, SP);
-  const size_t tbl = static_cast<size_t>(1) << scan_set_bits(W, S, SP + W - ef);
-  // bitmap; q; beam x2; the spill's pool; new raw and kept; the beam's id
-  // set; the seeds' / finish's id set and first indices; the seeds' sort
-  // buffer, then the finish's merged spill
-  return 4 * (static_cast<size_t>(words) + dpad + 4 * static_cast<size_t>(W) +
-              2 * static_cast<size_t>(scan_pool_len(SP, L)) +
-              4 * static_cast<size_t>(L) + 3 * tbl + 2 * x);
+  const size_t x = scan_buf_len(S, W, ef, SP, rank);
+  const size_t nl = static_cast<size_t>(E) * L;
+  const size_t tbl = static_cast<size_t>(1)
+                     << scan_set_bits(W, S, SP + W - ef, static_cast<int>(nl));
+  // bitmap; q (and its bf16 rounding); beam x2; the spill's pool; new raw
+  // and kept; the beam's id set; the seeds' / finish's id set and first
+  // indices; the seeds' sort buffer, then the finish's merged spill; the
+  // members a step expands and their rows (E > 1)
+  return 4 * (static_cast<size_t>(words) + dpad * (rank ? 2 : 1) +
+              4 * static_cast<size_t>(W) +
+              2 * static_cast<size_t>(scan_pool_len(SP, static_cast<int>(nl))) +
+              4 * nl + 3 * tbl + 2 * x + (E > 1 ? 2 * E : 0));
 }
 
 // Open-addressing sets of ids (>= 0) in shared memory: 2^bits slots, -1
@@ -1342,24 +1592,27 @@ __device__ __forceinline__ int set_find(const int* tbl, int bits, int id) {
   }
 }
 
-// The sums of 8 rows ids[r] (the lanes r < 8 hold them; `okm` bit r: row
-// r is valid) against the query qs: lane l returns row (l >> 2) & 7's sum.
-// Each lane's loads of the 8 rows are in flight together.
-template <typename T, int V, int M>
-__device__ __forceinline__ float score8(const ScanArgs& a, const float* qs,
-                                        int v, unsigned okm, int lane) {
-  float acc[8];
-  const T* values = static_cast<const T*>(a.values);
+// The sums of 8 rows ids[r] of `values` (row stride `stride`, d values;
+// the lanes r < 8 hold the ids; `okm` bit r: row r is valid) against the
+// query qs (RANK: the bf16 ranking's terms, qs rounded to bf16): lane l
+// returns row (l >> 2) & 7's sum. Each lane's loads of the 8 rows are in
+// flight together.
+template <typename T, int V, int M, bool RANK = false>
+__device__ __forceinline__ float score8(const T* values, long long stride,
+                                        int d, const float* qs, int v,
+                                        unsigned okm, int lane) {
+  using Acc = typename std::conditional<RANK, double, float>::type;
+  Acc acc[8];
   const T* rows[8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int id = __shfl_sync(kFull, v, r);
     rows[r] = values + (((okm >> r) & 1u) ? static_cast<long long>(id) *
-                                                a.stride
+                                                stride
                                           : 0LL);
-    acc[r] = 0.0f;
+    acc[r] = 0;
   }
-  const int nchunks = a.d / V;
+  const int nchunks = d / V;
   for (int c = lane; c < nchunks; c += 32) {
     float qv[V];
 #pragma unroll
@@ -1372,11 +1625,16 @@ __device__ __forceinline__ float score8(const ScanArgs& a, const float* qs,
     for (int r = 0; r < 8; ++r)
       if ((okm >> r) & 1u)
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[r] += term<M>(x[r][e], qv[e]);
+        for (int e = 0; e < V; ++e) {
+          if constexpr (RANK)
+            acc[r] += term_rank<M>(x[r][e], qv[e]);
+          else
+            acc[r] += term<M>(x[r][e], qv[e]);
+        }
   }
   // a transposed reduction: each exchange halves the values a lane holds,
   // so lane l ends with row (l >> 2) & 7's sum (9 shuffles, not 40)
-  float v4[4], v2[2];
+  Acc v4[4], v2[2];
   const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -1386,11 +1644,11 @@ __device__ __forceinline__ float score8(const ScanArgs& a, const float* qs,
   for (int i = 0; i < 2; ++i)
     v2[i] = (b3 ? v4[i + 2] : v4[i]) +
             __shfl_xor_sync(kFull, b3 ? v4[i] : v4[i + 2], 8);
-  float v1 = (b2 ? v2[1] : v2[0]) +
-             __shfl_xor_sync(kFull, b2 ? v2[0] : v2[1], 4);
+  Acc v1 = (b2 ? v2[1] : v2[0]) +
+           __shfl_xor_sync(kFull, b2 ? v2[0] : v2[1], 4);
   v1 += __shfl_xor_sync(kFull, v1, 2);
   v1 += __shfl_xor_sync(kFull, v1, 1);
-  return v1;
+  return static_cast<float>(v1);
 }
 
 // Sort (d, k) [n] (n a power of two) by (distance, key) in place: a
@@ -1520,41 +1778,59 @@ __device__ __forceinline__ void merge_step(
 // spill, the spill deduplicated by id (nearest copy) and cleared of the
 // emitted ids, and, with `mark`, the emitted ids set in `excl` and cleared
 // in `allowed`.
-template <typename T, int V, int M>
+//
+// The variants, as JAX's _beam_scan_segment runs them (no visited bitmap:
+// the segment has none):
+// - E > 1: a step expands the first E unexpanded members of the beam's
+//   order, scores their E L neighbours (a repeat of an earlier id in the
+//   step is dropped, as every non-finite entry is) and merges them, the
+//   evicted tail of E L entries joining the spill's pool; the next step's
+//   members are found after the merge (the E = 1 prefetch of the next
+//   member's ids does not apply).
+// - RANK: new candidates are ranked over the bf16 rows (term_rank); after
+//   the walk the beam is re-scored in f32 from `exact` and sorted again
+//   before the finish, so the emitted top ef and the leftover carry exact
+//   distances while the spill keeps its ranking ones.
+template <typename T, int V, int M, bool RANK>
 __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[kWarps];
-  __shared__ int s_npos, s_nn, s_ck, s_scored, s_pc, s_erased;
+  __shared__ int s_npos, s_nn, s_ck, s_scored, s_pc, s_erased, s_nsel;
   __shared__ float s_cd;
   K5_PROF_BEGIN
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int W = a.W, SP = a.SP, L = a.L, S = a.S, ef = a.ef;
+  const int E = a.E, NL = E * L;
   const int mm = SP + W - ef;
   const int s2 = scan_sort_len(S);
-  const int pn = scan_pool_len(SP, L);
-  const int xn = scan_buf_len(S, W, ef, SP);
-  const int bits = scan_set_bits(W, S, mm);
+  const int pn = scan_pool_len(SP, NL);
+  const int xn = scan_buf_len(S, W, ef, SP, RANK);
+  const int bits = scan_set_bits(W, S, mm, NL);
   const int tbl = 1 << bits;
-  const int nch = (L + 31) / 32;  // warp 0's chunks of new entries (<= 8)
+  const int nch = (NL + 31) / 32;  // warp 0's chunks of new entries (<= 8)
   const float inf = inf_f();
   const bool use_bm = a.allowed != nullptr;
+  const int qpad = (a.d + 3) & ~3;
 
   unsigned* bm = reinterpret_cast<unsigned*>(smem);
   float* qs = reinterpret_cast<float*>(bm + (use_bm ? a.words : 0));
-  float* bd = qs + ((a.d + 3) & ~3);  // beam, 2 buffers of W
+  float* qr = RANK ? qs + qpad : qs;  // the query rounded to bf16 (RANK)
+  float* bd = qs + (RANK ? 2 : 1) * qpad;  // beam, 2 buffers of W
   int* bk = reinterpret_cast<int*>(bd + 2 * W);
   float* pd = reinterpret_cast<float*>(bk + 2 * W);  // the spill's pool
   int* pk = reinterpret_cast<int*>(pd + pn);
   float* nd = reinterpret_cast<float*>(pk + pn);  // new, list order
-  int* nk = reinterpret_cast<int*>(nd + L);
-  float* sd = reinterpret_cast<float*>(nk + L);  // new, kept and sorted
-  int* sk = reinterpret_cast<int*>(sd + L);
-  int* hs = sk + L;  // the beam's id set
+  int* nk = reinterpret_cast<int*>(nd + NL);
+  float* sd = reinterpret_cast<float*>(nk + NL);  // new, kept and sorted
+  int* sk = reinterpret_cast<int*>(sd + NL);
+  int* hs = sk + NL;  // the beam's id set
   int* fk = hs + tbl;  // the seeds' / finish's id set
   int* fm = fk + tbl;  // its first index per id
   float* xd = reinterpret_cast<float*>(fm + tbl);  // seeds, then the finish
   int* xk = reinterpret_cast<int*>(xd + xn);
+  int* sel = xk + xn;  // E > 1: the members a step expands
+  int* selu = sel + (E > 1 ? E : 0);  // and their rows
 
   unsigned* gbm =
       use_bm ? a.allowed + static_cast<long long>(b) * a.words : nullptr;
@@ -1565,7 +1841,10 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
   const float* qg = a.q + static_cast<long long>(b) * a.d;
-  for (int i = tid; i < a.d; i += kThreads) qs[i] = qg[i];
+  for (int i = tid; i < a.d; i += kThreads) {
+    qs[i] = qg[i];
+    if (RANK) qr[i] = round_bf16(qg[i]);
+  }
   for (int i = tid; i < tbl; i += kThreads) {
     hs[i] = -1;
     fk[i] = -1;
@@ -1634,21 +1913,37 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
             bd[0] <= (nb == W ? bd[W - 1] : inf);
   int u = go ? min(bk[0] >> 1, a.cap) : 0;
   const int jp = warp * 8 + (lane & 7);  // the id this lane prefetches
-  int my_id = go && jp < L ? a.nbrs[static_cast<long long>(u) * L + jp] : -1;
+  int my_id = E == 1 && go && jp < L
+                  ? a.nbrs[static_cast<long long>(u) * L + jp]
+                  : -1;
+  int nsel = 1;
+  if (E > 1) {  // the first members: the nearest seeds
+    nsel = min(E, nb);
+    for (int i = tid; i < nsel; i += kThreads) {
+      sel[i] = i;
+      selu[i] = min(bk[i] >> 1, a.cap);
+    }
+    __syncthreads();
+  }
   K5_MARK(kPhStart);
 
   while (go) {
     float* cbd = bd + cur * W;
     int* cbk = bk + cur * W;
+    if (E == 1) {
+      if (tid == 0) cbk[pos] &= ~1;  // expanded; read after the next barrier
+    } else if (tid < nsel) {
+      cbk[sel[tid]] &= ~1;
+    }
     if (tid == 0) {
-      cbk[pos] &= ~1;  // expanded; read after the next barrier
       s_cd = inf;
       s_ck = INT_MAX;
     }
     // (A) the id set rebuilt once erased slots fill a quarter of it; the
     // expanded member's neighbours scored: warp w takes rows [8w, 8w + 8),
     // then every 32nd group of 8
-    if (4 * (nb + erased) > 3 * tbl) {
+    if (4 * (nb + erased) > 3 * tbl ||
+        (E > 1 && 4 * (nb + erased + min(NL, W)) > 3 * tbl)) {
       for (int i = tid; i < tbl; i += kThreads) hs[i] = -1;
       __syncthreads();
       for (int i = tid; i < nb; i += kThreads) set_insert(hs, bits, cbk[i] >> 1);
@@ -1658,20 +1953,26 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
     __syncthreads_or(my_id == INT_MIN);  // the prefetched ids have arrived
     K5_MARK(kPhIds);
 #endif
-    for (int g0 = warp * 8; g0 < L; g0 += kWarps * 8) {
+    for (int g0 = warp * 8; g0 < NL; g0 += kWarps * 8) {
       const int j = g0 + (lane & 7);
-      const int v = g0 == warp * 8
-                        ? my_id
-                        : (j < L ? a.nbrs[static_cast<long long>(u) * L + j]
-                                 : -1);
-      const bool ok = lane < 8 && j < L && v >= 0 && allowed(min(v, a.cap));
+      int v = -1;
+      if (E == 1) {
+        v = g0 == warp * 8
+                ? my_id
+                : (j < L ? a.nbrs[static_cast<long long>(u) * L + j] : -1);
+      } else if (j < NL && j / L < nsel) {
+        v = a.nbrs[static_cast<long long>(selu[j / L]) * L + j % L];
+      }
+      const bool ok = lane < 8 && j < NL && v >= 0 && allowed(min(v, a.cap));
       const unsigned okm = __ballot_sync(kFull, ok);
       K5_MARK(kPhFlags);
       scored_w += __popc(okm);
-      const float sum = score8<T, V, M>(a, qs, v, okm, lane);
+      const float sum = score8<T, V, M, RANK>(
+          static_cast<const T*>(a.values), a.stride, a.d, RANK ? qr : qs, v,
+          okm, lane);
       const int r = lane >> 2;  // the row whose sum this lane holds
       const int vr = __shfl_sync(kFull, v, r);
-      if ((lane & 3) == 0 && g0 + r < L) {
+      if ((lane & 3) == 0 && g0 + r < NL) {
         const bool okr = (okm >> r) & 1u;
         nd[g0 + r] = okr ? finish<M>(sum) : inf;
         nk[g0 + r] = okr ? 2 * vr + 1 : -2;
@@ -1691,17 +1992,21 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
 #pragma unroll 1
       for (int c = 0; c < nch; ++c) {
         const int j = c * 32 + lane;
-        d_[c] = j < L ? nd[j] : inf;
-        k_[c] = j < L ? nk[j] : -2;
+        d_[c] = j < NL ? nd[j] : inf;
+        k_[c] = j < NL ? nk[j] : -2;
         bool keep = k_[c] >= 0 && d_[c] < inf;
         const unsigned same = __match_any_sync(kFull, k_[c]);
-        if (same & ((1u << lane) - 1u)) keep = false;
+        bool rep = (same & ((1u << lane) - 1u)) != 0;
 #pragma unroll 1
         for (int c2 = 0; c2 < c; ++c2)
           for (int i = 0; i < 32; ++i)
-            if (__shfl_sync(kFull, k_[c2], i) == k_[c]) keep = false;
+            if (__shfl_sync(kFull, k_[c2], i) == k_[c]) rep = true;
+        if (rep) keep = false;
         if (keep && set_find(hs, bits, k_[c] >> 1) >= 0) keep = false;
         kb[c] = __ballot_sync(kFull, keep);
+        // E > 1: a repeat of the step is masked, so not a row scored (JAX's
+        // batch dedup; at E = 1 it is a dup of a scored row)
+        if (E > 1) scored_w -= __popc(__ballot_sync(kFull, rep && k_[c] >= 0));
       }
       K5_MARK(kPhDedup);
       int nn = 0;
@@ -1741,8 +2046,9 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
         s_erased = 0;
       }
       int local = INT_MAX;
-      for (int i = tid - 32; i < nb; i += kThreads - 32)
-        if (cbk[i] & 1) local = min(local, i);
+      if (E == 1)
+        for (int i = tid - 32; i < nb; i += kThreads - 32)
+          if (cbk[i] & 1) local = min(local, i);
       local = __reduce_min_sync(kFull, local);
       if (lane == 0) red[warp] = local;
     }
@@ -1755,11 +2061,15 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) bc = min(bc, red[w]);
     const int nn = s_nn;
-    float nx_d = s_cd;
-    int nx_k = s_ck;
-    if (bc != INT_MAX && before(cbd[bc], cbk[bc], nx_d, nx_k)) {
-      nx_d = cbd[bc];
-      nx_k = cbk[bc];
+    float nx_d = inf;  // E > 1: found after the merge
+    int nx_k = INT_MAX;
+    if (E == 1) {
+      nx_d = s_cd;
+      nx_k = s_ck;
+      if (bc != INT_MAX && before(cbd[bc], cbk[bc], nx_d, nx_k)) {
+        nx_d = cbd[bc];
+        nx_k = cbk[bc];
+      }
     }
     const bool has_next = nx_d < inf;
     const int un = has_next ? min(nx_k >> 1, a.cap) : 0;
@@ -1788,16 +2098,70 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
     cur ^= 1;
     ++steps;
     // (E) JAX's loop condition on the merged beam: its first unexpanded
-    // member is the next one, if that stayed in the beam
-    pos = s_npos;
+    // member is the next one, if that stayed in the beam (E > 1: the first
+    // E unexpanded members, found now)
     const float* obd = bd + cur * W;
-    go = has_next && pos < nb && steps < a.max_steps &&
-         obd[pos] <= (nb == W ? obd[W - 1] : inf);
-    u = un;
+    if (E == 1) {
+      pos = s_npos;
+      go = has_next && pos < nb && steps < a.max_steps &&
+           obd[pos] <= (nb == W ? obd[W - 1] : inf);
+      u = un;
+    } else {
+      const int* obk = bk + cur * W;
+      if (warp == 0) {
+        const unsigned lt = (1u << lane) - 1u;
+        int got = 0;
+        for (int base = 0; base < nb && got < E; base += 32) {
+          const int i = base + lane;
+          const unsigned mk = __ballot_sync(kFull, i < nb && (obk[i] & 1));
+          const int r = got + __popc(mk & lt);
+          if (((mk >> lane) & 1u) && r < E) {
+            sel[r] = i;
+            selu[r] = min(obk[i] >> 1, a.cap);
+          }
+          got = min(E, got + __popc(mk));
+        }
+        if (lane == 0) s_nsel = got;
+      }
+      __syncthreads();
+      nsel = s_nsel;
+      pos = nsel > 0 ? sel[0] : 0;
+      go = nsel > 0 && steps < a.max_steps &&
+           obd[pos] <= (nb == W ? obd[W - 1] : inf);
+    }
   }
   // the spill, sorted
   const int ns = pool_trim(pd, pk, pc, pn, SP, tau_d, tau_k, tid);
   K5_MARK(kPhSpillMerge);
+  if constexpr (RANK) {  // the beam's exact distances, sorted again
+    float* rbd = bd + cur * W;
+    int* rbk = bk + cur * W;
+    const int w2 = scan_sort_len(W);
+    for (int g0 = warp * 8; g0 < nb; g0 += kWarps * 8) {
+      const int j = g0 + (lane & 7);
+      const int v = j < nb ? min(rbk[j] >> 1, a.cap) : 0;
+      const unsigned okm = __ballot_sync(kFull, lane < 8 && j < nb);
+      const float sum = score8<float, 1, M>(
+          static_cast<const float*>(a.exact), a.exact_stride, a.d, qs, v,
+          okm, lane);
+      const int r = lane >> 2;
+      if ((lane & 3) == 0 && g0 + r < nb) {
+        xd[g0 + r] = finish<M>(sum);
+        xk[g0 + r] = rbk[g0 + r];
+      }
+    }
+    for (int i = nb + tid; i < w2; i += kThreads) {
+      xd[i] = inf;
+      xk[i] = INT_MAX;
+    }
+    __syncthreads();
+    block_sort(xd, xk, w2, tid);
+    for (int i = tid; i < nb; i += kThreads) {
+      rbd[i] = xd[i];
+      rbk[i] = xk[i];
+    }
+    __syncthreads();
+  }
 
   // ---- the segment's finish (ops/beam._scan_finish)
   if (lane == 0) atomicAdd(&s_scored, scored_w);
@@ -1879,12 +2243,21 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
 template <typename T, int V>
 cudaError_t launch_scan(const ScanArgs& a, int metric, int b, size_t smem,
                         cudaStream_t stream) {
-  void (*kern)(ScanArgs);
-  switch (metric) {
-    case 0: kern = beam_scan_kernel<T, V, 0>; break;
-    case 1: kern = beam_scan_kernel<T, V, 1>; break;
-    case 2: kern = beam_scan_kernel<T, V, 2>; break;
-    default: kern = beam_scan_kernel<T, V, 3>; break;
+  void (*kern)(ScanArgs) = nullptr;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.exact != nullptr) {  // bf16 ranking: l2, ip, cosine
+      kern = metric == 0   ? beam_scan_kernel<T, V, 0, true>
+             : metric == 1 ? beam_scan_kernel<T, V, 1, true>
+                           : beam_scan_kernel<T, V, 2, true>;
+    }
+  }
+  if (a.exact == nullptr) {
+    switch (metric) {
+      case 0: kern = beam_scan_kernel<T, V, 0, false>; break;
+      case 1: kern = beam_scan_kernel<T, V, 1, false>; break;
+      case 2: kern = beam_scan_kernel<T, V, 2, false>; break;
+      default: kern = beam_scan_kernel<T, V, 3, false>; break;
+    }
   }
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1924,6 +2297,11 @@ extern "C" {
 // `entry` (level entry_level; -1: an empty graph, no seed) as WalkArgs
 // says, and the walk starts where it lands (S must be 1; seed_ids and
 // seed_d are not read); land [b, 4] receives the landing.
+//
+// The variants (WalkArgs): E >= 1 members a step (E <= W, E L <=
+// kMaxNew); vis [b, vwords] zeroed bitmaps (vwords >= (cap + 32) / 32) or
+// null; exact (dtype 2, metric 0-2 only) the f32 rows the bf16-ranked
+// beam is re-scored from, or null.
 int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
                      long long stride, int d, int qd,
                      const int* nbrs, int L, const uint8_t* trav, int cap,
@@ -1932,7 +2310,9 @@ int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
                      int max_steps, float* beam_d, int* beam_key,
                      int* steps, int* scored, const int* upper_slot,
                      const int* upper, long long ustride, int m, int entry,
-                     int entry_level, int* land, void* stream) {
+                     int entry_level, int* land, int E, unsigned* vis,
+                     int vwords, const void* exact, long long exact_stride,
+                     void* stream) {
   const bool words = dtype == 3, sparse = dtype == 4;
   const bool desc = upper_slot != nullptr;
   if (b <= 0 || d <= 0 || L <= 0 || S < 0 || W <= 0 || S > W ||
@@ -1940,15 +2320,18 @@ int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
       qd != (sparse ? 2 * d : d) || sparse != (values2 != nullptr) ||
       (desc && (S != 1 || upper == nullptr || land == nullptr || m < 1 ||
                 m > L || entry > cap || ustride < static_cast<long long>(
-                                                      entry_level) * m)))
+                                                      entry_level) * m)) ||
+      E < 1 || E > W || static_cast<long long>(E) * L > kMaxNew ||
+      (vis != nullptr && vwords * 32LL < cap + 1LL) ||
+      (exact != nullptr && (dtype != 2 || metric > 2)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(qd, L, S, W);
+  const size_t smem = smem_bytes(qd, L, S, W, E, exact != nullptr);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   WalkArgs a{values, values2, stride, nbrs, trav, q, seed_ids, seed_d,
              beam_d, beam_key, steps, scored, d, qd, L, cap, metric, S, W,
              max_steps, upper_slot, upper, ustride, m, entry, entry_level,
-             land};
+             land, E, vis, vwords, exact, exact_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
@@ -1960,7 +2343,7 @@ int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
   else if (dtype == 3)
     err = dispatch<unsigned>(a, b, smem, st);
   else if (dtype == 4)
-    err = launch<SparseRow, 1>(a, b, smem, st);
+    err = launch<SparseRow, 1, false>(a, b, smem, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -1974,26 +2357,31 @@ int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
 // from global memory. Writes report [b, 2 ef + 3] (the ef emitted
 // distances' bits, their ids, steps, rows scored, spill entries kept),
 // spill_d / spill_ids [b, SP]; with mark, sets the emitted ids in excl and
-// clears them in allowed.
+// clears them in allowed. E >= 1 members a step (E <= W, E L <= kMaxNew);
+// exact (dtype 2, metric 0-2 only): the f32 rows of the bf16 ranking's
+// re-score, or null.
 int pgv_k5_beam_scan(const void* values, int dtype, long long stride, int d,
                      const int* nbrs, int L, const uint8_t* trav,
                      uint8_t* excl, long long excl_stride, unsigned* allowed,
                      int words, int cap, int metric, const float* q,
                      const int* seed_ids, const float* seed_d, int b, int S,
                      int W, int ef, int SP, int max_steps, int mark,
-                     int* report, float* spill_d, int* spill_ids,
+                     int* report, float* spill_d, int* spill_ids, int E,
+                     const void* exact, long long exact_stride,
                      void* stream) {
   if (b <= 0 || d <= 0 || L <= 0 || S < 0 || ef <= 0 || W < ef || SP < 0 ||
       metric < 0 || metric > 3 || excl == nullptr || cap < 0 ||
-      (allowed != nullptr && (words % 4 || words * 32LL < cap + 1LL)))
+      (allowed != nullptr && (words % 4 || words * 32LL < cap + 1LL)) ||
+      E < 1 || E > W || static_cast<long long>(E) * L > kMaxNew ||
+      (exact != nullptr && (dtype != 2 || metric > 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = scan_smem_bytes(allowed != nullptr ? words : 0, d, L,
-                                      S, W, ef, SP);
+                                      S, W, ef, SP, E, exact != nullptr);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   ScanArgs a{values, stride, nbrs, trav, excl, excl_stride, allowed, q,
              seed_ids, seed_d, report, spill_d, spill_ids, d, L, cap, words,
-             S, W, ef, SP, max_steps, mark};
+             S, W, ef, SP, max_steps, mark, E, exact, exact_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(dispatch_scan<float>(a, metric, b, smem, st));
   if (dtype == 1) return static_cast<int>(dispatch_scan<__half>(a, metric, b, smem, st));

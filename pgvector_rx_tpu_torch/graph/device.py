@@ -39,9 +39,19 @@ walk per segment under an exclusion mask with a spill buffer
 and marks its emitted rows), seeded by ``_coarse_seed_one`` or
 ``_descent_seed_one``.
 
-JAX's ``vmap`` over queries becomes an explicit batch dimension. Only the
-beam defaults are ported: one expansion per step, in-beam dedup (no
-visited bitmap) and f32 ranking.
+The beam's variants run as modes of K4 and K5, with the JAX package's
+semantics and switches: ``PGV_BEAM_EXPAND`` (E nearest unexpanded members
+a step; every walk but the sparse kind's), ``PGV_BEAM_VISITED_MAX`` (a
+per-query visited bitmap in place of the in-beam dedup, for graphs whose
+capacity + 1 is at most it; K4 only, as the segment has none) and
+``PGV_BEAM_BF16`` (bf16 ranking, the beam re-scored in f32; f32 stores
+but l1).
+
+Stores that are not f32 (a halfvec index's f16 array, ``PGV_SERVE_DTYPE``
+bf16 / f16) sweep in chunks of ``_EXACT_SWEEP_CHUNK`` rows, each cast for
+its kernel, so no whole-corpus cast is made.
+
+JAX's ``vmap`` over queries becomes an explicit batch dimension.
 """
 
 from __future__ import annotations
@@ -289,43 +299,70 @@ def _dist_ids(g: DeviceGraph, q, ids):
 # Beam search
 # ---------------------------------------------------------------------------
 
-def _beam_settings() -> None:
-    """Only the JAX package's default beam is ported; refuse the rest."""
-    for var, default in (("PGV_BEAM_EXPAND", "1"),
-                         ("PGV_BEAM_VISITED_MAX", "0"),
-                         ("PGV_BEAM_BF16", "0")):
-        val = os.environ.get(var, default)
-        if val != default:
-            raise NotImplementedError(
-                f"{var}={val} is not ported (the torch beam runs expand=1, "
-                "in-beam dedup and f32 ranking only)"
-            )
+#: the beam walk's bf16 ranking (``PGV_BEAM_BF16``, read at import as in
+#: the JAX package): new candidates ranked over the bf16 copy of the rows,
+#: the surviving beam re-scored in f32 (``ops/beam.rank_dists``). Default
+#: off.
+_BEAM_BF16 = os.environ.get("PGV_BEAM_BF16", "0") != "0"
+
+#: graphs of at most this capacity + 1 walk with a per-query visited
+#: bitmap in place of the in-beam dedup (``PGV_BEAM_VISITED_MAX``, read at
+#: import as in the JAX package); default 0: always the in-beam dedup.
+_VISITED_MAX_ROWS = int(os.environ.get("PGV_BEAM_VISITED_MAX", 0))
+
+
+def _beam_expand() -> int:
+    """``PGV_BEAM_EXPAND``, read at every call as in the JAX package: the
+    E nearest unexpanded members a step expands (default 1). E < 1 is
+    refused (JAX refuses E < 0 and runs E = 0 as a walk that never
+    expands)."""
+    expand = int(os.environ.get("PGV_BEAM_EXPAND", 1))
+    if expand < 1:
+        raise ValueError(f"PGV_BEAM_EXPAND must be >= 1 (got {expand})")
+    return expand
+
+
+def _rank_is_approx(g: DeviceGraph) -> bool:
+    """bf16 ranking applies: f32 stores with their bf16 copy, not l1."""
+    return (_BEAM_BF16 and g.kind == "dense" and g.values_bf16 is not None
+            and g.metric != "l1")
+
+
+def _walk_modes(g: DeviceGraph) -> dict:
+    """The beam walk's visited and ranking modes for ``g``: the bitmap
+    where the capacity (the JAX package's padded ``cap``) + 1 is at most
+    ``_VISITED_MAX_ROWS``, the bf16 rows where ``_rank_is_approx``."""
+    return dict(visited=g.capacity + 1 <= _VISITED_MAX_ROWS,
+                rank=g.values_bf16 if _rank_is_approx(g) else None)
 
 
 def _ground_beam_seeds(g: DeviceGraph, q, seed_ids, seed_d, ef: int,
-                       max_steps: int):
+                       max_steps: int, expand: int = 1):
     """Best-first beam of width ef at layer 0 for a batch of queries
     (``ops/beam.beam_walk``: kernel K4 on CUDA tensors, the plain loop on
     CPU tensors). ``seed_ids`` [B, S] (-1 = unused, S <= ef) and their
-    distances seed the beam. Returns (dists [B, ef], ids [B, ef]) nearest
-    first, and steps [B]."""
+    distances seed the beam; ``expand`` nearest unexpanded members a step,
+    and the graph's visited and ranking modes (``_walk_modes``). Returns
+    (dists [B, ef], ids [B, ef]) nearest first, and steps [B]."""
     return beam.beam_walk(g.rows, g.neighbors0, g.traversable, g.metric, q,
-                          seed_ids, seed_d, ef, max_steps)
+                          seed_ids, seed_d, ef, max_steps, expand=expand,
+                          **_walk_modes(g))
 
 
 def _descent_seeds(g: DeviceGraph, queries, entry_level: int):
     """Greedy upper-layer descent from the entry point for every query
     (scan.rs:492-510 analog; torch ops, ``ops/beam.descent_plain``: a host
-    check per move) -> (seed ids [B, 1], seed distances [B, 1]):
-    Algorithm 5's layer-0 entry."""
+    check per move; bf16-ranked where ``_rank_is_approx``) -> (seed ids
+    [B, 1], seed distances [B, 1]): Algorithm 5's layer-0 entry."""
     cur, cur_d = beam.descent_plain(g.rows, g.traversable, g.upper_slot,
                                     g.upper_neighbors, g.m, g.metric,
-                                    queries, g.entry, entry_level)
+                                    queries, g.entry, entry_level,
+                                    rank=_walk_modes(g)["rank"])
     return cur[:, None], cur_d[:, None]
 
 
 def _search_batch(g: DeviceGraph, queries, ef: int, entry_level: int,
-                  max_steps: int):
+                  max_steps: int, expand: int = 1):
     """Full Algorithm-5 search: greedy descent through the upper layers
     from the entry point, then the ground beam from where it lands
     (``ops/beam.descent_walk``: on CUDA tensors one launch of kernel K4
@@ -334,7 +371,8 @@ def _search_batch(g: DeviceGraph, queries, ef: int, entry_level: int,
     return beam.descent_walk(g.rows, g.neighbors0, g.traversable,
                              g.upper_slot, g.upper_neighbors, g.m, g.entry,
                              entry_level, g.metric, queries, ef,
-                             max_steps)[:3]
+                             max_steps, expand=expand,
+                             **_walk_modes(g))[:3]
 
 
 def upper_row_arrays(g: DeviceGraph):
@@ -383,13 +421,15 @@ def _coarse_seeds(g: DeviceGraph, queries, upper_ids, upper_rows,
 
 
 def _search_batch_coarse(g: DeviceGraph, queries, upper_ids, upper_rows,
-                         ef: int, max_steps: int, n_seeds: int = 8):
+                         ef: int, max_steps: int, expand: int = 1,
+                         n_seeds: int = 8):
     """Coarse-seeded beam: one bf16 sweep over the level >= 1 rows picks
     the n_seeds nearest upper elements, whose exact f32 distances seed the
     ground beam (in place of the greedy upper-layer descent)."""
     S = min(n_seeds, upper_rows.shape[0], ef)  # seeds must fit the beam
     seed_ids, seed_d = _coarse_seeds(g, queries, upper_ids, upper_rows, S)
-    return _ground_beam_seeds(g, queries, seed_ids, seed_d, ef, max_steps)
+    return _ground_beam_seeds(g, queries, seed_ids, seed_d, ef, max_steps,
+                              expand)
 
 
 # ---------------------------------------------------------------------------
@@ -399,14 +439,15 @@ def _search_batch_coarse(g: DeviceGraph, queries, upper_ids, upper_rows,
 
 def _beam_scan_segment(g: DeviceGraph, q, seed_ids, seed_d, excluded,
                        ef: int, spill: int, max_steps: int,
-                       width: int | None = None):
+                       width: int | None = None, expand: int = 1):
     """One iterative-scan segment for one prepared query ``q`` [D]: the
     beam walk at internal width ``width`` (>= ef, default ef) from the
     seeds [S] (-1 = unused) under the exclusion mask ``excluded`` [cap+1]
     (already-emitted elements), capturing evicted candidates in a spill
     buffer (``ops/beam.beam_scan_segment``: kernel K5 on CUDA tensors, the
     plain loop on CPU tensors; the reference's discarded heap and shared
-    visited set, scan.rs:311-346, :538-577).
+    visited set, scan.rs:311-346, :538-577), ``expand`` nearest unexpanded
+    members a step, ranked in bf16 where ``_rank_is_approx``.
 
     Returns (beam_d [ef], beam_ids [ef], spill_d [spill], spill_ids
     [spill], steps []): the beam nearest first; the spill nearest first,
@@ -415,12 +456,14 @@ def _beam_scan_segment(g: DeviceGraph, q, seed_ids, seed_d, excluded,
     out = beam.beam_scan_segment(
         g.values, g.neighbors0, g.traversable, excluded[None], g.metric,
         q[None], seed_ids[None], seed_d[None], ef,
-        ef if width is None else width, spill, max_steps)
+        ef if width is None else width, spill, max_steps, expand=expand,
+        rank=_walk_modes(g)["rank"])
     return tuple(t[0] for t in out)
 
 
 def _beam_scan_step(g: DeviceGraph, q, seed_ids, seed_d, excluded, allowed,
-                    ef: int, spill: int, max_steps: int, width: int):
+                    ef: int, spill: int, max_steps: int, width: int,
+                    expand: int = 1):
     """``_beam_scan_segment`` as ``DeviceBeamScan`` runs it: the emitted
     ids set in ``excluded`` [cap+1] (and cleared in the staged bitmap
     ``allowed``, ``ops/beam.allowed_bits``, or None) in place, and the
@@ -430,7 +473,8 @@ def _beam_scan_step(g: DeviceGraph, q, seed_ids, seed_d, excluded, allowed,
     report, sp_d, sp_ids = beam.scan_segment(
         g.values, g.neighbors0, g.traversable, excluded[None], g.metric,
         q[None], seed_ids[None], seed_d[None], ef, width, spill, max_steps,
-        allowed=allowed, mark=True)
+        allowed=allowed, mark=True, expand=expand,
+        rank=_walk_modes(g)["rank"])
     return report[0], sp_d[0], sp_ids[0]
 
 
@@ -568,15 +612,65 @@ def _exact_search_batch(g: DeviceGraph, queries, k: int, approx: bool = False,
     a = ((x2 + pen) if g.metric == "l2" else pen).contiguous()
     if approx:
         vals = g.values_bf16 if g.values_bf16 is not None else g.values
-        s, ids = bruteforce.binned_sweep_topk(
-            vals.to(torch.bfloat16).contiguous(), a, queries, k, g.metric)
+
+        def sweep(v, a_c):  # the metric's distances from the bf16 scores
+            return bruteforce.binned_sweep_topk(
+                v.to(torch.bfloat16).contiguous(), a_c, queries, k, g.metric)
+    else:
+        vals = g.values
+
+        def sweep(v, a_c):  # K1's scores a - 2 q.x
+            return bruteforce._surrogate_topk(
+                v.float().contiguous(), a_c, queries.contiguous(), k)
+    if g.values.dtype == torch.float32:
+        s, ids = sweep(vals, a)
+    else:
+        s, ids = _chunked_sweep(sweep, vals, a, queries.shape[0], k)
+    if approx:
         d, ids = _rescore_true(g, queries, s, ids)
     else:
-        sd, ids = bruteforce._surrogate_topk(
-            g.values.float().contiguous(), a, queries.contiguous(), k)
         # K1 scores a - 2 q.x: halve for the ip/cosine order a - q.x
-        d = _true_dists(g, queries, sd if g.metric == "l2" else sd * 0.5)
+        d = _true_dists(g, queries, s if g.metric == "l2" else s * 0.5)
     return d, torch.where(torch.isfinite(d), ids.long(), -1)
+
+
+#: corpus rows per chunk of the sweeps over stores that are not f32 (the
+#: JAX package's ``_EXACT_SWEEP_CHUNK``): each chunk is cast for its kernel
+#: alone, so no whole-corpus cast is made
+_EXACT_SWEEP_CHUNK = 1 << 18
+
+
+def _sweep_chunk_rows(rows: int, b: int) -> int:
+    """The JAX package's chunk rule: ``_EXACT_SWEEP_CHUNK`` rows, halved
+    (not below 8,192) while the [b, chunk] f32 score block exceeds its
+    budget, 256 MB past 4M rows and 1 GB below."""
+    ch = _EXACT_SWEEP_CHUNK
+    budget = (256 << 20) if rows > (4 << 20) else (1 << 30)
+    while b * ch * 4 > budget and ch > 8192:
+        ch //= 2
+    return ch
+
+
+def _chunked_sweep(sweep, vals, a, b: int, k: int):
+    """``sweep(rows, a)`` -> (scores [b, k], row ids [b, k], (inf, -1)
+    empty) over chunks of ``_sweep_chunk_rows`` rows of ``vals``, merged
+    into one top-k in (score, lower row first) order
+    (``ops/bruteforce._order_keys``)."""
+    n = vals.shape[0]
+    ch = _sweep_chunk_rows(n, b)
+    best = None
+    for s in range(0, n, ch):
+        sd, si = sweep(vals[s : s + ch], a[s : s + ch])
+        si = si.long()
+        # an empty slot sorts after every row (its key's row is 2^31 - 1)
+        keys = bruteforce._order_keys(
+            torch.where(si >= 0, sd, _INF),
+            torch.where(si >= 0, si + s, (1 << 31) - 1))
+        if best is not None:
+            keys = torch.cat([best, keys], dim=1)
+        best = torch.topk(keys, min(k, keys.shape[1]), dim=1, largest=False,
+                          sorted=True).values
+    return bruteforce._from_order_keys(best)
 
 
 def _exact_search_bits(g: DeviceGraph, queries, k: int, approx: bool = False,
@@ -635,7 +729,7 @@ def _stage_queries(g: DeviceGraph, queries):
 
 
 def _serve_chunk(g: DeviceGraph, qc, k: int, engine: str, ef: int,
-                 max_steps: int, upper, row_mask):
+                 max_steps: int, upper, row_mask, expand: int = 1):
     """Top-k of one query chunk through one engine (the body of the JAX
     package's single-dispatch ``_serve_sweep``)."""
     if engine != "beam":
@@ -643,9 +737,10 @@ def _serve_chunk(g: DeviceGraph, qc, k: int, engine: str, ef: int,
         return sweep(g, qc, k, approx=engine == "approx", row_mask=row_mask)
     if upper is not None:
         d, ids, _ = _search_batch_coarse(g, qc, upper[0], upper[1], ef,
-                                         max_steps)
+                                         max_steps, expand)
     else:
-        d, ids, _ = _search_batch(g, qc, ef, g.entry_level, max_steps)
+        d, ids, _ = _search_batch(g, qc, ef, g.entry_level, max_steps,
+                                  expand)
     if row_mask is not None:
         # post-filter the ef-wide beam (the traversal stays unfiltered,
         # like the reference's executor filter)
@@ -679,14 +774,13 @@ def serve_topk(index, queries_dev, k: int, engine: str = "approx",
     row_mask = _stage_filter_mask(g, filter_mask)
     queries = _stage_queries(g, queries_dev)
     ef_eff = max(ef, k)
-    upper = None
+    upper, expand = None, 1
     if engine == "beam":
-        _beam_settings()
-        upper = _coarse_upper(g)
+        upper, expand = _coarse_upper(g), _beam_expand()
     out_d, out_i = [], []
     for s in range(0, queries.shape[0], chunk):
         d, ids = _serve_chunk(g, queries[s : s + chunk], k, engine, ef_eff,
-                              4 * ef_eff + 32, upper, row_mask)
+                              4 * ef_eff + 32, upper, row_mask, expand)
         out_d.append(d)
         out_i.append(ids)
     if not out_d:
@@ -806,16 +900,20 @@ def search(index, qlist, k: int, params, engine: str = "auto",
         sweep = _exact_search_bits if g.kind == "bit" else _exact_search_batch
         beam_d, beam_ids = sweep(g, queries, max(k, 1),
                                  approx=engine == "approx", row_mask=row_mask)
+    elif g.kind == "sparse":
+        # the sparse walk takes no expansion (the JAX package's
+        # _search_one_sparse passes none)
+        beam_d, beam_ids, _ = _search_batch(g, queries, ef, g.entry_level,
+                                            max_steps)
     else:
-        _beam_settings()
-        upper = _coarse_upper(g)
+        upper, expand = _coarse_upper(g), _beam_expand()
         if upper is not None:
             beam_d, beam_ids, _ = _search_batch_coarse(
-                g, queries, upper[0], upper[1], ef, max_steps
+                g, queries, upper[0], upper[1], ef, max_steps, expand
             )
         else:
             beam_d, beam_ids, _ = _search_batch(
-                g, queries, ef, g.entry_level, max_steps
+                g, queries, ef, g.entry_level, max_steps, expand
             )
     beam_d = beam_d.cpu().numpy().astype(np.float64)
     beam_ids = beam_ids.cpu().numpy()

@@ -381,7 +381,6 @@ class DeviceBeamScan:
 
         if index.kind != "dense":
             raise ValueError("DeviceBeamScan supports dense indexes only")
-        dm._beam_settings()
         self.index = index
         self.params = params
         self.filter_mask = (
@@ -402,6 +401,7 @@ class DeviceBeamScan:
         )
         self._spill_w = max(2 * ef, 64) + (self._width - ef)
         self._max_steps = 4 * self._width + 32
+        self._expand = dm._beam_expand()
         self._excluded = torch.zeros(self.g.traversable.shape[0],
                                      dtype=torch.bool, device=self.g.device)
         # the kernel's staged bitmap of the rows the scan may walk, where
@@ -409,7 +409,7 @@ class DeviceBeamScan:
         self._allowed = beam.staged_bitmap(
             self.g.values, self.g.neighbors0, self.g.traversable,
             self._excluded[None], self._spill_w, self._width, ef,
-            self._spill_w)
+            self._spill_w, self._expand, dm._rank_is_approx(self.g))
         # first-segment seeds, padded to the spill width
         if self.g.entry < 0:
             self._seeds = None
@@ -456,7 +456,7 @@ class DeviceBeamScan:
         report, sp_d, sp_ids = self._dm._beam_scan_step(
             self.g, self.q, self._seeds[0], self._seeds[1], self._excluded,
             self._allowed, self._ef, self._spill_w, self._max_steps,
-            self._width,
+            self._width, self._expand,
         )
         self._seeds = (sp_ids, sp_d)
         self._pending = report
@@ -485,7 +485,7 @@ class DeviceBeamScan:
         n_steps = int(report[2 * ef])
         self.scan_stats.beam_steps += n_steps
         self.scan_stats.distances_computed += (
-            n_steps * self.g.neighbors0.shape[1]
+            n_steps * self._expand * self.g.neighbors0.shape[1]
         )
         keep = (i_host >= 0) & np.isfinite(d_host)
         self._buf = list(zip(d_host[keep], i_host[keep]))

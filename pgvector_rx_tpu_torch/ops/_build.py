@@ -55,16 +55,16 @@ _SIGNATURES = {
     # values, values2, dtype, stride, d, qd, nbrs, L, trav, cap, metric, q,
     # seed_ids, seed_d, b, S, W, max_steps, beam_d, beam_key, steps,
     # scored, upper_slot, upper, ustride, m, entry, entry_level, land,
-    # stream
+    # E, vis, vwords, exact, exact_stride, stream
     "pgv_k4_beam_walk": [_P, _P, _I, _L, _I, _I, _P, _I, _P, _I, _I, _P, _P,
                          _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I,
-                         _I, _I, _P, _P],
+                         _I, _I, _P, _I, _P, _I, _P, _L, _P],
     # values, dtype, stride, d, nbrs, L, trav, excl, excl_stride, allowed,
     # words, cap, metric, q, seed_ids, seed_d, b, S, W, ef, SP, max_steps,
-    # mark, report, spill_d, spill_ids, stream
+    # mark, report, spill_d, spill_ids, E, exact, exact_stride, stream
     "pgv_k5_beam_scan": [_P, _I, _L, _I, _P, _I, _P, _P, _L, _P, _I, _I, _I,
                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                         _P],
+                         _I, _P, _L, _P],
     # words, pop, live, q, lo, n, w, b, k, metric, qb, splits,
     # rows_per_split, part, out, stream
     "pgv_k9_bits_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

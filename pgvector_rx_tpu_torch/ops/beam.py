@@ -5,8 +5,15 @@ finishes the segment), with their plain-torch versions beside them.
 
 They replace the JAX package's XLA while-loops ``_ground_beam_seeds`` (K4,
 ``pgvector_rx_tpu/graph/device.py:446``) and ``_beam_scan_segment`` (K5,
-``:574``), at the defaults the port supports: one expansion per step,
-in-beam dedup by id (the expanded copy wins) and f32 ranking. Rows are
+``:574``). The default walk expands one member a step, dedups by id in the
+beam (the expanded copy wins) and ranks in f32; the JAX package's variants
+are modes of the same kernels and plain versions: ``expand`` E (the E
+nearest unexpanded members a step, a repeat among their E L neighbours
+masked; K4 and K5, E L <= ``MAX_NEW`` on the card), ``visited`` (a
+per-query bitmap of every id seen masks neighbours in place of the in-beam
+dedup; K4 only) and ``rank`` (new candidates ranked over the bf16 rows by
+``rank_dists``, the beam re-scored in f32 at the end; K4 and K5, f32 rows
+with their bf16 copy, l2 / ip / cosine). Rows are
 f32 / f16 / bf16 values (l2, ip, cosine, l1); for the bit kind, packed
 int32 words (hamming, jaccard: the walk's packed-word mode); for the sparse
 kind, padded-CSR rows given as the pair (indices [cap+1, P] int32, values
@@ -71,6 +78,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
                 torch.int32: 3}
 _SPARSE_ROWS = 4
 
+#: the most new entries a step of the walk kernels takes (E * L;
+#: k4_beam.cu's kMaxNew)
+MAX_NEW = 256
+
 #: steps between host checks for "any query still active" in the plain
 #: walk (frozen queries are masked, so extra steps change nothing)
 _SYNC_EVERY = 4
@@ -110,6 +121,51 @@ def row_dists(values, metric: str, q, ids):
     raise ValueError(f"bad metric {metric}")
 
 
+def rank_dists(values_bf16, metric: str, q, ids):
+    """The bf16 ranking distances [B, W] of the beam's new candidates
+    (``PGV_BEAM_BF16``: the JAX package's ``_dist_ids_rank``,
+    ``pgvector_rx_tpu/graph/device.py:226``): the bf16 rows ``values_bf16``
+    [cap+1, D] against the query rounded to bf16; l2 sums the squares of
+    the differences rounded to bf16, ip and cosine sum the products
+    rounded to bf16 (l1 never ranks in bf16). The terms have 8-bit
+    mantissas, so the sum is taken exactly (in f64) and rounded once to
+    f32: the kernel's sums in any order give the same f32 (JAX's f32 sum
+    may differ from it by an ulp, which reorders near ties)."""
+    cand = values_bf16[ids.clamp(0, values_bf16.shape[0] - 1).long()].float()
+    qb = q[:, None, :].to(torch.bfloat16).float()
+    if metric == "l2":
+        t = (cand - qb).to(torch.bfloat16).double()
+        return (t * t).sum(dim=-1).float()
+    dots = (cand * qb).to(torch.bfloat16).double().sum(dim=-1).float()
+    if metric == "ip":
+        return -dots
+    if metric == "cosine":
+        return 1.0 - dots.clamp(-1.0, 1.0)
+    raise ValueError(f"bf16 ranking takes l2, ip or cosine (got {metric!r})")
+
+
+def first_copies(ids):
+    """[B, n] bool: True at each id's first occurrence in its row (the JAX
+    package's batch dedup of an E-way expansion, a stable argsort)."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    srt = torch.gather(ids, 1, order)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    return torch.empty_like(first).scatter_(1, order, first)
+
+
+def check_expand(expand: int, width: int, L: int, card: bool) -> None:
+    """The E-way expansion's limits: 1 <= E <= the beam's width (the JAX
+    package's ``lax.top_k`` refuses more), and on the card E * L <= 256
+    new entries a step (``MAX_NEW``, the kernels' sort and merge)."""
+    if not 1 <= expand <= width:
+        raise ValueError(f"PGV_BEAM_EXPAND must be in [1, {width}] (the "
+                         f"beam's width; got {expand})")
+    if card and expand * L > MAX_NEW:
+        raise ValueError(f"the walk kernels take E * L <= {MAX_NEW} new "
+                         f"entries a step (got E = {expand}, L = {L})")
+
+
 def lexsort2(primary, secondary):
     """Permutation sorting rows by (primary, secondary) ascending, ties in
     input order (``lax.sort`` with ``num_keys=2``)."""
@@ -120,15 +176,25 @@ def lexsort2(primary, secondary):
 
 def _walk_plain(values, neighbors0, traversable, excluded, metric, q,
                 seed_ids, seed_d, width: int, spill: int, max_steps: int,
-                scan: bool):
+                scan: bool, expand: int = 1, visited: bool = False,
+                rank=None):
     """Plain version of the kernel: a batched per-step loop whose finished
     queries are frozen by masks. Returns the raw state (beam dists, keys
     [B, width]; spill dists, keys [B, spill]; steps [B]; scored [B], the
-    rows read: live, not excluded neighbours of the expanded members)."""
+    rows read: live, not excluded, not visited neighbours of the expanded
+    members).
+
+    The JAX package's variants: ``expand`` E pops the E nearest unexpanded
+    members a step and drops repeats within the step's E * L neighbours
+    (first copy kept); ``visited`` keeps a per-query bitmap of every id
+    seen (seeds included) that masks neighbours in place of the in-beam
+    dedup (serving only); ``rank`` (bf16 rows [cap+1, D]) ranks new
+    candidates by ``rank_dists`` and re-scores the surviving beam in f32
+    at the end (the spill keeps its ranking distances)."""
     B, S = seed_ids.shape
     dev = seed_ids.device
     cap = traversable.shape[0] - 1
-    W = width
+    W, E = width, expand
     beam_d = torch.full((B, W), _INF, device=dev)
     beam_key = torch.full((B, W), -2, dtype=torch.int64, device=dev)
     sp_d = torch.full((B, spill), _INF, device=dev)
@@ -153,6 +219,10 @@ def _walk_plain(values, neighbors0, traversable, excluded, metric, q,
         ok = ids64 >= 0
         beam_d[:, :S] = torch.where(ok, seed_d.float(), _INF)
         beam_key[:, :S] = torch.where(ok, ids64 * 2 + 1, -2)
+    seen = None
+    if visited:
+        seen = torch.zeros((B, cap + 1), dtype=torch.bool, device=dev)
+        seen.scatter_(1, torch.where(ok, ids64, cap), ok)
     steps = torch.zeros(B, dtype=torch.int32, device=dev)
     scored = torch.zeros(B, dtype=torch.int32, device=dev)
     rows = torch.arange(B, device=dev)
@@ -169,41 +239,53 @@ def _walk_plain(values, neighbors0, traversable, excluded, metric, q,
         if it % _SYNC_EVERY == 0 and not bool(active.any()):
             break
         it += 1
-        pos = torch.argmin(unexp, dim=1)
-        sel_valid = torch.isfinite(unexp[rows, pos]) & active
-        key_pos = beam_key[rows, pos]
+        if E == 1:
+            pos = torch.argmin(unexp, dim=1)[:, None]
+        else:  # lax.top_k(-unexp, E): lower slot first at equal distance
+            pos = torch.argsort(unexp, dim=1, stable=True)[:, :E]
+        sel_valid = torch.isfinite(torch.gather(unexp, 1, pos)) & active[:, None]
+        key_pos = torch.gather(beam_key, 1, pos)
         u = torch.where(sel_valid, key_pos >> 1, -1)
-        new_key = beam_key.clone()
-        new_key[rows, pos] = torch.where(sel_valid, key_pos & ~1, key_pos)
+        new_key = beam_key.scatter(1, pos, torch.where(sel_valid,
+                                                       key_pos & ~1, key_pos))
 
-        nbrs = neighbors0[u.clamp(min=0)].long()  # [B, L]
-        nbrs = torch.where(sel_valid[:, None], nbrs, -1)
+        nbrs = neighbors0[u.clamp(min=0)].long()  # [B, E, L]
+        nbrs = torch.where(sel_valid[:, :, None], nbrs, -1).reshape(B, -1)
         safe = nbrs.clamp(0, cap)
         mask = (nbrs >= 0) & traversable[safe]
         if scan:
             mask = mask & ~torch.gather(excluded, 1, safe)
+        if seen is not None:
+            mask = mask & ~torch.gather(seen, 1, safe)
+            seen.scatter_(1, torch.where(nbrs >= 0, nbrs, cap), True)
+        if E > 1:
+            mask = mask & first_copies(nbrs)
         scored = scored + mask.sum(dim=1, dtype=torch.int32)
-        d_new = torch.where(mask, row_dists(values, metric, q, nbrs), _INF)
+        dist = (rank_dists(rank, metric, q, nbrs) if rank is not None
+                else row_dists(values, metric, q, nbrs))
+        d_new = torch.where(mask, dist, _INF)
         key_new = torch.where(mask, nbrs * 2 + 1, -2)
 
         all_d = torch.cat([beam_d, d_new], dim=1)
         all_key = torch.cat([new_key, key_new], dim=1)
-        # in-beam dedup by id, expanded copy first (key order IS the dedup
-        # order): later copies keep their key at an infinite distance
-        o_key, order = torch.sort(all_key, dim=1, stable=True)
-        o_d = torch.gather(all_d, 1, order)
-        dup = torch.zeros_like(o_key, dtype=torch.bool)
-        dup[:, 1:] = (o_key[:, 1:] >> 1) == (o_key[:, :-1] >> 1)
-        o_d = torch.where(dup | (o_key < 0), _INF, o_d)
-        perm = lexsort2(o_d, o_key)
+        if seen is None:
+            # in-beam dedup by id, expanded copy first (key order IS the
+            # dedup order): later copies keep their key at an infinite
+            # distance
+            all_key, order = torch.sort(all_key, dim=1, stable=True)
+            all_d = torch.gather(all_d, 1, order)
+            dup = torch.zeros_like(all_key, dtype=torch.bool)
+            dup[:, 1:] = (all_key[:, 1:] >> 1) == (all_key[:, :-1] >> 1)
+            all_d = torch.where(dup | (all_key < 0), _INF, all_d)
+        perm = lexsort2(all_d, all_key)
         head = perm[:, :W]
-        nd, nk = torch.gather(o_d, 1, head), torch.gather(o_key, 1, head)
+        nd, nk = torch.gather(all_d, 1, head), torch.gather(all_key, 1, head)
         if scan:
             # the evicted tail merges into the spill (the discarded heap's
             # role), which keeps its `spill` nearest
             tail = perm[:, W:]
-            m_d = torch.cat([sp_d, torch.gather(o_d, 1, tail)], dim=1)
-            m_k = torch.cat([sp_key, torch.gather(o_key, 1, tail)], dim=1)
+            m_d = torch.cat([sp_d, torch.gather(all_d, 1, tail)], dim=1)
+            m_k = torch.cat([sp_key, torch.gather(all_key, 1, tail)], dim=1)
             p2 = lexsort2(m_d, m_k)[:, :spill]
             sp_d = torch.where(active[:, None], torch.gather(m_d, 1, p2), sp_d)
             sp_key = torch.where(active[:, None], torch.gather(m_k, 1, p2),
@@ -211,12 +293,19 @@ def _walk_plain(values, neighbors0, traversable, excluded, metric, q,
         beam_d = torch.where(active[:, None], nd, beam_d)
         beam_key = torch.where(active[:, None], nk, beam_key)
         steps = steps + active.to(torch.int32)
+    if rank is not None:
+        # the surviving beam's exact f32 distances (the bf16 ones only
+        # steered the walk)
+        ids = torch.where(beam_key >= 0, beam_key >> 1, -1)
+        beam_d = torch.where(ids >= 0, row_dists(values, metric, q, ids),
+                             _INF)
     return beam_d, beam_key, sp_d, sp_key, steps, scored
 
 
 def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
                seed_ids, seed_d, width: int, spill: int, max_steps: int,
-               scan: bool):
+               scan: bool, expand: int = 1, visited: bool = False,
+               rank=None):
     """The kernel: one launch for the whole walk of every query. It takes
     ``_walk_plain``'s arguments but serves only (no exclusion mask, no
     spill: a scan segment is K5, ``scan_segment``); the spill it returns
@@ -225,17 +314,27 @@ def _walk_cuda(values, neighbors0, traversable, excluded, metric, q,
         raise ValueError("the walk kernel serves only; a scan segment is "
                          "K5 (scan_segment)")
     return _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
-                        seed_d, width, max_steps)[0]
+                        seed_d, width, max_steps, expand=expand,
+                        visited=visited, rank=rank)[0]
+
+
+def visited_words(cap: int) -> int:
+    """32-bit words of a query's visited bitmap over rows 0 .. cap."""
+    return -(-(cap + 1) // 32)
 
 
 def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
-                 seed_d, width: int, max_steps: int, descent=None):
+                 seed_d, width: int, max_steps: int, descent=None,
+                 expand: int = 1, visited: bool = False, rank=None):
     """One launch of K4: the raw walk state (beam dists, keys [B, width];
     an empty spill; steps [B]; rows scored [B]) and, with ``descent`` =
     (upper_slot, upper_neighbors, m, entry, entry_level), the greedy
     descent in the launch seeding each query's walk (``seed_ids`` [B, 1]
     and ``seed_d`` are then not read) and its landing [B, 4] int32 (id,
-    the distance's f32 bits, rows scored, moves); else None."""
+    the distance's f32 bits, rows scored, moves); else None. ``expand``,
+    ``visited`` and ``rank`` (the bf16 rows; ``values`` are then the f32
+    rows the beam is re-scored from) are ``_walk_plain``'s; ``visited``
+    zeroes a [B, visited_words(cap)] bitmap for the launch."""
     from . import _build
 
     is_sparse = isinstance(values, tuple)
@@ -259,6 +358,16 @@ def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
     if words != (values.dtype == torch.int32 and not is_sparse):
         raise ValueError(f"metric {metric!r} does not take {values.dtype} "
                          "rows (the bit metrics walk int32 words)")
+    exact = None
+    if rank is not None:
+        if (values.dtype != torch.float32 or rank.dtype != torch.bfloat16
+                or metric not in ("l2", "ip", "cosine") or not rank.is_cuda
+                or rank.device != dev or rank.dim() != 2
+                or rank.stride(1) != 1 or rank.shape[1] != values.shape[1]
+                or rank.shape[0] < values.shape[0]):
+            raise ValueError("bf16 ranking takes f32 rows, their bf16 copy "
+                             "on the same card and l2, ip or cosine")
+        exact, values = values, rank
     if is_sparse:
         qi, qv = q
         _check_cuda("query indices", qi, torch.int32, 2, dev)
@@ -290,12 +399,15 @@ def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
         raise ValueError(f"bad metric {metric}")
     if S > width:
         raise ValueError(f"{S} seeds do not fit a beam of width {width}")
+    check_expand(expand, width, L, card=True)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     beam_d = torch.empty((B, width), **f32)
     beam_key = torch.empty((B, width), **i32)
     steps = torch.empty((B,), **i32)
     scored = torch.empty((B,), **i32)
+    vwords = visited_words(cap) if visited else 0
+    seen = torch.zeros((B, vwords), **i32) if visited else None
     land = None
     upper = (None, None, 0, 0, -1, 0)
     if descent is not None:
@@ -324,7 +436,10 @@ def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
                 q.data_ptr(), seed_ids.data_ptr(), seed_d.data_ptr(), B, S,
                 width, max_steps, beam_d.data_ptr(), beam_key.data_ptr(),
                 steps.data_ptr(), scored.data_ptr(), *upper,
-                land.data_ptr() if land is not None else None,
+                land.data_ptr() if land is not None else None, expand,
+                seen.data_ptr() if visited else None, vwords,
+                exact.data_ptr() if exact is not None else None,
+                exact.stride(0) if exact is not None else 0,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(rc, "pgv_k4_beam_walk")
@@ -340,36 +455,45 @@ def _walk(values, neighbors0, *args, **kw):
 
 
 def beam_walk(values, neighbors0, traversable, metric: str, q, seed_ids,
-              seed_d, ef: int, max_steps: int):
+              seed_d, ef: int, max_steps: int, expand: int = 1,
+              visited: bool = False, rank=None):
     """K4: best-first beam of width ``ef`` at layer 0 for a batch of
     queries ``q`` [B, D] (bit metrics: packed int32 words, over the words
     ``values``; sparse rows: ``values`` and ``q`` are (indices, values)
     pairs). ``seed_ids`` [B, S] (S <= ef, -1 = unused) and
     their exact distances ``seed_d`` seed the beam. Each step expands the
-    nearest unexpanded member, scores its live neighbours, dedups by id
-    and keeps the ef nearest; a query stops when its nearest unexpanded
-    candidate is farther than its furthest member (graph/mod.rs:186-192),
-    or after ``max_steps``.
+    nearest unexpanded member (the ``expand`` nearest), scores its live
+    neighbours, dedups by id and keeps the ef nearest; a query stops when
+    its nearest unexpanded candidate is farther than its furthest member
+    (graph/mod.rs:186-192), or after ``max_steps``. ``visited``: a
+    per-query bitmap of the ids seen replaces the in-beam dedup; ``rank``:
+    the bf16 rows that rank new candidates (``rank_dists``), the beam
+    re-scored from ``values`` at the end.
 
     Returns (dists [B, ef], ids [B, ef] int64, steps [B] int32), sorted by
     (distance, id)."""
+    check_expand(expand, ef, neighbors0.shape[1], neighbors0.is_cuda)
     raw = _walk(values, neighbors0, traversable, None, metric,
                 _queries(q, metric),
                 seed_ids.to(torch.int32).contiguous(),
                 seed_d.float().contiguous(), width=ef, spill=0,
-                max_steps=max_steps, scan=False)
+                max_steps=max_steps, scan=False, expand=expand,
+                visited=visited, rank=rank)
     return _serve_finish(*raw)
 
 
 def descent_plain(values, traversable, upper_slot, upper_neighbors,
-                  m: int, metric: str, q, entry: int, entry_level: int):
+                  m: int, metric: str, q, entry: int, entry_level: int,
+                  rank=None):
     """Plain version of the descent in K4's launch, the JAX package's
     ``_greedy_descent`` (``pgvector_rx_tpu/graph/device.py:386``) from the
     entry for every query: at each layer ``entry_level .. 1``, score the
     current node's ``m`` neighbours at that layer where valid (``nbr >= 0``,
     an upper slot, ``traversable``), move to the first of their minimum
-    while it is strictly nearer (a host check per move). Returns (landing
-    ids [B] int64, their distances [B] f32)."""
+    while it is strictly nearer (a host check per move). With ``rank``
+    (bf16 rows) the neighbours are scored by ``rank_dists``, the entry
+    exactly, as JAX's descent ranks. Returns (landing ids [B] int64, their
+    distances [B] f32)."""
     lead = q[0] if isinstance(q, tuple) else q
     B, dev = lead.shape[0], lead.device
     cap = traversable.shape[0] - 1
@@ -384,7 +508,9 @@ def descent_plain(values, traversable, upper_slot, upper_neighbors,
             nbrs = upper_neighbors[slot.clamp(min=0).long(), off : off + m]
             valid = ((nbrs >= 0) & (slot >= 0)[:, None]
                      & traversable[nbrs.clamp(0, cap).long()])
-            d = torch.where(valid, row_dists(values, metric, q, nbrs), _INF)
+            dist = (rank_dists(rank, metric, q, nbrs) if rank is not None
+                    else row_dists(values, metric, q, nbrs))
+            d = torch.where(valid, dist, _INF)
             best = torch.argmin(d, dim=1)  # the first minimal slot
             best_d = d[rows, best]
             moved = moved & (best_d < cur_d)
@@ -395,14 +521,16 @@ def descent_plain(values, traversable, upper_slot, upper_neighbors,
 
 def descent_walk(values, neighbors0, traversable, upper_slot,
                  upper_neighbors, m: int, entry: int, entry_level: int,
-                 metric: str, q, ef: int, max_steps: int):
+                 metric: str, q, ef: int, max_steps: int, expand: int = 1,
+                 visited: bool = False, rank=None):
     """K4 with the greedy upper-layer descent in its launch: the JAX
     package's ``_search_batch`` (``pgvector_rx_tpu/graph/device.py:767``)
     and ``_search_one_sparse`` (``:1861``), the descent from ``entry``
     (level ``entry_level``) through ``upper_neighbors`` [U, LMAX * m]
     (``upper_slot`` [cap + 1]: a node's row, -1 none) then the walk of
-    :func:`beam_walk` from where each query lands. Every row mode (dense
-    rows, packed words, sparse rows). CUDA tensors: one launch;
+    :func:`beam_walk` from where each query lands (``expand``, ``visited``
+    and ``rank`` as there; ``rank`` also ranks the descent). Every row
+    mode (dense rows, packed words, sparse rows). CUDA tensors: one launch;
     CPU tensors: ``descent_plain`` then the plain walk.
 
     Returns (dists [B, ef], ids [B, ef] int64, steps [B] int32, landing
@@ -410,22 +538,25 @@ def descent_walk(values, neighbors0, traversable, upper_slot,
     q = _queries(q, metric)
     lead = q[0] if isinstance(q, tuple) else q
     B, dev = lead.shape[0], lead.device
+    check_expand(expand, ef, neighbors0.shape[1], neighbors0.is_cuda)
     if neighbors0.is_cuda:
         seeds = torch.full((B, 1), -1, dtype=torch.int32, device=dev)
         raw, land = _launch_walk(
             values, neighbors0, traversable, metric, q, seeds,
             torch.zeros((B, 1), dtype=torch.float32, device=dev), ef,
-            max_steps, (upper_slot, upper_neighbors, m, entry, entry_level))
+            max_steps, (upper_slot, upper_neighbors, m, entry, entry_level),
+            expand=expand, visited=visited, rank=rank)
         land_ids = land[:, 0].long()
         land_d = land[:, 1].contiguous().view(torch.float32)
     else:
         land_ids, land_d = descent_plain(values, traversable, upper_slot,
                                          upper_neighbors, m, metric, q,
-                                         entry, entry_level)
+                                         entry, entry_level, rank=rank)
         raw = _walk_plain(values, neighbors0, traversable, None, metric, q,
                           land_ids[:, None].to(torch.int32),
                           land_d[:, None].float(), width=ef, spill=0,
-                          max_steps=max_steps, scan=False)
+                          max_steps=max_steps, scan=False, expand=expand,
+                          visited=visited, rank=rank)
     return (*_serve_finish(*raw), land_ids, land_d)
 
 
@@ -448,32 +579,38 @@ def _k5_words(cap: int) -> int:
 
 
 def _k5_smem(words: int, d: int, L: int, S: int, W: int, ef: int,
-             SP: int) -> int:
+             SP: int, expand: int = 1, rank: bool = False) -> int:
     """A K5 block's shared memory in bytes (mirrors k4_beam.cu's
-    scan_smem_bytes): the bitmap, the query, two beams, the spill's pool
-    (a power of two >= 2 SP, SP + L and 64), the new entries (raw and
-    kept), two id sets (the beam's, the seeds' / finish's with its first
-    indices) of 2^bits slots, and the seeds' / finish's buffer."""
+    scan_smem_bytes): the bitmap, the query (and its bf16 rounding when
+    ranking in bf16), two beams, the spill's pool (a power of two >= 2 SP,
+    SP + E L and 64), the E L new entries (raw and kept), two id sets (the
+    beam's, the seeds' / finish's with its first indices) of 2^bits slots,
+    the seeds' / finish's buffer (also the re-scored beam's sort when
+    ranking in bf16) and, for E > 1, the E members a step expands."""
     def pow2(n):
         return 1 << max(n - 1, 0).bit_length()
 
+    nl = expand * L
     mm = SP + W - ef
     bits = 6
-    while (1 << bits) < 2 * max(W, S, mm):
+    while (1 << bits) < 2 * max(W + nl, S, mm):
         bits += 1
-    buf = max(pow2(S), SP + 2 * (W - ef))
-    pool = pow2(max(64, 2 * SP, SP + L))
-    return 4 * (words + -(-d // 4) * 4 + 4 * W + 2 * pool + 4 * L
-                + 3 * (1 << bits) + 2 * buf)
+    buf = max(pow2(S), SP + 2 * (W - ef), pow2(W) if rank else 0)
+    pool = pow2(max(64, 2 * SP, SP + nl))
+    dpad = -(-d // 4) * 4
+    return 4 * (words + dpad * (2 if rank else 1) + 4 * W + 2 * pool
+                + 4 * nl + 3 * (1 << bits) + 2 * buf
+                + (2 * expand if expand > 1 else 0))
 
 
 def k5_bitmap_fits(cap: int, d: int, L: int, S: int, W: int, ef: int,
-                   SP: int) -> bool:
+                   SP: int, expand: int = 1, rank: bool = False) -> bool:
     """K5's rule for the flags: a query's (cap + 1)-bit bitmap of the rows
     it may walk is staged in shared memory when it fits there beside the
     segment's state (about 1.6M rows at the scan's defaults); above that
     the kernel reads the global flags."""
-    return _k5_smem(_k5_words(cap), d, L, S, W, ef, SP) <= _K5_MAX_SMEM
+    return _k5_smem(_k5_words(cap), d, L, S, W, ef, SP, expand,
+                    rank) <= _K5_MAX_SMEM
 
 
 def allowed_bits(traversable, excluded):
@@ -490,14 +627,15 @@ def allowed_bits(traversable, excluded):
 
 
 def staged_bitmap(values, neighbors0, traversable, excluded, S: int, W: int,
-                  ef: int, SP: int):
+                  ef: int, SP: int, expand: int = 1, rank: bool = False):
     """The bitmap K5 stages for the queries of ``excluded`` [B, cap + 1]
     (``allowed_bits``) where its rule stages one: dense rows on the card
     and ``k5_bitmap_fits``; else None (the kernel reads the flags, and the
     plain version never takes a bitmap)."""
     if not (neighbors0.is_cuda and torch.is_tensor(values)
             and k5_bitmap_fits(traversable.shape[0] - 1, values.shape[1],
-                               neighbors0.shape[1], S, W, ef, SP)):
+                               neighbors0.shape[1], S, W, ef, SP, expand,
+                               rank)):
         return None
     return allowed_bits(traversable, excluded)
 
@@ -512,12 +650,13 @@ def mark_excluded(excluded, ids):
 
 def _scan_plain(values, neighbors0, traversable, excluded, metric, q,
                 seed_ids, seed_d, ef: int, width: int, spill: int,
-                max_steps: int, mark: bool):
+                max_steps: int, mark: bool, expand: int = 1, rank=None):
     """Plain version of K5: the plain walk, ``_scan_finish``, the marks,
     and the report."""
     raw = _walk_plain(values, neighbors0, traversable, excluded, metric, q,
                       seed_ids, seed_d, width=width, spill=spill,
-                      max_steps=max_steps, scan=True)
+                      max_steps=max_steps, scan=True, expand=expand,
+                      rank=rank)
     beam_d, beam_ids, sp_d, sp_ids, steps = _scan_finish(*raw, ef=ef,
                                                          spill=spill)
     if mark:
@@ -534,7 +673,7 @@ def _scan_plain(values, neighbors0, traversable, excluded, metric, q,
 
 def _scan_cuda(values, neighbors0, traversable, excluded, allowed, metric,
                q, seed_ids, seed_d, ef: int, width: int, spill: int,
-               max_steps: int, mark: bool):
+               max_steps: int, mark: bool, expand: int = 1, rank=None):
     """K5: one launch walks every query's segment and finishes it."""
     from . import _build
 
@@ -549,6 +688,16 @@ def _scan_cuda(values, neighbors0, traversable, excluded, allowed, metric,
     if metric not in ("l2", "ip", "cosine", "l1"):
         raise ValueError(f"the scan takes l2, ip, cosine or l1 (got "
                          f"{metric!r})")
+    exact = None
+    if rank is not None:
+        if (values.dtype != torch.float32 or rank.dtype != torch.bfloat16
+                or metric == "l1" or not rank.is_cuda or rank.device != dev
+                or rank.dim() != 2 or rank.stride(1) != 1
+                or rank.shape[1] != values.shape[1]
+                or rank.shape[0] < values.shape[0]):
+            raise ValueError("bf16 ranking takes f32 rows, their bf16 copy "
+                             "on the same card and l2, ip or cosine")
+        exact, values = values, rank
     _check_cuda("neighbors0", neighbors0, torch.int32, 2, dev)
     _check_cuda("traversable", traversable, torch.bool, 1, dev)
     _check_cuda("excluded", excluded, torch.bool, 2, dev)
@@ -569,6 +718,7 @@ def _scan_cuda(values, neighbors0, traversable, excluded, allowed, metric,
             f"{tuple(excluded.shape)}")
     if cap >= 1 << 30:
         raise ValueError("packed beam keys need cap < 2^30 rows")
+    check_expand(expand, width, L, card=True)
     words = 0
     if allowed is not None:
         words = _k5_words(cap)
@@ -576,7 +726,8 @@ def _scan_cuda(values, neighbors0, traversable, excluded, allowed, metric,
         if allowed.shape != (B, words):
             raise ValueError(f"allowed must be [{B}, {words}] (got "
                              f"{tuple(allowed.shape)})")
-    if _k5_smem(words, d, L, S, width, ef, spill) > _K5_MAX_SMEM:
+    if _k5_smem(words, d, L, S, width, ef, spill, expand,
+                rank is not None) > _K5_MAX_SMEM:
         raise ValueError("the scan segment's state does not fit a block")
     report = torch.empty((B, 2 * ef + 3), dtype=torch.int32, device=dev)
     sp_d = torch.empty((B, spill), dtype=torch.float32, device=dev)
@@ -589,7 +740,9 @@ def _scan_cuda(values, neighbors0, traversable, excluded, allowed, metric,
             allowed.data_ptr() if allowed is not None else None, words, cap,
             _METRIC_CODES[metric], q.data_ptr(), seed_ids.data_ptr(),
             seed_d.data_ptr(), B, S, width, ef, spill, max_steps, int(mark),
-            report.data_ptr(), sp_d.data_ptr(), sp_ids.data_ptr(),
+            report.data_ptr(), sp_d.data_ptr(), sp_ids.data_ptr(), expand,
+            exact.data_ptr() if exact is not None else None,
+            exact.stride(0) if exact is not None else 0,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "pgv_k5_beam_scan")
@@ -599,12 +752,17 @@ def _scan_cuda(values, neighbors0, traversable, excluded, allowed, metric,
 
 def scan_segment(values, neighbors0, traversable, excluded, metric: str, q,
                  seed_ids, seed_d, ef: int, width: int, spill: int,
-                 max_steps: int, allowed=None, mark: bool = False):
+                 max_steps: int, allowed=None, mark: bool = False,
+                 expand: int = 1, rank=None):
     """K5: one iterative-scan segment for a batch of queries ``q`` [B, D]:
     the beam walk at internal width ``width`` (>= ef) from seeds
     ``seed_ids`` [B, S] (-1 = unused) under ``excluded`` [B, cap+1]
     (already-emitted rows), capturing the evicted candidates in a spill
-    buffer of width ``spill``, then the segment's finish.
+    buffer of width ``spill``, then the segment's finish. ``expand`` E
+    pops the E nearest unexpanded members a step (the evicted tail is then
+    E L entries); ``rank`` (the bf16 rows) ranks new candidates in bf16
+    and re-scores the beam in f32 before the finish (the spill keeps its
+    ranking distances).
 
     Returns (report [B, 2 ef + 3] int32: the emitted beam's distances as
     f32 bits [:ef] and ids [ef:2ef] (-1 at an infinite distance), sorted by
@@ -619,31 +777,35 @@ def scan_segment(values, neighbors0, traversable, excluded, metric: str, q,
     flags, kept equal to ``traversable & ~excluded`` under ``mark``;
     ``None`` reads the flags."""
     W = max(width, ef)
+    check_expand(expand, W, neighbors0.shape[1], neighbors0.is_cuda)
     seed_ids = seed_ids.to(torch.int32).contiguous()
     seed_d = seed_d.float().contiguous()
     q = _queries(q, metric)
     if neighbors0.is_cuda:
         return _scan_cuda(values, neighbors0, traversable, excluded,
                           allowed, metric, q, seed_ids, seed_d, ef, W, spill,
-                          max_steps, mark)
+                          max_steps, mark, expand, rank)
     if allowed is not None:
         raise ValueError("the staged bitmap is the kernel's (CUDA only)")
     return _scan_plain(values, neighbors0, traversable, excluded, metric, q,
-                       seed_ids, seed_d, ef, W, spill, max_steps, mark)
+                       seed_ids, seed_d, ef, W, spill, max_steps, mark,
+                       expand, rank)
 
 
 def beam_scan_segment(values, neighbors0, traversable, excluded, metric: str,
                       q, seed_ids, seed_d, ef: int, width: int, spill: int,
-                      max_steps: int):
+                      max_steps: int, expand: int = 1, rank=None):
     """K5 (``scan_segment``) with its report unpacked: (beam dists [B, ef],
     beam ids [B, ef], spill dists [B, spill], spill ids [B, spill], steps
     [B]). The bitmap is staged by ``staged_bitmap``'s rule; nothing is
     marked."""
     allowed = staged_bitmap(values, neighbors0, traversable, excluded,
-                            seed_ids.shape[1], max(width, ef), ef, spill)
+                            seed_ids.shape[1], max(width, ef), ef, spill,
+                            expand, rank is not None)
     report, sp_d, sp_ids = scan_segment(
         values, neighbors0, traversable, excluded, metric, q, seed_ids,
-        seed_d, ef, width, spill, max_steps, allowed)
+        seed_d, ef, width, spill, max_steps, allowed, expand=expand,
+        rank=rank)
     return (report[:, :ef].view(torch.float32), report[:, ef:2 * ef], sp_d,
             sp_ids, report[:, 2 * ef])
 

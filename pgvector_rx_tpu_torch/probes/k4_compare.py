@@ -29,8 +29,16 @@ import torch
 
 from pgvector_rx_tpu_torch.ops import _build
 
-#: the walk entry before the descent joined its launch (23 arguments)
-_OLD_SIG = _build._SIGNATURES["pgv_k4_beam_walk"][:22] + [ctypes.c_void_p]
+_SIG = _build._SIGNATURES["pgv_k4_beam_walk"]
+
+
+def _version(text: str) -> int:
+    """The walk entry's version: 1 before the descent joined its launch (22
+    arguments and the stream), 2 before the beam's variants did (29 and the
+    stream), 3 this one."""
+    if "unsigned* vis" in text:
+        return 3
+    return 2 if "int entry_level" in text else 1
 
 
 def _lib(src: Path, tag: str):
@@ -40,15 +48,17 @@ def _lib(src: Path, tag: str):
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
            "-I", str(_build._CSRC), "-o", str(so), str(src)]
     p = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    # the seeded dense f32 walk (the descent's instantiation apart)
-    regs = re.findall(r"beam_walk_kernelIfLi4E(?:Lb0E)?E.*?\n.*?\n.*?Used "
+    # the seeded dense f32 walk (the descent's and the bf16 ranking's
+    # instantiations apart)
+    regs = re.findall(r"beam_walk_kernelIfLi4E(?:Lb0E)*E.*?\n.*?\n.*?Used "
                       r"(\d+) registers", p.stderr)
     lib = ctypes.CDLL(str(so))
-    new = "int entry_level" in src.read_text()
+    version = _version(src.read_text())
     fn = lib.pgv_k4_beam_walk
-    fn.argtypes = _build._SIGNATURES["pgv_k4_beam_walk"] if new else _OLD_SIG
+    fn.argtypes = {1: _SIG[:22], 2: _SIG[:29], 3: _SIG[:-1]}[version] + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, new, regs
+    return lib, version, regs
 
 
 def main() -> None:
@@ -69,7 +79,7 @@ def main() -> None:
     print(json.dumps({"card": smi}), flush=True)
     libs = {"other": _lib(args.other, "other"),
             "this": _lib(_build._CSRC / "k4_beam.cu", "this")}
-    print(json.dumps({t: {"descent_args": v[1], "registers": v[2]}
+    print(json.dumps({t: {"entry_version": v[1], "registers": v[2]}
                       for t, v in libs.items()}), flush=True)
     dev = torch.device("cuda")
     data, queries = make_dataset(args.rows, 128, 1024, seed=0)
@@ -91,15 +101,17 @@ def main() -> None:
     stream = torch.cuda.current_stream().cuda_stream
 
     def run(tag):
-        lib, new, _ = libs[tag]
+        lib, version, _ = libs[tag]
         bd, bk, st, sc = outs[tag]
         a = [g.values.data_ptr(), None, 0, g.values.stride(0), 128, 128,
              g.neighbors0.data_ptr(), L, g.traversable.data_ptr(), g.cap, 0,
              q.data_ptr(), s_ids.data_ptr(), s_d.data_ptr(), B, S, W,
              4 * W + 32, bd.data_ptr(), bk.data_ptr(), st.data_ptr(),
              sc.data_ptr()]
-        if new:
+        if version >= 2:  # no descent
             a += [None, None, 0, 0, -1, 0, None]
+        if version >= 3:  # the default walk: E = 1, no bitmap, f32 ranking
+            a += [1, None, 0, None, 0]
         _build.check(lib.pgv_k4_beam_walk(*a, stream), tag)
 
     def ms(tag, iters=10):

@@ -133,10 +133,13 @@ def test_unported_seams_raise_instead_of_reaching_jax(tmp_path, monkeypatch):
     assert t.scan(_data(n=1)[0]).take(1)[0][0] == 0
     t.save(tmp_path / "ck")
     assert TorchIndex.load(tmp_path / "ck", device="cpu").num_tuples == 204
-    # the beam variants (13b) raise; the bit kind's checkpoints (item 14)
-    # and the sparse kind's (item 15) are ported
+    # the beam variants (13b) run; an invalid expansion is refused; the bit
+    # kind's checkpoints (item 14) and the sparse kind's (item 15) are
+    # ported
     monkeypatch.setenv("PGV_BEAM_EXPAND", "4")
-    with pytest.raises(NotImplementedError, match="PGV_BEAM_EXPAND"):
+    assert t.search(_data(n=2), 5, method="device")[1].shape == (2, 5)
+    monkeypatch.setenv("PGV_BEAM_EXPAND", "0")
+    with pytest.raises(ValueError, match="PGV_BEAM_EXPAND"):
         t.search(_data(n=2), 5, method="device")
     monkeypatch.delenv("PGV_BEAM_EXPAND")
     bits = TorchIndex.build((_data(n=40) > 0.5).astype(np.uint8),

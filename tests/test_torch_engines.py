@@ -119,9 +119,17 @@ def test_beam_matches_jax(pair, seed_mode, monkeypatch):
 
 
 def test_beam_refuses_unported_variants(pair, monkeypatch):
-    _, t, q = pair
+    """The beam's variants are ported (tests/test_torch_beam_variants.py):
+    PGV_BEAM_EXPAND=4 serves JAX's result; what is refused is an invalid
+    expansion."""
+    j, t, q = pair
     monkeypatch.setenv("PGV_BEAM_EXPAND", "4")
-    with pytest.raises(NotImplementedError, match="PGV_BEAM_EXPAND"):
+    jd, ji, td, ti = _serve(j, t, q, "beam")
+    same = np.mean([set(ti[r].tolist()) == set(ji[r].tolist())
+                    for r in range(NQ)])
+    assert same >= 0.99, same
+    monkeypatch.setenv("PGV_BEAM_EXPAND", "0")
+    with pytest.raises(ValueError, match="PGV_BEAM_EXPAND"):
         tdev.serve_topk(t, q, K, engine="beam")
 
 

@@ -430,8 +430,12 @@ def test_scan_dispatch(corpus, monkeypatch):
     assert isinstance(idx.scan(data[0], p, method="beam"), DeviceBeamScan)
     with pytest.raises(ValueError, match="filter_mask"):
         idx.scan(data[0], p, method="device", filter_mask=np.ones(3000, bool))
+    # the beam variants run (tests/test_torch_beam_variants.py); an invalid
+    # expansion is refused
     monkeypatch.setenv("PGV_BEAM_EXPAND", "4")
-    with pytest.raises(NotImplementedError, match="PGV_BEAM_EXPAND"):
+    assert isinstance(idx.scan(data[0], p, method="beam"), DeviceBeamScan)
+    monkeypatch.setenv("PGV_BEAM_EXPAND", "0")
+    with pytest.raises(ValueError, match="PGV_BEAM_EXPAND"):
         idx.scan(data[0], p, method="beam")
 
 
