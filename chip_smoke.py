@@ -157,16 +157,23 @@ truth for the first 1,024 rows as queries (its dense-query form), held
 to a float64 scipy CSR product on 64 of them; ``index.search`` exact
 (floor 0.999), approx (0.98) and beam (ef=40, no floor at 30k-d: recall
 printed), and ``FlatIndex`` over the 100,000 rows (K10's lookup form:
-the flat index knows no dim), equal to that form's top-10; the beam's
+the flat index knows no dim; its mapping kernel ``k10_compact`` runs
+there too), equal to that form's top-10; the beam's
 launch (the greedy descent in K4's launch, then the walk's sparse-row
 mode) against the torch descent and the plain walk from where it lands
 (must reject the plain walk cut to ef / 4 steps), with the split of the
 torch descent feeding the walk kernel beside the one launch; both forms of
 K10 against their plain version in l2, ip, cosine, l1 and approx mode
 (must reject the plain sweep with bf16-rounded values and one whose ip
-keys are raw f32 bits), timed in turns with ``torch.sparse.mm`` composed
-with the l2 epilogue and ``torch.topk`` (the same function), beside the
-bound; t/028 at its own size (10,000 x 3-d sparse rows, 20 queries,
+keys are raw f32 bits); the lookup form on the same rows and queries
+with their indices spread into [0, 10^9) by an increasing injective map
+(dim 10^9) equal to its dim-0 keys, and its ids equal to the dense
+form's but for ties; the mapping kernel equal to its plain version (must
+reject a union short of one value); the forms timed in turns with
+``torch.sparse.mm`` composed with the l2 epilogue and ``torch.topk``
+(the same function) and, at dim 10^9, with ``torch.sparse.mm`` of the
+CSR rows and the CSR queries (or the error it raises), beside the bound;
+t/028 at its own size (10,000 x 3-d sparse rows, 20 queries,
 k=20, four metrics) against its floors; an index of each sparse operator
 class (500 rows, filled by the native bulk load); the t/028 l2 index
 saved and loaded, every engine's ids unchanged.
@@ -179,8 +186,13 @@ E = 4 with bf16, each beside the default in the same run (recall >= 0.95);
 the 0.2% filtered scans (16 queries, strict and relaxed) with E = 4 and
 bf16 beside the default; K4 in each mode against its plain version at
 1,024 queries, each check rejecting a control (the plain walk at E = 1,
-with the in-beam dedup, ranking in f32); K5 with E = 4 and with bf16 over
-3 fed segments against its plain segment; the bit graph's word walk with
+with the in-beam dedup, ranking in f32); K5 with E = 2, 4 and 8 and with
+bf16 over 3 fed segments against its plain segment (beams and spills
+equal but for ties, steps and rows scored equal query by query), and
+timed per step at E = 1, 2, 4 and 8 in turns beside its byte bound and
+its latency bound (steps times the dependent round trip that phase 13
+measures with ``probes/k5_profile.py``'s pointer chase); the bit graph's
+word walk with
 E = 4 and the bitmap (tie-aware recall) and the sparse graph's walk with
 the bitmap, each against its plain version; every mode timed beside its
 byte bound.
@@ -193,16 +205,17 @@ to float64 on 64 queries, exact / approx / beam over 4,096 queries (floors
 1.0 / 0.98 / 0.80) with each call's peak device memory above the graph
 (the exact call below 1.5 chunk casts), the same engines over the rows
 staged as a bf16 store, and K1 / K2 at d = 1,024 against their plain
-versions (a ``{"d1024": ...}`` line).
+versions and their library yardsticks (phase 8's ``k1_library`` /
+``k2_library``; a ``{"d1024": ...}`` line).
 
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
 path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
 path, both forms of K9 and K4 (word mode) on the bit path, K9's
 tensor-core form and K4 on the jaccard path, K1, K9's tensor-core form
-and K4 in phase 23, both forms of K10 and K4 (sparse mode) on the sparse
-path. The last two lines of output are one JSON object per kernel list
-and the device line.
+and K4 in phase 23, both forms of K10, its mapping and K4 (sparse mode)
+on the sparse path. The last two lines of output are one JSON object per
+kernel list and the device line.
 """
 
 from __future__ import annotations
@@ -1060,6 +1073,24 @@ def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
                                             allowed=allowed0))
     log(f"K5 per segment: {ms5:.4f} ms, {ms5 / steps1 * 1e3:.3f} us per "
         f"step")
+    # a step's dependent round trip (a row's neighbour ids, then one
+    # neighbour's row): the pointer chase of probes/k5_profile.py, 4,096
+    # hops from each of 8 rows; K5's latency bound is steps times it
+    from pgvector_rx_tpu_torch.probes.k5_profile import _chase_library
+
+    chase, hop = _chase_library(), torch.zeros(2, dtype=torch.int64,
+                                               device=q1.device)
+    per_hop = []
+    for start in np.random.default_rng(3).integers(0, g.cap, 8):
+        rc = chase.pgv_chase(g.neighbors0.data_ptr(), g.values.data_ptr(), L,
+                             DIM, g.cap, 4096, int(start), 1, hop.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"the chase kernel failed ({rc})")
+        torch.cuda.synchronize()
+        per_hop.append(int(hop[0]) / 4096)
+    round_trip_us = float(np.median(per_hop)) / 1e3
+    log(f"dependent round trip (ids -> row): {round_trip_us * 1e3:.1f} ns "
+        f"(median of 8 chases of 4,096 hops: {per_hop})")
     kernels["k5_beam_scan"] = dict(
         name="k5_beam_scan", route="cuda", source=CSRC + "k4_beam.cu",
         replaces=f"{JAX_DEVICE}:574 (_beam_scan_segment, an XLA "
@@ -1071,6 +1102,8 @@ def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
         library_ms=None, matmul_ms=None, matmul_of=None,
         steps_mean=steps1, scored_mean=scored1,
         us_per_step=ms5 / steps1 * 1e3,
+        round_trip_us=round_trip_us,
+        latency_bound_ms=steps1 * round_trip_us / 1e3,
     )
 
 
@@ -2227,12 +2260,11 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
         del fl
     launches = dict(bf.LAUNCHES)
     log(f"sparse path launches: {launches}")
-    for name in ("k10_sparse", "k10_sparse_lookup", "k4_beam_sparse"):
+    for name in ("k10_sparse", "k10_sparse_lookup", "k10_compact",
+                 "k4_beam_sparse"):
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the sparse path")
     # the flat index holds K10's lookup form over the same rows exactly
-    # (the dense form sums |q|^2 in another order: 24d holds both forms to
-    # the plain version)
     lk_d, lk_i = sparse_mod.sparse_topk(g.sp_indices, g.sp_values, live, qi,
                                         qv, K, "l2")
     want_d = np.sqrt(np.maximum(lk_d.cpu().numpy().astype(np.float64), 0.0))
@@ -2274,18 +2306,19 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
             return sparse_mod._sparse_topk_cuda(ci, cv, live, qi, qv, K,
                                                 metric, approx, forms[form])
 
-        def plain10(metric="l2", approx=False, ci=ci, cv=cv, qv=qv):
+        def plain10(metric="l2", approx=False, ci=ci, cv=cv, qv=qv,
+                    form="k10_sparse"):
             return sparse_mod._sparse_topk_plain(ci, cv, live, qi, qv, K,
-                                                 metric, approx, DIM_SP)
+                                                 metric, approx, forms[form])
 
         errs = {form: {} for form in forms}
         for metric, approx in (("l2", False), ("ip", False),
                                ("cosine", False), ("l1", False),
                                ("l2", True)):
             tol = tols[metric].cpu().numpy()
-            want = plain10(metric, approx)
             tag = f"{metric}{' approx' if approx else ''}"
             for form in forms:
+                want = plain10(metric, approx, form=form)
                 ok, err = sweep_agreement(*k10(metric, approx, form), *want,
                                           tol)
                 errs[form][tag] = err
@@ -2344,25 +2377,134 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
         log(f"the composed library call (sparse.mm, l2, topk) "
             f"{'agrees with' if ok_lib else 'differs from'} the plain "
             "version")
+        # the lookup form at its own domain: the same rows and queries with
+        # their indices spread into [0, 10^9) by an increasing injective map
+        big = 10**9
+        table = np.append(np.sort(np.random.default_rng(SEED_SP).choice(
+            big - 1, size=DIM_SP - 1, replace=False)), big - 1)
+        table_t = torch.from_numpy(table.astype(np.int32)).to(dev)
+
+        def spread(t):
+            pad = t == sparse_mod.PAD_INDEX
+            return torch.where(pad, t, table_t[torch.where(pad, 0, t).long()])
+
+        bci, bqi = spread(ci), spread(qi)
+        if sparse_mod._k10_form(big, N_SP_Q) != "lookup":
+            raise RuntimeError("K10's shape rule does not take the lookup "
+                               "form at dim 10^9")
+
+        def k10_big(metric="l2", approx=False):
+            return sparse_mod._sparse_topk_cuda(ci=bci, cv=cv, live=live,
+                                                qi=bqi, qv=qv, k=K,
+                                                metric=metric, approx=approx,
+                                                dim=big)
+
+        big_equal = {}
+        for metric, approx in (("l2", False), ("ip", False),
+                               ("cosine", False), ("l1", False),
+                               ("l2", True)):
+            tag = f"{metric}{' approx' if approx else ''}"
+            (ad, ai), (bd, bi) = k10(metric, approx, "k10_sparse_lookup"), \
+                k10_big(metric, approx)
+            big_equal[tag] = bool(torch.equal(ai, bi) and torch.equal(ad, bd))
+            dd, di = k10(metric, approx)
+            ok, err = sweep_agreement(ad, ai, dd, di,
+                                      tols[metric].cpu().numpy())
+            same = float((ai == di).all(1).float().mean())
+            log(f"k10_sparse_lookup {tag}: at dim 10^9 (spread) "
+                f"{'equal to' if big_equal[tag] else 'DIFFERS from'} dim 0, "
+                f"key for key; vs the dense form at {DIM_SP:,}-d "
+                f"{'ids equal but for ties' if ok else 'DIFFER'} (max abs "
+                f"err {err}; queries with every id equal {same:.4f})")
+            if not big_equal[tag] or not ok:
+                raise RuntimeError(f"the lookup form {tag} disagrees across "
+                                   "dims or with the dense form")
+
+        # the mapping kernel against its plain version, on this call's union
+        uni, _ = sparse_mod.compact_union(qi)
+        mapped = torch.empty_like(ci)
+        cm = sparse_mod.compact_rows(ci, uni, out=mapped)
+        cp = sparse_mod._compact_rows_plain(ci, uni)
+        short = uni[torch.arange(uni.shape[0], device=dev)
+                    != uni.shape[0] // 2]
+        c_ok = bool(torch.equal(cm, cp))
+        c_ctrl = bool(torch.equal(sparse_mod._compact_rows_plain(ci, short),
+                                  cp))
+        log(f"k10_compact (|U| = {uni.shape[0]:,} of {DIM_SP:,}): "
+            f"{'equal to' if c_ok else 'DIFFERS from'} its plain version; "
+            f"control (a union short of one value) "
+            f"{'PASS' if c_ctrl else 'rejected'}")
+        if not c_ok or c_ctrl:
+            raise RuntimeError("the lookup form's mapping disagrees with its "
+                               "plain version, or the check is too loose")
+
+        # the library at the lookup form's domain: CSR rows times CSR queries
+        # at dim 10^9 (the dense queries cannot be formed there)
+        lib_big_err, lib_big_once_ms = None, None
+        try:
+            bmask = bci != sparse_mod.PAD_INDEX
+            qmask = bqi != sparse_mod.PAD_INDEX
+            csr_big = torch.sparse_csr_tensor(
+                torch.from_numpy(rowptr).to(dev), bci[:N_SP][bmask[:N_SP]]
+                .long(), cv[:N_SP][bmask[:N_SP]], size=(N_SP, big))
+            qptr = torch.zeros(N_SP_Q + 1, dtype=torch.int64, device=dev)
+            qptr[1:] = qmask.sum(1).cumsum(0)
+            q_csc = torch.sparse_csr_tensor(
+                qptr, bqi[qmask].long(), qv[qmask],
+                size=(N_SP_Q, big)).t()
+
+            def library_big():
+                dots = torch.sparse.mm(csr_big, q_csc).to_dense()
+                d = dots.mul_(-2.0).add_(x2[:, None]).add_(q2[None]).clamp_(
+                    min=0.0)
+                return torch.topk(d.masked_fill_(dead[:, None], float("inf")),
+                                  K, dim=0, largest=False)
+
+            torch.cuda.synchronize()
+            t0 = time.time()
+            lb_d, lb_i = library_big()
+            torch.cuda.synchronize()
+            first_s = time.time() - t0
+            ok_lb, _ = sweep_agreement(lb_d.T, lb_i.T, *plain10(), tol)
+            log(f"the composed library call at dim 10^9 (sparse.mm of CSR "
+                f"rows and CSR queries, l2, topk) "
+                f"{'agrees with' if ok_lb else 'differs from'} the plain "
+                f"version; its first call {first_s:.3f} s")
+            lib_big_once_ms = first_s * 1e3
+            if first_s > 5.0:  # too slow to time in turns: that call's time
+                lib_big_err = "timed once on the host clock"
+                library_big = None
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            library_big = None
+            lib_big_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+            log(f"torch.sparse.mm at dim 10^9 raised: {lib_big_err}")
+
         arms = {"k10_sparse": lambda: k10(),
                 "k10_sparse_lookup": lambda: k10(form="k10_sparse_lookup"),
+                "k10_sparse_lookup_1e9": lambda: k10_big(),
                 "library": library}
+        if library_big is not None:
+            arms["library_1e9"] = library_big
         turns = {name: [] for name in arms}
         for name in [*arms, *reversed(list(arms))]:
-            turns[name].append(cuda_ms(arms[name], 3 if name == "library"
-                                       else 10))
+            turns[name].append(cuda_ms(arms[name], 3 if name.startswith(
+                "library") else 10))
         log(f"K10 in turns (ms): {turns}; torch.sparse.mm alone "
             f"{cuda_ms(lambda: torch.sparse.mm(csr_t, qdt), 3):.4f} ms")
         plain_ms = cuda_ms(plain10, 2)
+        plain_lookup_ms = cuda_ms(lambda: sparse_mod._sparse_topk_plain(
+            ci, cv, live, qi, qv, K, "l2"), 2)
         for form in forms:
+            lookup = not forms[form]
             kernels[form] = dict(
                 name=form, route="cuda", source=CSRC + "k10_sparse.cu",
                 replaces=f"{JAX_DEVICE}:1313 (_exact_search_sparse, an XLA "
                          "program: " + ("its dense-query gather, :1481)"
-                                        if forms[form] else
+                                        if not lookup else
                                         "its searchsorted merge join, :1486)"),
                 max_abs_err=errs[form]["l2"], max_abs_err_by_mode=errs[form],
-                ms=float(np.mean(turns[form])), plain_ms=plain_ms,
+                ms=float(np.mean(turns[form])),
+                plain_ms=plain_lookup_ms if lookup else plain_ms,
                 **bound(3.0 * N_SP_Q * entries, "f32",
                         entries * 8 + (N_SP + 1) + N_SP_Q * (P * 8 + K * 12)),
                 library_ms=float(np.mean(turns["library"])),
@@ -2371,14 +2513,44 @@ def sparse_path(child, tmp, HnswIndex, SearchParams, device_mod, beam, bf,
                            "torch.topk (the same function)",
                 approx_ms=cuda_ms(lambda: k10("l2", True, form)),
                 launches=launches[form])
-        del csr_t, qd, qdt
-        for name in ("k10_sparse", "k10_sparse_lookup", "k4_beam_sparse"):
+        lk = kernels["k10_sparse_lookup"]
+        lk.update(
+            dim_1e9_ms=float(np.mean(turns["k10_sparse_lookup_1e9"])),
+            dim_1e9_equal=big_equal,
+            dim_1e9_library_ms=(float(np.mean(turns["library_1e9"]))
+                                if library_big is not None
+                                else lib_big_once_ms),
+            dim_1e9_library_error=lib_big_err,
+            dim_1e9_library_of="torch.sparse.mm of the CSR rows and the CSR "
+                               "queries at dim 10^9, to_dense, the l2 "
+                               "epilogue and torch.topk")
+        # the mapping: its bytes (the indices read and written, the union)
+        searchsorted_ms = cuda_ms(lambda: torch.searchsorted(uni, ci))
+        kernels["k10_compact"] = dict(
+            name="k10_compact", route="cuda", source=CSRC + "k10_sparse.cu",
+            replaces=f"{JAX_DEVICE}:1486 (_exact_search_sparse's searchsorted "
+                     "merge join, pgvector_rx_tpu/ops/sparse.py:189 pairwise: "
+                     "the search of each stored index, once per stored entry "
+                     "here)",
+            max_abs_err=0.0 if c_ok else float("nan"),
+            ms=cuda_ms(lambda: sparse_mod.compact_rows(ci, uni, out=mapped)),
+            plain_ms=cuda_ms(lambda: sparse_mod._compact_rows_plain(ci, uni)),
+            **bound(0.0, "f32", 8.0 * ci.numel() + 4.0 * uni.shape[0]),
+            library_ms=None, searchsorted_ms=searchsorted_ms,
+            union=int(uni.shape[0]), launches=launches["k10_compact"])
+        del csr_t, qd, qdt, bci, bqi, mapped
+        for name in ("k10_sparse", "k10_sparse_lookup", "k10_compact",
+                     "k4_beam_sparse"):
             kr = kernels[name]
             kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
             log(f"{name}: kernel {kr['ms']:.4f} ms, plain "
                 f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']} ms, "
                 f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}, "
                 f"{kr['bound_peak']}), share {kr['share_of_bound']:.4f}")
+        log(f"k10_sparse_lookup at dim 10^9: {lk['dim_1e9_ms']:.4f} ms; "
+            f"the library there {lk['dim_1e9_library_ms']} ms "
+            f"({lib_big_err or 'ran'}); torch.searchsorted alone "
+            f"{searchsorted_ms:.4f} ms")
 
     t028 = {}
     with Phase(f"24e t/028 at {T028_N:,} x 3-d sparse, k={T028_K}"):
@@ -2649,6 +2821,8 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
     with Phase("25 K5's modes vs plain"):
         for name, mk, of in (("k5_beam_scan_expand4", dict(expand=4),
                               "k5_expand4"),
+                             ("k5_beam_scan_expand2", dict(expand=2), None),
+                             ("k5_beam_scan_expand8", dict(expand=8), None),
                              ("k5_beam_scan_bf16",
                               dict(rank=g.values_bf16), "k5_bf16")):
             def kernel5(excl, allowed, seeds):
@@ -2677,7 +2851,7 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
                     out.append([t.cpu().numpy() for t in (rep, sp_d, sp_i)])
                     seeds = (sp_i, sp_d)
                 runs.append(out)
-            bad, err5 = 0, 0.0
+            bad, err5, same_sc = 0, 0.0, []
             for seg, (k, p) in enumerate(zip(*runs)):
                 kb_d, kb_i = k[0][:, :EF].view(np.float32), k[0][:, EF:2 * EF]
                 pb_d, pb_i = p[0][:, :EF].view(np.float32), p[0][:, EF:2 * EF]
@@ -2686,12 +2860,21 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
                 ok = ok_b & ok_s
                 bad += int((~ok).sum())
                 err5 = max(err5, e1, e2)
+                # steps and rows scored, query by query
+                same_sc.append((k[0][:, 2 * EF:2 * EF + 2]
+                                == p[0][:, 2 * EF:2 * EF + 2]).all(1))
                 log(f"25 {name} segment {seg}: {int(ok.sum())}/{nq} beams "
-                    f"and spills equal but for ties, steps kernel "
-                    f"{k[0][:, 2 * EF].sum()} plain {p[0][:, 2 * EF].sum()}")
-            if bad:
+                    f"and spills equal but for ties, "
+                    f"{int(same_sc[-1].sum())}/{nq} equal steps and rows "
+                    f"scored (steps kernel {k[0][:, 2 * EF].sum()} plain "
+                    f"{p[0][:, 2 * EF].sum()}, rows scored kernel "
+                    f"{k[0][:, 2 * EF + 1].sum()} plain "
+                    f"{p[0][:, 2 * EF + 1].sum()})")
+            same_sc = float(np.mean(same_sc))
+            if bad or same_sc < 0.99:
                 raise RuntimeError(f"{name} disagrees with its plain version "
-                                   f"on {bad} (query, segment) pairs")
+                                   f"on {bad} (query, segment) pairs; steps "
+                                   f"and rows scored equal on {same_sc:.4f}")
             excl0 = torch.zeros((1, g.cap + 1), dtype=torch.bool,
                                 device=q1.device)
             allowed0 = beam.staged_bitmap(*graph, excl0, spill, W, EF, spill,
@@ -2712,19 +2895,51 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
                 name=name, route="cuda", source=CSRC + "k4_beam.cu",
                 replaces=f"{JAX_DEVICE}:574 (_beam_scan_segment, an XLA "
                          "while-loop; the "
-                         + ("E = 4" if not rank else "bf16 ranking")
+                         + (f"E = {mk['expand']}" if not rank
+                            else "bf16 ranking")
                          + " variant)",
                 max_abs_err=err5, ms=ms5,
                 plain_ms=cuda_ms(lambda: beam._scan_plain(
                     *one, EF, W, spill, steps_w, False, mk.get("expand", 1),
                     mk.get("rank")), iters=1),
                 **bound(scored1 * 3.0 * DIM, "f32", nbytes),
+                latency_bound_ms=steps1 * kernels["k5_beam_scan"][
+                    "round_trip_us"] / 1e3,
                 library_ms=None, steps_mean=steps1, scored_mean=scored1,
-                us_per_step=ms5 / steps1 * 1e3, launches=launches[of])
+                us_per_step=ms5 / steps1 * 1e3,
+                steps_scored_equal=same_sc,
+                launches=launches[of] if of else None)
             log(f"25 {name} per segment: {ms5:.4f} ms, "
                 f"{ms5 / steps1 * 1e3:.3f} us per step, {steps1:.0f} steps")
+    # K5 per step at each E beside the default, in turns, on the timed
+    # segment of phase 13 (one query, nothing excluded, the staged bitmap)
+    with Phase("25 K5 per step by E, in turns"):
+        bms = {e: beam.staged_bitmap(*graph, excl0, spill, W, EF, spill, e)
+               for e in (1, 2, 4, 8)}
+        seg = {e: (lambda e=e: beam.scan_segment(
+            *one, EF, W, spill, steps_w, allowed=bms[e], expand=e))
+            for e in bms}
+        st = {e: float(seg[e]()[0][0, 2 * EF]) for e in seg}
+        turns5 = {e: [] for e in seg}
+        for e in [*seg, *reversed(list(seg))]:
+            turns5[e].append(cuda_ms(seg[e]))
+        per_step = {e: float(np.mean(turns5[e])) / st[e] * 1e3 for e in seg}
+        log(f"25 K5 in turns (ms per segment): {turns5}; steps {st}; us per "
+            f"step {per_step}")
+        kernels["k5_beam_scan_expand4"].update(
+            ms_by_expand={e: float(np.mean(turns5[e])) for e in seg},
+            steps_by_expand=st, us_per_step_by_expand=per_step,
+            # E = 2 and 8 held to the plain version like E = 4 (the same
+            # kernel's mode: the kernels line keeps one entry for it)
+            other_expand={e: {k: kernels[f"k5_beam_scan_expand{e}"][k]
+                              for k in ("ms", "plain_ms", "max_abs_err",
+                                        "bound_ms", "latency_bound_ms",
+                                        "steps_mean", "scored_mean",
+                                        "us_per_step", "steps_scored_equal")}
+                          for e in (2, 8)})
     for name in ("k4_beam_expand4", "k4_beam_visited", "k4_beam_bf16",
-                 "k5_beam_scan_expand4", "k5_beam_scan_bf16"):
+                 "k5_beam_scan_expand4", "k5_beam_scan_expand2",
+                 "k5_beam_scan_expand8", "k5_beam_scan_bf16"):
         kr = kernels[name]
         kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
         log(f"{name}: kernel {kr['ms']:.4f} ms, plain {kr['plain_ms']:.4f} "
@@ -3034,8 +3249,13 @@ def halfvec_path(HnswIndex, IndexParams, make_dataset, device_mod, bf, dev,
             cuda_ms(lambda: bf._binned_plain(vb, a, q1, K, 1024), 3),
             bound(2.0 * b1 * n_rows * D_HV, "bf16",
                   (n_rows * D_HV + b1 * D_HV) * 2 + n_rows * 4 + out_bytes)))
+        # the same functions composed of PyTorch calls (phase 8's yardsticks)
+        rows[0]["library_ms"] = cuda_ms(lambda: k1_library(x32, a, q1, K), 3)
+        rows[1]["library_ms"] = cuda_ms(
+            lambda: k2_library(vb, a, qb, K, 1024), 3)
         for r in rows:
             r["rows"] = n_rows
+            log(f"{r['name']} at d = 1,024: library {r['library_ms']:.4f} ms")
     log(json.dumps({"d1024": rows}))
     del idx, g, g16, q, x32, vb
     torch.cuda.empty_cache()
@@ -3410,7 +3630,8 @@ def main() -> int:
                                  "k3_x2max", "k4_beam", "k5_beam_scan",
                                  "k9_bits", "k9_bits_tc", "k4_beam_words",
                                  "k10_sparse",
-                                 "k10_sparse_lookup", "k4_beam_sparse",
+                                 "k10_sparse_lookup", "k10_compact",
+                                 "k4_beam_sparse",
                                  "k4_beam_expand4", "k4_beam_visited",
                                  "k4_beam_bf16", "k4_words_expand4",
                                  "k4_words_visited", "k4_sparse_visited",

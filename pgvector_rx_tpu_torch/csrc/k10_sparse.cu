@@ -9,15 +9,23 @@
 // searchsorted merge join (dim unknown or > 2^20). The port takes the
 // gather wherever the dense queries fit, at every dim (the matmul's
 // ~6e12 FLOPs at the smoke's shape are ~37 ms even at 3xTF32 rates on
-// this card, against ~6.6e9 FMAs for the gather), and a lookup elsewhere:
+// this card, against ~6.6e9 FMAs for the gather), and elsewhere the same
+// gather in a compacted space:
 // - the dense-query form (`k10_dense_kernel`): the queries densified once
 //   per call into device memory as Qd [dim + 1, ldq], query-minor, row dim
 //   zero (pads hit it); a stored row entry (c, v) reads a contiguous run
 //   of a query tile's values Qd[c, tile] in one coalesced load and does one
 //   FMA per query. No search, no divergence on the query's length.
-// - the lookup form (`k10_sparse_kernel`): every (row entry, query) pair
-//   a binary search in the query's sorted indices in shared memory, for
-//   any dimension (the dense queries do not fit or dim is unknown).
+// - the lookup form (any dim, 0 = unknown): a chunk of B queries holds at
+//   most B P distinct indices whatever the dim. The wrapper takes their
+//   sorted union U (torch.unique over B P entries) and the queries' places
+//   in it; `k10_compact_kernel` maps every stored entry's index to its
+//   place in U (U if U lacks it: the zero row; pads stay pads), one search
+//   per stored entry (N P of them, not B N P); then `k10_dense_kernel`
+//   runs over the mapped rows with dim := |U|. A search of the query's
+//   sorted indices for every (query, entry) pair would be ~6.4e9 chains
+//   of ~6 dependent shared-memory reads at the smoke's shape; the mapping
+//   is ~6.4e6 searches.
 //
 // What both compute, per query b over the rows whose `live` flag is set
 // (rows and queries are padded CSR: P sorted indices padded with INT32_MAX,
@@ -61,18 +69,12 @@
 //   compare; an insertion shifts the thread's own list.
 // - The splits' lists merge in key_select_kernel (one warp per query).
 //
-// Lookup form, K9's shape:
-// - A block of 8 warps owns QB <= 64 queries (their sorted indices, values,
-//   norms and lengths resident in shared memory; QB chosen by the wrapper
-//   from P and k) and a range of rows (a split). Warp w owns queries
-//   [w * QB / 8, (w + 1) * QB / 8) and walks the whole range 32 rows at a
-//   time, one row per lane: each lane reads its row's entries (16-byte
-//   loads where P allows) once for all the warp's queries, stops at the
-//   first pad, and looks each entry up in each query's list (~log2 P
-//   dependent shared-memory reads per pair).
-// - Each query keeps a sorted list of k keys in shared memory, private to
-//   its warp (warp_offer_key, no block barrier in the loop).
-// - A second kernel merges the splits' lists: one warp per query.
+// The mapping (`k10_compact_kernel`): one thread per stored entry, a
+// grid-stride loop; the union's every stride-th value (<= 8,192 of them,
+// 32 KB) sits in shared memory, so an entry's search is ~13 shared-memory
+// steps, then <= log2(stride) loads from one or two 32-byte sectors of
+// the union in global memory. Bound: its bytes (the indices read and the
+// mapped indices written, 8 N P bytes: ~0.015 ms at the smoke's shape).
 // Measured: see PERF.md (K10 rows), timed by chip_smoke.py phase 24d.
 
 #include <cuda_bf16.h>
@@ -83,245 +85,69 @@
 
 namespace {
 
-constexpr int k10Warps = 8;
-constexpr int k10Threads = k10Warps * 32;
-constexpr int k10MaxQpw = 8;  // queries per warp (QB <= 64)
-constexpr int k10MaxSmem = 200 * 1024;  // as ops/sparse._k10_qtile assumes
+constexpr int k10MaxSmem = 200 * 1024;  // as ops/sparse._K10_SMEM assumes
 constexpr int kPadIndex = 0x7fffffff;
-
-struct Args {
-  const int* ci;    // [n, p] row indices
-  const float* cv;  // [n, p] row values
-  const uint8_t* live;  // [n]
-  const int* qi;    // [b, p]
-  const float* qv;  // [b, p]
-  const unsigned long long* lo;  // [b] first admitted key, or null
-  int n, p, b, k, qb, rows_per_split;
-  unsigned long long* part;  // [b, splits, k]
-};
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The first position of s[0, len) (ascending) whose value is >= c.
-__device__ __forceinline__ int lower_bound(const int* s, int len, int c) {
-  int lo = 0, n = len;
-  while (n > 0) {
-    const int h = n >> 1;
-    if (s[lo + h] < c) {
-      lo += h + 1;
-      n -= h + 1;
+// ---------------------------------------------------------------------------
+// The lookup form's mapping
+// ---------------------------------------------------------------------------
+
+constexpr int kCompactThreads = 256;
+constexpr int kCompactSample = 8192;  // the union's sampled values in smem
+
+// out[e] = the place of ci[e] in the ascending union uni[0, u), u if uni
+// lacks it, kPadIndex for a pad. samp: every stride-th value of uni (ns =
+// ceil(u / stride) of them; none for an empty union); ns = 0 searches the
+// whole union at once.
+__global__ void __launch_bounds__(kCompactThreads)
+    k10_compact_kernel(const int* ci, long long total, const int* uni, int u,
+                       int stride, int ns, int* out) {
+  __shared__ int samp[kCompactSample];
+  for (int i = threadIdx.x; i < ns; i += kCompactThreads)
+    samp[i] = uni[static_cast<long long>(i) * stride];
+  __syncthreads();
+  for (long long e = static_cast<long long>(blockIdx.x) * kCompactThreads +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * kCompactThreads) {
+    const int c = __ldg(ci + e);
+    int r = u;
+    if (c == kPadIndex) {
+      r = kPadIndex;
     } else {
-      n = h;
-    }
-  }
-  return lo;
-}
-
-// V row entries starting at e: indices and values.
-template <int V>
-struct Entries;
-template <>
-struct Entries<4> {
-  __device__ static void load(const int* ri, const float* rv, int e, int* c,
-                              float* x) {
-    const int4 ci = __ldg(reinterpret_cast<const int4*>(ri + e));
-    const float4 xv = __ldg(reinterpret_cast<const float4*>(rv + e));
-    c[0] = ci.x;
-    c[1] = ci.y;
-    c[2] = ci.z;
-    c[3] = ci.w;
-    x[0] = xv.x;
-    x[1] = xv.y;
-    x[2] = xv.z;
-    x[3] = xv.w;
-  }
-};
-template <>
-struct Entries<1> {
-  __device__ static void load(const int* ri, const float* rv, int e, int* c,
-                              float* x) {
-    c[0] = __ldg(ri + e);
-    x[0] = __ldg(rv + e);
-  }
-};
-
-// M: 0 l2, 1 ip, 2 cosine, 3 l1 (ops/sparse.SPARSE_METRICS); APPROX: the
-// dot over bf16-rounded values; V: entries per load (4: 16-byte loads).
-template <int M, bool APPROX, int V>
-__global__ void __launch_bounds__(k10Threads) k10_sparse_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int* qidx = reinterpret_cast<int*>(smem);                   // [qb][p]
-  float* qval = reinterpret_cast<float*>(qidx + a.qb * a.p);  // [qb][p]
-  float* qsq = qval + a.qb * a.p;                             // [qb]
-  float* qabs = qsq + a.qb;                                   // [qb]
-  int* qlen = reinterpret_cast<int*>(qabs + a.qb);            // [qb]
-  // 8-byte aligned: qb is a multiple of 8
-  unsigned long long* lists =
-      reinterpret_cast<unsigned long long*>(qlen + a.qb);  // [qb][k]
-  const int q0 = blockIdx.x * a.qb;
-  const int split = blockIdx.y;
-  const int r0 = split * a.rows_per_split;
-  const int r1 = min(a.n, r0 + a.rows_per_split);
-
-  for (int i = tid; i < a.qb * a.p; i += k10Threads) {
-    const int j = i / a.p;
-    const bool ok = q0 + j < a.b;
-    const long long g = static_cast<long long>(q0) * a.p + i;
-    qidx[i] = ok ? a.qi[g] : kPadIndex;
-    qval[i] = ok ? a.qv[g] : 0.f;
-  }
-  for (int i = tid; i < a.qb * a.k; i += k10Threads) lists[i] = kEmptyKey;
-  __syncthreads();
-  for (int j = warp; j < a.qb; j += k10Warps) {  // one warp per query
-    float s2 = 0.f, s1 = 0.f;
-    int len = 0;
-    for (int c = lane; c < a.p; c += 32) {
-      if (qidx[j * a.p + c] != kPadIndex) {
-        const float v = qval[j * a.p + c];
-        s2 += v * v;
-        s1 += fabsf(v);
-        ++len;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      s2 += __shfl_xor_sync(kFull, s2, o);
-      s1 += __shfl_xor_sync(kFull, s1, o);
-      len += __shfl_xor_sync(kFull, len, o);
-    }
-    if (lane == 0) {
-      qsq[j] = s2;
-      qabs[j] = s1;
-      qlen[j] = len;
-    }
-  }
-  __syncthreads();
-  if (APPROX) {  // the dot's query values, after the norms took f32 ones
-    for (int i = tid; i < a.qb * a.p; i += k10Threads)
-      qval[i] = bf16_round(qval[i]);
-    __syncthreads();
-  }
-
-  const int qpw = a.qb / k10Warps;
-  const int my0 = warp * qpw;  // this warp's first query in the block
-  unsigned long long lo[k10MaxQpw], thr[k10MaxQpw];
-  int len[k10MaxQpw];
-#pragma unroll
-  for (int j = 0; j < k10MaxQpw; ++j) {
-    const int qi = q0 + my0 + j;
-    const bool mine = j < qpw && qi < a.b;
-    lo[j] = !mine ? kEmptyKey : (a.lo != nullptr ? a.lo[qi] : 0ull);
-    thr[j] = kEmptyKey;
-    len[j] = j < qpw ? qlen[my0 + j] : 0;
-  }
-
-  for (int row0 = r0; row0 < r1; row0 += 32) {
-    const int row = row0 + lane;
-    const bool ok = row < r1 && a.live[row];
-    float dot[k10MaxQpw], corr[k10MaxQpw];
-#pragma unroll
-    for (int j = 0; j < k10MaxQpw; ++j) dot[j] = corr[j] = 0.f;
-    float csq = 0.f, cabs = 0.f;
-    if (ok) {
-      const int* ri = a.ci + static_cast<long long>(row) * a.p;
-      const float* rv = a.cv + static_cast<long long>(row) * a.p;
-      bool done = false;
-      for (int e = 0; e < a.p && !done; e += V) {
-        int cc[V];
-        float xx[V];
-        Entries<V>::load(ri, rv, e, cc, xx);
-#pragma unroll
-        for (int u = 0; u < V; ++u) {
-          const int c = cc[u];
-          if (c == kPadIndex) {  // the row's pads fill its tail
-            done = true;
-            break;
-          }
-          const float x = xx[u];
-          csq += x * x;
-          if (M == 3) cabs += fabsf(x);
-          const float xd = APPROX ? bf16_round(x) : x;
-#pragma unroll
-          for (int j = 0; j < k10MaxQpw; ++j) {
-            if (j >= qpw) break;  // warp-uniform
-            const int* s = qidx + (my0 + j) * a.p;
-            const int pos = lower_bound(s, len[j], c);
-            if (pos < len[j] && s[pos] == c) {
-              const float g = qval[(my0 + j) * a.p + pos];
-              dot[j] += g * xd;
-              if (M == 3) corr[j] += fabsf(g - x) - fabsf(g) - fabsf(x);
-            }
+      int lo = 0, m = u;  // where c lies in uni, if anywhere
+      if (ns > 0) {
+        // s: the number of sampled values <= c
+        int s = 0, n = ns;
+        while (n > 0) {
+          const int h = n >> 1;
+          if (samp[s + h] <= c) {
+            s += h + 1;
+            n -= h + 1;
+          } else {
+            n = h;
           }
         }
+        // uni[(s - 1) stride, s stride); none below the first sample
+        lo = s > 0 ? (s - 1) * stride : u;
+        m = s > 0 ? min(lo + stride, u) - lo : 0;
       }
-    }
-#pragma unroll
-    for (int j = 0; j < k10MaxQpw; ++j) {
-      if (j >= qpw) break;  // warp-uniform
-      unsigned long long key = kEmptyKey;
-      if (ok) {
-        const float qs = qsq[my0 + j];
-        float d;
-        if (M == 0) {
-          d = fmaxf(qs + csq - 2.0f * dot[j], 0.0f);
-        } else if (M == 1) {
-          d = -dot[j];
-        } else if (M == 2) {
-          const float den = sqrtf(qs * csq);
-          const float sim = den > 0.0f ? __fdiv_rn(dot[j], den) : 0.0f;
-          d = 1.0f - fminf(fmaxf(sim, -1.0f), 1.0f);
+      while (m > 0) {  // the first place there whose value is >= c
+        const int h = m >> 1;
+        if (__ldg(uni + lo + h) < c) {
+          lo += h + 1;
+          m -= h + 1;
         } else {
-          d = qabs[my0 + j] + cabs + corr[j];
+          m = h;
         }
-        d = __fadd_rn(d, 0.0f);  // -0.0 -> +0.0: the two zeros tie
-        key = (static_cast<unsigned long long>(float_key(d)) << 32) |
-              static_cast<unsigned>(row);
-        if (key < lo[j]) key = kEmptyKey;
       }
-      if (__any_sync(kFull, key < thr[j])) {
-        unsigned long long* l = lists + (my0 + j) * a.k;
-        warp_offer_key(l, a.k, key, lane);
-        thr[j] = l[a.k - 1];
-      }
+      if (lo < u && __ldg(uni + lo) == c) r = lo;
     }
+    out[e] = r;
   }
-  __syncwarp();
-  for (int j = 0; j < qpw; ++j) {
-    const int qi = q0 + my0 + j;
-    if (qi >= a.b) break;
-    const unsigned long long* l = lists + (my0 + j) * a.k;
-    unsigned long long* o =
-        a.part + (static_cast<long long>(qi) * gridDim.y + split) * a.k;
-    for (int i = lane; i < a.k; i += 32) o[i] = l[i];
-  }
-}
-
-size_t smem_bytes(int p, int qb, int k) {
-  return 4 * (2 * static_cast<size_t>(qb) * p + 3 * static_cast<size_t>(qb)) +
-         8 * static_cast<size_t>(qb) * k;
-}
-
-template <int M, bool APPROX, int V>
-cudaError_t launch(const Args& a, dim3 grid, size_t smem, cudaStream_t st) {
-  auto kern = k10_sparse_kernel<M, APPROX, V>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kern<<<grid, k10Threads, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-template <int M, bool APPROX>
-cudaError_t launch_v(const Args& a, bool vec, dim3 grid, size_t smem,
-                     cudaStream_t st) {
-  return vec ? launch<M, APPROX, 4>(a, grid, smem, st)
-             : launch<M, APPROX, 1>(a, grid, smem, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -525,45 +351,25 @@ cudaError_t launch_dense2(const DenseArgs& a, bool vec, dim3 grid,
 
 extern "C" {
 
-// K10 for b queries over n rows of p padded-CSR entries: metric 0 l2,
-// 1 ip, 2 cosine, 3 l1; approx (metrics 0-2 only) rounds the dot's values
-// to bf16; lo [b] or null; qb queries per block (a multiple of 8, at most
-// 64); the grid is (ceil(b / qb), splits), split s covering rows
-// [s * rows_per_split, +rows_per_split). part [b, splits, k] is scratch;
-// out [b, k] the keys (float_key(d) << 32 | row), ascending, ~0 empty.
-int pgv_k10_sparse_topk(const int* ci, const float* cv, const uint8_t* live,
-                        const int* qi, const float* qv,
-                        const unsigned long long* lo, int n, int p, int b,
-                        int k, int metric, int approx, int qb, int splits,
-                        int rows_per_split, unsigned long long* part,
-                        unsigned long long* out, void* stream) {
-  if (n <= 0 || p <= 0 || b <= 0 || k < 1 || k > kMaxK || qb <= 0 ||
-      qb % k10Warps || qb > k10Warps * k10MaxQpw || splits <= 0 ||
-      rows_per_split <= 0 || metric < 0 || metric > 3 ||
-      (approx && metric == 3))
+// The lookup form's mapping of `total` stored indices ci (padded CSR, pads
+// kPadIndex) into the places of the ascending union uni [u] (u >= 0): out
+// [total] holds the place, u where uni lacks the index, kPadIndex for a
+// pad. `blocks`: the grid's blocks (a grid-stride loop covers the rest).
+int pgv_k10_compact(const int* ci, long long total, const int* uni, int u,
+                    int blocks, int* out, void* stream) {
+  if (total < 0 || u < 0 || blocks <= 0 || blocks > 65535 ||
+      (u > 0 && uni == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(p, qb, k);
-  if (smem > static_cast<size_t>(k10MaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{ci, cv, live, qi, qv, lo, n, p, b, k, qb, rows_per_split, part};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((b + qb - 1) / qb, splits);
-  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(ci) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(cv) % 16 == 0;
-  cudaError_t err;
-  switch (metric * 2 + (approx ? 1 : 0)) {
-    case 0: err = launch_v<0, false>(a, vec, grid, smem, st); break;
-    case 1: err = launch_v<0, true>(a, vec, grid, smem, st); break;
-    case 2: err = launch_v<1, false>(a, vec, grid, smem, st); break;
-    case 3: err = launch_v<1, true>(a, vec, grid, smem, st); break;
-    case 4: err = launch_v<2, false>(a, vec, grid, smem, st); break;
-    case 5: err = launch_v<2, true>(a, vec, grid, smem, st); break;
-    default: err = launch_v<3, false>(a, vec, grid, smem, st); break;
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_key_select(part, b, splits * k, k, out, st));
+  if (total == 0) return 0;
+  const int stride = u > kCompactSample ? (u + kCompactSample - 1) /
+                                              kCompactSample
+                                        : 1;
+  const int ns = (u + stride - 1) / stride;
+  k10_compact_kernel<<<blocks, kCompactThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(ci, total, uni, u,
+                                                            stride, ns, out);
+  return static_cast<int>(cudaGetLastError());
 }
-
 
 // K10's dense-query form for b queries over n rows of p padded-CSR
 // entries: qd [dim + 1, ldq] the densified queries (f32, or bf16 bits when
@@ -572,7 +378,9 @@ int pgv_k10_sparse_topk(const int* ci, const float* cv, const uint8_t* live,
 // (ldq a multiple of the tile 32 warps); the grid is (splits, ldq / tile),
 // split s covering rows [s * rows_per_split, +rows_per_split), staged rc
 // rows at a time. part [b, splits, k] is scratch; out [b, k] the keys, as
-// pgv_k10_sparse_topk's.
+// float_key(d) << 32 | row, ascending, ~0 empty. The lookup form calls it
+// with the mapped rows and dim = |U| (0 when the queries hold no entry:
+// every entry then reads the zero row 0).
 int pgv_k10_dense_topk(const int* ci, const float* cv, const uint8_t* live,
                        const void* qd, const float* qsq, const float* qabs,
                        const unsigned long long* lo, int n, int p, int b,
@@ -581,7 +389,7 @@ int pgv_k10_dense_topk(const int* ci, const float* cv, const uint8_t* live,
                        unsigned long long* part, unsigned long long* out,
                        void* stream) {
   const int tile = 32 * warps;
-  if (n <= 0 || p <= 0 || b <= 0 || k < 1 || k > kMaxK || dim <= 0 ||
+  if (n <= 0 || p <= 0 || b <= 0 || k < 1 || k > kMaxK || dim < 0 ||
       warps < 1 || warps > k10dMaxWarps || ldq < b || ldq % tile ||
       ldq / tile > 65535 || rc <= 0 || splits <= 0 || rows_per_split <= 0 ||
       static_cast<long long>(splits) * rows_per_split < n ||

@@ -213,6 +213,14 @@ __device__ __forceinline__ bool before(float da, int ka, float db, int kb) {
   return da < db || (da == db && ka < kb);
 }
 
+// The same order as one 64-bit key (k >= 0): the float's order-preserving
+// bits (-0.0 made +0.0 first, as `before` ties them), then k.
+__device__ __forceinline__ unsigned long long rank_key(float d, int k) {
+  unsigned u = __float_as_uint(__fadd_rn(d, 0.0f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(k);
+}
+
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>
@@ -249,8 +257,7 @@ struct Load<float, 4> {
 };
 template <>
 struct Load<__half, 8> {
-  __device__ static void run(const __half* row, int c, float* out) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row) + c);
+  __device__ static void unpack_words(const uint4& v, float* out) {
     const __half2* h = reinterpret_cast<const __half2*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -259,11 +266,13 @@ struct Load<__half, 8> {
       out[2 * i + 1] = f.y;
     }
   }
+  __device__ static void run(const __half* row, int c, float* out) {
+    unpack_words(__ldg(reinterpret_cast<const uint4*>(row) + c), out);
+  }
 };
 template <>
 struct Load<__nv_bfloat16, 8> {
-  __device__ static void run(const __nv_bfloat16* row, int c, float* out) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row) + c);
+  __device__ static void unpack_words(const uint4& v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -272,7 +281,51 @@ struct Load<__nv_bfloat16, 8> {
       out[2 * i + 1] = f.y;
     }
   }
+  __device__ static void run(const __nv_bfloat16* row, int c, float* out) {
+    unpack_words(__ldg(reinterpret_cast<const uint4*>(row) + c), out);
+  }
 };
+
+// The same V values as Load's, in two halves: `raw` loads them as stored
+// (one 16-byte vector where V > 1), `unpack` makes them f32. A loop that
+// keeps many loads in flight holds 4 registers a load, whatever the type.
+template <typename T, int V>
+struct Raw;
+template <typename T>
+struct Raw<T, 1> {
+  using type = T;
+  __device__ static type load(const T* row, int c) { return row[c]; }
+  __device__ static void unpack(const type& r, float* out) {
+    out[0] = to_f(r);
+  }
+};
+template <>
+struct Raw<float, 4> {
+  using type = float4;
+  __device__ static type load(const float* row, int c) {
+    return __ldg(reinterpret_cast<const float4*>(row) + c);
+  }
+  __device__ static void unpack(const type& r, float* out) {
+    out[0] = r.x;
+    out[1] = r.y;
+    out[2] = r.z;
+    out[3] = r.w;
+  }
+};
+template <typename T>
+struct Raw16 {  // 8 f16 or bf16 values
+  using type = uint4;
+  __device__ static type load(const T* row, int c) {
+    return __ldg(reinterpret_cast<const uint4*>(row) + c);
+  }
+  __device__ static void unpack(const type& r, float* out) {
+    Load<T, 8>::unpack_words(r, out);
+  }
+};
+template <>
+struct Raw<__half, 8> : Raw16<__half> {};
+template <>
+struct Raw<__nv_bfloat16, 8> : Raw16<__nv_bfloat16> {};
 
 // Metric codes as ops/beam.py passes them: 0 l2 (squared), 1 ip (-dot),
 // 2 cosine (1 - clamp(dot)), 3 l1; on word rows 4 hamming, 5 jaccard.
@@ -1536,10 +1589,10 @@ __host__ __device__ int scan_buf_len(int S, int W, int ef, int SP,
 }
 
 // The spill's pool: a power of two >= 2 SP, SP + NL and 64 (NL = E L the
-// new entries of a step), so that it takes many steps' evicted entries
-// between two sorts.
-__host__ __device__ int scan_pool_len(int SP, int NL) {
-  return scan_sort_len(imax(64, imax(2 * SP, SP + NL)));
+// new entries of a step; SP + 4 NL at E > 1, whose steps evict E times as
+// many), so that it takes many steps' evicted entries between two sorts.
+__host__ __device__ int scan_pool_len(int SP, int NL, int E) {
+  return scan_sort_len(imax(64, imax(2 * SP, SP + (E > 1 ? 4 : 1) * NL)));
 }
 
 size_t scan_smem_bytes(int words, int d, int L, int S, int W, int ef,
@@ -1551,12 +1604,15 @@ size_t scan_smem_bytes(int words, int d, int L, int S, int W, int ef,
                      << scan_set_bits(W, S, SP + W - ef, static_cast<int>(nl));
   // bitmap; q (and its bf16 rounding); beam x2; the spill's pool; new raw
   // and kept; the beam's id set; the seeds' / finish's id set and first
-  // indices; the seeds' sort buffer, then the finish's merged spill; the
-  // members a step expands and their rows (E > 1)
+  // indices; the seeds' sort buffer, then the finish's merged spill; for
+  // E > 1 the members a step expands, the beam's first E unexpanded
+  // members, the step's compacted rows to score and their rank keys
   return 4 * (static_cast<size_t>(words) + dpad * (rank ? 2 : 1) +
               4 * static_cast<size_t>(W) +
-              2 * static_cast<size_t>(scan_pool_len(SP, static_cast<int>(nl))) +
-              4 * nl + 3 * tbl + 2 * x + (E > 1 ? 2 * E : 0));
+              2 * static_cast<size_t>(
+                      scan_pool_len(SP, static_cast<int>(nl), E)) +
+              4 * nl + 3 * tbl + 2 * x +
+              (E > 1 ? 2 * E + nl + 2 * (nl + 2) : 0));
 }
 
 // Open-addressing sets of ids (>= 0) in shared memory: 2^bits slots, -1
@@ -1649,6 +1705,88 @@ __device__ __forceinline__ float score8(const T* values, long long stride,
   v1 += __shfl_xor_sync(kFull, v1, 2);
   v1 += __shfl_xor_sync(kFull, v1, 1);
   return static_cast<float>(v1);
+}
+
+// score8 for 16 rows (the lanes r < 16 hold the ids; `okm` bit r: row r
+// is valid): lane l returns row (l >> 1) & 15's sum. K5's E > 1 step
+// scores its new entries 16 rows a warp at once: 64 rows' loads in flight
+// per block, twice score8's.
+template <typename T, int V, int M, bool RANK = false>
+__device__ __forceinline__ float score16(const T* values, long long stride,
+                                         int d, const float* qs, int v,
+                                         unsigned okm, int lane) {
+  using Acc = typename std::conditional<RANK, double, float>::type;
+  Acc acc[16];
+  const T* rows[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int id = __shfl_sync(kFull, v, r);
+    rows[r] = values + (((okm >> r) & 1u) ? static_cast<long long>(id) *
+                                                stride
+                                          : 0LL);
+    acc[r] = 0;
+  }
+  const int nchunks = d / V;
+  for (int c = lane; c < nchunks; c += 32) {
+    float qv[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) qv[e] = qs[c * V + e];
+    typename Raw<T, V>::type raw[16];  // the 16 loads in flight
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if ((okm >> r) & 1u) raw[r] = Raw<T, V>::load(rows[r], c);
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if ((okm >> r) & 1u) {
+        float x[V];
+        Raw<T, V>::unpack(raw[r], x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if constexpr (RANK)
+            acc[r] += term_rank<M>(x[e], qv[e]);
+          else
+            acc[r] += term<M>(x[e], qv[e]);
+        }
+      }
+  }
+  // score8's transposed reduction, one level deeper
+  Acc v8[8], v4[4], v2[2];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    v8[i] = (b4 ? acc[i + 8] : acc[i]) +
+            __shfl_xor_sync(kFull, b4 ? acc[i] : acc[i + 8], 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v4[i] = (b3 ? v8[i + 4] : v8[i]) +
+            __shfl_xor_sync(kFull, b3 ? v8[i] : v8[i + 4], 8);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    v2[i] = (b2 ? v4[i + 2] : v4[i]) +
+            __shfl_xor_sync(kFull, b2 ? v4[i] : v4[i + 2], 4);
+  Acc v1 = (b1 ? v2[1] : v2[0]) +
+           __shfl_xor_sync(kFull, b1 ? v2[0] : v2[1], 2);
+  v1 += __shfl_xor_sync(kFull, v1, 1);
+  return static_cast<float>(v1);
+}
+
+// Insert id into a set that erases nothing (any thread, concurrently);
+// true for exactly one of the threads that insert the same id: the one
+// whose insert claimed its slot, which goes to *slot.
+__device__ __forceinline__ bool set_claim(int* tbl, int bits, int id,
+                                          int* slot) {
+  const unsigned mask = (1u << bits) - 1u;
+  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
+    int v = tbl[s];
+    if (v == -1) {
+      v = atomicCAS(tbl + s, -1, id);
+      if (v == -1) {
+        *slot = static_cast<int>(s);
+        return true;
+      }
+    }
+    if (v == id) return false;
+  }
 }
 
 // Sort (d, k) [n] (n a power of two) by (distance, key) in place: a
@@ -1782,39 +1920,62 @@ __device__ __forceinline__ void merge_step(
 // The variants, as JAX's _beam_scan_segment runs them (no visited bitmap:
 // the segment has none):
 // - E > 1: a step expands the first E unexpanded members of the beam's
-//   order, scores their E L neighbours (a repeat of an earlier id in the
-//   step is dropped, as every non-finite entry is) and merges them, the
-//   evicted tail of E L entries joining the spill's pool; the next step's
-//   members are found after the merge (the E = 1 prefetch of the next
-//   member's ids does not apply).
+//   order, scores their E L neighbours (a repeat of an id in the step is
+//   dropped, as every non-finite entry is) and merges them, the evicted
+//   tail of E L entries joining the spill's pool. The step is laid out for
+//   its latency as E = 1's is, over every warp:
+//   * the E L ids of the step were loaded during the last merge (E L <=
+//     256: two per thread);
+//   * each id that may be walked is claimed in a step set (one copy of a
+//     repeat goes on: every copy has the same row, distance and key), the
+//     claimed ones count as scored (JAX's mask), and those not in the beam
+//     are compacted (two barriers), so only their rows load: 16 rows a
+//     warp at once (score16), one round trip for 64 rows;
+//   * every thread ranks its entries by counting the 64-bit (distance,
+//     key) keys below its own, two a shared-memory load (one pass, one
+//     barrier), while warp 3 lists the beam's first E unexpanded members;
+//     an entry after the full beam's last and the spill pool's cut can
+//     enter neither, and is not ranked;
+//   * the next step's members are the first E of the merge of that list
+//     and the ranked entries, found before the merge by a merge path
+//     (each warp alike, 32 members at a time: lane l takes the (t0 + l)-th
+//     and its place in the merged beam; inside the first W, it stays a
+//     member), so their E L ids load while the merge runs. Five block
+//     barriers a step; the spill's pool is SP + 4 E L wide, so its sorts
+//     come E times less often.
+//   E > 1 is an instantiation of its own (MULTI): the E = 1 kernels, the
+//   default's and bf16 ranking's, hold none of this step's code.
 // - RANK: new candidates are ranked over the bf16 rows (term_rank); after
 //   the walk the beam is re-scored in f32 from `exact` and sorted again
 //   before the finish, so the emitted top ef and the leftover carry exact
 //   distances while the spill keeps its ranking ones.
-template <typename T, int V, int M, bool RANK>
+template <typename T, int V, int M, bool RANK, bool MULTI>
 __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int red[kWarps];
+  __shared__ int red[kWarps], red2[kWarps];
   __shared__ int s_npos, s_nn, s_ck, s_scored, s_pc, s_erased, s_nsel;
   __shared__ float s_cd;
   K5_PROF_BEGIN
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int W = a.W, SP = a.SP, L = a.L, S = a.S, ef = a.ef;
-  const int E = a.E, NL = E * L;
+  const int E = MULTI ? a.E : 1, NL = E * L;
   const int mm = SP + W - ef;
   const int s2 = scan_sort_len(S);
-  const int pn = scan_pool_len(SP, NL);
+  const int pn = scan_pool_len(SP, NL, E);
   const int xn = scan_buf_len(S, W, ef, SP, RANK);
   const int bits = scan_set_bits(W, S, mm, NL);
   const int tbl = 1 << bits;
-  const int nch = (NL + 31) / 32;  // warp 0's chunks of new entries (<= 8)
+  const int nch = (L + 31) / 32;  // E = 1: warp 0's chunks of new entries
   const float inf = inf_f();
   const bool use_bm = a.allowed != nullptr;
   const int qpad = (a.d + 3) & ~3;
 
   unsigned* bm = reinterpret_cast<unsigned*>(smem);
-  float* qs = reinterpret_cast<float*>(bm + (use_bm ? a.words : 0));
+  // E > 1: the step's rank keys (16-byte aligned: words is a multiple of 4)
+  unsigned long long* nkey =
+      reinterpret_cast<unsigned long long*>(bm + (use_bm ? a.words : 0));
+  float* qs = reinterpret_cast<float*>(nkey + (E > 1 ? NL + 2 : 0));
   float* qr = RANK ? qs + qpad : qs;  // the query rounded to bf16 (RANK)
   float* bd = qs + (RANK ? 2 : 1) * qpad;  // beam, 2 buffers of W
   int* bk = reinterpret_cast<int*>(bd + 2 * W);
@@ -1829,8 +1990,9 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
   int* fm = fk + tbl;  // its first index per id
   float* xd = reinterpret_cast<float*>(fm + tbl);  // seeds, then the finish
   int* xk = reinterpret_cast<int*>(xd + xn);
-  int* sel = xk + xn;  // E > 1: the members a step expands
-  int* selu = sel + (E > 1 ? E : 0);  // and their rows
+  int* sel = xk + xn;  // E > 1: the members a step expands (their places)
+  int* au = sel + (E > 1 ? E : 0);  // the beam's first E unexpanded members
+  int* cid = au + (E > 1 ? E : 0);  // the step's rows to score, compacted
 
   unsigned* gbm =
       use_bm ? a.allowed + static_cast<long long>(b) * a.words : nullptr;
@@ -1913,16 +2075,30 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
             bd[0] <= (nb == W ? bd[W - 1] : inf);
   int u = go ? min(bk[0] >> 1, a.cap) : 0;
   const int jp = warp * 8 + (lane & 7);  // the id this lane prefetches
-  int my_id = E == 1 && go && jp < L
+  int my_id = !MULTI && go && jp < L
                   ? a.nbrs[static_cast<long long>(u) * L + jp]
                   : -1;
   int nsel = 1;
-  if (E > 1) {  // the first members: the nearest seeds
-    nsel = min(E, nb);
-    for (int i = tid; i < nsel; i += kThreads) {
-      sel[i] = i;
-      selu[i] = min(bk[i] >> 1, a.cap);
+  // E > 1: lane l of warp w prefetches the ids of new entries j =
+  // ((l >> 4) + 2 s) * 64 + 16 w + (l & 15), s = 0, 1 (E L <= 256): slot
+  // jo[s] of member jm[s] (INT_MAX past E L)
+  int pid[2] = {-1, -1}, jm[2] = {INT_MAX, INT_MAX}, jo[2] = {0, 0};
+  if constexpr (MULTI) {  // the first members: the nearest seeds
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int j = (((lane >> 4) + 2 * s) << 6) + (warp << 4) + (lane & 15);
+      jm[s] = j < NL ? j / L : INT_MAX;
+      jo[s] = j < NL ? j - jm[s] * L : 0;
     }
+    nsel = min(E, nb);
+    for (int i = tid; i < nsel; i += kThreads) sel[i] = i;
+    for (int i = tid; i < tbl; i += kThreads) fk[i] = -1;  // the step's set
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      pid[s] = go && jm[s] < nsel
+                   ? a.nbrs[static_cast<long long>(min(bk[jm[s]] >> 1,
+                                                       a.cap)) * L + jo[s]]
+                   : -1;
     __syncthreads();
   }
   K5_MARK(kPhStart);
@@ -1930,7 +2106,7 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
   while (go) {
     float* cbd = bd + cur * W;
     int* cbk = bk + cur * W;
-    if (E == 1) {
+    if constexpr (!MULTI) {
       if (tid == 0) cbk[pos] &= ~1;  // expanded; read after the next barrier
     } else if (tid < nsel) {
       cbk[sel[tid]] &= ~1;
@@ -1943,139 +2119,298 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
     // expanded member's neighbours scored: warp w takes rows [8w, 8w + 8),
     // then every 32nd group of 8
     if (4 * (nb + erased) > 3 * tbl ||
-        (E > 1 && 4 * (nb + erased + min(NL, W)) > 3 * tbl)) {
+        (MULTI && 4 * (nb + erased + min(NL, W)) > 3 * tbl)) {
       for (int i = tid; i < tbl; i += kThreads) hs[i] = -1;
       __syncthreads();
       for (int i = tid; i < nb; i += kThreads) set_insert(hs, bits, cbk[i] >> 1);
       erased = 0;
+      if constexpr (MULTI) __syncthreads();  // the E > 1 step reads it now
     }
 #ifdef PGV_K5_PROFILE
-    __syncthreads_or(my_id == INT_MIN);  // the prefetched ids have arrived
+    __syncthreads_or((MULTI ? pid[0] : my_id) == INT_MIN);  // the
+    // prefetched ids have arrived
     K5_MARK(kPhIds);
 #endif
-    for (int g0 = warp * 8; g0 < NL; g0 += kWarps * 8) {
-      const int j = g0 + (lane & 7);
-      int v = -1;
-      if (E == 1) {
-        v = g0 == warp * 8
+    int nn;  // the kept new entries, sorted in (sd, sk)
+    float nx_d = inf;  // E = 1: the next member, known before the merge
+    int nx_k = INT_MAX;
+    bool has_next = false;
+    int un = 0;
+    if constexpr (!MULTI) {
+      for (int g0 = warp * 8; g0 < L; g0 += kWarps * 8) {
+        const int j = g0 + (lane & 7);
+        const int v =
+            g0 == warp * 8
                 ? my_id
                 : (j < L ? a.nbrs[static_cast<long long>(u) * L + j] : -1);
-      } else if (j < NL && j / L < nsel) {
-        v = a.nbrs[static_cast<long long>(selu[j / L]) * L + j % L];
+        const bool ok = lane < 8 && j < L && v >= 0 && allowed(min(v, a.cap));
+        const unsigned okm = __ballot_sync(kFull, ok);
+        K5_MARK(kPhFlags);
+        scored_w += __popc(okm);
+        const float sum = score8<T, V, M, RANK>(
+            static_cast<const T*>(a.values), a.stride, a.d, RANK ? qr : qs,
+            v, okm, lane);
+        const int r = lane >> 2;  // the row whose sum this lane holds
+        const int vr = __shfl_sync(kFull, v, r);
+        if ((lane & 3) == 0 && g0 + r < L) {
+          const bool okr = (okm >> r) & 1u;
+          nd[g0 + r] = okr ? finish<M>(sum) : inf;
+          nk[g0 + r] = okr ? 2 * vr + 1 : -2;
+        }
       }
-      const bool ok = lane < 8 && j < NL && v >= 0 && allowed(min(v, a.cap));
-      const unsigned okm = __ballot_sync(kFull, ok);
-      K5_MARK(kPhFlags);
-      scored_w += __popc(okm);
-      const float sum = score8<T, V, M, RANK>(
-          static_cast<const T*>(a.values), a.stride, a.d, RANK ? qr : qs, v,
-          okm, lane);
-      const int r = lane >> 2;  // the row whose sum this lane holds
-      const int vr = __shfl_sync(kFull, v, r);
-      if ((lane & 3) == 0 && g0 + r < NL) {
-        const bool okr = (okm >> r) & 1u;
-        nd[g0 + r] = okr ? finish<M>(sum) : inf;
-        nk[g0 + r] = okr ? 2 * vr + 1 : -2;
-      }
-    }
-    __syncthreads();
-    K5_MARK(kPhRows);
+      __syncthreads();
+      K5_MARK(kPhRows);
 
-    // (B) warp 0: the new entries that are finite and no duplicate (of the
-    // beam, or of one earlier in the list), ranked; the other warps: the
-    // beam's first unexpanded member
-    if (warp == 0) {
-      // lane l holds entries l, 32 + l, ... (chunks; one at L <= 32)
-      float d_[8];
-      int k_[8];
-      unsigned kb[8];
+      // (B) warp 0: the new entries that are finite and no duplicate (of
+      // the beam, or of one earlier in the list), ranked; the other warps:
+      // the beam's first unexpanded member
+      if (warp == 0) {
+        // lane l holds entries l, 32 + l, ... (chunks; one at L <= 32)
+        float d_[8];
+        int k_[8];
+        unsigned kb[8];
 #pragma unroll 1
-      for (int c = 0; c < nch; ++c) {
-        const int j = c * 32 + lane;
-        d_[c] = j < NL ? nd[j] : inf;
-        k_[c] = j < NL ? nk[j] : -2;
-        bool keep = k_[c] >= 0 && d_[c] < inf;
-        const unsigned same = __match_any_sync(kFull, k_[c]);
-        bool rep = (same & ((1u << lane) - 1u)) != 0;
+        for (int c = 0; c < nch; ++c) {
+          const int j = c * 32 + lane;
+          d_[c] = j < L ? nd[j] : inf;
+          k_[c] = j < L ? nk[j] : -2;
+          bool keep = k_[c] >= 0 && d_[c] < inf;
+          const unsigned same = __match_any_sync(kFull, k_[c]);
+          bool rep = (same & ((1u << lane) - 1u)) != 0;
 #pragma unroll 1
-        for (int c2 = 0; c2 < c; ++c2)
-          for (int i = 0; i < 32; ++i)
-            if (__shfl_sync(kFull, k_[c2], i) == k_[c]) rep = true;
-        if (rep) keep = false;
-        if (keep && set_find(hs, bits, k_[c] >> 1) >= 0) keep = false;
-        kb[c] = __ballot_sync(kFull, keep);
-        // E > 1: a repeat of the step is masked, so not a row scored (JAX's
-        // batch dedup; at E = 1 it is a dup of a scored row)
-        if (E > 1) scored_w -= __popc(__ballot_sync(kFull, rep && k_[c] >= 0));
-      }
-      K5_MARK(kPhDedup);
-      int nn = 0;
+          for (int c2 = 0; c2 < c; ++c2)
+            for (int i = 0; i < 32; ++i)
+              if (__shfl_sync(kFull, k_[c2], i) == k_[c]) rep = true;
+          if (rep) keep = false;
+          if (keep && set_find(hs, bits, k_[c] >> 1) >= 0) keep = false;
+          kb[c] = __ballot_sync(kFull, keep);
+        }
+        K5_MARK(kPhDedup);
+        int nk_ = 0;
 #pragma unroll 1
-      for (int c = 0; c < nch; ++c) {
-        const float dc = d_[c];
-        const int kc = k_[c];
-        int r = 0;
+        for (int c = 0; c < nch; ++c) {
+          const float dc = d_[c];
+          const int kc = k_[c];
+          int r = 0;
 #pragma unroll 1
-        for (int c2 = 0; c2 < nch; ++c2) {
-          const float dc2 = d_[c2];
-          const int kc2 = k_[c2];
-          const unsigned kb2 = kb[c2];
+          for (int c2 = 0; c2 < nch; ++c2) {
+            const float dc2 = d_[c2];
+            const int kc2 = k_[c2];
+            const unsigned kb2 = kb[c2];
 #pragma unroll
-          for (int i = 0; i < 32; ++i) {
-            const float di = __shfl_sync(kFull, dc2, i);
-            const int ki = __shfl_sync(kFull, kc2, i);
-            r += ((kb2 >> i) & 1u) && before(di, ki, dc, kc);
+            for (int i = 0; i < 32; ++i) {
+              const float di = __shfl_sync(kFull, dc2, i);
+              const int ki = __shfl_sync(kFull, kc2, i);
+              r += ((kb2 >> i) & 1u) && before(di, ki, dc, kc);
+            }
           }
-        }
-        if ((kb[c] >> lane) & 1u) {
-          sd[r] = dc;
-          sk[r] = kc;
-          if (r == 0) {
-            s_cd = dc;
-            s_ck = kc;
+          if ((kb[c] >> lane) & 1u) {
+            sd[r] = dc;
+            sk[r] = kc;
+            if (r == 0) {
+              s_cd = dc;
+              s_ck = kc;
+            }
           }
+          nk_ += __popc(kb[c]);
         }
-        nn += __popc(kb[c]);
-      }
-      if (lane == 0) s_nn = nn;
-      K5_MARK(kPhSort);
-    } else {
-      if (tid == 32) {  // read by every thread after the merge
-        s_npos = INT_MAX;
-        s_pc = pc;
-        s_erased = 0;
-      }
-      int local = INT_MAX;
-      if (E == 1)
+        if (lane == 0) s_nn = nk_;
+        K5_MARK(kPhSort);
+      } else {
+        if (tid == 32) {  // read by every thread after the merge
+          s_npos = INT_MAX;
+          s_pc = pc;
+          s_erased = 0;
+        }
+        int local = INT_MAX;
         for (int i = tid - 32; i < nb; i += kThreads - 32)
           if (cbk[i] & 1) local = min(local, i);
-      local = __reduce_min_sync(kFull, local);
-      if (lane == 0) red[warp] = local;
-    }
-    __syncthreads();
+        local = __reduce_min_sync(kFull, local);
+        if (lane == 0) red[warp] = local;
+      }
+      __syncthreads();
 
-    // (C) the next member to expand, in every thread alike: the nearer of
-    // the beam's first unexpanded member and the nearest kept entry; its
-    // neighbour ids load now
-    int bc = INT_MAX;
+      // (C) the next member to expand, in every thread alike: the nearer of
+      // the beam's first unexpanded member and the nearest kept entry; its
+      // neighbour ids load now
+      int bc = INT_MAX;
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) bc = min(bc, red[w]);
-    const int nn = s_nn;
-    float nx_d = inf;  // E > 1: found after the merge
-    int nx_k = INT_MAX;
-    if (E == 1) {
+      for (int w = 1; w < kWarps; ++w) bc = min(bc, red[w]);
+      nn = s_nn;
       nx_d = s_cd;
       nx_k = s_ck;
       if (bc != INT_MAX && before(cbd[bc], cbk[bc], nx_d, nx_k)) {
         nx_d = cbd[bc];
         nx_k = cbk[bc];
       }
+      has_next = nx_d < inf;
+      un = has_next ? min(nx_k >> 1, a.cap) : 0;
+      if (has_next && jp < L)
+        my_id = a.nbrs[static_cast<long long>(un) * L + jp];
+      K5_MARK(kPhSelect);
+    } else {
+      // (A') E > 1: each prefetched id that may be walked is claimed in the
+      // step's set (its one copy that goes on: JAX's batch dedup keeps the
+      // first, and every copy has the same row, distance and key); the
+      // claimed ones are the rows scored, and those not in the beam are
+      // compacted into cid for scoring
+      bool need[2];
+      int slot[2];
+      unsigned bal[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int v = pid[s];
+        slot[s] = -1;
+        bool first = false, fresh = false;
+        if (v >= 0 && allowed(min(v, a.cap))) {
+          first = set_claim(fk, bits, v, &slot[s]);
+          fresh = first && set_find(hs, bits, v) < 0;
+        }
+        scored_w += __popc(__ballot_sync(kFull, first));
+        need[s] = fresh;
+        bal[s] = __ballot_sync(kFull, fresh);
+      }
+      if (lane == 0) {
+        red[warp] = __popc(bal[0]);
+        red2[warp] = __popc(bal[1]);
+      }
+      if (tid == 32) {  // read by every thread after the merge
+        s_pc = pc;
+        s_erased = 0;
+      }
+      __syncthreads();
+      int S = 0, off0 = 0, off1 = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        off0 += w < warp ? red[w] : 0;
+        off1 += w < warp ? red2[w] : 0;
+        S += red[w];
+      }
+      off1 += S;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) S += red2[w];
+      const unsigned lt = (1u << lane) - 1u;
+      if (need[0]) cid[off0 + __popc(bal[0] & lt)] = pid[0];
+      if (need[1]) cid[off1 + __popc(bal[1] & lt)] = pid[1];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        if (slot[s] >= 0) fk[slot[s]] = -1;  // every claim is made
+      __syncthreads();
+      K5_MARK(kPhDedup);
+      // the S compacted rows scored, 16 a warp at once
+      for (int g0 = warp * 16; g0 < S; g0 += kWarps * 16) {
+        const int c = g0 + (lane & 15);
+        const int v = lane < 16 && c < S ? cid[c] : -1;
+        const unsigned okm = __ballot_sync(kFull, lane < 16 && c < S);
+        const float sum = score16<T, V, M, RANK>(
+            static_cast<const T*>(a.values), a.stride, a.d, RANK ? qr : qs,
+            v, okm, lane);
+        const int r = lane >> 1;  // the row whose sum this lane holds
+        const int vr = __shfl_sync(kFull, v, r);
+        if ((lane & 1) == 0 && g0 + r < S) {
+          const float dd = finish<M>(sum);
+          const int kk = 2 * vr + 1;
+          // one after the full beam's last and the pool's cut enters
+          // neither the beam nor the spill: it is not ranked
+          const bool drop = !(dd < inf) ||
+                            (nb == W && !before(dd, kk, cbd[W - 1],
+                                                cbk[W - 1]) &&
+                             !before(dd, kk, tau_d, tau_k));
+          nd[g0 + r] = dd;
+          nkey[g0 + r] = drop ? ~0ull : rank_key(dd, kk);
+        }
+      }
+      if (tid == 0) nkey[S] = ~0ull;  // the pair read past an odd S
+      __syncthreads();
+      K5_MARK(kPhRows);
+      // (B') the ranked ones placed by every thread (each counts the keys
+      // below its own, two a load); warp 3 finds the beam's first E
+      // unexpanded members (au, in the beam's order)
+      int kept = 0;
+      const ulonglong2* kp = reinterpret_cast<const ulonglong2*>(nkey);
+      for (int base = 0; base < S; base += kThreads) {
+        const int j = base + tid;
+        const unsigned long long kj = j < S ? nkey[j] : ~0ull;
+        if (kj != ~0ull) {
+          int r = 0;
+#pragma unroll 4
+          for (int i = 0; i < (S + 1) >> 1; ++i) {
+            const ulonglong2 x = kp[i];
+            r += (x.x < kj) + (x.y < kj);
+          }
+          sd[r] = nd[j];
+          sk[r] = static_cast<int>(kj & 0xffffffffu);
+        }
+        kept += __popc(__ballot_sync(kFull, kj != ~0ull));
+      }
+      if (warp == kWarps - 1) {
+        int got = 0;
+        for (int base = 0; base < nb && got < E; base += 32) {
+          const int i = base + lane;
+          const unsigned mk = __ballot_sync(kFull, i < nb && (cbk[i] & 1));
+          const int r = got + __popc(mk & lt);
+          if (((mk >> lane) & 1u) && r < E) au[r] = i;
+          got = min(E, got + __popc(mk));
+        }
+        if (lane == 0) s_nsel = got;
+      }
+      if (lane == 0) red2[warp] = kept;  // its last reader passed 2 barriers
+      __syncthreads();
+      K5_MARK(kPhSort);
+      nn = red2[0] + red2[1] + red2[2] + red2[3];
+      // (C') the next step's members, in every warp alike: lane l takes
+      // the t-th (t = t0 + l, t < E, 32 at a time) of the merge of the
+      // beam's unexpanded members (au) and the kept entries (sd), beam
+      // first among equals (merge_step's order), and its place in the
+      // merged beam; those inside the first W are the first E unexpanded
+      // members there. Their neighbour ids load now.
+      const int na = s_nsel, nb2 = min(W, nb + nn);
+      int um[2] = {0, 0};  // the row of member jm[s]
+      nsel = 0;
+      for (int t0 = 0; t0 < E; t0 += 32) {
+        const int t = t0 + lane;
+        int ck = INT_MAX, cpos = INT_MAX;
+        if (t < E && t < na + nn) {
+          int lo = max(0, t - nn), hi = min(t, na);
+          while (lo < hi) {  // the members of au among the first t
+            const int mid = (lo + hi) >> 1;
+            const int ia = au[mid], jb = t - 1 - mid;
+            if (!before(sd[jb], sk[jb], cbd[ia], cbk[ia]))
+              lo = mid + 1;
+            else
+              hi = mid;
+          }
+          const int y = t - lo;  // and of sd
+          const bool from_beam =
+              lo < na && (y >= nn || !before(sd[y], sk[y], cbd[au[lo]],
+                                             cbk[au[lo]]));
+          if (from_beam) {
+            ck = cbk[au[lo]];
+            cpos = au[lo] + y;
+          } else {
+            ck = sk[y];
+            cpos = y + count_before(cbd, cbk, nb, sd[y], ck, false);
+          }
+        }
+        const bool in = cpos < nb2;  // a prefix of the t
+        const int got = __popc(__ballot_sync(kFull, in));
+        nsel += got;
+        if (warp == 0 && in) sel[t] = cpos;  // read after the merge
+        const int us = in ? min(ck >> 1, a.cap) : 0;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int x = __shfl_sync(kFull, us, jm[s] & 31);
+          if (jm[s] >= t0 && jm[s] - t0 < 32) um[s] = x;
+        }
+        if (got < 32) break;  // the rest lie past the merged beam or E
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        pid[s] = jm[s] < nsel
+                     ? a.nbrs[static_cast<long long>(um[s]) * L + jo[s]]
+                     : -1;
+      K5_MARK(kPhSelect);
     }
-    const bool has_next = nx_d < inf;
-    const int un = has_next ? min(nx_k >> 1, a.cap) : 0;
-    if (has_next && jp < L)
-      my_id = a.nbrs[static_cast<long long>(un) * L + jp];
-    K5_MARK(kPhSelect);
 
     // (D) the kept entries merged into the beam, the evicted nearer than
     // the pool's cut appended to it (cut to the SP nearest first if it
@@ -2099,32 +2434,14 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
     ++steps;
     // (E) JAX's loop condition on the merged beam: its first unexpanded
     // member is the next one, if that stayed in the beam (E > 1: the first
-    // E unexpanded members, found now)
+    // E unexpanded members, placed before the merge)
     const float* obd = bd + cur * W;
-    if (E == 1) {
+    if constexpr (!MULTI) {
       pos = s_npos;
       go = has_next && pos < nb && steps < a.max_steps &&
            obd[pos] <= (nb == W ? obd[W - 1] : inf);
       u = un;
     } else {
-      const int* obk = bk + cur * W;
-      if (warp == 0) {
-        const unsigned lt = (1u << lane) - 1u;
-        int got = 0;
-        for (int base = 0; base < nb && got < E; base += 32) {
-          const int i = base + lane;
-          const unsigned mk = __ballot_sync(kFull, i < nb && (obk[i] & 1));
-          const int r = got + __popc(mk & lt);
-          if (((mk >> lane) & 1u) && r < E) {
-            sel[r] = i;
-            selu[r] = min(obk[i] >> 1, a.cap);
-          }
-          got = min(E, got + __popc(mk));
-        }
-        if (lane == 0) s_nsel = got;
-      }
-      __syncthreads();
-      nsel = s_nsel;
       pos = nsel > 0 ? sel[0] : 0;
       go = nsel > 0 && steps < a.max_steps &&
            obd[pos] <= (nb == W ? obd[W - 1] : inf);
@@ -2240,25 +2557,33 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
   K5_PROF_END(steps);
 }
 
+// K5's instantiation for a metric: bf16 ranking (bf16 rows with their
+// f32 copy; l2, ip, cosine) or not; MULTI: E > 1 (the default walk, E = 1,
+// is compiled without the E > 1 step, and the other way round).
+template <typename T, int V, bool MULTI>
+void (*scan_kernel(int metric, bool rank))(ScanArgs) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (rank)
+      return metric == 0   ? beam_scan_kernel<T, V, 0, true, MULTI>
+             : metric == 1 ? beam_scan_kernel<T, V, 1, true, MULTI>
+                           : beam_scan_kernel<T, V, 2, true, MULTI>;
+  }
+  if (rank) return nullptr;  // the entry takes bf16 ranking on bf16 rows
+  switch (metric) {
+    case 0: return beam_scan_kernel<T, V, 0, false, MULTI>;
+    case 1: return beam_scan_kernel<T, V, 1, false, MULTI>;
+    case 2: return beam_scan_kernel<T, V, 2, false, MULTI>;
+    default: return beam_scan_kernel<T, V, 3, false, MULTI>;
+  }
+}
+
 template <typename T, int V>
 cudaError_t launch_scan(const ScanArgs& a, int metric, int b, size_t smem,
                         cudaStream_t stream) {
-  void (*kern)(ScanArgs) = nullptr;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (a.exact != nullptr) {  // bf16 ranking: l2, ip, cosine
-      kern = metric == 0   ? beam_scan_kernel<T, V, 0, true>
-             : metric == 1 ? beam_scan_kernel<T, V, 1, true>
-                           : beam_scan_kernel<T, V, 2, true>;
-    }
-  }
-  if (a.exact == nullptr) {
-    switch (metric) {
-      case 0: kern = beam_scan_kernel<T, V, 0, false>; break;
-      case 1: kern = beam_scan_kernel<T, V, 1, false>; break;
-      case 2: kern = beam_scan_kernel<T, V, 2, false>; break;
-      default: kern = beam_scan_kernel<T, V, 3, false>; break;
-    }
-  }
+  const bool rank = a.exact != nullptr;
+  void (*kern)(ScanArgs) = a.E > 1 ? scan_kernel<T, V, true>(metric, rank)
+                                   : scan_kernel<T, V, false>(metric, rank);
+  if (kern == nullptr) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

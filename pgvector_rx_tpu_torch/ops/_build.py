@@ -75,10 +75,8 @@ _SIGNATURES = {
                             _P, _P, _P],
     # w, k, resident (out) -> shared memory bytes
     "pgv_k9_tc_smem": [_I, _I, _P],
-    # ci, cv, live, qi, qv, lo, n, p, b, k, metric, approx, qb, splits,
-    # rows_per_split, part, out, stream
-    "pgv_k10_sparse_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _P, _P, _P],
+    # ci, total, uni, u, blocks, out, stream
+    "pgv_k10_compact": [_P, _L, _P, _I, _I, _P, _P],
     # ci, cv, live, qd, qsq, qabs, lo, n, p, b, k, dim, ldq, metric, approx,
     # warps, rc, splits, rows_per_split, part, out, stream
     "pgv_k10_dense_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -586,7 +586,9 @@ def _k5_smem(words: int, d: int, L: int, S: int, W: int, ef: int,
     SP + E L and 64), the E L new entries (raw and kept), two id sets (the
     beam's, the seeds' / finish's with its first indices) of 2^bits slots,
     the seeds' / finish's buffer (also the re-scored beam's sort when
-    ranking in bf16) and, for E > 1, the E members a step expands."""
+    ranking in bf16) and, for E > 1, the E members a step expands, the
+    beam's first E unexpanded members, the step's E L compacted rows and
+    their 64-bit rank keys; the pool is SP + 4 E L wide at E > 1."""
     def pow2(n):
         return 1 << max(n - 1, 0).bit_length()
 
@@ -596,11 +598,11 @@ def _k5_smem(words: int, d: int, L: int, S: int, W: int, ef: int,
     while (1 << bits) < 2 * max(W + nl, S, mm):
         bits += 1
     buf = max(pow2(S), SP + 2 * (W - ef), pow2(W) if rank else 0)
-    pool = pow2(max(64, 2 * SP, SP + nl))
+    pool = pow2(max(64, 2 * SP, SP + (4 if expand > 1 else 1) * nl))
     dpad = -(-d // 4) * 4
     return 4 * (words + dpad * (2 if rank else 1) + 4 * W + 2 * pool
                 + 4 * nl + 3 * (1 << bits) + 2 * buf
-                + (2 * expand if expand > 1 else 0))
+                + (2 * expand + nl + 2 * (nl + 2) if expand > 1 else 0))
 
 
 def k5_bitmap_fits(cap: int, d: int, L: int, S: int, W: int, ef: int,

@@ -44,7 +44,7 @@ _NEG_BIG = float(3.0e38)
 LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0, "k3_x2max": 0,
             "k4_beam": 0, "k4_beam_sparse": 0, "k5_beam_scan": 0,
             "k9_bits": 0, "k9_bits_tc": 0, "k10_sparse": 0,
-            "k10_sparse_lookup": 0}
+            "k10_sparse_lookup": 0, "k10_compact": 0}
 
 _MAX_K = 64
 

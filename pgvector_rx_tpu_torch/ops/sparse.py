@@ -30,19 +30,26 @@ and picks one of three formulations by the dimension. The kernel
 (``_k10_form``): where the JAX package's dense queries fit
 (``dense_q_fits``, its ``dense_q_ok``) the dense-query form, a gather from
 the queries densified once per call as ``[dim + 1, B]`` (query-minor) with
-a fused top-k; elsewhere (dim unknown or too large) the lookup form, a
-binary search of each row entry in the query's sorted indices. Its plain
-version is ``_sparse_topk_plain``, which takes the same two formulations
-by the same rule. ``approx=True`` rounds the values of the dot to bf16
+a fused top-k; elsewhere (dim unknown or too large) the lookup form, the
+same gather in a compacted space: per chunk of queries the sorted union U
+of their indices (``compact_union``), every stored index mapped to its
+place in U by a kernel of its own (``compact_rows``; U where U lacks it),
+a block of rows at a time, and the dense-query kernel over the mapped rows
+at dim = |U|. Its plain version is ``_sparse_topk_plain``, which takes the
+dense-query gather where the kernel does and elsewhere a binary search of
+each row entry in the query's sorted indices (the same matched values in
+the same order, so the same keys). ``approx=True`` rounds the values of the dot to bf16
 (f32 sums, the norms from the f32 values), as the JAX package's bf16
-densified-corpus product does. The wrapper takes the plain version only
-for tensors on the CPU; for a CUDA tensor it launches the kernel or
-raises. ``bruteforce.LAUNCHES`` counts the launches of the dense-query
-form under ``k10_sparse`` and of the lookup form under
-``k10_sparse_lookup``.
+densified-corpus product does. The wrappers take the plain version only
+for tensors on the CPU; for a CUDA tensor they launch the kernel or
+raise. ``bruteforce.LAUNCHES`` counts the sweep's launches of the
+dense-query form under ``k10_sparse``, of the lookup form under
+``k10_sparse_lookup``, and the mapping's under ``k10_compact``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -228,6 +235,59 @@ def dense_q_fits(dim: int, b: int) -> bool:
 _K10_SMEM = 200 * 1024
 
 
+def compact_union(qi):
+    """The lookup form's compacted space for queries ``qi`` [B, P]: (the
+    sorted union of their indices [U] int32, the queries' indices as places
+    in it [B, P] int32, pads kept)."""
+    valid = qi != PAD_INDEX
+    uni, inv = torch.unique(qi[valid], sorted=True, return_inverse=True)
+    pos = torch.full_like(qi, int(PAD_INDEX))
+    pos[valid] = inv.to(torch.int32)
+    return uni.to(torch.int32).contiguous(), pos
+
+
+def _compact_rows_plain(ci, uni):
+    """Plain version of the mapping: each stored index of ``ci`` [N, P] as
+    its place in the sorted union ``uni`` [U], U where ``uni`` lacks it,
+    ``PAD_INDEX`` kept -> [N, P] int32."""
+    u = uni.shape[0]
+    if u == 0:
+        return torch.where(ci == PAD_INDEX, ci, 0)
+    pos = torch.searchsorted(uni, ci)
+    found = (pos < u) & (uni[pos.clamp(max=u - 1)] == ci)
+    return torch.where(ci == PAD_INDEX, ci,
+                       torch.where(found, pos, u).to(torch.int32))
+
+
+def compact_rows(ci, uni, out=None):
+    """The lookup form's mapping (a kernel of K10): every stored index of
+    ``ci`` [N, P] as its place in the sorted union ``uni`` [U] (U where
+    ``uni`` lacks it, pads kept) -> [N, P] int32 (into ``out`` on the
+    card). CPU tensors take ``_compact_rows_plain``; CUDA tensors the
+    kernel (one search per stored entry)."""
+    if not ci.is_cuda:
+        return _compact_rows_plain(ci, uni)
+    from . import _build
+
+    _check_cuda("indices", ci, torch.int32, 2)
+    _check_cuda("union", uni, torch.int32, 1, ci.device)
+    if out is None:
+        out = torch.empty_like(ci)
+    elif out.shape != ci.shape or out.dtype != torch.int32 or (
+            not out.is_contiguous() or out.device != ci.device):
+        raise ValueError("out must be a contiguous int32 tensor like ci")
+    total = ci.numel()
+    blocks = max(1, min(-(-total // 256), 4 * _block_target(ci.device)))
+    with torch.cuda.device(ci.device):
+        rc = _build.lib().pgv_k10_compact(
+            ci.data_ptr(), total, uni.data_ptr() if uni.numel() else None,
+            uni.shape[0], blocks, out.data_ptr(),
+            torch.cuda.current_stream(ci.device).cuda_stream)
+    _build.check(rc, "pgv_k10_compact")
+    LAUNCHES["k10_compact"] += 1
+    return out
+
+
 def _sparse_topk_plain(ci, cv, live, qi, qv, k: int, metric: str,
                        approx: bool = False, dim: int = 0):
     """Plain version of K10: per block of rows, the distances by the
@@ -254,56 +314,6 @@ def _sparse_topk_plain(ci, cv, live, qi, qv, k: int, metric: str,
     if best.shape[1] < k:  # fewer rows than k
         best = torch.nn.functional.pad(best, (0, k - best.shape[1]), value=-1)
     return _from_order_keys(best)
-
-
-def _k10_qtile(p: int, kl: int) -> int:
-    """Queries per block: the most of 64, 32, 16, 8 whose sorted lists,
-    norms and top-k lists fit the block's shared memory (mirrors the
-    kernel's check)."""
-    for qb in (64, 32, 16, 8):
-        if qb * (p * 8 + 12 + kl * 8) <= _K10_SMEM:
-            return qb
-    raise ValueError(f"a budget of {p} non-zeros does not fit the sparse "
-                     "sweep")
-
-
-def _k10_plan(n: int, b: int, qb: int, target: int):
-    """K10's grid: (query tiles, splits, rows per split), at most
-    ``target`` blocks where the query tiles allow; every split covers rows
-    [s * rows, min(n, (s + 1) * rows)), all non-empty; rows is a multiple
-    of 32 (a warp's rows per step)."""
-    qtiles = -(-b // qb)
-    chunks = -(-n // 32)
-    splits = max(1, min(chunks, 65535, target // qtiles))
-    rows = -(-chunks // splits) * 32
-    return qtiles, -(-n // rows), rows
-
-
-def _sparse_round_cuda(ci, cv, live, qi, qv, k: int, metric: str,
-                       approx: bool, lo):
-    """One launch of the kernel and its merge pass: the k smallest keys
-    per query at or after ``lo`` [B] (None: from the start), in the
-    kernel's unsigned key order."""
-    from . import _build
-
-    n, p = ci.shape
-    b = qi.shape[0]
-    qb = _k10_qtile(p, k)
-    _, splits, rows = _k10_plan(n, b, qb, 2 * _block_target(ci.device))
-    dev = ci.device
-    part = torch.empty((b, splits, k), dtype=torch.int64, device=dev)
-    out = torch.empty((b, k), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = _build.lib().pgv_k10_sparse_topk(
-            ci.data_ptr(), cv.data_ptr(), live.data_ptr(), qi.data_ptr(),
-            qv.data_ptr(), lo.data_ptr() if lo is not None else None, n, p,
-            b, k, SPARSE_METRICS.index(metric), int(approx), qb, splits,
-            rows, part.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(rc, "pgv_k10_sparse_topk")
-    LAUNCHES["k10_sparse_lookup"] += 1
-    return out
 
 
 def _k10_form(dim: int, b: int) -> str:
@@ -369,10 +379,12 @@ def densify_queries_t(query_indices, query_values, dim: int, ldq: int,
 
 
 def _dense_round_cuda(ci, cv, live, qd, q_sq, q_abs, b: int, k: int,
-                      metric: str, approx: bool, dim: int, plan, lo):
-    """One launch of the dense-query form and its merge pass: the k
+                      metric: str, approx: bool, dim: int, plan, lo,
+                      form: str = "k10_sparse"):
+    """One launch of the dense-query kernel and its merge pass: the k
     smallest keys per query at or after ``lo`` [B] (None: from the start),
-    in the kernel's unsigned key order."""
+    in the kernel's unsigned key order; counted under ``form`` (the lookup
+    form passes its mapped rows, its compacted queries and dim = |U|)."""
     from . import _build
 
     n, p = ci.shape
@@ -390,17 +402,99 @@ def _dense_round_cuda(ci, cv, live, qd, q_sq, q_abs, b: int, k: int,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc_, "pgv_k10_dense_topk")
-    LAUNCHES["k10_sparse"] += 1
+    LAUNCHES[form] += 1
     return out
+
+
+def _lookup_chunk(p: int) -> int:
+    """The lookup form's queries per chunk: the most whose compacted dense
+    queries [U + 1, ldq] stay within 1 GiB (the JAX package's bound on
+    dense queries) for any union (U <= chunk P); a multiple of the dense
+    tile where that allows."""
+    tile = 32 * _K10D_WARPS
+
+    def fits(c):
+        return -(-c // tile) * tile * (c * p + 1) * 4 <= 1 << 30
+
+    c = max(1, math.isqrt((1 << 30) // (4 * p)))
+    if c >= tile:
+        c -= c % tile
+    while c > 1 and not fits(c):
+        c -= tile if c > tile else 1
+    return c
+
+
+#: bytes of the lookup form's mapped rows (the stored indices as places in
+#: a query chunk's union), which it maps and sweeps a block at a time
+_LOOKUP_MAP_BYTES = 256 << 20
+
+
+def _lookup_rows(p: int) -> int:
+    """The lookup form's rows per block: the most whose mapped indices stay
+    within ``_LOOKUP_MAP_BYTES``."""
+    return max(1, _LOOKUP_MAP_BYTES // (4 * p))
+
+
+def _merge_kernel_keys(parts, k: int):
+    """The k smallest of the kernel's unsigned keys in ``parts`` (each
+    [B, *], -1 empty) -> [B, k], ascending, empty last."""
+    keys = torch.cat(parts, dim=1)
+    top, big = torch.iinfo(torch.int64).min, torch.iinfo(torch.int64).max
+    signed = torch.where(keys == -1, big, keys ^ top)
+    best = torch.topk(signed, k, dim=1, largest=False, sorted=True).values
+    return torch.where(best == big, -1, best ^ top)
+
+
+def _lookup_topk_cuda(ci, cv, live, qi, qv, k: int, metric: str,
+                      approx: bool, sms: int):
+    """The lookup form on the card, per chunk of queries (``_lookup_chunk``):
+    their union (``compact_union``) and the compacted dense queries; then
+    per block of rows (``_lookup_rows``) the rows mapped into the union
+    (``compact_rows``, into one reused buffer) and the dense-query kernel
+    at dim = |U| in rounds; the blocks' keys merged. -> keys [B, k], the
+    kernel's unsigned order."""
+    from .bits import _in_rounds
+
+    n, p = ci.shape
+    b = qi.shape[0]
+    chunk, rows = _lookup_chunk(p), min(n, _lookup_rows(p))
+    mapped = torch.empty((rows, p), dtype=torch.int32, device=ci.device)
+    q_sq, q_abs = (t.contiguous() for t in _query_norms(qv))
+    parts = []
+    for s in range(0, b, chunk):
+        qc = slice(s, min(b, s + chunk))
+        bc = qc.stop - s
+        uni, qpos = compact_union(qi[qc])
+        u = uni.shape[0]
+        qd = densify_queries_t(qpos, qv[qc], u,
+                               _k10_dense_plan(n, bc, p, 1, sms)[1],
+                               torch.bfloat16 if approx else torch.float32)
+        blocks = []
+        for r0 in range(0, n, rows):
+            r1 = min(n, r0 + rows)
+            mc = compact_rows(ci[r0:r1], uni, out=mapped[: r1 - r0])
+
+            def one_round(kr, lo, mc=mc, r0=r0, r1=r1, qd=qd, u=u, bc=bc,
+                          qc=qc):
+                return _dense_round_cuda(
+                    mc, cv[r0:r1], live[r0:r1], qd, q_sq[qc], q_abs[qc], bc,
+                    kr, metric, approx, u,
+                    _k10_dense_plan(r1 - r0, bc, p, kr, sms), lo,
+                    "k10_sparse_lookup")
+            keys = _in_rounds(one_round, k)
+            blocks.append(torch.where(keys == -1, keys, keys + r0))
+        parts.append(blocks[0] if len(blocks) == 1
+                     else _merge_kernel_keys(blocks, k))
+    return torch.cat(parts)
 
 
 def _sparse_topk_cuda(ci, cv, live, qi, qv, k: int, metric: str,
                       approx: bool = False, dim: int = 0):
     """K10 on the card in the form ``_k10_form`` picks, in rounds of at
     most 64 (each admits only the keys after the previous round's last;
-    the dense form densifies the queries once for all rounds). The
-    kernel's keys are unsigned, ``float_key(d) << 32 | row``; they become
-    ``_order_keys``' signed keys by flipping the top bit."""
+    the queries are densified once for all rounds). The kernel's keys are
+    unsigned, ``float_key(d) << 32 | row``; they become ``_order_keys``'
+    signed keys by flipping the top bit."""
     from .bits import _in_rounds
 
     _check_cuda("indices", ci, torch.int32, 2)
@@ -421,8 +515,10 @@ def _sparse_topk_cuda(ci, cv, live, qi, qv, k: int, metric: str,
     if n >= 1 << 31 or b > 65535 * 8:
         raise ValueError(f"at most 2^31 - 1 rows and {65535 * 8} queries per "
                          f"call (got {n}, {b})")
-    if _k10_form(dim, b) == "dense":
-        sms = _block_target(dev) // 2
+    sms = _block_target(dev) // 2
+    if _k10_form(dim, b) == "lookup":
+        keys = _lookup_topk_cuda(ci, cv, live, qi, qv, k, metric, approx, sms)
+    else:
         qd = densify_queries_t(qi, qv, dim,
                                _k10_dense_plan(n, b, p, 1, sms)[1],
                                torch.bfloat16 if approx else torch.float32)
@@ -432,11 +528,7 @@ def _sparse_topk_cuda(ci, cv, live, qi, qv, k: int, metric: str,
             return _dense_round_cuda(ci, cv, live, qd, q_sq, q_abs, b, kr,
                                      metric, approx, dim,
                                      _k10_dense_plan(n, b, p, kr, sms), lo)
-    else:
-        def one_round(kr, lo):
-            return _sparse_round_cuda(ci, cv, live, qi, qv, kr, metric,
-                                      approx, lo)
-    keys = _in_rounds(one_round, k)
+        keys = _in_rounds(one_round, k)
     signed = torch.where(keys == -1, keys, keys ^ torch.iinfo(torch.int64).min)
     return _from_order_keys(signed)
 

@@ -2,6 +2,7 @@
 the card's dependent round trip.
 
     python -m pgvector_rx_tpu_torch.probes.k5_profile [--rows N] [--queries N]
+        [--expand 1,4]
 
 Needs one NVIDIA Hopper card and ``nvcc``.
 
@@ -17,11 +18,15 @@ Needs one NVIDIA Hopper card and ``nvcc``.
    queries, filter ``eid % 500 == 0``, strict order, LIMIT 20, ef_search
    40: internal width 160, spill 200, the coarse seeds): each query runs
    the segments its ``DeviceBeamScan`` needs, fed its own spill and
-   marks, twice. Prints per run the clocks and microseconds per step of
-   each phase (clocks scaled by the blocks' own globaltimer; "spill_merge"
-   is the spill pool's occasional sorts, "ids" the barrier that waits for
-   the prefetched ids), steps per segment, and the kernel's microseconds
-   per segment.
+   marks, twice, at each E of ``--expand`` (``PGV_BEAM_EXPAND``: the E
+   nearest unexpanded members a step; the segments are the ones the real
+   scan needs at that E). Prints per run the clocks and microseconds per
+   step of each phase (clocks scaled by the blocks' own globaltimer;
+   "spill_merge" is the spill pool's occasional sorts, "ids" the barrier
+   that waits for the prefetched ids; at E > 1 "dedup" is the step set
+   and the compaction, "sort" the rank by every thread, "select" the
+   next members and their ids), steps per segment, and the kernel's
+   microseconds per segment.
 4. A pointer chase (the kernel below, one warp, 4,096 hops from each of 8
    random rows): each hop loads a row's L neighbour ids, then one
    neighbour's row, and takes the next row from that row's data: the
@@ -36,7 +41,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -136,7 +143,7 @@ def _segments(index, g, q, mask, dm, beam, SearchParams, DeviceBeamScan):
     return scan.scan_stats.resumes + 1
 
 
-def _replay(g, q, nseg, dm, beam):
+def _replay(g, q, nseg, dm, beam, expand):
     """One query's segments, each fed the previous one's spill and marks
     (DeviceBeamScan's state)."""
     ef, width = 40, 160
@@ -154,14 +161,72 @@ def _replay(g, q, nseg, dm, beam):
     for _ in range(nseg):
         _, sp_d, sp_ids = beam.scan_segment(
             *args, excl, "l2", q[None], *seeds, ef, width, spill,
-            4 * width + 32, allowed=allowed, mark=True)
+            4 * width + 32, allowed=allowed, mark=True, expand=expand)
         seeds = (sp_ids, sp_d)
+
+
+def _profile_expand(expand, index, g, q_dev, mask, prof_lib, args, dm,
+                    beam, SearchParams, DeviceBeamScan):
+    """Steps 3's replay and print at one E (``PGV_BEAM_EXPAND`` set for the
+    segment count, restored after)."""
+    dev = q_dev.device
+    old = os.environ.get("PGV_BEAM_EXPAND")
+    os.environ["PGV_BEAM_EXPAND"] = str(expand)
+    try:
+        nseg = [_segments(index, g, q_dev[i], mask, dm, beam, SearchParams,
+                          DeviceBeamScan) for i in range(args.queries)]
+
+        lib0 = _build.lib()
+        buf = torch.zeros(_SLOTS, dtype=torch.int64, device=dev)
+        runs = []
+        try:
+            _build._lib = prof_lib
+            for _ in range(2):
+                buf.zero_()
+                prof_lib.pgv_k5_profile(buf.data_ptr())
+                torch.cuda.synchronize()
+                t0 = time.time()
+                for i in range(args.queries):
+                    _replay(g, q_dev[i], nseg[i], dm, beam, expand)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                prof_lib.pgv_k5_profile(None)
+                runs.append((buf.cpu().numpy().copy(), wall))
+        finally:
+            _build._lib = lib0
+        for run, (c, wall) in enumerate(runs):
+            steps, clocks, ns, blocks = (int(x) for x in c[len(_PHASES):])
+            ns_per_clock = ns / clocks
+            split = {ph: {"clocks_per_step": c[i] / steps,
+                          "us_per_step": c[i] * ns_per_clock / steps / 1e3}
+                     for i, ph in enumerate(_PHASES) if ph not in
+                     ("start", "finish")}
+            per_seg = {ph: c[i] * ns_per_clock / blocks / 1e3
+                       for i, ph in enumerate(_PHASES)
+                       if ph in ("start", "finish")}
+            print(json.dumps({
+                "expand": expand, "run": run, "segments": blocks,
+                "steps": steps,
+                "steps_per_segment": steps / blocks,
+                "kernel_us_per_segment": ns / blocks / 1e3,
+                "us_per_step": ns / steps / 1e3,
+                "sm_ghz": clocks / ns, "split": split,
+                "us_per_segment_outside_steps": per_seg,
+                "host_wall_ms_per_segment": wall / blocks * 1e3}),
+                flush=True)
+    finally:
+        if old is None:
+            os.environ.pop("PGV_BEAM_EXPAND", None)
+        else:
+            os.environ["PGV_BEAM_EXPAND"] = old
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_065_536)
     ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--expand", default="1",
+                    help="comma-separated E values (PGV_BEAM_EXPAND)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("the probe needs a CUDA card")
@@ -176,8 +241,12 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
     dev = torch.device("cuda")
+    # the kernel library and its profiled copy build side by side
+    main_build = threading.Thread(target=_build.lib)
+    main_build.start()
     prof_lib = _profiled_library()
     chase_lib = _chase_library()
+    main_build.join()
     data, queries = make_dataset(args.rows, 128, args.queries, seed=0)
     t0 = time.time()
     index = HnswIndex.build(torch.from_numpy(data).to(dev), metric="l2",
@@ -190,46 +259,9 @@ def main() -> int:
                       "build_s": time.time() - t0}), flush=True)
     mask = (np.arange(g.cap) % 500) == 0
     q_dev = torch.from_numpy(queries).to(dev)
-    nseg = [_segments(index, g, q_dev[i], mask, dm, beam, SearchParams,
-                      DeviceBeamScan) for i in range(args.queries)]
-
-    lib0 = _build.lib()
-    buf = torch.zeros(_SLOTS, dtype=torch.int64, device=dev)
-    runs = []
-    try:
-        _build._lib = prof_lib
-        for _ in range(2):
-            buf.zero_()
-            prof_lib.pgv_k5_profile(buf.data_ptr())
-            torch.cuda.synchronize()
-            t0 = time.time()
-            for i in range(args.queries):
-                _replay(g, q_dev[i], nseg[i], dm, beam)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            prof_lib.pgv_k5_profile(None)
-            runs.append((buf.cpu().numpy().copy(), wall))
-    finally:
-        _build._lib = lib0
-    for run, (c, wall) in enumerate(runs):
-        steps, clocks, ns, blocks = (int(x) for x in c[len(_PHASES):])
-        ns_per_clock = ns / clocks
-        split = {ph: {"clocks_per_step": c[i] / steps,
-                      "us_per_step": c[i] * ns_per_clock / steps / 1e3}
-                 for i, ph in enumerate(_PHASES) if ph not in
-                 ("start", "finish")}
-        per_seg = {ph: c[i] * ns_per_clock / blocks / 1e3
-                   for i, ph in enumerate(_PHASES)
-                   if ph in ("start", "finish")}
-        print(json.dumps({
-            "run": run, "segments": blocks, "steps": steps,
-            "steps_per_segment": steps / blocks,
-            "kernel_us_per_segment": ns / blocks / 1e3,
-            "us_per_step": ns / steps / 1e3,
-            "sm_ghz": clocks / ns, "split": split,
-            "us_per_segment_outside_steps": per_seg,
-            "host_wall_ms_per_segment": wall / blocks * 1e3}),
-            flush=True)
+    for expand in (int(e) for e in args.expand.split(",")):
+        _profile_expand(expand, index, g, q_dev, mask, prof_lib, args, dm,
+                        beam, SearchParams, DeviceBeamScan)
 
     out = torch.zeros(2, dtype=torch.int64, device=dev)
     rng = np.random.default_rng(3)

@@ -69,13 +69,18 @@ def _set(monkeypatch, expand, visited, bf16):
         monkeypatch.setattr(mod, "_BEAM_BF16", bf16)
 
 
+#: K5's widest step: E L = 8 x 32 = 256 new entries (the kernels' limit),
+#: far more than a scan's spill takes, so every step overflows it
+SCAN_VARIANTS = {**VARIANTS, "expand8": (8, False, False)}
+
+
 @pytest.fixture
 def variant(request, monkeypatch):
     """Sets the variant ``request.param``; JAX's traces read the import-time
     switches, so its caches are cleared before and after."""
     jax.clear_caches()
-    _set(monkeypatch, *VARIANTS[request.param])
-    yield VARIANTS[request.param]
+    _set(monkeypatch, *SCAN_VARIANTS[request.param])
+    yield SCAN_VARIANTS[request.param]
     jax.clear_caches()
 
 
@@ -251,11 +256,14 @@ def test_sparse_walk_matches_jax(metric, variant, tmp_path):
                     1e-5 * _scale(metric, rows))
 
 
-@pytest.mark.parametrize("variant", ["expand4", "bf16"], indirect=True)
+@pytest.mark.parametrize("variant", ["expand4", "bf16", "expand8"],
+                         indirect=True)
 def test_beam_scan_matches_jax(pair, variant):
     """``DeviceBeamScan`` (K5's plain version on the CPU) streams JAX's
     first 60 tuples in both orders, ids but for near ties; its distance
-    count is steps x E x L, as JAX counts it."""
+    count is steps x E x L, as JAX counts it. At E = 8 (L = 32: E L = 256,
+    the kernels' limit) each step's evicted tail overflows the spill (124
+    wide at ef_search 20)."""
     j, t, q = pair
     for mode in ("relaxed_order", "strict_order"):
         for b in range(3):
@@ -470,16 +478,21 @@ def test_k4_sparse_rows_visited_match_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("expand,rank", [(4, False), (1, True), (4, True)])
-def test_k5_modes_match_plain(cuda, expand, rank):
-    """K5 with E = 4 and with bf16 ranking over 3 fed segments against its
-    plain version: on the grid every distance is exact in f32 and in bf16,
-    so the reports, spills and marks are equal; the control (the plain
-    segment at E = 1) differs."""
+@pytest.mark.parametrize("expand,rank,m", [(4, False, 8), (1, True, 8),
+                                           (4, True, 8), (8, False, 16),
+                                           (2, False, 16), (40, False, 2)])
+def test_k5_modes_match_plain(cuda, expand, rank, m):
+    """K5 with E = 2, 4, 8 and 40 (E = 8 at L = 32: E L = 256, the limit;
+    its evicted tails overflow the 100-wide spill every step; E = 40 at
+    L = 4: more members a step than a warp has lanes) and with bf16
+    ranking over 3 fed segments against its plain version: on the grid
+    every distance is exact in f32 and in bf16, so the reports (steps and
+    rows scored included), spills and marks are equal; the control (the
+    plain segment at E = 1) differs."""
     ef = 12
     width, spill = 4 * ef, 64 + 3 * ef
     vals, nb, trav, q, rng = _kernel_case(cuda, 32, torch.float32, n=2000,
-                                          seed=5)
+                                          m=m, seed=5)
     r = vals.to(torch.bfloat16) if rank else None
     ids, sd = _seeds(vals, q, rng, spill, 2000, live=trav)
     ek = torch.zeros((q.shape[0], 2001), dtype=torch.bool, device=cuda)
