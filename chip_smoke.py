@@ -208,6 +208,21 @@ staged as a bf16 store, and K1 / K2 at d = 1,024 against their plain
 versions and their library yardsticks (phase 8's ``k1_library`` /
 ``k2_library``; a ``{"d1024": ...}`` line).
 
+**The build knobs** (27, run after phase 18): the JAX package's
+``PGV_BUILD_*`` knobs in the port's device build, each arm built
+serving-only on the card (m=16, ef_construction=64, seed 1) with build
+seconds, rows/s, peak device memory above what was allocated before it
+and beam recall@10 at ef=40 against ``FLOORS["beam"]``: ``IVF_HOP=32``
+at the main path's 1,000,000 x 128-d l2 (a fresh CUDA copy of phase 2's
+rows, phase 4's ground truth, beside phase 3's build and recall);
+``ALPHA=1.2`` beside the default at 262,144 x 128-d l2 (the first rows,
+cut for the run's time; mean layer-0 out-degree of both); and at
+262,144 x 768-d cosine (phase 18's first rows, the beam ground) the
+default sort merge, ``BEAM_MERGE=rank`` (each beam ground's device span
+per batch beside its bound, a ``{"torch_ops": ...}`` line) and the sort
+merge with ``consume_input=True``, whose caller's tensor must hold no
+storage after the build (its peak printed beside the sort build's).
+
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
 path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
@@ -256,6 +271,12 @@ C044_N, C044_Q, C044_FLOOR = 50_000, 20, 0.99
 #: the 768-d cosine path, the l1 path and the logged host-graph index
 N768, D768 = 1_000_000, 768
 N_L1 = 262_144
+#: phase 27: the rows of its alpha arm (128-d l2) and of its 768-d cosine
+#: arm (cut from 1M for the run's time), and each arm's build knobs
+N27 = 262_144
+KNOB_ARMS = {"hop32": {"PGV_BUILD_IVF_HOP": "32"},
+             "alpha1.2": {"PGV_BUILD_ALPHA": "1.2"},
+             "rank": {"PGV_BUILD_BEAM_MERGE": "rank"}}
 N_LOG = 20_000
 CSRC = "pgvector_rx_tpu_torch/csrc/"
 PALLAS = "pgvector_rx_tpu/ops/pallas_bruteforce.py"
@@ -1189,12 +1210,14 @@ class SectionTimer:
                 for n, p in self.pairs.items()}
 
 
-def timed_build(HnswIndex, db, x, metric, params, dev, n, tag):
+def timed_build(HnswIndex, db, x, metric, params, dev, n, tag,
+                consume_input=False, out=None):
     """A serving-only device build from ``x`` (a CUDA tensor; a numpy 0/1
     array for the bit kind): seconds, rows/s, peak memory, the device time
     of the candidate step (the beam ground inside it) and of the commit;
     then the graph's invariants. Returns (index, graph, the beam ground's
-    (device seconds, batches))."""
+    (device seconds, batches)); ``out["s"]``, where given, takes the build
+    seconds."""
     with Phase(f"{tag} device build, {n:,} x {x.shape[1]}-d {metric}"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1204,9 +1227,12 @@ def timed_build(HnswIndex, db, x, metric, params, dev, n, tag):
             t0 = time.time()
             idx = HnswIndex.build(x, metric=metric, params=params,
                                   method="device", host_graph=False,
-                                  device=dev, seed=1)
+                                  device=dev, seed=1,
+                                  consume_input=consume_input)
             torch.cuda.synchronize()
             dt = time.time() - t0
+        if out is not None:
+            out["s"] = dt
         sec = st.seconds()
         log(f"{tag} device build: {dt:.3f} s, {n / dt:.1f} rows/s, peak "
             f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
@@ -1230,19 +1256,21 @@ def kernel_row(name, err, ms, plain_ms, bnd):
     return row
 
 
-def k8_row(db, ground_s, batches, b=CHUNK, dim=D768):
-    """The beam ground (K8, torch ops) of the 768-d build: its device span
+def k8_row(db, ground_s, batches, b=CHUNK, dim=D768, name="k8_beam_ground"):
+    """The beam ground (K8, torch ops) of a 768-d build: its device span
     per batch beside the bound of one b-row batch, worked out from
-    ``DeviceBuilder._beam_ground_candidates``: each of ``_BEAM_STEPS``
-    steps gathers, for each of ``_BEAM_EXPAND`` expanded entries, its 2m
+    ``DeviceBuilder._beam_ground_candidates`` at the default settings
+    (either merge does the same gathers and scores): each of 16 steps
+    gathers, for each of the ``beam_expand`` expanded entries, its 2m
     layer-0 ids (4 bytes), their live flags (1 byte) and their bf16 rows
     (every slot: the code gathers full lists), and scores them in f32 (a
     multiply-add per value); each query reads its f32 row once and writes
     ef_construction (distance, id) pairs."""
-    slots = b * db._BEAM_STEPS * db._BEAM_EXPAND * 2 * M
+    st = db.BuildSettings()
+    slots = b * (st.beam_steps or 16) * st.beam_expand * 2 * M
     nbytes = slots * (4 + 1 + dim * 2) + b * (dim * 4 + EF_CONSTRUCTION * 12)
     row = dict(
-        name="k8_beam_ground", route="torch ops",
+        name=name, route="torch ops",
         source="pgvector_rx_tpu_torch/graph/device_build.py "
                "(DeviceBuilder._beam_ground_candidates)",
         replaces="pgvector_rx_tpu/graph/device_build.py:1052 (the beam "
@@ -1251,7 +1279,7 @@ def k8_row(db, ground_s, batches, b=CHUNK, dim=D768):
         ms_of="device span per batch (CUDA events, idle gaps included)",
         library_ms=None, **bound(2.0 * slots * dim, "f32", nbytes))
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    log(f"k8_beam_ground: {row['ms']:.4f} ms per batch (span), bound of a "
+    log(f"{name}: {row['ms']:.4f} ms per batch (span), bound of a "
         f"{b}-row batch {row['bound_ms']:.4f} ms ({row['bound_by']}, "
         f"{nbytes:,} bytes), share {row['share_of_bound']:.4f}")
     return row
@@ -1261,7 +1289,8 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
                beam, dev):
     """Phase 18: BASELINE's 768-d cosine configuration at 1,000,000 rows,
     full width, on the card; then K1, K2 and K4 at d = 768 against their
-    plain versions."""
+    plain versions. Returns phase 27's 768-d rows (a copy of the first
+    ``N27``, raw) and the normalized queries."""
     params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
     with Phase("18 data, 1,000,000 x 768-d"):
         data, queries = make_dataset(N768, D768, N_QUERIES, seed=0)
@@ -1272,6 +1301,7 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
     bf.reset_launches()
     idx, g, (ground_s, ground_batches) = timed_build(
         HnswIndex, db, x, "cosine", params, dev, N768, "18")
+    x27 = x[:N27].clone()
     del x
     torch.cuda.empty_cache()
     k8 = k8_row(db, ground_s, ground_batches)
@@ -1358,8 +1388,139 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
                   + CHUNK * (D768 * 4 + s_ids.shape[1] * 8 + EF * 8 + 8))))
     log(json.dumps({"d768": rows}))
     log(json.dumps({"torch_ops": [k8]}))
-    del idx, g, xv, qn
+    del idx, g, xv
     torch.cuda.empty_cache()
+    return x27, qn
+
+
+class build_env:
+    """``PGV_BUILD_*`` knobs set for the builds inside the block, as a user
+    sets them (the port reads them per build), and restored after it."""
+
+    def __init__(self, knobs: dict):
+        self.knobs = knobs
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.knobs}
+        os.environ.update(self.knobs)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def knob_build(HnswIndex, db, x, metric, dev, n, tag, arm=None,
+               consume_input=False, out=None):
+    """One phase-27 build (``timed_build``, its knobs ``KNOB_ARMS[arm]``):
+    (index, graph, the beam ground's (seconds, batches), peak device memory
+    above what was allocated before it, in GiB); ``out["s"]``, where given,
+    takes the build seconds."""
+    from pgvector_rx_tpu_torch import IndexParams
+
+    params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    with build_env(KNOB_ARMS[arm] if arm else {}):
+        idx, g, ground = timed_build(HnswIndex, db, x, metric, params, dev, n,
+                                     tag, consume_input=consume_input,
+                                     out=out)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    log(f"{tag}: peak device memory {peak:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB allocated before the build")
+    return idx, g, ground, peak
+
+
+def beam_recall(device_mod, index, q, recall, tag):
+    """recall@10 of ``serve_topk`` beam at ef=40, against the floor."""
+    d, ids, dt = timed_serve(device_mod, index, q, "beam")
+    rec = recall(ids)
+    log(f"{tag} beam: recall@10={rec:.4f} qps={q.shape[0] / dt:.1f}")
+    if d.shape != (q.shape[0], K) or not np.isfinite(d).all():
+        raise RuntimeError(f"{tag}: non-finite or misshapen beam output")
+    if rec < FLOORS["beam"]:
+        raise RuntimeError(f"{tag}: beam recall {rec} < {FLOORS['beam']}")
+    return rec
+
+
+def mean_degree(g, n):
+    live = g.traversable[:n]
+    return float((g.neighbors0[:n][live] >= 0).sum(1).float().mean())
+
+
+def build_knobs(HnswIndex, device_mod, db, bf, data, queries, q_dev, gt,
+                main_build, x27, q768, dev):
+    """Phase 27: the JAX package's build knobs in the port's device build,
+    each arm built serving-only on the card (m=16, ef_construction=64,
+    seed 1) with build s, rows/s, peak memory and beam recall@10 at ef=40
+    (floor ``FLOORS["beam"]``). ``main_build``: phase 3's seconds, peak
+    GiB and beam recall, printed beside arm 1."""
+    # arm 1: IVF hop 32 at the main path's size, beside phase 3's build
+    x = torch.from_numpy(data[:N_ROWS]).to(dev)
+    hop = {}
+    idx, g, _, peak = knob_build(HnswIndex, db, x, "l2", dev, N_ROWS,
+                                 "27 hop32", "hop32", out=hop)
+    del x
+    rec = beam_recall(device_mod, idx, q_dev,
+                      recall_of(g.emit_tid.cpu().numpy(), gt), "27 hop32")
+    log(f"27 hop32 against phase 3's default build: beam recall {rec:.4f} "
+        f"against {main_build['recall']:.4f}, build {hop['s']:.3f} s against "
+        f"{main_build['s']:.3f}, peak {peak:.3f} GiB above the allocation "
+        f"before the build against {main_build['above']:.3f}")
+    del idx, g
+    torch.cuda.empty_cache()
+
+    # arm 2: RobustPrune's alpha at N27 rows, beside the default
+    with Phase("27 ground truth at 262,144 x 128-d"):
+        gt27 = ground_truth(bf, data[:N27], queries, q_dev)
+    x = torch.from_numpy(data[:N27]).to(dev)
+    for arm in (None, "alpha1.2"):
+        tag = f"27 {arm or 'default'} at {N27:,}"
+        idx, g, _, _ = knob_build(HnswIndex, db, x, "l2", dev, N27, tag, arm)
+        rec = beam_recall(device_mod, idx, q_dev,
+                          recall_of(g.emit_tid.cpu().numpy(), gt27), tag)
+        log(f"{tag}: mean layer-0 out-degree {mean_degree(g, N27):.3f}, "
+            f"beam recall {rec:.4f}")
+        del idx, g
+    del x
+    torch.cuda.empty_cache()
+
+    # arm 3: the 768-d beam ground, the sort merge, the rank merge, and
+    # the sort merge consuming its input
+    rows, peaks = [], {}
+    for arm, consume in ((None, False), ("rank", False), (None, True)):
+        tag = "consume_input" if consume else arm or "sort"
+        nbytes = x27.untyped_storage().nbytes()
+        idx, g, (ground_s, batches), peaks[tag] = knob_build(
+            HnswIndex, db, x27, "cosine", dev, N27, f"27 {tag}", arm,
+            consume_input=consume)
+        if arm is None and not consume:
+            with Phase("27 ground truth at 262,144 x 768-d (K1 cosine_topk)"):
+                gt768 = torch.cat([
+                    bf.cosine_topk(g.values[:N27], q768[s : s + CHUNK], K)[1]
+                    for s in range(0, N_QUERIES, CHUNK)]).cpu().numpy()
+        beam_recall(device_mod, idx, q768,
+                    recall_of(g.emit_tid.cpu().numpy(), gt768),
+                    f"27 768-d {tag}")
+        if consume:
+            left = x27.untyped_storage().nbytes()
+            log(f"27 consume_input: the caller's tensor holds {left} bytes "
+                f"of its {nbytes:,} (shape {tuple(x27.shape)}); peak "
+                f"{peaks[tag]:.3f} GiB against the sort build's "
+                f"{peaks['sort']:.3f} (drop {peaks['sort'] - peaks[tag]:.3f} "
+                f"GiB, one corpus copy {nbytes / 2**30:.3f})")
+            if left or x27.numel():
+                raise RuntimeError("consume_input left the caller's storage")
+        else:
+            rows.append(k8_row(db, ground_s, batches,
+                               name=f"k8_beam_ground_{tag}_{N27}"))
+        del idx, g
+        torch.cuda.empty_cache()
+    log(json.dumps({"torch_ops": rows}))
 
 
 def l1_path(HnswIndex, IndexParams, device_mod, db, bf, data, q_dev, dev):
@@ -3305,15 +3466,18 @@ def main() -> int:
     bf.reset_launches()
     with Phase("3 device build"):
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
         t0 = time.time()
         index = HnswIndex.build(x_dev[:N_ROWS], metric="l2", params=params,
                                 method="device", host_graph=False,
                                 device=dev, seed=1)
         torch.cuda.synchronize()
         dt = time.time() - t0
+        main_build = dict(
+            s=dt, peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+            above=(torch.cuda.max_memory_allocated(dev) - base) / 2**30)
         log(f"device build: {dt:.3f} s, {N_ROWS / dt:.1f} rows/s "
-            f"(peak device memory "
-            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB)")
+            f"(peak device memory {main_build['peak']:.2f} GiB)")
         g = index.device_graph()
         if g.device.type != dev.type:
             raise RuntimeError("the graph is not on the card")
@@ -3327,6 +3491,7 @@ def main() -> int:
     emit_tid = g.emit_tid.cpu().numpy()
     recall = recall_of(emit_tid, gt)
     results = serve_engines(index, q_dev, recall, bf, device_mod, "5")
+    main_build["recall"] = recall(results["beam"][1])
 
     with Phase("6 tile-min probe A/B"):
         def sweep(fn):
@@ -3594,8 +3759,11 @@ def main() -> int:
     # ---- 768-d cosine, l1 and persistence ----------------------------------
     from pgvector_rx_tpu_torch.graph import device_build as db
 
-    cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf, beam,
-               dev)
+    x27, q768 = cosine_768(HnswIndex, IndexParams, make_dataset, device_mod,
+                           db, bf, beam, dev)
+    build_knobs(HnswIndex, device_mod, db, bf, data, queries, q_dev, gt,
+                main_build, x27, q768, dev)
+    del x27, q768
     l1_path(HnswIndex, IndexParams, device_mod, db, bf, data, q_dev, dev)
     persistence(index, q_dev, HnswIndex, IndexParams, SearchParams,
                 device_mod, data, dev)

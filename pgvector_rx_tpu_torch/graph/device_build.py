@@ -15,11 +15,12 @@ frozen graph snapshot; batch sizes double from 1 up to ``batch_max``:
    upper-layer cells plus the layer-0 neighbours of the 16 nearest
    members (``_ivf_ground_candidates``). "beam": an ef_construction-wide
    best-first walk over the as-built layer 0 from the 16 nearest
-   committed upper rows and the entry, 16 fixed steps of 4 expansions
-   (``_beam_ground_candidates``). Upper layers score the compact table of
-   level >= 1 rows (and one sub-table per layer >= 2). Every layer
-   selects with the fixpoint-parallel Algorithm 4
-   (``_select_neighbors_parallel``).
+   committed upper rows and the entry, 16 fixed steps of 4 expansions,
+   merged by two sorts or by ranks (``_beam_ground_candidates``). Upper
+   layers score the compact table of level >= 1 rows (and one sub-table
+   per layer >= 2). Every layer selects with the fixpoint-parallel
+   Algorithm 4 (``_select_neighbors_parallel``), RobustPrune's alpha
+   included.
 2. **Commit** (``_commit_all_step``): duplicate folding (<= 10 heap TIDs
    per element), forward edges, the member-table append, entry promotion,
    then the back edges of both layer kinds, grouped by target with stable
@@ -60,14 +61,18 @@ with the same builder: the graph is transplanted into fresh build tensors
 (``_seed_builder_from_graph``, edge distances recomputed exactly on the
 device) and the new rows run as doubling batches on top of it.
 
-Of the JAX package's ``PGV_BUILD_*`` environment variables only
-``PGV_BUILD_GROUND`` is read; a non-default value of another raises
-(``_build_settings``). Not ported, and refused with
-``NotImplementedError``: ``consume_input``.
+The JAX package's ``PGV_BUILD_*`` environment variables are read once
+per build into a ``BuildSettings`` (``BuildSettings.from_env``): those
+that change the graph as JAX reads them, the upload-streaming ones
+accepted and ignored (the port has no streamed upload), and the rest
+refused with ``NotImplementedError`` naming their ROADMAP entry.
+``bulk_build(consume_input=True)`` releases the caller's corpus tensor
+once the build holds its own copy.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import warnings
@@ -86,20 +91,11 @@ from ..ops.beam import row_dists
 _BE_K2_MIN_CAP = 1 << 19
 
 #: committed-prefix width at which ground candidates switch from the exact
-#: ramp sweep to the IVF member table (tests patch this module constant)
+#: ramp sweep to the IVF member table, unless PGV_BUILD_DESCENT_MIN is set
+#: (tests patch this module constant)
 _DESCENT_MIN_WIDTH = 65536
 
-#: IVF member-table geometry: members kept per upper cell, cells probed
-#: per query, member candidates whose layer-0 neighbours are scored
-_IVF_CAP = 64
-_IVF_PROBES = 16
-_IVF_HOP = 16
-
-#: the beam ground's walk: fixed steps, expansions per step (the JAX
-#: package's PGV_BUILD_BEAM_STEPS = 0 -> 16 and PGV_BUILD_BEAM_EXPAND),
-#: and its upper-row seeds
-_BEAM_STEPS = 16
-_BEAM_EXPAND = 4
+#: the beam ground's upper-row seeds
 _BEAM_SEEDS = 16
 
 #: rows per block of the l1 sweep (bounds its [B, rows] scores)
@@ -107,45 +103,103 @@ _L1_CHUNK = 8192
 
 _INF = float("inf")
 
-#: the JAX package's build knobs and their defaults; the port reads only
-#: PGV_BUILD_GROUND (``DeviceBuilder``) and refuses a non-default value of
-#: the others (an unset or empty one is fine)
-_BUILD_ENV_DEFAULTS = {
-    "PGV_BUILD_DESCENT_MIN": "65536", "PGV_BUILD_ALPHA": "1",
-    "PGV_BUILD_ALPHA_UPPER": "1",
-    "PGV_BUILD_IVF_CAP": "64", "PGV_BUILD_IVF_PROBES": "16",
-    "PGV_BUILD_IVF_HOP": "16", "PGV_BUILD_IVF_HOP_STRIDE": "1",
-    "PGV_BUILD_BE_K": "0", "PGV_BUILD_BATCH": "0",
-    "PGV_BUILD_UPPER_STRATIFY": "0", "PGV_BUILD_SEED_CQ": "0",
-    "PGV_BUILD_IP_AUG": "0", "PGV_BUILD_STREAM": "1",
-    "PGV_BUILD_BEAM_STEPS": "0", "PGV_BUILD_BEAM_EXPAND": "4",
-    "PGV_BUILD_BEAM_DEDUP": "1", "PGV_BUILD_BEAM_MERGE": "sort",
+#: PGV_BUILD_* names the JAX package reads only to schedule its streamed
+#: host-to-device upload, which the port does not have: accepted, no-ops
+_BUILD_ENV_NOOP = ("PGV_BUILD_STREAM", "PGV_BUILD_STREAM_MIN",
+                   "PGV_BUILD_STREAM_CHUNK")
+
+_NOT_TO_PORT = "ROADMAP queue 1, 'Not to port'"
+_ITEM_17 = "ROADMAP queue 1, item 17 (observability)"
+
+#: PGV_BUILD_* names the port refuses: name -> (the values the JAX package
+#: acts on, the ROADMAP entry that says why they are not ported)
+_BUILD_ENV_REFUSED = {
+    "PGV_BUILD_ABLATE": (lambda v: any(v.split(",")), _NOT_TO_PORT),
+    "PGV_BUILD_UPPER_STRATIFY": (lambda v: int(v) != 0, _NOT_TO_PORT),
+    "PGV_BUILD_IP_AUG": (lambda v: v != "0", _NOT_TO_PORT),
+    "PGV_BUILD_RAMP": (lambda v: v == "buckets", _NOT_TO_PORT),
+    "PGV_BUILD_CAP_FLOOR": (lambda v: int(v) != 0, _NOT_TO_PORT),
+    "PGV_BUILD_UPPER_FLOOR": (lambda v: int(v) != 0, _NOT_TO_PORT),
+    "PGV_BUILD_SUB_FLOORS": (lambda v: any(x.strip() for x in v.split(",")),
+                             _NOT_TO_PORT),
+    "PGV_BUILD_TIMING": (bool, _ITEM_17),
+    "PGV_BUILD_DEBUG": (bool, _ITEM_17),
 }
 
-_ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13b"
+
+@dataclass(frozen=True)
+class BuildSettings:
+    """The JAX package's build knobs that change the graph, with its
+    defaults (``PGV_BUILD_<NAME>`` for each field, upper-cased).
+
+    ``alpha`` / ``alpha_upper``: RobustPrune's alpha at layer 0 / the upper
+    layers. ``ivf_cap``: members kept per upper cell; ``ivf_probes``: cells
+    probed per query; ``ivf_hop``: member candidates whose layer-0
+    neighbours are scored, every ``ivf_hop_stride``-th of them. ``be_k``:
+    same-target back-edge adds per commit (0: the size rule). ``batch``:
+    the batch width (0: the build's and the insert's own rules).
+    ``seed_cq``: queries per chunk of the merged upper sweep (0: JAX's
+    rule). ``beam_steps`` (0: 16), ``beam_expand``, ``beam_dedup`` and
+    ``beam_merge`` ("sort" or "rank"): the beam ground's walk. ``ground``:
+    "auto", "ivf" or "beam"."""
+
+    descent_min: int = 65536
+    alpha: float = 1.0
+    alpha_upper: float = 1.0
+    ivf_cap: int = 64
+    ivf_probes: int = 16
+    ivf_hop: int = 16
+    ivf_hop_stride: int = 1
+    be_k: int = 0
+    batch: int = 0
+    seed_cq: int = 0
+    beam_steps: int = 0
+    beam_expand: int = 4
+    beam_dedup: bool = True
+    beam_merge: str = "sort"
+    ground: str = "auto"
+
+    @classmethod
+    def from_env(cls, env=None) -> "BuildSettings":
+        """The settings as the JAX package reads ``env`` (default
+        ``os.environ``); an unset or empty variable keeps the default,
+        ``PGV_BUILD_DESCENT_MIN``'s being ``_DESCENT_MIN_WIDTH``. Read per
+        build: the JAX package reads ``DESCENT_MIN`` at import and most
+        others when it traces, so toggling one there needs a fresh process
+        or ``jax.clear_caches()``; here the next build sees it."""
+        env = os.environ if env is None else env
+        for var, (acts, entry) in _BUILD_ENV_REFUSED.items():
+            val = env.get(var, "")
+            if val and acts(val):
+                raise NotImplementedError(
+                    f"{var}={val} is not ported to the torch device build "
+                    f"({entry})")
+        kw = {}
+        for f in dataclasses.fields(cls):
+            val = env.get("PGV_BUILD_" + f.name.upper(), "")
+            if val == "":
+                continue
+            kind = type(f.default)
+            kw[f.name] = val != "0" if kind is bool else kind(val)
+        kw.setdefault("descent_min", _DESCENT_MIN_WIDTH)
+        out = cls(**kw)
+        for name, low in (("batch", 0), ("ivf_cap", 1), ("ivf_probes", 1),
+                          ("ivf_hop", 0), ("beam_expand", 0)):
+            if getattr(out, name) < low:
+                raise ValueError(f"PGV_BUILD_{name.upper()} must be >= {low}")
+        return out
 
 
-def _build_settings() -> None:
-    """Refuse every ``PGV_BUILD_*`` variable but ``PGV_BUILD_GROUND`` set
-    to a non-default value: each changes the JAX package's graph, and the
-    port builds only the default one."""
-    for var, val in os.environ.items():
-        if (not var.startswith("PGV_BUILD_") or val == ""
-                or var == "PGV_BUILD_GROUND"):
-            continue
-        default = _BUILD_ENV_DEFAULTS.get(var)
-        if default is not None:
-            try:
-                if float(val) == float(default):
-                    continue
-            except ValueError:
-                if val == default:
-                    continue
-        raise NotImplementedError(
-            f"{var}={val} is not ported: the torch device build reads no "
-            f"PGV_BUILD_* setting and builds the default graph only "
-            f"({_ROADMAP_OFF_PATH})"
-        )
+def _beam_merge_checked(merge: str, dedup: bool) -> str:
+    """The beam ground's merge, refused as the JAX package refuses it."""
+    if merge not in ("sort", "rank"):
+        raise ValueError(f"PGV_BUILD_BEAM_MERGE={merge!r}: must be 'sort' "
+                         "or 'rank'")
+    if merge == "rank" and not dedup:
+        # the ranks are a permutation only under the per-step dedup
+        raise ValueError("PGV_BUILD_BEAM_DEDUP=0 is incompatible with "
+                         "PGV_BUILD_BEAM_MERGE=rank (rank always dedups)")
+    return merge
 
 
 # ---------------------------------------------------------------------------
@@ -314,10 +368,14 @@ def _pair_matrix(metric: str, rows):
     raise ValueError(metric)
 
 
-def _select_neighbors_parallel(cand_d, cand_ids, pair, lm: int):
+def _select_neighbors_parallel(cand_d, cand_ids, pair, lm: int,
+                               alpha_eff: float = 1.0):
     """Parallel relative-neighbourhood selection (Algorithm 4 as a
     fixpoint, graph/mod.rs:269-308): candidate i is kept iff it is closer
-    to the query than to every closer KEPT candidate. Each round
+    to the query than to every closer KEPT candidate, by a factor
+    ``alpha_eff`` (Vamana's RobustPrune: i goes only when a kept j has
+    ``alpha_eff * d(j, i) <= d(q, i)``; ``alpha_eff`` is in the order
+    distance's domain, alpha squared for squared l2). Each round
     recomputes every decision against the current keep set; log2(C) + 2
     rounds reach the sequential chain's fixpoint. Kept candidates come
     first in distance order, then the nearest discarded ones back-fill.
@@ -330,10 +388,11 @@ def _select_neighbors_parallel(cand_d, cand_ids, pair, lm: int):
     earlier = pos[:, None] < pos[None, :]  # [j, i]: j before i
     pair_e = torch.where(earlier[None], pair, _INF)
     valid = torch.isfinite(cand_d)
+    thresh = cand_d / alpha_eff
     keep = valid
     for _ in range(max(2, int(math.ceil(math.log2(max(C, 2)))) + 2)):
         min_kept = torch.where(keep[:, :, None], pair_e, _INF).amin(dim=1)
-        keep = (min_kept > cand_d) & valid
+        keep = (min_kept > thresh) & valid
     keep = keep & (torch.cumsum(keep.to(torch.int32), dim=1) <= lm)
     priority = torch.where(keep, 0, torch.where(valid, 1, 2))
     order = torch.argsort(priority * C + pos[None, :], dim=1)[:, :lm]
@@ -378,6 +437,54 @@ def _window(s_key, s_src, s_d, K: int, same_extra=None):
             torch.where(same, s_d[win], _INF))
 
 
+def _dedup_by_key(keys, d):
+    """Packed beam keys [B, K] and their distances sorted by key (stable,
+    so the expanded copy ``id * 2`` of an id comes first), every later
+    copy of an id and every empty key (< 0) at +inf."""
+    o_key, o = torch.sort(keys, dim=1, stable=True)
+    o_d = torch.gather(d, 1, o)
+    dup = torch.zeros_like(o_key, dtype=torch.bool)
+    dup[:, 1:] = (o_key[:, 1:] >> 1) == (o_key[:, :-1] >> 1)
+    return o_key, torch.where(dup | (o_key < 0), _INF, o_d)
+
+
+def _rank_merge(bd, bkey, d_new, key_new):
+    """One step of the beam ground's rank merge (the JAX package's
+    ``merge == "rank"`` body, vmapped there, batched here): the sorted
+    beam (bd, bkey) [B, W] takes the step's new entries (d_new, key_new)
+    [B, N] by ranks from pairwise comparisons, with no sort.
+
+    A new entry whose id is in the beam (either copy) or earlier in the
+    step goes to +inf. Beam entries keep their order and precede new ones
+    at equal distances; new entries order by (distance, index). That order
+    is strict, so the ranks below W are a permutation and a scatter into
+    W + 1 slots (slot W takes the overflow) rebuilds the sorted beam."""
+    B, W = bd.shape
+    N = d_new.shape[1]
+    dev = bd.device
+    ids_new, ids_beam = key_new >> 1, bkey >> 1
+    idx = torch.arange(N, device=dev)
+    before = idx[None, :] < idx[:, None]  # [e, e2]: e2 comes before e
+    dup_beam = ((ids_new[:, :, None] == ids_beam[:, None, :])
+                & (bkey >= 0)[:, None, :]).any(dim=2)
+    dup_new = ((ids_new[:, :, None] == ids_new[:, None, :])
+               & (key_new >= 0)[:, None, :] & before).any(dim=2)
+    d_new = torch.where(dup_beam | dup_new, _INF, d_new)
+    # new before beam [B, N, W]; distances are never NaN, so the beam
+    # entries at or before a new one are the rest of the row
+    new_first = d_new[:, :, None] < bd[:, None, :]
+    rank_beam = torch.arange(W, device=dev) + new_first.sum(dim=1)
+    lt_new = ((d_new[:, None, :] < d_new[:, :, None])
+              | ((d_new[:, None, :] == d_new[:, :, None]) & before))
+    rank_new = W - new_first.sum(dim=2) + lt_new.sum(dim=2)
+    pos_b, pos_n = rank_beam.clamp(max=W), rank_new.clamp(max=W)
+    sd = torch.full((B, W + 1), _INF, device=dev)
+    sd = sd.scatter(1, pos_b, bd).scatter(1, pos_n, d_new)
+    sk = torch.full((B, W + 1), -2, dtype=bkey.dtype, device=dev)
+    sk = sk.scatter(1, pos_b, bkey).scatter(1, pos_n, key_new)
+    return sd[:, :W], sk[:, :W]
+
+
 # ---------------------------------------------------------------------------
 # the builder
 # ---------------------------------------------------------------------------
@@ -390,9 +497,11 @@ class DeviceBuilder:
 
     def __init__(self, metric: str, vectors: torch.Tensor, levels, m: int,
                  ef_construction: int, batch_max: int = 1024,
-                 ground: str | None = None):
+                 ground: str | None = None,
+                 settings: BuildSettings | None = None):
         if metric not in ("l2", "ip", "cosine", "l1", "jacbits"):
             raise ValueError(f"the device build has no metric {metric!r}")
+        s = settings if settings is not None else BuildSettings.from_env()
         dev = vectors.device
         self.device = dev
         self.metric = metric
@@ -405,7 +514,7 @@ class DeviceBuilder:
         # beam descent at 512 or more (where cell-local candidates miss
         # the recall bar) and for l1 at any width
         if ground is None:
-            ground = os.environ.get("PGV_BUILD_GROUND") or "auto"
+            ground = s.ground
         if ground == "auto":
             ground = ("ivf" if metric in ("l2", "ip", "cosine") and d < 512
                       else "beam")
@@ -414,7 +523,15 @@ class DeviceBuilder:
         self.ivf = ground == "ivf"
         self.batch_max = batch_max
         self.lm0 = hnsw_get_layer_m(m, 0)
-        self.descent_min = _DESCENT_MIN_WIDTH
+        self.descent_min = s.descent_min
+        self.settings = s
+        # RobustPrune's alpha in the order distance's domain: squared for
+        # squared l2; none for ip, whose order distance is signed
+        self.alpha_eff, self.alpha_upper = (
+            a * a if metric == "l2" else 1.0 if metric == "ip" else a
+            for a in (s.alpha, s.alpha_upper))
+        if not self.ivf:
+            _beam_merge_checked(s.beam_merge, s.beam_dedup)
         self._members_ready = False
 
         cap_pad = cap_pad_for(n)
@@ -443,6 +560,18 @@ class DeviceBuilder:
         upper_slot[ups] = perm
         up_ids = np.full(upper_pad, self.cap, dtype=np.int32)
         up_ids[perm] = ups
+        # queries per chunk of the merged upper sweep (JAX's rule; the
+        # port's top-k is exact, so the chunking bounds the [CQ, U]
+        # scores and changes no result)
+        cq = s.seed_cq or (256 if batch_max % 256 == 0
+                           and upper_pad > (1 << 17) else batch_max)
+        if not (0 < cq <= batch_max and batch_max % cq == 0):
+            if s.seed_cq:
+                warnings.warn(f"PGV_BUILD_SEED_CQ={cq} is not a positive "
+                              f"divisor of batch width {batch_max}; using "
+                              f"{batch_max}", stacklevel=2)
+            cq = batch_max
+        self.seed_cq = cq
         ups_t = torch.from_numpy(ups).to(dev)
         up_vecs = torch.zeros((upper_pad, d), dtype=torch.float32, device=dev)
         up_vecs[torch.from_numpy(perm).to(dev)] = vec[ups_t]
@@ -489,7 +618,7 @@ class DeviceBuilder:
             absorb=torch.full((cap_pad,), -1, **i32),
             entry=torch.tensor(-1, dtype=torch.int64, device=dev),
             entry_level=torch.tensor(-1, **i32),
-            members=torch.full((upper_pad, _IVF_CAP), -1, **i32),
+            members=torch.full((upper_pad, s.ivf_cap), -1, **i32),
             member_counts=torch.zeros(upper_pad, **i32),
         )
 
@@ -560,15 +689,18 @@ class DeviceBuilder:
         rows = data.vectors if self.metric == "l1" else data.vectors_bf16
         return rows[ids.clamp(0, self.cap).long()]
 
-    def _candidates_to_selection(self, data: BuildData, cand_d, cand_idx):
-        """Algorithm 4 over sorted candidates; pads to lm0 columns."""
+    def _candidates_to_selection(self, data: BuildData, cand_d, cand_idx,
+                                 alpha_eff: float | None = None):
+        """Algorithm 4 over sorted candidates (``alpha_eff``: layer 0's
+        unless given); pads to lm0 columns."""
         cand_idx = torch.where(torch.isfinite(cand_d), cand_idx, -1)
         rows = self._pair_rows(data, cand_idx)
         pair = _pair_matrix(self.metric, rows)
         bad = cand_idx < 0
         pair = torch.where(bad[:, None, :] | bad[:, :, None], _INF, pair)
-        sd, sids = _select_neighbors_parallel(cand_d, cand_idx, pair,
-                                              self.lm0)
+        sd, sids = _select_neighbors_parallel(
+            cand_d, cand_idx, pair, self.lm0,
+            self.alpha_eff if alpha_eff is None else alpha_eff)
         pad = self.lm0 - sd.shape[1]
         if pad > 0:  # tiny corpus: fewer candidates than lm0
             sd = torch.nn.functional.pad(sd, (0, pad), value=_INF)
@@ -633,12 +765,16 @@ class DeviceBuilder:
             # columns) from one pass; the S seeds plus the entry fit the
             # efc-wide beam
             S = min(_BEAM_SEEDS, width_u - 1, max(self.efc - 1, 1))
-            SP = min(max(S, _IVF_PROBES) if self.ivf else S, width_u)
+            SP = min(max(S, self.settings.ivf_probes) if self.ivf else S,
+                     width_u)
             KK = min(max(SP, pool), width_u)
-            ord_all, slots_all = torch.topk(
-                self._upper_order_scores(data, q_rows, a_col), KK, dim=1,
-                largest=False, sorted=True,
-            )
+            cq = self.seed_cq
+            parts = [torch.topk(
+                self._upper_order_scores(data, q_rows[c : c + cq], a_col),
+                KK, dim=1, largest=False, sorted=True,
+            ) for c in range(0, B, cq)]
+            ord_all = torch.cat([p[0] for p in parts])
+            slots_all = torch.cat([p[1] for p in parts])
             # exact f32 rescore + re-sort: selection needs true distances
             d_exact = self._dist_point_rows(q_rows,
                                             data.upper_vectors[slots_all])
@@ -682,7 +818,7 @@ class DeviceBuilder:
         # layer 1 selects from the whole upper table, layers >= 2 from
         # their own narrow sub-tables
         sel_layers = [self._candidates_to_selection(
-            data, d_p1, u_ids[slot_p1].long())]
+            data, d_p1, u_ids[slot_p1].long(), self.alpha_upper)]
         for lc in range(2, self.lmax + 1):
             ids_l, v_l, x2_l = data.upper_sub[lc - 2]
             s_l = self._score_all(q_up, v_l, x2_l)
@@ -691,7 +827,7 @@ class DeviceBuilder:
             d_pl, slot_pl = torch.topk(s_l, min(kku, ids_l.shape[0]), dim=1,
                                        largest=False, sorted=True)
             sel_layers.append(self._candidates_to_selection(
-                data, d_pl, ids_l[slot_pl].long()))
+                data, d_pl, ids_l[slot_pl].long(), self.alpha_upper))
 
         selu_d_c = torch.stack([d for d, _ in sel_layers], dim=1)
         selu_ids_c = torch.stack([i for _, i in sel_layers], dim=1)
@@ -720,23 +856,39 @@ class DeviceBuilder:
                 assign)
 
     def _beam_ground_candidates(self, data: BuildData, arrays: BuildArrays,
-                                q_rows, seed_d, seed_ids):
+                                q_rows, seed_d, seed_ids, steps=None,
+                                expand=None, dedup=None, merge=None):
         """Ground candidates by batched beam descent: the reference's
         layer-0 ef_construction search (graph/mod.rs:355-427) as
         fixed-trip tensor ops over the as-built adjacency.
 
         Each query keeps an efc-wide beam of packed keys ``id * 2 + (1 -
         expanded)`` (-2: empty), seeded with the upper rows ``seed_ids``
-        [B, S] (-1 = none) at ``seed_d`` and the entry. Each of
-        ``_BEAM_STEPS`` steps marks the ``_BEAM_EXPAND`` best unexpanded
-        entries expanded, scores their layer-0 neighbours (bf16 rows, f32
-        sums) and merges by two stable sorts: by key, so the expanded copy
-        of an id comes first and its duplicates go to inf, then by
-        distance. ``vmap`` over queries becomes the batch dimension.
+        [B, S] (-1 = none) at ``seed_d`` and the entry. Each of ``steps``
+        steps marks the ``expand`` best unexpanded entries expanded and
+        scores their layer-0 neighbours (bf16 rows, f32 sums); the merge
+        (the builder's settings unless given) is then
+        - "sort" with ``dedup``: two stable sorts, by key, so the expanded
+          copy of an id comes first and its repeats go to inf, then by
+          distance;
+        - "sort" without ``dedup``: one stable sort by distance (an id may
+          sit in the beam twice), and one key dedup after the last step;
+        - "rank" (``_rank_merge``): the beam kept sorted, the new entries
+          ranked into it by pairwise comparisons.
+        ``vmap`` over queries becomes the batch dimension.
 
         Returns (cand_d, cand_ids) [B, efc] sorted nearest first."""
+        st = self.settings
+        steps = (st.beam_steps or 16) if steps is None else steps
+        expand = st.beam_expand if expand is None else expand
+        dedup = st.beam_dedup if dedup is None else dedup
+        merge = _beam_merge_checked(st.beam_merge if merge is None else merge,
+                                    dedup)
         B, S = seed_ids.shape
         W = self.efc
+        if expand > W:
+            raise ValueError(f"PGV_BUILD_BEAM_EXPAND={expand} exceeds the "
+                             f"beam's width {W}")
         cap = self.cap
         dev = self.device
         entry = arrays.entry.clamp(0, cap)
@@ -748,12 +900,19 @@ class DeviceBuilder:
         bkey[:, : S + 1] = torch.where(seeds >= 0, seeds * 2 + 1, -2)
         bd[:, :S] = seed_d
         bd[:, S] = e_d
-        lead = torch.zeros((B, 1), dtype=torch.bool, device=dev)
-        for _ in range(_BEAM_STEPS):
+        if merge == "rank":
+            # the beam starts sorted, without a second copy of an entry
+            # that is also a seed
+            ent_dup = (seed_ids == arrays.entry).any(dim=1)
+            bd[:, S] = torch.where(ent_dup, _INF, e_d)
+            bkey[:, S] = torch.where(ent_dup, -2, bkey[:, S])
+            bd, o = torch.sort(bd, dim=1, stable=True)
+            bkey = torch.gather(bkey, 1, o)
+        for _ in range(steps):
             unexp = torch.where((bkey >= 0) & (bkey & 1 == 1), bd, _INF)
             # the best unexpanded entries, lower slots first on ties
             # (lax.top_k's order)
-            pos = torch.argsort(unexp, dim=1, stable=True)[:, :_BEAM_EXPAND]
+            pos = torch.argsort(unexp, dim=1, stable=True)[:, :expand]
             sel_ok = torch.isfinite(torch.gather(unexp, 1, pos))
             k_pos = torch.gather(bkey, 1, pos)
             bkey = bkey.scatter(1, pos, torch.where(sel_ok, k_pos & ~1, k_pos))
@@ -762,31 +921,40 @@ class DeviceBuilder:
             nbrs = torch.where((u >= 0)[:, :, None], nbrs, -1).reshape(B, -1)
             safe = nbrs.clamp(0, cap)
             ok = (nbrs >= 0) & arrays.alive[safe]
-            d_new = self._dist_point_rows(q_rows,
-                                          data.vectors_bf16[safe].float())
-            all_key = torch.cat([bkey, torch.where(ok, nbrs * 2 + 1, -2)], 1)
-            all_d = torch.cat([bd, torch.where(ok, d_new, _INF)], 1)
-            o_key, o = torch.sort(all_key, dim=1, stable=True)
-            o_d = torch.gather(all_d, 1, o)
-            dup = torch.cat([lead, (o_key[:, 1:] >> 1) == (o_key[:, :-1] >> 1)],
-                            dim=1)
-            o_d = torch.where(dup | (o_key < 0), _INF, o_d)
-            sd, o = torch.sort(o_d, dim=1, stable=True)
+            d_new = torch.where(ok, self._dist_point_rows(
+                q_rows, data.vectors_bf16[safe].float()), _INF)
+            key_new = torch.where(ok, nbrs * 2 + 1, -2)
+            if merge == "rank":
+                bd, bkey = _rank_merge(bd, bkey, d_new, key_new)
+                continue
+            all_key = torch.cat([bkey, key_new], 1)
+            all_d = torch.cat([bd, d_new], 1)
+            if dedup:
+                all_key, all_d = _dedup_by_key(all_key, all_d)
+            sd, o = torch.sort(all_d, dim=1, stable=True)
             bd = sd[:, :W]
-            bkey = torch.gather(o_key, 1, o[:, :W])
+            bkey = torch.gather(all_key, 1, o[:, :W])
+        if not dedup:
+            # one dedup after the walk: a repeated id must not reach
+            # Algorithm 4 (its zero-distance copy would take a slot)
+            bkey, bd = _dedup_by_key(bkey, bd)
+            bd, o = torch.sort(bd, dim=1, stable=True)
+            bkey = torch.gather(bkey, 1, o)
         bids = torch.where(torch.isfinite(bd) & (bkey >= 0), bkey >> 1, -1)
         return bd, bids
 
     def _ivf_ground_candidates(self, data: BuildData, arrays: BuildArrays,
                                q_rows, seed_sc, seed_slots):
         """Ground candidates from the member table: the members of the
-        ``_IVF_PROBES`` nearest committed upper cells, scored exactly
-        (bf16 rows, f32 sums), plus the layer-0 neighbours of the
-        ``_IVF_HOP`` nearest members, deduplicated by a sort on id.
+        ``ivf_probes`` nearest committed upper cells, scored exactly (bf16
+        rows, f32 sums), plus the layer-0 neighbours of ``ivf_hop`` member
+        candidates (the nearest, or every ``ivf_hop_stride``-th where that
+        many fit), deduplicated by a sort on id.
 
         Returns (cand_d, cand_ids) [B, efc] sorted nearest first."""
+        st = self.settings
         B = q_rows.shape[0]
-        P = min(_IVF_PROBES, seed_slots.shape[1])
+        P = min(st.ivf_probes, seed_slots.shape[1])
         cap = self.cap
         n_slots = arrays.members.shape[0]
 
@@ -809,16 +977,19 @@ class DeviceBuilder:
 
         mem = arrays.members[seed_slots[:, :P].clamp(0, n_slots - 1)]
         mem = torch.where(torch.isfinite(seed_sc[:, :P])[:, :, None], mem, -1)
-        mem = mem.reshape(B, -1)  # [B, P * IVF_CAP]
+        mem = mem.reshape(B, -1)  # [B, P * ivf_cap]
         d = score_ids(mem)
         kk = min(self.efc, d.shape[1])
         cd, pos = torch.topk(d, kk, dim=1, largest=False, sorted=True)
         cids = torch.gather(mem, 1, pos)
-        hop = min(_IVF_HOP, kk)
+        hop = min(st.ivf_hop, kk)
         if hop:
-            # one hop: layer-0 neighbours of the nearest members bridge the
-            # cells the probe set missed
-            src = cids[:, :hop]
+            # one hop: layer-0 neighbours of member candidates bridge the
+            # cells the probe set missed; a stride spreads the sources over
+            # the ranking, so their lists overlap less
+            stride = max(1, st.ivf_hop_stride)
+            src = cids[:, : hop * stride : stride] if hop * stride <= kk \
+                else cids[:, :hop]
             nb = arrays.nb0_ids[src.clamp(0, cap).long()]
             hids = torch.where((src >= 0)[:, :, None], nb, -1).reshape(B, -1)
             all_d = torch.cat([cd, score_ids(hids)], dim=1)
@@ -892,7 +1063,7 @@ class DeviceBuilder:
         if assign is not None:
             # append each kept row to its nearest cell; rows past a cell's
             # cap keep their edges but stop being candidates later
-            cap_m = _IVF_CAP
+            cap_m = self.settings.ivf_cap
             n_slots = arrays.members.shape[0]
             a = torch.where(alive, assign, self.upper_dump)
             s_a, o = torch.sort(a, stable=True)
@@ -922,17 +1093,22 @@ class DeviceBuilder:
                                          arrays.entry_level)
 
     def _be_k(self, lm: int) -> int:
-        """Same-target back-edge adds honoured per commit: 2 at large caps
-        (collisions per target are rare there), 4 below."""
-        return min(lm, 2 if self.cap >= _BE_K2_MIN_CAP else 4)
+        """Same-target back-edge adds honoured per commit: ``be_k`` where
+        it is set, else 2 at large caps (collisions per target are rare
+        there) and 4 below."""
+        k = self.settings.be_k
+        if k <= 0:
+            k = 2 if self.cap >= _BE_K2_MIN_CAP else 4
+        return min(lm, k)
 
     def _resolve_backedges(self, data: BuildData, old_ids, old_d, add_ids,
-                           add_d, lm: int):
+                           add_d, lm: int, alpha_eff: float):
         """Algorithm 4 re-selection of a target's list with its adds
         (graph/mod.rs:442-489, batch-deterministic), for every request row
         (callers keep the first row of each target group). old_ids / old_d
         [R, lm]: the target's current list; add_ids / add_d [R, K]: the
-        window of same-target adds. Returns (ids, d) [R, lm]."""
+        window of same-target adds; ``alpha_eff``: the layer's
+        RobustPrune alpha. Returns (ids, d) [R, lm]."""
         cand_ids = torch.cat([old_ids.long(), add_ids.long()], dim=1)
         cand_d = torch.cat([old_d.float(), add_d], dim=1)
         cand_d = torch.where(cand_ids < 0, _INF, cand_d)
@@ -941,7 +1117,8 @@ class DeviceBuilder:
         pair = _pair_matrix(self.metric, self._pair_rows(data, cand_ids))
         bad = cand_ids < 0
         pair = torch.where(bad[:, None, :] | bad[:, :, None], _INF, pair)
-        nd, nids = _select_neighbors_parallel(cand_d, cand_ids, pair, lm)
+        nd, nids = _select_neighbors_parallel(cand_d, cand_ids, pair, lm,
+                                              alpha_eff)
         return nids, nd
 
     def _backedge0_step(self, data: BuildData, arrays: BuildArrays,
@@ -964,7 +1141,7 @@ class DeviceBuilder:
         add_ids, add_d = _window(s_tgt, s_src, s_d, self._be_k(lm))
         nids, nd = self._resolve_backedges(
             data, arrays.nb0_ids[s_tgt], arrays.nb0_d[s_tgt], add_ids, add_d,
-            lm,
+            lm, self.alpha_eff,
         )
         head, _ = _group_rank(s_tgt)
         row = torch.where(head & (s_tgt != dump), s_tgt, dump)
@@ -1018,7 +1195,7 @@ class DeviceBuilder:
         old_ids = arrays.up_ids[slot_c[:, None], cols]
         old_d = arrays.up_d[slot_c[:, None], cols]
         nids, nd = self._resolve_backedges(data, old_ids, old_d, add_ids,
-                                           add_d, m)
+                                           add_d, m, self.alpha_upper)
         head, _ = _group_rank(s_tgt * (L + 8) + s_layer)
         row = torch.where(head & (s_tgt != dump) & (slot >= 0), slot_c,
                           dump_slot)
@@ -1045,7 +1222,7 @@ class DeviceBuilder:
         """One-time IVF member table at the ramp -> IVF transition: every
         committed row goes to its nearest committed upper cell (exact f32
         sweep in 1,024-row chunks), grouped by cell with a sort."""
-        cap_m = _IVF_CAP
+        cap_m = self.settings.ivf_cap
         n_slots = arrays.members.shape[0]
         u_ids = data.upper_ids
         u_colmask = (u_ids < count) & arrays.alive[u_ids.long()]
@@ -1174,7 +1351,31 @@ def _pack_words_device(vectors, w: int):
     return out
 
 
-def bulk_build(index, data, ids, host_graph: bool = True) -> None:
+def _check_consumable(data, host_graph: bool) -> None:
+    """``consume_input``'s rule: a corpus tensor on the index's device and a
+    serving-only build (the JAX package's), whose whole storage the build
+    can release: not one ``torch.from_numpy`` made (numpy owns it), nor a
+    view of a larger tensor (releasing it would take the rest along)."""
+    if host_graph or not isinstance(data, torch.Tensor):
+        raise ValueError("consume_input requires a device-resident corpus "
+                         "and host_graph=False")
+    st = data.untyped_storage()
+    if (not st.resizable() or data.storage_offset() != 0
+            or st.nbytes() != data.numel() * data.element_size()):
+        raise ValueError("consume_input needs a tensor that owns its whole "
+                         "storage (not a view of a larger tensor, nor one "
+                         "torch.from_numpy made)")
+
+
+def _release(data: torch.Tensor) -> None:
+    """Free the caller's corpus storage (``consume_input``): every tensor on
+    it is unusable afterwards, and ``data`` itself becomes an empty tensor."""
+    data.untyped_storage().resize_(0)
+    data.set_()
+
+
+def bulk_build(index, data, ids, host_graph: bool = True,
+               consume_input: bool = False) -> None:
     """``HnswIndex.build(method="device")`` of the port, dense and bit
     kinds.
 
@@ -1186,10 +1387,20 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
     with the index RNG, runs the batched build, folds the duplicate TIDs,
     then either populates the host graph (``host_graph=True``: host search,
     insert and delete work) or hands the index a ``DeviceGraph`` straight
-    from the build tensors (serving-only)."""
+    from the build tensors (serving-only).
+
+    ``consume_input=True`` (a corpus tensor and ``host_graph=False`` only,
+    ``_check_consumable``): the build takes ownership of ``data`` and
+    releases its storage as soon as it holds its own copy (after prepare,
+    where prepare made one, as cosine does; else once the padded build
+    buffer exists), so the build's peak holds one corpus copy less. The
+    caller's tensor, and any other on its storage, is unusable afterwards;
+    the store is backed by the builder's buffer, as without the option."""
     from .host import GraphElement
 
-    _build_settings()
+    if consume_input:
+        _check_consumable(data, host_graph)
+    settings = BuildSettings.from_env()
     if index.kind not in ("dense", "bit"):
         raise ValueError(
             f"the {index.kind} kind has no device build (as in the JAX "
@@ -1218,6 +1429,9 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
                 "move it first (the build never moves a corpus silently)"
             )
         vectors, kept_tids = _prepare_dense_device(index, data, ids)
+        if consume_input and (vectors.untyped_storage().data_ptr()
+                              != data.untyped_storage().data_ptr()):
+            _release(data)  # prepare made a transformed copy
     else:
         host_rows, kept_tids = _prepare_dense_bulk(index, data, ids)
         if index.dtype is not None and index.dtype != np.float32:
@@ -1226,12 +1440,17 @@ def bulk_build(index, data, ids, host_graph: bool = True) -> None:
         vectors = torch.from_numpy(host_rows).to(device)
     n = vectors.shape[0]
     if n == 0:
+        if consume_input:
+            _release(data)
         return
     levels = index.random_levels(n)
     builder = DeviceBuilder(metric, vectors, levels, index.params.m,
                             index.params.ef_construction,
-                            batch_max=batch_max_for(n), ground=ground)
+                            batch_max=settings.batch or batch_max_for(n),
+                            ground=ground, settings=settings)
     del vectors
+    if consume_input:
+        _release(data)  # the builder holds its padded copy
     builder.seed_first(0)
     builder.run_all(batch_schedule(n, builder.batch_max))
 
@@ -1414,7 +1633,7 @@ def bulk_insert(index, data, ids) -> int:
     Returns the number of elements inserted (excluding folded TIDs)."""
     from .host import GraphElement
 
-    _build_settings()
+    settings = BuildSettings.from_env()
     if index.kind != "dense":
         raise ValueError("bulk_insert supports dense indexes only")
     device = _resolve_device(index.device)
@@ -1460,11 +1679,14 @@ def bulk_insert(index, data, ids) -> int:
     levels = np.concatenate([old_levels.astype(np.int32),
                              index.random_levels(n_new)])
 
-    # batches pad to batch_max rows: no wider than the largest batch of the
-    # doubling schedule below (the JAX package pads to 1024 always)
-    builder = DeviceBuilder(index.metric, vectors, levels, index.params.m,
-                            index.params.ef_construction,
-                            batch_max=min(1024, _next_pow2(max(n_new, 64))))
+    # batches pad to batch_max rows: PGV_BUILD_BATCH where it is set, else
+    # no wider than the largest batch of the doubling schedule below (the
+    # JAX package pads to 1024)
+    builder = DeviceBuilder(
+        index.metric, vectors, levels, index.params.m,
+        index.params.ef_construction,
+        batch_max=settings.batch or min(1024, _next_pow2(max(n_new, 64))),
+        settings=settings)
     del vectors  # the builder holds its own padded copy
     _seed_builder_from_graph(builder, g, n0)
     levels_cl = builder.data.levels[: n0 + n_new].cpu().numpy()  # clamped

@@ -35,9 +35,6 @@ DENSE_METRICS = ("l2", "ip", "cosine", "l1")
 BIT_METRICS = ("hamming", "jaccard")
 SPARSE_METRICS = DENSE_METRICS
 
-_ROADMAP_OFF_PATH = "ROADMAP queue 1, item 13b"
-
-
 def resolve_device(device) -> torch.device:
     """``None`` -> the card (``"cuda"``); raises when no CUDA device is
     visible rather than falling through to the CPU."""
@@ -464,12 +461,17 @@ class HnswIndex:
         sparse kind always builds on the host).
         ``host_graph=False`` with "device" or "native": serving-only index
         whose graph goes straight to a torch DeviceGraph on ``device``.
+        ``consume_input=True`` (a tensor on ``device`` that owns its whole
+        storage, and ``host_graph=False``; anything else raises
+        ``ValueError``): the build takes ownership of ``data`` and releases
+        its storage once it holds its own copy, so the build's peak holds
+        one corpus copy less. ``data`` is an empty tensor afterwards, and
+        any other tensor on its storage is unusable.
         """
         if consume_input:
-            raise NotImplementedError(
-                "consume_input is not ported to torch yet "
-                f"({_ROADMAP_OFF_PATH})"
-            )
+            from ..graph.device_build import _check_consumable
+
+            _check_consumable(data, host_graph)
         tensor_in = isinstance(data, torch.Tensor)
         kind = (
             "bit" if metric in BIT_METRICS
@@ -528,7 +530,8 @@ class HnswIndex:
         if method == "device":
             from ..graph import device_build
 
-            device_build.bulk_build(idx, data, ids, host_graph=host_graph)
+            device_build.bulk_build(idx, data, ids, host_graph=host_graph,
+                                    consume_input=consume_input)
         elif method == "native":
             from .. import native
 

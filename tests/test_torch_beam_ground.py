@@ -207,19 +207,30 @@ def test_ground_setting_is_read(monkeypatch):
                           4, 16, batch_max=64)
 
 
-@pytest.mark.parametrize("var,val", [("PGV_BUILD_BEAM_STEPS", "20"),
-                                     ("PGV_BUILD_BEAM_EXPAND", "2"),
-                                     ("PGV_BUILD_BEAM_DEDUP", "0"),
-                                     ("PGV_BUILD_BEAM_MERGE", "rank")])
-def test_beam_knobs_keep_their_defaults(monkeypatch, var, val):
-    """The beam's knobs build at their defaults; another value is refused
-    (ROADMAP item 13b)."""
-    monkeypatch.setenv(var, tdb._BUILD_ENV_DEFAULTS[var])
+#: the knobs the port refuses: (name, a value the JAX package ignores, one
+#: it acts on); the beam's own knobs are read
+#: (tests/test_torch_build_knobs.py)
+_REFUSED = [("PGV_BUILD_TIMING", "", "1"), ("PGV_BUILD_DEBUG", "", "1"),
+            ("PGV_BUILD_ABLATE", ",", "be0"),
+            ("PGV_BUILD_UPPER_STRATIFY", "0", "1"),
+            ("PGV_BUILD_IP_AUG", "0", "1"),
+            ("PGV_BUILD_RAMP", "single", "buckets"),
+            ("PGV_BUILD_CAP_FLOOR", "0", "65536"),
+            ("PGV_BUILD_UPPER_FLOOR", "0", "4096"),
+            ("PGV_BUILD_SUB_FLOORS", "", "128")]
+
+
+@pytest.mark.parametrize("var,off,on", _REFUSED)
+def test_beam_knobs_keep_their_defaults(monkeypatch, var, off, on):
+    """An l1 build (the beam ground) takes a refused knob at a value the
+    JAX package ignores, and refuses one it acts on, naming the ROADMAP
+    entry."""
+    monkeypatch.setenv(var, off)
     data = np.random.default_rng(4).random((300, 8)).astype(np.float32)
     idx = TorchIndex.build(data, metric="l1", method="device", device="cpu")
     assert idx.num_tuples == 300
-    monkeypatch.setenv(var, val)
-    with pytest.raises(NotImplementedError, match="13b"):
+    monkeypatch.setenv(var, on)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndex.build(data, metric="l1", method="device", device="cpu")
 
 

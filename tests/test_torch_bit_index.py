@@ -174,8 +174,8 @@ def test_auto_takes_the_device_build_at_20000_rows(monkeypatch):
     device (while its f32 build rows fit 6 GiB), below that natively."""
     calls = []
     monkeypatch.setattr(tdb, "bulk_build",
-                        lambda idx, data, ids, host_graph: calls.append(
-                            len(data)))
+                        lambda idx, data, ids, host_graph, consume_input:
+                        calls.append(len(data)))
     bits = np.zeros((20000, 8), np.uint8)
     HnswIndex.build(bits, metric="jaccard", **CPU)
     assert calls == [20000]

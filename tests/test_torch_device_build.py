@@ -296,8 +296,8 @@ def test_capacity_picks_the_engine_and_bounds_masks_as_in_jax(monkeypatch):
 def test_auto_picks_the_device_build_at_20000_rows(monkeypatch):
     calls = []
     monkeypatch.setattr(tdb, "bulk_build",
-                        lambda idx, data, ids, host_graph: calls.append(
-                            (len(data), host_graph)))
+                        lambda idx, data, ids, host_graph, consume_input:
+                        calls.append((len(data), host_graph)))
     TorchIndex.build(np.zeros((20000, 4), np.float32), metric="l2", device="cpu")
     assert calls == [(20000, True)]
     small = TorchIndex.build(np.random.default_rng(1).random((50, 4)),
@@ -314,14 +314,46 @@ def _data(n=100, d=8):
     return np.random.default_rng(5).random((n, d)).astype(np.float32)
 
 
-@pytest.mark.parametrize("var,val", [("PGV_BUILD_ALPHA", "1.2"),
-                                     ("PGV_BUILD_IVF_HOP", "32"),
-                                     ("PGV_BUILD_DESCENT_MIN", "2048"),
-                                     ("PGV_BUILD_TIMING", "1")])
-def test_build_env_settings_raise(monkeypatch, var, val):
+#: the PGV_BUILD_* knobs the port refuses, each at a value the JAX package
+#: acts on, and the ROADMAP entry its refusal names
+REFUSED = [("PGV_BUILD_TIMING", "1", "item 17"),
+           ("PGV_BUILD_DEBUG", "1", "item 17"),
+           ("PGV_BUILD_ABLATE", "be0", "Not to port"),
+           ("PGV_BUILD_UPPER_STRATIFY", "1", "Not to port"),
+           ("PGV_BUILD_IP_AUG", "1", "Not to port"),
+           ("PGV_BUILD_RAMP", "buckets", "Not to port"),
+           ("PGV_BUILD_CAP_FLOOR", "65536", "Not to port"),
+           ("PGV_BUILD_UPPER_FLOOR", "4096", "Not to port"),
+           ("PGV_BUILD_SUB_FLOORS", "128,128", "Not to port")]
+
+
+@pytest.mark.parametrize("var,val,entry", REFUSED)
+def test_build_env_settings_raise(monkeypatch, var, val, entry):
+    """A knob the port does not build raises, naming its ROADMAP entry;
+    the build and the insert read the same settings."""
+    idx = TorchIndex.build(_data(), metric="l2", method="device",
+                           host_graph=False, device="cpu")
     monkeypatch.setenv(var, val)
-    with pytest.raises(NotImplementedError, match=var):
+    with pytest.raises(NotImplementedError, match=f"{var}.*ROADMAP.*{entry}"):
         TorchIndex.build(_data(), metric="l2", method="device", device="cpu")
+    with pytest.raises(NotImplementedError, match=var):
+        idx.insert_bulk(_data(n=8))
+
+
+@pytest.mark.parametrize("var,val", [("PGV_BUILD_STREAM", "0"),
+                                     ("PGV_BUILD_STREAM_MIN", "1"),
+                                     ("PGV_BUILD_STREAM_CHUNK", "1")])
+def test_stream_settings_are_no_ops(monkeypatch, var, val):
+    """The JAX package's upload-streaming knobs only schedule its host to
+    device copy, which the port does not have: accepted, the same graph."""
+    a = TorchIndex.build(_data(), metric="l2", method="device",
+                         host_graph=False, device="cpu")
+    monkeypatch.setenv(var, val)
+    b = TorchIndex.build(_data(), metric="l2", method="device",
+                         host_graph=False, device="cpu")
+    ga, gb = _graph_tensors(a), _graph_tensors(b)
+    for f in ga:
+        assert torch.equal(ga[f], gb[f]), f
 
 
 def test_default_env_settings_are_accepted(monkeypatch):

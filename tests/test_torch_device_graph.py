@@ -106,10 +106,12 @@ def test_serve_dtype_policy(monkeypatch):
 
 def test_device_build_not_ported_yet():
     """The dense device build is ported at every width and metric
-    (tests/test_torch_device_build.py, tests/test_torch_beam_ground.py);
-    what of it is not raises, naming its ROADMAP item."""
+    (tests/test_torch_device_build.py, tests/test_torch_beam_ground.py),
+    and the bit kind's; the sparse kind has none, as in JAX."""
     data = _data(n=100)
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    # consume_input takes a serving-only tensor build only, as in JAX
+    # (tests/test_torch_build_knobs.py)
+    with pytest.raises(ValueError, match="consume_input"):
         TorchIndex.build(data, method="device", consume_input=True, device="cpu")
     # the bit kind's device build is ported (tests/test_torch_bit_index.py)
     bits = TorchIndex.build((data > 0).astype(np.uint8), metric="hamming",
