@@ -223,21 +223,53 @@ per batch beside its bound, a ``{"torch_ops": ...}`` line) and the sort
 merge with ``consume_input=True``, whose caller's tensor must hold no
 storage after the build (its peak printed beside the sort build's).
 
+**The sharded configuration** (28, its own path, run last): BASELINE's
+fifth configuration (``configs/sharded_100m.py``: 128-d f32 l2 in
+round-robin shards, the relaxed iterative scan with ``max_scan_tuples``
+500) cut from 8 shards x 12,500,000 rows on a TPU v5e-8 to 4 shards x
+524,288 rows on one card (the four-card layout; about half the main
+path's rows a shard, since the smoke passed 1,000 s at 1M): ``make_dataset(2,162,688,
+128, 16,384, seed=11)`` on the card,
+``ShardedHnswIndex.build`` from the CUDA tensor (the device build, serving-
+only, every shard on ``cuda:0``; build seconds per shard and in all, rows/s,
+peak memory), each shard's invariants and device; K1 ground truth over all
+2,097,152 rows (float64 on 64 queries); the sharded exact engine equal to it but
+for ties, the sharded beam's recall@10 (floor ``FLOORS["beam"]``), both
+timed over 16,384 queries with the merge's share of a search's wall time
+(CUDA events); the sharded beam on 256 queries equal but for ties (on
+>= 0.99 of them) to the same merge over each shard's plain descent and
+walk (must reject the plain walk cut to ef / 4 steps); the filtered exact search (``tid % 50``) equal to
+K1 over the kept rows; ``insert_bulk`` of the last 65,536 rows (shards
+within one tuple, each of 1,024 inserted rows among its own beam top-10);
+``ShardedScan`` (relaxed, ``max_scan_tuples`` 500) for 64 queries: 500
+tuples in distance order, the first 20 equal to K1's exact top-20 of the
+grown corpus but for ties, ms to the 20th row; a 4 x 65,536-row sharded
+build with ``PGV_BUILD_TIMING`` and ``GROUP_STATS`` (its lines and tuples,
+the same graphs as without), saved and loaded with ids unchanged; one
+shard's ``search`` with ``PGV_SCAN_STATS`` (the steps K4 reports); and
+``dryrun_multichip(4)``.
+
 Each path's kernels must have run on it: K1-K3, K3's shift reduction and
 K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
 path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
 path, both forms of K9 and K4 (word mode) on the bit path, K9's
 tensor-core form and K4 on the jaccard path, K1, K9's tensor-core form
 and K4 in phase 23, both forms of K10, its mapping and K4 (sparse mode)
-on the sparse path. The last two lines of output are one JSON object per
+on the sparse path; on the sharded path, each counted around its own call
+with every count set to 0 just before it: K1 in the exact search, the
+filtered search and ``ShardedScan``, K4 in the beam search. The last two
+lines of output are one JSON object per
 kernel list and the device line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -317,6 +349,18 @@ HV_FLOORS = {"exact": 1.0, "approx": 0.98, "beam": 0.80}
 #: bf16 rounds away what ranks near neighbours (the JAX package's bf16
 #: opt-in test holds its exact engine to 0.95)
 HV_BF16_FLOORS = {"exact": 0.95, "approx": 0.95, "beam": 0.80}
+#: the sharded configuration (28): BASELINE config 5 (configs/sharded_100m.py)
+#: cut to this many shards of this many rows on one card (524,288, not the
+#: main path's 1M, since the whole smoke passed 1,000 s with 1M), its data
+#: seed;
+#: the rows per shard of its checkpoint round trip, the scan's queries and
+#: tuple budget (config 5's ``max_scan_tuples``), the queries of its
+#: walk-vs-plain check and the filter modulus of its filtered search
+S28, N28, SEED28 = 4, 524_288, 11
+N28_CKPT, SCAN28_Q, SCAN28_MAX, WALK28_Q, FILTER28 = 65_536, 64, 500, 256, 50
+#: the graph tensors two builds must hold equal
+GRAPH_FIELDS = ("neighbors0", "upper_neighbors", "upper_slot", "levels",
+                "traversable", "emit_tid", "tid_count", "values")
 
 
 def bound(ops: float, peak: str, nbytes: float) -> dict:
@@ -3422,6 +3466,321 @@ def halfvec_path(HnswIndex, IndexParams, make_dataset, device_mod, bf, dev,
     torch.cuda.empty_cache()
 
 
+def graph_bytes(g) -> int:
+    """Bytes of a DeviceGraph's tensors on its device."""
+    return sum(t.numel() * t.element_size() for t in vars(g).values()
+               if isinstance(t, torch.Tensor))
+
+
+def sharded_build(sh, x, n_shards, params, devices, seed):
+    """``ShardedHnswIndex.build`` from a tensor (the device build,
+    serving-only), its stderr captured -> (index, that stderr)."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        idx = sh.ShardedHnswIndex.build(
+            x, n_shards=n_shards, metric="l2", params=params,
+            method="device", host_graph=False, devices=devices, seed=seed)
+    torch.cuda.synchronize()
+    return idx, err.getvalue()
+
+
+def sharded_plain_merge(sh, beam, idx, q, max_steps):
+    """The sharded beam's merge over each shard's plain descent and walk
+    (``ops/beam.descent_plain`` + ``_walk_plain``, at most ``max_steps``
+    steps) -> (tids [B, K], euclidean distances [B, K]) on the host."""
+    parts = []
+    for shard in idx.shards:
+        g = shard.device_graph()
+        land, land_d = beam.descent_plain(
+            g.values, g.traversable, g.upper_slot, g.upper_neighbors, g.m,
+            g.metric, q, g.entry, g.entry_level)
+        raw = beam._walk_plain(g.values, g.neighbors0, g.traversable, None,
+                               g.metric, q, land[:, None].to(torch.int32),
+                               land_d[:, None], width=EF, spill=0,
+                               max_steps=max_steps, scan=False)
+        pd, pids, _ = beam._serve_finish(*raw)
+        tids = torch.where(pids >= 0, g.emit_tid[pids.clamp(min=0)].long(),
+                           -1)
+        parts.append((torch.where(tids >= 0, pd, float("inf")), tids))
+    d, t = sh._merge(parts, K, idx.devices[0])
+    return t.cpu().numpy(), torch.sqrt(d.clamp(min=0)).double().cpu().numpy()
+
+
+def path_launches(bf, fn, names=("k1_topk", "k4_beam")):
+    """Run ``fn`` with every launch count set to 0 just before it ->
+    (its result, the counts of ``names`` read just after it)."""
+    bf.reset_launches()
+    out = fn()
+    return out, {k: bf.LAUNCHES[k] for k in names}
+
+
+def need_launches(tag, counts, name):
+    """Fail unless ``name`` was launched in the run counted as ``counts``."""
+    log(f"28 {tag} launches: {counts}")
+    if counts[name] <= 0:
+        raise RuntimeError(f"kernel {name} never ran in the sharded {tag}")
+
+
+def sharded_path(make_dataset, SearchParams, params, device_mod, bf, beam,
+                 dev):
+    """Phase 28: BASELINE config 5's shape, sharded, on the card (see the
+    module docstring), with the K1 and K4 launch counts of each sharded
+    call (its references run outside the counted windows)."""
+    from pgvector_rx_tpu_torch.graph import device_build as db
+    from pgvector_rx_tpu_torch.parallel import sharded as sh
+
+    n_all = S28 * N28
+    devices = [dev] * S28
+    sp = SearchParams(ef_search=EF)
+    log(f"cut: BASELINE config 5 (configs/sharded_100m.py, 100,000,000 x "
+        f"128-d l2 in 8 round-robin shards on a TPU v5e-8) runs as {S28} "
+        f"shards x {N28:,} rows on one card (the four-card layout; not the "
+        f"main path's 1M a shard, for the smoke's time), {N_INSERT:,} more "
+        f"rows inserted; its "
+        f"checkpoint round trip at {S28} x {N28_CKPT:,} rows")
+    with Phase("28 data"):
+        data, queries = make_dataset(n_all + N_INSERT, DIM, N_QUERIES,
+                                     seed=SEED28)
+        x = torch.from_numpy(data).to(dev)
+        q_dev = torch.from_numpy(queries).to(dev)
+    with Phase("28 sharded device build"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        idx, err = sharded_build(sh, x[:n_all], S28, params, devices, 1)
+        dt = time.time() - t0
+        lines = [ln for ln in err.splitlines()
+                 if ln.startswith("[sharded.build]")]
+        for ln in lines:
+            log(ln)
+        secs = [float(re.search(r" in ([0-9.]+)s", ln).group(1))
+                for ln in lines]
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"28 sharded build: {dt:.3f} s in all, {n_all / dt:.1f} rows/s, "
+            f"per shard {secs} s; peak device memory {peak / 2**30:.2f} GiB, "
+            f"{(peak - base) / 2**30:.2f} above the corpus")
+        if len(secs) != S28:
+            raise RuntimeError(f"{len(secs)} shard build lines, want {S28}")
+        for s, shard in enumerate(idx.shards):
+            g = shard.device_graph()
+            if g.device != devices[s] or idx.devices[s] != devices[s]:
+                raise RuntimeError(f"shard {s} is on {g.device}")
+            check_graph(g, M, N28)
+            log(f"shard {s}: {graph_bytes(g) / 2**30:.3f} GiB of graph on "
+                f"{g.device}")
+    with Phase("28 ground truth (K1 l2_topk over every row)"):
+        gt = ground_truth(bf, data[:n_all], queries, q_dev)  # row = tid
+
+    def recall(tids):
+        return float(np.mean([len(set(tids[b]) & set(gt[b])) / K
+                              for b in range(gt.shape[0])]))
+
+    def timed(engine, q=q_dev, **kw):
+        idx.search(q[:CHUNK], K, sp, engine=engine, **kw)  # warm
+        torch.cuda.synchronize()
+        t0 = time.time()
+        d, t = idx.search(q, K, sp, engine=engine, **kw)
+        return d, t, time.time() - t0
+
+    launches = {}  # the sharded call -> its K1 / K4 launches
+
+    def exact_sq(tids, q):
+        """float32 squared l2 of rows ``tids`` (= corpus rows) to ``q``."""
+        rows = x[torch.from_numpy(tids).to(dev).clamp(min=0)]
+        return ((rows - q[:, None, :]) ** 2).sum(-1).double().cpu().numpy()
+
+    out = {}
+    for engine in ("exact", "beam"):
+        with Phase(f"28 sharded {engine}, {N_QUERIES:,} queries"):
+            (d, t, dt), launches[engine] = path_launches(
+                bf, lambda: timed(engine))
+            need_launches(engine, launches[engine],
+                          "k1_topk" if engine == "exact" else "k4_beam")
+            rec = recall(t)
+            parts = [sh._shard_topk(s.device_graph(), q_dev, K, EF, engine,
+                                    None) for s in idx.shards]
+            merge_ms = cuda_ms(lambda: sh._merge(parts, K, dev))
+            out[engine] = (d, t, dt)
+            log(f"28 {engine}: recall@10={rec:.4f} qps="
+                f"{N_QUERIES / dt:.1f} ({dt:.4f} s); the merge "
+                f"{merge_ms:.4f} ms on the card, "
+                f"{merge_ms / (dt * 1e3):.4f} of the search's wall time")
+            if d.shape != (N_QUERIES, K) or not np.isfinite(d).all():
+                raise RuntimeError(f"28 {engine}: misshapen or non-finite")
+            if engine == "exact":
+                gd = exact_sq(gt, q_dev)
+                tol = 1e-4 * np.abs(gd).max(axis=1) + 1e-4
+                bad = tie_aware_mismatch(t, d ** 2, gt, gd, tol)
+                log(f"28 exact against K1 over the union: {bad} rows differ "
+                    "but for ties")
+                if bad:
+                    raise RuntimeError("the sharded exact engine disagrees "
+                                       "with K1 over every row")
+            elif rec < FLOORS["beam"]:
+                raise RuntimeError(f"28 beam recall {rec} < {FLOORS['beam']}")
+    with Phase(f"28 sharded beam vs the plain descent and walk, "
+               f"{WALK28_Q} queries"):
+        qw = q_dev[:WALK28_Q]
+        kd, kt = idx.search(qw, K, sp, engine="beam")
+        pt, pd = sharded_plain_merge(sh, beam, idx, qw, 4 * EF + 32)
+        ct, cd = sharded_plain_merge(sh, beam, idx, qw, EF // 4)
+        ok, err_w = walk_agreement(kt, kd, pt, pd)
+        okc, _ = walk_agreement(ct, cd, pt, pd)
+        log(f"28 sharded beam vs the plain merge: {ok.mean():.4f} of queries "
+            f"equal but for ties (max abs err {err_w}); control (plain walk "
+            f"cut to {EF // 4} steps): {okc.mean():.4f}")
+        if ok.mean() < 0.99:
+            raise RuntimeError("the sharded beam disagrees with the plain "
+                               "merge")
+        if okc.mean() >= 0.99:
+            raise RuntimeError("the sharded walk check passes a walk cut to "
+                               "ef / 4 steps")
+    with Phase(f"28 filtered exact search (tid % {FILTER28} == 0)"):
+        keep = np.nonzero(np.arange(n_all) % FILTER28 == 0)[0]
+        qf = q_dev[:CHUNK]
+        (fd, ft), launches["filtered"] = path_launches(
+            bf, lambda: idx.search(qf, K, sp, engine="exact",
+                                   filter_mask=np.arange(n_all) % FILTER28
+                                   == 0))
+        need_launches("filtered exact search", launches["filtered"],
+                      "k1_topk")
+        _, gi = bf.l2_topk(x[torch.from_numpy(keep).to(dev)], qf, K)
+        gtf = keep[gi.cpu().numpy()]
+        gfd = exact_sq(gtf, qf)
+        tol = 1e-4 * np.abs(gfd).max(axis=1) + 1e-4
+        bad = tie_aware_mismatch(ft, fd ** 2, gtf, gfd, tol)
+        log(f"28 filtered exact: {bad} of {CHUNK} rows differ from K1 over "
+            f"the {len(keep):,} kept rows but for ties")
+        if bad or (ft % FILTER28 != 0).any():
+            raise RuntimeError("the filtered sharded search disagrees")
+    with Phase(f"28 insert_bulk of {N_INSERT:,} rows"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        added = idx.insert_bulk(x[n_all:], tids=range(n_all,
+                                                      n_all + N_INSERT))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        sizes = [s.num_tuples for s in idx.shards]
+        _, st = idx.search(x[n_all : n_all + CHUNK], K, sp, engine="beam")
+        hit = float(np.mean([(n_all + r) in set(st[r].tolist())
+                             for r in range(CHUNK)]))
+        log(f"28 insert_bulk: {added} rows in {dt:.3f} s "
+            f"({N_INSERT / dt:.1f} rows/s), shard sizes {sizes}; inserted "
+            f"rows among their own beam top-10: {hit:.4f}")
+        if added != N_INSERT or max(sizes) - min(sizes) > 1:
+            raise RuntimeError("insert_bulk did not water-fill the shards")
+        if hit < SELF_FLOOR:
+            raise RuntimeError(f"inserted-row self recall {hit}")
+    with Phase(f"28 ShardedScan, {SCAN28_Q} queries, relaxed order, "
+               f"max_scan_tuples={SCAN28_MAX}"):
+        ssp = SearchParams(ef_search=EF, iterative_scan="relaxed_order",
+                           max_scan_tuples=SCAN28_MAX)
+        rd, ri = bf.l2_topk(x, q_dev[:SCAN28_Q], SCAN_LIMIT)  # grown corpus
+        rd, ri = rd.double().cpu().numpy(), ri.cpu().numpy()
+        ms, streams = [], []
+
+        def scans():
+            for b in range(SCAN28_Q):
+                t0 = time.time()
+                scan = idx.scan(queries[b], ssp)
+                items = scan.take(SCAN_LIMIT)
+                ms.append((time.time() - t0) * 1e3)
+                streams.append(items + scan.take(10 * SCAN28_MAX))
+
+        _, launches["scan"] = path_launches(bf, scans)
+        need_launches("ShardedScan", launches["scan"], "k1_topk")
+        bad = 0
+        for b, items in enumerate(streams):
+            dists = [dd for _, dd in items]
+            if len(items) != SCAN28_MAX or dists != sorted(dists):
+                raise RuntimeError(f"scan {b}: {len(items)} tuples, sorted "
+                                   f"{dists == sorted(dists)}")
+            head_t = np.array([[t for t, _ in items[:SCAN_LIMIT]]])
+            head_d = np.array([dists[:SCAN_LIMIT]]) ** 2
+            bad += tie_aware_mismatch(head_t, head_d, ri[b : b + 1],
+                                      rd[b : b + 1],
+                                      [1e-4 * rd[b].max() + 1e-4])
+        log(f"28 ShardedScan: {SCAN28_MAX} tuples in distance order for "
+            f"every query; first {SCAN_LIMIT} differ from K1's exact top-"
+            f"{SCAN_LIMIT} but for ties in {bad} of {SCAN28_Q}; ms to the "
+            f"{SCAN_LIMIT}th row p50 {np.percentile(ms, 50):.3f} p99 "
+            f"{np.percentile(ms, 99):.3f}")
+        if bad:
+            raise RuntimeError("the sharded scan's head is not the exact "
+                               "top-20")
+    log(f"sharded path launches: {launches}")
+    with Phase(f"28 checkpoint round trip, {S28} x {N28_CKPT:,} rows, with "
+               "PGV_BUILD_TIMING and GROUP_STATS"):
+        xs = x[: S28 * N28_CKPT]
+        plain, _ = sharded_build(sh, xs, S28, params, devices, 2)
+        stats = []
+        db.GROUP_STATS = stats
+        os.environ["PGV_BUILD_TIMING"] = "1"
+        try:
+            small, err = sharded_build(sh, xs, S28, params, devices, 2)
+        finally:
+            db.GROUP_STATS = None
+            del os.environ["PGV_BUILD_TIMING"]
+        n_init = len(re.findall(r"^\[build\]   init\.", err, re.M))
+        n_phase = len(re.findall(r"^\[build\] phase ", err, re.M))
+        n_batch = len(re.findall(r"^\[build\] batch@", err, re.M))
+        rows = sum(r for _, r, _ in stats)
+        want = S28 * (N28_CKPT - 1)  # each shard's first row seeds it
+        same = all(torch.equal(getattr(a.device_graph(), f),
+                               getattr(b.device_graph(), f))
+                   for a, b in zip(plain.shards, small.shards)
+                   for f in GRAPH_FIELDS)
+        log(f"28 PGV_BUILD_TIMING: {n_init} init, {n_phase} phase and "
+            f"{n_batch} batch lines; GROUP_STATS: {len(stats)} tuples, "
+            f"{rows} rows (want {want}), {sum(s for _, _, s in stats):.3f} s, "
+            f"widths {sorted({w for w, _, _ in stats})}; the graphs "
+            f"{'equal' if same else 'DIFFER from'} the build without them")
+        if (n_init != 4 * S28 or n_phase != 7 * S28 or n_batch != len(stats)
+                or rows != want or not same):
+            raise RuntimeError("the build's instrumentation is wrong or "
+                               "changed the graph")
+        qc = q_dev[:CHUNK]
+        before = {e: small.search(qc, K, sp, engine=e)[1]
+                  for e in ("exact", "beam")}
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            small.save(Path(tmp) / "ck")
+            t_save = time.time() - t0
+            t0 = time.time()
+            back = sh.ShardedHnswIndex.load(Path(tmp) / "ck", devices=devices)
+            t_load = time.time() - t0
+        same_ids = {e: bool((back.search(qc, K, sp, engine=e)[1]
+                             == before[e]).all()) for e in before}
+        log(f"28 checkpoint: save {t_save:.3f} s, load {t_load:.3f} s; ids "
+            f"unchanged {same_ids}")
+        if not all(same_ids.values()):
+            raise RuntimeError("the sharded checkpoint changed the ids")
+        del plain, small, back
+    with Phase("28 PGV_SCAN_STATS on one shard's search"):
+        shard = idx.shards[0]
+        g = shard.device_graph()
+        qs = q_dev[:CHUNK]
+        os.environ["PGV_SCAN_STATS"] = "1"
+        try:
+            shard.search(qs, K, sp, method="device")
+        finally:
+            del os.environ["PGV_SCAN_STATS"]
+        st = shard.last_scan_stats
+        upper = device_mod._coarse_upper(g)
+        steps = device_mod._search_batch_coarse(
+            g, qs, upper[0], upper[1], EF, 4 * EF + 32)[2]
+        total = int(steps.sum())
+        log(f"28 scan stats: {st}; K4's steps sum {total}")
+        if st is None or st.beam_steps != total or st.distances_computed != (
+                total * g.neighbors0.shape[1]):
+            raise RuntimeError("PGV_SCAN_STATS disagrees with K4's steps")
+    with Phase("28 dryrun_multichip(4)"):
+        sh.dryrun_multichip(4)
+    del idx, x, q_dev
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -3788,6 +4147,10 @@ def main() -> int:
     # ---- the sparse kind ----------------------------------------------------
     sparse_path(sparse_child, sparse_tmp, HnswIndex, SearchParams, device_mod,
                 beam, bf, dev, kernels)
+
+    # ---- the sharded configuration ------------------------------------------
+    sharded_path(make_dataset, SearchParams, params, device_mod, bf, beam,
+                 dev)
 
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pgvector_rx_tpu", "bench")]

@@ -3,9 +3,10 @@
 It runs the serving path of ``pgvector_rx_tpu`` on an NVIDIA GPU (or on
 the CPU, through each kernel's plain-torch version): the flat-array
 ``DeviceGraph``, the exact / approx / beam engines, ``serve_topk`` and
-``HnswIndex.search``, and the batched device build. It stands alone: the
-framework-free modules of ``pgvector_rx_tpu`` are copied here at the same
-relative paths (constants, config, types, utils/rwlock, utils/stats,
+``HnswIndex.search``, the batched device build, and the sharded index
+(``parallel.ShardedHnswIndex``: one process, a shard per device). It
+stands alone: the framework-free modules of ``pgvector_rx_tpu`` are
+copied here at the same relative paths (constants, config, types, utils/rwlock, utils/stats,
 graph/host, index/stores, index/vacuum, the host half of index/scan and
 index/hnsw, the native engine with ``csrc/hnswcore.cpp``), and
 ``tests/test_torch_standalone.py`` holds the copies to the originals.

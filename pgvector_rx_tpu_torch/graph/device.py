@@ -51,6 +51,12 @@ Stores that are not f32 (a halfvec index's f16 array, ``PGV_SERVE_DTYPE``
 bf16 / f16) sweep in chunks of ``_EXACT_SWEEP_CHUNK`` rows, each cast for
 its kernel, so no whole-corpus cast is made.
 
+``beam_search_arrays`` is the beam each shard of ``parallel/sharded.py``
+runs (the descent from the shard's own entry, then the walk, in one K4
+launch, without the switches above). ``PGV_SCAN_STATS`` makes ``search``
+record the JAX package's counters in ``index.last_scan_stats``
+(``_record_scan_stats``).
+
 JAX's ``vmap`` over queries becomes an explicit batch dimension.
 """
 
@@ -811,6 +817,58 @@ def _stage_filter_mask(g: DeviceGraph, filter_mask):
 
 
 # ---------------------------------------------------------------------------
+# Array-level search (each shard of parallel/sharded.py walks its own graph
+# from its own entry)
+# ---------------------------------------------------------------------------
+
+
+def beam_search_arrays(values, neighbors0, upper_neighbors, upper_slot,
+                       traversable, entry: int, entry_level: int, queries, *,
+                       metric: str, ef: int, m: int, max_steps: int):
+    """Dense-metric batched search of one shard's graph from its own entry
+    (the JAX package's ``beam_search_arrays``,
+    ``pgvector_rx_tpu/graph/device.py:1876``): the greedy descent from
+    ``entry`` (level ``entry_level``) through ``upper_neighbors`` [U,
+    LMAX * m], then the best-first walk at layer 0 (``ops/beam.
+    descent_walk``: one launch of kernel K4 on CUDA tensors, the plain
+    descent and walk on CPU tensors).
+
+    The algorithm of ``_search_batch``, without its switches: one member
+    expanded a step, the in-beam dedup and f32 ranking whatever
+    ``PGV_BEAM_*`` holds, as the JAX function reads none of them. Returns
+    (dists [B, ef], element ids [B, ef]) in (distance, id) order, (inf,
+    -1) padded."""
+    d, ids, _, _, _ = beam.descent_walk(
+        values, neighbors0, traversable, upper_slot, upper_neighbors, m,
+        entry, entry_level, metric, queries, ef, max_steps)
+    return d, ids
+
+
+def _record_scan_stats(index, g: DeviceGraph, B: int, steps, expand: int):
+    """Set ``index.last_scan_stats`` (the EXPLAIN ANALYZE / pgstat-counters
+    analog, scan.rs:718-729) where ``PGV_SCAN_STATS`` (read per call) is
+    set and not "0", with the JAX package's definitions
+    (``pgvector_rx_tpu/graph/device.py:1693``): a sweep (``steps`` None)
+    scores every row, ``B`` times the capacity the JAX graph reports; a
+    walk of ``expand`` members a step counts its steps, ``expand`` nodes a
+    step and ``expand`` full layer-0 lists of rows a step. Only then is
+    the step sum read from the device."""
+    if os.environ.get("PGV_SCAN_STATS", "0") == "0":
+        return
+    from ..utils.stats import ScanStats
+
+    st = ScanStats()
+    if steps is None:
+        st.distances_computed = st.nodes_visited = B * g.capacity
+    else:
+        total = int(steps.sum())
+        st.beam_steps = total
+        st.nodes_visited = total * expand
+        st.distances_computed = total * expand * g.neighbors0.shape[1]
+    index.last_scan_stats = st
+
+
+# ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
 
@@ -892,6 +950,7 @@ def search(index, qlist, k: int, params, engine: str = "auto",
         limit = (SPARSE_EXACT_MAX_ROWS if g.kind == "sparse"
                  else EXACT_ENGINE_MAX_ROWS)
         engine = "exact" if g.capacity <= limit else "beam"
+    steps, expand = None, 1  # the walk's steps [B] (ScanStats)
     if engine in ("exact", "approx") and g.kind == "sparse":
         beam_d, beam_ids = _exact_search_sparse(
             g, queries[0], queries[1], max(k, 1), dim=index.dim,
@@ -903,18 +962,19 @@ def search(index, qlist, k: int, params, engine: str = "auto",
     elif g.kind == "sparse":
         # the sparse walk takes no expansion (the JAX package's
         # _search_one_sparse passes none)
-        beam_d, beam_ids, _ = _search_batch(g, queries, ef, g.entry_level,
-                                            max_steps)
+        beam_d, beam_ids, steps = _search_batch(g, queries, ef,
+                                                g.entry_level, max_steps)
     else:
         upper, expand = _coarse_upper(g), _beam_expand()
         if upper is not None:
-            beam_d, beam_ids, _ = _search_batch_coarse(
+            beam_d, beam_ids, steps = _search_batch_coarse(
                 g, queries, upper[0], upper[1], ef, max_steps, expand
             )
         else:
-            beam_d, beam_ids, _ = _search_batch(
+            beam_d, beam_ids, steps = _search_batch(
                 g, queries, ef, g.entry_level, max_steps, expand
             )
+    _record_scan_stats(index, g, B, steps, expand)
     beam_d = beam_d.cpu().numpy().astype(np.float64)
     beam_ids = beam_ids.cpu().numpy()
 

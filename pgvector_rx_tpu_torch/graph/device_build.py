@@ -68,6 +68,14 @@ accepted and ignored (the port has no streamed upload), and the rest
 refused with ``NotImplementedError`` naming their ROADMAP entry.
 ``bulk_build(consume_input=True)`` releases the caller's corpus tensor
 once the build holds its own copy.
+
+Instrumentation, as in the JAX package: ``PGV_BUILD_TIMING`` prints the
+builder's init steps, the build's phases and each batch's time to stderr;
+``PGV_BUILD_DEBUG`` prints each batch's candidate search and its commit's
+three parts (forward lists, layer-0 back edges, upper back edges); a list
+bound to ``GROUP_STATS`` collects one ``(width, rows, seconds)`` tuple per
+batch. Each synchronises the build's device, and only when asked; none
+changes the graph.
 """
 
 from __future__ import annotations
@@ -75,6 +83,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import sys
+import time
 import warnings
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -109,7 +119,6 @@ _BUILD_ENV_NOOP = ("PGV_BUILD_STREAM", "PGV_BUILD_STREAM_MIN",
                    "PGV_BUILD_STREAM_CHUNK")
 
 _NOT_TO_PORT = "ROADMAP queue 1, 'Not to port'"
-_ITEM_17 = "ROADMAP queue 1, item 17 (observability)"
 
 #: PGV_BUILD_* names the port refuses: name -> (the values the JAX package
 #: acts on, the ROADMAP entry that says why they are not ported)
@@ -122,9 +131,14 @@ _BUILD_ENV_REFUSED = {
     "PGV_BUILD_UPPER_FLOOR": (lambda v: int(v) != 0, _NOT_TO_PORT),
     "PGV_BUILD_SUB_FLOORS": (lambda v: any(x.strip() for x in v.split(",")),
                              _NOT_TO_PORT),
-    "PGV_BUILD_TIMING": (bool, _ITEM_17),
-    "PGV_BUILD_DEBUG": (bool, _ITEM_17),
 }
+
+#: when bound to a list, ``DeviceBuilder.run_all`` appends one (width,
+#: rows, seconds) tuple per batch (the width the JAX package's
+#: ``_width_for`` gives it), synchronising the device after each batch so
+#: the times are real (the JAX package appends one per dispatched group
+#: of batches)
+GROUP_STATS: list | None = None
 
 
 @dataclass(frozen=True)
@@ -141,7 +155,8 @@ class BuildSettings:
     ``seed_cq``: queries per chunk of the merged upper sweep (0: JAX's
     rule). ``beam_steps`` (0: 16), ``beam_expand``, ``beam_dedup`` and
     ``beam_merge`` ("sort" or "rank"): the beam ground's walk. ``ground``:
-    "auto", "ivf" or "beam"."""
+    "auto", "ivf" or "beam". ``timing`` / ``debug``: the stderr lines of
+    the module docstring (they change no graph)."""
 
     descent_min: int = 65536
     alpha: float = 1.0
@@ -158,6 +173,8 @@ class BuildSettings:
     beam_dedup: bool = True
     beam_merge: str = "sort"
     ground: str = "auto"
+    timing: bool = False
+    debug: bool = False
 
     @classmethod
     def from_env(cls, env=None) -> "BuildSettings":
@@ -490,6 +507,41 @@ def _rank_merge(bd, bkey, d_new, key_new):
 # ---------------------------------------------------------------------------
 
 
+def _sync(device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _Clock:
+    """Seconds on the build's device for its instrumentation. ``lap()``
+    waits for the work queued on ``device`` and returns the seconds since
+    the last lap. When ``on``, ``mark(name)`` prints ``fmt`` with that lap
+    (``PGV_BUILD_TIMING``'s init and phase lines) and ``tick(name)`` keeps
+    it in ``laps`` (``PGV_BUILD_DEBUG``'s split of a batch); off, neither
+    waits."""
+
+    def __init__(self, device, on: bool = True, fmt: str = ""):
+        self.device, self.on, self.fmt = device, on, fmt
+        self.laps: dict = {}
+        self.t = time.time()
+
+    def lap(self) -> float:
+        _sync(self.device)
+        t = time.time()
+        dt, self.t = t - self.t, t
+        return dt
+
+    def mark(self, name: str) -> None:
+        if self.on:
+            print(self.fmt.format(name=name, s=self.lap()), file=sys.stderr,
+                  flush=True)
+
+    def tick(self, name: str) -> None:
+        if self.on:
+            self.laps[name] = self.lap()
+
+
 class DeviceBuilder:
     """Owns the build tensors and the per-batch steps (dense l2 / ip /
     cosine / l1, and "jacbits" over unpacked bit rows; the IVF or the
@@ -503,6 +555,7 @@ class DeviceBuilder:
             raise ValueError(f"the device build has no metric {metric!r}")
         s = settings if settings is not None else BuildSettings.from_env()
         dev = vectors.device
+        clock = _Clock(dev, s.timing, "[build]   init.{name} {s:.2f}s")
         self.device = dev
         self.metric = metric
         self.m = m
@@ -545,6 +598,7 @@ class DeviceBuilder:
         vec = torch.zeros((cap_pad, d), dtype=torch.float32, device=dev)
         vec[:n] = vectors
         self.vectors = vec
+        clock.mark("pad")
         ups = np.nonzero(levels >= 1)[0]
         n_upper = len(ups)
         upper_pad = _next_pow2(n_upper + 1)
@@ -594,6 +648,7 @@ class DeviceBuilder:
             upper_sub.append(
                 (torch.from_numpy(ids_l).to(dev), v_l, (v_l * v_l).sum(dim=1))
             )
+        clock.mark("upper-tables")
         self.data = BuildData(
             vectors=vec,
             vectors_bf16=vec.to(torch.bfloat16),
@@ -606,6 +661,7 @@ class DeviceBuilder:
             upper_ids=torch.from_numpy(up_ids).to(dev),
             upper_sub=tuple(upper_sub),
         )
+        clock.mark("build-data")
         i32 = dict(dtype=torch.int32, device=dev)
         bf = dict(dtype=torch.bfloat16, device=dev)
         self.arrays = BuildArrays(
@@ -621,6 +677,7 @@ class DeviceBuilder:
             members=torch.full((upper_pad, s.ivf_cap), -1, **i32),
             member_counts=torch.zeros(upper_pad, **i32),
         )
+        clock.mark("arrays")
 
     # -- scoring -------------------------------------------------------------
 
@@ -1210,12 +1267,19 @@ class DeviceBuilder:
         arrays.up_d[srow] = lay_d.reshape(B, -1).to(torch.bfloat16)
 
     def _commit_all_step(self, data: BuildData, arrays: BuildArrays,
-                         start: int, size: int, sel_d, sel_ids, assign):
+                         start: int, size: int, sel_d, sel_ids, assign,
+                         tick=None):
+        """The commit's three parts; ``tick(name)``, when given, is called
+        after each (``PGV_BUILD_DEBUG``'s split)."""
+        tick = tick or (lambda name: None)
         self._fwd_commit_step(data, arrays, start, size, sel_d, sel_ids,
                               assign)
+        tick("fwd")
         self._backedge0_step(data, arrays, start, size, sel_d, sel_ids)
+        tick("be0")
         self._backedge_upper_compact(data, arrays, start, size, sel_d,
                                      sel_ids)
+        tick("beu")
 
     def _init_members_step(self, data: BuildData, arrays: BuildArrays,
                            count: int):
@@ -1272,8 +1336,18 @@ class DeviceBuilder:
             return cap1
         return 0 if start + 1 > self.descent_min else self.descent_min
 
-    def run_batch(self, start: int, size: int) -> None:
-        """Insert elements [start, start + size)."""
+    def _group_width(self, start: int) -> int:
+        """The width the JAX package's ``_width_for`` gives the batch at
+        ``start``: this builder's, but -1 (its merged-regime program) for
+        the beam ground past a ramp narrower than the capacity."""
+        if not self.ivf and self.cap + 1 > self.descent_min:
+            return -1
+        return self._width_for(start)
+
+    def run_batch(self, start: int, size: int, tick=None) -> None:
+        """Insert elements [start, start + size); ``tick(name)``, when
+        given, is called after the candidate search and after each of the
+        commit's three parts."""
         width = self._width_for(start)
         members = width == 0 and self.ivf
         if members:
@@ -1281,12 +1355,44 @@ class DeviceBuilder:
         sel_d, sel_ids, assign = self._score_select_step(
             self.data, self.arrays, start, size, width
         )
+        if tick is not None:
+            tick("search")
         self._commit_all_step(self.data, self.arrays, start, size, sel_d,
-                              sel_ids, assign if members else None)
+                              sel_ids, assign if members else None, tick)
 
     def run_all(self, schedule) -> None:
+        """Run the batch schedule. With ``timing`` print, and with
+        ``GROUP_STATS`` bound collect, each batch's width, rows and
+        seconds; with ``debug`` print its candidate search's time and its
+        commit's split (forward lists, layer-0 back edges, upper back
+        edges)."""
+        s, stats = self.settings, GROUP_STATS
+        if not (s.timing or s.debug or stats is not None):
+            for start, size in schedule:
+                self.run_batch(start, size)
+            return
+        clock = _Clock(self.device, s.debug)
+        clock.lap()  # start from an idle device
         for start, size in schedule:
-            self.run_batch(start, size)
+            clock.laps.clear()
+            self.run_batch(start, size, clock.tick)
+            dt = clock.lap() + sum(clock.laps.values())
+            if s.debug:
+                lp = clock.laps
+                commit = lp["fwd"] + lp["be0"] + lp["beu"]
+                print(f"[build] batch@{start} n={size} "
+                      f"w={self._width_for(start)} search "
+                      f"{lp['search']:.3f}s\n[build] batch@{start} commit "
+                      f"{commit:.3f}s (fwd {lp['fwd']:.3f} be0 "
+                      f"{lp['be0']:.3f} beu {lp['beu']:.3f})",
+                      file=sys.stderr, flush=True)
+            width = self._group_width(start)
+            if stats is not None:
+                stats.append((width, size, dt))
+            if s.timing:
+                print(f"[build] batch@{start} w={width} elems={size} "
+                      f"{dt:.3f}s ({size / max(dt, 1e-9):.0f}/s)",
+                      file=sys.stderr, flush=True)
 
     def host_adjacency(self):
         """(nb0_ids [cap+1, lm0], nb0_d f32, up_ids [U+1, LMAX*m], up_d
@@ -1401,6 +1507,8 @@ def bulk_build(index, data, ids, host_graph: bool = True,
     if consume_input:
         _check_consumable(data, host_graph)
     settings = BuildSettings.from_env()
+    phase = _Clock(_resolve_device(index.device), settings.timing,
+                   "[build] phase {name} {s:.2f}s")
     if index.kind not in ("dense", "bit"):
         raise ValueError(
             f"the {index.kind} kind has no device build (as in the JAX "
@@ -1443,7 +1551,9 @@ def bulk_build(index, data, ids, host_graph: bool = True,
         if consume_input:
             _release(data)
         return
+    phase.mark("prep")
     levels = index.random_levels(n)
+    phase.mark("levels")
     builder = DeviceBuilder(metric, vectors, levels, index.params.m,
                             index.params.ef_construction,
                             batch_max=settings.batch or batch_max_for(n),
@@ -1451,8 +1561,10 @@ def bulk_build(index, data, ids, host_graph: bool = True,
     del vectors
     if consume_input:
         _release(data)  # the builder holds its padded copy
+    phase.mark("builder-init")
     builder.seed_first(0)
     builder.run_all(batch_schedule(n, builder.batch_max))
+    phase.mark("run_all")
 
     # one download of the fold decisions, applied in insertion order
     heap_tids = [[t] for t in kept_tids.tolist()]
@@ -1463,6 +1575,7 @@ def bulk_build(index, data, ids, host_graph: bool = True,
     entry = int(builder.arrays.entry)
     index.entry = entry if entry >= 0 else None
     store_dtype = index.dtype or np.float32
+    phase.mark("absorb")
 
     if not host_graph:
         if packed is not None:
@@ -1473,9 +1586,11 @@ def bulk_build(index, data, ids, host_graph: bool = True,
             index.store.bulk_load_device(_HostRows(builder.vectors), count=n)
         index.heap_tids = heap_tids
         index.serving_only = True
+        phase.mark("finalize.store")
         index._device = _device_graph_from_builder(index, builder, kept_tids)
         # the graph holds what serving needs; drop the build-only state
         builder.arrays = builder.data = builder.vectors = None
+        phase.mark("finalize.device-graph")
         return
 
     if host_rows is None and packed is None:
@@ -1497,10 +1612,12 @@ def bulk_build(index, data, ids, host_graph: bool = True,
                 if v >= 0
             ]
         index.elements.append(e)
+    phase.mark("finalize.host-graph")
     index.store.bulk_load(packed if packed is not None
                           else host_rows.astype(store_dtype))
     index.heap_tids = heap_tids
     index._invalidate_device()
+    phase.mark("finalize.store")
 
 
 def _emit_tables_device(absorb, counts, first_tids, cap1: int):

@@ -1,2 +1,8 @@
-"""Framework-free utilities of the PyTorch port (copies of
-``pgvector_rx_tpu/utils/rwlock.py`` and ``stats.py``)."""
+"""Utilities of the PyTorch port: observability (copies of
+``pgvector_rx_tpu/utils/rwlock.py`` and ``stats.py``) and profiling
+(``torch.profiler``)."""
+
+from .profiling import trace
+from .stats import IndexStats, ScanStats
+
+__all__ = ["IndexStats", "ScanStats", "trace"]

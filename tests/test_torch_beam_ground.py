@@ -210,8 +210,7 @@ def test_ground_setting_is_read(monkeypatch):
 #: the knobs the port refuses: (name, a value the JAX package ignores, one
 #: it acts on); the beam's own knobs are read
 #: (tests/test_torch_build_knobs.py)
-_REFUSED = [("PGV_BUILD_TIMING", "", "1"), ("PGV_BUILD_DEBUG", "", "1"),
-            ("PGV_BUILD_ABLATE", ",", "be0"),
+_REFUSED = [("PGV_BUILD_ABLATE", ",", "be0"),
             ("PGV_BUILD_UPPER_STRATIFY", "0", "1"),
             ("PGV_BUILD_IP_AUG", "0", "1"),
             ("PGV_BUILD_RAMP", "single", "buckets"),

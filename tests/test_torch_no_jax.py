@@ -3,7 +3,8 @@ native index and a device-built index on the CPU, serves all three
 engines, searches, scans, inserts, runs the tile-min sweep, saves and
 loads a checkpoint, builds and searches an l1 index, builds, serves and
 saves a bit index of each metric, builds, searches and saves a sparse
-index, runs the flat index (bit and sparse rows), the cost model,
+index, builds and searches a 2-shard sharded index, runs the flat index
+(bit and sparse rows), the cost model,
 the operator-class facade and the distance ops, and neither
 JAX nor the JAX package (``pgvector_rx_tpu``) nor its benchmark
 (``bench``) ever enters ``sys.modules``. A subprocess, because the test harness
@@ -93,6 +94,15 @@ with tempfile.TemporaryDirectory() as tmp:
     sidx.save(os.path.join(tmp, "sparse"))
     assert HnswIndex.load(os.path.join(tmp, "sparse"),
                           device="cpu").num_tuples == 400
+from pgvector_rx_tpu_torch.parallel import ShardedHnswIndex
+from pgvector_rx_tpu_torch.utils import trace
+sh = ShardedHnswIndex.build(data[:600], n_shards=2, method="native",
+                            devices=["cpu", "cpu"])
+for engine in ("exact", "beam"):
+    with trace(None):
+        _, ids = sh.search(queries, 5, SearchParams(ef_search=40),
+                           engine=engine)
+    assert (ids >= 0).all(), engine
 fam = create_index_for_opclass("vector_cosine_ops", 16, device="cpu")
 fam.add_batch(data[:100])
 assert not should_use_index(fam, True, 40)

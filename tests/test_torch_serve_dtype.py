@@ -1,7 +1,7 @@
 """The compact serve stores and the sweeps' distance values in the port,
 against the JAX package on the same data (the port's versions of
-tests/test_serve_dtype.py::TestServeDtype, but its sharded case, and of
-tests/test_serve_distances.py).
+tests/test_serve_dtype.py::TestServeDtype, whose sharded case is in
+tests/test_torch_sharded.py, and of tests/test_serve_distances.py).
 
 - A halfvec index keeps one f16 value array, ``PGV_SERVE_DTYPE=bf16`` one
   bf16 array, equal to JAX's; the engines score the stored (rounded)
@@ -15,6 +15,8 @@ tests/test_serve_distances.py).
 - Tests marked ``cuda`` hold K1 and K2 over f16 / bf16 chunks against the
   plain sweep on the card.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -227,10 +229,17 @@ def _build(metric, n=600, dim=8, seed=11, method="host"):
     return t, j, data, queries
 
 
+@pytest.fixture(scope="module")
+def built():
+    """``_build(metric)`` once per metric for the module: its exact and
+    approx cases search the same pair of host-built indexes."""
+    return functools.lru_cache(maxsize=None)(_build)
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine", "l1"])
 @pytest.mark.parametrize("engine", ["exact", "approx"])
-def test_device_sweep_true_distances(metric, engine):
-    t, j, data, queries = _build(metric)
+def test_device_sweep_true_distances(built, metric, engine):
+    t, j, data, queries = built(metric)
     gt = brute_force(data, queries, metric, 5)
     d, ids = t.search(queries, 5, SearchParams(ef_search=40), method=engine)
     jd, ji = j.search(queries, 5, JSearchParams(ef_search=40), method=engine)
