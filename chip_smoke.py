@@ -96,7 +96,9 @@ built on the card with the beam-descent ground from a CUDA tensor (build
 seconds, rows/s, peak memory, device time of the candidate step, the walk
 and the commit), its invariants, K1 ground truth checked against float64
 on 64 queries, and the three engines against the same floors; then K1, K2
-and K4 at d = 768 against their plain versions, with ms, bound and share.
+and K4 at d = 768 against their plain versions, with ms, bound and share,
+and K4 ranking in bf16 (the rows' bf16 copy) against its plain version on
+64 queries, timed at 1,024 in turns with the f32 walk.
 
 **l1 path** (19, the first 262,144 rows of phase 2's corpus, cut from 1M
 for the run's time): the device build (l1 takes the beam ground), the
@@ -186,9 +188,11 @@ E = 4 with bf16, each beside the default in the same run (recall >= 0.95);
 the 0.2% filtered scans (16 queries, strict and relaxed) with E = 4 and
 bf16 beside the default; K4 in each mode against its plain version at
 1,024 queries, each check rejecting a control (the plain walk at E = 1,
-with the in-beam dedup, ranking in f32); K5 with E = 2, 4 and 8 and with
-bf16 over 3 fed segments against its plain segment (beams and spills
-equal but for ties, steps and rows scored equal query by query), and
+with the in-beam dedup, ranking in f32; bf16 also the plain walk whose
+ranking terms skip the bf16 rounding of the difference or product); K5
+with E = 2, 4 and 8 and with bf16 over 3 fed segments against its plain
+segment (beams and spills equal but for ties, steps and rows scored
+equal query by query; bf16 must reject the unrounded terms too), and
 timed per step at E = 1, 2, 4 and 8 in turns beside its byte bound and
 its latency bound (steps times the dependent round trip that phase 13
 measures with ``probes/k5_profile.py``'s pointer chase); the bit graph's
@@ -1430,11 +1434,54 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
                   walk_gather_bytes(steps, scored, g.neighbors0.shape[1], 1,
                                     D768)
                   + CHUNK * (D768 * 4 + s_ids.shape[1] * 8 + EF * 8 + 8))))
+        rows.append(k4_bf16_768(g, walk, kw, beam))
     log(json.dumps({"d768": rows}))
     log(json.dumps({"torch_ops": [k8]}))
     del idx, g, xv
     torch.cuda.empty_cache()
     return x27, qn
+
+
+def k4_bf16_768(g, walk, kw, beam):
+    """K4 ranking in bf16 (the rows' bf16 copy) at d = 768: held to its
+    plain version on 64 queries (ids equal but for ties, steps and rows
+    scored equal query by query), timed at 1,024 in turns with the f32
+    walk (f32, bf16, bf16, f32)."""
+    rk = dict(rank=g.values_bf16)
+    w64 = (*walk[:5], *(t[:64] for t in walk[5:]))
+    raw_k = beam._walk_cuda(*w64, **kw, **rk)
+    raw_p = beam._walk_plain(*w64, **kw, **rk)
+    kd, ki, _ = (t.cpu().numpy() for t in beam._serve_finish(*raw_k))
+    pd, pi, _ = (t.cpu().numpy() for t in beam._serve_finish(*raw_p))
+    ok, err = walk_agreement(ki, kd, pi, pd)
+    same = float(((raw_k[4] == raw_p[4]) & (raw_k[5] == raw_p[5]))
+                 .float().mean())
+    log(f"K4 bf16 at d = 768 vs plain (64 queries): {ok.mean():.4f} equal "
+        f"but for ties, {same:.4f} equal steps and rows scored")
+    if ok.mean() < 0.99 or same < 0.99:
+        raise RuntimeError("K4 bf16 at d = 768 disagrees with its plain "
+                           "version")
+    full = beam._walk_cuda(*walk, **kw, **rk)
+    steps, scored = float(full[4].sum()), float(full[5].sum())
+    turns = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        mode = rk if name == "bf16" else {}
+        turns[name].append(cuda_ms(lambda: beam._walk_cuda(*walk, **kw,
+                                                           **mode)))
+    ms = float(np.mean(turns["bf16"]))
+    row = kernel_row(
+        "k4_beam_bf16", err, ms,
+        cuda_ms(lambda: beam._walk_plain(*walk, **kw, **rk), 2),
+        bound(scored * 3.0 * D768, "f32",
+              mode_bytes(steps, scored, g.neighbors0.shape[1], CHUNK,
+                         row_bytes=D768 * 2, rank_rows=EF,
+                         seeds=walk[6].shape[1], d=D768)))
+    row.update(f32_walk_ms_in_turns=float(np.mean(turns["f32"])),
+               turns_ms=turns, steps_mean=steps / CHUNK,
+               scored_mean=scored / CHUNK, steps_scored_equal=same)
+    log(f"K4 at d = 768 in turns: bf16 {ms:.4f} ms, f32 "
+        f"{row['f32_walk_ms_in_turns']:.4f} ms ({turns})")
+    return row
 
 
 class build_env:
@@ -2879,6 +2926,30 @@ def mode_bytes(steps, scored, L, B, *, expand=1, row_bytes, words=0,
                    + rank_rows * d * 4))
 
 
+def unrounded_rank_dists(values_bf16, metric, q, ids):
+    """The bf16 ranking's control: its terms over the same bf16 rows and
+    query, the difference or product left unrounded (f32), summed exactly
+    (``ops/beam.rank_dists`` rounds each to bf16 first)."""
+    cand = values_bf16[ids.clamp(0, values_bf16.shape[0] - 1).long()].float()
+    qb = q[:, None, :].to(torch.bfloat16).float()
+    if metric == "l2":
+        t = (cand - qb).double()
+        return (t * t).sum(dim=-1).float()
+    dots = (cand * qb).double().sum(dim=-1).float()
+    return -dots if metric == "ip" else 1.0 - dots.clamp(-1.0, 1.0)
+
+
+@contextlib.contextmanager
+def terms_unrounded(beam):
+    """The plain walks inside rank by ``unrounded_rank_dists``."""
+    saved = beam.rank_dists
+    beam.rank_dists = unrounded_rank_dists
+    try:
+        yield
+    finally:
+        beam.rank_dists = saved
+
+
 def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
                   SearchParams):
     """Phase 25: the beam's variants on the grown graph, through
@@ -2967,35 +3038,43 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
     def finished(raw):
         return [t.cpu().numpy() for t in (*beam._serve_finish(*raw), raw[5])]
 
-    checks = {  # row -> (mode, control, its label, launches of)
-        "k4_beam_expand4": (dict(expand=4), {}, "the plain walk at E = 1",
-                            "expand4"),
-        "k4_beam_visited": (dict(visited=True), {},
-                            "the plain walk with the in-beam dedup",
-                            "visited"),
-        "k4_beam_bf16": (dict(rank=g.values_bf16), {},
-                         "the plain walk ranking in f32", "bf16"),
+    no_control = contextlib.nullcontext
+    checks = {  # row -> (mode, [(control, its label, its context)], of)
+        "k4_beam_expand4": (dict(expand=4), [({}, "the plain walk at E = 1",
+                                              no_control)], "expand4"),
+        "k4_beam_visited": (dict(visited=True), [
+            ({}, "the plain walk with the in-beam dedup", no_control)],
+            "visited"),
+        "k4_beam_bf16": (dict(rank=g.values_bf16), [
+            ({}, "the plain walk ranking in f32", no_control),
+            (dict(rank=g.values_bf16), "the plain walk whose ranking terms "
+             "skip the bf16 rounding", lambda: terms_unrounded(beam))],
+            "bf16"),
     }
     with Phase("25 K4's modes vs plain"):
-        for name, (mk, ck, label, of) in checks.items():
+        for name, (mk, controls, of) in checks.items():
             raw_k = beam._walk_cuda(*walk, **kw, **mk)
             k = finished(raw_k)
             p = finished(beam._walk_plain(*walk, **kw, **mk))
-            c = finished(beam._walk_plain(*walk, **kw, **ck))
-            (k_ok, k_st, k_gap, k_err, k_pass), (c_ok, c_st, c_gap, _,
-                                                 c_pass) = mode_verdict(
-                k, p, c, recall1)
             steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
-            log(f"25 {name} vs plain: {k_ok:.4f} of queries equal but for "
-                f"ties, {k_st:.4f} equal steps and rows scored, recall@10 "
-                f"{recall1(k[1]):.4f} vs {recall1(p[1]):.4f}, max abs err "
-                f"{k_err}; control ({label}): {c_ok:.4f} equal, {c_st:.4f} "
-                f"steps, recall gap {c_gap:.4f}; {steps / CHUNK:.1f} steps "
-                f"and {scored / CHUNK:.1f} rows scored per query")
-            if not k_pass:
-                raise RuntimeError(f"{name} disagrees with its plain version")
-            if c_pass:
-                raise RuntimeError(f"the {name} check passes {label}")
+            for ck, label, ctx in controls:
+                with ctx():
+                    c = finished(beam._walk_plain(*walk, **kw, **ck))
+                (k_ok, k_st, k_gap, k_err, k_pass), (c_ok, c_st, c_gap, _,
+                                                     c_pass) = mode_verdict(
+                    k, p, c, recall1)
+                log(f"25 {name} vs plain: {k_ok:.4f} of queries equal but "
+                    f"for ties, {k_st:.4f} equal steps and rows scored, "
+                    f"recall@10 {recall1(k[1]):.4f} vs {recall1(p[1]):.4f}, "
+                    f"max abs err {k_err}; control ({label}): {c_ok:.4f} "
+                    f"equal, {c_st:.4f} steps, recall gap {c_gap:.4f}; "
+                    f"{steps / CHUNK:.1f} steps and {scored / CHUNK:.1f} rows "
+                    "scored per query")
+                if not k_pass:
+                    raise RuntimeError(f"{name} disagrees with its plain "
+                                       "version")
+                if c_pass:
+                    raise RuntimeError(f"the {name} check passes {label}")
             nbytes = mode_bytes(
                 steps, scored, L, CHUNK, expand=mk.get("expand", 1),
                 row_bytes=DIM * (2 if "rank" in mk else 4),
@@ -3043,8 +3122,8 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
                     mk.get("expand", 1), mk.get("rank"))
 
             rank = "rank" in mk
-            runs = []
-            for run in (kernel5, plain5):
+
+            def fed(run):  # 3 segments, each fed the last one's spill
                 excl = torch.zeros((nq, g.cap + 1), dtype=torch.bool,
                                    device=q1.device)
                 allowed = beam.staged_bitmap(*graph, excl, spill, W, EF,
@@ -3055,31 +3134,48 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
                     rep, sp_d, sp_i = run(excl, allowed, seeds)
                     out.append([t.cpu().numpy() for t in (rep, sp_d, sp_i)])
                     seeds = (sp_i, sp_d)
-                runs.append(out)
-            bad, err5, same_sc = 0, 0.0, []
-            for seg, (k, p) in enumerate(zip(*runs)):
-                kb_d, kb_i = k[0][:, :EF].view(np.float32), k[0][:, EF:2 * EF]
-                pb_d, pb_i = p[0][:, :EF].view(np.float32), p[0][:, EF:2 * EF]
-                ok_b, e1 = walk_agreement(kb_i, kb_d, pb_i, pb_d)
-                ok_s, e2 = walk_agreement(k[2], k[1], p[2], p[1])
-                ok = ok_b & ok_s
-                bad += int((~ok).sum())
-                err5 = max(err5, e1, e2)
-                # steps and rows scored, query by query
-                same_sc.append((k[0][:, 2 * EF:2 * EF + 2]
-                                == p[0][:, 2 * EF:2 * EF + 2]).all(1))
-                log(f"25 {name} segment {seg}: {int(ok.sum())}/{nq} beams "
-                    f"and spills equal but for ties, "
-                    f"{int(same_sc[-1].sum())}/{nq} equal steps and rows "
-                    f"scored (steps kernel {k[0][:, 2 * EF].sum()} plain "
-                    f"{p[0][:, 2 * EF].sum()}, rows scored kernel "
-                    f"{k[0][:, 2 * EF + 1].sum()} plain "
-                    f"{p[0][:, 2 * EF + 1].sum()})")
-            same_sc = float(np.mean(same_sc))
+                return out
+
+            def agree(ks, ps, who):
+                """(query-segment pairs that differ, max abs err, share of
+                queries with equal steps and rows scored)."""
+                bad, err, same = 0, 0.0, []
+                for seg, (k, p) in enumerate(zip(ks, ps)):
+                    kb_d, kb_i = (k[0][:, :EF].view(np.float32),
+                                  k[0][:, EF:2 * EF])
+                    pb_d, pb_i = (p[0][:, :EF].view(np.float32),
+                                  p[0][:, EF:2 * EF])
+                    ok_b, e1 = walk_agreement(kb_i, kb_d, pb_i, pb_d)
+                    ok_s, e2 = walk_agreement(k[2], k[1], p[2], p[1])
+                    ok = ok_b & ok_s
+                    bad += int((~ok).sum())
+                    err = max(err, e1, e2)
+                    # steps and rows scored, query by query
+                    same.append((k[0][:, 2 * EF:2 * EF + 2]
+                                 == p[0][:, 2 * EF:2 * EF + 2]).all(1))
+                    log(f"25 {name} segment {seg}, {who}: {int(ok.sum())}/"
+                        f"{nq} beams and spills equal but for ties, "
+                        f"{int(same[-1].sum())}/{nq} equal steps and rows "
+                        f"scored (steps {who} {k[0][:, 2 * EF].sum()} plain "
+                        f"{p[0][:, 2 * EF].sum()}, rows scored {who} "
+                        f"{k[0][:, 2 * EF + 1].sum()} plain "
+                        f"{p[0][:, 2 * EF + 1].sum()})")
+                return bad, err, float(np.mean(same))
+
+            runs = [fed(kernel5), fed(plain5)]
+            bad, err5, same_sc = agree(*runs, "kernel")
             if bad or same_sc < 0.99:
                 raise RuntimeError(f"{name} disagrees with its plain version "
                                    f"on {bad} (query, segment) pairs; steps "
                                    f"and rows scored equal on {same_sc:.4f}")
+            if rank:  # the control: terms that skip the bf16 rounding
+                with terms_unrounded(beam):
+                    ctl = fed(plain5)
+                c_bad, _, c_same = agree(ctl, runs[1], "control")
+                if not c_bad and c_same >= 0.99:
+                    raise RuntimeError(f"the {name} check passes the plain "
+                                       "segment whose ranking terms skip "
+                                       "the bf16 rounding")
             excl0 = torch.zeros((1, g.cap + 1), dtype=torch.bool,
                                 device=q1.device)
             allowed0 = beam.staged_bitmap(*graph, excl0, spill, W, EF, spill,

@@ -101,6 +101,22 @@
 #include <climits>
 #include <type_traits>
 
+// The library compiles this file twice, side by side (ops/_build.py):
+// PGV_K4_PART=1 holds the bf16 ranking's kernels and their launches, 0 the
+// rest, whose dispatch reaches the former through pgv_k4_rank_walk and
+// pgv_k4_rank_scan; without the macro (the probes' builds) it is one unit
+// with both.
+#if !defined(PGV_K4_PART) || PGV_K4_PART == 0
+#define PGV_K4_BASE
+#endif
+#if !defined(PGV_K4_PART) || PGV_K4_PART == 1
+#define PGV_K4_RANKED
+#endif
+// args: the WalkArgs / ScanArgs below; stream: a cudaStream_t
+int pgv_k4_rank_walk(const void* args, int b, size_t smem, void* stream);
+int pgv_k4_rank_scan(const void* args, int metric, int b, size_t smem,
+                     void* stream);
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -339,25 +355,6 @@ __device__ __forceinline__ float term(float x, float q) {
   return x * q;
 }
 
-// The bf16 ranking's term (JAX's _dist_ids_rank, the row and the query
-// rounded to bf16): l2 squares the difference rounded to bf16, ip and
-// cosine take the product rounded to bf16. A term has an 8-bit mantissa
-// (its square 16 bits), so the terms are summed exactly in f64 and the sum
-// rounded once to f32: the same f32 in any order (ops/beam.rank_dists,
-// the plain version, sums alike).
-template <int M>
-__device__ __forceinline__ double term_rank(float x, float q) {
-  if (M == 0) {
-    const double t = __bfloat162float(__float2bfloat16_rn(x - q));
-    return t * t;
-  }
-  return __bfloat162float(__float2bfloat16_rn(x * q));
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 template <int M>
 __device__ __forceinline__ float finish(float acc) {
   if (M == 1) return -acc;
@@ -367,19 +364,17 @@ __device__ __forceinline__ float finish(float acc) {
 
 // out[j] = distance from the query (qs, in shared memory) to row ids[j] of
 // `values` (row stride `stride`, d values) for the valid j < count, +inf
-// for the others; RANK: the bf16 ranking's terms (qs then holds the query
-// rounded to bf16). Each of the group's NW warps takes kRowsPerWarp rows
+// for the others. Each of the group's NW warps takes kRowsPerWarp rows
 // at a time; the lanes stride over the row's V-wide chunks.
-template <typename T, int V, int M, int NW, bool RANK = false>
+template <typename T, int V, int M, int NW>
 __device__ void score_rows(const T* values, long long stride, int d,
                            const float* qs, const int* ids,
                            const uint8_t* valid, float* out, int count,
                            int warp, int lane) {
   const int nchunks = d / V;
-  using Acc = typename std::conditional<RANK, double, float>::type;
   for (int base = warp * kRowsPerWarp; base < count;
        base += NW * kRowsPerWarp) {
-    Acc acc[kRowsPerWarp];
+    float acc[kRowsPerWarp];
     const T* rows[kRowsPerWarp];
     bool use[kRowsPerWarp];
 #pragma unroll
@@ -400,23 +395,229 @@ __device__ void score_rows(const T* values, long long stride, int d,
         float x[V];
         Load<T, V>::run(rows[r], c, x);
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          if constexpr (RANK)
-            acc[r] += term_rank<M>(x[e], qv[e]);
-          else
-            acc[r] += term<M>(x[e], qv[e]);
-        }
+        for (int e = 0; e < V; ++e) acc[r] += term<M>(x[e], qv[e]);
       }
     }
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      Acc s = acc[r];
+      float s = acc[r];
 #pragma unroll
       for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
       if (lane == 0 && base + r < count)
-        out[base + r] = use[r] ? finish<M>(static_cast<float>(s)) : inf_f();
+        out[base + r] = use[r] ? finish<M>(s) : inf_f();
     }
   }
+}
+
+// ---- The bf16 ranking (JAX's PGV_BEAM_BF16, _dist_ids_rank: the bf16
+// rows against the query rounded to bf16). Its terms: l2 the f32 square
+// t * t of t = bf16(x - q), ip and cosine the product bf16(x * q), each
+// the exact result rounded once to bf16 (RN). sm_90's packed bf16
+// instructions make two terms at once from the raw 32-bit words of a row
+// and of the query (kept as bf16 in shared memory), so a term costs no
+// conversion instruction. A term has an 8-bit significand (l2: 16 bits, so
+// t * t is exact in f32 for |t| >= 2^-63), and the terms are summed
+// exactly and the sum rounded once to f32: each f32 term enters the sum as
+// an f64 of 2^-896 times its value (the f32 bits moved into the f64's
+// place, two integer instructions: no conversion), the f64 sums are exact
+// while the terms' bits span less than the f64 significand's 53, and the
+// one f32 rounding is of the sum times 2^896. So any lane and tree order
+// gives the same f32 (ops/beam.rank_dists, the plain version, sums the
+// same f32 terms in f64 in another order).
+//
+// Lanes: a row is read in chunks that keep all 32 lanes busy (rank_width:
+// 16-byte chunks of 8 values from d = 256 up, 8-byte chunks of 4 below, so
+// a 128-d row takes every lane once; scalar values where the rows or d
+// allow neither); R rows' loads in flight per warp, and a transposed
+// reduction leaves lane l with row l / (32 / R)'s sum.
+
+__device__ __forceinline__ unsigned bf16x2_sub(unsigned a, unsigned b) {
+  unsigned r;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ unsigned bf16x2_mul(unsigned a, unsigned b) {
+  unsigned r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// The two bf16 ranking values of the pairs x and q (l2: differences; ip,
+// cosine: products), as packed bf16.
+template <int M>
+__device__ __forceinline__ unsigned rank_pair(unsigned x, unsigned q) {
+  return M == 0 ? bf16x2_sub(x, q) : bf16x2_mul(x, q);
+}
+
+#ifdef PGV_RANK_F32_SUMS
+// probes/k4_compare.py --rank's timing build: the same terms summed in f32
+// (another function: its sums depend on the order)
+using RankAcc = float;
+__device__ __forceinline__ void rank_add(RankAcc& acc, float t) { acc += t; }
+__device__ __forceinline__ float rank_sum(RankAcc s) { return s; }
+#else
+using RankAcc = double;
+// acc += t * 2^-896, exactly (the f32 bits of t shifted into an f64's)
+__device__ __forceinline__ void rank_add(RankAcc& acc, float t) {
+  const unsigned w = __float_as_uint(t);
+  acc += __hiloint2double(
+      static_cast<int>((w & 0x80000000u) | ((w & 0x7fffffffu) >> 3)),
+      static_cast<int>(w << 29));
+}
+__device__ __forceinline__ float rank_sum(RankAcc s) {
+  return static_cast<float>(s * 0x1p896);
+}
+#endif
+
+// acc += the terms of the packed ranking values p (low half first)
+template <int M>
+__device__ __forceinline__ void rank_terms(RankAcc& acc, unsigned p,
+                                           bool both) {
+  const float lo = __uint_as_float(p << 16);
+  rank_add(acc, M == 0 ? lo * lo : lo);
+  if (both) {
+    const float hi = __uint_as_float(p & 0xffff0000u);
+    rank_add(acc, M == 0 ? hi * hi : hi);
+  }
+}
+
+// A row's V values at chunk c, as stored (V = 8: one 16-byte load, V = 4:
+// one 8-byte load), and the query's from shared memory.
+template <int V>
+struct RankChunk;
+template <>
+struct RankChunk<8> {
+  using type = uint4;
+  __device__ static type row(const __nv_bfloat16* r, int c) {
+    return __ldg(reinterpret_cast<const uint4*>(r) + c);
+  }
+  __device__ static type query(const __nv_bfloat16* q, int c) {
+    return reinterpret_cast<const uint4*>(q)[c];
+  }
+  template <int M>
+  __device__ static void add(RankAcc& acc, const type& x, const type& q) {
+    rank_terms<M>(acc, rank_pair<M>(x.x, q.x), true);
+    rank_terms<M>(acc, rank_pair<M>(x.y, q.y), true);
+    rank_terms<M>(acc, rank_pair<M>(x.z, q.z), true);
+    rank_terms<M>(acc, rank_pair<M>(x.w, q.w), true);
+  }
+};
+template <>
+struct RankChunk<4> {
+  using type = uint2;
+  __device__ static type row(const __nv_bfloat16* r, int c) {
+    return __ldg(reinterpret_cast<const uint2*>(r) + c);
+  }
+  __device__ static type query(const __nv_bfloat16* q, int c) {
+    return reinterpret_cast<const uint2*>(q)[c];
+  }
+  template <int M>
+  __device__ static void add(RankAcc& acc, const type& x, const type& q) {
+    rank_terms<M>(acc, rank_pair<M>(x.x, q.x), true);
+    rank_terms<M>(acc, rank_pair<M>(x.y, q.y), true);
+  }
+};
+template <>
+struct RankChunk<1> {
+  using type = unsigned;
+  __device__ static type row(const __nv_bfloat16* r, int c) {
+    return __ldg(reinterpret_cast<const unsigned short*>(r) + c);
+  }
+  __device__ static type query(const __nv_bfloat16* q, int c) {
+    return reinterpret_cast<const unsigned short*>(q)[c];
+  }
+  template <int M>
+  __device__ static void add(RankAcc& acc, type x, type q) {
+    rank_terms<M>(acc, rank_pair<M>(x, q), false);
+  }
+};
+
+// Sums a[0, R) of each lane over the warp, transposed: each exchange halves
+// the values a lane holds, so lane l ends with the sum of a[l / (32 / R)]
+// (R = 8: 9 exchanges, not 40).
+template <int R, typename Acc>
+__device__ __forceinline__ Acc transposed_sum(Acc (&a)[R], int lane) {
+  int o = 16;
+#pragma unroll
+  for (int n = R; n > 1; n >>= 1, o >>= 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i)
+      a[i] = (up ? a[i + n / 2] : a[i]) +
+             __shfl_xor_sync(kFull, up ? a[i] : a[i + n / 2], o);
+  }
+  Acc s = a[0];
+#pragma unroll
+  for (; o; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  return s;
+}
+
+// The bf16 ranking distances' sums of R rows (R = 8 or 16; lanes r < R
+// hold the ids in v, okm bit r: row r valid) against the query qb (bf16,
+// shared memory): lane l returns row l / (32 / R)'s sum.
+template <int R, int V, int M>
+__device__ __forceinline__ float score_rank(const __nv_bfloat16* values,
+                                            long long stride, int d,
+                                            const __nv_bfloat16* qb, int v,
+                                            unsigned okm, int lane) {
+  using C = RankChunk<V>;
+  RankAcc acc[R];
+  const __nv_bfloat16* rows[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int id = __shfl_sync(kFull, v, r);
+    rows[r] = values + (((okm >> r) & 1u) ? static_cast<long long>(id) *
+                                                stride
+                                          : 0LL);
+    acc[r] = 0;
+  }
+  const int nchunks = d / V;
+  for (int c = lane; c < nchunks; c += 32) {
+    const typename C::type qv = C::query(qb, c);
+    typename C::type x[R];  // the R loads in flight
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((okm >> r) & 1u) x[r] = C::row(rows[r], c);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((okm >> r) & 1u) C::template add<M>(acc[r], x[r], qv);
+  }
+  return rank_sum(transposed_sum<R>(acc, lane));
+}
+
+// K4's bf16 ranking: out[j] = the ranking distance to row ids[j] for the
+// valid j < count, +inf for the others; each of the NW warps scores 8 rows
+// at a time (a step's 32 neighbours: one round trip per warp).
+template <int V, int M, int NW>
+__device__ void score_rows_rank(const __nv_bfloat16* values, long long stride,
+                                int d, const __nv_bfloat16* qb,
+                                const int* ids, const uint8_t* valid,
+                                float* out, int count, int warp, int lane) {
+  for (int base = warp * 8; base < count; base += NW * 8) {
+    const int j = base + lane;
+    const bool ok = lane < 8 && j < count && valid[j];
+    const unsigned okm = __ballot_sync(kFull, ok);
+    const float sum = score_rank<8, V, M>(values, stride, d, qb,
+                                          ok ? ids[j] : 0, okm, lane);
+    const int r = lane >> 2;  // the row whose sum this lane holds
+    if ((lane & 3) == 0 && base + r < count)
+      out[base + r] = ((okm >> r) & 1u) ? finish<M>(sum) : inf_f();
+  }
+}
+
+// The bf16 rows' chunk width V (values a lane loads at once): 16-byte
+// loads (V = 8) where a row has at least 32 of them, so every lane works,
+// else 8-byte loads (V = 4), each needing the rows aligned to it (base and
+// stride) and d a multiple of V; 1 otherwise. The f32 rows the beam is
+// re-scored from take 16-byte loads where V > 1, so they must allow them.
+inline int rank_width(const void* values, long long stride, int d,
+                      const void* exact, long long exact_stride) {
+  const uintptr_t v = reinterpret_cast<uintptr_t>(values);
+  if (reinterpret_cast<uintptr_t>(exact) % 16 != 0 || exact_stride % 4 != 0)
+    return 1;
+  if (v % 16 == 0 && stride % 8 == 0 && d % 8 == 0 && d >= 8 * 32) return 8;
+  return v % 8 == 0 && stride % 4 == 0 && d % 4 == 0 ? 4 : 1;
 }
 
 template <int V>
@@ -702,12 +903,14 @@ size_t smem_bytes(int qd, int L, int S, int W, int E, bool rank) {
          nl;
 }
 
-// DESC: the greedy descent seeds the walk (upper_slot given); a separate
-// instantiation, so that the seeded walk (the dense beam engine's) keeps
-// the registers and the code it had without it. RANK: the bf16 ranking
-// (T is bf16; the beam is re-scored from `exact` at the end). VAR: E and
-// the visited bitmap are read from the arguments; without it E = 1 and no
-// bitmap, at compile time, so the default walk keeps its registers.
+// The block walk, for one query (block): its kernels, beam_walk_kernel and
+// the bf16 ranking's beam_walk_rank_kernel, are below. DESC: the greedy
+// descent seeds the walk (upper_slot given); a separate instantiation, so
+// that the seeded walk (the dense beam engine's) keeps the registers and
+// the code it had without it. RANK: the bf16 ranking (T is bf16; the beam
+// is re-scored from `exact` at the end). VAR: E and the visited bitmap are
+// read from the arguments; without it E = 1 and no bitmap, at compile
+// time, so the default walk keeps its registers.
 //
 // The variants, as JAX's _ground_beam_seeds runs them:
 // - E > 1: a step pops the first E unexpanded members of the beam's order
@@ -724,11 +927,12 @@ size_t smem_bytes(int qd, int L, int S, int W, int E, bool rank) {
 //   hash of twice the slots, one block per SM; the bitmap's word is read
 //   beside the live flag, so it adds no dependent round trip to a step.
 // - RANK: new candidates are ranked over the bf16 rows against the query
-//   rounded to bf16 (term_rank), the descent too but for the entry; the
-//   surviving beam's entries with an id are re-scored in f32 at the end
-//   (the wrapper sorts by (distance, id)).
+//   rounded to bf16 (score_rows_rank: 8 rows a warp, every lane busy, the
+//   exact sums of the bf16 ranking's terms), the descent too but for the
+//   entry; the surviving beam's entries with an id are re-scored in f32
+//   at the end (16-byte loads; the wrapper sorts by (distance, id)).
 template <typename T, int V, bool DESC, bool RANK, bool VAR>
-__global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
+__device__ __forceinline__ void beam_walk(const WalkArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[kWarps];
   __shared__ int s_nsel;
@@ -739,7 +943,8 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   const int qpad = (a.qd + 3) & ~3;
 
   float* qs = reinterpret_cast<float*>(smem);
-  float* qr = RANK ? qs + qpad : qs;  // the query rounded to bf16 (RANK)
+  // RANK: the query rounded to bf16, after the f32 one
+  __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(qs + qpad);
   float* bd = qs + (RANK ? 2 : 1) * qpad;  // beam distances, 2 buffers of W
   int* bk = reinterpret_cast<int*>(bd + 2 * W);
   float* nd = reinterpret_cast<float*>(bk + 2 * W);  // new, in list order
@@ -762,7 +967,7 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
                   static_cast<long long>(b) * a.qd;
   for (int i = tid; i < a.qd; i += kThreads) {
     reinterpret_cast<int*>(qs)[i] = qg[i];
-    if (RANK) qr[i] = round_bf16(__int_as_float(qg[i]));
+    if (RANK) qb[i] = __float2bfloat16_rn(__int_as_float(qg[i]));
   }
   constexpr bool kWords = std::is_same<T, unsigned>::value;
   constexpr bool kSparse = std::is_same<T, SparseRow>::value;
@@ -823,9 +1028,9 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
     } else if constexpr (RANK) {
       const T* v = static_cast<const T*>(a.values);
       switch (a.metric) {
-        case 0: score_rows<T, V, 0, kWarps, true>(v, a.stride, a.d, qr, nid, nvalid, nd, count, warp, lane); break;
-        case 1: score_rows<T, V, 1, kWarps, true>(v, a.stride, a.d, qr, nid, nvalid, nd, count, warp, lane); break;
-        default: score_rows<T, V, 2, kWarps, true>(v, a.stride, a.d, qr, nid, nvalid, nd, count, warp, lane); break;
+        case 0: score_rows_rank<V, 0, kWarps>(v, a.stride, a.d, qb, nid, nvalid, nd, count, warp, lane); break;
+        case 1: score_rows_rank<V, 1, kWarps>(v, a.stride, a.d, qb, nid, nvalid, nd, count, warp, lane); break;
+        default: score_rows_rank<V, 2, kWarps>(v, a.stride, a.d, qb, nid, nvalid, nd, count, warp, lane); break;
       }
     } else {
       const T* v = static_cast<const T*>(a.values);
@@ -837,14 +1042,16 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
       }
     }
   };
-  // the exact f32 distances (RANK: the entry's, and the final re-score)
+  // the exact f32 distances (RANK: the entry's, and the final re-score;
+  // 16-byte loads where the bf16 rows take vector loads: rank_width)
   auto score_exact = [&](int count) {
     if constexpr (RANK) {
+      constexpr int VE = V > 1 ? 4 : 1;
       const float* v = static_cast<const float*>(a.exact);
       switch (a.metric) {
-        case 0: score_rows<float, 1, 0, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
-        case 1: score_rows<float, 1, 1, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
-        default: score_rows<float, 1, 2, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+        case 0: score_rows<float, VE, 0, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+        case 1: score_rows<float, VE, 1, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
+        default: score_rows<float, VE, 2, kWarps>(v, a.exact_stride, a.d, qs, nid, nvalid, nd, count, warp, lane); break;
       }
     } else {
       score(count);
@@ -1091,17 +1298,38 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   K5_PROF_END(steps);
 }
 
+template <typename T, int V, bool DESC, bool VAR>
+__global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
+  beam_walk<T, V, DESC, false, VAR>(a);
+}
+
+// The bf16 ranking's walk, held to 64 registers a thread: 8 blocks (1,024
+// threads) then fit an SM, so a launch of 1,024 queries runs in one wave
+// on 132 SMs (at 72-117 registers it ran in two, ~1.6x the time).
+template <int V, bool DESC, bool VAR>
+__global__ void __launch_bounds__(kThreads, 8)
+    beam_walk_rank_kernel(WalkArgs a) {
+  beam_walk<__nv_bfloat16, V, DESC, true, VAR>(a);
+}
+
+// VAR = false where E = 1 and no bitmap: the default walk and the bf16
+// ranking's each have their own instantiation for it.
 template <typename T, int V, bool RANK>
 cudaError_t launch(const WalkArgs& a, int b, size_t smem,
                    cudaStream_t stream) {
   const bool desc = a.upper_slot != nullptr;
-  void (*kern)(WalkArgs) = desc ? beam_walk_kernel<T, V, true, RANK, true>
-                                : beam_walk_kernel<T, V, false, RANK, true>;
-  if constexpr (!RANK) {  // the default walk: its own instantiation
-    if (a.E == 1 && a.vis == nullptr)
-      kern = desc ? beam_walk_kernel<T, V, true, false, false>
-                  : beam_walk_kernel<T, V, false, false, false>;
-  }
+  const bool var = a.E != 1 || a.vis != nullptr;
+  void (*kern)(WalkArgs);
+  if constexpr (RANK)
+    kern = desc ? (var ? beam_walk_rank_kernel<V, true, true>
+                       : beam_walk_rank_kernel<V, true, false>)
+                : (var ? beam_walk_rank_kernel<V, false, true>
+                       : beam_walk_rank_kernel<V, false, false>);
+  else
+    kern = desc ? (var ? beam_walk_kernel<T, V, true, true>
+                       : beam_walk_kernel<T, V, true, false>)
+                : (var ? beam_walk_kernel<T, V, false, true>
+                       : beam_walk_kernel<T, V, false, false>);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1521,8 +1749,7 @@ cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
 #endif
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (a.exact != nullptr)
-      return vec ? launch<T, V, true>(a, b, smem, stream)
-                 : launch<T, 1, true>(a, b, smem, stream);
+      return static_cast<cudaError_t>(pgv_k4_rank_walk(&a, b, smem, stream));
   }
   return vec ? launch<T, V, false>(a, b, smem, stream)
              : launch<T, 1, false>(a, b, smem, stream);
@@ -1650,15 +1877,13 @@ __device__ __forceinline__ int set_find(const int* tbl, int bits, int id) {
 
 // The sums of 8 rows ids[r] of `values` (row stride `stride`, d values;
 // the lanes r < 8 hold the ids; `okm` bit r: row r is valid) against the
-// query qs (RANK: the bf16 ranking's terms, qs rounded to bf16): lane l
-// returns row (l >> 2) & 7's sum. Each lane's loads of the 8 rows are in
-// flight together.
-template <typename T, int V, int M, bool RANK = false>
+// query qs: lane l returns row (l >> 2) & 7's sum. Each lane's loads of
+// the 8 rows are in flight together.
+template <typename T, int V, int M>
 __device__ __forceinline__ float score8(const T* values, long long stride,
                                         int d, const float* qs, int v,
                                         unsigned okm, int lane) {
-  using Acc = typename std::conditional<RANK, double, float>::type;
-  Acc acc[8];
+  float acc[8];
   const T* rows[8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
@@ -1681,16 +1906,11 @@ __device__ __forceinline__ float score8(const T* values, long long stride,
     for (int r = 0; r < 8; ++r)
       if ((okm >> r) & 1u)
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          if constexpr (RANK)
-            acc[r] += term_rank<M>(x[r][e], qv[e]);
-          else
-            acc[r] += term<M>(x[r][e], qv[e]);
-        }
+        for (int e = 0; e < V; ++e) acc[r] += term<M>(x[r][e], qv[e]);
   }
   // a transposed reduction: each exchange halves the values a lane holds,
   // so lane l ends with row (l >> 2) & 7's sum (9 shuffles, not 40)
-  Acc v4[4], v2[2];
+  float v4[4], v2[2];
   const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -1700,23 +1920,22 @@ __device__ __forceinline__ float score8(const T* values, long long stride,
   for (int i = 0; i < 2; ++i)
     v2[i] = (b3 ? v4[i + 2] : v4[i]) +
             __shfl_xor_sync(kFull, b3 ? v4[i] : v4[i + 2], 8);
-  Acc v1 = (b2 ? v2[1] : v2[0]) +
+  float v1 = (b2 ? v2[1] : v2[0]) +
            __shfl_xor_sync(kFull, b2 ? v2[0] : v2[1], 4);
   v1 += __shfl_xor_sync(kFull, v1, 2);
   v1 += __shfl_xor_sync(kFull, v1, 1);
-  return static_cast<float>(v1);
+  return v1;
 }
 
 // score8 for 16 rows (the lanes r < 16 hold the ids; `okm` bit r: row r
 // is valid): lane l returns row (l >> 1) & 15's sum. K5's E > 1 step
 // scores its new entries 16 rows a warp at once: 64 rows' loads in flight
 // per block, twice score8's.
-template <typename T, int V, int M, bool RANK = false>
+template <typename T, int V, int M>
 __device__ __forceinline__ float score16(const T* values, long long stride,
                                          int d, const float* qs, int v,
                                          unsigned okm, int lane) {
-  using Acc = typename std::conditional<RANK, double, float>::type;
-  Acc acc[16];
+  float acc[16];
   const T* rows[16];
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
@@ -1741,16 +1960,11 @@ __device__ __forceinline__ float score16(const T* values, long long stride,
         float x[V];
         Raw<T, V>::unpack(raw[r], x);
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          if constexpr (RANK)
-            acc[r] += term_rank<M>(x[e], qv[e]);
-          else
-            acc[r] += term<M>(x[e], qv[e]);
-        }
+        for (int e = 0; e < V; ++e) acc[r] += term<M>(x[e], qv[e]);
       }
   }
   // score8's transposed reduction, one level deeper
-  Acc v8[8], v4[4], v2[2];
+  float v8[8], v4[4], v2[2];
   const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -1764,10 +1978,10 @@ __device__ __forceinline__ float score16(const T* values, long long stride,
   for (int i = 0; i < 2; ++i)
     v2[i] = (b2 ? v4[i + 2] : v4[i]) +
             __shfl_xor_sync(kFull, b2 ? v4[i] : v4[i + 2], 4);
-  Acc v1 = (b1 ? v2[1] : v2[0]) +
+  float v1 = (b1 ? v2[1] : v2[0]) +
            __shfl_xor_sync(kFull, b1 ? v2[0] : v2[1], 2);
   v1 += __shfl_xor_sync(kFull, v1, 1);
-  return static_cast<float>(v1);
+  return v1;
 }
 
 // Insert id into a set that erases nothing (any thread, concurrently);
@@ -1945,7 +2159,9 @@ __device__ __forceinline__ void merge_step(
 //     come E times less often.
 //   E > 1 is an instantiation of its own (MULTI): the E = 1 kernels, the
 //   default's and bf16 ranking's, hold none of this step's code.
-// - RANK: new candidates are ranked over the bf16 rows (term_rank); after
+// - RANK: new candidates are ranked over the bf16 rows (score_rank: every
+//   lane busy, the exact sums of the bf16 ranking's terms; V is
+//   rank_width's chunk); after
 //   the walk the beam is re-scored in f32 from `exact` and sorted again
 //   before the finish, so the emitted top ef and the leftover carry exact
 //   distances while the spill keeps its ranking ones.
@@ -1976,7 +2192,8 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
   unsigned long long* nkey =
       reinterpret_cast<unsigned long long*>(bm + (use_bm ? a.words : 0));
   float* qs = reinterpret_cast<float*>(nkey + (E > 1 ? NL + 2 : 0));
-  float* qr = RANK ? qs + qpad : qs;  // the query rounded to bf16 (RANK)
+  // RANK: the query rounded to bf16, after the f32 one
+  __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(qs + qpad);
   float* bd = qs + (RANK ? 2 : 1) * qpad;  // beam, 2 buffers of W
   int* bk = reinterpret_cast<int*>(bd + 2 * W);
   float* pd = reinterpret_cast<float*>(bk + 2 * W);  // the spill's pool
@@ -2005,7 +2222,7 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
   const float* qg = a.q + static_cast<long long>(b) * a.d;
   for (int i = tid; i < a.d; i += kThreads) {
     qs[i] = qg[i];
-    if (RANK) qr[i] = round_bf16(qg[i]);
+    if (RANK) qb[i] = __float2bfloat16_rn(qg[i]);
   }
   for (int i = tid; i < tbl; i += kThreads) {
     hs[i] = -1;
@@ -2147,9 +2364,13 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
         const unsigned okm = __ballot_sync(kFull, ok);
         K5_MARK(kPhFlags);
         scored_w += __popc(okm);
-        const float sum = score8<T, V, M, RANK>(
-            static_cast<const T*>(a.values), a.stride, a.d, RANK ? qr : qs,
-            v, okm, lane);
+        float sum;
+        if constexpr (RANK)
+          sum = score_rank<8, V, M>(static_cast<const T*>(a.values),
+                                    a.stride, a.d, qb, v, okm, lane);
+        else
+          sum = score8<T, V, M>(static_cast<const T*>(a.values), a.stride,
+                                a.d, qs, v, okm, lane);
         const int r = lane >> 2;  // the row whose sum this lane holds
         const int vr = __shfl_sync(kFull, v, r);
         if ((lane & 3) == 0 && g0 + r < L) {
@@ -2302,9 +2523,13 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
         const int c = g0 + (lane & 15);
         const int v = lane < 16 && c < S ? cid[c] : -1;
         const unsigned okm = __ballot_sync(kFull, lane < 16 && c < S);
-        const float sum = score16<T, V, M, RANK>(
-            static_cast<const T*>(a.values), a.stride, a.d, RANK ? qr : qs,
-            v, okm, lane);
+        float sum;
+        if constexpr (RANK)
+          sum = score_rank<16, V, M>(static_cast<const T*>(a.values),
+                                     a.stride, a.d, qb, v, okm, lane);
+        else
+          sum = score16<T, V, M>(static_cast<const T*>(a.values), a.stride,
+                                 a.d, qs, v, okm, lane);
         const int r = lane >> 1;  // the row whose sum this lane holds
         const int vr = __shfl_sync(kFull, v, r);
         if ((lane & 1) == 0 && g0 + r < S) {
@@ -2458,7 +2683,7 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
       const int j = g0 + (lane & 7);
       const int v = j < nb ? min(rbk[j] >> 1, a.cap) : 0;
       const unsigned okm = __ballot_sync(kFull, lane < 8 && j < nb);
-      const float sum = score8<float, 1, M>(
+      const float sum = score8<float, (V > 1 ? 4 : 1), M>(
           static_cast<const float*>(a.exact), a.exact_stride, a.d, qs, v,
           okm, lane);
       const int r = lane >> 2;
@@ -2557,18 +2782,11 @@ __global__ void __launch_bounds__(kThreads) beam_scan_kernel(ScanArgs a) {
   K5_PROF_END(steps);
 }
 
-// K5's instantiation for a metric: bf16 ranking (bf16 rows with their
-// f32 copy; l2, ip, cosine) or not; MULTI: E > 1 (the default walk, E = 1,
-// is compiled without the E > 1 step, and the other way round).
+// K5's instantiation for a metric, ranking as it sums (f32 sums over the
+// stored rows); MULTI: E > 1 (the default walk, E = 1, is compiled
+// without the E > 1 step, and the other way round).
 template <typename T, int V, bool MULTI>
-void (*scan_kernel(int metric, bool rank))(ScanArgs) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (rank)
-      return metric == 0   ? beam_scan_kernel<T, V, 0, true, MULTI>
-             : metric == 1 ? beam_scan_kernel<T, V, 1, true, MULTI>
-                           : beam_scan_kernel<T, V, 2, true, MULTI>;
-  }
-  if (rank) return nullptr;  // the entry takes bf16 ranking on bf16 rows
+void (*scan_kernel(int metric))(ScanArgs) {
   switch (metric) {
     case 0: return beam_scan_kernel<T, V, 0, false, MULTI>;
     case 1: return beam_scan_kernel<T, V, 1, false, MULTI>;
@@ -2577,13 +2795,18 @@ void (*scan_kernel(int metric, bool rank))(ScanArgs) {
   }
 }
 
-template <typename T, int V>
-cudaError_t launch_scan(const ScanArgs& a, int metric, int b, size_t smem,
-                        cudaStream_t stream) {
-  const bool rank = a.exact != nullptr;
-  void (*kern)(ScanArgs) = a.E > 1 ? scan_kernel<T, V, true>(metric, rank)
-                                   : scan_kernel<T, V, false>(metric, rank);
-  if (kern == nullptr) return cudaErrorInvalidValue;
+// The bf16 ranking's (bf16 rows with their f32 copy; l2, ip, cosine; V:
+// rank_width's chunk).
+template <int V, bool MULTI>
+void (*rank_scan_kernel(int metric))(ScanArgs) {
+  using T = __nv_bfloat16;
+  return metric == 0   ? beam_scan_kernel<T, V, 0, true, MULTI>
+         : metric == 1 ? beam_scan_kernel<T, V, 1, true, MULTI>
+                       : beam_scan_kernel<T, V, 2, true, MULTI>;
+}
+
+cudaError_t launch_scan(void (*kern)(ScanArgs), const ScanArgs& a, int b,
+                        size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2597,16 +2820,64 @@ cudaError_t launch_scan(const ScanArgs& a, int metric, int b, size_t smem,
 template <typename T>
 cudaError_t dispatch_scan(const ScanArgs& a, int metric, int b, size_t smem,
                           cudaStream_t stream) {
+  const bool multi = a.E > 1;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.exact != nullptr)  // the entry takes it on bf16 rows only
+      return static_cast<cudaError_t>(
+          pgv_k4_rank_scan(&a, metric, b, smem, stream));
+  }
   constexpr int V = 16 / sizeof(T);
   const bool vec = reinterpret_cast<uintptr_t>(a.values) % 16 == 0 &&
                    (a.stride * static_cast<long long>(sizeof(T))) % 16 == 0 &&
                    a.d % V == 0;
-  return vec ? launch_scan<T, V>(a, metric, b, smem, stream)
-             : launch_scan<T, 1>(a, metric, b, smem, stream);
+  return launch_scan(
+      vec ? (multi ? scan_kernel<T, V, true>(metric)
+                   : scan_kernel<T, V, false>(metric))
+          : (multi ? scan_kernel<T, 1, true>(metric)
+                   : scan_kernel<T, 1, false>(metric)),
+      a, b, smem, stream);
 }
 
 }  // namespace
 
+#ifdef PGV_K4_RANKED
+// The bf16 ranking's launches, at rank_width's chunk: K4's walk, K5's
+// segment.
+int pgv_k4_rank_walk(const void* args, int b, size_t smem, void* stream) {
+  using T = __nv_bfloat16;
+  const WalkArgs& a = *static_cast<const WalkArgs*>(args);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (rank_width(a.values, a.stride, a.d, a.exact, a.exact_stride)) {
+    case 8: return static_cast<int>(launch<T, 8, true>(a, b, smem, st));
+    case 4: return static_cast<int>(launch<T, 4, true>(a, b, smem, st));
+    default: return static_cast<int>(launch<T, 1, true>(a, b, smem, st));
+  }
+}
+
+int pgv_k4_rank_scan(const void* args, int metric, int b, size_t smem,
+                     void* stream) {
+  const ScanArgs& a = *static_cast<const ScanArgs*>(args);
+  const bool multi = a.E > 1;
+  void (*kern)(ScanArgs);
+  switch (rank_width(a.values, a.stride, a.d, a.exact, a.exact_stride)) {
+    case 8:
+      kern = multi ? rank_scan_kernel<8, true>(metric)
+                   : rank_scan_kernel<8, false>(metric);
+      break;
+    case 4:
+      kern = multi ? rank_scan_kernel<4, true>(metric)
+                   : rank_scan_kernel<4, false>(metric);
+      break;
+    default:
+      kern = multi ? rank_scan_kernel<1, true>(metric)
+                   : rank_scan_kernel<1, false>(metric);
+  }
+  return static_cast<int>(
+      launch_scan(kern, a, b, smem, static_cast<cudaStream_t>(stream)));
+}
+#endif
+
+#ifdef PGV_K4_BASE
 extern "C" {
 
 // The beam walk for b queries, one block each. dtype: 0 f32, 1 f16, 2 bf16
@@ -2723,3 +2994,4 @@ int pgv_k5_profile(unsigned long long* buf) {
 #endif
 
 }  // extern "C"
+#endif

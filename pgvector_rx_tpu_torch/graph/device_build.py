@@ -394,7 +394,9 @@ def _select_neighbors_parallel(cand_d, cand_ids, pair, lm: int,
     ``alpha_eff * d(j, i) <= d(q, i)``; ``alpha_eff`` is in the order
     distance's domain, alpha squared for squared l2). Each round
     recomputes every decision against the current keep set; log2(C) + 2
-    rounds reach the sequential chain's fixpoint. Kept candidates come
+    rounds reach the sequential chain's fixpoint (on the CPU, where the
+    test costs no device sync, they stop at the first round that changes
+    nothing: every later one gives the same set). Kept candidates come
     first in distance order, then the nearest discarded ones back-fill.
 
     cand_d / cand_ids [B, C] sorted nearest first (+inf / -1 pads), pair
@@ -409,7 +411,10 @@ def _select_neighbors_parallel(cand_d, cand_ids, pair, lm: int,
     keep = valid
     for _ in range(max(2, int(math.ceil(math.log2(max(C, 2)))) + 2)):
         min_kept = torch.where(keep[:, :, None], pair_e, _INF).amin(dim=1)
-        keep = (min_kept > thresh) & valid
+        nxt = (min_kept > thresh) & valid
+        if not nxt.is_cuda and torch.equal(nxt, keep):
+            break
+        keep = nxt
     keep = keep & (torch.cumsum(keep.to(torch.int32), dim=1) <= lm)
     priority = torch.where(keep, 0, torch.where(valid, 1, 2))
     order = torch.argsort(priority * C + pos[None, :], dim=1)[:, :lm]

@@ -125,17 +125,19 @@ def rank_dists(values_bf16, metric: str, q, ids):
     """The bf16 ranking distances [B, W] of the beam's new candidates
     (``PGV_BEAM_BF16``: the JAX package's ``_dist_ids_rank``,
     ``pgvector_rx_tpu/graph/device.py:226``): the bf16 rows ``values_bf16``
-    [cap+1, D] against the query rounded to bf16; l2 sums the squares of
-    the differences rounded to bf16, ip and cosine sum the products
-    rounded to bf16 (l1 never ranks in bf16). The terms have 8-bit
-    mantissas, so the sum is taken exactly (in f64) and rounded once to
-    f32: the kernel's sums in any order give the same f32 (JAX's f32 sum
-    may differ from it by an ulp, which reorders near ties)."""
+    [cap+1, D] against the query rounded to bf16. The terms are JAX's f32
+    ones: l2 the f32 square ``t * t`` of the difference rounded to bf16
+    (``t = bf16(x - q)``), ip and cosine the product rounded to bf16 (l1
+    never ranks in bf16). Each has at most 16 significant bits, so the sum
+    is taken exactly (in f64, exact while the terms' bits span less than
+    53) and rounded once to f32: the kernels' sums in any lane and tree
+    order give the same f32 (JAX's f32 sum may differ from it by an ulp,
+    which reorders near ties)."""
     cand = values_bf16[ids.clamp(0, values_bf16.shape[0] - 1).long()].float()
     qb = q[:, None, :].to(torch.bfloat16).float()
     if metric == "l2":
-        t = (cand - qb).to(torch.bfloat16).double()
-        return (t * t).sum(dim=-1).float()
+        t = (cand - qb).to(torch.bfloat16).float()
+        return (t * t).double().sum(dim=-1).float()
     dots = (cand * qb).to(torch.bfloat16).double().sum(dim=-1).float()
     if metric == "ip":
         return -dots

@@ -2,7 +2,7 @@
 the card's dependent round trip.
 
     python -m pgvector_rx_tpu_torch.probes.k5_profile [--rows N] [--queries N]
-        [--expand 1,4]
+        [--expand 1,4] [--rank] [--other K4_BEAM_CU]
 
 Needs one NVIDIA Hopper card and ``nvcc``.
 
@@ -26,7 +26,14 @@ Needs one NVIDIA Hopper card and ``nvcc``.
    that waits for the prefetched ids; at E > 1 "dedup" is the step set
    and the compaction, "sort" the rank by every thread, "select" the
    next members and their ids), steps per segment, and the kernel's
-   microseconds per segment.
+   microseconds per segment. ``--rank``: at each E the same segments
+   replayed again with the bf16 ranking (``PGV_BEAM_BF16``: the graph's
+   bf16 rows rank, its f32 rows re-score the beam at the end, which
+   "finish" then holds), so a bf16 step's split prints beside the f32
+   step's ("rank" in each line). ``--other``: another version of
+   ``k4_beam.cu`` (e.g. the parent commit's) is built the same way and
+   replays the same segments after this checkout's ("version" in each
+   line: "this" or "other").
 4. A pointer chase (the kernel below, one warp, 4,096 hops from each of 8
    random rows): each hop loads a row's L neighbour ids, then one
    neighbour's row, and takes the next row from that row's data: the
@@ -45,6 +52,7 @@ import os
 import subprocess
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -98,25 +106,28 @@ extern "C" int pgv_chase(const int* nbrs, const float* vals, int L, int d,
 """
 
 
-def _profiled_library():
-    """``csrc/k4_beam.cu`` built with -DPGV_K5_PROFILE, its entry points
-    bound like ``_build.lib()``'s, plus ``pgv_k5_profile``. The replay
-    calls no other kernel while it stands in for the library."""
+def _profiled_libraries(sources):
+    """Each {tag: k4_beam.cu path} built with -DPGV_K5_PROFILE (side by
+    side), its entry points bound like ``_build.lib()``'s, plus
+    ``pgv_k5_profile``. The replay calls no other kernel while one stands
+    in for the library."""
     out_dir = _build.BUILD_DIR / "k5_profile"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "libpgv_k5_profile.so"
+    libs = {t: out_dir / f"libpgv_k5_profile_{t}.so" for t in sources}
     _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-DPGV_K5_PROFILE",
-                      "-shared", "-o", str(lib),
-                      str(_build._CSRC / "k4_beam.cu")]])
-    handle = ctypes.CDLL(str(lib))
-    for name in ("pgv_k4_beam_walk", "pgv_k5_beam_scan"):
-        argtypes = _build._SIGNATURES[name]
-        fn = getattr(handle, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    handle.pgv_k5_profile.argtypes = [ctypes.c_void_p]
-    handle.pgv_k5_profile.restype = ctypes.c_int
-    return handle
+                      "-shared", "-o", str(libs[t]), str(src)]
+                     for t, src in sources.items()])
+    handles = {}
+    for t, lib in libs.items():
+        handle = ctypes.CDLL(str(lib))
+        for name in ("pgv_k4_beam_walk", "pgv_k5_beam_scan"):
+            fn = getattr(handle, name)
+            fn.argtypes = _build._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+        handle.pgv_k5_profile.argtypes = [ctypes.c_void_p]
+        handle.pgv_k5_profile.restype = ctypes.c_int
+        handles[t] = handle
+    return handles
 
 
 def _chase_library():
@@ -143,9 +154,9 @@ def _segments(index, g, q, mask, dm, beam, SearchParams, DeviceBeamScan):
     return scan.scan_stats.resumes + 1
 
 
-def _replay(g, q, nseg, dm, beam, expand):
+def _replay(g, q, nseg, dm, beam, expand, rank):
     """One query's segments, each fed the previous one's spill and marks
-    (DeviceBeamScan's state)."""
+    (DeviceBeamScan's state); ranking over the bf16 rows with ``rank``."""
     ef, width = 40, 160
     spill = max(2 * ef, 64) + width - ef
     upper = dm._coarse_upper(g)
@@ -161,14 +172,16 @@ def _replay(g, q, nseg, dm, beam, expand):
     for _ in range(nseg):
         _, sp_d, sp_ids = beam.scan_segment(
             *args, excl, "l2", q[None], *seeds, ef, width, spill,
-            4 * width + 32, allowed=allowed, mark=True, expand=expand)
+            4 * width + 32, allowed=allowed, mark=True, expand=expand,
+            rank=g.values_bf16 if rank else None)
         seeds = (sp_ids, sp_d)
 
 
-def _profile_expand(expand, index, g, q_dev, mask, prof_lib, args, dm,
+def _profile_expand(expand, index, g, q_dev, mask, prof_libs, args, dm,
                     beam, SearchParams, DeviceBeamScan):
     """Steps 3's replay and print at one E (``PGV_BEAM_EXPAND`` set for the
-    segment count, restored after)."""
+    segment count, restored after), f32 ranking and, with ``--rank``, bf16
+    ranking over the same segments."""
     dev = q_dev.device
     old = os.environ.get("PGV_BEAM_EXPAND")
     os.environ["PGV_BEAM_EXPAND"] = str(expand)
@@ -180,21 +193,25 @@ def _profile_expand(expand, index, g, q_dev, mask, prof_lib, args, dm,
         buf = torch.zeros(_SLOTS, dtype=torch.int64, device=dev)
         runs = []
         try:
-            _build._lib = prof_lib
-            for _ in range(2):
-                buf.zero_()
-                prof_lib.pgv_k5_profile(buf.data_ptr())
-                torch.cuda.synchronize()
-                t0 = time.time()
-                for i in range(args.queries):
-                    _replay(g, q_dev[i], nseg[i], dm, beam, expand)
-                torch.cuda.synchronize()
-                wall = time.time() - t0
-                prof_lib.pgv_k5_profile(None)
-                runs.append((buf.cpu().numpy().copy(), wall))
+            for tag, prof_lib in prof_libs.items():
+                _build._lib = prof_lib
+                for rank in (False, True) if args.rank else (False,):
+                    for run in range(2):
+                        buf.zero_()
+                        prof_lib.pgv_k5_profile(buf.data_ptr())
+                        torch.cuda.synchronize()
+                        t0 = time.time()
+                        for i in range(args.queries):
+                            _replay(g, q_dev[i], nseg[i], dm, beam, expand,
+                                    rank)
+                        torch.cuda.synchronize()
+                        wall = time.time() - t0
+                        prof_lib.pgv_k5_profile(None)
+                        runs.append((tag, rank, run,
+                                     buf.cpu().numpy().copy(), wall))
         finally:
             _build._lib = lib0
-        for run, (c, wall) in enumerate(runs):
+        for tag, rank, run, c, wall in runs:
             steps, clocks, ns, blocks = (int(x) for x in c[len(_PHASES):])
             ns_per_clock = ns / clocks
             split = {ph: {"clocks_per_step": c[i] / steps,
@@ -205,7 +222,8 @@ def _profile_expand(expand, index, g, q_dev, mask, prof_lib, args, dm,
                        for i, ph in enumerate(_PHASES)
                        if ph in ("start", "finish")}
             print(json.dumps({
-                "expand": expand, "run": run, "segments": blocks,
+                "version": tag, "expand": expand, "rank": rank, "run": run,
+                "segments": blocks,
                 "steps": steps,
                 "steps_per_segment": steps / blocks,
                 "kernel_us_per_segment": ns / blocks / 1e3,
@@ -227,6 +245,10 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--expand", default="1",
                     help="comma-separated E values (PGV_BEAM_EXPAND)")
+    ap.add_argument("--rank", action="store_true",
+                    help="also the same segments with bf16 ranking")
+    ap.add_argument("--other", type=Path,
+                    help="another k4_beam.cu replaying the same segments")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("the probe needs a CUDA card")
@@ -244,7 +266,10 @@ def main() -> int:
     # the kernel library and its profiled copy build side by side
     main_build = threading.Thread(target=_build.lib)
     main_build.start()
-    prof_lib = _profiled_library()
+    sources = {"this": _build._CSRC / "k4_beam.cu"}
+    if args.other is not None:
+        sources["other"] = args.other
+    prof_libs = _profiled_libraries(sources)
     chase_lib = _chase_library()
     main_build.join()
     data, queries = make_dataset(args.rows, 128, args.queries, seed=0)
@@ -260,7 +285,7 @@ def main() -> int:
     mask = (np.arange(g.cap) % 500) == 0
     q_dev = torch.from_numpy(queries).to(dev)
     for expand in (int(e) for e in args.expand.split(",")):
-        _profile_expand(expand, index, g, q_dev, mask, prof_lib, args, dm,
+        _profile_expand(expand, index, g, q_dev, mask, prof_libs, args, dm,
                         beam, SearchParams, DeviceBeamScan)
 
     out = torch.zeros(2, dtype=torch.int64, device=dev)

@@ -15,13 +15,20 @@ dedup) and ``PGV_BEAM_BF16`` (bf16 ranking, the beam re-scored in f32).
 - ``DeviceBeamScan`` (expand, bf16) streams JAX's tuples.
 - The switches are read as in JAX (the bitmap from the graph's capacity,
   the JAX package's padded ``cap``); an invalid expansion is refused.
+- The bf16 ranking's distances (``ops/beam.rank_dists``) are JAX's terms
+  summed exactly: each term equal to JAX's, each sum within an ulp of
+  JAX's f32 sum, the same f32 in any order; on rows whose differences and
+  products straddle bf16 rounding boundaries they differ from terms left
+  unrounded, and so does the walk.
 - Tests marked ``cuda`` hold each mode of K4 (the block walk, the descent
   in its launch, the word walk, the sparse rows) and of K5 against its
   plain version on the card, each check rejecting a control (the plain
-  walk at E = 1, with the in-beam dedup, ranking in f32).
+  walk at E = 1, with the in-beam dedup, ranking in f32, ranking by terms
+  left unrounded).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -332,6 +339,97 @@ def test_expand_limit_on_the_card_only():
         tbeam.check_expand(9, 40, 32, card=True)
 
 
+def _unrounded_rank_dists(values_bf16, metric, q, ids):
+    """The control of the bf16 ranking: its terms over the same bf16 rows
+    and query, left unrounded (the difference or product in f32)."""
+    cand = values_bf16[ids.clamp(0, values_bf16.shape[0] - 1).long()].float()
+    qb = q[:, None, :].to(torch.bfloat16).float()
+    if metric == "l2":
+        t = (cand - qb).double()
+        return (t * t).sum(dim=-1).float()
+    dots = (cand * qb).double().sum(dim=-1).float()
+    return -dots if metric == "ip" else 1.0 - dots.clamp(-1.0, 1.0)
+
+
+def _rank_case(device, d, metric, n=4000, b=256, seed=4):
+    """Random normal rows and queries (unit rows and queries for cosine),
+    independent of each other, so most differences and products need more
+    than bf16's 8 bits: (f32 rows [n + 1, d], their bf16 copy, neighbors0
+    [n + 1, 32] random ids, live flags (the sentinel row n dead), queries
+    [b, d], seeds [b, 8] and their f32 distances, rng)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n + 1, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    if metric == "cosine":
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    vals = torch.from_numpy(x).to(device)
+    nb = torch.from_numpy(rng.integers(0, n, (n + 1, 32)).astype(
+        np.int32)).to(device)
+    trav = torch.ones(n + 1, dtype=torch.bool, device=device)
+    trav[n] = False
+    qt = torch.from_numpy(q).to(device)
+    ids, sd = _seeds(vals, qt, rng, 8, n, metric, live=trav)
+    return vals, vals.to(torch.bfloat16), nb, trav, qt, ids, sd, rng
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_rank_dists_matches_jax(metric, monkeypatch):
+    """``rank_dists`` against the JAX package's ``_dist_ids_rank`` on the
+    same rows, query and ids (clamped alike): every term equal to JAX's
+    f32 term, every distance within one f32 ulp of JAX's f32 sum (the port
+    sums the terms exactly, JAX in f32), and the same f32 with the
+    coordinates permuted (an exact sum has no order)."""
+    rng = np.random.default_rng(7)
+    n, b, w = 300, 16, 24
+    rows = rng.standard_normal((n + 1, DIM)).astype(np.float32)
+    q = rng.standard_normal((b, DIM)).astype(np.float32)
+    ids = rng.integers(-1, n + 2, (b, w)).astype(np.int32)
+    monkeypatch.setattr(jdev, "_BEAM_BF16", True)
+    vj = jnp.asarray(rows).astype(jnp.bfloat16)
+    g = SimpleNamespace(kind="dense", values_bf16=vj, metric=metric, cap=n)
+    jd = np.asarray(jdev._dist_ids_rank(g, jnp.asarray(q)[:, None, :],
+                                        jnp.asarray(ids)))
+    vt = torch.from_numpy(rows).to(torch.bfloat16)
+    qt, it = torch.from_numpy(q), torch.from_numpy(ids)
+    td = tbeam.rank_dists(vt, metric, qt, it).numpy()
+    safe = np.clip(ids, 0, n)
+    cj, qj = vj[safe], jnp.asarray(q).astype(jnp.bfloat16)[:, None, :]
+    ct = vt[torch.from_numpy(safe).long()].float()
+    qb = qt.to(torch.bfloat16).float()[:, None, :]
+    if metric == "l2":
+        jt = np.asarray((cj - qj).astype(jnp.float32)) ** 2
+        tt = (ct - qb).to(torch.bfloat16).float() ** 2
+    else:
+        jt = np.asarray((cj * qj).astype(jnp.float32))
+        tt = (ct * qb).to(torch.bfloat16).float()
+    np.testing.assert_array_equal(tt.numpy(), jt)
+    np.testing.assert_array_max_ulp(td, jd, maxulp=1)
+    perm = torch.from_numpy(rng.permutation(DIM))
+    np.testing.assert_array_equal(
+        tbeam.rank_dists(vt[:, perm], metric, qt[:, perm], it).numpy(), td)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_rank_dists_rounds_each_term(metric, monkeypatch):
+    """On the card tests' rows (``_rank_case``) the ranking distances
+    differ from the ones whose terms skip the bf16 rounding, and so does
+    the plain walk ranking by them on most queries: a kernel that stopped
+    rounding its terms cannot pass the card checks."""
+    vals, rank, nb, trav, q, ids, sd, _ = _rank_case("cpu", 128, metric,
+                                                     b=64)
+    nbrs = nb[:64].long()
+    moved = (tbeam.rank_dists(rank, metric, q, nbrs)
+             != _unrounded_rank_dists(rank, metric, q, nbrs))
+    assert moved.float().mean() >= 0.99, moved.float().mean()
+    args = (vals, nb, trav, None, metric, q, ids, sd, 40, 0, 192, False)
+    p = tbeam._walk_plain(*args, rank=rank)
+    monkeypatch.setattr(tbeam, "rank_dists", _unrounded_rank_dists)
+    c = tbeam._walk_plain(*args, rank=rank)
+    differ = (p[1] != c[1]).any(1) | (p[4] != c[4]) | (p[5] != c[5])
+    assert differ.float().mean() >= 0.5, differ.float().mean()
+
+
 # ---------------------------------------------------------------------------
 # each mode of K4 and K5 against its plain version, on the card
 # ---------------------------------------------------------------------------
@@ -393,34 +491,56 @@ def test_k4_modes_match_plain(cuda, mode, descent):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("expand", [1, 4])
-def test_k4_bf16_ranking_matches_plain(cuda, expand):
-    """Random f32 rows (bf16 rounding bites): K4 ranking in bf16 equals its
-    plain version but for near ties (the sums run in another order) on
-    >= 0.99 of the queries, distances exact f32; the plain walk ranking in
-    f32 (the control) differs on more."""
-    rng = np.random.default_rng(4)
-    n, d = 4000, 96
-    x = rng.standard_normal((n + 1, d)).astype(np.float32)
-    vals = torch.from_numpy(x).to(cuda)
-    rank = vals.to(torch.bfloat16)
-    nb = torch.from_numpy(rng.integers(0, n, (n + 1, 32)).astype(
-        np.int32)).to(cuda)
-    trav = torch.ones(n + 1, dtype=torch.bool, device=cuda)
-    trav[n] = False
-    q = torch.from_numpy(rng.standard_normal((256, d)).astype(
-        np.float32)).to(cuda)
-    ids, sd = _seeds(vals, q, rng, 8, n, live=trav)
-    args = (vals, nb, trav, None, "l2", q, ids, sd, 40, 0, 192, False)
-    k = _raw(tbeam._serve_finish(*tbeam._walk_cuda(*args, expand=expand,
-                                                   rank=rank)))
-    p = _raw(tbeam._serve_finish(*tbeam._walk_plain(*args, expand=expand,
-                                                    rank=rank)))
-    c = _raw(tbeam._serve_finish(*tbeam._walk_plain(*args, expand=expand)))
-    same = (k[1] == p[1]).all(1)
-    assert same.mean() >= 0.99, same.mean()
-    np.testing.assert_allclose(k[0][same], p[0][same], rtol=1e-5, atol=1e-5)
-    assert ((c[1] == p[1]).all(1) & (c[2] == p[2])).mean() < same.mean()
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("d", [128, 768, 96, 98])
+@pytest.mark.parametrize("expand,descent", [(1, False), (4, False),
+                                            (1, True)])
+def test_k4_bf16_ranking_matches_plain(cuda, expand, descent, d, metric,
+                                       monkeypatch):
+    """Random rows (bf16 rounding bites in every term): K4 ranking in bf16
+    at d = 128, 768 and 96 (8-byte chunks of 4 values) and 98 (scalar
+    values: no multiple of 4), each metric, from seeds or with the descent
+    in its launch. The ranking sums are exact, so the walk is the plain
+    version's query by query: the raw beam's keys, the steps and the rows
+    scored equal (the descent: the landings and the ids), the re-scored
+    f32 distances within rtol 1e-5 (summed in another order). The
+    controls differ: the plain walk ranking in f32, and the one whose
+    terms skip the bf16 rounding."""
+    vals, rank, nb, trav, q, ids, sd, rng = _rank_case(cuda, d, metric)
+    args = (vals, nb, trav, None, metric, q, ids, sd, 40, 0, 192, False)
+    if descent:
+        upper = _upper_case(rng, vals.shape[0] - 1, 8, cuda)
+        out = tbeam.descent_walk(vals, nb, trav, *upper[:2], 8, *upper[2:],
+                                 metric, q, 40, 192, rank=rank)
+        li, ld = tbeam.descent_plain(vals, trav, *upper[:2], 8, metric, q,
+                                     *upper[2:], rank=rank)
+        np.testing.assert_array_equal(out[3].cpu(), li.cpu())
+        np.testing.assert_allclose(out[4].cpu(), ld.cpu(), rtol=1e-5,
+                                   atol=1e-6)
+        args = (*args[:6], li[:, None].to(torch.int32), ld[:, None].float(),
+                *args[8:])
+        p = _raw(tbeam._serve_finish(*tbeam._walk_plain(*args, rank=rank)))
+        k = _raw(out[:3])
+        np.testing.assert_array_equal(k[2], p[2])
+        same = (k[1] == p[1]).all(1)
+        assert same.mean() >= 0.99, same.mean()
+        np.testing.assert_allclose(k[0][same], p[0][same], rtol=1e-5,
+                                   atol=1e-5)
+        p_raw = tbeam._walk_plain(*args, rank=rank)
+    else:
+        k = _raw(tbeam._walk_cuda(*args, expand=expand, rank=rank))
+        p_raw = tbeam._walk_plain(*args, expand=expand, rank=rank)
+        p = _raw(p_raw)
+        for i in (1, 4, 5):  # keys, steps, rows scored
+            np.testing.assert_array_equal(k[i], p[i])
+        np.testing.assert_allclose(k[0], p[0], rtol=1e-5, atol=1e-5)
+    p_raw = _raw(p_raw)
+    c32 = _raw(tbeam._walk_plain(*args, expand=1 if descent else expand))
+    monkeypatch.setattr(tbeam, "rank_dists", _unrounded_rank_dists)
+    cun = _raw(tbeam._walk_plain(*args, expand=1 if descent else expand,
+                                 rank=rank))
+    for c in (c32, cun):
+        assert any((c[i] != p_raw[i]).any() for i in (1, 4, 5))
 
 
 @pytest.mark.cuda
@@ -477,41 +597,82 @@ def test_k4_sparse_rows_visited_match_plain(cuda):
     assert not torch.equal(c_raw[5], p_raw[5])
 
 
+#: K5's cases: (E, bf16 ranking, m, d, metric)
+K5_CASES = [(4, False, 8, 32, "l2"), (8, False, 16, 32, "l2"),
+            (2, False, 16, 32, "l2"), (40, False, 2, 32, "l2"),
+            *((e, True, 8, d, mt) for e in (1, 4) for d in (32, 128, 768, 98)
+              for mt in ("l2", "ip", "cosine"))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("expand,rank,m", [(4, False, 8), (1, True, 8),
-                                           (4, True, 8), (8, False, 16),
-                                           (2, False, 16), (40, False, 2)])
-def test_k5_modes_match_plain(cuda, expand, rank, m):
+@pytest.mark.parametrize("expand,rank,m,d,metric", K5_CASES)
+def test_k5_modes_match_plain(cuda, expand, rank, m, d, metric):
     """K5 with E = 2, 4, 8 and 40 (E = 8 at L = 32: E L = 256, the limit;
     its evicted tails overflow the 100-wide spill every step; E = 40 at
     L = 4: more members a step than a warp has lanes) and with bf16
-    ranking over 3 fed segments against its plain version: on the grid
-    every distance is exact in f32 and in bf16, so the reports (steps and
-    rows scored included), spills and marks are equal; the control (the
-    plain segment at E = 1) differs."""
+    ranking (E = 1 and 4; d = 128, 768, 32 in 8-byte chunks, 98 in scalar
+    values; l2, ip, cosine) over 3 fed segments against its plain
+    version: on the grid every distance is exact in f32 and in bf16, so
+    the reports (steps and rows scored included), spills and marks are
+    equal; the control (the plain segment at E = 1) differs where E > 1."""
     ef = 12
     width, spill = 4 * ef, 64 + 3 * ef
-    vals, nb, trav, q, rng = _kernel_case(cuda, 32, torch.float32, n=2000,
-                                          m=m, seed=5)
+    vals, nb, trav, q, rng = _kernel_case(cuda, d, torch.float32, n=2000,
+                                          m=m, seed=5, metric=metric)
     r = vals.to(torch.bfloat16) if rank else None
-    ids, sd = _seeds(vals, q, rng, spill, 2000, live=trav)
+    ids, sd = _seeds(vals, q, rng, spill, 2000, metric, live=trav)
     ek = torch.zeros((q.shape[0], 2001), dtype=torch.bool, device=cuda)
     ep, ec = ek.clone(), ek.clone()
     allowed = tbeam.allowed_bits(trav, ek)
     fk = fp = fc = (ids, sd)
     differs = False
     for _ in range(3):
-        kr, kd, ki = tbeam.scan_segment(vals, nb, trav, ek, "l2", q, *fk, ef,
-                                        width, spill, 4 * width + 32,
+        kr, kd, ki = tbeam.scan_segment(vals, nb, trav, ek, metric, q, *fk,
+                                        ef, width, spill, 4 * width + 32,
                                         allowed=allowed, mark=True,
                                         expand=expand, rank=r)
-        pr, pdd, pi = tbeam._scan_plain(vals, nb, trav, ep, "l2", q, *fp, ef,
-                                        width, spill, 4 * width + 32, True,
-                                        expand, r)
-        cr, cd, ci = tbeam._scan_plain(vals, nb, trav, ec, "l2", q, *fc, ef,
-                                       width, spill, 4 * width + 32, True)
+        pr, pdd, pi = tbeam._scan_plain(vals, nb, trav, ep, metric, q, *fp,
+                                        ef, width, spill, 4 * width + 32,
+                                        True, expand, r)
+        cr, cd, ci = tbeam._scan_plain(vals, nb, trav, ec, metric, q, *fc,
+                                       ef, width, spill, 4 * width + 32, True)
         for a, b in zip(_raw((kr, kd, ki, ek)), _raw((pr, pdd, pi, ep))):
             np.testing.assert_array_equal(a, b)
         differs |= not torch.equal(cr, pr)
         fk, fp, fc = (ki, kd), (pi, pdd), (ci, cd)
     assert differs or not expand > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("expand", [1, 4])
+def test_k5_bf16_ranking_rounds_each_term(cuda, expand, metric, monkeypatch):
+    """K5 ranking in bf16 on ``_rank_case``'s random rows (128-d), where
+    the bf16 rounding of each difference or product bites: its walk is
+    the plain segment's (the ranking sums are exact), so steps and rows
+    scored are equal query by query and the emitted ids and distances
+    (re-scored in f32, summed in another order) agree within rtol 1e-5;
+    the plain segment whose terms skip the rounding differs."""
+    vals, rank, nb, trav, q, _, _, rng = _rank_case(cuda, 128, metric, b=32)
+    ef, width = 12, 48
+    spill = 64 + width - ef
+    ids, sd = _seeds(vals, q, rng, spill, vals.shape[0] - 1, metric,
+                     live=trav)
+    excl = torch.zeros((q.shape[0], vals.shape[0]), dtype=torch.bool,
+                       device=cuda)
+    seg = (ids, sd, ef, width, spill, 4 * width + 32)
+    kr = tbeam.scan_segment(vals, nb, trav, excl, metric, q, *seg,
+                            allowed=tbeam.allowed_bits(trav, excl),
+                            expand=expand, rank=rank)[0].cpu().numpy()
+    plain = (vals, nb, trav, excl, metric, q, *seg, False, expand, rank)
+    pr = tbeam._scan_plain(*plain)[0].cpu().numpy()
+    np.testing.assert_array_equal(kr[:, 2 * ef:2 * ef + 2],
+                                  pr[:, 2 * ef:2 * ef + 2])
+    same = (kr[:, ef:2 * ef] == pr[:, ef:2 * ef]).all(1)
+    assert same.mean() >= 0.9, same.mean()
+    np.testing.assert_allclose(kr[same, :ef].view(np.float32),
+                               pr[same, :ef].view(np.float32), rtol=1e-5,
+                               atol=1e-5)
+    monkeypatch.setattr(tbeam, "rank_dists", _unrounded_rank_dists)
+    cr = tbeam._scan_plain(*plain)[0].cpu().numpy()
+    assert (cr[:, 2 * ef:2 * ef + 2] != pr[:, 2 * ef:2 * ef + 2]).any()

@@ -147,6 +147,26 @@ def small_chunk(monkeypatch):
     jax.clear_caches()
 
 
+@functools.lru_cache(maxsize=None)
+def _compact_pair(dtype, metric):
+    """(port index, JAX index, queries): both native builds of one 2,100 x
+    24 corpus in a compact store (f16, or bf16 by ``PGV_SERVE_DTYPE``),
+    shared by the exact and approx cases (neither changes them)."""
+    rng = np.random.default_rng(7)
+    data = rng.standard_normal((2100, 24)).astype(np.float32)
+    q = rng.standard_normal((16, 24)).astype(np.float32)
+    kw = dict(dtype=np.float16) if dtype == "f16" else {}
+    with pytest.MonkeyPatch.context() as mp:
+        if dtype == "bf16":
+            mp.setenv("PGV_SERVE_DTYPE", "bf16")
+        t = HnswIndex.build(data, metric=metric, method="native",
+                            host_graph=False, seed=3, **kw, **CPU)
+        j = JaxIndex.build(data, metric=metric, method="native",
+                           host_graph=False, seed=3, **kw)
+        t.device_graph(), j.device_graph()  # staged in that store
+    return t, j, q
+
+
 @pytest.mark.parametrize("dtype,metric", [("f16", "l2"), ("f16", "ip"),
                                           ("bf16", "cosine")])
 @pytest.mark.parametrize("engine", ["exact", "approx"])
@@ -155,16 +175,9 @@ def test_chunked_sweep_equals_the_single_call(dtype, metric, engine,
     """A 2,100-row compact store swept in chunks of 256 rows (9 chunks, the
     last one short) gives the single call's distances and ids and JAX's
     chunked sweep's; rows a filter excludes stay out."""
-    rng = np.random.default_rng(7)
-    data = rng.standard_normal((2100, 24)).astype(np.float32)
-    q = rng.standard_normal((16, 24)).astype(np.float32)
-    kw = dict(dtype=np.float16) if dtype == "f16" else {}
     if dtype == "bf16":
         monkeypatch.setenv("PGV_SERVE_DTYPE", "bf16")
-    t = HnswIndex.build(data, metric=metric, method="native",
-                        host_graph=False, seed=3, **kw, **CPU)
-    j = JaxIndex.build(data, metric=metric, method="native",
-                       host_graph=False, seed=3, **kw)
+    t, j, q = _compact_pair(dtype, metric)
     keep = np.ones(2100, bool)
     keep[[5, 300, 1999]] = False
     g = t.device_graph()
