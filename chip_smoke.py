@@ -207,10 +207,14 @@ configuration, ``bench_suite.py:141-170``, uncut): 1,000,000 x 1,024-d
 store (build s, rows/s), K1 ground truth over the f16 store in chunks held
 to float64 on 64 queries, exact / approx / beam over 4,096 queries (floors
 1.0 / 0.98 / 0.80) with each call's peak device memory above the graph
-(the exact call below 1.5 chunk casts), the same engines over the rows
-staged as a bf16 store, and K1 / K2 at d = 1,024 against their plain
-versions and their library yardsticks (phase 8's ``k1_library`` /
-``k2_library``; a ``{"d1024": ...}`` line).
+(exact and approx below ``HV_PEAK``: K1 and K2 read the stored rows, no
+chunk is cast), the same engines over the rows staged as a bf16 store,
+and K1's 2-byte mode and K2's streamed form on a stored chunk of each
+store against their plain versions and the parent's route (the chunk's
+cast, then the kernel; K1's check must reject the f16 rows rounded to
+bf16), timed in turns beside that route and beside their library
+yardsticks (phase 8's ``k1_library`` / ``k2_library`` over the cast
+chunk; a ``{"d1024": ...}`` line).
 
 **The build knobs** (27, run after phase 18): the JAX package's
 ``PGV_BUILD_*`` knobs in the port's device build, each arm built
@@ -231,13 +235,14 @@ storage after the build (its peak printed beside the sort build's).
 fifth configuration (``configs/sharded_100m.py``: 128-d f32 l2 in
 round-robin shards, the relaxed iterative scan with ``max_scan_tuples``
 500) cut from 8 shards x 12,500,000 rows on a TPU v5e-8 to 4 shards x
-524,288 rows on one card (the four-card layout; about half the main
-path's rows a shard, since the smoke passed 1,000 s at 1M): ``make_dataset(2,162,688,
+262,144 rows on one card (the four-card layout; about a quarter of the
+main path's rows a shard, since the smoke passed 1,000 s at 4 x 1M and
+1,150 s at 4 x 524,288 on a slower host): ``make_dataset(1,114,112,
 128, 16,384, seed=11)`` on the card,
 ``ShardedHnswIndex.build`` from the CUDA tensor (the device build, serving-
 only, every shard on ``cuda:0``; build seconds per shard and in all, rows/s,
 peak memory), each shard's invariants and device; K1 ground truth over all
-2,097,152 rows (float64 on 64 queries); the sharded exact engine equal to it but
+1,048,576 rows (float64 on 64 queries); the sharded exact engine equal to it but
 for ties, the sharded beam's recall@10 (floor ``FLOORS["beam"]``), both
 timed over 16,384 queries with the merge's share of a search's wall time
 (CUDA events); the sharded beam on 256 queries equal but for ties (on
@@ -353,14 +358,21 @@ HV_FLOORS = {"exact": 1.0, "approx": 0.98, "beam": 0.80}
 #: bf16 rounds away what ranks near neighbours (the JAX package's bf16
 #: opt-in test holds its exact engine to 0.95)
 HV_BF16_FLOORS = {"exact": 0.95, "approx": 0.95, "beam": 0.80}
+#: the halfvec calls' peak device memory above the graph: K1 and K2 read the
+#: stored rows, so the exact call holds about a 1,024-query chunk's tf32
+#: halves, K1's lists and the row terms (~40 MiB) and the approx call also
+#: the rescore's [1,024, 10, 1,024] gather in f16 and f32 and its products
+#: (~130 MiB); the parent's cast of one chunk alone was 1 GiB (f32) or 512
+#: MiB (bf16)
+HV_PEAK = {"exact": 128 << 20, "approx": 256 << 20}
 #: the sharded configuration (28): BASELINE config 5 (configs/sharded_100m.py)
-#: cut to this many shards of this many rows on one card (524,288, not the
-#: main path's 1M, since the whole smoke passed 1,000 s with 1M), its data
-#: seed;
+#: cut to this many shards of this many rows on one card (262,144, not the
+#: main path's 1M, since the whole smoke passed 1,000 s with 1M and 1,150 s
+#: with 524,288 on a slower host), its data seed;
 #: the rows per shard of its checkpoint round trip, the scan's queries and
 #: tuple budget (config 5's ``max_scan_tuples``), the queries of its
 #: walk-vs-plain check and the filter modulus of its filtered search
-S28, N28, SEED28 = 4, 524_288, 11
+S28, N28, SEED28 = 4, 262_144, 11
 N28_CKPT, SCAN28_Q, SCAN28_MAX, WALK28_Q, FILTER28 = 65_536, 64, 500, 256, 50
 #: the graph tensors two builds must hold equal
 GRAPH_FIELDS = ("neighbors0", "upper_neighbors", "upper_slot", "levels",
@@ -3485,18 +3497,21 @@ def halfvec_path(HnswIndex, IndexParams, make_dataset, device_mod, bf, dev,
                 if rec < floors[engine]:
                     raise RuntimeError(f"halfvec {tag} {engine}: recall "
                                        f"{rec} < {floors[engine]}")
-                if engine == "exact" and peak > 1.5 * ch * D_HV * 4:
+                if engine in HV_PEAK and peak > HV_PEAK[engine]:
                     raise RuntimeError(
-                        f"the exact call took {peak / 2**30:.2f} GiB above "
-                        "the graph: more than one chunk's f32 transient")
-        log(f"26 {tag} launches: {dict(bf.LAUNCHES)}")
+                        f"the {engine} call took {peak / 2**20:.1f} MiB above"
+                        f" the graph (bound {HV_PEAK[engine] >> 20} MiB): a "
+                        "copy of the rows?")
+        out["launches"] = dict(bf.LAUNCHES)
+        log(f"26 {tag} launches: {out['launches']}")
         for name in ("k1_topk", "k2_binned", "k4_beam"):
             if bf.LAUNCHES[name] <= 0:
                 raise RuntimeError(f"kernel {name} never ran on the "
                                    f"halfvec path ({tag})")
         return out
 
-    engines("f16 store", g.values.numel() * 2, HV_FLOORS)
+    hv_launches = engines("f16 store", g.values.numel() * 2,
+                          HV_FLOORS)["launches"]
     # the same rows served from a bf16 store, as PGV_SERVE_DTYPE=bf16 stages
     # them
     os.environ["PGV_SERVE_DTYPE"] = "bf16"
@@ -3513,53 +3528,124 @@ def halfvec_path(HnswIndex, IndexParams, make_dataset, device_mod, bf, dev,
     finally:
         del os.environ["PGV_SERVE_DTYPE"]
 
-    with Phase("26 K1 and K2 at d = 1,024 vs plain"):
-        rows = []
-        q1 = q[:CHUNK].contiguous()
-        x32 = g16.values[:ch].float()
-        a = pen[:ch].contiguous()
-        n_rows, b1 = x32.shape[0], q1.shape[0]
-        out_bytes = b1 * K * 8
-        k1_d, k1_i = bf._surrogate_topk_cuda(x32, a, q1, K)
-        p1_d, p1_i = bf._surrogate_topk_plain(x32, a, q1, K)
-        err1, ok1 = k1_agreement(k1_d, k1_i, p1_d.cpu().numpy(),
-                                 p1_i.cpu().numpy(),
-                                 float((q1 * q1).sum(1).max()))
-        if not ok1:
-            raise RuntimeError(f"K1 at d = 1,024 disagrees with its plain "
-                               f"version (max abs err {err1})")
-        rows.append(kernel_row(
-            "k1_topk", err1,
-            cuda_ms(lambda: bf._surrogate_topk_cuda(x32, a, q1, K)),
-            cuda_ms(lambda: bf._surrogate_topk_plain(x32, a, q1, K), 3),
-            bound(3 * 2.0 * b1 * n_rows * D_HV, "tf32",
-                  (n_rows * D_HV + n_rows + b1 * D_HV) * 4 + out_bytes)))
-        vb = g16.values[:ch].to(torch.bfloat16)
-        qb = q1.to(torch.bfloat16)
-        k2_d, k2_i = bf._binned_cuda(vb, a, qb, K, 1024)
-        p2_d, p2_i = bf._binned_plain(vb, a, q1, K, 1024)
-        err2, ok2 = k2_agreement(k2_d, k2_i, p2_d.cpu().numpy(),
-                                 p2_i.cpu().numpy(),
-                                 float((q1 * q1).sum(1).max()))
-        if not ok2:
-            raise RuntimeError(f"K2 at d = 1,024 disagrees with its plain "
-                               f"version (max abs err {err2})")
-        rows.append(kernel_row(
-            "k2_binned", err2,
-            cuda_ms(lambda: bf._binned_cuda(vb, a, qb, K, 1024)),
-            cuda_ms(lambda: bf._binned_plain(vb, a, q1, K, 1024), 3),
-            bound(2.0 * b1 * n_rows * D_HV, "bf16",
-                  (n_rows * D_HV + b1 * D_HV) * 2 + n_rows * 4 + out_bytes)))
-        # the same functions composed of PyTorch calls (phase 8's yardsticks)
-        rows[0]["library_ms"] = cuda_ms(lambda: k1_library(x32, a, q1, K), 3)
-        rows[1]["library_ms"] = cuda_ms(
-            lambda: k2_library(vb, a, qb, K, 1024), 3)
+    with Phase("26 K1 and K2 at d = 1,024 over the stored rows"):
+        rows = compact_kernels(bf, g16.values[:ch], g.values[:ch],
+                               pen[:ch].contiguous(), q[:CHUNK].contiguous(),
+                               hv_launches)
         for r in rows:
-            r["rows"] = n_rows
-            log(f"{r['name']} at d = 1,024: library {r['library_ms']:.4f} ms")
+            kernels[r["name"]] = r
     log(json.dumps({"d1024": rows}))
-    del idx, g, g16, q, x32, vb
+    del idx, g, g16, q
     torch.cuda.empty_cache()
+
+
+def in_turns(fns: dict, turns: int = 2) -> dict:
+    """Mean device ms of each function, timed in turns (a b b a ...)."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for t in range(turns):
+        for n in (names if t % 2 == 0 else names[::-1]):
+            times[n].append(cuda_ms(fns[n]))
+    return {n: sum(v) / len(v) for n, v in times.items()}
+
+
+def compact_kernels(bf, x16, xbf, a, q1, launches):
+    """K1's 2-byte mode and K2's streamed form on the halfvec chunk (the
+    stored f16 rows ``x16`` and their bf16 store ``xbf``, 262,144 x 1,024,
+    1,024 queries): each held to its plain version and to the parent's
+    route (the cast of the chunk, then the kernel over it: K1 over f32
+    rows, K2 over bf16 rows), which must also reject a control (K1 over
+    the f16 rows rounded to bf16); each timed in turns beside that route,
+    its time including the cast, against its bound (K1: two tf32 products,
+    K2: one bf16 product), its plain version and its library yardstick
+    (phase 8's, over the cast chunk, the cast included). Returns the two
+    kernel rows."""
+    n_rows, b1 = x16.shape[0], q1.shape[0]
+    q2max = float((q1 * q1).sum(1).max())
+    out_bytes = b1 * K * 8
+    qb = q1.to(torch.bfloat16)
+    res = {}
+    for store, xs in (("f16", x16), ("bf16", xbf)):
+        k_d, k_i = bf._surrogate_topk_cuda(xs, a, q1, K)
+        p_d, p_i = bf._surrogate_topk_plain(xs, a, q1, K)
+        c_d, c_i = bf._surrogate_topk_cuda(xs.float(), a, q1, K)
+        p_d, p_i = p_d.cpu().numpy(), p_i.cpu().numpy()
+        err, ok = k1_agreement(k_d, k_i, p_d, p_i, q2max)
+        _, ok_route = k1_agreement(k_d, k_i, c_d.cpu().numpy(),
+                                   c_i.cpu().numpy(), q2max)
+        same = float((k_i == c_i).float().mean())
+        log(f"K1 2-byte mode, {store} store: max abs err {err} against "
+            f"plain; ids equal to the cast route's by rank {same:.4f}")
+        if not ok or not ok_route:
+            raise RuntimeError(f"K1 over the {store} store disagrees with "
+                               f"its plain version or the cast route")
+        if store == "f16":
+            r_d, r_i = bf._surrogate_topk_cuda(xs.to(torch.bfloat16), a, q1,
+                                               K)
+            ctl, ctl_ok = k1_agreement(r_d, r_i, p_d, p_i, q2max)
+            log(f"control, K1 over the f16 rows rounded to bf16: max abs "
+                f"err {ctl}")
+            if ctl_ok:
+                raise RuntimeError("the K1 check passes bf16-rounded rows: "
+                                   "too loose to tell the rows apart")
+        t = in_turns({
+            "new": lambda: bf._surrogate_topk_cuda(xs, a, q1, K),
+            "cast route": lambda: bf._surrogate_topk_cuda(xs.float(), a, q1,
+                                                          K)})
+        res[f"k1 {store}"] = (err, same, t)
+    for store, xs in (("f16", x16), ("bf16", xbf)):
+        k_d, k_i = bf._binned_cuda(xs, a, qb, K, 1024)
+        p_d, p_i = bf._binned_plain(xs, a, q1, K, 1024)
+        c_d, c_i = bf._binned_cuda(xs.to(torch.bfloat16), a, qb, K, 1024)
+        p_d, p_i = p_d.cpu().numpy(), p_i.cpu().numpy()
+        err, ok = k2_agreement(k_d, k_i, p_d, p_i, q2max)
+        _, ok_route = k2_agreement(k_d, k_i, c_d.cpu().numpy(),
+                                   c_i.cpu().numpy(), q2max)
+        same = float((k_i == c_i).float().mean())
+        log(f"K2 streamed form, {store} store: max abs err {err} against "
+            f"plain; ids equal to the cast route's by rank {same:.4f}")
+        if not ok or not ok_route:
+            raise RuntimeError(f"K2 over the {store} store disagrees with "
+                               f"its plain version or the cast route")
+        t = in_turns({
+            "new": lambda: bf._binned_cuda(xs, a, qb, K, 1024),
+            "cast route": lambda: bf._binned_cuda(xs.to(torch.bfloat16), a,
+                                                  qb, K, 1024)})
+        res[f"k2 {store}"] = (err, same, t)
+    in_bytes = n_rows * D_HV * 2 + n_rows * 4
+    rows = []
+    for name, kname, kind, ops, peak, q_bytes, lib, plain in (
+            ("k1_topk_2byte", "k1_topk", "k1", 2 * 2.0 * b1 * n_rows * D_HV,
+             "tf32", b1 * D_HV * 4,
+             lambda: k1_library(x16.float(), a, q1, K),
+             lambda: bf._surrogate_topk_plain(x16, a, q1, K)),
+            ("k2_binned_f16", "k2_binned", "k2", 2.0 * b1 * n_rows * D_HV,
+             "bf16", b1 * D_HV * 2,
+             lambda: k2_library(x16.to(torch.bfloat16), a, qb, K, 1024),
+             lambda: bf._binned_plain(x16, a, q1, K, 1024))):
+        err, same, t = res[f"{kind} f16"]
+        _, same_b, t_b = res[f"{kind} bf16"]
+        row = kernel_row(name, err, t["new"], cuda_ms(plain, 3),
+                         bound(ops, peak, in_bytes + q_bytes + out_bytes))
+        row.update(
+            route="cuda", source=CSRC + ("k1_topk.cu" if kind == "k1"
+                                         else "k2_binned.cu"),
+            replaces=f"{PALLAS}:{34 if kind == 'k1' else 185} (over a "
+                     "halfvec chunk, f16 rows read as stored)",
+            launches=launches[kname], rows=n_rows,
+            cast_route_ms=t["cast route"], ids_equal_cast_route=same,
+            bf16_store_ms=t_b["new"], bf16_store_cast_route_ms=t_b[
+                "cast route"], bf16_store_ids_equal_cast_route=same_b,
+            library_ms=cuda_ms(lib, 3),
+            library_of="phase 8's yardstick over the cast chunk, the cast "
+                       "included")
+        log(f"{name}: {row['ms']:.4f} ms (the cast route "
+            f"{row['cast_route_ms']:.4f}); bf16 store {row['bf16_store_ms']:.4f}"
+            f" (cast route {row['bf16_store_cast_route_ms']:.4f}); library "
+            f"{row['library_ms']:.4f}; {row['launches']} launches on the "
+            "halfvec path's f16 store")
+        rows.append(row)
+    return rows
 
 
 def graph_bytes(g) -> int:
@@ -4261,6 +4347,7 @@ def main() -> int:
                                  "k4_beam_sparse",
                                  "k4_beam_expand4", "k4_beam_visited",
                                  "k4_beam_bf16", "k4_words_expand4",
+                                 "k1_topk_2byte", "k2_binned_f16",
                                  "k4_words_visited", "k4_sparse_visited",
                                  "k5_beam_scan_expand4",
                                  "k5_beam_scan_bf16")]}))

@@ -48,8 +48,9 @@ capacity + 1 is at most it; K4 only, as the segment has none) and
 but l1).
 
 Stores that are not f32 (a halfvec index's f16 array, ``PGV_SERVE_DTYPE``
-bf16 / f16) sweep in chunks of ``_EXACT_SWEEP_CHUNK`` rows, each cast for
-its kernel, so no whole-corpus cast is made.
+bf16 / f16) sweep in chunks of ``_EXACT_SWEEP_CHUNK`` rows, as the JAX
+package does; K1 and K2 read each chunk's stored rows themselves, so no
+copy of a chunk is made on the card (the plain versions cast).
 
 ``beam_search_arrays`` is the beam each shard of ``parallel/sharded.py``
 runs (the descent from the shard's own entry, then the walk, in one K4
@@ -621,13 +622,13 @@ def _exact_search_batch(g: DeviceGraph, queries, k: int, approx: bool = False,
 
         def sweep(v, a_c):  # the metric's distances from the bf16 scores
             return bruteforce.binned_sweep_topk(
-                v.to(torch.bfloat16).contiguous(), a_c, queries, k, g.metric)
+                v.contiguous(), a_c, queries, k, g.metric)
     else:
         vals = g.values
 
         def sweep(v, a_c):  # K1's scores a - 2 q.x
             return bruteforce._surrogate_topk(
-                v.float().contiguous(), a_c, queries.contiguous(), k)
+                v.contiguous(), a_c, queries.contiguous(), k)
     if g.values.dtype == torch.float32:
         s, ids = sweep(vals, a)
     else:
@@ -641,8 +642,8 @@ def _exact_search_batch(g: DeviceGraph, queries, k: int, approx: bool = False,
 
 
 #: corpus rows per chunk of the sweeps over stores that are not f32 (the
-#: JAX package's ``_EXACT_SWEEP_CHUNK``): each chunk is cast for its kernel
-#: alone, so no whole-corpus cast is made
+#: JAX package's ``_EXACT_SWEEP_CHUNK``, which casts each chunk for its
+#: kernel; the port's kernels read the stored rows)
 _EXACT_SWEEP_CHUNK = 1 << 18
 
 

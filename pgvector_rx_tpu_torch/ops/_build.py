@@ -46,13 +46,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # base, a, q, q_big, q_small, n, d, b, k, kl, splits, rows_per_split,
-    # part_d, part_i, sel_d, sel_i, out_d, out_i, stream
-    "pgv_k1_surrogate_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P, _P, _P],
-    # base, a, q, n, d, b, k, tn, splits, tiles_per_split, bins,
-    # out_d, out_i, stream
-    "pgv_k2_binned_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # base, dtype, a, q, q_big, q_small, n, d, b, k, kl, splits,
+    # rows_per_split, part_d, part_i, sel_d, sel_i, out_d, out_i, stream
+    "pgv_k1_surrogate_topk": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # base, dtype, a, q, n, d, b, k, tn, bins_per_block, splits,
+    # tiles_per_split, bins, out_d, out_i, stream
+    "pgv_k2_binned_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P],
     # base, a, q, n, d, b, tn, nc, splits, tiles_per_split, out, stream
     "pgv_k3_tilemin": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -9,10 +9,13 @@ Three kernels, hand-written in CUDA for Hopper (``csrc/k1_topk.cu``,
   ``a - 2 q.x`` without a [B, N] score matrix in device memory: three
   tf32 ``wgmma`` products per FP32 product select k + 4 candidates per
   query, rescored exactly in FP32. Replaces the Pallas
-  ``_topk_kernel``.
+  ``_topk_kernel``. It reads f16 and bf16 rows as stored (two products:
+  their tf32 small half is 0), so a compact store's chunk needs no f32
+  copy.
 - **K2** (``binned_sweep_topk``): bf16 sweep keeping a running per-bin
   minimum (bin = row mod ``tn``), then a top-k over the bins. Replaces the
-  Pallas ``_binned_kernel``.
+  Pallas ``_binned_kernel``. It reads f16 rows too, rounding each value to
+  bf16 as the cast would.
 - **K3** (``tilemin_sweep_topk``): bf16 sweep emitting one packed int32
   per (query, ``tn``-row tile) -- the tile's min score bits with the low
   10 bits replaced by the winning column -- then a top-k over the tiles.
@@ -50,41 +53,64 @@ _MAX_K = 64
 
 
 @functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _block_target(dev: torch.device) -> int:
     """Blocks a K1 / K2 / K3 grid aims for: one wave, two resident blocks
     per SM of the card it runs on. More splits would only cost: each
     split's blocks refill their top-k lists (K1), write their bins (K2) or
-    reload their query tile (K3) again."""
-    return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    reload their query tile (K3) again. K1's 2-byte mode and K2's
+    streamed form fill an SM with one block: they aim for ``_sm_count``."""
+    return 2 * _sm_count(dev)
 
 
 #: queries per block of K1 / K2 / K3, and K2's bins (corpus rows) per block
 _K1_QTILE, _K2_QTILE, _K2_BINS, _K3_QTILE = 64, 128, 64, 128
+#: K1's 2-byte mode: queries per block and rows per chunk
+_K1C_QTILE, _K1C_CHUNK = 128, 256
+#: K2's streamed form (f16 rows, bf16 rows past ``_K2_RESIDENT_MAX_D``):
+#: bins per block
+_K2S_BINS = 128
+#: the most tiles a block of K2's streamed form covers (k2_binned.cu's
+#: ksMaxTiles)
+_K2S_MAX_TILES = 0xFFFF
+#: the widest bf16 rows whose 128-query tile K2 keeps in shared memory
+#: (``csrc/k2_binned.cu``: k2_smem_bytes(units) <= k2MaxSmem)
+_K2_RESIDENT_MAX_D = 768
 #: list places K1 keeps beyond k for its exact rescoring
 _K1_SPARE = 4
+#: the row dtypes K1 reads, by the code its C entry takes (K2: 1 and 2)
+_ROW_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
-def _k1_plan(n: int, b: int, target: int):
+def _k1_plan(n: int, b: int, target: int, qtile: int = _K1_QTILE,
+             chunk: int = 64):
     """K1's grid: (query tiles, splits, rows per split), at most ``target``
     blocks where the query tiles allow. Every split covers rows
     [s * rows, min(n, (s + 1) * rows)), all non-empty; rows is a multiple
-    of 64 (the kernel's chunk)."""
-    qtiles = -(-b // _K1_QTILE)
-    chunks = -(-n // 64)
+    of ``chunk`` (the kernel's). ``qtile`` and ``chunk`` are 64 for f32
+    rows, 128 and 256 for 2-byte rows."""
+    qtiles = -(-b // qtile)
+    chunks = -(-n // chunk)
     splits = max(1, min(chunks, 65535, target // qtiles))
-    rows = -(-chunks // splits) * 64
+    rows = -(-chunks // splits) * chunk
     return qtiles, -(-n // rows), rows
 
 
-def _k2_plan(n: int, b: int, tn: int, target: int):
+def _k2_plan(n: int, b: int, tn: int, target: int, bins: int = _K2_BINS):
     """K2's grid: (query tiles, bin groups, splits, tiles per split), at
     most ``target`` blocks where the query tiles and bin groups allow.
     Split s covers tiles [s * tps, min(ntiles, (s + 1) * tps)) of tn rows,
-    all non-empty; bin group g covers bins [64 g, 64 g + 64)."""
+    all non-empty; bin group g covers bins [bins g, bins (g + 1)):
+    ``bins`` is 64 in the resident form, 128 in the streamed one."""
     qtiles = -(-b // _K2_QTILE)
-    groups = tn // _K2_BINS
+    groups = tn // bins
     ntiles = -(-n // tn)
     splits = max(1, min(ntiles, 65535, target // (qtiles * groups)))
+    # a block of the streamed form keeps its cells' tiles in 16 bits
+    splits = max(splits, -(-ntiles // _K2S_MAX_TILES))
     tps = -(-ntiles // splits)
     return qtiles, groups, -(-ntiles // tps), tps
 
@@ -204,7 +230,10 @@ def _check_cuda(name, t, dtype, ndim, device=None):
 def _surrogate_topk_cuda(base, a, queries, k: int):
     from . import _build
 
-    _check_cuda("base", base, torch.float32, 2)
+    if base.dtype not in _ROW_CODE:
+        raise ValueError("base must be float32, float16 or bfloat16 (got "
+                         f"{base.dtype})")
+    _check_cuda("base", base, base.dtype, 2)
     _check_cuda("a", a, torch.float32, 1, base.device)
     _check_cuda("queries", queries, torch.float32, 2, base.device)
     n, d = base.shape
@@ -216,10 +245,14 @@ def _surrogate_topk_cuda(base, a, queries, k: int):
         raise ValueError(f"k must be in [1, {_MAX_K}] (got {k})")
     if n == 0 or b == 0 or d == 0:
         raise ValueError("empty base, queries or feature dimension")
-    _, splits, rows_per_split = _k1_plan(n, b, _block_target(base.device))
+    dev = base.device
+    if base.dtype == torch.float32:
+        _, splits, rows_per_split = _k1_plan(n, b, _block_target(dev))
+    else:  # the 2-byte mode: one block an SM
+        _, splits, rows_per_split = _k1_plan(n, b, _sm_count(dev),
+                                             _K1C_QTILE, _K1C_CHUNK)
     q_big, q_small = _tf32_split(queries)
     kl = min(_MAX_K, k + _K1_SPARE)
-    dev = base.device
     part_d = torch.empty((b, splits, kl), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, splits, kl), dtype=torch.int32, device=dev)
     sel_d = torch.empty((b, kl), dtype=torch.float32, device=dev)
@@ -228,7 +261,8 @@ def _surrogate_topk_cuda(base, a, queries, k: int):
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):  # the C entry launches on the current one
         rc = _build.lib().pgv_k1_surrogate_topk(
-            base.data_ptr(), a.data_ptr(), queries.data_ptr(),
+            base.data_ptr(), _ROW_CODE[base.dtype], a.data_ptr(),
+            queries.data_ptr(),
             q_big.data_ptr(), q_small.data_ptr(), n, d, b, k, kl, splits,
             rows_per_split, part_d.data_ptr(), part_i.data_ptr(),
             sel_d.data_ptr(), sel_i.data_ptr(), out_d.data_ptr(),
@@ -279,8 +313,10 @@ def _surrogate_topk_rounds(base, a, queries, k: int):
 
 def _surrogate_topk(base, a, queries, k: int):
     """Exact top-k of ``a - 2 q.x`` -> (scores [B,k] f32, ids [B,k] i32),
-    ascending; excluded/empty slots are (inf, -1). CPU tensors take the
-    plain version, CUDA tensors the K1 kernel (in rounds past k = 60)."""
+    ascending; excluded/empty slots are (inf, -1). ``base`` is f32, f16 or
+    bf16 (K1 reads 2-byte rows as stored; the plain version widens them),
+    ``queries`` f32. CPU tensors take the plain version, CUDA tensors the
+    K1 kernel (in rounds past k = 60)."""
     if not base.is_cuda:
         sd, si = _surrogate_topk_plain(base, a, queries, k)
     elif k > _ROUND_K:
@@ -356,10 +392,22 @@ def _binned_plain(base, a, queries, k: int, tn: int):
     return sd, si
 
 
+def _k2_bins_per_block(d: int, dtype) -> int:
+    """K2's form for rows of width ``d``: its resident form (64 bins a
+    block) for bf16 rows up to ``_K2_RESIDENT_MAX_D``, else the streamed
+    one (128)."""
+    if dtype == torch.bfloat16 and d <= _K2_RESIDENT_MAX_D:
+        return _K2_BINS
+    return _K2S_BINS
+
+
 def _binned_cuda(base, a, queries, k: int, tn: int):
     from . import _build
 
-    _check_cuda("base", base, torch.bfloat16, 2)
+    if base.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError("base must be bfloat16 or float16 (got "
+                         f"{base.dtype})")
+    _check_cuda("base", base, base.dtype, 2)
     _check_cuda("a", a, torch.float32, 1, base.device)
     _check_cuda("queries", queries, torch.bfloat16, 2, base.device)
     n, d = base.shape
@@ -376,16 +424,21 @@ def _binned_cuda(base, a, queries, k: int, tn: int):
     if b > _K2_QTILE * 65535 or n + tn > 2**31:
         raise ValueError(f"at most {_K2_QTILE * 65535} queries and 2^31 - "
                          f"tn rows per call (got {b}, {n})")
-    _, _, splits, tiles_per_split = _k2_plan(n, b, tn,
-                                             _block_target(base.device))
     dev = base.device
+    bins_per_block = _k2_bins_per_block(d, base.dtype)
+    target = (_block_target(dev) if bins_per_block == _K2_BINS
+              else _sm_count(dev))
+    _, _, splits, tiles_per_split = _k2_plan(n, b, tn, target, bins_per_block)
+    if a.data_ptr() % 16:  # the resident form copies `a` 16 bytes at a time
+        a = a.clone()
     bins = torch.empty((b, tn), dtype=torch.int64, device=dev)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _build.lib().pgv_k2_binned_topk(
-            base.data_ptr(), a.data_ptr(), queries.data_ptr(), n, d, b, k,
-            tn, splits, tiles_per_split, bins.data_ptr(), out_d.data_ptr(),
+            base.data_ptr(), _ROW_CODE[base.dtype], a.data_ptr(),
+            queries.data_ptr(), n, d, b, k, tn, bins_per_block, splits,
+            tiles_per_split, bins.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "pgv_k2_binned_topk")
@@ -397,7 +450,9 @@ def binned_sweep_topk(base_bf16, a, queries, k: int, metric: str,
                       tn: int = 1024):
     """Fused bf16 sweep + binned top-k -> (distances [B,k], ids [B,k]).
 
-    Scores are bf16 operands with f32 accumulation; selection keeps the
+    ``base_bf16`` is bf16, or f16 that K2 rounds to bf16 as it reads it
+    (the plain version casts). Scores are bf16 operands with f32
+    accumulation; selection keeps the
     best row per bin (bin = row mod tn), so two true top-k rows in one bin
     keep only the nearer (expected recall loss ~ (k-1)/(2 tn)). Rows with
     ``a >= _NEG_BIG`` come back as -1 / inf. Distances are restored per
