@@ -19,9 +19,10 @@ counts set to 0 just before it and read just after:
    invariants on the card;
 4. ground truth: K1 ``l2_topk`` over all queries in chunks of 1,024,
    checked against float64 numpy on 64 queries;
-5. ``serve_topk`` with the exact, approx and beam (ef=40, the walk kernel
-   K4) engines: one warm call and one timed call each, recall@10 and qps
-   against floors;
+5. ``serve_topk`` with the exact, approx and beam (ef=40: K7's coarse
+   seeds, then the walk kernel K4) engines: one warm call and one timed
+   call each, recall@10 and qps against floors, the timed call's peak
+   device memory;
 6. the tile-min probe's A/B over all queries in 1,024-query chunks: K3 at
    tn=1024 then the f32 rescore, K2 at tn=1024, the approx engine;
 7. ``HnswIndex.search`` with exact / approx / device, held against
@@ -43,7 +44,13 @@ Then, outside the counted paths:
    bf16, the K3 check a control that ORs the column into uncleared score
    bits. K3 is timed end to end (``ms``) and its sweep kernel alone
    (``kernel_ms``). Each kernel's bound is computed from the shapes and
-   the card's published peaks (``PEAKS``).
+   the card's published peaks (``PEAKS``). Then K7, the beam engine's
+   coarse seed sweep, over phase 3's upper rows at 1,024 queries and at
+   one, held to its plain version (the same 8 seeds but for ties of their
+   float64 scores; the check must reject the plain top-9 with its 8th
+   seed dropped) and timed beside the route it replaces, its plain
+   version (the f32 product of the bf16-rounded operands, the mask,
+   ``torch.topk``, each also timed alone).
 
 **Insert-and-scan path** (9-12, on the index of phase 3):
 
@@ -94,11 +101,17 @@ and 7 on it.
 ``bench_suite.py``): a 1,000,000 x 768-d corpus (``make_dataset``, seed 0)
 built on the card with the beam-descent ground from a CUDA tensor (build
 seconds, rows/s, peak memory, device time of the candidate step, the walk
-and the commit), its invariants, K1 ground truth checked against float64
-on 64 queries, and the three engines against the same floors; then K1, K2
-and K4 at d = 768 against their plain versions, with ms, bound and share,
-and K4 ranking in bf16 (the rows' bf16 copy) against its plain version on
-64 queries, timed at 1,024 in turns with the f32 walk.
+(K8) and the commit), its invariants, K1 ground truth checked against
+float64 on 64 queries, and the three engines against the same floors;
+then K8 on the build's 600th batch (its inputs kept by ``K8Capture``)
+against its plain version in the sort, no-dedup and rank merges (ids
+equal but for ties, distances to rtol 1e-5, on every row; each must
+reject the plain walk cut to a quarter of its steps), timed beside
+its bound (the rows that batch scores) and the build's span per batch (a
+``{"k8": ...}`` line); K1, K2, K4 and K7 at d = 768 against their plain
+versions, with ms, bound and share, and K4 ranking in bf16 (the rows'
+bf16 copy) against its plain version on 64 queries, timed at 1,024 in
+turns with the f32 walk.
 
 **l1 path** (19, the first 262,144 rows of phase 2's corpus, cut from 1M
 for the run's time): the device build (l1 takes the beam ground), the
@@ -205,10 +218,11 @@ byte bound.
 configuration, ``bench_suite.py:141-170``, uncut): 1,000,000 x 1,024-d
 (``make_dataset``, seed 6, intrinsic 32) built on the card with an f16
 store (build s, rows/s), K1 ground truth over the f16 store in chunks held
-to float64 on 64 queries, exact / approx / beam over 4,096 queries (floors
+to float64 on 64 queries (the build's beam ground: device seconds,
+batches, K8's launches), exact / approx / beam over 4,096 queries (floors
 1.0 / 0.98 / 0.80) with each call's peak device memory above the graph
-(exact and approx below ``HV_PEAK``: K1 and K2 read the stored rows, no
-chunk is cast), the same engines over the rows staged as a bf16 store,
+(below ``HV_PEAK``: K1 and K2 read the stored rows, no chunk is cast, and
+K7 writes no [B, U] score matrix), the same engines over the rows staged as a bf16 store,
 and K1's 2-byte mode and K2's streamed form on a stored chunk of each
 store against their plain versions and the parent's route (the chunk's
 cast, then the kernel; K1's check must reject the f16 rows rounded to
@@ -227,8 +241,8 @@ rows, phase 4's ground truth, beside phase 3's build and recall);
 cut for the run's time; mean layer-0 out-degree of both); and at
 262,144 x 768-d cosine (phase 18's first rows, the beam ground) the
 default sort merge, ``BEAM_MERGE=rank`` (each beam ground's device span
-per batch beside its bound, a ``{"torch_ops": ...}`` line) and the sort
-merge with ``consume_input=True``, whose caller's tensor must hold no
+per batch, K8 after the seeds' torch ops, beside its bound, a
+``{"k8_builds": ...}`` line) and the sort merge with ``consume_input=True``, whose caller's tensor must hold no
 storage after the build (its peak printed beside the sort build's).
 
 **The sharded configuration** (28, its own path, run last): BASELINE's
@@ -258,11 +272,12 @@ the same graphs as without), saved and loaded with ids unchanged; one
 shard's ``search`` with ``PGV_SCAN_STATS`` (the steps K4 reports); and
 ``dryrun_multichip(4)``.
 
-Each path's kernels must have run on it: K1-K3, K3's shift reduction and
-K4 on the device-build path, K1, K2, K4 and K5 on the insert-and-scan
-path, K1, K2 and K4 on the native and the 768-d paths, K4 on the l1
-path, both forms of K9 and K4 (word mode) on the bit path, K9's
-tensor-core form and K4 on the jaccard path, K1, K9's tensor-core form
+Each path's kernels must have run on it: K1-K3, K3's shift reduction, K4
+and K7 on the device-build path, K1, K2, K4, K5 and K7 on the
+insert-and-scan path, K1, K2, K4 and K7 on the native path and, with K8,
+on the 768-d path, K4 and K8 on the l1 path, both forms of K9, K4 (word
+mode) and K8 on the bit path, K9's tensor-core form, K4 and K8 on the
+jaccard path, K8, K1, K2, K4 and K7 on the halfvec path, K1, K9's tensor-core form
 and K4 in phase 23, both forms of K10, its mapping and K4 (sparse mode)
 on the sparse path; on the sharded path, each counted around its own call
 with every count set to 0 just before it: K1 in the exact search, the
@@ -363,8 +378,9 @@ HV_BF16_FLOORS = {"exact": 0.95, "approx": 0.95, "beam": 0.80}
 #: halves, K1's lists and the row terms (~40 MiB) and the approx call also
 #: the rescore's [1,024, 10, 1,024] gather in f16 and f32 and its products
 #: (~130 MiB); the parent's cast of one chunk alone was 1 GiB (f32) or 512
-#: MiB (bf16)
-HV_PEAK = {"exact": 128 << 20, "approx": 256 << 20}
+#: MiB (bf16); the beam call holds K7's seeds and K4's beams (its [1,024,
+#: 62,500] f32 score matrix before K7 took 738.0 MiB)
+HV_PEAK = {"exact": 128 << 20, "approx": 256 << 20, "beam": 256 << 20}
 #: the sharded configuration (28): BASELINE config 5 (configs/sharded_100m.py)
 #: cut to this many shards of this many rows on one card (262,144, not the
 #: main path's 1M, since the whole smoke passed 1,000 s with 1M and 1,150 s
@@ -668,23 +684,39 @@ def timed_serve(device_mod, index, q, engine, ef=EF):
 
 
 def serve_engines(index, q_dev, recall, bf, device_mod, tag):
+    """The three engines over ``q_dev``: recall@10, qps and the timed
+    call's peak device memory above what was allocated before it; each
+    engine's kernels must launch (the beam: K7's coarse seeds, then K4)."""
     results = {}
-    for engine, kname in (("exact", "k1_topk"), ("approx", "k2_binned"),
-                          ("beam", "k4_beam")):
+    for engine, knames in (("exact", ("k1_topk",)),
+                           ("approx", ("k2_binned",)),
+                           ("beam", ("k7_coarse", "k4_beam"))):
         with Phase(f"{tag} serve_topk {engine}"):
             before = dict(bf.LAUNCHES)
-            d, ids, dt = timed_serve(device_mod, index, q_dev, engine)
+            dev = q_dev.device
+            device_mod.serve_topk(index, q_dev, K, engine=engine, ef=EF)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.time()
+            d, ids = device_mod.serve_topk(index, q_dev, K, engine=engine,
+                                           ef=EF)
+            dt = time.time() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - base
             rec = recall(ids)
             results[engine] = (d, ids)
             log(f"{tag} {engine}: recall@10={rec:.4f} "
                 f"qps={q_dev.shape[0] / dt:.1f} ({dt:.4f} s for "
-                f"{q_dev.shape[0]} queries)")
+                f"{q_dev.shape[0]} queries); peak device memory above the "
+                f"allocation before the call {peak / 2**20:.1f} MiB")
             if d.shape != (q_dev.shape[0], K) or not np.isfinite(d).all():
                 raise RuntimeError(f"{engine}: non-finite or misshapen output")
             if rec < FLOORS[engine]:
                 raise RuntimeError(f"{engine}: recall {rec} < {FLOORS[engine]}")
-            if bf.LAUNCHES[kname] <= before[kname]:
-                raise RuntimeError(f"{engine}: kernel {kname} did not launch")
+            for kname in knames:
+                if bf.LAUNCHES[kname] <= before[kname]:
+                    raise RuntimeError(f"{engine}: kernel {kname} did not "
+                                       "launch")
     return results
 
 
@@ -1307,6 +1339,217 @@ def timed_build(HnswIndex, db, x, metric, params, dev, n, tag,
                     len(st.pairs["_beam_ground_candidates"]))
 
 
+def coarse_scores(rows, a, live, q, slots, l2):
+    """[B, S] float64 scores of the bf16 operands of K7's function at
+    ``slots`` (-1: none), inf where none or not live."""
+    s = slots.clamp(min=0)
+    dots = (rows[s].double() * q.to(torch.bfloat16).double()[:, None, :]
+            ).sum(-1)
+    sc = a.double()[s] - (2.0 * dots if l2 else dots)
+    return torch.where((slots >= 0) & live[s], sc, float("inf"))
+
+
+def coarse_agreement(rows, a, live, q, slots_k, slots_p, l2):
+    """Per query of two seed lists (the kernel's, the plain version's):
+    the same finite count, the float64 scores of their slots equal in
+    sorted order to 1e-5 of the scale, and slots that differ only where
+    their score ties the S-th. Returns (agreeing queries [B] bool, max abs
+    difference of the sorted scores)."""
+    sk = coarse_scores(rows, a, live, q, slots_k, l2).cpu().numpy()
+    sp = coarse_scores(rows, a, live, q, slots_p, l2).cpu().numpy()
+    ik, ip_ = slots_k.cpu().numpy(), slots_p.cpu().numpy()
+    ok = np.zeros(sk.shape[0], bool)
+    err = 0.0
+    for b in range(sk.shape[0]):
+        fk, fp = np.isfinite(sk[b]), np.isfinite(sp[b])
+        if fk.sum() != fp.sum():
+            continue
+        a_s, p_s = np.sort(sk[b][fk]), np.sort(sp[b][fp])
+        if not fp.any():
+            ok[b] = True
+            continue
+        tol = 1e-5 * max(1.0, float(np.abs(p_s).max()))
+        diff = np.abs(a_s - p_s)
+        err = max(err, float(diff.max()))
+        sc = dict(zip(ik[b].tolist(), sk[b].tolist()))
+        sc.update(zip(ip_[b].tolist(), sp[b].tolist()))
+        odd = set(ik[b][fk].tolist()) ^ set(ip_[b][fp].tolist())
+        ok[b] = bool((diff <= tol).all()) and all(
+            abs(sc[e] - p_s[-1]) <= tol for e in odd)
+    return ok, err
+
+
+def k7_check(bf, device_mod, g, q1, name, dim):
+    """K7 against its plain version over graph ``g``'s upper rows for the
+    queries ``q1`` (1,024) and for one query (the beam scan's seeding),
+    S = 8: the same seeds on every query but for ties (the check must
+    reject the plain top-9 with its 8th seed dropped); timed beside the
+    route it replaces (the plain version: the f32 product of the rounded
+    operands, the mask, ``torch.topk``, each also alone), at 1,024 queries
+    and at one, and its bound. Returns its kernels row."""
+    ids, rows, a, _ = device_mod.upper_row_arrays(g)
+    trav, live = g.traversable, g.traversable[ids]
+    l2, S = g.metric == "l2", 8
+    args = (rows, a, ids, trav)
+    sk, ik = bf._coarse_cuda(*args, q1, S, l2)
+    sp, _ = bf._coarse_plain(*args, q1, S, l2)
+    s9, _ = bf._coarse_plain(*args, q1, S + 1, l2)
+    ctl = torch.cat([s9[:, : S - 1], s9[:, S:]], 1)
+    ok, err = coarse_agreement(rows, a, live, q1, sk, sp, l2)
+    ok_c, _ = coarse_agreement(rows, a, live, q1, ctl, sp, l2)
+    ok1, _ = coarse_agreement(rows, a, live, q1[:1],
+                              bf._coarse_cuda(*args, q1[:1], S, l2)[0],
+                              bf._coarse_plain(*args, q1[:1], S, l2)[0], l2)
+    if not torch.equal(torch.where(sk >= 0, ids[sk.clamp(min=0)], -1), ik):
+        raise RuntimeError(f"{name}: seed ids are not the slots' elements")
+    log(f"{name}: {ok.mean():.4f} of {q1.shape[0]} queries equal to the "
+        f"plain version but for ties (one query: {bool(ok1.all())}), max "
+        f"abs err {err}; control with the 9th seed for the 8th: "
+        f"{ok_c.mean():.4f}")
+    if not ok.all() or not ok1.all():
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    if ok_c.all():
+        raise RuntimeError(f"the {name} check passes a wrong seed")
+    qb = q1.to(torch.bfloat16).float()
+    dots = qb @ rows.float().T
+    scores = torch.where(live[None, :], a[None, :] - (
+        2.0 * dots if l2 else dots), float("inf"))
+    split = dict(
+        product_ms=cuda_ms(lambda: q1.to(torch.bfloat16).float()
+                           @ rows.to(torch.bfloat16).float().T),
+        mask_ms=cuda_ms(lambda: torch.where(
+            trav[ids][None, :], a[None, :] - (2.0 * dots if l2 else dots),
+            float("inf"))),
+        topk_ms=cuda_ms(lambda: torch.topk(scores, S, dim=1, largest=False,
+                                           sorted=True)))
+    del dots, scores
+    U, B = rows.shape[0], q1.shape[0]
+    plain_ms = cuda_ms(lambda: bf._coarse_plain(*args, q1, S, l2))
+    row = dict(
+        name=name, route="cuda", source=CSRC + "k7_coarse.cu",
+        replaces=f"{JAX_DEVICE}:828 (_search_batch_coarse's sweep, mask "
+                 "and top_k, XLA; the port's torch route)",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: bf._coarse_cuda(*args, q1, S, l2)),
+        one_query_ms=cuda_ms(lambda: bf._coarse_cuda(*args, q1[:1], S, l2)),
+        one_query_plain_ms=cuda_ms(
+            lambda: bf._coarse_plain(*args, q1[:1], S, l2)),
+        plain_ms=plain_ms, library_ms=plain_ms,
+        library_of="the route it replaces (its plain version): the f32 "
+                   "product of the bf16-rounded operands, a - 2 q.x, the "
+                   "mask, torch.topk",
+        route_split=split, upper_rows=U,
+        **bound(2.0 * B * U * dim, "bf16",
+                U * dim * 2 + U * (4 + 8 + 1) + B * dim * 2 + B * S * 16))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log(f"{name}: kernel {row['ms']:.4f} ms (one query "
+        f"{row['one_query_ms']:.4f}), the route {plain_ms:.4f} ms (product "
+        f"{split['product_ms']:.4f}, mask {split['mask_ms']:.4f}, topk "
+        f"{split['topk_ms']:.4f}; one query "
+        f"{row['one_query_plain_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), share {row['share_of_bound']:.4f}, "
+        f"{U:,} upper rows")
+    return row
+
+
+class K8Capture:
+    """Keeps the inputs of the ``at``-th call of
+    ``DeviceBuilder._beam_ground_candidates`` in a build (the layer-0
+    tables cloned: the batch's commit changes them), for K8's check
+    against its plain version at the main path's shapes."""
+
+    def __init__(self, db, at):
+        self.cls, self.at, self.n, self.args = db.DeviceBuilder, at, 0, None
+
+    def __enter__(self):
+        self.orig = orig = self.cls._beam_ground_candidates
+
+        def wrapped(obj, data, arrays, q_rows, seed_d, seed_ids, *a, **kw):
+            self.n += 1
+            if self.n == self.at:
+                self.args = (obj, data, dataclasses.replace(
+                    arrays, nb0_ids=arrays.nb0_ids.clone(),
+                    alive=arrays.alive.clone(), entry=arrays.entry.clone()),
+                    q_rows.clone(), seed_d.clone(), seed_ids.clone())
+            return orig(obj, data, arrays, q_rows, seed_d, seed_ids, *a, **kw)
+        self.cls._beam_ground_candidates = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._beam_ground_candidates = self.orig
+        return False
+
+
+#: K8's time per 1,024-row batch at 768-d before this kernel (the torch
+#: ops' device span in phase 18's build; PERF.md, NVIDIA H100 80GB HBM3 at
+#: 700 W)
+K8_EARLIER_MS = 22.7234
+
+
+def k8_check(db, cap, ground_s, batches):
+    """K8 against its plain version on a batch captured from a build
+    (``K8Capture``), in its three merges: ids equal but for ties and
+    distances to rtol 1e-5 on every row (each check must reject the plain
+    walk cut to a quarter of its steps even at 0.99 of the rows); each timed beside its
+    bound, counted from the rows this batch's walk scores. Returns the
+    rows (the sort merge's first, with the build's span per batch)."""
+    b, data, arrays, q, sd, sids = cap.args
+    st = b.settings
+    steps, E = st.beam_steps or 16, st.beam_expand
+    B, dim = q.shape
+    W, L = b.efc, arrays.nb0_ids.shape[1]
+    rows = []
+    for tag, dedup, merge in (("sort", True, "sort"),
+                              ("nodedup", False, "sort"),
+                              ("rank", True, "rank")):
+        bd, bkey = b._beam_ground_seeds(data, arrays, q, sd, sids, merge)
+        args = (data.vectors_bf16, arrays.nb0_ids, arrays.alive, b.cap,
+                b.metric, q, bd, bkey)
+        kw = dict(expand=E, dedup=dedup, merge=merge)
+        dk, ik = db._beam_ground_cuda(*args, steps, **kw)
+        scored = []
+        dp, ip_ = db._beam_ground_plain(*args, steps, scored=scored, **kw)
+        dc, ic = db._beam_ground_plain(*args, steps // 4, **kw)
+        dk, ik, dp, ip_, dc, ic = (t.cpu().numpy() for t in
+                                   (dk, ik, dp, ip_, dc, ic))
+        ok, err = walk_agreement(ik, dk, ip_, dp)
+        ok_c, _ = walk_agreement(ic, dc, ip_, dp)
+        n_scored = float(sum(int(t) for t in scored))
+        name = "k8_beam_ground" + ("" if tag == "sort" else f"_{tag}")
+        log(f"{name}: {ok.mean():.4f} of {B} rows equal to the plain walk "
+            f"but for ties (max abs err {err}); control cut to "
+            f"{steps // 4} steps {ok_c.mean():.4f}; "
+            f"{n_scored / B:.1f} rows scored a row")
+        if not ok.all():
+            raise RuntimeError(f"{name} disagrees with its plain version")
+        if ok_c.mean() >= 0.99:
+            raise RuntimeError(f"the {name} check passes a walk cut short")
+        nbytes = (B * steps * E * L * 5 + n_scored * dim * 2
+                  + B * (dim * 4 + W * 8 + W * 12))
+        row = dict(
+            name=name, route="cuda", source=CSRC + "k8_beam_ground.cu",
+            replaces="pgvector_rx_tpu/graph/device_build.py:1052 (the beam "
+                     f"ground's {tag} walk, XLA; the port's torch ops)",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: db._beam_ground_cuda(*args, steps, **kw)),
+            plain_ms=cuda_ms(lambda: db._beam_ground_plain(*args, steps,
+                                                           **kw), 3),
+            library_ms=None, scored_per_row=n_scored / B,
+            **bound(2.0 * n_scored * dim, "f32", nbytes))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if tag == "sort":
+            row["span_ms_per_batch"] = ground_s / batches * 1e3
+        log(f"{name}: kernel {row['ms']:.4f} ms a {B}-row batch, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), share {row['share_of_bound']:.4f}"
+            + (f"; the build's span {row['span_ms_per_batch']:.4f} ms a "
+               f"batch over {batches} batches (the torch ops before this "
+               f"kernel: {K8_EARLIER_MS} ms, PERF.md)"
+               if tag == "sort" else ""))
+        rows.append(row)
+    return rows
+
+
 def kernel_row(name, err, ms, plain_ms, bnd):
     row = dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
     row["share_of_bound"] = row["bound_ms"] / ms
@@ -1317,22 +1560,23 @@ def kernel_row(name, err, ms, plain_ms, bnd):
 
 
 def k8_row(db, ground_s, batches, b=CHUNK, dim=D768, name="k8_beam_ground"):
-    """The beam ground (K8, torch ops) of a 768-d build: its device span
-    per batch beside the bound of one b-row batch, worked out from
-    ``DeviceBuilder._beam_ground_candidates`` at the default settings
-    (either merge does the same gathers and scores): each of 16 steps
-    gathers, for each of the ``beam_expand`` expanded entries, its 2m
-    layer-0 ids (4 bytes), their live flags (1 byte) and their bf16 rows
-    (every slot: the code gathers full lists), and scores them in f32 (a
-    multiply-add per value); each query reads its f32 row once and writes
+    """The beam ground of a 768-d build (the seeds in torch ops, then K8):
+    its device span per batch beside the bound of one b-row batch, worked
+    out from ``DeviceBuilder._beam_ground_candidates`` at the default
+    settings (either merge does the same gathers and scores): each of 16
+    steps gathers, for each of the ``beam_expand`` expanded entries, its
+    2m layer-0 ids (4 bytes), their live flags (1 byte) and their bf16
+    rows (every slot: the most a batch can read; ``k8_check`` counts the
+    rows a captured batch scores), and scores them in f32 (a multiply-add
+    per value); each query reads its f32 row once and writes
     ef_construction (distance, id) pairs."""
     st = db.BuildSettings()
     slots = b * (st.beam_steps or 16) * st.beam_expand * 2 * M
     nbytes = slots * (4 + 1 + dim * 2) + b * (dim * 4 + EF_CONSTRUCTION * 12)
     row = dict(
-        name=name, route="torch ops",
-        source="pgvector_rx_tpu_torch/graph/device_build.py "
-               "(DeviceBuilder._beam_ground_candidates)",
+        name=name, route="cuda",
+        source=CSRC + "k8_beam_ground.cu (after the seeds' torch ops, "
+               "DeviceBuilder._beam_ground_seeds)",
         replaces="pgvector_rx_tpu/graph/device_build.py:1052 (the beam "
                  "ground, XLA)",
         launches=batches, ms=ground_s / batches * 1e3,
@@ -1346,11 +1590,12 @@ def k8_row(db, ground_s, batches, b=CHUNK, dim=D768, name="k8_beam_ground"):
 
 
 def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
-               beam, dev):
+               beam, dev, kernels):
     """Phase 18: BASELINE's 768-d cosine configuration at 1,000,000 rows,
-    full width, on the card; then K1, K2 and K4 at d = 768 against their
-    plain versions. Returns phase 27's 768-d rows (a copy of the first
-    ``N27``, raw) and the normalized queries."""
+    full width, on the card; then K8 on a batch of its build (the 600th),
+    K1, K2, K4 and K7 at d = 768 against their plain versions; K8's sort
+    merge goes to ``kernels``. Returns phase 27's 768-d rows (a copy of
+    the first ``N27``, raw) and the normalized queries."""
     params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
     with Phase("18 data, 1,000,000 x 768-d"):
         data, queries = make_dataset(N768, D768, N_QUERIES, seed=0)
@@ -1359,12 +1604,12 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
         qn = torch.from_numpy(queries).to(dev)
         qn = (qn / qn.norm(dim=1, keepdim=True)).contiguous()
     bf.reset_launches()
-    idx, g, (ground_s, ground_batches) = timed_build(
-        HnswIndex, db, x, "cosine", params, dev, N768, "18")
+    with K8Capture(db, at=600) as cap:
+        idx, g, (ground_s, ground_batches) = timed_build(
+            HnswIndex, db, x, "cosine", params, dev, N768, "18")
     x27 = x[:N27].clone()
     del x
     torch.cuda.empty_cache()
-    k8 = k8_row(db, ground_s, ground_batches)
     with Phase("18 ground truth (K1 cosine_topk)"):
         xv = g.values[:N768]
         gt = torch.cat([bf.cosine_topk(xv, qn[s : s + CHUNK], K)[1]
@@ -1382,10 +1627,17 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
     serve_engines(idx, qn, recall_of(emit, emit[gt]), bf, device_mod, "18")
     launches = dict(bf.LAUNCHES)
     log(f"768-d path launches: {launches}")
-    for name in ("k1_topk", "k2_binned", "k4_beam"):
+    for name in ("k1_topk", "k2_binned", "k4_beam", "k7_coarse",
+                 "k8_beam_ground"):
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the 768-d path")
 
+    with Phase("18 K8 vs plain on a batch of the build"):
+        k8 = k8_check(db, cap, ground_s, ground_batches)
+        cap.args = None
+        torch.cuda.empty_cache()
+        kernels["k8_beam_ground"] = dict(
+            k8[0], launches=launches["k8_beam_ground"])
     rows = []
     with Phase("18 kernels vs plain at d = 768"):
         q1 = qn[:CHUNK].contiguous()
@@ -1447,8 +1699,9 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
                                     D768)
                   + CHUNK * (D768 * 4 + s_ids.shape[1] * 8 + EF * 8 + 8))))
         rows.append(k4_bf16_768(g, walk, kw, beam))
+        rows.append(k7_check(bf, device_mod, g, q1, "k7_coarse", D768))
     log(json.dumps({"d768": rows}))
-    log(json.dumps({"torch_ops": [k8]}))
+    log(json.dumps({"k8": k8}))
     del idx, g, xv
     torch.cuda.empty_cache()
     return x27, qn
@@ -1623,7 +1876,7 @@ def build_knobs(HnswIndex, device_mod, db, bf, data, queries, q_dev, gt,
                                name=f"k8_beam_ground_{tag}_{N27}"))
         del idx, g
         torch.cuda.empty_cache()
-    log(json.dumps({"torch_ops": rows}))
+    log(json.dumps({"k8_builds": rows}))
 
 
 def l1_path(HnswIndex, IndexParams, device_mod, db, bf, data, q_dev, dev):
@@ -1668,8 +1921,10 @@ def l1_path(HnswIndex, IndexParams, device_mod, db, bf, data, q_dev, dev):
             f"{rec:.4f}; l1 sweep calls {calls[0]}; launches {dict(bf.LAUNCHES)}")
         if bad or not np.allclose(d, ref_d, rtol=1e-5, atol=1e-4):
             raise RuntimeError("the l1 exact engine disagrees with float64")
-        if bf.LAUNCHES["k4_beam"] <= 0 or not calls[0]:
-            raise RuntimeError("the l1 path did not run K4 and the l1 sweep")
+        if (bf.LAUNCHES["k4_beam"] <= 0 or not calls[0]
+                or bf.LAUNCHES["k8_beam_ground"] <= 0):
+            raise RuntimeError("the l1 path did not run K4, K8 (its build's "
+                               "beam ground) and the l1 sweep")
         a = torch.where(g.traversable & (g.tid_count > 0), 0.0,
                         float("inf"))
         n_rows = g.values.shape[0]
@@ -2022,7 +2277,7 @@ def bit_path(HnswIndex, IndexParams, SearchParams, make_dataset, device_mod,
                                        "disagrees with the batch of 64")
     launches = dict(bf.LAUNCHES)
     log(f"bit path launches: {launches}")
-    for name in ("k9_bits", "k9_bits_tc", "k4_beam"):
+    for name in ("k9_bits", "k9_bits_tc", "k4_beam", "k8_beam_ground"):
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the bit path")
 
@@ -2170,7 +2425,7 @@ def jaccard_path(HnswIndex, IndexParams, device_mod, db, bf, bits_mod,
         if rec < BIT_FLOORS["beam"]:
             raise RuntimeError(f"jaccard beam recall {rec} < "
                                f"{BIT_FLOORS['beam']}")
-        for name in ("k9_bits_tc", "k4_beam"):
+        for name in ("k9_bits_tc", "k4_beam", "k8_beam_ground"):
             if launches[name] <= 0:
                 raise RuntimeError(f"kernel {name} never ran on the jaccard "
                                    "path")
@@ -3417,17 +3672,26 @@ def halfvec_path(HnswIndex, IndexParams, make_dataset, device_mod, bf, dev,
     with Phase(f"26 device build, {N_HV:,} x {D_HV}-d ip, f16 store"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.time()
-        idx = HnswIndex.build(x, metric="ip", params=params, method="device",
-                              dtype=np.float16, host_graph=False, device=dev,
-                              seed=1)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
+        bf.reset_launches()
+        with SectionTimer(db.DeviceBuilder,
+                          ("_beam_ground_candidates",)) as st:
+            t0 = time.time()
+            idx = HnswIndex.build(x, metric="ip", params=params,
+                                  method="device", dtype=np.float16,
+                                  host_graph=False, device=dev, seed=1)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
         g = idx.device_graph()
+        ground_s = st.seconds()["_beam_ground_candidates"]
         log(f"26 device build: {dt:.3f} s, {N_HV / dt:.1f} rows/s, peak "
             f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
             f" GiB; store {g.values.dtype}, {g.values.numel() * 2 / 2**30:.2f}"
-            " GiB")
+            f" GiB; the beam ground {ground_s:.3f} s of device time in "
+            f"{len(st.pairs['_beam_ground_candidates'])} batches (K8 "
+            f"launches {bf.LAUNCHES['k8_beam_ground']})")
+        if bf.LAUNCHES["k8_beam_ground"] <= 0:
+            raise RuntimeError("kernel k8_beam_ground never ran in the "
+                               "halfvec build")
         if g.values.dtype != torch.float16 or g.values_bf16 is not None:
             raise RuntimeError("the halfvec graph is not one f16 array")
         check_graph(g, M, N_HV)
@@ -3504,7 +3768,7 @@ def halfvec_path(HnswIndex, IndexParams, make_dataset, device_mod, bf, dev,
                         "copy of the rows?")
         out["launches"] = dict(bf.LAUNCHES)
         log(f"26 {tag} launches: {out['launches']}")
-        for name in ("k1_topk", "k2_binned", "k4_beam"):
+        for name in ("k1_topk", "k2_binned", "k4_beam", "k7_coarse"):
             if bf.LAUNCHES[name] <= 0:
                 raise RuntimeError(f"kernel {name} never ran on the "
                                    f"halfvec path ({tag})")
@@ -4066,7 +4330,7 @@ def main() -> int:
     main_launches = dict(bf.LAUNCHES)
     log(f"device-build path launches: {main_launches}")
     for name in ("k1_topk", "k2_binned", "k3_tilemin", "k3_x2max",
-                 "k4_beam"):
+                 "k4_beam", "k7_coarse"):
         if main_launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the main path")
 
@@ -4211,6 +4475,8 @@ def main() -> int:
         k3 = kernels["k3_tilemin"]
         log(f"k3_tilemin sweep kernel alone: {k3['kernel_ms']:.4f} ms, share "
             f"of bound {k3['bound_ms'] / k3['kernel_ms']:.4f}")
+        kernels["k7_coarse"] = k7_check(bf, device_mod, g, q1, "k7_coarse",
+                                        DIM)
 
     del g, vb, a
     torch.cuda.empty_cache()
@@ -4236,7 +4502,8 @@ def main() -> int:
         contract_044(HnswIndex, SearchParams, dev)
     scan_launches = dict(bf.LAUNCHES)
     log(f"insert-and-scan path launches: {scan_launches}")
-    for name in ("k1_topk", "k2_binned", "k4_beam", "k5_beam_scan"):
+    for name in ("k1_topk", "k2_binned", "k4_beam", "k5_beam_scan",
+                 "k7_coarse"):
         if scan_launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the "
                                "insert-and-scan path")
@@ -4290,7 +4557,7 @@ def main() -> int:
     res_n = serve_engines(nat, q_dev, recall_of(emit_n, gt_n), bf,
                           device_mod, "16")
     search_vs_serve(nat, queries, res_n, emit_n, SearchParams, "17")
-    for name in ("k1_topk", "k2_binned", "k4_beam"):
+    for name in ("k1_topk", "k2_binned", "k4_beam", "k7_coarse"):
         if bf.LAUNCHES[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the native path")
     log(f"native path launches: {dict(bf.LAUNCHES)}")
@@ -4301,7 +4568,7 @@ def main() -> int:
     from pgvector_rx_tpu_torch.graph import device_build as db
 
     x27, q768 = cosine_768(HnswIndex, IndexParams, make_dataset, device_mod,
-                           db, bf, beam, dev)
+                           db, bf, beam, dev, kernels)
     build_knobs(HnswIndex, device_mod, db, bf, data, queries, q_dev, gt,
                 main_build, x27, q768, dev)
     del x27, q768
@@ -4350,7 +4617,8 @@ def main() -> int:
                                  "k1_topk_2byte", "k2_binned_f16",
                                  "k4_words_visited", "k4_sparse_visited",
                                  "k5_beam_scan_expand4",
-                                 "k5_beam_scan_bf16")]}))
+                                 "k5_beam_scan_bf16", "k7_coarse",
+                                 "k8_beam_ground")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -383,15 +383,26 @@ def _search_batch(g: DeviceGraph, queries, ef: int, entry_level: int,
 
 
 def upper_row_arrays(g: DeviceGraph):
-    """(ids [U] int64, rows [U, D] bf16, U) of the level >= 1 elements,
-    computed once per DeviceGraph and cached on it (coarse seeding)."""
+    """(ids [U] int64, rows [U, D], a [U] f32, U) of the level >= 1
+    elements, computed once per DeviceGraph and cached on it (coarse
+    seeding). The rows are bf16 (an f16 store rounds once here, as the
+    JAX package's cast does at every sweep), the f32 ones of l1 as the JAX
+    package keeps them (its l1 sweep reads them in f32). ``a`` is K7's
+    row term: the f32 sum of the bf16 row's squares for l2, 0 for ip /
+    cosine (None for l1)."""
     cache = getattr(g, "_upper_cache", None)
     if cache is not None:
         return cache
     slot = g.upper_slot[: g.cap]
     ids = torch.nonzero(slot >= 0).flatten()
     src = g.values_bf16 if g.values_bf16 is not None else g.values
-    g._upper_cache = (ids, src[ids], int(ids.numel()))
+    rows, a = src[ids], None
+    if g.metric != "l1":
+        rows = rows.to(torch.bfloat16)
+        rf = rows.float()
+        a = ((rf * rf).sum(dim=1) if g.metric == "l2"
+             else torch.zeros_like(rf[:, 0]))
+    g._upper_cache = (ids, rows, a, int(ids.numel()))
     return g._upper_cache
 
 
@@ -399,7 +410,7 @@ def _coarse_upper(g: DeviceGraph):
     """(upper_ids, upper_rows) when coarse seeding applies, else None."""
     if g.kind != "dense" or os.environ.get("PGV_BEAM_SEED") == "descent":
         return None
-    ids, rows, count = upper_row_arrays(g)
+    ids, rows, _, count = upper_row_arrays(g)
     # too few upper elements for the sweep to beat plain descent
     if count < 8:
         return None
@@ -410,19 +421,24 @@ def _coarse_seeds(g: DeviceGraph, queries, upper_ids, upper_rows,
                   n_seeds: int):
     """The n_seeds nearest upper elements of each query by one bf16 sweep
     over the level >= 1 rows -> (seed ids [B, n] (-1 = none), exact f32
-    seed distances [B, n] (inf = none)): the bf16 scores only rank."""
-    U = upper_rows.shape[0]
-    if g.metric == "l2":
-        uf = upper_rows.float()
-        a = (uf * uf).sum(dim=1)
+    seed distances [B, n] (inf = none)): the bf16 scores only rank.
+    ``upper_ids`` / ``upper_rows`` are ``upper_row_arrays(g)``'s, whose
+    row term goes with them. l2 / ip / cosine:
+    ``ops/bruteforce.coarse_topk`` (kernel K7 on CUDA tensors, its plain
+    version on CPU tensors). l1 has no matmul identity: the [B, U] l1
+    sweep of the f32 queries and rows (``torch.cdist``), the mask and
+    ``torch.topk``."""
+    if g.metric != "l1":
+        _, seed_ids = bruteforce.coarse_topk(
+            upper_rows, upper_row_arrays(g)[2], upper_ids, g.traversable,
+            queries, n_seeds, g.metric == "l2")
     else:
-        a = torch.zeros(U, dtype=torch.float32, device=queries.device)
-    scores = _exact_scores(g, queries, upper_rows, a)
-    valid = g.traversable[upper_ids]
-    scores = torch.where(valid[None, :], scores, _INF)
-    seed_sc, slots = torch.topk(scores, n_seeds, dim=1, largest=False,
-                                sorted=True)
-    seed_ids = torch.where(torch.isfinite(seed_sc), upper_ids[slots], -1)
+        scores = torch.cdist(queries.float(), upper_rows.float(), p=1)
+        valid = g.traversable[upper_ids]
+        scores = torch.where(valid[None, :], scores, _INF)
+        seed_sc, slots = torch.topk(scores, n_seeds, dim=1, largest=False,
+                                    sorted=True)
+        seed_ids = torch.where(torch.isfinite(seed_sc), upper_ids[slots], -1)
     seed_d = torch.where(seed_ids >= 0, _dist_ids(g, queries, seed_ids), _INF)
     return seed_ids, seed_d
 
@@ -513,22 +529,6 @@ def _descent_seed_one(g: DeviceGraph, q, entry_level: int):
 # ---------------------------------------------------------------------------
 # Exact / approx sweeps (dense)
 # ---------------------------------------------------------------------------
-
-
-def _exact_scores(g: DeviceGraph, queries, vals, a):
-    """[B, rows(vals)] order scores ``a - 2 q.x`` (l2) or ``a - q.x``
-    (ip/cosine) for a corpus slice; ``a`` is the row term. bf16-rounded
-    operands, f32 products and sums (the coarse seed sweep). l1 has no
-    matmul identity: ``|q - x|_1 + a`` from the f32 queries and the
-    stored rows, as the JAX package scores it."""
-    if g.metric == "l1":
-        return torch.cdist(queries.float(), vals.float(), p=1) + a[None, :]
-    q = queries.to(torch.bfloat16).float()
-    v = vals.to(torch.bfloat16).float()
-    dots = q @ v.T
-    if g.metric == "l2":
-        return a[None, :] - 2.0 * dots
-    return a[None, :] - dots  # ip and cosine share the -dots order
 
 
 def _true_dists(g: DeviceGraph, queries, s):

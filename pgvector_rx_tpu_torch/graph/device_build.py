@@ -16,7 +16,9 @@ frozen graph snapshot; batch sizes double from 1 up to ``batch_max``:
    members (``_ivf_ground_candidates``). "beam": an ef_construction-wide
    best-first walk over the as-built layer 0 from the 16 nearest
    committed upper rows and the entry, 16 fixed steps of 4 expansions,
-   merged by two sorts or by ranks (``_beam_ground_candidates``). Upper
+   merged by two sorts or by ranks (``_beam_ground_candidates``: the walk
+   is kernel K8, ``csrc/k8_beam_ground.cu``, on CUDA tensors, one launch a
+   batch, and its plain version ``_beam_ground_plain`` on CPU tensors). Upper
    layers score the compact table of level >= 1 rows (and one sub-table
    per layer >= 2). Every layer selects with the fixpoint-parallel
    Algorithm 4 (``_select_neighbors_parallel``), RobustPrune's alpha
@@ -93,7 +95,7 @@ import numpy as np
 import torch
 
 from ..constants import HNSW_HEAPTIDS, hnsw_get_layer_m
-from ..ops import bits
+from ..ops import bits, bruteforce
 from ..ops.beam import row_dists
 
 #: cap at/above which the back-edge commit honours 2 same-target adds per
@@ -507,6 +509,137 @@ def _rank_merge(bd, bkey, d_new, key_new):
     return sd[:, :W], sk[:, :W]
 
 
+def _point_row_dists(metric: str, q_rows, rows):
+    """True f32 distances q_rows [B, D] -> rows [B, K, D] (direct
+    differences, no matmul-identity cancellation)."""
+    if metric in ("l2", "jacbits"):
+        dlt = rows - q_rows[:, None, :]
+        h = (dlt * dlt).sum(dim=-1)
+        if metric == "jacbits":  # {0,1} rows: popcount == sum
+            return _l2_to_jaccard(h, q_rows.sum(dim=1, keepdim=True),
+                                  rows.sum(dim=-1))
+        return h
+    if metric == "l1":
+        return (rows - q_rows[:, None, :]).abs().sum(dim=-1)
+    dots = torch.bmm(rows, q_rows[:, :, None])[:, :, 0]
+    if metric == "ip":
+        return -dots
+    return 1.0 - torch.clamp(dots, -1.0, 1.0)
+
+
+def _beam_ground_plain(rows_bf16, nb0_ids, alive, cap: int, metric: str,
+                       q_rows, bd, bkey, steps: int, expand: int,
+                       dedup: bool, merge: str, scored=None):
+    """Plain version of K8: the beam ground's walk as torch ops, from the
+    seeded beam (bd [B, W] f32, bkey [B, W] int64 packed keys ``id * 2 +
+    (1 - expanded)``, -2 empty; sorted for the rank merge). Each of
+    ``steps`` steps marks the ``expand`` best unexpanded entries expanded,
+    scores their layer-0 neighbours' bf16 rows in f32 and merges them
+    (``DeviceBuilder._beam_ground_candidates`` names the merges). Returns
+    (cand_d, cand_ids) [B, W], -1 where the distance is infinite. A list
+    ``scored`` takes each step's count of scored rows (the live
+    neighbours, the rows K8 reads: its bound's bytes)."""
+    B, W = bd.shape
+    for _ in range(steps):
+        unexp = torch.where((bkey >= 0) & (bkey & 1 == 1), bd, _INF)
+        # the best unexpanded entries, lower slots first on ties
+        # (lax.top_k's order)
+        pos = torch.argsort(unexp, dim=1, stable=True)[:, :expand]
+        sel_ok = torch.isfinite(torch.gather(unexp, 1, pos))
+        k_pos = torch.gather(bkey, 1, pos)
+        bkey = bkey.scatter(1, pos, torch.where(sel_ok, k_pos & ~1, k_pos))
+        u = torch.where(sel_ok, k_pos >> 1, -1)
+        nbrs = nb0_ids[u.clamp(0, cap)].long()  # [B, E, lm0]
+        nbrs = torch.where((u >= 0)[:, :, None], nbrs, -1).reshape(B, -1)
+        safe = nbrs.clamp(0, cap)
+        ok = (nbrs >= 0) & alive[safe]
+        if scored is not None:
+            scored.append(ok.sum())
+        d_new = torch.where(ok, _point_row_dists(
+            metric, q_rows, rows_bf16[safe].float()), _INF)
+        key_new = torch.where(ok, nbrs * 2 + 1, -2)
+        if merge == "rank":
+            bd, bkey = _rank_merge(bd, bkey, d_new, key_new)
+            continue
+        all_key = torch.cat([bkey, key_new], 1)
+        all_d = torch.cat([bd, d_new], 1)
+        if dedup:
+            all_key, all_d = _dedup_by_key(all_key, all_d)
+        sd, o = torch.sort(all_d, dim=1, stable=True)
+        bd = sd[:, :W]
+        bkey = torch.gather(all_key, 1, o[:, :W])
+    if not dedup:
+        # one dedup after the walk: a repeated id must not reach
+        # Algorithm 4 (its zero-distance copy would take a slot)
+        bkey, bd = _dedup_by_key(bkey, bd)
+        bd, o = torch.sort(bd, dim=1, stable=True)
+        bkey = torch.gather(bkey, 1, o)
+    bids = torch.where(torch.isfinite(bd) & (bkey >= 0), bkey >> 1, -1)
+    return bd, bids
+
+
+#: K8's metric codes (csrc/k8_beam_ground.cu)
+_K8_METRIC = {"l2": 0, "ip": 1, "cosine": 2, "l1": 3, "jacbits": 4}
+#: a block's dynamic shared memory on an H100 (K8's limit)
+_K8_MAX_SMEM = 232448
+
+
+def _k8_smem_bytes(w: int, e: int, lm0: int) -> int:
+    """K8's shared memory: the beam, the merge's w + e * lm0 entries (f32
+    distances and int32 keys), the selected places and one word
+    (``k8_smem_bytes`` in the source). The query stays in global memory."""
+    return 4 * (2 * w + 2 * (w + e * lm0) + max(e, 1) + 1)
+
+
+def _beam_ground_cuda(rows_bf16, nb0_ids, alive, cap: int, metric: str,
+                      q_rows, bd, bkey, steps: int, expand: int,
+                      dedup: bool, merge: str):
+    """``_beam_ground_plain`` as one launch of kernel K8 on CUDA tensors
+    (the same arguments and outputs). Refuses what its shared memory
+    cannot hold (``_K8_MAX_SMEM``: the beam and the step's W + E * 2m
+    entries)."""
+    from ..ops import _build
+
+    dev = q_rows.device
+    chk = bruteforce._check_cuda
+    chk("rows_bf16", rows_bf16, torch.bfloat16, 2, dev)
+    chk("nb0_ids", nb0_ids, torch.int32, 2, dev)
+    chk("alive", alive, torch.bool, 1, dev)
+    chk("bd", bd, torch.float32, 2, dev)
+    B, W = bd.shape
+    d, lm0 = rows_bf16.shape[1], nb0_ids.shape[1]
+    if q_rows.shape != (B, d) or bkey.shape != (B, W):
+        raise ValueError(f"shape mismatch: q_rows {tuple(q_rows.shape)}, "
+                         f"bd {(B, W)}, bkey {tuple(bkey.shape)}, d {d}")
+    if min(nb0_ids.shape[0], alive.shape[0], rows_bf16.shape[0]) <= cap:
+        raise ValueError(f"tables shorter than cap + 1 = {cap + 1} rows")
+    if cap >= 1 << 30:
+        raise ValueError(f"K8 packs ids below 2^30 (cap {cap})")
+    if not 0 <= expand <= W:
+        raise ValueError(f"expand {expand} outside [0, W = {W}]")
+    smem = _k8_smem_bytes(W, expand, lm0)
+    if smem > _K8_MAX_SMEM:
+        raise ValueError(
+            f"K8 holds the beam and W + E * 2m entries in shared memory: "
+            f"{smem} bytes at W = {W}, E = {expand}, 2m = {lm0} exceed a "
+            f"block's {_K8_MAX_SMEM}")
+    code = {"sort": 0 if dedup else 1, "rank": 2}[merge]
+    q = q_rows.float().contiguous()
+    keys = bkey.to(torch.int32).contiguous()
+    out_d = torch.empty((B, W), dtype=torch.float32, device=dev)
+    out_ids = torch.empty((B, W), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):  # the C entry launches on the current one
+        rc = _build.lib().pgv_k8_beam_ground(
+            rows_bf16.data_ptr(), rows_bf16.stride(0), d, nb0_ids.data_ptr(),
+            lm0, alive.data_ptr(), cap, q.data_ptr(), bd.data_ptr(),
+            keys.data_ptr(), B, W, expand, steps, _K8_METRIC[metric], code,
+            out_d.data_ptr(), out_ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "pgv_k8_beam_ground")
+    bruteforce.LAUNCHES["k8_beam_ground"] += 1
+    return out_d, out_ids
+
+
 # ---------------------------------------------------------------------------
 # the builder
 # ---------------------------------------------------------------------------
@@ -729,21 +862,9 @@ class DeviceBuilder:
         return a_col[None, :] - dots
 
     def _dist_point_rows(self, q_rows, rows):
-        """True f32 distances q_rows [B, D] -> rows [B, K, D] (direct
-        differences, no matmul-identity cancellation)."""
-        if self.metric in ("l2", "jacbits"):
-            dlt = rows - q_rows[:, None, :]
-            h = (dlt * dlt).sum(dim=-1)
-            if self.metric == "jacbits":  # {0,1} rows: popcount == sum
-                return _l2_to_jaccard(h, q_rows.sum(dim=1, keepdim=True),
-                                      rows.sum(dim=-1))
-            return h
-        if self.metric == "l1":
-            return (rows - q_rows[:, None, :]).abs().sum(dim=-1)
-        dots = torch.bmm(rows, q_rows[:, :, None])[:, :, 0]
-        if self.metric == "ip":
-            return -dots
-        return 1.0 - torch.clamp(dots, -1.0, 1.0)
+        """True f32 distances q_rows [B, D] -> rows [B, K, D]
+        (``_point_row_dists``)."""
+        return _point_row_dists(self.metric, q_rows, rows)
 
     def _pair_rows(self, data: BuildData, ids):
         """Rows for Algorithm 4's pair distances: bf16 for the matmul
@@ -937,7 +1058,10 @@ class DeviceBuilder:
           sit in the beam twice), and one key dedup after the last step;
         - "rank" (``_rank_merge``): the beam kept sorted, the new entries
           ranked into it by pairwise comparisons.
-        ``vmap`` over queries becomes the batch dimension.
+        ``vmap`` over queries becomes the batch dimension. The seeds are
+        set up in torch ops (``_beam_ground_seeds``); the walk is kernel K8
+        on CUDA tensors (``_beam_ground_cuda``, one launch) and
+        ``_beam_ground_plain`` on CPU tensors.
 
         Returns (cand_d, cand_ids) [B, efc] sorted nearest first."""
         st = self.settings
@@ -946,11 +1070,24 @@ class DeviceBuilder:
         dedup = st.beam_dedup if dedup is None else dedup
         merge = _beam_merge_checked(st.beam_merge if merge is None else merge,
                                     dedup)
+        if expand > self.efc:
+            raise ValueError(f"PGV_BUILD_BEAM_EXPAND={expand} exceeds the "
+                             f"beam's width {self.efc}")
+        bd, bkey = self._beam_ground_seeds(data, arrays, q_rows, seed_d,
+                                           seed_ids, merge)
+        walk = _beam_ground_cuda if q_rows.is_cuda else _beam_ground_plain
+        return walk(data.vectors_bf16, arrays.nb0_ids, arrays.alive, self.cap,
+                    self.metric, q_rows, bd, bkey, steps, expand, dedup,
+                    merge)
+
+    def _beam_ground_seeds(self, data: BuildData, arrays: BuildArrays,
+                           q_rows, seed_d, seed_ids, merge: str):
+        """The beam ground's seeded beam (bd [B, efc] f32, bkey [B, efc]
+        int64): the seeds at ``seed_d``, then the entry at its f32
+        distance, the rest empty; for the rank merge sorted, without a
+        second copy of an entry that is also a seed."""
         B, S = seed_ids.shape
         W = self.efc
-        if expand > W:
-            raise ValueError(f"PGV_BUILD_BEAM_EXPAND={expand} exceeds the "
-                             f"beam's width {W}")
         cap = self.cap
         dev = self.device
         entry = arrays.entry.clamp(0, cap)
@@ -970,40 +1107,7 @@ class DeviceBuilder:
             bkey[:, S] = torch.where(ent_dup, -2, bkey[:, S])
             bd, o = torch.sort(bd, dim=1, stable=True)
             bkey = torch.gather(bkey, 1, o)
-        for _ in range(steps):
-            unexp = torch.where((bkey >= 0) & (bkey & 1 == 1), bd, _INF)
-            # the best unexpanded entries, lower slots first on ties
-            # (lax.top_k's order)
-            pos = torch.argsort(unexp, dim=1, stable=True)[:, :expand]
-            sel_ok = torch.isfinite(torch.gather(unexp, 1, pos))
-            k_pos = torch.gather(bkey, 1, pos)
-            bkey = bkey.scatter(1, pos, torch.where(sel_ok, k_pos & ~1, k_pos))
-            u = torch.where(sel_ok, k_pos >> 1, -1)
-            nbrs = arrays.nb0_ids[u.clamp(0, cap)].long()  # [B, E, lm0]
-            nbrs = torch.where((u >= 0)[:, :, None], nbrs, -1).reshape(B, -1)
-            safe = nbrs.clamp(0, cap)
-            ok = (nbrs >= 0) & arrays.alive[safe]
-            d_new = torch.where(ok, self._dist_point_rows(
-                q_rows, data.vectors_bf16[safe].float()), _INF)
-            key_new = torch.where(ok, nbrs * 2 + 1, -2)
-            if merge == "rank":
-                bd, bkey = _rank_merge(bd, bkey, d_new, key_new)
-                continue
-            all_key = torch.cat([bkey, key_new], 1)
-            all_d = torch.cat([bd, d_new], 1)
-            if dedup:
-                all_key, all_d = _dedup_by_key(all_key, all_d)
-            sd, o = torch.sort(all_d, dim=1, stable=True)
-            bd = sd[:, :W]
-            bkey = torch.gather(all_key, 1, o[:, :W])
-        if not dedup:
-            # one dedup after the walk: a repeated id must not reach
-            # Algorithm 4 (its zero-distance copy would take a slot)
-            bkey, bd = _dedup_by_key(bkey, bd)
-            bd, o = torch.sort(bd, dim=1, stable=True)
-            bkey = torch.gather(bkey, 1, o)
-        bids = torch.where(torch.isfinite(bd) & (bkey >= 0), bkey >> 1, -1)
-        return bd, bids
+        return bd, bkey
 
     def _ivf_ground_candidates(self, data: BuildData, arrays: BuildArrays,
                                q_rows, seed_sc, seed_slots):

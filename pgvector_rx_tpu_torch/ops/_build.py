@@ -24,8 +24,9 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k2_binned.cu",
                                      "k3_tilemin.cu", "k4_beam.cu",
-                                     "k9_bits.cu", "k9_bits_tc.cu",
-                                     "k10_sparse.cu"))
+                                     "k7_coarse.cu",
+                                     "k8_beam_ground.cu", "k9_bits.cu",
+                                     "k9_bits_tc.cu", "k10_sparse.cu"))
 _HEADERS = (_CSRC / "sweep_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -71,6 +72,14 @@ _SIGNATURES = {
     "pgv_k5_beam_scan": [_P, _I, _L, _I, _P, _I, _P, _P, _L, _P, _I, _I, _I,
                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                          _I, _P, _L, _P],
+    # rows, a, ids, trav, q, n, d, b, s, l2, splits, rows_per_split, part,
+    # out_slot, out_id, stream
+    "pgv_k7_coarse_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P],
+    # rows, stride, d, nbrs, lm0, alive, cap, q, bd, bkey, b, W, E, steps,
+    # metric, merge, out_d, out_ids, stream
+    "pgv_k8_beam_ground": [_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _P, _P, _P],
     # words, pop, live, q, lo, n, w, b, k, metric, qb, splits,
     # rows_per_split, part, out, stream
     "pgv_k9_bits_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -22,6 +22,11 @@ Three kernels, hand-written in CUDA for Hopper (``csrc/k1_topk.cu``,
   Replaces the Pallas ``_tilemin_kernel``. Its shift's corpus term, the
   largest squared row norm, comes from a one-pass reduction kernel over
   the bf16 rows (``_row_sq_max``, launch count ``k3_x2max``).
+- **K7** (``coarse_topk``, ``csrc/k7_coarse.cu``): the beam engine's
+  coarse seed sweep, the S best upper rows of each query by a bf16 score
+  with the non-traversable rows masked, without a [B, U] score matrix.
+  It has no Pallas ancestor: it replaces the XLA program of the JAX
+  package's ``_search_batch_coarse``.
 
 Every wrapper has its plain-torch version beside it (``*_plain``). A
 wrapper takes the plain version only for tensors on the CPU; for a CUDA
@@ -43,11 +48,13 @@ _NEG_BIG = float(3.0e38)
 
 #: kernel name -> launches of that kernel by its wrapper in this process
 #: (the beam walk's modes, ``ops/beam.py``, the bit sweep, ``ops/bits.py``,
-#: and the sparse sweep, ``ops/sparse.py``, count here too)
+#: the sparse sweep, ``ops/sparse.py``, and the build's beam ground,
+#: ``graph/device_build.py``, count here too)
 LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0, "k3_x2max": 0,
             "k4_beam": 0, "k4_beam_sparse": 0, "k5_beam_scan": 0,
             "k9_bits": 0, "k9_bits_tc": 0, "k10_sparse": 0,
-            "k10_sparse_lookup": 0, "k10_compact": 0}
+            "k10_sparse_lookup": 0, "k10_compact": 0, "k7_coarse": 0,
+            "k8_beam_ground": 0}
 
 _MAX_K = 64
 
@@ -647,3 +654,90 @@ def tilemin_sweep_topk(base_bf16, a, queries, k: int, metric: str,
     else:
         sd, si = _tilemin_plain(base_bf16, a, queries, k, tn)
     return _restore_metric(sd, si, queries, metric)
+
+
+# ---------------------------------------------------------------------------
+# K7: the coarse seed sweep
+# ---------------------------------------------------------------------------
+
+#: K7's queries per block and upper rows per chunk
+_K7_QTILE = 64
+#: the most seeds K7 keeps a query (csrc/k7_coarse.cu's k7MaxSeeds; every
+#: caller asks for 8 or fewer)
+_K7_MAX_SEEDS = 8
+
+
+def _coarse_plain(rows, a, upper_ids, traversable, queries, s: int,
+                  l2: bool):
+    """Plain version of K7: the [B, U] f32 scores ``a - 2 q.x`` (l2) or
+    ``a - q.x`` of bf16-rounded operands, the rows whose element is not
+    traversable at +inf, ``torch.topk``. Returns (slots, element ids)
+    [B, s] int64, -1 past the finite scores."""
+    q = queries.to(torch.bfloat16).float()
+    dots = q @ rows.to(torch.bfloat16).float().T
+    scores = a[None, :] - (2.0 * dots if l2 else dots)
+    scores = torch.where(traversable[upper_ids][None, :], scores,
+                         float("inf"))
+    sc, slots = torch.topk(scores, s, dim=1, largest=False, sorted=True)
+    fin = torch.isfinite(sc)
+    return (torch.where(fin, slots, -1),
+            torch.where(fin, upper_ids[slots], -1))
+
+
+def _coarse_cuda(rows, a, upper_ids, traversable, queries, s: int,
+                 l2: bool):
+    from . import _build
+
+    _check_cuda("rows", rows, torch.bfloat16, 2)
+    dev = rows.device
+    _check_cuda("a", a, torch.float32, 1, dev)
+    _check_cuda("upper_ids", upper_ids, torch.int64, 1, dev)
+    _check_cuda("traversable", traversable, torch.bool, 1, dev)
+    n, d = rows.shape
+    if queries.device != dev or queries.dim() != 2 or queries.shape[1] != d:
+        raise ValueError(f"queries {tuple(queries.shape)} on "
+                         f"{queries.device} do not fit rows {(n, d)} on {dev}")
+    if a.shape[0] != n or upper_ids.shape[0] != n:
+        raise ValueError(f"shape mismatch: rows {(n, d)}, a "
+                         f"{tuple(a.shape)}, upper_ids {tuple(upper_ids.shape)}")
+    if not 1 <= s <= _K7_MAX_SEEDS:
+        raise ValueError(f"K7 keeps 1 to {_K7_MAX_SEEDS} seeds a query in "
+                         f"registers (got {s})")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary")
+    b = queries.shape[0]
+    if n == 0 or b == 0 or d == 0:
+        raise ValueError("empty rows, queries or feature dimension")
+    qb = queries.to(torch.bfloat16).contiguous()
+    _, splits, rows_per_split = _k1_plan(n, b, _block_target(dev),
+                                         _K7_QTILE, _K7_QTILE)
+    part = torch.empty((b, splits, 2, s), dtype=torch.int64, device=dev)
+    out_slot = torch.empty((b, s), dtype=torch.int64, device=dev)
+    out_id = torch.empty((b, s), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):  # the C entry launches on the current one
+        rc = _build.lib().pgv_k7_coarse_topk(
+            rows.data_ptr(), a.data_ptr(), upper_ids.data_ptr(),
+            traversable.data_ptr(), qb.data_ptr(), n, d, b, s, int(l2),
+            splits, rows_per_split, part.data_ptr(), out_slot.data_ptr(),
+            out_id.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "pgv_k7_coarse_topk")
+    LAUNCHES["k7_coarse"] += 1
+    return out_slot, out_id
+
+
+def coarse_topk(rows, a, upper_ids, traversable, queries, s: int, l2: bool):
+    """The ``s`` upper rows of smallest ranking score per query -> (slots,
+    element ids) [B, s] int64, -1 past the finite scores, nearest first.
+
+    ``rows`` [U, D] are the upper rows (bf16 on the card), ``a`` [U] their
+    f32 row term (the sum of the bf16 row's squares for l2, else 0),
+    ``upper_ids`` [U] their element ids and ``traversable`` [cap + 1] the
+    graph's mask; the score is ``a - 2 q.x`` (``l2``) or ``a - q.x`` of
+    bf16-rounded operands with f32 sums, +inf on rows whose element is not
+    traversable. CPU tensors take the plain version, CUDA tensors kernel K7
+    (ties go to the lower slot; the kernel's sums run in another order than
+    the plain GEMM's, so exact ties of the bf16 scores may order
+    differently)."""
+    if not rows.is_cuda:
+        return _coarse_plain(rows, a, upper_ids, traversable, queries, s, l2)
+    return _coarse_cuda(rows, a, upper_ids, traversable, queries, s, l2)
