@@ -50,7 +50,8 @@ Then, outside the counted paths:
    float64 scores; the check must reject the plain top-9 with its 8th
    seed dropped) and timed beside the route it replaces, its plain
    version (the f32 product of the bf16-rounded operands, the mask,
-   ``torch.topk``, each also timed alone).
+   ``torch.topk``, each also timed alone). K1's select form is held to its
+   plain version on the same rows at B = 1, 3 and 64.
 
 **Insert-and-scan path** (9-12, on the index of phase 3):
 
@@ -60,12 +61,15 @@ Then, outside the counted paths:
     same floors, and each of 1,024 inserted rows among its own beam
     top-10 (>= 0.99);
 11. scans: ``scan(method="auto")`` is ``DeviceScan`` (below the 4M
-    cutover): its first 100 tuples of 64 queries, and K1's top-160 in
-    rounds of 60 (its second block's path), equal the float64 exact order
-    but for ties, a check that must reject K1 rounds without their penalty;
-    K1's top-64 holds a 3xTF32 near tie at ranks 64 / 65 (fault 3b: one
-    call would keep no spare place there); the latency of each exact block
-    (40 to 2,560 rows);
+    cutover): its first 100 tuples of 64 queries, and K1's top-160 (its
+    second block's path: K1's select form), equal the float64 exact order
+    but for ties, a check that must reject the select form's 161st row in
+    place of its 160th; K1's top-64 holds a 3xTF32 near tie at ranks 64 /
+    65 (fault 3b: one tensor-core call would keep no spare place there);
+    the latency of each exact block (40 to 2,560 rows, one select launch
+    each); K7's one-query form held to its plain version on the beam
+    scans' first 64 seedings (captured), rejecting the 9th seed for the
+    8th, and timed through its wrapper;
     ``scan(method="beam")`` (the scan kernel K5) for 64
     queries under the filters ``eid % 50 == 0`` and ``eid % 500 == 0``,
     strict and relaxed order, LIMIT 20, ef_search=40: recall against the
@@ -90,8 +94,14 @@ Then, outside the counted paths:
     check must reject the plain segment cut to ef / 4 steps); each timed
     beside its bound, the bytes its steps gather: every step's neighbour
     ids and the rows it scores (the kernel counts them); K5 per segment
-    and its microseconds per step; and K1 timed at
-    DeviceScan's shape (one query, k = 10, 40, 64).
+    and its microseconds per step; first, K1's select form against its
+    plain version on the grown graph (B = 1, 3, 64 x k = 10 to every row,
+    1,024 x 100, f16 rows with every seventh excluded; a control) and
+    timed at DeviceScan's shape (one query, k = 10 to 2,560) beside its
+    plain version, the library composition and the tensor-core form; the
+    exact engine's peak memory above the graph at 1,024 x 100 and 32 x 10,
+    where the select form serves it, held to a bound (one query chunk's
+    keys, ``_K1S_BUDGET``, and 64 MiB).
 
 **Native path** (14-17, the first 100,000 rows): the native C++ host build
 into a serving-only torch index, its own K1 ground truth, and phases 5
@@ -108,8 +118,8 @@ against its plain version in the sort, no-dedup and rank merges (ids
 equal but for ties, distances to rtol 1e-5, on every row; each must
 reject the plain walk cut to a quarter of its steps), timed beside
 its bound (the rows that batch scores) and the build's span per batch (a
-``{"k8": ...}`` line); K1, K2, K4 and K7 at d = 768 against their plain
-versions, with ms, bound and share, and K4 ranking in bf16 (the rows'
+``{"k8": ...}`` line); K1, K2, K4, K7 and K1's select form at d = 768
+against their plain versions, with ms, bound and share, and K4 ranking in bf16 (the rows'
 bf16 copy) against its plain version on 64 queries, timed at 1,024 in
 turns with the f32 walk.
 
@@ -266,22 +276,24 @@ K1 over the kept rows; ``insert_bulk`` of the last 65,536 rows (shards
 within one tuple, each of 1,024 inserted rows among its own beam top-10);
 ``ShardedScan`` (relaxed, ``max_scan_tuples`` 500) for 64 queries: 500
 tuples in distance order, the first 20 equal to K1's exact top-20 of the
-grown corpus but for ties, ms to the 20th row; a 4 x 65,536-row sharded
+grown corpus but for ties, ms to the 20th row, and K1's select form
+against its plain version on the first shard's rows (3 x 500); a 4 x 65,536-row sharded
 build with ``PGV_BUILD_TIMING`` and ``GROUP_STATS`` (its lines and tuples,
 the same graphs as without), saved and loaded with ids unchanged; one
 shard's ``search`` with ``PGV_SCAN_STATS`` (the steps K4 reports); and
 ``dryrun_multichip(4)``.
 
 Each path's kernels must have run on it: K1-K3, K3's shift reduction, K4
-and K7 on the device-build path, K1, K2, K4, K5 and K7 on the
-insert-and-scan path, K1, K2, K4 and K7 on the native path and, with K8,
+and K7 on the device-build path, K1 (both forms), K2, K4, K5 and K7
+(both forms) on the insert-and-scan path, K1, K2, K4 and K7 on the native path and, with K8,
 on the 768-d path, K4 and K8 on the l1 path, both forms of K9, K4 (word
 mode) and K8 on the bit path, K9's tensor-core form, K4 and K8 on the
 jaccard path, K8, K1, K2, K4 and K7 on the halfvec path, K1, K9's tensor-core form
 and K4 in phase 23, both forms of K10, its mapping and K4 (sparse mode)
 on the sparse path; on the sharded path, each counted around its own call
-with every count set to 0 just before it: K1 in the exact search, the
-filtered search and ``ShardedScan``, K4 in the beam search. The last two
+with every count set to 0 just before it: K1 in the exact search and
+the filtered search, K1's select form in ``ShardedScan``, K4 in the beam
+search. The last two
 lines of output are one JSON object per
 kernel list and the device line.
 """
@@ -801,12 +813,62 @@ def inserted_self_recall(index, x_dev, device_mod, n0):
         raise RuntimeError(f"inserted-row self recall {hit} < {SELF_FLOOR}")
 
 
-def rounds_without_penalty(bf, x, a, q, k):
-    """Control for the DeviceScan check: K1 in rounds of 60 that never
-    exclude a round's rows from the next (each round repeats the top-60)."""
-    parts = [bf._surrogate_topk_cuda(x, a, q, kr) for kr in bf._round_sizes(k)]
-    return (torch.cat([p[0] for p in parts], dim=1),
-            torch.cat([p[1] for p in parts], dim=1))
+def select_boundary_control(bf, x, a, q, k):
+    """Control for the select form's checks: its top k + 1 with the k-th
+    dropped, the (k + 1)-th in its place (a select whose last digit lands
+    one key late)."""
+    d, i = bf._select_topk_cuda(x, a, q, k + 1)
+    return (torch.cat([d[:, : k - 1], d[:, k:]], 1),
+            torch.cat([i[:, : k - 1], i[:, k:]], 1))
+
+
+def select_agreement(kd, ki, pd, pi, q2max):
+    """The select form's (kd, ki) against its plain version's (pd, pi),
+    [B, k] on the card with (inf, -1) empty -> (max abs err, ok): the same
+    empty slots; scores rank by rank within 1e-5 |d| + 1e-5 max(q2) (K1's
+    scale); an id in one list and not the other ties the other list's
+    k-th score within that tolerance."""
+    fin = torch.isfinite(pd)
+    if not (torch.equal(fin, torch.isfinite(kd)) and torch.equal(fin, pi >= 0)
+            and torch.equal(fin, ki >= 0)):
+        return float("inf"), False
+    tol = 1e-5 * q2max
+    diff = (kd - pd).abs()[fin]
+    err = float(diff.max()) if diff.numel() else 0.0
+    ok = bool((diff <= 1e-5 * pd.abs()[fin] + tol).all())
+    if not fin.any():
+        return err, ok
+    b = pd.shape[0]
+    row = torch.arange(b, device=pd.device)[:, None]
+    span = int(max(ki.max(), pi.max())) + 1
+    key_k = (row * span + ki.long())[fin]
+    key_p = (row * span + pi.long())[fin]
+    kth_p = torch.where(fin, pd, -float("inf")).max(1).values
+    kth_k = torch.where(fin, kd, -float("inf")).max(1).values
+    rows_f = row.expand_as(pd)[fin]
+    out_k = ~torch.isin(key_k, key_p)
+    out_p = ~torch.isin(key_p, key_k)
+    ok &= bool(((kd[fin] - kth_p[rows_f]).abs()[out_k] <= tol).all())
+    ok &= bool(((pd[fin] - kth_k[rows_f]).abs()[out_p] <= tol).all())
+    return err, ok
+
+
+def select_vs_plain(bf, x, a, q, k, tag):
+    """Hold the select form to its plain version on (x, a, q) at k: one
+    launch a query chunk; raises on disagreement. -> max abs err."""
+    before = bf.LAUNCHES["k1_select"]
+    kd, ki = bf._invalid_to_sentinel(*bf._select_topk_cuda(x, a, q, k))
+    launched = bf.LAUNCHES["k1_select"] - before
+    pd, pi = bf._invalid_to_sentinel(*bf._surrogate_topk_plain(x, a, q, k))
+    q2max = float((q * q).sum(1).max())
+    err, ok = select_agreement(kd, ki, pd, pi, q2max)
+    chunks = len(bf._k1s_plan(x.shape[0], q.shape[0]))
+    if not ok or launched != chunks:
+        raise RuntimeError(f"{tag}: K1's select form at {q.shape[0]} x k = "
+                           f"{k} ({x.dtype}) disagrees with its plain version"
+                           f" (max abs err {err}, {launched} launches for "
+                           f"{chunks} chunks)")
+    return err
 
 
 def exact_order_mismatch(d, ids, ref_d, ref_i, q2max):
@@ -824,10 +886,11 @@ def exact_order_mismatch(d, ids, ref_d, ref_i, q2max):
 def device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan):
     """scan(method="auto") on the grown serving-only index is DeviceScan.
     Held against the float64 exact order of every row on the card (no
-    kernel in the reference): its first 100 tuples, and K1's top-160 in
-    rounds of 60 (the path of its second block, ``l2_topk`` at k = 160).
-    The check must reject a control: the rounds without their penalty.
-    Then each exact block's latency (40, 160, 640, 2,560 rows)."""
+    kernel in the reference): its first 100 tuples, and K1's top-160 (the
+    path of its second block, ``l2_topk`` at k = 160: the select form, one
+    launch a query chunk). The check must reject a control: the select
+    form's top 161 with its 160th dropped. Then each exact block's latency
+    (40, 160, 640, 2,560 rows), one select launch each."""
     n_take, k_round = 100, 4 * EF
     q = q_dev[:SCAN_Q].contiguous()
     emit = g.emit_tid.cpu().numpy()
@@ -843,22 +906,26 @@ def device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan):
     q2 = (q * q).sum(1, keepdim=True)
     q2max = float(q2.max())
 
+    before = bf.LAUNCHES["k1_select"]
     k1_d, k1_i = bf.l2_topk(x, q, k_round)
+    launched = bf.LAUNCHES["k1_select"] - before
     a = (x * x).sum(1)
-    c_d, c_i = rounds_without_penalty(bf, x, a, q, k_round)
+    c_d, c_i = select_boundary_control(bf, x, a, q, k_round)
     torch.cuda.synchronize()
     bad_k1 = exact_order_mismatch(k1_d.cpu().numpy(), k1_i.cpu().numpy(),
                                   ref_d, ref_i, q2max)
     bad_ctl = exact_order_mismatch((c_d + q2).cpu().numpy(),
                                    c_i.cpu().numpy(), ref_d, ref_i, q2max)
-    log(f"K1 top-{k_round} in rounds: {bad_k1} of {SCAN_Q} rows differ from "
-        f"the float64 exact order; control (rounds without the penalty): "
-        f"{bad_ctl} rows differ")
-    if bad_k1:
-        raise RuntimeError("K1's rounds disagree with the exact order")
+    chunks = len(bf._k1s_plan(x.shape[0], SCAN_Q))
+    log(f"K1 top-{k_round} (the select form, {launched} launches for "
+        f"{chunks} query chunks): {bad_k1} of {SCAN_Q} rows differ from the "
+        f"float64 exact order; control (its 161st for its 160th): {bad_ctl} "
+        "rows differ")
+    if bad_k1 or launched != chunks:
+        raise RuntimeError("K1's select form disagrees with the exact order")
     if not bad_ctl:
-        raise RuntimeError("the exact-order check passes rounds that repeat "
-                           "their rows")
+        raise RuntimeError("the exact-order check passes a select that "
+                           "returns the 161st row for the 160th")
 
     bad = 0
     for b in range(SCAN_Q):
@@ -877,23 +944,232 @@ def device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan):
     if bad:
         raise RuntimeError("DeviceScan disagrees with the exact order")
 
-    # each block re-sweeps every row, in ceil(k / 60) K1 launches
+    # each block re-sweeps every row, in one launch of K1's select form
     ms = {EF * 4 ** i: [] for i in range(4)}
     launches = {}
     for b in range(8):
         scan = index.scan(q[b], SearchParams(ef_search=EF), method="auto")
         done = 0
         for block in ms:
-            before = bf.LAUNCHES["k1_topk"]
+            before = dict(bf.LAUNCHES)
             torch.cuda.synchronize()
             t0 = time.time()
             done += len(scan.take(block - done))
             torch.cuda.synchronize()
             ms[block].append((time.time() - t0) * 1e3)
-            launches[block] = bf.LAUNCHES["k1_topk"] - before
-    log("DeviceScan ms per exact block (mean of 8 queries; K1 launches): "
+            launches[block] = {n: v - before[n] for n, v in
+                               bf.LAUNCHES.items() if v != before[n]}
+    log("DeviceScan ms per exact block (mean of 8 queries; launches): "
         + ", ".join(f"{blk} rows {np.mean(t):.3f} ms ({launches[blk]})"
                     for blk, t in ms.items()))
+    if any(c != {"k1_select": 1} for c in launches.values()):
+        raise RuntimeError(f"a DeviceScan block is not one select launch: "
+                           f"{launches}")
+    return {blk: float(np.mean(t)) for blk, t in ms.items()}
+
+
+def library_topk(x, a, q, k):
+    """The library composition of K1's function: one product and
+    ``torch.topk`` along each query's row."""
+    return torch.topk(a[None] - 2.0 * (q @ x.T), k, dim=1, largest=False)
+
+
+def select_bound(n, dim, b, k):
+    """K1's bound at b queries x n rows x dim f32 and k: the rows, ``a``
+    and the queries read once and the lists written, or the f32 product as
+    three TF32 products (as K1's tensor-core form computes it)."""
+    return bound(3 * 2.0 * b * n * dim, "tf32",
+                 (n * dim + n + b * dim) * 4 + b * k * 8)
+
+
+def k1_select_check(bf, g, q_dev, dim=DIM):
+    """K1's select form on the grown graph's rows (phase 13): held to its
+    plain version at B = 1, 3, 64 and k = 10, 60, 61, 65, 160, 640, 2,560
+    and N (every row), at 1,024 queries x k = 100, and on the rows stored
+    as f16 with every seventh row excluded (B = 3, k = 640; B = 64, k =
+    100); the check must reject a control (the top 161 with its 160th
+    dropped). Timed at one query (DeviceScan's shape) for each of its
+    blocks' k beside the plain version and the library composition (one
+    product ``a - 2 q @ x.T``, ``torch.topk`` along each query), and at
+    1,024 x 100. Returns its kernels row (headline: one query, k =
+    2,560)."""
+    x = g.values[: g.cap].contiguous()
+    n = x.shape[0]
+    a = (x * x).sum(1).contiguous()
+    errs = {}
+    for b in (1, 3, 64):
+        q = q_dev[:b].contiguous()
+        for k in (10, 60, 61, 65, 160, 640, 2560, n):
+            errs[(b, k)] = select_vs_plain(bf, x, a, q, k, "13")
+    q64 = q_dev[:64].contiguous()
+    c_d, c_i = bf._invalid_to_sentinel(
+        *select_boundary_control(bf, x, a, q64, 160))
+    p_d, p_i = bf._invalid_to_sentinel(
+        *bf._surrogate_topk_plain(x, a, q64, 160))
+    _, ctl_ok = select_agreement(c_d, c_i, p_d, p_i,
+                                 float((q64 * q64).sum(1).max()))
+    if ctl_ok:
+        raise RuntimeError("the select form's check passes the 161st row "
+                           "for the 160th")
+    qb = q_dev[:CHUNK].contiguous()
+    errs[(CHUNK, 100)] = select_vs_plain(bf, x, a, qb, 100, "13")
+    x16 = x.half()
+    a16 = (x16.float() ** 2).sum(1)
+    a16[::7] += bf._NEG_BIG
+    for b, k in ((3, 640), (64, 100)):
+        errs[("f16", b, k)] = select_vs_plain(bf, x16, a16.contiguous(),
+                                              q_dev[:b].contiguous(), k, "13")
+    del x16, a16
+    log(f"13 K1's select form equals its plain version but for ties at "
+        f"{len(errs)} (B, k) points (max abs err {max(errs.values())}); the "
+        f"control (161st for 160th) is rejected")
+    q1 = q_dev[:1].contiguous()
+    by_k = {}
+    for k in (10, 40, 60, 160, 640, 2560):
+        by_k[k] = dict(
+            ms=cuda_ms(lambda: bf._select_topk_cuda(x, a, q1, k)),
+            plain_ms=cuda_ms(lambda: bf._surrogate_topk_plain(x, a, q1, k)),
+            library_ms=cuda_ms(lambda: library_topk(x, a, q1, k)),
+            tc_ms=(cuda_ms(lambda: bf._surrogate_topk_cuda(x, a, q1, k))
+                   if k <= bf._MAX_K else None))
+    large = dict(
+        b=CHUNK, k=100,
+        ms=cuda_ms(lambda: bf._select_topk_cuda(x, a, qb, 100), 3),
+        plain_ms=cuda_ms(lambda: bf._surrogate_topk_plain(x, a, qb, 100), 3),
+        library_ms=cuda_ms(lambda: library_topk(x, a, qb, 100), 3),
+        bound=select_bound(n, dim, CHUNK, 100))
+    head = by_k[2560]
+    row = dict(
+        name="k1_select", route="cuda", source=CSRC + "k1_select.cu",
+        replaces=f"{PALLAS}:34 (one query or k > 60)",
+        max_abs_err=max(errs.values()), ms=head["ms"],
+        plain_ms=head["plain_ms"], library_ms=head["library_ms"],
+        library_of="one query, k = 2,560: a - 2 (q @ x.T) in f32 (TF32 off), "
+                   "torch.topk(dim=1, largest=False)",
+        shape="one query x 1,065,536 rows x 128-d f32, k = 2,560",
+        by_k=by_k, at_1024_x_100=large, **select_bound(n, dim, 1, 2560))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log("13 K1 at one query (DeviceScan's shape), ms by k (select / plain "
+        "/ library / tensor-core form): " + ", ".join(
+            f"k={k} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
+            f"{v['library_ms']:.4f} / {v['tc_ms']}" for k, v in by_k.items())
+        + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); 1,024 x "
+        f"100: {large['ms']:.4f} ms (plain {large['plain_ms']:.4f}, library "
+        f"{large['library_ms']:.4f}, bound {large['bound']['bound_ms']:.4f})")
+    return row
+
+
+def select_peak_bound(bf, n, b):
+    """The most device memory an exact call of b queries over n f32 rows
+    may hold above the graph where K1's select form runs it: the keys of
+    one query chunk (``_K1S_BUDGET``, or one query's), and 64 MiB for the
+    chunk's counts, candidates and selection and the call's [b, k]
+    lists."""
+    return min(b * n * 8, max(bf._K1S_BUDGET, n * 8)) + (64 << 20)
+
+
+def exact_select_peak(index, device_mod, bf, g, q_dev):
+    """The exact engine (``serve_topk``) on the grown index where K1's
+    select form serves it: 1,024 queries x k = 100 and 32 x 10. Each
+    call's peak device memory above the allocation before it (the graph's)
+    must stay within ``select_peak_bound``; each must launch the select
+    form. -> {"B x k": MiB}."""
+    dev = q_dev.device
+    out = {}
+    for b, k in ((CHUNK, 100), (32, K)):
+        q = q_dev[:b].contiguous()
+        device_mod.serve_topk(index, q, k, engine="exact")
+        torch.cuda.synchronize()
+        before = bf.LAUNCHES["k1_select"]
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        d, _ = device_mod.serve_topk(index, q, k, engine="exact")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        cap = select_peak_bound(bf, g.cap, b)
+        out[f"{b} x {k}"] = peak / 2**20
+        log(f"13 exact engine at {b} x k = {k}: peak device memory above the "
+            f"graph {peak / 2**20:.1f} MiB (bound {cap / 2**20:.1f} MiB), "
+            f"{bf.LAUNCHES['k1_select'] - before} select launches")
+        if bf.LAUNCHES["k1_select"] == before:
+            raise RuntimeError(f"the exact engine at {b} x {k} did not run "
+                               "K1's select form")
+        if peak > cap or d.shape != (b, k) or not np.isfinite(d).all():
+            raise RuntimeError(f"the exact engine at {b} x {k}: {peak} bytes "
+                               f"above the graph (bound {cap}) or bad output")
+    return out
+
+
+class K7OneCapture:
+    """Keeps the inputs of the first ``keep`` calls of K7's one-query form
+    (``ops/bruteforce._coarse_one_cuda``): the beam scans' seedings."""
+
+    def __init__(self, bf, keep=64):
+        self.bf, self.keep, self.calls = bf, keep, []
+
+    def __enter__(self):
+        self.orig = orig = self.bf._coarse_one_cuda
+
+        def wrapped(rows, a, ids, trav, query, s, l2):
+            if len(self.calls) < self.keep:
+                self.calls.append((rows, a, ids, trav, query.clone(), s, l2))
+            return orig(rows, a, ids, trav, query, s, l2)
+        self.bf._coarse_one_cuda = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.bf._coarse_one_cuda = self.orig
+        return False
+
+
+def k7_one_check(bf, calls, dim=DIM):
+    """K7's one-query form on the beam scans' captured seedings: each
+    call's seeds equal its plain version's but for ties (the check must
+    reject the plain top-9 with its 8th seed dropped), timed through the
+    wrapper (CUDA events over 10 calls: host time counts where it exceeds
+    the kernel's) beside the plain version. Returns its kernels row."""
+    if not calls:
+        raise RuntimeError("no one-query K7 call was captured")
+    rows, a, ids, trav, _, s, l2 = calls[0]
+    q = torch.cat([c[4].reshape(1, -1) for c in calls])
+    live = trav[ids]
+    got = torch.cat([bf.coarse_topk(rows, a, ids, trav, q[i : i + 1], s, l2)[0]
+                     for i in range(q.shape[0])])
+    want, _ = bf._coarse_plain(rows, a, ids, trav, q, s, l2)
+    s9, _ = bf._coarse_plain(rows, a, ids, trav, q, s + 1, l2)
+    ctl = torch.cat([s9[:, : s - 1], s9[:, s:]], 1)
+    ok, err = coarse_agreement(rows, a, live, q, got, want, l2)
+    ok_c, _ = coarse_agreement(rows, a, live, q, ctl, want, l2)
+    log(f"11 K7's one-query form on {q.shape[0]} captured seedings: "
+        f"{ok.mean():.4f} equal to the plain version but for ties, max abs "
+        f"err {err}; control with the 9th seed for the 8th: {ok_c.mean():.4f}")
+    if not ok.all():
+        raise RuntimeError("K7's one-query form disagrees with its plain "
+                           "version")
+    if ok_c.all():
+        raise RuntimeError("the one-query K7 check passes a wrong seed")
+    q1 = q[:1]
+    U = rows.shape[0]
+    row = dict(
+        name="k7_coarse_one", route="cuda", source=CSRC + "k7_coarse.cu",
+        replaces=f"{JAX_DEVICE}:732 (_coarse_seed_one, XLA; the port's "
+                 "torch route)",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: bf.coarse_topk(rows, a, ids, trav, q1, s, l2)),
+        plain_ms=cuda_ms(lambda: bf._coarse_plain(rows, a, ids, trav, q1, s,
+                                                  l2)),
+        upper_rows=U,
+        **bound(2.0 * U * dim, "bf16",
+                U * dim * 2 + U * (4 + 8 + 1) + dim * 4 + s * 16))
+    row["library_ms"] = row["plain_ms"]
+    row["library_of"] = ("the route it replaces (its plain version): the f32 "
+                         "product of the bf16-rounded operands, the mask, "
+                         "torch.topk")
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log(f"11 k7_coarse_one: {row['ms']:.4f} ms a call with its wrapper, "
+        f"plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']}), share {row['share_of_bound']:.4f}")
+    return row
 
 
 def filtered_expected(vals, q, rows, limit):
@@ -1235,9 +1511,10 @@ def k1_near_tie_check(bf, dev) -> None:
     """Fault 3b: K1's top-64 of a unit-axis query over rows whose ranks 64
     and 65 are one ulp apart (7.8e-3 at |x| ~ 1e5) and equal after the
     tf32 split, rank 65 in the first 64-row split. Every score is exact in
-    FP32 and float64, so the wrapper (rounds of 60) must return the float64
-    set; the control, one K1 call at k = 64 (no spare place, the path before
-    the repair), is reported."""
+    FP32 and float64, so the wrapper (K1's select form past k = 60: every
+    row's FP32 score) must return the float64 set; the control, one call of
+    the tensor-core form at k = 64 (no spare place, the path before fault
+    3b's repair), is reported."""
     n, d = 1000, 64
     x_a, x_b = tf32_tie_pair(bf, 98304.0)
     g = torch.Generator().manual_seed(65)
@@ -1593,8 +1870,8 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
                beam, dev, kernels):
     """Phase 18: BASELINE's 768-d cosine configuration at 1,000,000 rows,
     full width, on the card; then K8 on a batch of its build (the 600th),
-    K1, K2, K4 and K7 at d = 768 against their plain versions; K8's sort
-    merge goes to ``kernels``. Returns phase 27's 768-d rows (a copy of
+    K1, K2, K4, K7 and K1's select form at d = 768 against their plain
+    versions; K8's sort merge goes to ``kernels``. Returns phase 27's 768-d rows (a copy of
     the first ``N27``, raw) and the normalized queries."""
     params = IndexParams(m=M, ef_construction=EF_CONSTRUCTION)
     with Phase("18 data, 1,000,000 x 768-d"):
@@ -1700,6 +1977,12 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
                   + CHUNK * (D768 * 4 + s_ids.shape[1] * 8 + EF * 8 + 8))))
         rows.append(k4_bf16_768(g, walk, kw, beam))
         rows.append(k7_check(bf, device_mod, g, q1, "k7_coarse", D768))
+        err = select_vs_plain(bf, x32, a, qn[:3].contiguous(), 100, "18")
+        rows.append(kernel_row(
+            "k1_select", err,
+            cuda_ms(lambda: bf._select_topk_cuda(x32, a, qn[:1], 100)),
+            cuda_ms(lambda: bf._surrogate_topk_plain(x32, a, qn[:1], 100)),
+            select_bound(n_rows, D768, 1, 100)))
     log(json.dumps({"d768": rows}))
     log(json.dumps({"k8": k8}))
     del idx, g, xv
@@ -4134,8 +4417,14 @@ def sharded_path(make_dataset, SearchParams, params, device_mod, bf, beam,
                 ms.append((time.time() - t0) * 1e3)
                 streams.append(items + scan.take(10 * SCAN28_MAX))
 
-        _, launches["scan"] = path_launches(bf, scans)
-        need_launches("ShardedScan", launches["scan"], "k1_topk")
+        _, launches["scan"] = path_launches(
+            bf, scans, ("k1_select", "k1_topk", "k4_beam"))
+        need_launches("ShardedScan", launches["scan"], "k1_select")
+        sx = idx.shards[0].device_graph().values
+        sx = sx[: idx.shards[0].device_graph().cap].contiguous()
+        select_vs_plain(bf, sx, (sx * sx).sum(1).contiguous(),
+                        q_dev[:3].contiguous(), 500, "28")
+        del sx
         bad = 0
         for b, items in enumerate(streams):
             dists = [dd for _, dd in items]
@@ -4372,6 +4661,11 @@ def main() -> int:
             matmul_ms=cuda_ms(lambda: q1 @ x32.T),
             matmul_of="q @ x.T alone in f32 (the product, not the function)",
         )
+        # K1's select form on the same rows (the pad row excluded by `a`)
+        err_s = max(select_vs_plain(bf, x32, a, q1[:b].contiguous(), k, "8")
+                    for b, k in ((1, K), (3, 100), (64, 61)))
+        log(f"K1's select form equals its plain version but for ties at "
+            f"B = 1, 3, 64 (max abs err {err_s})")
 
         qb = q1.to(torch.bfloat16)
         # order distances: squared l2 restored from the surrogate scores
@@ -4493,31 +4787,31 @@ def main() -> int:
     with Phase("10 inserted rows find themselves"):
         inserted_self_recall(index, x_dev, device_mod, N_ROWS)
     with Phase("11 DeviceScan (scan method=auto)"):
-        device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan)
+        scan_blocks = device_scan_check(index, g, q_dev, bf, SearchParams,
+                                        DeviceScan)
     with Phase("11 K1 near tie at ranks 64 / 65"):
         k1_near_tie_check(bf, dev)
-    with Phase("11 beam scans, 2% and 0.2% filters"):
+    with Phase("11 beam scans, 2% and 0.2% filters"), \
+            K7OneCapture(bf) as k7_seedings:
         beam_scan_check(index, g, q_dev, SearchParams, DeviceBeamScan, beam)
     with Phase("12 the t/044 contract, 50,000 x 3-d"):
         contract_044(HnswIndex, SearchParams, dev)
     scan_launches = dict(bf.LAUNCHES)
     log(f"insert-and-scan path launches: {scan_launches}")
-    for name in ("k1_topk", "k2_binned", "k4_beam", "k5_beam_scan",
-                 "k7_coarse"):
+    for name in ("k1_topk", "k1_select", "k2_binned", "k4_beam",
+                 "k5_beam_scan", "k7_coarse", "k7_coarse_one"):
         if scan_launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never ran on the "
                                "insert-and-scan path")
+    kernels["k7_coarse_one"] = k7_one_check(bf, k7_seedings.calls)
+    del k7_seedings
 
+    with Phase("13 K1's select form vs plain"):
+        kernels["k1_select"] = k1_select_check(bf, g, q_dev)
+        kernels["k1_select"]["scan_block_ms"] = scan_blocks
+        kernels["k1_select"]["exact_peak_mib"] = exact_select_peak(
+            index, device_mod, bf, g, q_dev)
     with Phase("13 walk kernel vs plain"):
-        x = g.values[: g.cap].contiguous()
-        a = (x * x).sum(1)
-        k1_one = {k: cuda_ms(lambda: bf._surrogate_topk_cuda(x, a, q_dev[:1],
-                                                             k))
-                  for k in (10, EF, bf._MAX_K)}
-        log("K1 at one query over every row (DeviceScan's shape), device ms "
-            "per launch: " + ", ".join(f"k={k} {t:.4f}"
-                                       for k, t in k1_one.items()))
-        del x, a
         walk_vs_plain(g, q_dev, gt_all, emit_all, device_mod, beam, kernels)
         for name in ("k4_beam", "k5_beam_scan"):
             kr = kernels[name]
@@ -4530,8 +4824,10 @@ def main() -> int:
                 f"err {kr['max_abs_err']}")
 
     for name in kernels:
-        kernels[name]["launches"] = (scan_launches if name == "k5_beam_scan"
-                                     else main_launches)[name]
+        kernels[name]["launches"] = (
+            scan_launches if name in ("k5_beam_scan", "k1_select",
+                                      "k7_coarse_one")
+            else main_launches)[name]
     beam_variants(index, g, q_dev, emit_all, gt_all, device_mod, beam, bf,
                   kernels, SearchParams)
     del g, x_dev  # the grown index stays for phase 20
@@ -4618,7 +4914,8 @@ def main() -> int:
                                  "k4_words_visited", "k4_sparse_visited",
                                  "k5_beam_scan_expand4",
                                  "k5_beam_scan_bf16", "k7_coarse",
-                                 "k8_beam_ground")]}))
+                                 "k8_beam_ground", "k1_select",
+                                 "k7_coarse_one")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

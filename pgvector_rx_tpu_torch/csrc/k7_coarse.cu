@@ -20,18 +20,21 @@
 // ms of bytes.
 //
 // Design (sm_90a), K2's bf16 tiles with K1's threshold-filtered lists:
-// - One block owns 64 queries (one warpgroup) and a range of upper rows (a
-//   split); the grid runs the query tiles of a split side by side
-//   (blockIdx.x fastest), so a chunk of rows is read from device memory
-//   about once and served to the others from L2.
-// - Each 128-byte unit of the 64 queries and of a 64-row chunk streams
+// - One block owns 128 queries (two warpgroups of 64) and a range of upper
+//   rows (a split), one block an SM; the grid runs the query tiles of a
+//   split side by side (blockIdx.x fastest), so a chunk of rows is read
+//   from device memory about once and served to the others from L2.
+// - Each 128-byte unit of the 128 queries and of a 128-row chunk streams
 //   through a 4-stage cp.async ring into wgmma's 128-byte-swizzled layout
-//   (the queries stream beside the rows, so any d fits); wgmma m64 n64 k16,
-//   bf16 -> f32.
+//   (the queries stream beside the rows, so any d fits); each warpgroup
+//   runs wgmma m64 n128 k16, bf16 -> f32, on its 64 queries: a unit is
+//   2.1 MFLOP between a wait and a block barrier (a 64 x 64 unit, 0.5
+//   MFLOP, left the wait and the barrier setting the pace; PERF.md).
 // - The epilogue filters by threshold with no warp-wide step: each warp
-//   writes its 16 x 64 products to a tile in shared memory, and each
-//   thread then takes one query's even or odd slots of the chunk (32
-//   cells; the chunk's row terms staged in shared memory one chunk ahead),
+//   writes its 16 x 128 products to its warpgroup's tile in shared memory,
+//   and each thread then takes one query's even or odd slots of the chunk
+//   (64 cells; the chunk's row terms staged in shared memory one chunk
+//   ahead),
 //   marks the cells that beat its own list's S-th best in a bit mask (no
 //   branch), and inserts them into that list, kept sorted in its
 //   registers by a compare-and-select chain. A warp so runs as many
@@ -53,11 +56,11 @@
 
 namespace {
 
-constexpr int k7Bq = 64;  // queries per block: one warpgroup
-constexpr int k7Bn = 64;  // upper rows per chunk
-constexpr int k7Threads = 128;
+constexpr int k7Bq = 128;  // queries per block: two warpgroups of 64
+constexpr int k7Bn = 128;  // upper rows per chunk: m64 n128
+constexpr int k7Threads = 256;
 constexpr int k7Stages = 4;
-constexpr int k7UnitBytes = 64 * kUnitBytes;  // a query or a row unit: 8 KB
+constexpr int k7UnitBytes = 128 * kUnitBytes;  // a query or row unit: 16 KB
 constexpr int k7StageBytes = 2 * k7UnitBytes;
 
 // The products' tile: k7Bq rows of k7Bn floats, padded so that the 32
@@ -89,7 +92,7 @@ __device__ __forceinline__ void reg_insert(
 }
 
 template <int ALIGN>
-__global__ void __launch_bounds__(k7Threads)
+__global__ void __launch_bounds__(k7Threads, 1)
     k7_partial_kernel(const __nv_bfloat16* __restrict__ x,
                       const float* __restrict__ a,
                       const long long* __restrict__ ids,
@@ -101,7 +104,9 @@ __global__ void __launch_bounds__(k7Threads)
   unsigned char* smem = aligned_smem(smem_raw);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;  // owns queries warp*16 .. +15 of the block
+  const int wg = tid >> 7;          // warpgroup: queries wg*64 .. +63
+  const int warp = (tid >> 5) & 3;  // owns the warpgroup's queries
+                                    // warp*16 .. +15
   const int q0 = blockIdx.x * k7Bq;
   const int split = blockIdx.y;
   const int r0 = split * rows_per_split;
@@ -139,9 +144,9 @@ __global__ void __launch_bounds__(k7Threads)
     cp_async_commit();
   };
 
-  float acc[32];
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   // chunk ci's row terms into terms[ci % 2]: `a`, or +inf past r1 and on
   // slots that are not traversable; staged one chunk ahead of the
   // epilogue that reads them (a block barrier starts every unit)
@@ -152,8 +157,10 @@ __global__ void __launch_bounds__(k7Threads)
           row < r1 && trav[__ldg(ids + row)] ? __ldg(a + row) : CUDART_INF_F;
   };
   row_terms(0);
-  // the epilogue's query (a row of this warp's) and half: slots 2 c + h
-  const int r = tid >> 1, h = tid & 1;
+  // the epilogue's query (a row of this warp's, in its warpgroup's tile)
+  // and half: slots 2 c + h
+  const int r = (tid & 127) >> 1, h = tid & 1;
+  float* wtile = tile + wg * 64 * k7TileLd;
 
   for (int v = 0; v < k7Stages - 1; ++v) issue(v);
   for (int v = 0; v < total; ++v) {
@@ -169,9 +176,9 @@ __global__ void __launch_bounds__(k7Threads)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // 4 x k16 (32 bytes) = the unit
-      wgmma_bf16_m64n64k16(acc, make_desc(stage_q(st) + 32 * kk),
-                           make_desc(stage_x(st) + 32 * kk),
-                           (u > 0 || kk > 0) ? 1 : 0);
+      wgmma_bf16_m64n128k16(
+          acc, make_desc(stage_q(st) + wg * 64 * kUnitBytes + 32 * kk),
+          make_desc(stage_x(st) + 32 * kk), (u > 0 || kk > 0) ? 1 : 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -180,15 +187,15 @@ __global__ void __launch_bounds__(k7Threads)
       // the warp's 16 rows of products to the tile (rows its own threads
       // read: no block barrier)
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
+      for (int i = 0; i < 64; i += 2) {
         const int row = warp * 16 + acc_row(i, lane);
-        *reinterpret_cast<float2*>(tile + row * k7TileLd +
+        *reinterpret_cast<float2*>(wtile + row * k7TileLd +
                                    acc_col(i, lane)) =
             make_float2(acc[i], acc[i + 1]);
       }
       __syncwarp();
-      if (q0 + r < b) {
-        const float* prod = tile + r * k7TileLd + h;
+      if (q0 + wg * 64 + r < b) {
+        const float* prod = wtile + r * k7TileLd + h;
         const float* term = terms + (ci & 1) * k7Bn + h;
         // a term is inf past r1 and on dead slots; inf - scale * dot stays
         // inf and never passes. + 0.0f makes -0.0 tie with +0.0.
@@ -204,15 +211,16 @@ __global__ void __launch_bounds__(k7Threads)
         const float thr = worst == kEmptyKey
                               ? CUDART_INF_F
                               : key_float(static_cast<unsigned>(worst >> 32));
-        unsigned pass = 0;
+        unsigned long long pass = 0;
 #pragma unroll
         for (int c = 0; c < k7Bn / 2; ++c) {
           const float sc = score(c);
-          pass |= static_cast<unsigned>(sc <= thr && sc < CUDART_INF_F)
+          pass |= static_cast<unsigned long long>(sc <= thr &&
+                                                  sc < CUDART_INF_F)
                   << c;
         }
         while (pass) {
-          const int c = __ffs(pass) - 1;
+          const int c = __ffsll(pass) - 1;
           pass &= pass - 1;
           const unsigned long long key =
               (static_cast<unsigned long long>(float_key(score(c))) << 32) |
@@ -225,9 +233,10 @@ __global__ void __launch_bounds__(k7Threads)
   }
   cp_async_wait<0>();
 
-  if (q0 + r < b) {
+  if (q0 + wg * 64 + r < b) {
     unsigned long long* out =
-        part + ((static_cast<size_t>(q0 + r) * gridDim.y + split) * 2 + h) * s;
+        part + ((static_cast<size_t>(q0 + wg * 64 + r) * gridDim.y + split) *
+                    2 + h) * s;
 #pragma unroll
     for (int j = 0; j < k7MaxSeeds; ++j)
       if (j < s) out[j] = lst[j];
@@ -277,14 +286,288 @@ cudaError_t launch_k7(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// One query: the GEMV form
+// ---------------------------------------------------------------------------
+//
+// At one query (the beam scan's seeding) the batch form's 128-query tile
+// carries 127 empty ones and a second launch merges the lists. This form reads
+// each row once with 16-byte loads, L lanes a row (L = d / 8 rounded up to
+// a power of two, at most 32), four rows of a lane group in flight, sums
+// the bf16 products in f32 (each lane its features in order, then a tree
+// over the L lanes), and keeps the S best keys of its rows in the row
+// group's first lane's registers; a lane group loads its rows' terms and
+// element ids before their products and their traversable flags together
+// after them. A warp takes its S best in registers (S rounds of a warp
+// minimum over the lanes' list heads), warp 0 the block's from the warps'
+// in shared memory; the last block to finish (a ticket taken after a
+// fence) takes the S best of every block's S the same way, each lane
+// reading its share of them from L2 eight at a time, and writes slots and
+// ids, in the same launch. One wave of blocks (three an SM). The query is
+// rounded to bf16 as it is staged (__float2bfloat16_rn, torch's cast).
+
+constexpr int k7gThreads = 256;
+constexpr int k7gWarps = k7gThreads / 32;
+constexpr int k7gRows = 4;  // rows of a lane group in flight
+
+// The warp's s smallest keys, each lane holding an ascending list `lst`
+// (consumed): s rounds of a warp minimum over the lists' heads, the lane
+// whose head it was dropping it (keys are unique). Lane j < s returns the
+// j-th smallest (kEmptyKey past the keys). Registers and shuffles only.
+__device__ __forceinline__ unsigned long long warp_top(
+    unsigned long long (&lst)[k7MaxSeeds], int s, int lane) {
+  unsigned long long mine = kEmptyKey;
+  for (int r = 0; r < s; ++r) {
+    unsigned long long m = lst[0];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(kFull, m, o);
+      m = other < m ? other : m;
+    }
+    if (m != kEmptyKey && lst[0] == m) {
+#pragma unroll
+      for (int j = 0; j < k7MaxSeeds - 1; ++j) lst[j] = lst[j + 1];
+      lst[k7MaxSeeds - 1] = kEmptyKey;
+    }
+    if (lane == r) mine = m;
+  }
+  return mine;
+}
+
+// The s smallest of the keys src[0, c) (one warp): each lane keeps the
+// best of its keys src[lane], src[lane + 32], ..., then warp_top. GLOBAL:
+// src is other blocks' output in device memory (read through L2, eight
+// loads in flight a lane), else shared memory.
+template <bool GLOBAL = false>
+__device__ __forceinline__ unsigned long long warp_top_of(
+    const unsigned long long* src, int c, int s, int lane) {
+  unsigned long long lst[k7MaxSeeds];
+#pragma unroll
+  for (int j = 0; j < k7MaxSeeds; ++j) lst[j] = kEmptyKey;
+#pragma unroll 8
+  for (int i = lane; i < c; i += 32) {
+    const unsigned long long key = GLOBAL ? __ldcg(src + i) : src[i];
+    if (key < lst[k7MaxSeeds - 1]) reg_insert(lst, key);
+  }
+  return warp_top(lst, s, lane);
+}
+
+template <int L, bool VEC>
+__global__ void __launch_bounds__(k7gThreads)
+    k7_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ a,
+                   const long long* __restrict__ ids,
+                   const unsigned char* __restrict__ trav,
+                   const float* __restrict__ q, int n, int d, int s,
+                   float scale, unsigned long long* __restrict__ part,
+                   unsigned* __restrict__ ticket,
+                   long long* __restrict__ out_slot,
+                   long long* __restrict__ out_id) {
+  constexpr int kRpw = 32 / L;  // rows a warp takes at a time
+  extern __shared__ __align__(16) float k7g_q[];  // the query, in bf16
+  __shared__ unsigned long long wl[k7gWarps * k7MaxSeeds];
+  __shared__ unsigned flag;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane / L, li = lane % L;
+  for (int i = tid; i < d; i += k7gThreads)
+    k7g_q[i] = __bfloat162float(__float2bfloat16_rn(q[i]));
+  __syncthreads();
+
+  unsigned long long lst[k7MaxSeeds];
+#pragma unroll
+  for (int j = 0; j < k7MaxSeeds; ++j) lst[j] = kEmptyKey;
+  const long long stride = static_cast<long long>(gridDim.x) * k7gWarps * kRpw;
+  const int chunks = d / 8;  // 16-byte chunks a row (VEC: d % 8 == 0)
+  for (long long base =
+           (static_cast<long long>(blockIdx.x) * k7gWarps + warp) * kRpw;
+       base < n; base += k7gRows * stride) {  // warp-uniform trips
+    float sum[k7gRows];
+    // the rows' terms and element ids before their products, so the
+    // traversable flags' dependent loads are issued once an iteration
+    float term[k7gRows];
+    long long elem[k7gRows];
+#pragma unroll
+    for (int j = 0; j < k7gRows; ++j) {
+      sum[j] = 0.f;
+      const long long row = base + j * stride + sub;
+      const bool lead = li == 0 && row < n;
+      term[j] = lead ? __ldg(a + row) : CUDART_INF_F;
+      elem[j] = lead ? __ldg(ids + row) : -1;
+    }
+    if constexpr (VEC) {
+#pragma unroll 4
+      for (int c = li; c < chunks; c += L) {
+        uint4 w[k7gRows];
+#pragma unroll
+        for (int j = 0; j < k7gRows; ++j) {
+          const long long row = base + j * stride + sub;
+          w[j] = row < n ? __ldg(reinterpret_cast<const uint4*>(
+                               x + row * d) + c)
+                         : make_uint4(0u, 0u, 0u, 0u);
+        }
+        const float4 q0 = *reinterpret_cast<const float4*>(k7g_q + 8 * c);
+        const float4 q1 =
+            *reinterpret_cast<const float4*>(k7g_q + 8 * c + 4);
+#pragma unroll
+        for (int j = 0; j < k7gRows; ++j) {
+          const float qv[8] = {q0.x, q0.y, q0.z, q0.w,
+                               q1.x, q1.y, q1.z, q1.w};
+          const uint32_t wv[4] = {w[j].x, w[j].y, w[j].z, w[j].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sum[j] = fmaf(qv[2 * e], __uint_as_float(wv[e] << 16), sum[j]);
+            sum[j] = fmaf(qv[2 * e + 1],
+                          __uint_as_float(wv[e] & 0xffff0000u), sum[j]);
+          }
+        }
+      }
+    } else {
+      for (int f = li; f < d; f += L) {
+#pragma unroll
+        for (int j = 0; j < k7gRows; ++j) {
+          const long long row = base + j * stride + sub;
+          if (row < n)
+            sum[j] = fmaf(k7g_q[f], __bfloat162float(x[row * d + f]),
+                          sum[j]);
+        }
+      }
+    }
+    bool live[k7gRows];
+#pragma unroll
+    for (int j = 0; j < k7gRows; ++j) live[j] = elem[j] >= 0 && trav[elem[j]];
+#pragma unroll
+    for (int j = 0; j < k7gRows; ++j) {
+#pragma unroll
+      for (int o = L / 2; o > 0; o >>= 1)
+        sum[j] += __shfl_xor_sync(kFull, sum[j], o);
+      const long long row = base + j * stride + sub;
+      if (live[j]) {
+        // + 0.0f makes -0.0 tie with +0.0
+        const float sc = term[j] - scale * sum[j] + 0.0f;
+        const unsigned long long key =
+            (static_cast<unsigned long long>(float_key(sc)) << 32) |
+            static_cast<unsigned>(row);
+        if (key < lst[k7MaxSeeds - 1]) reg_insert(lst, key);
+      }
+    }
+  }
+
+  // the block's lists: each warp's S best, then warp 0's of the warps'
+  unsigned long long key = warp_top(lst, s, lane);
+  if (lane < k7MaxSeeds) wl[warp * k7MaxSeeds + lane] = key;
+  __syncthreads();
+  if (warp == 0) {
+    key = warp_top_of(wl, k7gWarps * k7MaxSeeds, s, lane);
+    if (lane < s) part[static_cast<size_t>(blockIdx.x) * s + lane] = key;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned t = atomicAdd(ticket, 1u);
+    flag = t == gridDim.x - 1;
+    if (flag) *ticket = 0u;
+  }
+  __syncthreads();
+  if (!flag) return;
+  __threadfence();
+  // the last block: each warp's S best of an eighth of the blocks' lists,
+  // then warp 0's of the warps'
+  const int nk = static_cast<int>(gridDim.x) * s;
+  const int per = (nk + k7gWarps - 1) / k7gWarps;
+  const int k0 = min(nk, warp * per);
+  key = warp_top_of<true>(part + k0, min(nk, k0 + per) - k0, s, lane);
+  if (lane < k7MaxSeeds) wl[warp * k7MaxSeeds + lane] = key;
+  __syncthreads();
+  if (warp != 0) return;
+  key = warp_top_of(wl, k7gWarps * k7MaxSeeds, s, lane);
+  if (lane < s) {
+    const long long slot =
+        key == kEmptyKey ? -1 : static_cast<long long>(key & 0xffffffffull);
+    out_slot[lane] = slot;
+    out_id[lane] = slot < 0 ? -1 : ids[slot];
+  }
+}
+
+template <int L>
+cudaError_t launch_k7_gemv(int blocks, cudaStream_t st,
+                           const __nv_bfloat16* x, const float* a,
+                           const long long* ids, const unsigned char* trav,
+                           const float* q, int n, int d, int s, float scale,
+                           unsigned long long* part, unsigned* ticket,
+                           long long* out_slot, long long* out_id) {
+  const int smem = d * 4;
+  const bool vec = d % 8 == 0;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = vec ? cudaFuncSetAttribute(
+                    k7_gemv_kernel<L, true>,
+                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+              : cudaFuncSetAttribute(
+                    k7_gemv_kernel<L, false>,
+                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (vec)
+    k7_gemv_kernel<L, true><<<blocks, k7gThreads, smem, st>>>(
+        x, a, ids, trav, q, n, d, s, scale, part, ticket, out_slot, out_id);
+  else
+    k7_gemv_kernel<L, false><<<blocks, k7gThreads, smem, st>>>(
+        x, a, ids, trav, q, n, d, s, scale, part, ticket, out_slot, out_id);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// K7 at one query. rows [n, d] bf16 (16-byte aligned), a [n] f32, ids [n]
+// int64, trav [cap + 1] bool, q [d] f32 (rounded to bf16 here) -> out_slot,
+// out_id [s] int64. part [blocks, s] u64 scratch; ticket one u32, zero
+// before the call and again after it. lanes: 1, 2, 4, 8, 16 or 32 lanes a
+// row. The query fits in 200 KB of shared memory.
+int pgv_k7_coarse_one(const void* rows, const float* a, const long long* ids,
+                      const unsigned char* trav, const float* q, int n,
+                      int d, int s, int l2, int lanes, int blocks,
+                      unsigned long long* part, unsigned* ticket,
+                      long long* out_slot, long long* out_id, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s < 1 || s > k7MaxSeeds || n < 1 || d < 1 || blocks < 1 ||
+      d * 4 > 200 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto x = static_cast<const __nv_bfloat16*>(rows);
+  const float scale = l2 ? 2.0f : 1.0f;
+  switch (lanes) {
+    case 1:
+      return static_cast<int>(launch_k7_gemv<1>(blocks, st, x, a, ids, trav,
+                                                q, n, d, s, scale, part,
+                                                ticket, out_slot, out_id));
+    case 2:
+      return static_cast<int>(launch_k7_gemv<2>(blocks, st, x, a, ids, trav,
+                                                q, n, d, s, scale, part,
+                                                ticket, out_slot, out_id));
+    case 4:
+      return static_cast<int>(launch_k7_gemv<4>(blocks, st, x, a, ids, trav,
+                                                q, n, d, s, scale, part,
+                                                ticket, out_slot, out_id));
+    case 8:
+      return static_cast<int>(launch_k7_gemv<8>(blocks, st, x, a, ids, trav,
+                                                q, n, d, s, scale, part,
+                                                ticket, out_slot, out_id));
+    case 16:
+      return static_cast<int>(launch_k7_gemv<16>(blocks, st, x, a, ids, trav,
+                                                 q, n, d, s, scale, part,
+                                                 ticket, out_slot, out_id));
+    case 32:
+      return static_cast<int>(launch_k7_gemv<32>(blocks, st, x, a, ids, trav,
+                                                 q, n, d, s, scale, part,
+                                                 ticket, out_slot, out_id));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // K7. rows [n, d] bf16 (16-byte aligned), a [n] f32, ids [n] int64, trav
 // [cap + 1] bool, q [b, d] bf16 -> out_slot, out_id [b, s] int64; l2 != 0
 // scores a - 2 q.x, else a - q.x. part is [b, splits, 2, s] u64 scratch; the
-// grid is (ceil(b / 64), splits), split i covering rows [i rows_per_split,
+// grid is (ceil(b / 128), splits), split i covering rows [i rows_per_split,
 // min(n, (i + 1) rows_per_split)), all non-empty.
 int pgv_k7_coarse_topk(const void* rows, const float* a, const long long* ids,
                        const unsigned char* trav, const void* q, int n, int d,

@@ -285,7 +285,8 @@ class DeviceScan:
         self.query = query
         self._block = max(params.ef_search, 16)
         self._emitted = 0  # tuples emitted
-        self._buf: list = []  # pending (tid, dist), nearest first
+        self._buf: list = []  # the block's pending (tid, dist), nearest first
+        self._head = 0  # the next of them
         self._buf_pos = 0
         self._exhausted = False
         self.scan_stats = ScanStats()
@@ -303,40 +304,46 @@ class DeviceScan:
         q = (q.float().reshape(1, -1) if isinstance(q, torch.Tensor)
              else np.atleast_2d(np.asarray(q, dtype=np.float32)))
         dists, ids = self.index.search(q, k, self.params, method="exact")
-        pairs = [
-            (int(t), float(d))
-            for t, d in zip(ids[0], dists[0])
-            if t >= 0 and np.isfinite(d)
-        ]
-        self._buf = pairs[self._buf_pos :]
+        keep = (ids[0] >= 0) & np.isfinite(dists[0])
+        pairs = list(zip(ids[0][keep].tolist(), dists[0][keep].tolist()))
+        self._buf, self._head = pairs[self._buf_pos :], 0
         self._buf_pos += len(self._buf)
         if k >= total:  # the sweep covered everything there is
             self._exhausted = True
         self._block *= 4
 
-    def next(self):
-        """Next (heap_tid, operator_distance) or None."""
+    def _pending(self) -> int:
+        """Tuples the stream may still hand out now, fetching the next
+        block when the current one is spent (0: the stream is done)."""
         if self._emitted >= self.params.max_scan_tuples:
-            return None
-        while not self._buf:
+            return 0
+        while self._head >= len(self._buf):
             if self._exhausted:
-                return None
+                return 0
             if self._buf_pos > 0:  # re-entries only (first block isn't one)
                 self.scan_stats.resumes += 1
             self.index.stats["resumes"] += 1
             self._fetch()
-        tid, d = self._buf.pop(0)
-        self._emitted += 1
-        self.scan_stats.tuples_returned += 1
-        return tid, d
+        return min(len(self._buf) - self._head,
+                   self.params.max_scan_tuples - self._emitted)
+
+    def next(self):
+        """Next (heap_tid, operator_distance) or None."""
+        out = self.take(1)
+        return out[0] if out else None
 
     def take(self, k: int) -> list[tuple]:
+        """The next ``k`` tuples (fewer at the stream's end), taken from
+        the pending block in bulk."""
         out = []
         while len(out) < k:
-            item = self.next()
-            if item is None:
+            n = min(k - len(out), self._pending())
+            if n == 0:
                 break
-            out.append(item)
+            out.extend(self._buf[self._head : self._head + n])
+            self._head += n
+            self._emitted += n
+            self.scan_stats.tuples_returned += n
         return out
 
 

@@ -22,7 +22,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-_SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k2_binned.cu",
+_SOURCES = tuple(_CSRC / f for f in ("k1_topk.cu", "k1_select.cu",
+                                     "k2_binned.cu",
                                      "k3_tilemin.cu", "k4_beam.cu",
                                      "k7_coarse.cu",
                                      "k8_beam_ground.cu", "k9_bits.cu",
@@ -51,6 +52,10 @@ _SIGNATURES = {
     # rows_per_split, part_d, part_i, sel_d, sel_i, out_d, out_i, stream
     "pgv_k1_surrogate_topk": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # base, dtype, a, q, n, d, b, k, qg, rows_per_block, per, keys, hist,
+    # state, cand, sel, order, out_d, out_i, stream
+    "pgv_k1_select_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _I, _P, _P, _P],
     # base, dtype, a, q, n, d, b, k, tn, bins_per_block, splits,
     # tiles_per_split, bins, out_d, out_i, stream
     "pgv_k2_binned_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -76,6 +81,10 @@ _SIGNATURES = {
     # out_slot, out_id, stream
     "pgv_k7_coarse_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P],
+    # rows, a, ids, trav, q, n, d, s, l2, lanes, blocks, part, ticket,
+    # out_slot, out_id, stream
+    "pgv_k7_coarse_one": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P, _P],
     # rows, stride, d, nbrs, lm0, alive, cap, q, bd, bkey, b, W, E, steps,
     # metric, merge, out_d, out_ids, stream
     "pgv_k8_beam_ground": [_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I,

@@ -1,17 +1,20 @@
 """Fused brute-force k-NN sweeps: the counterpart of
 ``pgvector_rx_tpu/ops/pallas_bruteforce.py``.
 
-Three kernels, hand-written in CUDA for Hopper (``csrc/k1_topk.cu``,
-``csrc/k2_binned.cu``, ``csrc/k3_tilemin.cu``):
+Three kernels, hand-written in CUDA for Hopper (``csrc/k1_topk.cu`` and
+``csrc/k1_select.cu``, ``csrc/k2_binned.cu``, ``csrc/k3_tilemin.cu``):
 
 - **K1** (``_surrogate_topk``; ``l2_topk`` / ``ip_topk`` /
   ``cosine_topk``): exact FP32 top-k of the surrogate score
-  ``a - 2 q.x`` without a [B, N] score matrix in device memory: three
-  tf32 ``wgmma`` products per FP32 product select k + 4 candidates per
-  query, rescored exactly in FP32. Replaces the Pallas
-  ``_topk_kernel``. It reads f16 and bf16 rows as stored (two products:
-  their tf32 small half is 0), so a compact store's chunk needs no f32
-  copy.
+  ``a - 2 q.x`` without a [B, N] score matrix in device memory. Replaces
+  the Pallas ``_topk_kernel``, in two forms. The tensor-core form
+  (``csrc/k1_topk.cu``, many queries, k <= 60): three tf32 ``wgmma``
+  products per FP32 product select k + 4 candidates per query, rescored
+  exactly in FP32. The select form (``csrc/k1_select.cu``, few queries or
+  any k): every row's FP32 score in the rescoring's order, written as a
+  64-bit order key, and a radix select of the k smallest keys in one
+  sweep of the rows. Both read f16 and bf16 rows as stored, so a compact
+  store's chunk needs no f32 copy.
 - **K2** (``binned_sweep_topk``): bf16 sweep keeping a running per-bin
   minimum (bin = row mod ``tn``), then a top-k over the bins. Replaces the
   Pallas ``_binned_kernel``. It reads f16 rows too, rounding each value to
@@ -24,7 +27,9 @@ Three kernels, hand-written in CUDA for Hopper (``csrc/k1_topk.cu``,
   the bf16 rows (``_row_sq_max``, launch count ``k3_x2max``).
 - **K7** (``coarse_topk``, ``csrc/k7_coarse.cu``): the beam engine's
   coarse seed sweep, the S best upper rows of each query by a bf16 score
-  with the non-traversable rows masked, without a [B, U] score matrix.
+  with the non-traversable rows masked, without a [B, U] score matrix:
+  bf16 ``wgmma`` tiles for a batch, a GEMV form in one launch for one
+  query (launches ``k7_coarse_one``).
   It has no Pallas ancestor: it replaces the XLA program of the JAX
   package's ``_search_batch_coarse``.
 
@@ -50,11 +55,12 @@ _NEG_BIG = float(3.0e38)
 #: (the beam walk's modes, ``ops/beam.py``, the bit sweep, ``ops/bits.py``,
 #: the sparse sweep, ``ops/sparse.py``, and the build's beam ground,
 #: ``graph/device_build.py``, count here too)
-LAUNCHES = {"k1_topk": 0, "k2_binned": 0, "k3_tilemin": 0, "k3_x2max": 0,
-            "k4_beam": 0, "k4_beam_sparse": 0, "k5_beam_scan": 0,
+LAUNCHES = {"k1_topk": 0, "k1_select": 0, "k2_binned": 0, "k3_tilemin": 0,
+            "k3_x2max": 0, "k4_beam": 0, "k4_beam_sparse": 0,
+            "k5_beam_scan": 0,
             "k9_bits": 0, "k9_bits_tc": 0, "k10_sparse": 0,
             "k10_sparse_lookup": 0, "k10_compact": 0, "k7_coarse": 0,
-            "k8_beam_ground": 0}
+            "k7_coarse_one": 0, "k8_beam_ground": 0}
 
 _MAX_K = 64
 
@@ -210,8 +216,9 @@ def _surrogate_topk_plain(base, a, queries, k: int):
         parts_i.append(i + s)
     sd = torch.cat(parts_s, dim=1)
     si = torch.cat(parts_i, dim=1)
-    if sd.shape[1] > k:
-        sd, pos = torch.topk(sd, k, dim=1, largest=False, sorted=True)
+    if len(parts_s) > 1:  # merge the blocks' lists, even when k >= n
+        sd, pos = torch.topk(sd, min(k, sd.shape[1]), dim=1, largest=False,
+                             sorted=True)
         si = torch.gather(si, 1, pos)
     si = si.to(torch.int32)
     if sd.shape[1] < k:  # fewer rows than k
@@ -281,53 +288,148 @@ def _surrogate_topk_cuda(base, a, queries, k: int):
     return out_d, out_i
 
 
-#: the largest k that K1 answers in one call with all its spare places:
+#: the largest k the tensor-core form answers with all its spare places:
 #: its lists hold min(64, k + 4)
-_ROUND_K = _MAX_K - _K1_SPARE
+_K1_TC_MAX_K = _MAX_K - _K1_SPARE
+#: the most queries the select form takes at k <= ``_K1_TC_MAX_K``, by
+#: the rows' dtype: ((from k, queries), ...), the first whose k is
+#: reached. At more queries the tensor-core form is faster. Measured on
+#: an H100 (probes/k1_select.py, PERF.md): over 1M x 128-d f32 rows the
+#: select form wins up to 32 queries at k = 10 (0.86 against 1.13 ms) and
+#: loses at 64 (1.81 / 1.05); at k = 40 and 60 it wins up to 128 (3.50 /
+#: 4.22, 3.45 / 5.13) and loses at 256. Over 262,144 x 1,024-d f16 rows it
+#: wins up to 32 at k = 10 and up to 64 at k = 40 and 60. Between the
+#: measured k the smaller limit holds.
+_K1S_MAX_B = {torch.float32: ((40, 128), (0, 32)),
+              torch.float16: ((40, 64), (0, 32)),
+              torch.bfloat16: ((40, 64), (0, 32))}
+#: the select form's key budget: a call holds [queries, n] 64-bit keys of
+#: at most this many bytes (one query's at least), so a batch runs in
+#: chunks of queries, each one sweep of the rows. Each chunk costs ~0.26
+#: ms more: 1,024 queries x k = 100 over 1M rows took 61.4 / 33.0 / 29.0
+#: / 27.1 ms at 64 / 128 / 256 / 512 MiB (probes/k1_select.py, PERF.md)
+_K1S_BUDGET = 256 << 20
+#: csrc/k1_select.cu's count bins, the most keys its last bin may hold
+#: (ksCap) and the largest k it orders itself (ksSortCap; past it the
+#: selected keys are sorted here)
+_K1S_BINS, _K1S_CAP, _K1S_SORT_CAP = 2048, 4096, 16384
+#: the select form's rows per tile (k1_select.cu's ksRows)
+_K1S_ROWS = 256
+#: flips an unsigned order key (the kernel's) into ``_order_keys``' signed
+#: one
+_SIGN_BIT = -(1 << 63)
 
 
-def _round_sizes(k: int) -> list[int]:
-    """The k of each K1 round for a top-k past ``_ROUND_K``: rounds of 60,
-    so that every round keeps its 4 spare places for the exact rescoring
-    (at k = 61-64 one call would keep none)."""
-    return [min(_ROUND_K, k - s) for s in range(0, k, _ROUND_K)]
+def _k1s_max_b(k: int, dtype: torch.dtype) -> int:
+    """The most queries the select form takes at this k (<= 60) over rows
+    of this dtype (``_K1S_MAX_B``; another dtype as f32: the wrapper it
+    reaches refuses it)."""
+    for k0, b in _K1S_MAX_B.get(dtype, _K1S_MAX_B[torch.float32]):
+        if k >= k0:
+            return b
+    raise AssertionError("every k reaches the last entry")
 
 
-def _surrogate_topk_rounds(base, a, queries, k: int):
-    """K1 past ``_ROUND_K`` (k > 60), one query at a time: rounds of at
-    most 60 (``_round_sizes``), each round's rows excluded from the next
-    by the penalty in a copy of ``a`` (made once, its penalised rows
-    restored after each query), so round r returns ranks [60 r, 60 r + 60)
-    in order. The path of ``DeviceScan``'s growing exact blocks (one
-    query): ceil(k / 60) sweeps of every row."""
-    out_d, out_i = [], []
-    ab = a.clone()
-    for b in range(queries.shape[0]):
-        q = queries[b : b + 1]
-        parts_d, parts_i = [], []
-        for kr in _round_sizes(k):
-            sd, si = _surrogate_topk_cuda(base, ab, q, kr)
-            parts_d.append(sd)
-            parts_i.append(si)
-            ab[si[si >= 0].long()] = _NEG_BIG
-        taken = torch.cat(parts_i, dim=1)
-        taken = taken[taken >= 0].long()
-        ab[taken] = a[taken]
-        out_d.append(torch.cat(parts_d, dim=1))
-        out_i.append(torch.cat(parts_i, dim=1))
-    return torch.cat(out_d), torch.cat(out_i)
+def _k1s_plan(n: int, b: int, budget: int | None = None):
+    """The select form's query chunks [(q0, q1), ...]: consecutive, every
+    query in one, each chunk's [q1 - q0, n] int64 keys within ``budget``
+    (``_K1S_BUDGET`` when None; a chunk of one query where one query's
+    keys exceed it) and at most 65,535 queries (the passes' grid)."""
+    budget = _K1S_BUDGET if budget is None else budget
+    per = max(1, min(65535, budget // (8 * n)))
+    return [(s, min(b, s + per)) for s in range(0, b, per)]
+
+
+#: the select form's pass blocks per sweep block: the passes stream the
+#: keys from memory at many queries, and need about 16 resident blocks an
+#: SM (two waves) to keep enough loads in flight
+_K1S_PASS_SPREAD = 8
+
+
+def _k1s_grid(n: int, b: int, target: int):
+    """The select form's grid for b queries over n rows: (queries per
+    sweep block, rows per sweep block, keys per pass block). About
+    ``target`` sweep blocks and ``_K1S_PASS_SPREAD * target`` pass blocks
+    (at least 4,096 keys each) in all."""
+    qg = 1 if b == 1 else (4 if b <= 4 else 16)
+    splits = max(1, target // -(-b // qg))
+    rows = -(-n // splits)
+    rows = -(-rows // _K1S_ROWS) * _K1S_ROWS
+    blocks = max(1, min(-(-n // 4096), _K1S_PASS_SPREAD * target // b))
+    per = -(-n // blocks)
+    per = -(-per // _K1S_ROWS) * _K1S_ROWS
+    return qg, rows, per
+
+
+def _select_topk_cuda(base, a, queries, k: int):
+    """K1's select form on the card: (scores [B, k] f32, rows [B, k] i32)
+    ascending, ties to the lower row, (inf, -1) past the rows."""
+    from . import _build
+
+    if base.dtype not in _ROW_CODE:
+        raise ValueError("base must be float32, float16 or bfloat16 (got "
+                         f"{base.dtype})")
+    _check_cuda("base", base, base.dtype, 2)
+    _check_cuda("a", a, torch.float32, 1, base.device)
+    _check_cuda("queries", queries, torch.float32, 2, base.device)
+    n, d = base.shape
+    b = queries.shape[0]
+    if a.shape[0] != n or queries.shape[1] != d:
+        raise ValueError(f"shape mismatch: base {tuple(base.shape)}, "
+                         f"a {tuple(a.shape)}, queries {tuple(queries.shape)}")
+    if k < 1:
+        raise ValueError(f"k must be positive (got {k})")
+    if n == 0 or b == 0 or d == 0:
+        raise ValueError("empty base, queries or feature dimension")
+    if n >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 rows (got {n})")
+    dev = base.device
+    k_eff = min(k, n)
+    order = k_eff <= _K1S_SORT_CAP
+    chunks = _k1s_plan(n, b)
+    bc = chunks[0][1]
+    keys = torch.empty((bc, n), dtype=torch.int64, device=dev)
+    hist = torch.empty((bc, _K1S_BINS), dtype=torch.int32, device=dev)
+    state = torch.empty((bc, 8), dtype=torch.int64, device=dev)
+    cand = torch.empty((bc, _K1S_CAP), dtype=torch.int64, device=dev)
+    sel = torch.empty((bc, k), dtype=torch.int64, device=dev)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c0, c1 in chunks:
+        qg, rows, per = _k1s_grid(n, c1 - c0, _block_target(dev))
+        with torch.cuda.device(dev):  # the C entry launches on the current one
+            rc = lib.pgv_k1_select_topk(
+                base.data_ptr(), _ROW_CODE[base.dtype], a.data_ptr(),
+                queries[c0].data_ptr(), n, d, c1 - c0, k, qg, rows, per,
+                keys.data_ptr(), hist.data_ptr(), state.data_ptr(),
+                cand.data_ptr(), sel.data_ptr(), int(order),
+                out_d[c0].data_ptr(), out_i[c0].data_ptr(), stream)
+        _build.check(rc, "pgv_k1_select_topk")
+        LAUNCHES["k1_select"] += 1
+        if not order:  # the selected keys, ordered here
+            sk = torch.sort(sel[: c1 - c0, :k_eff] ^ _SIGN_BIT, dim=1).values
+            sd, si = _from_order_keys(sk)
+            out_d[c0:c1, :k_eff] = sd
+            out_i[c0:c1, :k_eff] = si.to(torch.int32)
+            out_d[c0:c1, k_eff:] = float("inf")
+            out_i[c0:c1, k_eff:] = -1
+    return out_d, out_i
 
 
 def _surrogate_topk(base, a, queries, k: int):
     """Exact top-k of ``a - 2 q.x`` -> (scores [B,k] f32, ids [B,k] i32),
     ascending; excluded/empty slots are (inf, -1). ``base`` is f32, f16 or
     bf16 (K1 reads 2-byte rows as stored; the plain version widens them),
-    ``queries`` f32. CPU tensors take the plain version, CUDA tensors the
-    K1 kernel (in rounds past k = 60)."""
+    ``queries`` f32. CPU tensors take the plain version; CUDA tensors K1's
+    select form past k = 60 or at few queries (``_k1s_max_b``), else its
+    tensor-core form."""
     if not base.is_cuda:
         sd, si = _surrogate_topk_plain(base, a, queries, k)
-    elif k > _ROUND_K:
-        sd, si = _surrogate_topk_rounds(base, a, queries, k)
+    elif (k > _K1_TC_MAX_K
+          or queries.shape[0] <= _k1s_max_b(k, base.dtype)):
+        sd, si = _select_topk_cuda(base, a, queries, k)
     else:
         sd, si = _surrogate_topk_cuda(base, a, queries, k)
     return _invalid_to_sentinel(sd, si)
@@ -660,8 +762,8 @@ def tilemin_sweep_topk(base_bf16, a, queries, k: int, metric: str,
 # K7: the coarse seed sweep
 # ---------------------------------------------------------------------------
 
-#: K7's queries per block and upper rows per chunk
-_K7_QTILE = 64
+#: K7's queries per block and upper rows per chunk (one block an SM)
+_K7_QTILE = _K7_CHUNK = 128
 #: the most seeds K7 keeps a query (csrc/k7_coarse.cu's k7MaxSeeds; every
 #: caller asks for 8 or fewer)
 _K7_MAX_SEEDS = 8
@@ -682,6 +784,55 @@ def _coarse_plain(rows, a, upper_ids, traversable, queries, s: int,
     fin = torch.isfinite(sc)
     return (torch.where(fin, slots, -1),
             torch.where(fin, upper_ids[slots], -1))
+
+
+#: K7's one-query form: rows of a lane group in flight (k7_coarse.cu's
+#: k7gRows), warps a block; its scratch, kept per device and stream (the
+#: blocks' lists and the ticket, which the last block resets to 0)
+_K7G_ROWS, _K7G_WARPS = 4, 8
+_K7G_SCRATCH: dict = {}
+
+
+def _k7_one_grid(n: int, d: int, target: int):
+    """K7's one-query grid: (lanes a row, blocks). A row's 16-byte chunks
+    over a power of two of lanes (at most 32); blocks enough for the rows,
+    at most ``target`` (the caller's: three an SM, as many 256-thread
+    blocks as its ~72 registers a thread let an SM hold, so one wave)."""
+    lanes = 1
+    while lanes < 32 and lanes * 8 < d:
+        lanes *= 2
+    rows_per_block = _K7G_WARPS * (32 // lanes) * _K7G_ROWS
+    return lanes, max(1, min(target, -(-n // rows_per_block)))
+
+
+def _coarse_one_cuda(rows, a, upper_ids, traversable, query, s: int,
+                     l2: bool):
+    """K7's one-query form (one launch): (slots, element ids) [1, s]."""
+    from . import _build
+
+    dev = rows.device
+    n, d = rows.shape
+    lanes, blocks = _k7_one_grid(n, d, 3 * _sm_count(dev))
+    # the raw handle of the current stream (torch.cuda.current_stream
+    # builds a Stream object a call)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    key = (dev.index, stream)
+    part, ticket = _K7G_SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < blocks * s:
+        part = torch.empty(blocks * _K7_MAX_SEEDS, dtype=torch.int64,
+                           device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        _K7G_SCRATCH[key] = (part, ticket)
+    out = torch.empty((2, 1, s), dtype=torch.int64, device=dev)
+    q = query if query.dtype == torch.float32 else query.float()
+    rc = _build.lib().pgv_k7_coarse_one(
+        rows.data_ptr(), a.data_ptr(), upper_ids.data_ptr(),
+        traversable.data_ptr(), q.contiguous().data_ptr(), n, d, s,
+        int(l2), lanes, blocks, part.data_ptr(), ticket.data_ptr(),
+        out.data_ptr(), out[1].data_ptr(), stream)
+    _build.check(rc, "pgv_k7_coarse_one")
+    LAUNCHES["k7_coarse_one"] += 1
+    return out.unbind(0)
 
 
 def _coarse_cuda(rows, a, upper_ids, traversable, queries, s: int,
@@ -708,9 +859,16 @@ def _coarse_cuda(rows, a, upper_ids, traversable, queries, s: int,
     b = queries.shape[0]
     if n == 0 or b == 0 or d == 0:
         raise ValueError("empty rows, queries or feature dimension")
+    if b == 1:
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):  # the C entry launches on it
+                return _coarse_one_cuda(rows, a, upper_ids, traversable,
+                                        queries, s, l2)
+        return _coarse_one_cuda(rows, a, upper_ids, traversable, queries, s,
+                                l2)
     qb = queries.to(torch.bfloat16).contiguous()
-    _, splits, rows_per_split = _k1_plan(n, b, _block_target(dev),
-                                         _K7_QTILE, _K7_QTILE)
+    _, splits, rows_per_split = _k1_plan(n, b, _sm_count(dev), _K7_QTILE,
+                                         _K7_CHUNK)
     part = torch.empty((b, splits, 2, s), dtype=torch.int64, device=dev)
     out_slot = torch.empty((b, s), dtype=torch.int64, device=dev)
     out_id = torch.empty((b, s), dtype=torch.int64, device=dev)

@@ -13,15 +13,14 @@ in turns, twice, and each prints its mean device time over 20 launches
 version's (only "as built" and the other grids must compute the right
 thing):
 
-- as built, at the wrapper's grid (two blocks an SM) and at 4 and 8
-  blocks an SM;
+- as built, at the wrapper's grid (one block an SM) and at grids of 2
+  and 4 blocks an SM;
 - no epilogue (a chunk's scores fold into one register, no list insert);
 - no row terms (the chunk's ``a`` and traversable flags are not loaded);
 - no wgmma (the products are skipped; the scores stay the row terms);
 - the same library through the Python wrapper (``ops/bruteforce.
-  _coarse_cuda``), at 1,024 queries and at one query, beside the C entry
-  alone at one query: the wrapper's host time shows where it exceeds the
-  kernel's.
+  _coarse_cuda``), at 1,024 queries and at one query (the one-query form;
+  ``probes/k1_select.py`` times its C entry and its kernel alone).
 """
 
 from __future__ import annotations
@@ -40,9 +39,9 @@ U, B, S = 62_494, 1024, 8
 _EPILOGUE = "    if (u == units - 1) {  // the chunk's scores are complete"
 _AV = ("          row < r1 && trav[__ldg(ids + row)] ? __ldg(a + row) : "
        "CUDART_INF_F;")
-_WGMMA = """      wgmma_bf16_m64n64k16(acc, make_desc(stage_q(st) + 32 * kk),
-                           make_desc(stage_x(st) + 32 * kk),
-                           (u > 0 || kk > 0) ? 1 : 0);"""
+_WGMMA = """      wgmma_bf16_m64n128k16(
+          acc, make_desc(stage_q(st) + wg * 64 * kUnitBytes + 32 * kk),
+          make_desc(stage_x(st) + 32 * kk), (u > 0 || kk > 0) ? 1 : 0);"""
 
 
 def _patched(src: str, *pairs) -> str:
@@ -117,7 +116,8 @@ def _run_dim(libs: dict, d: int) -> None:
     sm = bf._sm_count(dev)
 
     def call(lib, nq, per_sm):
-        _, splits, rps = bf._k1_plan(U, nq, per_sm * sm, 64, 64)
+        _, splits, rps = bf._k1_plan(U, nq, per_sm * sm, bf._K7_QTILE,
+                                     bf._K7_CHUNK)
         part = torch.empty((nq, splits, 2, S), dtype=torch.int64,
                            device=dev)
         slot = torch.empty((nq, S), dtype=torch.int64, device=dev)
@@ -131,11 +131,10 @@ def _run_dim(libs: dict, d: int) -> None:
             _build.check(rc, "pgv_k7_coarse_topk")
         return run, slot
 
-    arms = {f"{name}, 2 blocks an SM": (lib, B, 2)
+    arms = {f"{name}, 1 block an SM": (lib, B, 1)
             for name, lib in libs.items()}
+    arms["as built, 2 blocks an SM"] = (libs["as built"], B, 2)
     arms["as built, 4 blocks an SM"] = (libs["as built"], B, 4)
-    arms["as built, 8 blocks an SM"] = (libs["as built"], B, 8)
-    arms["as built, one query, C entry"] = (libs["as built"], 1, 2)
     for turn in range(2):
         for name, (lib, nq, per_sm) in arms.items():
             run, slot = call(lib, nq, per_sm)

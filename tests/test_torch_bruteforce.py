@@ -270,11 +270,13 @@ def test_k1_kernel_matches_plain(cuda, n, d, b, k):
     q = torch.randn(b, d, generator=g).to(cuda)
     a = (x * x).sum(1)
     a[::7] += tbf._NEG_BIG
-    before = tbf.LAUNCHES["k1_topk"]
+    before = dict(tbf.LAUNCHES)
     kd, ki = tbf._surrogate_topk(x, a, q, k)
-    # past k = 60 the wrapper runs one query at a time in rounds
-    rounds = b * len(tbf._round_sizes(k)) if k > tbf._ROUND_K else 1
-    assert tbf.LAUNCHES["k1_topk"] == before + rounds
+    # one launch: the select form past k = 60 or at few queries
+    form = ("k1_select" if k > tbf._K1_TC_MAX_K
+            or b <= tbf._k1s_max_b(k, x.dtype) else "k1_topk")
+    assert {n: v - before[n] for n, v in tbf.LAUNCHES.items()
+            if v != before[n]} == {form: 1}
     pd, pi = tbf._invalid_to_sentinel(*tbf._surrogate_topk_plain(x, a, q, k))
     torch.cuda.synchronize()
     kd, ki, pd, pi = (t.cpu().numpy() for t in (kd, ki, pd, pi))
@@ -282,17 +284,6 @@ def test_k1_kernel_matches_plain(cuda, n, d, b, k):
     np.testing.assert_allclose(kd, pd, rtol=1e-5, atol=1e-5 * q2max)
     _same_sets_except_ties(ki, kd, pi, pd, atol=1e-5 * q2max)
     assert (ki % 7 != 0).all()  # penalised rows never returned
-
-
-@pytest.mark.parametrize("k", [1, 60, 61, 64, 65, 120, 160, 2560])
-def test_k1_rounds_keep_their_spare_places(k):
-    """Every K1 round asks for at most 60 rows, so its list of
-    min(64, k + 4) keeps the 4 spare places of the exact rescoring."""
-    sizes = tbf._round_sizes(k)
-    assert sum(sizes) == k and all(1 <= s <= tbf._ROUND_K for s in sizes)
-    assert all(min(tbf._MAX_K, s + tbf._K1_SPARE) == s + tbf._K1_SPARE
-               for s in sizes)
-    assert len(sizes) == -(-k // tbf._ROUND_K)
 
 
 def _tf32_tie_pair(lo: float):

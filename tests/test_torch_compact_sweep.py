@@ -139,9 +139,11 @@ def test_k1_two_byte_mode_equals_the_cast_route(cuda, dtype, d, k):
     version's within K1's tolerance; penalised rows never surface."""
     x, a, q = _rows(5000, d, 200, dtype, seed=d + k)
     x, a, q = x.to(cuda), a.to(cuda), q.to(cuda)
-    before = tbf.LAUNCHES["k1_topk"]
+    # k = 64 is past the tensor-core form's 60: the select form
+    form = "k1_select" if k > tbf._K1_TC_MAX_K else "k1_topk"
+    before = tbf.LAUNCHES[form]
     sd, si = tbf._surrogate_topk(x, a, q, k)
-    assert tbf.LAUNCHES["k1_topk"] > before
+    assert tbf.LAUNCHES[form] > before
     cd, ci = tbf._surrogate_topk(x.float(), a, q, k)
     pd, pi = tbf._invalid_to_sentinel(*tbf._surrogate_topk_plain(
         x.cpu(), a.cpu(), q.cpu(), k))
@@ -235,14 +237,15 @@ def test_engines_hand_the_stored_chunks_to_the_kernels(cuda, store, approx,
     lo = g.values.data_ptr()
     hi = lo + g.values.numel() * g.values.element_size()
     seen = []
-    name = "_binned_cuda" if approx else "_surrogate_topk_cuda"
-    kernel = getattr(tbf, name)
+    # K1 in whichever form the routing picks (16 queries: the select form)
+    names = (("_binned_cuda",) if approx
+             else ("_surrogate_topk_cuda", "_select_topk_cuda"))
+    for name in names:
+        def spy(base, *args, _kernel=getattr(tbf, name)):
+            seen.append((base.dtype, base.data_ptr()))
+            return _kernel(base, *args)
 
-    def spy(base, *args):
-        seen.append((base.dtype, base.data_ptr()))
-        return kernel(base, *args)
-
-    monkeypatch.setattr(tbf, name, spy)
+        monkeypatch.setattr(tbf, name, spy)
     monkeypatch.setattr(tdev, "_EXACT_SWEEP_CHUNK", 1024)
     q = torch.from_numpy(rng.standard_normal((16, 40)).astype(np.float32))
     d, ids = tdev._exact_search_batch(g, q.to(cuda), 10, approx=approx)

@@ -84,6 +84,24 @@ def test_exact_matches_jax(pair):
     np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("k", [61, 64, 65, 160, N])
+def test_exact_any_k_matches_jax(pair, k):
+    """Past the tensor-core form's k = 60 (on the card K1's select form,
+    one sweep at any k) up to every row: the port's exact sweep returns
+    the JAX package's (``_exact_search_batch``: one sweep, ``lax.top_k``)
+    ids but for ties at the k-th, distances within rtol 1e-5."""
+    j, t, queries = pair
+    q = queries[:8]
+    jd, ji = jdev._exact_search_batch(j.device_graph(), jnp.asarray(q), k)
+    td, ti = tdev._exact_search_batch(t.device_graph(), torch.from_numpy(q),
+                                      k)
+    jd, ji, td, ti = np.asarray(jd), np.asarray(ji), td.numpy(), ti.numpy()
+    assert td.shape == (8, k) and (np.isfinite(td) == (ti >= 0)).all()
+    assert (np.isfinite(jd) == np.isfinite(td)).all()
+    _assert_same_except_ties(ti, td, ji, jd, rtol=1e-5)
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-5)
+
+
 def test_approx_recall_matches_jax(pair):
     j, t, q = pair
     _, ref, _, _ = _serve(j, t, q, "exact")

@@ -92,9 +92,10 @@ def _k7_same_but_ties(slots_k, slots_p, sc):
 def test_k7_equals_plain(cuda, d, b, metric):
     rows, a, ids, trav, q = _k7_inputs(cuda, d, b, metric)
     l2 = metric == "l2"
-    before = tbf.LAUNCHES["k7_coarse"]
+    form = "k7_coarse_one" if b == 1 else "k7_coarse"
+    before = tbf.LAUNCHES[form]
     slots_k, ids_k = tbf.coarse_topk(rows, a, ids, trav, q, S, l2)
-    assert tbf.LAUNCHES["k7_coarse"] == before + 1
+    assert tbf.LAUNCHES[form] == before + 1
     slots_p, ids_p = tbf._coarse_plain(rows, a, ids, trav, q, S, l2)
     torch.cuda.synchronize()
     assert torch.equal(torch.where(slots_k >= 0, ids[slots_k.clamp(min=0)],
@@ -109,6 +110,30 @@ def test_k7_equals_plain(cuda, d, b, metric):
         wrong = torch.cat([slots9[:, : S - 1], slots9[:, S:]], 1)
         with pytest.raises(AssertionError):
             _k7_same_but_ties(wrong.cpu().numpy(), slots_p.cpu().numpy(), sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [33, 128, 768, 1024])
+def test_k7_one_query_form(cuda, d):
+    """The one-query form (one launch, its lists merged by the last block)
+    at 16-byte loads, or 2-byte ones at d = 33: 40 queries in turn (its
+    scratch and ticket are reused), three and eight seeds, then fewer
+    live rows than seeds."""
+    rows, a, ids, trav, q = _k7_inputs(cuda, d, 40, "l2", seed=d)
+    sc = _k7_scores(rows, a, ids, trav, q, True)
+    for s in (3, S):
+        before = tbf.LAUNCHES["k7_coarse_one"]
+        got = [tbf.coarse_topk(rows, a, ids, trav, q[i : i + 1], s, True)[0]
+               for i in range(q.shape[0])]
+        assert tbf.LAUNCHES["k7_coarse_one"] == before + q.shape[0]
+        want, _ = tbf._coarse_plain(rows, a, ids, trav, q, s, True)
+        _k7_same_but_ties(torch.cat(got).cpu().numpy(), want.cpu().numpy(),
+                          sc)
+    trav[:] = False
+    trav[ids[-3:]] = True
+    _, got = tbf.coarse_topk(rows, a, ids, trav, q[:1], S, True)
+    assert set(got[0, :3].tolist()) == set(ids[-3:].tolist())
+    assert (got[0, 3:] == -1).all()
 
 
 @pytest.mark.cuda
