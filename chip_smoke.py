@@ -206,13 +206,17 @@ saved and loaded, every engine's ids unchanged.
 **The beam's variants** (25, its own path, on the grown graph of phase 9,
 the bit graph of phase 21 and the sparse graph of phase 24): ``serve_topk``
 beam (ef=40, 16,384 queries) with E = 2, E = 4, the visited bitmap
-(``_VISITED_MAX_ROWS`` above the graph's capacity + 1), bf16 ranking and
-E = 4 with bf16, each beside the default in the same run (recall >= 0.95);
-the 0.2% filtered scans (16 queries, strict and relaxed) with E = 4 and
-bf16 beside the default; K4 in each mode against its plain version at
-1,024 queries, each check rejecting a control (the plain walk at E = 1,
-with the in-beam dedup, ranking in f32; bf16 also the plain walk whose
-ranking terms skip the bf16 rounding of the difference or product); K5
+(``_VISITED_MAX_ROWS`` above the graph's capacity + 1), E = 4 with the
+bitmap, bf16 ranking and E = 4 with bf16, each beside the default in the
+same run (recall >= 0.95; qps from the median of 5 timed calls); the 0.2% filtered scans (16 queries, strict
+and relaxed) with E = 4 and bf16 beside the default; K4 in each mode (E
+= 4, the bitmap, both, bf16) against its plain version at 1,024 queries,
+each check rejecting a control (the plain walk at E = 1, with the in-beam
+dedup, with the bitmap at E = 1, ranking in f32; bf16 also the plain
+walk whose ranking terms skip the bf16 rounding of the difference or
+product), each mode's bound counting no bitmap words (the first form's,
+with a word read per id and the per-call clear, printed once beside the
+bitmap's); K5
 with E = 2, 4 and 8 and with bf16 over 3 fed segments against its plain
 segment (beams and spills equal but for ties, steps and rows scored
 equal query by query; bf16 must reject the unrounded terms too), and
@@ -376,6 +380,8 @@ T028_N, T028_Q, T028_K = 10_000, 20, 20
 T028_FLOORS = {"l2": 0.99, "cosine": 0.99, "l1": 0.99, "ip": 0.97}
 #: phase 25's filtered scans per variant (the first queries of phase 11's)
 VARIANT_SCAN_Q = 16
+#: phase 25's timed serve_topk calls per beam mode (qps from their median)
+SERVE_CALLS = 5
 #: the halfvec path (26): BASELINE's third configuration, halfvec(1024)
 #: inner product at 1M with an f16 store (bench_suite.py:141-170), and its
 #: recall floors (beam: printed, failing below 0.80)
@@ -686,13 +692,17 @@ def recall_of(emit_tid, gt):
     return recall
 
 
-def timed_serve(device_mod, index, q, engine, ef=EF):
-    """(dists, ids, seconds) of a timed ``serve_topk`` after a warm call."""
+def timed_serve(device_mod, index, q, engine, ef=EF, calls=1):
+    """(dists, ids, seconds) of a timed ``serve_topk`` after a warm call:
+    the median of ``calls`` timed calls."""
     device_mod.serve_topk(index, q, K, engine=engine, ef=ef)
     torch.cuda.synchronize()
-    t0 = time.time()
-    d, ids = device_mod.serve_topk(index, q, K, engine=engine, ef=ef)
-    return d, ids, time.time() - t0
+    times = []
+    for _ in range(calls):
+        t0 = time.time()
+        d, ids = device_mod.serve_topk(index, q, K, engine=engine, ef=ef)
+        times.append(time.time() - t0)
+    return d, ids, float(np.median(times))
 
 
 def serve_engines(index, q_dev, recall, bf, device_mod, tag):
@@ -966,6 +976,9 @@ def device_scan_check(index, g, q_dev, bf, SearchParams, DeviceScan):
         raise RuntimeError(f"a DeviceScan block is not one select launch: "
                            f"{launches}")
     return {blk: float(np.mean(t)) for blk, t in ms.items()}
+
+
+LIBRARY_TOPK = "a - 2 (q @ x.T), torch.topk(dim=1)"
 
 
 def library_topk(x, a, q, k):
@@ -1983,6 +1996,10 @@ def cosine_768(HnswIndex, IndexParams, make_dataset, device_mod, db, bf,
             cuda_ms(lambda: bf._select_topk_cuda(x32, a, qn[:1], 100)),
             cuda_ms(lambda: bf._surrogate_topk_plain(x32, a, qn[:1], 100)),
             select_bound(n_rows, D768, 1, 100)))
+        rows[-1]["library_ms"] = cuda_ms(
+            lambda: library_topk(x32, a, qn[:1], 100))
+        log(f"k1_select at d = 768, one query, k = 100: library "
+            f"({LIBRARY_TOPK}) {rows[-1]['library_ms']:.4f} ms")
     log(json.dumps({"d768": rows}))
     log(json.dumps({"k8": k8}))
     del idx, g, xv
@@ -3463,17 +3480,15 @@ def mode_verdict(k, p, c, recall, exact=False):
     return one(k), one(c)
 
 
-def mode_bytes(steps, scored, L, B, *, expand=1, row_bytes, words=0,
-               rank_rows=0, seeds=8, d=DIM):
-    """A mode's walk bytes: each step's E L neighbour ids and, with the
-    bitmap, a 4-byte word per id; each scored row and its live flag; each
-    query's f32 row, its seeds, its ef outputs, its bitmap's words
-    (cleared by the launch) and, ranking in bf16, the f32 rows of its
-    re-scored beam (``rank_rows``)."""
-    per_id = 4 + (4 if words else 0)
-    return (steps * expand * L * per_id + scored * (row_bytes + 1)
-            + B * (d * 4 + seeds * 8 + EF * 8 + 8 + words * 4
-                   + rank_rows * d * 4))
+def mode_bytes(steps, scored, L, B, *, expand=1, row_bytes, rank_rows=0,
+               seeds=8, d=DIM):
+    """A mode's walk bytes, what its function needs whatever the design:
+    each step's E L neighbour ids; each scored row and its live flag; each
+    query's f32 row, its seeds, its ef outputs and, ranking in bf16, the
+    f32 rows of its re-scored beam (``rank_rows``). The visited bitmap is
+    the walk's own scratch (a set of ids), so none of its words count."""
+    return (steps * expand * L * 4 + scored * (row_bytes + 1)
+            + B * (d * 4 + seeds * 8 + EF * 8 + 8 + rank_rows * d * 4))
 
 
 def unrounded_rank_dists(values_bf16, metric, q, ids):
@@ -3516,6 +3531,8 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
              "expand2": BeamMode(device_mod, expand=2),
              "expand4": BeamMode(device_mod, expand=4),
              "visited": BeamMode(device_mod, visited_max=vis_max),
+             "expand4_visited": BeamMode(device_mod, expand=4,
+                                         visited_max=vis_max),
              "bf16": BeamMode(device_mod, bf16=True),
              "expand4_bf16": BeamMode(device_mod, expand=4, bf16=True)}
     served, launches = {}, {}
@@ -3523,14 +3540,16 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
     for name, mode in modes.items():
         with Phase(f"25 serve_topk beam, {name}"), mode:
             before = bf.LAUNCHES["k4_beam"]
-            d, ids, dt = timed_serve(device_mod, index, q_dev, "beam")
+            d, ids, dt = timed_serve(device_mod, index, q_dev, "beam",
+                                     calls=SERVE_CALLS)
             launches[name] = bf.LAUNCHES["k4_beam"] - before
             rec = recall(ids)
             served[name] = (rec, N_QUERIES / dt)
             log(f"25 beam {name}: recall@10={rec:.4f} "
                 f"qps={N_QUERIES / dt:.1f} ({dt:.4f} s for {N_QUERIES} "
-                f"queries; default {served['default'][0]:.4f} at "
-                f"{served['default'][1]:.1f} qps in this run), "
+                f"queries, the median of {SERVE_CALLS} calls; default "
+                f"{served['default'][0]:.4f} at {served['default'][1]:.1f} "
+                "qps in this run), "
                 f"{launches[name]} K4 launches")
             if d.shape != (N_QUERIES, K) or not np.isfinite(d).all():
                 raise RuntimeError(f"beam {name}: non-finite or misshapen "
@@ -3595,6 +3614,9 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
         "k4_beam_visited": (dict(visited=True), [
             ({}, "the plain walk with the in-beam dedup", no_control)],
             "visited"),
+        "k4_beam_expand4_visited": (dict(expand=4, visited=True), [
+            (dict(visited=True), "the plain walk with the bitmap at E = 1",
+             no_control)], "expand4_visited"),
         "k4_beam_bf16": (dict(rank=g.values_bf16), [
             ({}, "the plain walk ranking in f32", no_control),
             (dict(rank=g.values_bf16), "the plain walk whose ranking terms "
@@ -3628,8 +3650,15 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
             nbytes = mode_bytes(
                 steps, scored, L, CHUNK, expand=mk.get("expand", 1),
                 row_bytes=DIM * (2 if "rank" in mk else 4),
-                words=words if mk.get("visited") else 0,
                 rank_rows=EF if "rank" in mk else 0)
+            if mk.get("visited"):  # the first form's bound, once
+                first = (nbytes + steps * mk.get("expand", 1) * L * 4
+                         + CHUNK * words * 4)
+                log(f"25 {name}: the bound (ids, rows, each query's input "
+                    f"and output) {nbytes / PEAKS['bytes'] * 1e3:.4f} ms; "
+                    f"the first form's (also a bitmap word read per id and "
+                    f"each query's {words:,} words cleared per launch) "
+                    f"{first / PEAKS['bytes'] * 1e3:.4f} ms")
             kernels[name] = dict(
                 name=name, route="cuda", source=CSRC + "k4_beam.cu",
                 replaces=f"{JAX_DEVICE}:446 (_ground_beam_seeds, an XLA "
@@ -3788,7 +3817,8 @@ def beam_variants(index, g, q_dev, emit, gt, device_mod, beam, bf, kernels,
                                         "steps_mean", "scored_mean",
                                         "us_per_step", "steps_scored_equal")}
                           for e in (2, 8)})
-    for name in ("k4_beam_expand4", "k4_beam_visited", "k4_beam_bf16",
+    for name in ("k4_beam_expand4", "k4_beam_visited",
+                 "k4_beam_expand4_visited", "k4_beam_bf16",
                  "k5_beam_scan_expand4", "k5_beam_scan_expand2",
                  "k5_beam_scan_expand8", "k5_beam_scan_bf16"):
         kr = kernels[name]
@@ -3844,10 +3874,9 @@ def descent_mode_check(g, q, metric, beam, device_mod, kernels, name,
     steps, scored = float(raw_k[4].sum()), float(raw_k[5].sum())
     d_rows, moves = float(land[:, 2].sum()), float(land[:, 3].sum())
     iters = moves + B * g.entry_level
-    words = beam.visited_words(g.cap) if mode.get("visited") else 0
     nbytes = (mode_bytes(steps, scored, g.neighbors0.shape[1], B,
                          expand=mode.get("expand", 1), row_bytes=row_bytes,
-                         words=words, seeds=0, d=0)
+                         seeds=0, d=0)
               + iters * (4 + 4 * g.m) + d_rows * (row_bytes + 1)
               + B * row_bytes)
     fin = np.isfinite(p[0])
@@ -4755,7 +4784,11 @@ def main() -> int:
             ms=cuda_ms(lambda: bf._row_sq_max_cuda(vb)),
             plain_ms=cuda_ms(lambda: bf._row_sq_max_plain(vb)),
             **bound(2.0 * n_rows * DIM, "f32", n_rows * DIM * 2 + 4),
-            library_ms=None,
+            # the same function as one composition: the bf16 rows' squared
+            # norms in f32 and their max
+            library_ms=cuda_ms(lambda: torch.linalg.vector_norm(
+                vb, dim=1, dtype=torch.float32).square().max()),
+            library_of="torch.linalg.vector_norm(dtype=f32)^2, max",
             matmul_ms=None, matmul_of=None,
         )
         for kr in kernels.values():
@@ -4909,6 +4942,7 @@ def main() -> int:
                                  "k10_sparse_lookup", "k10_compact",
                                  "k4_beam_sparse",
                                  "k4_beam_expand4", "k4_beam_visited",
+                                 "k4_beam_expand4_visited",
                                  "k4_beam_bf16", "k4_words_expand4",
                                  "k1_topk_2byte", "k2_binned_f16",
                                  "k4_words_visited", "k4_sparse_visited",

@@ -46,8 +46,8 @@
 // dead or an excluded neighbour costs no row), so the walk moves
 // sum(steps) * L * 4 + scored * (d * 4 + 1) bytes for f32 rows, `scored`
 // being the rows it read (returned per query); the modes add the visited
-// bitmap's words (a 4-byte word read per neighbour id, the (cap + 1) / 8
-// bytes of each query's bitmap cleared per launch) and, ranking in bf16,
+// bitmap's words (a 4-byte word read and one set per neighbour id) and,
+// ranking in bf16,
 // rows of d * 2 bytes plus the f32 re-score of the final beam (W rows).
 // A single walk is a chain of
 // dependent steps (ids -> flags -> rows -> merge), so it is also bound by
@@ -101,19 +101,26 @@
 #include <climits>
 #include <type_traits>
 
-// The library compiles this file twice, side by side (ops/_build.py):
-// PGV_K4_PART=1 holds the bf16 ranking's kernels and their launches, 0 the
-// rest, whose dispatch reaches the former through pgv_k4_rank_walk and
-// pgv_k4_rank_scan; without the macro (the probes' builds) it is one unit
-// with both.
+// The library compiles this file three times, side by side (ops/_build.py):
+// PGV_K4_PART=1 holds the bf16 ranking's kernels and their launches, 2 the
+// other walks' modes (beam_walk_var_kernel), 0 the rest, whose dispatch
+// reaches the others through pgv_k4_rank_walk, pgv_k4_rank_scan and
+// pgv_k4_var_walk; without the macro (the probes' builds) it is one unit
+// with all.
 #if !defined(PGV_K4_PART) || PGV_K4_PART == 0
 #define PGV_K4_BASE
 #endif
 #if !defined(PGV_K4_PART) || PGV_K4_PART == 1
 #define PGV_K4_RANKED
 #endif
+#if !defined(PGV_K4_PART) || PGV_K4_PART == 2
+#define PGV_K4_MODES
+#endif
 // args: the WalkArgs / ScanArgs below; stream: a cudaStream_t
 int pgv_k4_rank_walk(const void* args, int b, size_t smem, void* stream);
+// dtype: the row type's code (pgv_k4_beam_walk's); v: its chunk width
+int pgv_k4_var_walk(const void* args, int dtype, int v, int b, size_t smem,
+                    void* stream);
 int pgv_k4_rank_scan(const void* args, int metric, int b, size_t smem,
                      void* stream);
 
@@ -202,7 +209,8 @@ struct WalkArgs {
   int m, entry, entry_level;
   int* land;
   // The beam's variants (JAX's PGV_BEAM_*): E members expanded a step;
-  // vis [b, vwords] zeroed visited bitmaps (null: the in-beam dedup); with
+  // vis [b, vwords] zeroed visited bitmaps, left zero by the walk (null:
+  // the in-beam dedup); with
   // `exact` given (bf16 ranking), `values` are the bf16 rows that rank and
   // `exact` [>= cap + 1, d] the f32 rows (row stride exact_stride) the
   // surviving beam is re-scored from.
@@ -892,15 +900,200 @@ __device__ void greedy_descent(const WalkArgs& a, int* nid, uint8_t* nvalid,
   }
 }
 
-size_t smem_bytes(int qd, int L, int S, int W, int E, bool rank) {
+// Open-addressing sets of ids (>= 0) in shared memory: 2^bits slots, -1
+// empty, -2 an erased id (probing goes on past it), linear probing from a
+// multiplicative hash.
+__device__ __forceinline__ unsigned set_home(int id, int bits) {
+  return (static_cast<unsigned>(id) * 2654435761u) >> (32 - bits);
+}
+
+// Insert id (any thread, concurrently); returns its slot. An id must not
+// be inserted while it sits past an erased slot of its chain (the walk's
+// set inserts only ids it lacks; the other sets erase nothing).
+__device__ __forceinline__ int set_insert(int* tbl, int bits, int id) {
+  const unsigned mask = (1u << bits) - 1u;
+  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
+    int v = tbl[s];
+    while (v < 0) {  // free: claim it, or look again at what took it
+      const int prev = atomicCAS(tbl + s, v, id);
+      if (prev == v) return static_cast<int>(s);
+      v = prev;
+    }
+    if (v == id) return static_cast<int>(s);
+  }
+}
+
+// The slot of id, or -1 if the set lacks it.
+__device__ __forceinline__ int set_find(const int* tbl, int bits, int id) {
+  const unsigned mask = (1u << bits) - 1u;
+  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
+    const int v = tbl[s];
+    if (v == id) return static_cast<int>(s);
+    if (v == -1) return -1;
+  }
+}
+
+// Insert id into a set that erases nothing (any thread, concurrently);
+// true for exactly one of the threads that insert the same id: the one
+// whose insert claimed its slot, which goes to *slot.
+__device__ __forceinline__ bool set_claim(int* tbl, int bits, int id,
+                                          int* slot) {
+  const unsigned mask = (1u << bits) - 1u;
+  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
+    int v = tbl[s];
+    if (v == -1) {
+      v = atomicCAS(tbl + s, -1, id);
+      if (v == -1) {
+        *slot = static_cast<int>(s);
+        return true;
+      }
+    }
+    if (v == id) return false;
+  }
+}
+
+// The sums of R rows (the lanes r < R hold the ids in v; `okm` bit r: row r
+// is valid) of `values` (row stride `stride`, d values) against the query
+// qs: lane l returns row l / (32 / R)'s sum. Each lane's R loads are in
+// flight together and kept as stored (4 registers a 16-byte load, whatever
+// the type).
+template <int R, typename T, int V, int M>
+__device__ __forceinline__ float score_raw(const T* values, long long stride,
+                                           int d, const float* qs, int v,
+                                           unsigned okm, int lane) {
+  float acc[R];
+  const T* rows[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int id = __shfl_sync(kFull, v, r);
+    rows[r] = values + (((okm >> r) & 1u) ? static_cast<long long>(id) *
+                                                stride
+                                          : 0LL);
+    acc[r] = 0;
+  }
+  const int nchunks = d / V;
+  for (int c = lane; c < nchunks; c += 32) {
+    float qv[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) qv[e] = qs[c * V + e];
+    typename Raw<T, V>::type raw[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((okm >> r) & 1u) raw[r] = Raw<T, V>::load(rows[r], c);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((okm >> r) & 1u) {
+        float x[V];
+        Raw<T, V>::unpack(raw[r], x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[r] += term<M>(x[e], qv[e]);
+      }
+  }
+  return transposed_sum<R>(acc, lane);
+}
+
+// The walk's order (distance, key) as one 64-bit key for any key k >= -2
+// (an invalid slot's -2 included): the float's order-preserving bits (-0.0
+// made +0.0, as `before` ties them), then k + 2.
+__device__ __forceinline__ unsigned long long walk_key(float d, int k) {
+  unsigned u = __float_as_uint(__fadd_rn(d, 0.0f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) |
+         static_cast<unsigned>(k + 2);
+}
+
+// log2 of the slots of the block walk's id sets (VAR): at least twice the
+// n ids one holds, >= 64.
+__host__ __device__ inline int var_set_bits(int n) {
+  int bits = 6;
+  while ((1 << bits) < 2 * n) ++bits;
+  return bits;
+}
+
+// The expanded members a bitmap walk records for its clear once its ids
+// go to the global bitmap (past this, it clears its whole bitmap instead).
+constexpr int kRecMax = 256;
+// A VAR walk's shared memory budget, so that 8 blocks (1,024 queries on
+// 132 SMs) fit an SM: its visited set takes what the rest leaves, 1,024 to
+// 4,096 slots.
+constexpr size_t kVarBudget = 27648;
+__host__ __device__ inline int var_rec_len(int max_steps, int E) {
+  const long long n = static_cast<long long>(max_steps) * E;
+  return n < kRecMax ? static_cast<int>(n) : kRecMax;
+}
+
+__host__ __device__ inline size_t smem_bytes(int qd, int L, int S, int W,
+                                             int E, bool rank) {
   const size_t dpad = (static_cast<size_t>(qd) + 3) & ~static_cast<size_t>(3);
   const size_t nl = static_cast<size_t>(E) * L;
   // q (and its bf16 rounding when ranking in bf16); beam x2 (d, key); new
   // raw, new sorted (d, key); seeds (d, key); neighbour ids and dup flags;
-  // the members a step expands (E > 1); neighbour live flags
+  // neighbour live flags
   return 4 * (dpad * (rank ? 2 : 1) + 4 * static_cast<size_t>(W) + 4 * nl +
-              2 * S + 2 * nl + (E > 1 ? E : 0)) +
+              2 * S + 2 * nl) +
          nl;
+}
+
+// The block walk's VAR scoring over dense rows: the F compacted ids cid,
+// 8 rows a warp (32 a block) with their loads in flight together;
+// nd[c] = the distance, nkey[c] = its rank key if it comes before lastkey
+// (the beam's last entry's), else ~0 (it cannot enter the beam). RANK:
+// the bf16 ranking's exact sums (score_rank) against qb.
+template <typename T, int V, int M, bool RANK>
+__device__ void var_score_rows(const WalkArgs& a, const float* qs,
+                               const __nv_bfloat16* qb, const int* cid,
+                               int F, float* nd, unsigned long long* nkey,
+                               unsigned long long lastkey, int warp,
+                               int lane) {
+  const T* vals = static_cast<const T*>(a.values);
+  for (int g0 = warp * 8; g0 < F; g0 += kWarps * 8) {
+    const int c = g0 + (lane & 7);
+    const bool ok = lane < 8 && c < F;
+    const int v = ok ? cid[c] : 0;
+    const unsigned okm = __ballot_sync(kFull, ok);
+    float sum;
+    if constexpr (RANK)
+      sum = score_rank<8, V, M>(vals, a.stride, a.d, qb, v, okm, lane);
+    else
+      sum = score_raw<8, T, V, M>(vals, a.stride, a.d, qs, v, okm, lane);
+    const int r = lane >> 2;  // the row whose sum this lane holds
+    const int vr = __shfl_sync(kFull, v, r);
+    if ((lane & 3) == 0 && g0 + r < F) {
+      const float dd = finish<M>(sum);
+      const unsigned long long kk = walk_key(dd, 2 * vr + 1);
+      nd[g0 + r] = dd;
+      nkey[g0 + r] = kk < lastkey ? kk : ~0ull;
+    }
+  }
+}
+
+// Where the block walk's VAR arrays start (after smem_bytes', 16-byte
+// aligned), and their bytes: the candidates' 64-bit rank keys (E L + 2),
+// the next members and the beam's first E unexpanded members (E each), the
+// step's id set (E > 1), and the beam's two id sets (no bitmap) or the
+// recorded members (the bitmap's clear).
+__host__ __device__ inline size_t var_smem_offset(int qd, int L, int S,
+                                                  int W, int E, bool rank) {
+  return (smem_bytes(qd, L, S, W, E, rank) + 15) & ~static_cast<size_t>(15);
+}
+
+__host__ __device__ inline size_t var_smem_bytes(int L, int W, int E,
+                                                 bool vis, int max_steps) {
+  const size_t nl = static_cast<size_t>(E) * L;
+  const size_t step_set = E > 1 ? size_t{1} << var_set_bits(E * L) : 0;
+  const size_t beam_sets = vis ? 0 : size_t{2} << var_set_bits(W);
+  return 8 * (nl + 2) +
+         4 * (2 * static_cast<size_t>(E) + step_set + beam_sets +
+              (vis ? var_rec_len(max_steps, E) : 0));
+}
+
+// log2 of the slots of a bitmap walk's visited set in shared memory, which
+// follows the `before` bytes of the rest: the most (4,096 at most, 1,024
+// at least) that keep the block within kVarBudget.
+__host__ __device__ inline int var_vis_bits(size_t before) {
+  int bits = 12;
+  while (bits > 10 && before + (size_t{4} << bits) > kVarBudget) --bits;
+  return bits;
 }
 
 // The block walk, for one query (block): its kernels, beam_walk_kernel and
@@ -921,17 +1114,47 @@ size_t smem_bytes(int qd, int L, int S, int W, int E, bool rank) {
 // - vis: a neighbour whose bit is set is masked, every neighbour id >= 0
 //   then sets its bit (live or not; the seeds' at the start), and the
 //   in-beam dedup is skipped (with E = 1 a repeat within one list stays,
-//   as in JAX). The bitmap is global, one per query ((cap + 1) / 32
-//   words, zeroed by the wrapper): a shared-memory id set would have to
-//   hold S + max_steps E L ids (24,584 at ef = 40, E = 4), 196 KB as a
-//   hash of twice the slots, one block per SM; the bitmap's word is read
-//   beside the live flag, so it adds no dependent round trip to a step.
+//   as in JAX). A walk sees ~1,000-1,500 ids at ef = 40, but could see
+//   S + max_steps E L (24,584 at E = 4): the ids go to a visited set in
+//   shared memory (what kVarBudget leaves, 1,024-4,096 slots) while it is
+//   at most half full, then to a global bitmap, one per query ((cap + 1) /
+//   32 words), whose word a test then reads beside the live flag (no
+//   dependent round trip). The caller hands the global bitmap zeroed and
+//   gets it back zeroed: once a walk uses it, it records the members it
+//   expands (at most kRecMax) and, before it ends, stores 0 to the word of
+//   every id it set there (their neighbours', its seeds' if they went
+//   there), or clears its whole bitmap past kRecMax; no launch pays a
+//   (cap + 1) / 8-byte clear a query.
 // - RANK: new candidates are ranked over the bf16 rows against the query
 //   rounded to bf16 (score_rows_rank: 8 rows a warp, every lane busy, the
 //   exact sums of the bf16 ranking's terms), the descent too but for the
 //   entry; the surviving beam's entries with an id are re-scored in f32
 //   at the end (16-byte loads; the wrapper sorts by (distance, id)).
-template <typename T, int V, bool DESC, bool RANK, bool VAR>
+//
+// VAR's step (E > 1 or the bitmap) is laid out for its latency, over every
+// warp, as K5's E > 1 step is (beam_scan_kernel):
+// - the E L ids of the step were loaded during the last merge (two a
+//   thread);
+// - each id's flags (live; past the visited set, the bitmap's word) load
+//   together; the step's first copy of an id is claimed in a shared-memory
+//   step set (E > 1: every copy has the same row, distance and key, so
+//   which one goes on does not matter), and those are the rows scored
+//   (the bitmap: those not in the visited set either); without the bitmap,
+//   an id already in the beam (the beam's own id set, kept by the merge)
+//   needs no row: its copy sits at (inf, key). Only the fresh ids are
+//   compacted and their rows loaded, 8 a warp at once (var_score_rows);
+// - an entry that cannot come before the beam's last entry cannot enter
+//   the beam and is not ranked; the others are ranked by every thread at
+//   once, counting the 64-bit (distance, key) keys below its own
+//   (walk_key). While the beam's last entry is at an infinite distance,
+//   the copies and masked entries that come before it are ranked too (as
+//   (inf, key) and (inf, -2)), so the raw beam is the plain walk's;
+// - the next step's E members are found before the merge by a merge path
+//   of the beam's first E unexpanded members and the ranked entries, so
+//   their ids load while the merge runs. Five block barriers a step.
+// The default walk (E = 1, no bitmap) keeps its own step below.
+template <typename T, int V, bool DESC, bool RANK, bool VAR,
+          bool VIS = false>
 __device__ __forceinline__ void beam_walk(const WalkArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[kWarps];
@@ -955,11 +1178,9 @@ __device__ __forceinline__ void beam_walk(const WalkArgs& a) {
   int* xk = reinterpret_cast<int*>(xd + S);
   int* nid = xk + S;  // neighbour ids
   int* dup = nid + NL;  // neighbour already in the beam / the list
-  int* sel = dup + NL;  // the members a step expands (E > 1)
-  uint8_t* nvalid = reinterpret_cast<uint8_t*>(sel + (E > 1 ? E : 0));
-  unsigned* vis = VAR && a.vis != nullptr
-                      ? a.vis + static_cast<long long>(b) * a.vwords
-                      : nullptr;
+  uint8_t* nvalid = reinterpret_cast<uint8_t*>(dup + NL);
+  unsigned* vis =
+      VIS ? a.vis + static_cast<long long>(b) * a.vwords : nullptr;
 
   // the query's bits, as they are (f32 values, packed words, or sparse
   // indices then value bits)
@@ -1078,14 +1299,13 @@ __device__ __forceinline__ void beam_walk(const WalkArgs& a) {
     }
   }
 
-  // ---- seeds: dedup by id, sort into the beam (vis: their bits set)
+  // ---- seeds: dedup by id, sort into the beam
   const long long s0 = static_cast<long long>(b) * S;
   for (int i = tid; i < S; i += kThreads) {
     const int id = DESC ? land_id : a.seed_ids[s0 + i];
     const bool ok = id >= 0;
     xd[i] = ok ? (DESC ? land_d : a.seed_d[s0 + i]) : inf;
     xk[i] = ok ? 2 * id + 1 : -2;
-    if (vis != nullptr && ok) atomicOr(vis + (id >> 5), 1u << (id & 31));
   }
   __syncthreads();
   for (int i = tid; i < S; i += kThreads) {
@@ -1110,162 +1330,449 @@ __device__ __forceinline__ void beam_walk(const WalkArgs& a) {
 
   K5_MARK(kPhStart);
   int cur = 0, steps = 0, scored = 0;
-  while (true) {
-    float* cbd = bd + cur * W;
-    int* cbk = bk + cur * W;
-    float* obd = bd + (cur ^ 1) * W;
-    int* obk = bk + (cur ^ 1) * W;
-
-    // the members to expand: the first E unexpanded in the beam's order
-    int pos, nsel = 1;
-    if (E == 1) {
-      int local = INT_MAX;
-      for (int i = tid; i < W; i += kThreads)
-        if ((cbk[i] & 1) && cbd[i] < inf) local = min(local, i);
-      local = __reduce_min_sync(kFull, local);
-      if (lane == 0) red[warp] = local;
-      __syncthreads();
-      pos = red[0];
+  if constexpr (VAR) {
+    // ---- the modes' step (E > 1, the visited bitmap); see above
+    __shared__ int red5[kWarps][5], kept2[kWarps][2];
+    __shared__ int s_scored;
+    unsigned char* xr = smem + var_smem_offset(a.qd, L, S, W, E, RANK);
+    unsigned long long* nkey = reinterpret_cast<unsigned long long*>(xr);
+    int* vsel = reinterpret_cast<int*>(nkey + NL + 2);  // the members
+    int* au = vsel + E;  // the beam's first E unexpanded members
+    const int bits_s = var_set_bits(NL), bits_b = var_set_bits(W);
+    int* fk = au + E;  // the step's id set (E > 1)
+    int* tb = fk + (E > 1 ? 1 << bits_s : 0);  // the beam's, x2 (no bitmap)
+    int* rec = tb;  // the expanded members' rows (bitmap)
+    const int tbl_b = 1 << bits_b;
+    const int rlen = var_rec_len(a.max_steps, E);
+    // the bitmap's ids go to a visited set in shared memory while it is at
+    // most half full (nv: at most the ids it holds), then to the global
+    // bitmap (ovf); a test reads both
+    const size_t vs_at = var_smem_offset(a.qd, L, S, W, E, RANK) +
+                         var_smem_bytes(L, W, E, true, a.max_steps);
+    const int bits_v = var_vis_bits(vs_at);
+    int* vt = reinterpret_cast<int*>(smem + vs_at);
+    const int cap_v = 1 << (bits_v - 1);
+    bool ovf = VIS && W > cap_v;
+    const bool seeds_global = ovf;
+    int nv = W;  // the ids the set holds, at most
+    const unsigned lt = (1u << lane) - 1u;
+    int* cid = nid;  // the step's fresh ids, compacted
+    if (E > 1)
+      for (int i = tid; i < (1 << bits_s); i += kThreads) fk[i] = -1;
+    if (!VIS)
+      for (int i = tid; i < 2 * tbl_b; i += kThreads) tb[i] = -1;
+    else
+      for (int i = tid; i < (1 << bits_v); i += kThreads) vt[i] = -1;
+    if (tid == 0) s_scored = 0;
+    __syncthreads();
+    for (int i = tid; i < W; i += kThreads) {  // the seeds' ids
+      const int id = bk[i] >> 1;
+      if (bk[i] < 0) continue;
+      if (!VIS)
+        set_insert(tb, bits_b, id);
+      else if (ovf)
+        atomicOr(vis + (id >> 5), 1u << (id & 31));
+      else
+        set_insert(vt, bits_v, id);
+    }
+    if (warp == 0) {  // the first members: the seeds' beam's first E
+      int got = 0;
+      for (int base = 0; base < W && got < E; base += 32) {
+        const int i = base + lane;
+        const unsigned mk =
+            __ballot_sync(kFull, i < W && (bk[i] & 1) && bd[i] < inf);
+        const int r = got + __popc(mk & lt);
+        if (((mk >> lane) & 1u) && r < E) vsel[r] = i;
+        got = min(E, got + __popc(mk));
+      }
+      if (lane == 0) s_nsel = got;
+    }
+    __syncthreads();
+    int nsel = s_nsel;
+    bool go = nsel > 0 && a.max_steps > 0 && bd[vsel[0]] <= bd[W - 1];
+    // thread t loads the ids of new entries j = t + 128 s (s = 0, 1; E L
+    // <= 256): slot jo[s] of member jm[s] (INT_MAX past E L)
+    int jm[2], jo[2], pid[2];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) pos = min(pos, red[w]);
-    } else {
-      if (warp == 0) {
-        const unsigned lt = (1u << lane) - 1u;
+    for (int s = 0; s < 2; ++s) {
+      const int j = tid + s * kThreads;
+      jm[s] = j < NL ? j / L : INT_MAX;
+      jo[s] = j < NL ? j - jm[s] * L : 0;
+      pid[s] = go && jm[s] < nsel
+                   ? a.nbrs[static_cast<long long>(
+                                min(bk[vsel[jm[s]]] >> 1, a.cap)) * L +
+                            jo[s]]
+                   : -1;
+    }
+    int nrec = 0, scored_w = 0;
+    K5_MARK(kPhStart);
+    while (go) {
+      float* cbd = bd + cur * W;
+      int* cbk = bk + cur * W;
+      float* obd = bd + (cur ^ 1) * W;
+      int* obk = bk + (cur ^ 1) * W;
+      int* tcur = tb + cur * tbl_b;
+      int* tnext = tb + (cur ^ 1) * tbl_b;
+      // the same decision in every thread: the step's ids could fill the
+      // set past half
+      if (VIS && !ovf) ovf = nv + NL > cap_v;
+      if (tid < nsel) {  // expanded; read after the next barrier
+        const int k = cbk[vsel[tid]];
+        if (ovf && nrec + tid < rlen) rec[nrec + tid] = min(k >> 1, a.cap);
+        cbk[vsel[tid]] = k & ~1;
+      }
+      if (ovf) nrec += nsel;
+      // (A) each prefetched id's flags: live, not visited (bitmap), the
+      // step's first copy (E > 1: claimed in the step set); those are the
+      // rows scored. Fresh: not in the beam too (no bitmap: the beam's id
+      // set), so only their rows load. While the beam's last entry is at
+      // an infinite distance (it has room), an entry that needs no row
+      // (an in-beam copy at (inf, key), a masked one at (inf, -2)) may
+      // still enter before it: such an extra is ranked too.
+      const bool loose = !(cbd[W - 1] < inf);
+      const int lastk = loose ? cbk[W - 1] : -2;  // a member is finite
+      bool fresh[2], extra[2], live[2];
+      int xkey[2], slot[2] = {-1, -1};
+      unsigned bf[2], bx[2], word[2], nids = 0;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {  // both ids' flags load at once
+        const int v = pid[s];
+        live[s] = v >= 0 && a.trav[min(v, a.cap)];
+        word[s] = ovf && v >= 0 ? __ldcg(vis + (v >> 5)) : 0u;
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int v = pid[s];
+        bool ok = live[s] && !((word[s] >> (v & 31)) & 1u);
+        if (VIS && ok) ok = set_find(vt, bits_v, v) < 0;
+        if (E > 1 && ok) ok = set_claim(fk, bits_s, v, &slot[s]);
+        scored_w += __popc(__ballot_sync(kFull, ok));
+        const bool copy =
+            ok && !VIS && set_find(tcur, bits_b, v) >= 0;
+        fresh[s] = ok && !copy;
+        xkey[s] = copy ? 2 * v + 1 : -2;
+        extra[s] = loose && jm[s] < E && !fresh[s] && xkey[s] < lastk;
+        bf[s] = __ballot_sync(kFull, fresh[s]);
+        bx[s] = __ballot_sync(kFull, extra[s]);
+        nids += __popc(__ballot_sync(kFull, v >= 0));
+      }
+      if (lane == 0) {
+        red5[warp][0] = __popc(bf[0]);
+        red5[warp][1] = __popc(bf[1]);
+        red5[warp][2] = __popc(bx[0]);
+        red5[warp][3] = __popc(bx[1]);
+        red5[warp][4] = nids;
+      }
+      __syncthreads();
+      // compaction: the fresh ids into cid [0, F) in slot order, the
+      // extras' keys after them
+      int tot[5] = {0, 0, 0, 0, 0}, off[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          off[i] += w < warp ? red5[w][i] : 0;
+          tot[i] += red5[w][i];
+        }
+        tot[4] += red5[w][4];
+      }
+      if (!ovf) nv += tot[4];
+      const int F = tot[0] + tot[1], C = F + tot[2] + tot[3];
+      off[1] += tot[0];
+      off[2] += F;
+      off[3] += F + tot[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (fresh[s]) {
+          const int c = off[s] + __popc(bf[s] & lt);
+          cid[c] = pid[s];
+          if constexpr (kWords || kSparse) nvalid[c] = 1;
+        }
+        if (extra[s]) {
+          const int c = off[2 + s] + __popc(bx[s] & lt);
+          nd[c] = inf;
+          nkey[c] = walk_key(inf, xkey[s]);
+        }
+        if (slot[s] >= 0) fk[slot[s]] = -1;  // every claim is made
+        // the bitmap: every id of the step sets its bit, after every test
+        if (VIS && pid[s] >= 0) {
+          if (ovf)
+            atomicOr(vis + (pid[s] >> 5), 1u << (pid[s] & 31));
+          else
+            set_insert(vt, bits_v, pid[s]);
+        }
+      }
+      if (!VIS)
+        for (int i = tid; i < tbl_b; i += kThreads) tnext[i] = -1;
+      if (tid == 0) nkey[C] = ~0ull;  // the pair read past an odd C
+      __syncthreads();
+      K5_MARK(kPhFlags);
+
+      // (B) the fresh rows scored; an entry that cannot come before the
+      // beam's last is not ranked
+      const unsigned long long lastkey = walk_key(cbd[W - 1], cbk[W - 1]);
+      if constexpr (kWords || kSparse) {
+        score(F);
+        __syncthreads();
+        for (int c = tid; c < F; c += kThreads) {
+          const unsigned long long kk = walk_key(nd[c], 2 * cid[c] + 1);
+          nkey[c] = kk < lastkey ? kk : ~0ull;
+        }
+      } else if constexpr (RANK) {
+        switch (a.metric) {
+          case 0: var_score_rows<T, V, 0, true>(a, qs, qb, cid, F, nd, nkey, lastkey, warp, lane); break;
+          case 1: var_score_rows<T, V, 1, true>(a, qs, qb, cid, F, nd, nkey, lastkey, warp, lane); break;
+          default: var_score_rows<T, V, 2, true>(a, qs, qb, cid, F, nd, nkey, lastkey, warp, lane); break;
+        }
+      } else {
+        switch (a.metric) {
+          case 0: var_score_rows<T, V, 0, false>(a, qs, qb, cid, F, nd, nkey, lastkey, warp, lane); break;
+          case 1: var_score_rows<T, V, 1, false>(a, qs, qb, cid, F, nd, nkey, lastkey, warp, lane); break;
+          case 2: var_score_rows<T, V, 2, false>(a, qs, qb, cid, F, nd, nkey, lastkey, warp, lane); break;
+          default: var_score_rows<T, V, 3, false>(a, qs, qb, cid, F, nd, nkey, lastkey, warp, lane); break;
+        }
+      }
+      __syncthreads();
+      K5_MARK(kPhRows);
+
+      // (C) the ranked entries placed by every thread (each counts the
+      // keys below its own, two a load; equal keys, the copies of one id,
+      // by their places); warp 3 also lists the beam's first E unexpanded
+      // members (au, in the beam's order)
+      int kept_w = 0, kfin_w = 0;
+      const ulonglong2* kp = reinterpret_cast<const ulonglong2*>(nkey);
+      for (int base = 0; base < C; base += kThreads) {
+        const int j = base + tid;
+        const unsigned long long kj = j < C ? nkey[j] : ~0ull;
+        const bool keep = kj != ~0ull;
+        if (keep) {
+          int r = 0;
+#pragma unroll 4
+          for (int i = 0; i < (C + 1) >> 1; ++i) {
+            const ulonglong2 x = kp[i];
+            r += (x.x < kj) + (x.y < kj) + ((x.x == kj) & (2 * i < j)) +
+                 ((x.y == kj) & (2 * i + 1 < j));
+          }
+          sd[r] = nd[j];
+          sk[r] = static_cast<int>(static_cast<unsigned>(kj)) - 2;
+        }
+        kept_w += __popc(__ballot_sync(kFull, keep));
+        kfin_w += __popc(__ballot_sync(kFull, keep && nd[j] < inf));
+      }
+      if (warp == kWarps - 1) {
         int got = 0;
         for (int base = 0; base < W && got < E; base += 32) {
           const int i = base + lane;
           const unsigned mk =
               __ballot_sync(kFull, i < W && (cbk[i] & 1) && cbd[i] < inf);
           const int r = got + __popc(mk & lt);
-          if (((mk >> lane) & 1u) && r < E) sel[r] = i;
+          if (((mk >> lane) & 1u) && r < E) au[r] = i;
           got = min(E, got + __popc(mk));
         }
         if (lane == 0) s_nsel = got;
       }
+      if (lane == 0) {
+        kept2[warp][0] = kept_w;
+        kept2[warp][1] = kfin_w;
+      }
       __syncthreads();
-      nsel = s_nsel;
-      pos = nsel > 0 ? sel[0] : INT_MAX;
-    }
-    if (pos == INT_MAX || steps >= a.max_steps || !(cbd[pos] <= cbd[W - 1]))
-      break;  // the same decision in every thread
-    const int u = min(cbk[pos] >> 1, a.cap);  // the sentinel row at worst
-    K5_MARK(kPhSelect);
+      K5_MARK(kPhSort);
+      int nn = 0, nnf = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        nn += kept2[w][0];
+        nnf += kept2[w][1];
+      }
 
-    for (int j0 = 0; j0 < NL; j0 += kThreads) {  // the same trips in every
-      const int j = j0 + tid;                       // thread
-      int v = -1;
-      if (j < NL) {
-        if (E == 1) {
-          v = a.nbrs[static_cast<long long>(u) * L + j];
-        } else {
-          const int e = j / L;
-          if (e < nsel)
-            v = a.nbrs[static_cast<long long>(min(cbk[sel[e]] >> 1, a.cap)) *
-                           L +
-                       (j - e * L)];
-        }
-      }
-      bool ok = v >= 0 && a.trav[min(v, a.cap)];
-      if (vis != nullptr && ok) ok = !((__ldcg(vis + (v >> 5)) >> (v & 31)) & 1u);
-      if (j < NL) {
-        nid[j] = v;
-        nvalid[j] = ok;
-        nk[j] = ok ? 2 * v + 1 : -2;
-        dup[j] = 0;
-      }
-      if (E == 1)
-        scored += __syncthreads_count(ok);
-      else
-        __syncthreads();
-    }
-    if (E > 1) {  // a repeat of an earlier id of the step: masked
-      for (int j = tid; j < NL; j += kThreads) {
-        if (!nvalid[j]) continue;
-        const int v = nid[j];
-        for (int i = 0; i < j; ++i) {
-          if (nid[i] == v) {
-            nvalid[j] = 0;
-            nk[j] = -2;
-            break;
+      // (D) the next step's members, in every warp alike: lane l takes the
+      // t-th (t = t0 + l, t < E, 32 at a time) of the merge of the beam's
+      // unexpanded members (au) and the finite ranked entries (sd), beam
+      // first among equals (the merge's order), and its place in the
+      // merged beam; those inside the first W are the first E unexpanded
+      // members there. Their neighbour ids load while the merge runs.
+      const int na = s_nsel;
+      int um[2] = {0, 0};  // the row of member jm[s]
+      nsel = 0;
+      for (int t0 = 0; t0 < E; t0 += 32) {
+        const int t = t0 + lane;
+        int ck = INT_MAX, cpos = INT_MAX;
+        if (t < E && t < na + nnf) {
+          int lo = max(0, t - nnf), hi = min(t, na);
+          while (lo < hi) {  // the members of au among the first t
+            const int mid = (lo + hi) >> 1;
+            const int ia = au[mid], jb = t - 1 - mid;
+            if (!before(sd[jb], sk[jb], cbd[ia], cbk[ia]))
+              lo = mid + 1;
+            else
+              hi = mid;
+          }
+          const int y = t - lo;  // and of sd
+          const bool from_beam =
+              lo < na && (y >= nnf || !before(sd[y], sk[y], cbd[au[lo]],
+                                              cbk[au[lo]]));
+          if (from_beam) {
+            ck = cbk[au[lo]];
+            cpos = au[lo] + y;
+          } else {
+            ck = sk[y];
+            cpos = y + count_before(cbd, cbk, W, sd[y], ck, false);
           }
         }
+        const bool in = cpos < W;  // a prefix of the t
+        const int got = __popc(__ballot_sync(kFull, in));
+        nsel += got;
+        if (warp == 0 && in) vsel[t] = cpos;  // read after the merge
+        const int us = in ? min(ck >> 1, a.cap) : 0;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int x = __shfl_sync(kFull, us, jm[s] & 31);
+          if (jm[s] >= t0 && jm[s] - t0 < 32) um[s] = x;
+        }
+        if (got < 32) break;  // the rest lie past the merged beam or E
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        pid[s] = jm[s] < nsel
+                     ? a.nbrs[static_cast<long long>(um[s]) * L + jo[s]]
+                     : -1;
+      K5_MARK(kPhSelect);
+
+      // (E) the ranked entries merged into the beam (beam first among
+      // equals); without the bitmap, the next beam's ids enter its set
+      for (int i = tid; i < W + nn; i += kThreads) {
+        const bool from_beam = i < W;
+        const int j = from_beam ? i : i - W;
+        const float d = from_beam ? cbd[j] : sd[j];
+        const int k = from_beam ? cbk[j] : sk[j];
+        const int r = j + (from_beam ? count_before(sd, sk, nn, d, k, true)
+                                     : count_before(cbd, cbk, W, d, k, false));
+        if (r < W) {
+          obd[r] = d;
+          obk[r] = k;
+          if (!VIS && k >= 0) set_insert(tnext, bits_b, k >> 1);
+        }
       }
       __syncthreads();
-      for (int j0 = 0; j0 < NL; j0 += kThreads)
-        scored += __syncthreads_count(j0 + tid < NL && nvalid[j0 + tid]);
+      K5_MARK(kPhBeamMerge);
+      cur ^= 1;
+      ++steps;
+      go = nsel > 0 && steps < a.max_steps && obd[vsel[0]] <= obd[W - 1];
     }
-    if (vis != nullptr) {  // every id seen this step, after every test
-      for (int j = tid; j < NL; j += kThreads) {
-        const int v = nid[j];
-        if (v >= 0) atomicOr(vis + (v >> 5), 1u << (v & 31));
+    if (lane == 0) atomicAdd(&s_scored, scored_w);
+    if (ovf) {  // leave the global bitmap zero: clear what was set there
+      __threadfence();
+      __syncthreads();
+      if (nrec <= rlen) {
+#pragma unroll 4
+        for (int i = tid; i < nrec * L; i += kThreads) {
+          const int v = a.nbrs[static_cast<long long>(rec[i / L]) * L +
+                               i % L];
+          if (v >= 0) vis[v >> 5] = 0u;
+        }
+        if (seeds_global)
+          for (int i = tid; i < S; i += kThreads) {
+            const int id = DESC ? land_id : a.seed_ids[s0 + i];
+            if (id >= 0) vis[id >> 5] = 0u;
+          }
+      } else {
+        for (int i = tid; i < a.vwords; i += kThreads) vis[i] = 0u;
       }
     }
-    // expanded; read again after a barrier
-    if (E == 1) {
-      if (tid == 0) cbk[pos] &= ~1;
-    } else if (tid < nsel) {
-      cbk[sel[tid]] &= ~1;
-    }
-    K5_MARK(kPhFlags);
-
-    score(NL);
     __syncthreads();
-    K5_MARK(kPhRows);
+    scored = s_scored;
+  } else {
+    while (true) {
+      float* cbd = bd + cur * W;
+      int* cbk = bk + cur * W;
+      float* obd = bd + (cur ^ 1) * W;
+      int* obk = bk + (cur ^ 1) * W;
 
-    // dedup (no visited bitmap): a neighbour whose id is in the beam, or
-    // earlier in the list (E = 1; E > 1 masked those above)
-    if (vis == nullptr) {
+      // the member to expand: the first unexpanded in the beam's order
+      int local = INT_MAX;
+      for (int i = tid; i < W; i += kThreads)
+        if ((cbk[i] & 1) && cbd[i] < inf) local = min(local, i);
+      local = __reduce_min_sync(kFull, local);
+      if (lane == 0) red[warp] = local;
+      __syncthreads();
+      int pos = red[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) pos = min(pos, red[w]);
+      if (pos == INT_MAX || steps >= a.max_steps ||
+          !(cbd[pos] <= cbd[W - 1]))
+        break;  // the same decision in every thread
+      const int u = min(cbk[pos] >> 1, a.cap);  // the sentinel row at worst
+      K5_MARK(kPhSelect);
+
+      for (int j0 = 0; j0 < L; j0 += kThreads) {  // the same trips in every
+        const int j = j0 + tid;                      // thread
+        const int v = j < L ? a.nbrs[static_cast<long long>(u) * L + j] : -1;
+        const bool ok = v >= 0 && a.trav[min(v, a.cap)];
+        if (j < L) {
+          nid[j] = v;
+          nvalid[j] = ok;
+          nk[j] = ok ? 2 * v + 1 : -2;
+          dup[j] = 0;
+        }
+        scored += __syncthreads_count(ok);
+      }
+      if (tid == 0) cbk[pos] &= ~1;  // expanded; read again after a barrier
+      K5_MARK(kPhFlags);
+
+      score(L);
+      __syncthreads();
+      K5_MARK(kPhRows);
+
+      // dedup: a neighbour whose id is in the beam, or earlier in the list
       for (int i = tid; i < W; i += kThreads) {
         const int k = cbk[i];
         if (k < 0) continue;
-        for (int j = 0; j < NL; ++j)
+        for (int j = 0; j < L; ++j)
           if (nk[j] >= 0 && (nk[j] >> 1) == (k >> 1)) dup[j] = 1;
       }
-      if (E == 1) {
-        for (int j = tid; j < NL; j += kThreads) {
-          if (nk[j] < 0) continue;
-          for (int i = 0; i < j; ++i)
-            if (nk[i] == nk[j]) dup[j] = 1;
+      for (int j = tid; j < L; j += kThreads) {
+        if (nk[j] < 0) continue;
+        for (int i = 0; i < j; ++i)
+          if (nk[i] == nk[j]) dup[j] = 1;
+      }
+      __syncthreads();
+      K5_MARK(kPhDedup);
+
+      // rank-sort the new entries
+      for (int j = tid; j < L; j += kThreads) {
+        const float dj = dup[j] ? inf : nd[j];
+        const int kj = nk[j];
+        int r = 0;
+        for (int i = 0; i < L; ++i) {
+          const float di = dup[i] ? inf : nd[i];
+          r += before(di, nk[i], dj, kj) ||
+               (i < j && di == dj && nk[i] == kj);
+        }
+        sd[r] = dj;
+        sk[r] = kj;
+      }
+      __syncthreads();
+      K5_MARK(kPhSort);
+
+      // merge beam (W) and new (L): the first W are the next beam
+      for (int i = tid; i < W; i += kThreads) {
+        const int r = i + count_before(sd, sk, L, cbd[i], cbk[i], true);
+        if (r < W) {
+          obd[r] = cbd[i];
+          obk[r] = cbk[i];
+        }
+      }
+      for (int j = tid; j < L; j += kThreads) {
+        const int r = j + count_before(cbd, cbk, W, sd[j], sk[j], false);
+        if (r < W) {
+          obd[r] = sd[j];
+          obk[r] = sk[j];
         }
       }
       __syncthreads();
+      K5_MARK(kPhBeamMerge);
+      cur ^= 1;
+      ++steps;
     }
-    K5_MARK(kPhDedup);
-
-    // rank-sort the new entries
-    for (int j = tid; j < NL; j += kThreads) {
-      const float dj = dup[j] ? inf : nd[j];
-      const int kj = nk[j];
-      int r = 0;
-      for (int i = 0; i < NL; ++i) {
-        const float di = dup[i] ? inf : nd[i];
-        r += before(di, nk[i], dj, kj) || (i < j && di == dj && nk[i] == kj);
-      }
-      sd[r] = dj;
-      sk[r] = kj;
-    }
-    __syncthreads();
-    K5_MARK(kPhSort);
-
-    // merge beam (W) and new (NL): the first W are the next beam
-    for (int i = tid; i < W; i += kThreads) {
-      const int r = i + count_before(sd, sk, NL, cbd[i], cbk[i], true);
-      if (r < W) {
-        obd[r] = cbd[i];
-        obk[r] = cbk[i];
-      }
-    }
-    for (int j = tid; j < NL; j += kThreads) {
-      const int r = j + count_before(cbd, cbk, W, sd[j], sk[j], false);
-      if (r < W) {
-        obd[r] = sd[j];
-        obk[r] = sk[j];
-      }
-    }
-    __syncthreads();
-    K5_MARK(kPhBeamMerge);
-    cur ^= 1;
-    ++steps;
   }
 
   float* fbd = bd + cur * W;
@@ -1303,6 +1810,18 @@ __global__ void __launch_bounds__(kThreads) beam_walk_kernel(WalkArgs a) {
   beam_walk<T, V, DESC, false, VAR>(a);
 }
 
+// The modes' walks (E > 1 or the bitmap: VIS), held to 64 registers a
+// thread as the bf16 ranking's walk is: 8 blocks then fit an SM, so 1,024
+// queries run in one wave on 132 SMs (at 128 registers, 4 blocks an SM,
+// they ran in two; the sparse rows' bitmap walk took 80 and two waves,
+// 1.5x the time). The bitmap's walk is an instantiation of its own, so
+// the E > 1 walk holds none of its registers.
+template <typename T, int V, bool DESC, bool VIS>
+__global__ void __launch_bounds__(kThreads, 8)
+    beam_walk_var_kernel(WalkArgs a) {
+  beam_walk<T, V, DESC, false, true, VIS>(a);
+}
+
 // The bf16 ranking's walk, held to 64 registers a thread: 8 blocks (1,024
 // threads) then fit an SM, so a launch of 1,024 queries runs in one wave
 // on 132 SMs (at 72-117 registers it ran in two, ~1.6x the time).
@@ -1312,24 +1831,15 @@ __global__ void __launch_bounds__(kThreads, 8)
   beam_walk<__nv_bfloat16, V, DESC, true, VAR>(a);
 }
 
-// VAR = false where E = 1 and no bitmap: the default walk and the bf16
-// ranking's each have their own instantiation for it.
-template <typename T, int V, bool RANK>
-cudaError_t launch(const WalkArgs& a, int b, size_t smem,
-                   cudaStream_t stream) {
-  const bool desc = a.upper_slot != nullptr;
-  const bool var = a.E != 1 || a.vis != nullptr;
-  void (*kern)(WalkArgs);
-  if constexpr (RANK)
-    kern = desc ? (var ? beam_walk_rank_kernel<V, true, true>
-                       : beam_walk_rank_kernel<V, true, false>)
-                : (var ? beam_walk_rank_kernel<V, false, true>
-                       : beam_walk_rank_kernel<V, false, false>);
-  else
-    kern = desc ? (var ? beam_walk_kernel<T, V, true, true>
-                       : beam_walk_kernel<T, V, true, false>)
-                : (var ? beam_walk_kernel<T, V, false, true>
-                       : beam_walk_kernel<T, V, false, false>);
+// ... and in its modes
+template <int V, bool DESC, bool VIS>
+__global__ void __launch_bounds__(kThreads, 8)
+    beam_walk_rank_var_kernel(WalkArgs a) {
+  beam_walk<__nv_bfloat16, V, DESC, true, true, VIS>(a);
+}
+
+cudaError_t launch_kernel(void (*kern)(WalkArgs), const WalkArgs& a, int b,
+                          size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1338,6 +1848,57 @@ cudaError_t launch(const WalkArgs& a, int b, size_t smem,
   }
   kern<<<b, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The modes' kernel for the launch's descent and bitmap.
+template <typename T, int V, bool RANK>
+void (*var_kernel(const WalkArgs& a))(WalkArgs) {
+  const bool desc = a.upper_slot != nullptr, vis = a.vis != nullptr;
+  if constexpr (RANK)
+    return desc ? (vis ? beam_walk_rank_var_kernel<V, true, true>
+                       : beam_walk_rank_var_kernel<V, true, false>)
+                : (vis ? beam_walk_rank_var_kernel<V, false, true>
+                       : beam_walk_rank_var_kernel<V, false, false>);
+  else
+    return desc ? (vis ? beam_walk_var_kernel<T, V, true, true>
+                       : beam_walk_var_kernel<T, V, true, false>)
+                : (vis ? beam_walk_var_kernel<T, V, false, true>
+                       : beam_walk_var_kernel<T, V, false, false>);
+}
+
+// The row type's code (pgv_k4_beam_walk's dtype).
+template <typename T>
+constexpr int walk_dtype() {
+  return std::is_same<T, float>::value            ? 0
+         : std::is_same<T, __half>::value         ? 1
+         : std::is_same<T, __nv_bfloat16>::value  ? 2
+         : std::is_same<T, unsigned>::value       ? 3
+                                                  : 4;
+}
+
+// VAR = false where E = 1 and no bitmap: the default walk and the bf16
+// ranking's each have their own instantiation for it; the modes run
+// beam_walk_var_kernel (another unit of the library, pgv_k4_var_walk) and
+// beam_walk_rank_var_kernel.
+template <typename T, int V, bool RANK>
+cudaError_t launch(const WalkArgs& a, int b, size_t smem,
+                   cudaStream_t stream) {
+  const bool desc = a.upper_slot != nullptr;
+  if (a.E != 1 || a.vis != nullptr) {
+    if constexpr (RANK)
+      return launch_kernel(var_kernel<T, V, true>(a), a, b, smem, stream);
+    else
+      return static_cast<cudaError_t>(
+          pgv_k4_var_walk(&a, walk_dtype<T>(), V, b, smem, stream));
+  }
+  void (*kern)(WalkArgs);
+  if constexpr (RANK)
+    kern = desc ? beam_walk_rank_kernel<V, true, false>
+                : beam_walk_rank_kernel<V, false, false>;
+  else
+    kern = desc ? beam_walk_kernel<T, V, true, false>
+                : beam_walk_kernel<T, V, false, false>;
+  return launch_kernel(kern, a, b, smem, stream);
 }
 
 
@@ -1739,11 +2300,16 @@ cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
 #ifndef PGV_K4_WORDS_BLOCK  // probes/k4_words_profile.py's block-form build
   if constexpr (std::is_same<T, unsigned>::value) {
     if (kw_fits(a.d, a.W, a.L, a.S, a.m, a.upper_slot != nullptr)) {
-      if (a.metric == 5)
-        return vec ? launch_word_walk<4, 1>(a, b, stream)
-                   : launch_word_walk<1, 1>(a, b, stream);
-      return vec ? launch_word_walk<4, 0>(a, b, stream)
-                 : launch_word_walk<1, 0>(a, b, stream);
+      cudaError_t err =
+          a.metric == 5 ? (vec ? launch_word_walk<4, 1>(a, b, stream)
+                               : launch_word_walk<1, 1>(a, b, stream))
+                        : (vec ? launch_word_walk<4, 0>(a, b, stream)
+                               : launch_word_walk<1, 0>(a, b, stream));
+      // the warp form leaves its bits set: the bitmaps are cleared after it
+      if (err == cudaSuccess && a.vis != nullptr)
+        err = cudaMemsetAsync(a.vis, 0,
+                              static_cast<size_t>(b) * a.vwords * 4, stream);
+      return err;
     }
   }
 #endif
@@ -1842,39 +2408,6 @@ size_t scan_smem_bytes(int words, int d, int L, int S, int W, int ef,
               (E > 1 ? 2 * E + nl + 2 * (nl + 2) : 0));
 }
 
-// Open-addressing sets of ids (>= 0) in shared memory: 2^bits slots, -1
-// empty, -2 an erased id (probing goes on past it), linear probing from a
-// multiplicative hash.
-__device__ __forceinline__ unsigned set_home(int id, int bits) {
-  return (static_cast<unsigned>(id) * 2654435761u) >> (32 - bits);
-}
-
-// Insert id (any thread, concurrently); returns its slot. An id must not
-// be inserted while it sits past an erased slot of its chain (the walk's
-// set inserts only ids it lacks; the other sets erase nothing).
-__device__ __forceinline__ int set_insert(int* tbl, int bits, int id) {
-  const unsigned mask = (1u << bits) - 1u;
-  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
-    int v = tbl[s];
-    while (v < 0) {  // free: claim it, or look again at what took it
-      const int prev = atomicCAS(tbl + s, v, id);
-      if (prev == v) return static_cast<int>(s);
-      v = prev;
-    }
-    if (v == id) return static_cast<int>(s);
-  }
-}
-
-// The slot of id, or -1 if the set lacks it.
-__device__ __forceinline__ int set_find(const int* tbl, int bits, int id) {
-  const unsigned mask = (1u << bits) - 1u;
-  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
-    const int v = tbl[s];
-    if (v == id) return static_cast<int>(s);
-    if (v == -1) return -1;
-  }
-}
-
 // The sums of 8 rows ids[r] of `values` (row stride `stride`, d values;
 // the lanes r < 8 hold the ids; `okm` bit r: row r is valid) against the
 // query qs: lane l returns row (l >> 2) & 7's sum. Each lane's loads of
@@ -1930,7 +2463,8 @@ __device__ __forceinline__ float score8(const T* values, long long stride,
 // score8 for 16 rows (the lanes r < 16 hold the ids; `okm` bit r: row r
 // is valid): lane l returns row (l >> 1) & 15's sum. K5's E > 1 step
 // scores its new entries 16 rows a warp at once: 64 rows' loads in flight
-// per block, twice score8's.
+// per block, twice score8's. It is score_raw<16> written out: through
+// score_raw (transposed_sum) the step ran 5-7% slower.
 template <typename T, int V, int M>
 __device__ __forceinline__ float score16(const T* values, long long stride,
                                          int d, const float* qs, int v,
@@ -1982,25 +2516,6 @@ __device__ __forceinline__ float score16(const T* values, long long stride,
            __shfl_xor_sync(kFull, b1 ? v2[0] : v2[1], 2);
   v1 += __shfl_xor_sync(kFull, v1, 1);
   return v1;
-}
-
-// Insert id into a set that erases nothing (any thread, concurrently);
-// true for exactly one of the threads that insert the same id: the one
-// whose insert claimed its slot, which goes to *slot.
-__device__ __forceinline__ bool set_claim(int* tbl, int bits, int id,
-                                          int* slot) {
-  const unsigned mask = (1u << bits) - 1u;
-  for (unsigned s = set_home(id, bits);; s = (s + 1u) & mask) {
-    int v = tbl[s];
-    if (v == -1) {
-      v = atomicCAS(tbl + s, -1, id);
-      if (v == -1) {
-        *slot = static_cast<int>(s);
-        return true;
-      }
-    }
-    if (v == id) return false;
-  }
 }
 
 // Sort (d, k) [n] (n a power of two) by (distance, key) in place: a
@@ -2877,6 +3392,25 @@ int pgv_k4_rank_scan(const void* args, int metric, int b, size_t smem,
 }
 #endif
 
+#ifdef PGV_K4_MODES
+// The modes' walks (beam_walk_var_kernel) at the row type and chunk width
+// pgv_k4_beam_walk's dispatch chose.
+int pgv_k4_var_walk(const void* args, int dtype, int v, int b, size_t smem,
+                    void* stream) {
+  const WalkArgs& a = *static_cast<const WalkArgs*>(args);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void (*kern)(WalkArgs);
+  switch (dtype) {
+    case 0: kern = v == 4 ? var_kernel<float, 4, false>(a) : var_kernel<float, 1, false>(a); break;
+    case 1: kern = v == 8 ? var_kernel<__half, 8, false>(a) : var_kernel<__half, 1, false>(a); break;
+    case 2: kern = v == 8 ? var_kernel<__nv_bfloat16, 8, false>(a) : var_kernel<__nv_bfloat16, 1, false>(a); break;
+    case 3: kern = v == 4 ? var_kernel<unsigned, 4, false>(a) : var_kernel<unsigned, 1, false>(a); break;
+    default: kern = var_kernel<SparseRow, 1, false>(a);
+  }
+  return static_cast<int>(launch_kernel(kern, a, b, smem, st));
+}
+#endif
+
 #ifdef PGV_K4_BASE
 extern "C" {
 
@@ -2895,9 +3429,9 @@ extern "C" {
 // seed_d are not read); land [b, 4] receives the landing.
 //
 // The variants (WalkArgs): E >= 1 members a step (E <= W, E L <=
-// kMaxNew); vis [b, vwords] zeroed bitmaps (vwords >= (cap + 32) / 32) or
-// null; exact (dtype 2, metric 0-2 only) the f32 rows the bf16-ranked
-// beam is re-scored from, or null.
+// kMaxNew); vis [b, vwords] zeroed bitmaps (vwords >= (cap + 32) / 32),
+// left zero on return, or null; exact (dtype 2, metric 0-2 only) the f32
+// rows the bf16-ranked beam is re-scored from, or null.
 int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
                      long long stride, int d, int qd,
                      const int* nbrs, int L, const uint8_t* trav, int cap,
@@ -2921,7 +3455,13 @@ int pgv_k4_beam_walk(const void* values, const void* values2, int dtype,
       (vis != nullptr && vwords * 32LL < cap + 1LL) ||
       (exact != nullptr && (dtype != 2 || metric > 2)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(qd, L, S, W, E, exact != nullptr);
+  const bool rank = exact != nullptr;
+  size_t smem = smem_bytes(qd, L, S, W, E, rank);
+  if (E != 1 || vis != nullptr) {
+    smem = var_smem_offset(qd, L, S, W, E, rank) +
+           var_smem_bytes(L, W, E, vis != nullptr, max_steps);
+    if (vis != nullptr) smem += size_t{4} << var_vis_bits(smem);
+  }
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   WalkArgs a{values, values2, stride, nbrs, trav, q, seed_ids, seed_d,

@@ -35,11 +35,13 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 #: the compile steps, one nvcc each, all started together: every source,
-#: and k4_beam.cu twice, its bf16 ranking's kernels (PGV_K4_PART=1) apart
-#: from the rest (its longest step at ~190 s in one piece)
+#: and k4_beam.cu three times, its bf16 ranking's kernels (PGV_K4_PART=1)
+#: and the other walks' modes (PGV_K4_PART=2) apart from the rest (its
+#: longest step at ~190 s in one piece)
 _UNITS = tuple((src, ()) for src in _SOURCES if src.name != "k4_beam.cu") + (
     (_CSRC / "k4_beam.cu", ("-DPGV_K4_PART=0",)),
-    (_CSRC / "k4_beam.cu", ("-DPGV_K4_PART=1",)))
+    (_CSRC / "k4_beam.cu", ("-DPGV_K4_PART=1",)),
+    (_CSRC / "k4_beam.cu", ("-DPGV_K4_PART=2",)))
 
 _lock = threading.Lock()
 _lib = None

@@ -325,6 +325,25 @@ def visited_words(cap: int) -> int:
     return -(-(cap + 1) // 32)
 
 
+#: (device, stream) -> the zeroed int32 words the visited walks of that
+#: stream borrow (the largest call's B * visited_words(cap)); a launch
+#: leaves them zero, so no call clears its bitmaps, and two streams never
+#: share one
+_VISITED_SCRATCH: dict = {}
+
+
+def visited_scratch(dev, words: int):
+    """``words`` zeroed int32 words of ``dev``'s current stream's visited
+    scratch, grown (a fresh zeroed buffer) when a call needs more."""
+    stream = torch.cuda.current_stream(dev)
+    key = (stream.device, stream.cuda_stream)
+    buf = _VISITED_SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int32, device=dev)
+        _VISITED_SCRATCH[key] = buf
+    return buf
+
+
 def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
                  seed_d, width: int, max_steps: int, descent=None,
                  expand: int = 1, visited: bool = False, rank=None):
@@ -336,7 +355,8 @@ def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
     the distance's f32 bits, rows scored, moves); else None. ``expand``,
     ``visited`` and ``rank`` (the bf16 rows; ``values`` are then the f32
     rows the beam is re-scored from) are ``_walk_plain``'s; ``visited``
-    zeroes a [B, visited_words(cap)] bitmap for the launch."""
+    borrows [B, visited_words(cap)] words of the stream's zeroed scratch
+    (``visited_scratch``), which the launch leaves zero."""
     from . import _build
 
     is_sparse = isinstance(values, tuple)
@@ -409,7 +429,6 @@ def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
     steps = torch.empty((B,), **i32)
     scored = torch.empty((B,), **i32)
     vwords = visited_words(cap) if visited else 0
-    seen = torch.zeros((B, vwords), **i32) if visited else None
     land = None
     upper = (None, None, 0, 0, -1, 0)
     if descent is not None:
@@ -429,6 +448,7 @@ def _launch_walk(values, neighbors0, traversable, metric, q, seed_ids,
                  upper_nb.stride(0), m, entry, entry_level)
     if B:
         with torch.cuda.device(dev):
+            seen = visited_scratch(dev, B * vwords) if visited else None
             rc = _build.lib().pgv_k4_beam_walk(
                 values.data_ptr(),
                 values2.data_ptr() if is_sparse else None,

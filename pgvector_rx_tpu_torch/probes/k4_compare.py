@@ -8,6 +8,8 @@ path's walk and scan segment, in turns on one card.
     python -m pgvector_rx_tpu_torch.probes.k4_compare --uncapped --rank
         [--dims 128,768] [--expand 1]
     python -m pgvector_rx_tpu_torch.probes.k4_compare --split
+    python -m pgvector_rx_tpu_torch.probes.k4_compare OTHER_K4_BEAM_CU --modes
+        [--turns T] [--sparse-rows N] [--also K4_BEAM_CU]
 
 ``--multi-at-one``: the other version is this checkout's file with K5's
 E > 1 step (its MULTI instantiation) run at every E, E = 1 included
@@ -52,6 +54,34 @@ rows: the re-score's share); then K5's segment at each E of ``--expand``
 in f32 and in bf16, with microseconds per step. Each bf16 result is
 printed beside the other versions' (ids equal per query, the largest
 distance difference), and each walk's steps per query.
+
+``--modes``: K4's block-walk modes on phase 25's graph (``chip_smoke.py``:
+``make_dataset(1,065,536, 128, 16,384, seed=0)``, the first 1,000,000 rows
+built on the card, the last 65,536 inserted; its first 1,024 queries from
+the coarse seeds, ef = 40, ``max_steps = 4 ef + 32``) with each library in
+turns: E = 1 (the default walk), E = 2, 4 and 8 (``PGV_BEAM_EXPAND``), the
+visited bitmap (``PGV_BEAM_VISITED_MAX``), E = 4 with the bitmap, E = 4
+with bf16 ranking, the default walk with the greedy descent in its launch
+(``descent``: no seeds, as ``graph/device.beam_search_arrays`` serves a
+shard), and the sparse-row walk without and with the bitmap
+(the descent in its launch) over ``make_sparse_dataset(--sparse-rows,
+30,000, 1,024, 64, seed=9)`` built by the native engine (default 20,000
+rows, cut from the smoke's 100,000 for the probe's time; built in a
+thread beside the rest).
+The bitmap: a library whose walk leaves bits set in it (the parent's: its
+wrapper zeroes [B, (cap + 1) / 32] words per call) gets it zeroed before
+each launch, timed apart (``clear_ms``) and outside the launch's events;
+one that leaves it zero is handed it once and checked zero after. Each
+mode prints the ms per launch in turns, the outputs (raw beams, steps,
+rows scored) equal to the other library's or not, and steps and rows
+scored per query; each build prints every walk kernel's registers, spills
+and the blocks an SM holds by registers (128 threads a block; the
+shared memory, a few KB a block, does not bind) and the waves that 1,024
+queries take on 132 SMs. The kernel library as ``ops/_build.py`` builds
+it (``k4_beam.cu`` in its units) takes its turn as ``library``: its
+machine code can differ from the one-file build's. ``--also FILE`` adds
+another version to the turns (e.g. this file with one walk kernel's
+register cap changed).
 
 Every run also compares the builds' machine code (``cuobjdump -sass``):
 each kernel of the other file that does not rank in bf16 must have the
@@ -124,13 +154,41 @@ def _lib(src: Path, tag: str, flags=()):
                 r" stack frame, (\d+) bytes "
                 r"spill stores, (\d+) bytes spill loads\n.*?Used (\d+) "
                 r"registers", p.stderr)}
+    walks = _walk_props(p.stderr)
     lib = ctypes.CDLL(str(so))
     version = _version(src.read_text())
     fn = lib.pgv_k4_beam_walk
     fn.argtypes = {1: _SIG[:22], 2: _SIG[:29], 3: _SIG[:-1]}[version] + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, version, regs, scan, rank
+    return lib, version, regs, scan, rank, walks
+
+
+def _walk_props(stderr: str) -> dict:
+    """{walk kernel (demangled): registers, spill store and load bytes,
+    static shared memory, blocks an SM holds by registers at 128 threads
+    a block, waves of 1,024 queries on 132 SMs} from ``-Xptxas -v``."""
+    found = re.findall(
+        r"Function properties for (\S*beam_walk\S*)\n\s*\d+ bytes stack "
+        r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n[^\n]*?"
+        r"Used (\d+) registers(?:[^\n]*?(\d+) bytes smem)?", stderr)
+    if not found:
+        return {}
+    bin_dir = Path(_build._nvcc()).parent
+    names = subprocess.run([str(bin_dir / "cu++filt")],
+                           input="\n".join(f[0] for f in found),
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    out = {}
+    for name, (_, st, ld, regs, smem) in zip(names, found):
+        # registers are allocated per warp in units of 256 (8 a thread)
+        warp_regs = -(-int(regs) // 8) * 8 * 32
+        blocks = min(16, (65536 // warp_regs) // 4)
+        out[name.split("::", 1)[-1]] = dict(
+            registers=int(regs), spill_st=int(st), spill_ld=int(ld),
+            static_smem=int(smem or 0), blocks_per_sm=blocks,
+            waves_1024=-(-1024 // (132 * blocks)))
+    return out
 
 
 #: demangled template arguments, as ``cu++filt`` prints them
@@ -265,6 +323,12 @@ def main() -> None:
                     help="the bf16 ranking beside the f32 walk at --dims")
     ap.add_argument("--dims", default="128,768",
                     help="widths of --rank (128 l2, 768 cosine)")
+    ap.add_argument("--modes", action="store_true",
+                    help="K4's block-walk modes on phase 25's graph")
+    ap.add_argument("--sparse-rows", type=int, default=20_000,
+                    help="rows of --modes' sparse graph")
+    ap.add_argument("--also", type=Path,
+                    help="a third k4_beam.cu in the turns (tag 'also')")
     args = ap.parse_args()
     derived = {"multi_at_one": _multi_at_one, "uncapped": _uncapped,
                "split": lambda text: text}
@@ -290,10 +354,22 @@ def main() -> None:
               "this": (this, ())}
     if args.rank:
         builds["this_f32sums"] = (this, ("-DPGV_RANK_F32_SUMS",))
-    with ThreadPoolExecutor(len(builds)) as ex:  # the builds side by side
+    if args.also is not None:
+        builds["also"] = (args.also, ())
+    sparse = None
+    with ThreadPoolExecutor(len(builds) + 2) as ex:  # side by side
         futs = {t: ex.submit(_lib, src, t, flags)
                 for t, (src, flags) in builds.items()}
+        if args.modes:  # the kernel library and the sparse graph too
+            main_lib = ex.submit(_build.lib)
+            sparse = ex.submit(_sparse_graph, args.sparse_rows)
+            main_lib.result()
         libs = {t: f.result() for t, f in futs.items()}
+    if args.modes:  # the kernel library as it ships, in the turns too
+        libs["library"] = (_build.lib(), 3, {}, {}, {}, {})
+    if args.modes:
+        print(json.dumps({"walk_kernels": {t: v[5] for t, v in libs.items()}}),
+              flush=True)
     print(json.dumps({t: {"entry_version": v[1], "registers": v[2]}
                       for t, v in libs.items()}), flush=True)
     print(json.dumps({"k5_registers_spill_st_ld": {t: v[3]
@@ -302,7 +378,9 @@ def main() -> None:
     print(json.dumps({"k4_bf16_registers_spill_st_ld": {
         t: v[4] for t, v in libs.items()}}), flush=True)
     dev = torch.device("cuda")
-    if not args.rank:
+    if args.modes:
+        _modes_turns(args, libs, dev, dm, sparse)
+    elif not args.rank:
         _, g, q, _ = _graph(128, args.rows, dev)
         _walk_turns(args, libs, g, q, dm, "l2", ranks=(False,))
         _scan_turns(args, libs, g, q, dm, "l2", [
@@ -316,6 +394,186 @@ def main() -> None:
     # the kernel library as it ships (k4_beam.cu in its two units)
     print(json.dumps({"library_default_kernels_vs_other": _same_default_code(
         other, _sass(_build.library_path()))}), flush=True)
+
+
+#: --modes: name -> (E, visited bitmap, bf16 ranking)
+MODES = {"expand1": (1, False, False), "expand2": (2, False, False),
+         "expand4": (4, False, False), "expand8": (8, False, False),
+         "visited": (1, True, False), "expand4_visited": (4, True, False),
+         "expand4_bf16": (4, False, True)}
+
+
+def _phase25_graph(dev):
+    """Phase 25's graph (the smoke's main path grown by its inserts) and
+    its first 1,024 queries."""
+    from pgvector_rx_tpu_torch import HnswIndex, IndexParams
+    from pgvector_rx_tpu_torch.data import make_dataset
+
+    data, queries = make_dataset(1_065_536, 128, 16_384, seed=0)
+    x = torch.from_numpy(data).to(dev)
+    del data
+    index = HnswIndex.build(x[:1_000_000], metric="l2",
+                            params=IndexParams(m=16, ef_construction=64),
+                            method="device", host_graph=False, device=dev,
+                            seed=1)
+    index.insert_bulk(x[1_000_000:])
+    del x
+    return index, index.device_graph(), torch.from_numpy(
+        queries[:1024]).to(dev)
+
+
+def _sparse_graph(rows):
+    """The sparse configuration's rows (``make_sparse_dataset(rows,
+    30,000, 1,024, 64, seed=9)``) built by the native engine on the host
+    -> (index on the card, its 1,024 queries)."""
+    from pgvector_rx_tpu_torch import HnswIndex, IndexParams
+    from pgvector_rx_tpu_torch.data import make_sparse_dataset
+
+    data, queries = make_sparse_dataset(rows, 30_000, 1024, 64, seed=9)
+    index = HnswIndex.build(data, metric="l2",
+                            params=IndexParams(m=16, ef_construction=64),
+                            seed=1, device="cuda")
+    return index, queries
+
+
+def walk_entry_args(g, q, metric, seeds, W, max_steps, outs, *, expand=1,
+                    vis=None, rank=False, descent=False, land=None):
+    """``pgv_k4_beam_walk``'s arguments (without the stream) for the walk
+    over graph ``g`` (dense rows, or the sparse pair with ``q`` the
+    kernel's query rows) as ``ops/beam._launch_walk`` passes them: seeds
+    (ids [B, S] int32, distances), outputs (beam_d, beam_key, steps,
+    scored), ``vis`` the bitmap [B, words] or None, ``rank`` the bf16
+    rows ranking, ``descent`` the greedy descent in the launch (its
+    landing into ``land`` [B, 4])."""
+    from pgvector_rx_tpu_torch.ops import beam
+
+    if isinstance(g.rows, tuple):
+        values, values2 = g.rows
+        dtype, d, qd = 4, values.shape[1], 2 * values.shape[1]
+    else:
+        values = g.values_bf16 if rank else g.values
+        values2, d = None, g.values.shape[1]
+        dtype, qd = beam._DTYPE_CODES[values.dtype], d
+    bd, bk, st, sc = outs
+    B, S = seeds[0].shape
+    upper = (None, None, 0, 0, -1, 0)
+    if descent:
+        upper = (g.upper_slot.data_ptr(), g.upper_neighbors.data_ptr(),
+                 g.upper_neighbors.stride(0), g.m, g.entry, g.entry_level)
+    return [values.data_ptr(),
+            values2.data_ptr() if values2 is not None else None, dtype,
+            values.stride(0), d, qd, g.neighbors0.data_ptr(),
+            g.neighbors0.shape[1], g.traversable.data_ptr(), g.cap,
+            beam._METRIC_CODES[metric], q.data_ptr(), seeds[0].data_ptr(),
+            seeds[1].data_ptr(), B, S, W, max_steps, bd.data_ptr(),
+            bk.data_ptr(), st.data_ptr(), sc.data_ptr(), *upper,
+            land.data_ptr() if land is not None else None, expand,
+            vis.data_ptr() if vis is not None else None,
+            vis.shape[1] if vis is not None else 0,
+            g.values.data_ptr() if rank else None,
+            g.values.stride(0) if rank else 0]
+
+
+def _modes_turns(args, libs, dev, dm, sparse):
+    """``--modes``: each mode with each library in turns."""
+    from pgvector_rx_tpu_torch.ops import beam
+
+    index, g, q = _phase25_graph(dev)
+    print(json.dumps({"graph_rows": g.cap, "capacity": g.capacity}),
+          flush=True)
+    B, W, L = q.shape[0], 40, g.neighbors0.shape[1]
+    max_steps = 4 * W + 32
+    upper = dm._coarse_upper(g)
+    s_ids, s_d = dm._coarse_seeds(g, q, upper[0], upper[1], 8)
+    seeds = (s_ids.to(torch.int32).contiguous(), s_d.float().contiguous())
+    cases = {n: (g, q, "l2", seeds, False, m) for n, m in MODES.items()}
+    # the default walk with the greedy descent in its launch (the sharded
+    # beam's form): no seeds
+    cases["descent"] = (g, q, "l2", (
+        torch.full((B, 1), -1, dtype=torch.int32, device=dev),
+        torch.zeros((B, 1), device=dev)), True, (1, False, False))
+    sp_index, sp_queries = sparse.result()
+    sg = sp_index.device_graph()
+    qi, qv = dm.prepare_queries(sp_index, sp_queries, dev)
+    sq = torch.cat([qi, qv.view(torch.int32)], dim=1).contiguous()
+    sp_seeds = (torch.full((sq.shape[0], 1), -1, dtype=torch.int32,
+                           device=dev),
+                torch.zeros((sq.shape[0], 1), device=dev))
+    print(json.dumps({"sparse_rows": sg.cap, "budget": sq.shape[1] // 2}),
+          flush=True)
+    cases["sparse"] = (sg, sq, "l2", sp_seeds, True, (1, False, False))
+    cases["sparse_visited"] = (sg, sq, "l2", sp_seeds, True, (1, True, False))
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, (gg, qq, metric, sds, desc, (E, vis, rank)) in cases.items():
+        nq = qq.shape[0]
+        words = beam.visited_words(gg.cap)
+        outs = {t: (torch.empty((nq, W), device=dev),
+                    torch.empty((nq, W), dtype=torch.int32, device=dev),
+                    torch.empty(nq, dtype=torch.int32, device=dev),
+                    torch.empty(nq, dtype=torch.int32, device=dev))
+                for t in libs}
+        bitmap = (torch.zeros((nq, words), dtype=torch.int32, device=dev)
+                  if vis else None)
+        land = (torch.empty((nq, 4), dtype=torch.int32, device=dev)
+                if desc else None)
+
+        def launch(tag):
+            a = walk_entry_args(gg, qq, metric, sds, W, max_steps,
+                                outs[tag], expand=E, vis=bitmap, rank=rank,
+                                descent=desc, land=land)
+            _build.check(libs[tag][0].pgv_k4_beam_walk(*a, stream), tag)
+
+        # does the library's walk leave bits set in the bitmap?
+        dirty = {}
+        for tag in libs:
+            if vis:
+                bitmap.zero_()
+                launch(tag)
+                dirty[tag] = bool(bitmap.any())
+            else:
+                dirty[tag] = False
+        clear_ms = (_event_ms(lambda: bitmap.zero_()) if vis else 0.0)
+
+        def timed(tag):
+            if not dirty[tag]:
+                if vis:
+                    bitmap.zero_()
+                return _event_ms(lambda: launch(tag))
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(20)]
+            bitmap.zero_()
+            launch(tag)  # the warm-up
+            total = 0.0
+            for i in range(10):
+                bitmap.zero_()
+                e[2 * i].record()
+                launch(tag)
+                e[2 * i + 1].record()
+            torch.cuda.synchronize()
+            for i in range(10):
+                total += e[2 * i].elapsed_time(e[2 * i + 1])
+            return total / 10
+
+        times = _turns(list(libs), timed, args.turns)
+        for tag in libs:  # the outputs of one clean launch each
+            if vis:
+                bitmap.zero_()
+            launch(tag)
+        left_zero = (not bool(bitmap.any())) if vis else None
+        ref = outs["other"]
+        cmp = {t: {"equal_to_other": all(torch.equal(a, b) for a, b in
+                                         zip(outs[t], ref)),
+                   "steps_mean": outs[t][2].float().mean().item(),
+                   "scored_mean": outs[t][3].float().mean().item()}
+               for t in libs}
+        print(json.dumps({"mode": name, "expand": E, "visited": vis,
+                          "bf16": rank, "queries": nq, "ms": times,
+                          "ms_mean": {t: sum(v) / len(v)
+                                      for t, v in times.items()},
+                          "leaves_bitmap_set": dirty if vis else None,
+                          "clear_ms": clear_ms if vis else None,
+                          "bitmap_zero_after_this": left_zero,
+                          "vs_other": cmp}), flush=True)
+    del index, g
 
 
 def _rank_turns(args, libs, dev, dm):

@@ -3,6 +3,8 @@ the card's dependent round trip.
 
     python -m pgvector_rx_tpu_torch.probes.k5_profile [--rows N] [--queries N]
         [--expand 1,4] [--rank] [--other K4_BEAM_CU]
+    python -m pgvector_rx_tpu_torch.probes.k5_profile --walk
+        [--other K4_BEAM_CU]
 
 Needs one NVIDIA Hopper card and ``nvcc``.
 
@@ -39,6 +41,19 @@ Needs one NVIDIA Hopper card and ``nvcc``.
    neighbour's row, and takes the next row from that row's data: the
    dependent round trip (ids -> rows) a step of the walk cannot avoid once
    its flags are on chip. Also the ids alone. Prints nanoseconds per hop.
+
+``--walk``: K4's step split in place of steps 2-4: phase 25's graph and
+1,024 queries (``k4_compare._phase25_graph``), the coarse seeds (8), ef =
+40, ``max_steps = 4 ef + 32``, one launch of the profiled walk (the raw
+entry, as ``ops/beam._launch_walk`` calls it) at E = 1, E = 4, the visited
+bitmap and E = 4 with the bitmap (the bitmap zeroed before the launch),
+twice each, per version. Prints per run the clocks and microseconds a step
+spends in each phase thread 0 of a block marks (``select``: the members
+and, in the redesigned modes, the next step's ids; ``flags``: the ids'
+flags, the step set and the compaction; ``rows``; ``dedup``: the in-beam
+dedup of the first form; ``sort``; ``beam_merge``), the steps and rows
+scored per query and the microseconds of a block (a query) from start to
+end, which 8 blocks on an SM share.
 
 Each result is one JSON line; the card's name and power limit come first.
 """
@@ -239,6 +254,71 @@ def _profile_expand(expand, index, g, q_dev, mask, prof_libs, args, dm,
             os.environ["PGV_BEAM_EXPAND"] = old
 
 
+#: --walk's modes: name -> (E, visited bitmap)
+_WALK_MODES = {"expand1": (1, False), "expand4": (4, False),
+               "visited": (1, True), "expand4_visited": (4, True)}
+
+
+def _profile_walk(prof_libs, dev):
+    """``--walk``: K4's phase split per mode and version."""
+    from pgvector_rx_tpu_torch.graph import device as dm
+    from pgvector_rx_tpu_torch.ops import beam
+    from pgvector_rx_tpu_torch.probes import k4_compare
+
+    t0 = time.time()
+    index, g, q = k4_compare._phase25_graph(dev)
+    print(json.dumps({"graph_rows": g.cap, "build_s": time.time() - t0}),
+          flush=True)
+    B, W = q.shape[0], 40
+    upper = dm._coarse_upper(g)
+    s_ids, s_d = dm._coarse_seeds(g, q, upper[0], upper[1], 8)
+    seeds = (s_ids.to(torch.int32).contiguous(), s_d.float().contiguous())
+    outs = (torch.empty((B, W), device=dev),
+            torch.empty((B, W), dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev))
+    bitmap = torch.zeros((B, beam.visited_words(g.cap)), dtype=torch.int32,
+                         device=dev)
+    buf = torch.zeros(_SLOTS, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, (E, vis) in _WALK_MODES.items():
+        for tag, lib in prof_libs.items():
+            for run in range(2):
+                bitmap.zero_()
+                buf.zero_()
+                lib.pgv_k5_profile(buf.data_ptr())
+                torch.cuda.synchronize()
+                a = k4_compare.walk_entry_args(
+                    g, q, "l2", seeds, W, 4 * W + 32, outs, expand=E,
+                    vis=bitmap if vis else None)
+                _build.check(lib.pgv_k4_beam_walk(*a, stream), tag)
+                torch.cuda.synchronize()
+                lib.pgv_k5_profile(None)
+                c = buf.cpu().numpy()
+                steps, clocks, ns, blocks = (int(x)
+                                             for x in c[len(_PHASES):])
+                ns_per_clock = ns / clocks
+                split = {ph: {"clocks_per_step": c[i] / steps,
+                              "us_per_step": c[i] * ns_per_clock / steps
+                              / 1e3}
+                         for i, ph in enumerate(_PHASES)
+                         if ph in ("select", "flags", "rows", "dedup",
+                                   "sort", "beam_merge")}
+                print(json.dumps({
+                    "walk": name, "version": tag, "run": run,
+                    "expand": E, "visited": vis, "blocks": blocks,
+                    "steps_per_query": steps / blocks,
+                    "scored_per_query": outs[3].float().mean().item(),
+                    "us_per_block": ns / blocks / 1e3,
+                    "us_per_step": ns / steps / 1e3,
+                    "start_us_per_block": c[_PHASES.index("start")]
+                    * ns_per_clock / blocks / 1e3,
+                    "finish_us_per_block": c[_PHASES.index("finish")]
+                    * ns_per_clock / blocks / 1e3,
+                    "sm_ghz": clocks / ns, "split": split}), flush=True)
+    del index, g
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_065_536)
@@ -249,6 +329,8 @@ def main() -> int:
                     help="also the same segments with bf16 ranking")
     ap.add_argument("--other", type=Path,
                     help="another k4_beam.cu replaying the same segments")
+    ap.add_argument("--walk", action="store_true",
+                    help="K4's step split on phase 25's graph instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("the probe needs a CUDA card")
@@ -270,6 +352,10 @@ def main() -> int:
     if args.other is not None:
         sources["other"] = args.other
     prof_libs = _profiled_libraries(sources)
+    if args.walk:
+        main_build.join()
+        _profile_walk(prof_libs, dev)
+        return 0
     chase_lib = _chase_library()
     main_build.join()
     data, queries = make_dataset(args.rows, 128, args.queries, seed=0)

@@ -454,40 +454,123 @@ def _raw(out):
     return [t.cpu().numpy() for t in out]
 
 
+#: the block walk's cases beyond the three modes at _kernel_case's shape:
+#: name -> (mode, control, case: _kernel_case's settings, d = 64 unless
+#: given, and the calls, each a slice of the queries and a stream index
+#: (None: the current stream))
+K4_CASES = {
+    "expand2_l32": (dict(expand=2), {}, dict(m=16)),
+    "expand8_l32": (dict(expand=8), {}, dict(m=16)),
+    "expand8_l32_visited": (dict(expand=8, visited=True),
+                            dict(visited=True), dict(m=16)),
+    "expand4_f16": (dict(expand=4), {}, dict(dtype=torch.float16)),
+    "visited_bf16": (dict(visited=True), {}, dict(dtype=torch.bfloat16)),
+    "expand4_visited_d98": (dict(expand=4, visited=True),
+                            dict(visited=True), dict(d=98)),
+    "expand4_ip": (dict(expand=4), {}, dict(metric="ip")),
+    "visited_cosine": (dict(visited=True), {}, dict(metric="cosine")),
+    "expand4_waves": (dict(expand=4), {}, dict(nq=1100)),
+    "visited_waves": (dict(visited=True), {}, dict(nq=1100)),
+    "visited_past_2e20": (dict(visited=True), {}, dict(n=1_100_000, d=8)),
+    "expand4_visited_past_2e20": (dict(expand=4, visited=True),
+                                  dict(visited=True),
+                                  dict(n=1_100_000, d=8)),
+    "visited_twice": (dict(visited=True), {},
+                      dict(calls=((slice(0, 12), None),
+                                  (slice(12, 24), None)))),
+    "expand4_visited_streams": (dict(expand=4, visited=True),
+                                dict(visited=True),
+                                dict(calls=((slice(0, 12), 0),
+                                            (slice(12, 24), 1)))),
+    "visited_wide_beam": (dict(visited=True), {}, dict(ef=1200)),
+    "expand4_visited_wide_beam": (dict(expand=4, visited=True),
+                                  dict(visited=True), dict(ef=1200)),
+}
+
+
+def _upper_for(rng, n, device):
+    """``_upper_case``'s upper layers over the first min(n, 2000) rows,
+    its slots padded to the n + 1 rows."""
+    slot, upper, entry, level = _upper_case(rng, min(n, 2000), 8, device)
+    pad = torch.full((n + 1 - slot.shape[0],), -1, dtype=slot.dtype,
+                     device=device)
+    return torch.cat([slot, pad]), upper, entry, level
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("descent", [False, True])
-@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize(
+    "mode,descent", [(m, d) for d in (False, True) for m in MODES]
+    + [(c, d) for c in K4_CASES for d in (False, True)])
 def test_k4_modes_match_plain(cuda, mode, descent):
-    """Dense f32 rows on the grid (every distance exact): K4 in the mode
-    equals its plain version, raw state, steps and rows scored; the
-    control (the plain walk without the mode) differs."""
+    """Rows on the grid (every distance exact): K4 in the mode equals its
+    plain version, raw state, steps and rows scored (the descent in the
+    launch: its landings and the sorted outputs); the control (the plain
+    walk without the mode) differs. The cases: E = 4, the bitmap and both
+    (_kernel_case's graph); E = 2 and 8 at L = 32 (E L = 256, the limit);
+    f16 and bf16 rows; d = 98 (scalar loads); ip and cosine; 1,100
+    queries (more than one wave of blocks); the bitmap past 2^20 rows;
+    two bitmap calls in a row on other queries and calls on two streams
+    at once (a bitmap scratch left dirty, or shared by two calls in
+    flight, would show); a beam of 1,200 (wider than the visited set in
+    shared memory takes: the walk's ids go to the global bitmap from the
+    start; E = 8 at L = 32 fills the set within a walk); the bitmap
+    scratch is zero after every call."""
+    from contextlib import nullcontext
+
     from pgvector_rx_tpu_torch.ops import bruteforce as tbf
 
-    kw, ctl = MODES[mode]
-    vals, nb, trav, q, rng = _kernel_case(cuda, 64, torch.float32)
+    kw, ctl, case = (MODES[mode] + ({},)) if mode in MODES else K4_CASES[mode]
+    case = dict(case)
+    calls = case.pop("calls", ((slice(None), None),))
+    ef = case.pop("ef", 40)
+    metric = case.get("metric", "l2")
+    vals, nb, trav, q, rng = _kernel_case(cuda, **{"d": 64, **case})
+    n = vals.shape[0] - 1
+    upper = _upper_for(rng, n, cuda) if descent else None
+    seeds = None if descent else _seeds(vals, q, rng, 8, n, metric,
+                                        live=trav)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for s in streams:  # the inputs are ready before the calls start
+        s.wait_stream(torch.cuda.current_stream(cuda))
     before = tbf.LAUNCHES["k4_beam"]
-    if descent:
-        upper = _upper_case(rng, 2000, 8, cuda)
-        out = tbeam.descent_walk(vals, nb, trav, *upper[:2], 8, *upper[2:],
-                                 "l2", q, 40, 192, **kw)
-        li, ld = tbeam.descent_plain(vals, trav, *upper[:2], 8, "l2", q,
-                                     *upper[2:])
-        assert torch.equal(out[3], li) and torch.equal(out[4], ld)
-        ids, sd = li[:, None].to(torch.int32), ld[:, None].float()
-    else:
-        ids, sd = _seeds(vals, q, rng, 8, 2000, live=trav)
-        out = tbeam.beam_walk(vals, nb, trav, "l2", q, ids, sd, 40, 192,
-                              **kw)
-    assert tbf.LAUNCHES["k4_beam"] == before + 1
-    args = (vals, nb, trav, None, "l2", q, ids, sd, 40, 0, 192, False)
-    p_raw = tbeam._walk_plain(*args, **kw)
-    for k, p in zip(_raw(out[:3]), _raw(tbeam._serve_finish(*p_raw))):
-        np.testing.assert_array_equal(k, p)
-    if not descent:
-        for k, p in zip(_raw(tbeam._walk_cuda(*args, **kw)), _raw(p_raw)):
+    outs = []
+    for sl, si in calls:
+        with (torch.cuda.stream(streams[si]) if si is not None
+              else nullcontext()):
+            if descent:
+                outs.append(tbeam.descent_walk(
+                    vals, nb, trav, *upper[:2], 8, *upper[2:], metric, q[sl],
+                    ef, 192, **kw))
+            else:
+                outs.append(tbeam.beam_walk(
+                    vals, nb, trav, metric, q[sl], seeds[0][sl],
+                    seeds[1][sl], ef, 192, **kw))
+    torch.cuda.synchronize()
+    assert tbf.LAUNCHES["k4_beam"] == before + len(calls)
+    for buf in tbeam._VISITED_SCRATCH.values():
+        assert not bool(buf.any())
+    if kw.get("visited") and len(calls) > 1 and calls[1][1] is not None:
+        keys = {(s.device, s.cuda_stream) for s in streams}
+        assert keys <= set(tbeam._VISITED_SCRATCH)
+    for (sl, _), out in zip(calls, outs):
+        if descent:
+            li, ld = tbeam.descent_plain(vals, trav, *upper[:2], 8, metric,
+                                         q[sl], *upper[2:])
+            assert torch.equal(out[3], li) and torch.equal(out[4], ld)
+            ids, sd = li[:, None].to(torch.int32), ld[:, None].float()
+        else:
+            ids, sd = seeds[0][sl], seeds[1][sl]
+        args = (vals, nb, trav, None, metric, q[sl], ids, sd, ef, 0, 192,
+                False)
+        p_raw = tbeam._walk_plain(*args, **kw)
+        for k, p in zip(_raw(out[:3]), _raw(tbeam._serve_finish(*p_raw))):
             np.testing.assert_array_equal(k, p)
-    c_raw = _raw(tbeam._walk_plain(*args, **ctl))
-    assert any((a != b).any() for a, b in zip(_raw(p_raw), c_raw))
+        if not descent:
+            for k, p in zip(_raw(tbeam._walk_cuda(*args, **kw)),
+                            _raw(p_raw)):
+                np.testing.assert_array_equal(k, p)
+        c_raw = _raw(tbeam._walk_plain(*args, **ctl))
+        assert any((a != b).any() for a, b in zip(_raw(p_raw), c_raw))
 
 
 @pytest.mark.cuda

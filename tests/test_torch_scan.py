@@ -466,10 +466,11 @@ def test_scans_on_the_card_match_the_cpu(pair, cuda):
 
 
 def _kernel_case(cuda, d, dtype=torch.float32, offset=False, n=2000, m=8,
-                 seed=0, metric="l2"):
+                 seed=0, metric="l2", nq=24):
     """Random graph tensors on the card: values [n+1, d] (``offset``: a
     view starting one element into its allocation), neighbors0 [n+1, 2m]
-    with -1 and pad (n) ids, 10% dead rows, the sentinel row n dead.
+    with -1 and pad (n) ids, 10% dead rows, the sentinel row n dead, and
+    ``nq`` queries.
 
     Rows and queries lie on a grid of sixteenths (small for cosine, so
     its clamp rarely bites), exact in f16 and bf16: every distance is then
@@ -488,7 +489,7 @@ def _kernel_case(cuda, d, dtype=torch.float32, offset=False, n=2000, m=8,
     nb[n] = -1
     trav = rng.random(n + 1) >= 0.1
     trav[n] = False
-    q = (rng.integers(-lim, lim + 1, (24, d)) / 16.0).astype(np.float32)
+    q = (rng.integers(-lim, lim + 1, (nq, d)) / 16.0).astype(np.float32)
     return (vals, torch.from_numpy(nb).to(cuda), torch.from_numpy(trav).to(cuda),
             torch.from_numpy(q).to(cuda), rng)
 
