@@ -1475,24 +1475,8 @@ def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
                                             allowed=allowed0))
     log(f"K5 per segment: {ms5:.4f} ms, {ms5 / steps1 * 1e3:.3f} us per "
         f"step")
-    # a step's dependent round trip (a row's neighbour ids, then one
-    # neighbour's row): the pointer chase of probes/k5_profile.py, 4,096
-    # hops from each of 8 rows; K5's latency bound is steps times it
-    from pgvector_rx_tpu_torch.probes.k5_profile import _chase_library
-
-    chase, hop = _chase_library(), torch.zeros(2, dtype=torch.int64,
-                                               device=q1.device)
-    per_hop = []
-    for start in np.random.default_rng(3).integers(0, g.cap, 8):
-        rc = chase.pgv_chase(g.neighbors0.data_ptr(), g.values.data_ptr(), L,
-                             DIM, g.cap, 4096, int(start), 1, hop.data_ptr())
-        if rc != 0:
-            raise RuntimeError(f"the chase kernel failed ({rc})")
-        torch.cuda.synchronize()
-        per_hop.append(int(hop[0]) / 4096)
-    round_trip_us = float(np.median(per_hop)) / 1e3
-    log(f"dependent round trip (ids -> row): {round_trip_us * 1e3:.1f} ns "
-        f"(median of 8 chases of 4,096 hops: {per_hop})")
+    # K5's latency bound is steps times a step's dependent round trip
+    round_trip_us = dependent_round_trip_us(g, g.values)
     kernels["k5_beam_scan"] = dict(
         name="k5_beam_scan", route="cuda", source=CSRC + "k4_beam.cu",
         replaces=f"{JAX_DEVICE}:574 (_beam_scan_segment, an XLA "
@@ -1507,6 +1491,45 @@ def walk_vs_plain(g, q_dev, gt, emit, device_mod, beam, kernels):
         round_trip_us=round_trip_us,
         latency_bound_ms=steps1 * round_trip_us / 1e3,
     )
+
+
+def dependent_round_trip_us(g, rows) -> float:
+    """A step's dependent round trip (a row's neighbour ids, then one
+    neighbour's row of ``rows``, f32 values or packed words): the pointer
+    chase of probes/k5_profile.py, 4,096 hops from each of 8 rows, the
+    median in microseconds."""
+    from pgvector_rx_tpu_torch.probes.k5_profile import _chase_library
+
+    chase, hop = _chase_library(), torch.zeros(2, dtype=torch.int64,
+                                               device=g.device)
+    per_hop = []
+    for start in np.random.default_rng(3).integers(0, g.cap, 8):
+        rc = chase.pgv_chase(g.neighbors0.data_ptr(),
+                             rows.view(torch.float32).data_ptr(),
+                             g.neighbors0.shape[1], rows.shape[1], g.cap,
+                             4096, int(start), 1, hop.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"the chase kernel failed ({rc})")
+        torch.cuda.synchronize()
+        per_hop.append(int(hop[0]) / 4096)
+    us = float(np.median(per_hop)) / 1e3
+    log(f"dependent round trip (ids -> a row of {rows.shape[1]} 32-bit "
+        f"values): {us * 1e3:.1f} ns (median of 8 chases of 4,096 hops: "
+        f"{per_hop})")
+    return us
+
+
+def word_latency_bound(kr, steps, land, entry_level, round_trip_us):
+    """Adds a word walk's latency bound to its row ``kr``: the largest
+    query's steps and descent iterations (its moves and one final look a
+    layer), each two dependent round trips (ids, then flags and rows)."""
+    chain = (steps.long() + land[:, 3].long() + entry_level).max()
+    kr["round_trip_us"] = round_trip_us
+    kr["latency_bound_ms"] = float(chain) * 2 * round_trip_us / 1e3
+    kr["latency_share"] = kr["latency_bound_ms"] / kr["ms"]
+    log(f"{kr['name']}: latency bound {kr['latency_bound_ms']:.4f} ms "
+        f"({int(chain)} dependent steps x 2 trips x {round_trip_us * 1e3:.1f}"
+        f" ns), share {kr['latency_share']:.4f}")
 
 
 def tf32_tie_pair(bf, lo: float):
@@ -2483,6 +2506,9 @@ def walk_vs_plain_descent(g, q, metric, device_mod, beam, kernels, name,
         launches=launches)
     kr = kernels[name]
     kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
+    if g.words is not None:
+        word_latency_bound(kr, raw_k[4], land, g.entry_level,
+                           dependent_round_trip_us(g, g.words))
     share = ms_desc / (ms_desc + ms_walk)
     log(f"{name} at {B} queries: one launch (descent + walk) "
         f"{ms_launch:.4f} ms; the torch descent {ms_desc:.4f} ms + the walk "
@@ -3892,6 +3918,9 @@ def descent_mode_check(g, q, metric, beam, device_mod, kernels, name,
         launches=launches)
     kr = kernels[name]
     kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
+    if g.words is not None:
+        word_latency_bound(kr, raw_k[4], land, g.entry_level,
+                           kernels["k4_beam_words"]["round_trip_us"])
     log(f"{name} at {B} queries: {kr['ms']:.4f} ms, plain "
         f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
         f"({kr['bound_by']}, {kr['bound_peak']}), share "
@@ -3901,37 +3930,50 @@ def descent_mode_check(g, q, metric, beam, device_mod, kernels, name,
 
 
 def bit_variants(idx, g, qw, kth, bits_mod, device_mod, beam, bf, kernels):
-    """Phase 25 on the bit graph of phase 21: ``serve_topk`` beam with
-    E = 4 and with the visited bitmap through the word walk (tie-aware
-    recall), then each mode of the word walk against its plain version."""
+    """Phase 25 on the bit graph of phase 21: ``serve_topk`` beam by
+    default, with E = 4, with the visited bitmap and with both through the
+    word walk (tie-aware recall; qps the median of ``SERVE_CALLS`` calls),
+    then each mode of the word walk against its plain version."""
     vis_max = g.capacity + 2
-    launches = {}
+    launches, served = {}, {}
     bf.reset_launches()
-    for name, mode in (("expand4", BeamMode(device_mod, expand=4)),
+    for name, mode in (("default", BeamMode(device_mod)),
+                       ("expand4", BeamMode(device_mod, expand=4)),
                        ("visited", BeamMode(device_mod,
-                                            visited_max=vis_max))):
+                                            visited_max=vis_max)),
+                       ("expand4_visited", BeamMode(
+                           device_mod, expand=4, visited_max=vis_max))):
         with Phase(f"25 bit serve_topk beam, {name}"), mode:
             before = bf.LAUNCHES["k4_beam"]
-            d, ids, dt = timed_serve(device_mod, idx, qw, "beam")
+            d, ids, dt = timed_serve(device_mod, idx, qw, "beam",
+                                     calls=SERVE_CALLS)
             launches[name] = bf.LAUNCHES["k4_beam"] - before
             rec = bit_recall(bits_mod, g, qw, ids, kth)
+            served[name] = (rec, N_BIT_Q / dt)
             log(f"25 bit beam {name}: tie-aware recall@10={rec:.4f} "
-                f"qps={N_BIT_Q / dt:.1f}, {launches[name]} K4 launches")
+                f"qps={N_BIT_Q / dt:.1f} (the median of {SERVE_CALLS} "
+                f"calls; default {served['default'][1]:.1f} qps in this "
+                f"run), {launches[name]} K4 launches")
             if not np.isfinite(d).all() or rec < BIT_FLOORS["beam"]:
                 raise RuntimeError(f"bit beam {name}: recall {rec}")
             if launches[name] <= 0:
                 raise RuntimeError(f"bit beam {name}: K4 did not launch")
+    log("25 bit beam served qps: " + json.dumps(
+        {n: round(v[1], 1) for n, v in served.items()}))
     q1 = qw[:CHUNK].contiguous()
     w = g.words.shape[1]
     with Phase("25 the word walk's modes vs plain"):
-        for name, mode, label, of in (
-                ("k4_words_expand4", dict(expand=4), "the plain walk at "
-                 "E = 1", "expand4"),
-                ("k4_words_visited", dict(visited=True), "the plain walk "
-                 "with the in-beam dedup", "visited")):
+        for name, mode, control, label, of in (
+                ("k4_words_expand4", dict(expand=4), {}, "the plain walk "
+                 "at E = 1", "expand4"),
+                ("k4_words_visited", dict(visited=True), {}, "the plain "
+                 "walk with the in-beam dedup", "visited"),
+                ("k4_words_expand4_visited", dict(expand=4, visited=True),
+                 dict(visited=True), "the plain walk with the bitmap at "
+                 "E = 1", "expand4_visited")):
             descent_mode_check(
-                g, q1, "hamming", beam, device_mod, kernels, name, mode, {},
-                label, launches[of],
+                g, q1, "hamming", beam, device_mod, kernels, name, mode,
+                control, label, launches[of],
                 f"{JAX_DEVICE}:767 (_search_batch over packed bit rows; the "
                 f"{of} variant; XLA)", True, w * 4, NBITS * 2.0, "int8")
 
@@ -4945,7 +4987,9 @@ def main() -> int:
                                  "k4_beam_expand4_visited",
                                  "k4_beam_bf16", "k4_words_expand4",
                                  "k1_topk_2byte", "k2_binned_f16",
-                                 "k4_words_visited", "k4_sparse_visited",
+                                 "k4_words_visited",
+                                 "k4_words_expand4_visited",
+                                 "k4_sparse_visited",
                                  "k5_beam_scan_expand4",
                                  "k5_beam_scan_bf16", "k7_coarse",
                                  "k8_beam_ground", "k1_select",

@@ -45,9 +45,9 @@
 // of one neighbour list and the rows of its live neighbours (a -1 pad, a
 // dead or an excluded neighbour costs no row), so the walk moves
 // sum(steps) * L * 4 + scored * (d * 4 + 1) bytes for f32 rows, `scored`
-// being the rows it read (returned per query); the modes add the visited
-// bitmap's words (a 4-byte word read and one set per neighbour id) and,
-// ranking in bf16,
+// being the rows it read (returned per query); the visited bitmap is the
+// walk's own scratch (a set of ids, in shared memory while it fits) and
+// adds none; ranking in bf16,
 // rows of d * 2 bytes plus the f32 re-score of the final beam (W rows).
 // A single walk is a chain of
 // dependent steps (ids -> flags -> rows -> merge), so it is also bound by
@@ -101,11 +101,12 @@
 #include <climits>
 #include <type_traits>
 
-// The library compiles this file three times, side by side (ops/_build.py):
+// The library compiles this file four times, side by side (ops/_build.py):
 // PGV_K4_PART=1 holds the bf16 ranking's kernels and their launches, 2 the
-// other walks' modes (beam_walk_var_kernel), 0 the rest, whose dispatch
-// reaches the others through pgv_k4_rank_walk, pgv_k4_rank_scan and
-// pgv_k4_var_walk; without the macro (the probes' builds) it is one unit
+// other walks' modes (beam_walk_var_kernel), 3 the word walk's modes
+// (word_walk_modes_kernel), 0 the rest, whose dispatch reaches the others
+// through pgv_k4_rank_walk, pgv_k4_rank_scan, pgv_k4_var_walk and
+// pgv_k4_word_walk; without the macro (the probes' builds) it is one unit
 // with all.
 #if !defined(PGV_K4_PART) || PGV_K4_PART == 0
 #define PGV_K4_BASE
@@ -116,6 +117,9 @@
 #if !defined(PGV_K4_PART) || PGV_K4_PART == 2
 #define PGV_K4_MODES
 #endif
+#if !defined(PGV_K4_PART) || PGV_K4_PART == 3
+#define PGV_K4_WORDS
+#endif
 // args: the WalkArgs / ScanArgs below; stream: a cudaStream_t
 int pgv_k4_rank_walk(const void* args, int b, size_t smem, void* stream);
 // dtype: the row type's code (pgv_k4_beam_walk's); v: its chunk width
@@ -123,6 +127,8 @@ int pgv_k4_var_walk(const void* args, int dtype, int v, int b, size_t smem,
                     void* stream);
 int pgv_k4_rank_scan(const void* args, int metric, int b, size_t smem,
                      void* stream);
+// v: the word rows' chunk width (4 or 1)
+int pgv_k4_word_walk(const void* args, int v, int b, void* stream);
 
 namespace {
 
@@ -1928,13 +1934,8 @@ cudaError_t launch(const WalkArgs& a, int b, size_t smem,
 // Shapes: W <= 64, L <= 32, at most 32 words per row, S <= 32 seeds, m <=
 // 32 (kwFits); the block form takes the rest.
 //
-// The variants: with E > 1 a step marks its first E unexpanded members
-// (two ballots' ranks) and merges their neighbour lists one after the
-// other into the beam, which keeps the same beam as one merge of all E L
-// entries (the first W of a union), and masks a repeat of an id earlier
-// in the step (the list of the step's ids in shared memory, JAX's batch
-// dedup); the visited bitmap as in the block form (a list's bits set
-// after its tests).
+// The variants (E > 1, the visited bitmap) run word_walk_modes_kernel,
+// below.
 
 constexpr int kwQueries = 4;   // queries (warps) per block
 constexpr int kwMaxW = 64, kwMaxL = 32, kwMaxWords = 32;
@@ -1947,14 +1948,24 @@ struct WarpState {
   float bd[kwMaxW];  // the beam's mirror (keys past W stay -2)
   alignas(16) int bk[kwMaxW];
   int bc[3];
-  int sel_u[kwMaxW];      // the rows of the members a step expands
-  int step_ids[kMaxNew];  // the step's neighbour ids so far (E > 1)
+  int sel_u[kwMaxW];  // the rows of the members a step expands
 };
 
 __host__ __device__ inline bool kw_fits(int words, int W, int L, int S,
                                         int m, bool desc) {
   return words <= kwMaxWords && W <= kwMaxW && L <= kwMaxL && S <= 32 &&
          (!desc || m <= 32);
+}
+
+// A word row's distance from c1 = popcount(q op x) and c2 = popcount(x):
+// hamming c1, or jaccard from ab = c1 (IEEE division: the JAX package's
+// f32 values).
+template <int JACC>
+__device__ __forceinline__ float word_dist(int c1, int c2, float qpop) {
+  if (!JACC) return static_cast<float>(c1);
+  const float ab = static_cast<float>(c1);
+  return c1 == 0 ? 1.0f
+                 : 1.0f - __fdiv_rn(ab, qpop + static_cast<float>(c2) - ab);
 }
 
 // Lane j's distance to neighbour row v_j (ok_j: valid; +inf otherwise):
@@ -2002,14 +2013,7 @@ __device__ __forceinline__ float warp_score_words(const WalkArgs& a,
         c1 += __shfl_xor_sync(kFull, c1, o);
         if (JACC) c2 += __shfl_xor_sync(kFull, c2, o);
       }
-      float dp;
-      if (JACC) {
-        const float ab = static_cast<float>(c1);
-        dp = c1 == 0 ? 1.0f
-                     : 1.0f - __fdiv_rn(ab, qpop + static_cast<float>(c2) - ab);
-      } else {
-        dp = static_cast<float>(c1);
-      }
+      const float dp = word_dist<JACC>(c1, c2, qpop);
       // row p * rpw + s is in group s: lane j takes group j % rpw of pass
       // j / rpw
       const float got = __shfl_sync(kFull, dp, (lane % rpw) * lpr);
@@ -2039,18 +2043,9 @@ __device__ __forceinline__ void warp_sort(float& d, int& k, int lane) {
   }
 }
 
-template <int V, int JACC, bool VAR>
-__global__ void __launch_bounds__(kwQueries * 32)
-    word_walk_kernel(WalkArgs a, int nq) {
-  __shared__ WarpState states[kwQueries];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kwQueries + warp;
-  if (b >= nq) return;  // the whole warp; no block barrier below
-  WarpState& ws = states[warp];
-  const int W = a.W, L = a.L;
-  const float inf = inf_f();
-  const unsigned lt = (1u << lane) - 1u;  // the lanes below this one
-
+// The query's words into ws.q; returns their popcount (jaccard's).
+__device__ __forceinline__ float word_query(const WalkArgs& a, WarpState& ws,
+                                            int b, int lane) {
   const unsigned* qg = reinterpret_cast<const unsigned*>(a.q) +
                        static_cast<long long>(b) * a.qd;
   int qp = 0;
@@ -2060,10 +2055,22 @@ __global__ void __launch_bounds__(kwQueries * 32)
   }
   const float qpop = static_cast<float>(__reduce_add_sync(kFull, qp));
   __syncwarp();
-  K5_PROF_BEGIN
+  return qpop;
+}
 
-  // ---- seeds: the descent's landing, or the given ones
-  int sid = -1;
+// The walk's seeds, the descent's landing (upper_slot given: the landing
+// goes to a.land) or the given ones, deduped by id (a repeated seed: only
+// its first copy lives) and sorted into the beam: (d0, k0) / (d1, k1) and
+// the mirror. Returns whether this lane holds a live seed, its id in sid.
+template <int V, int JACC>
+__device__ __forceinline__ bool word_seeds(const WalkArgs& a, WarpState& ws,
+                                           int b, int lane, float qpop,
+                                           int& sid, float& d0, int& k0,
+                                           float& d1, int& k1) {
+  const float inf = inf_f();
+  const unsigned lt = (1u << lane) - 1u;
+  const int W = a.W;
+  sid = -1;
   float sdist = inf;
   int S = a.S;
   if (a.upper_slot != nullptr) {
@@ -2091,14 +2098,9 @@ __global__ void __launch_bounds__(kwQueries * 32)
     sid = a.seed_ids[static_cast<long long>(b) * S + lane];
     sdist = a.seed_d[static_cast<long long>(b) * S + lane];
   }
-  // dedup by id (a repeated seed: only its first copy lives), sort
   const bool sok = lane < S && sid >= 0;
-  unsigned* vis = VAR && a.vis != nullptr
-                      ? a.vis + static_cast<long long>(b) * a.vwords
-                      : nullptr;
-  if (vis != nullptr && sok) atomicOr(vis + (sid >> 5), 1u << (sid & 31));
-  float d0 = sok ? sdist : inf;
-  int k0 = sok ? 2 * sid + 1 : -2;
+  d0 = sok ? sdist : inf;
+  k0 = sok ? 2 * sid + 1 : -2;
   const unsigned same = __match_any_sync(kFull, sok ? sid : -1 - lane);
   if (sok && (same & lt)) d0 = inf;
   if (lane >= S) k0 = INT_MAX;  // pads sort last
@@ -2107,8 +2109,8 @@ __global__ void __launch_bounds__(kwQueries * 32)
     d0 = inf;
     k0 = -2;
   }
-  float d1 = inf;
-  int k1 = -2;
+  d1 = inf;
+  k1 = -2;
   if (lane < W) {
     ws.bd[lane] = d0;
     ws.bk[lane] = k0;
@@ -2117,150 +2119,116 @@ __global__ void __launch_bounds__(kwQueries * 32)
   ws.bk[32 + lane] = -2;
   if (32 + lane < W) ws.bd[32 + lane] = d1;
   __syncwarp();
-  K5_MARK(kPhStart);
+  return sok;
+}
 
-  int steps = 0, scored = 0;
-  const int E = VAR ? a.E : 1;
-  while (true) {
-    // the nearest unexpanded member: the first in the beam's order
-    const unsigned m0 =
-        __ballot_sync(kFull, lane < W && (k0 & 1) && d0 < inf);
-    const unsigned m1 =
-        __ballot_sync(kFull, 32 + lane < W && (k1 & 1) && d1 < inf);
-    if (!(m0 | m1) || steps >= a.max_steps) break;
-    const int pos = m0 ? __ffs(m0) - 1 : 32 + __ffs(m1) - 1;
-    const float dpos = __shfl_sync(kFull, pos < 32 ? d0 : d1, pos & 31);
-    const float dlast = __shfl_sync(kFull, W > 32 ? d1 : d0, (W - 1) & 31);
-    if (!(dpos <= dlast)) break;
-    // the members to expand: the first E unexpanded, marked expanded
-    const int c0 = __popc(m0);
-    const int r0 = __popc(m0 & lt), r1 = c0 + __popc(m1 & lt);
-    const int nsel = min(E, c0 + __popc(m1));
-    if (((m0 >> lane) & 1u) && r0 < E) {
-      ws.sel_u[r0] = min(k0 >> 1, a.cap);  // the sentinel row at worst
-      k0 &= ~1;
-      ws.bk[lane] = k0;
-    }
-    if (((m1 >> lane) & 1u) && r1 < E) {
-      ws.sel_u[r1] = min(k1 >> 1, a.cap);
-      k1 &= ~1;
-      ws.bk[32 + lane] = k1;
-    }
-    __syncwarp();
-    K5_MARK(kPhSelect);
-
-    for (int e = 0; e < nsel; ++e) {
-      const int u = ws.sel_u[e];
-      // neighbour j: its id, flag and distance in lane j
-      const int v = lane < L ? __ldg(a.nbrs + static_cast<long long>(u) * L +
-                                     lane)
-                             : -1;
-      bool ok = v >= 0 && a.trav[min(v, a.cap)];
-      if (vis != nullptr && ok)
-        ok = !((__ldcg(vis + (v >> 5)) >> (v & 31)) & 1u);
-      const unsigned rep = __match_any_sync(kFull, v >= 0 ? v : -1 - lane);
-      if (E > 1) {  // a repeat of an id earlier in the step: masked
-        for (int i = 0; i < e * L && ok; ++i) ok = ws.step_ids[i] != v;
-        ok = ok && !(rep & lt);
-        if (lane < L) ws.step_ids[e * L + lane] = v;
-      }
-      // the rows' loads go out with the flags' (nothing waits for ok first)
-      const float dv = warp_score_words<V, JACC>(a, ws.q, qpop, v, ok, lane);
-      scored += __popc(__ballot_sync(kFull, ok));
-      if (vis != nullptr) {  // this list's ids, after its tests
-        __syncwarp();
-        if (v >= 0) atomicOr(vis + (v >> 5), 1u << (v & 31));
-      }
-      K5_MARK(kPhRows);
-
-      // dedup (no visited bitmap): an id in the beam (any copy), or
-      // earlier in the list (E = 1); the mirror's keys four at a time,
-      // every load in flight together
-      bool dup = false;
-      if (vis == nullptr) {
+// Merges the sorted new entries (nd, nk) of lanes < cnt (the others pads
+// that sort last) into the beam, registers and mirror: the first W of the
+// two are the next beam, the beam first among equals.
+__device__ __forceinline__ void warp_merge(WarpState& ws, float nd, int nk,
+                                           int cnt, int W, int lane,
+                                           float& d0, int& k0, float& d1,
+                                           int& k1) {
+  int ra = lane, rb = 32 + lane;  // ranks of the beam's entries
+  {
+    int ca = 0, cb = 0;  // new entries strictly before each
 #pragma unroll
-        for (int i = 0; i < kwMaxW; i += 4) {
-          if (i < W) {  // the same in every lane
-            const int4 kb = *reinterpret_cast<const int4*>(ws.bk + i);
-            dup |= (kb.x >= 0 && (kb.x >> 1) == v) |
-                   (kb.y >= 0 && (kb.y >> 1) == v) |
-                   (kb.z >= 0 && (kb.z >> 1) == v) |
-                   (kb.w >= 0 && (kb.w >> 1) == v);
-          }
-        }
-        dup = dup && ok;
-        if (E == 1) dup |= ok && (rep & lt);
-      }
-      float nd = ok && !dup ? dv : inf;
-      int nk = ok ? 2 * v + 1 : -2;
-      if (lane >= L) nk = INT_MAX;  // pads sort last
-      K5_MARK(kPhDedup);
-      warp_sort(nd, nk, lane);
-      K5_MARK(kPhSort);
-
-      // merge beam (W) and new (L): the first W are the next beam
-      int ra = lane, rb = 32 + lane;  // ranks of the beam's entries
-      {
-        int ca = 0, cb = 0;  // new entries strictly before each
-#pragma unroll
-        for (int st = 16; st; st >>= 1) {
-          const float e0 = __shfl_sync(kFull, nd, ca + st - 1);
-          const int f0 = __shfl_sync(kFull, nk, ca + st - 1);
-          const float e1 = __shfl_sync(kFull, nd, cb + st - 1);
-          const int f1 = __shfl_sync(kFull, nk, cb + st - 1);
-          if (before(e0, f0, d0, k0)) ca += st;
-          if (before(e1, f1, d1, k1)) cb += st;
-        }
-        const float e0 = __shfl_sync(kFull, nd, ca);
-        const float e1 = __shfl_sync(kFull, nd, cb);
-        const int f0 = __shfl_sync(kFull, nk, ca);
-        const int f1 = __shfl_sync(kFull, nk, cb);
-        ca += ca == 31 && before(e0, f0, d0, k0);
-        cb += cb == 31 && before(e1, f1, d1, k1);
-        ra += ca;
-        rb += cb;
-      }
-      int rn = lane;  // rank of the new entry: lane + beam entries <= it
-      if (lane < L) {
-        int lo = 0, n = W;
-        while (n > 0) {
-          const int h = n >> 1;
-          if (!before(nd, nk, ws.bd[lo + h], ws.bk[lo + h])) {
-            lo += h + 1;
-            n -= h + 1;
-          } else {
-            n = h;
-          }
-        }
-        rn += lo;
-      }
-      __syncwarp();  // every read of the mirror is done
-      if (lane < W && ra < W) {
-        ws.bd[ra] = d0;
-        ws.bk[ra] = k0;
-      }
-      if (32 + lane < W && rb < W) {
-        ws.bd[rb] = d1;
-        ws.bk[rb] = k1;
-      }
-      if (lane < L && rn < W) {
-        ws.bd[rn] = nd;
-        ws.bk[rn] = nk;
-      }
-      __syncwarp();
-      if (lane < W) {
-        d0 = ws.bd[lane];
-        k0 = ws.bk[lane];
-      }
-      if (32 + lane < W) {
-        d1 = ws.bd[32 + lane];
-        k1 = ws.bk[32 + lane];
-      }
-      K5_MARK(kPhBeamMerge);
+    for (int st = 16; st; st >>= 1) {
+      const float e0 = __shfl_sync(kFull, nd, ca + st - 1);
+      const int f0 = __shfl_sync(kFull, nk, ca + st - 1);
+      const float e1 = __shfl_sync(kFull, nd, cb + st - 1);
+      const int f1 = __shfl_sync(kFull, nk, cb + st - 1);
+      if (before(e0, f0, d0, k0)) ca += st;
+      if (before(e1, f1, d1, k1)) cb += st;
     }
-    ++steps;
+    const float e0 = __shfl_sync(kFull, nd, ca);
+    const float e1 = __shfl_sync(kFull, nd, cb);
+    const int f0 = __shfl_sync(kFull, nk, ca);
+    const int f1 = __shfl_sync(kFull, nk, cb);
+    ca += ca == 31 && before(e0, f0, d0, k0);
+    cb += cb == 31 && before(e1, f1, d1, k1);
+    ra += ca;
+    rb += cb;
   }
+  int rn = lane;  // rank of the new entry: lane + beam entries <= it
+  if (lane < cnt) {
+    int lo = 0, n = W;
+    while (n > 0) {
+      const int h = n >> 1;
+      if (!before(nd, nk, ws.bd[lo + h], ws.bk[lo + h])) {
+        lo += h + 1;
+        n -= h + 1;
+      } else {
+        n = h;
+      }
+    }
+    rn += lo;
+  }
+  __syncwarp();  // every read of the mirror is done
+  if (lane < W && ra < W) {
+    ws.bd[ra] = d0;
+    ws.bk[ra] = k0;
+  }
+  if (32 + lane < W && rb < W) {
+    ws.bd[rb] = d1;
+    ws.bk[rb] = k1;
+  }
+  if (lane < cnt && rn < W) {
+    ws.bd[rn] = nd;
+    ws.bk[rn] = nk;
+  }
+  __syncwarp();
+  if (lane < W) {
+    d0 = ws.bd[lane];
+    k0 = ws.bk[lane];
+  }
+  if (32 + lane < W) {
+    d1 = ws.bd[32 + lane];
+    k1 = ws.bk[32 + lane];
+  }
+}
 
+// The step's members: the first E unexpanded in the beam's order (JAX's
+// top_k: the nearest, lower slot first), their rows into ws.sel_u and
+// marked expanded (registers and mirror); returns how many, 0 where the
+// walk stops (none left, max_steps taken, or the nearest farther than the
+// beam's last, whose distance goes to dlast).
+__device__ __forceinline__ int word_select(const WalkArgs& a, WarpState& ws,
+                                           int E, int steps, int lane,
+                                           float& d0, int& k0, float& d1,
+                                           int& k1, float& dlast) {
+  const float inf = inf_f();
+  const unsigned lt = (1u << lane) - 1u;
+  const int W = a.W;
+  const unsigned m0 = __ballot_sync(kFull, lane < W && (k0 & 1) && d0 < inf);
+  const unsigned m1 =
+      __ballot_sync(kFull, 32 + lane < W && (k1 & 1) && d1 < inf);
+  if (!(m0 | m1) || steps >= a.max_steps) return 0;
+  const int pos = m0 ? __ffs(m0) - 1 : 32 + __ffs(m1) - 1;
+  const float dpos = __shfl_sync(kFull, pos < 32 ? d0 : d1, pos & 31);
+  dlast = __shfl_sync(kFull, W > 32 ? d1 : d0, (W - 1) & 31);
+  if (!(dpos <= dlast)) return 0;
+  const int c0 = __popc(m0);
+  const int r0 = __popc(m0 & lt), r1 = c0 + __popc(m1 & lt);
+  if (((m0 >> lane) & 1u) && r0 < E) {
+    ws.sel_u[r0] = min(k0 >> 1, a.cap);  // the sentinel row at worst
+    k0 &= ~1;
+    ws.bk[lane] = k0;
+  }
+  if (((m1 >> lane) & 1u) && r1 < E) {
+    ws.sel_u[r1] = min(k1 >> 1, a.cap);
+    k1 &= ~1;
+    ws.bk[32 + lane] = k1;
+  }
+  __syncwarp();
+  return min(E, c0 + __popc(m1));
+}
+
+// The raw beam, steps and rows scored of query b.
+__device__ __forceinline__ void word_outputs(const WalkArgs& a, int b, int W,
+                                             int lane, float d0, int k0,
+                                             float d1, int k1, int steps,
+                                             int scored) {
   const long long ob = static_cast<long long>(b) * W;
   if (lane < W) {
     a.beam_d[ob + lane] = d0;
@@ -2274,22 +2242,444 @@ __global__ void __launch_bounds__(kwQueries * 32)
     a.steps[b] = steps;
     a.scored[b] = scored;
   }
+}
+
+template <int V, int JACC>
+__global__ void __launch_bounds__(kwQueries * 32)
+    word_walk_kernel(WalkArgs a, int nq) {
+  __shared__ WarpState states[kwQueries];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kwQueries + warp;
+  if (b >= nq) return;  // the whole warp; no block barrier below
+  WarpState& ws = states[warp];
+  const int W = a.W, L = a.L;
+  const float inf = inf_f();
+  const unsigned lt = (1u << lane) - 1u;  // the lanes below this one
+  const float qpop = word_query(a, ws, b, lane);
+  K5_PROF_BEGIN
+  float d0, d1;
+  int k0, k1, sid;
+  word_seeds<V, JACC>(a, ws, b, lane, qpop, sid, d0, k0, d1, k1);
+  K5_MARK(kPhStart);
+
+  int steps = 0, scored = 0;
+  while (true) {
+    float dlast;
+    if (word_select(a, ws, 1, steps, lane, d0, k0, d1, k1, dlast) == 0)
+      break;
+    K5_MARK(kPhSelect);
+
+    // neighbour j of the member: its id, flag and distance in lane j
+    const int v = lane < L ? __ldg(a.nbrs +
+                                   static_cast<long long>(ws.sel_u[0]) * L +
+                                   lane)
+                           : -1;
+    const bool ok = v >= 0 && a.trav[min(v, a.cap)];
+    const unsigned rep = __match_any_sync(kFull, v >= 0 ? v : -1 - lane);
+    // the rows' loads go out with the flags' (nothing waits for ok first)
+    const float dv = warp_score_words<V, JACC>(a, ws.q, qpop, v, ok, lane);
+    scored += __popc(__ballot_sync(kFull, ok));
+    K5_MARK(kPhRows);
+
+    // dedup: an id in the beam (any copy), or earlier in the list; the
+    // mirror's keys four at a time, every load in flight together
+    bool dup = false;
+#pragma unroll
+    for (int i = 0; i < kwMaxW; i += 4) {
+      if (i < W) {  // the same in every lane
+        const int4 kb = *reinterpret_cast<const int4*>(ws.bk + i);
+        dup |= (kb.x >= 0 && (kb.x >> 1) == v) |
+               (kb.y >= 0 && (kb.y >> 1) == v) |
+               (kb.z >= 0 && (kb.z >> 1) == v) |
+               (kb.w >= 0 && (kb.w >> 1) == v);
+      }
+    }
+    dup = dup && ok;
+    dup |= ok && (rep & lt);
+    float nd = ok && !dup ? dv : inf;
+    int nk = ok ? 2 * v + 1 : -2;
+    if (lane >= L) nk = INT_MAX;  // pads sort last
+    K5_MARK(kPhDedup);
+    warp_sort(nd, nk, lane);
+    K5_MARK(kPhSort);
+
+    // merge beam (W) and new (L): the first W are the next beam
+    warp_merge(ws, nd, nk, L, W, lane, d0, k0, d1, k1);
+    K5_MARK(kPhBeamMerge);
+    ++steps;
+  }
+  word_outputs(a, b, W, lane, d0, k0, d1, k1, steps, scored);
   K5_MARK(kPhFinish);
   K5_PROF_END(steps);
 }
 
 template <int V, int JACC>
 cudaError_t launch_word_walk(const WalkArgs& a, int b, cudaStream_t stream) {
-  auto kern = a.E == 1 && a.vis == nullptr ? word_walk_kernel<V, JACC, false>
-                                           : word_walk_kernel<V, JACC, true>;
-  kern<<<(b + kwQueries - 1) / kwQueries, kwQueries * 32, 0, stream>>>(a, b);
+  word_walk_kernel<V, JACC>
+      <<<(b + kwQueries - 1) / kwQueries, kwQueries * 32, 0, stream>>>(a, b);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The word walk's modes: E > 1 and the visited bitmap, one warp per query
+// ---------------------------------------------------------------------------
+//
+// The default word walk's step is three dependent round trips (ids ->
+// flags and rows), ~4.3 us under load against a 0.27 us hop; its first
+// modes ran that chain, a 32-lane sort and a merge once per member (E
+// times a step, ~18.8 us at E = 4), tested each id's bitmap word after its
+// flag (a third trip) and cleared every query's bitmap after the launch
+// (~128 MB at 1,024 queries over 1M rows). Here a step of either mode is
+// two trips, one sort and one merge:
+// - the step's E L new entries sit NS = E L / 32 (rounded up to a power of
+//   two) to a lane, entry t = 32 s + lane in slot s (neighbour t % L of
+//   member t / L); their ids load at once, then every entry's live flag
+//   (past the visited set its bitmap word), while the tests on chip run:
+//   the step's first copy of an id (E > 1: __match_any_sync within a slot,
+//   the step's earlier slots in shared memory, no atomics; any copy would
+//   do, they share one row, distance and key), not in the visited set,
+//   not in the beam (no bitmap: the beam's mirror; its copy keeps its key
+//   at an infinite distance and needs no row);
+// - the rows of the ids that pass are compacted and load with every load
+//   of a round in flight (warp_score_list); the visited set takes the
+//   step's ids while they fly (its atomics off the step's path);
+// - each entry is then the plain walk's (distance, key); only one that
+//   comes before the beam's last (walk_key order, the beam first among
+//   equals) can enter, so those are compacted and merged: one bitonic sort
+//   and one merge (warp_merge) per 32 of them, which keeps the first W of
+//   the union as the plain walk's sort does (one round but for the first
+//   steps, none once nothing enters);
+// - the bitmap (VIS): a visited set of the warp's own in shared memory
+//   (2^kwVisBits slots) takes the ids while it is at most half full; then
+//   the global bitmap, one per query, whose word a test reads beside the
+//   live flag and which every id of a step then sets (atomicOr, after
+//   every test). The caller hands the bitmap zeroed and gets it back
+//   zeroed: once a walk uses it, it records the members it expands (at
+//   most kRecMax) and, before it ends, stores 0 to the word of every id
+//   their lists hold, or clears its whole bitmap past kRecMax; no launch
+//   clears (cap + 1) / 8 bytes a query. (The global bitmap from the first
+//   step, its words read with every flag and cleared at the end, took
+//   the bitmap walk 0.2819 ms against the set's 0.2177; claiming the
+//   step's first copies in shared-memory sets took E = 4 0.3207 ms
+//   against 0.1597 without atomics: PERF.md §6.)
+// The same order, masks and stopping rules as the plain walk: with E = 1
+// and the bitmap a repeat within one list stays (both copies scored), as
+// in JAX.
+
+// log2 of the slots of a warp's visited set (16 KB; 2 blocks, 8 queries,
+// an SM: 1,056 queries in one wave on 132 SMs)
+constexpr int kwVisBits = 12;
+
+struct WarpModes : WarpState {
+  int sid[kMaxNew];   // the step's ids, in entry order (E > 1)
+  int cid[kMaxNew];   // the rows' ids, then the candidates' keys
+  float cd[kMaxNew];  // their distances, then the candidates'
+  int rec[kRecMax];   // the members whose lists went to the bitmap
+};
+
+// The distances of rows ids[0, count) to the query (hamming or jaccard, as
+// warp_score_words) into out[0, count): `lpr` lanes a row, rounds of
+// kwMaxWords / V passes of 32 / lpr rows, every load of a round issued
+// before any is used; `meanwhile()` runs once, while the first round's
+// loads are in flight.
+template <int V, int JACC, class Meanwhile>
+__device__ __forceinline__ void warp_score_list(const WalkArgs& a,
+                                                const unsigned* qs,
+                                                float qpop, const int* ids,
+                                                float* out, int count,
+                                                int lane,
+                                                Meanwhile meanwhile) {
+  using C = WordChunk<V>;
+  using T = typename C::T;
+  constexpr int kPass = kwMaxWords / V;
+  const unsigned* words = static_cast<const unsigned*>(a.values);
+  const int nchunks = a.d / V;
+  int lpr = 1;
+  while (lpr < nchunks) lpr <<= 1;
+  const int rpw = 32 / lpr;
+  const int sub = lane / lpr, sl = lane % lpr;
+  const bool mine = sl < nchunks;
+  const T q = mine ? reinterpret_cast<const T*>(qs)[sl] : T{};
+  bool done = false;
+  for (int base = 0; base < count; base += kPass * rpw) {
+    T x[kPass];
+#pragma unroll
+    for (int p = 0; p < kPass; ++p) {
+      const int j = base + p * rpw + sub;
+      x[p] = T{};
+      if (j < count && mine)
+        x[p] = __ldg(reinterpret_cast<const T*>(
+                         words + static_cast<long long>(min(ids[j], a.cap)) *
+                                     a.stride) +
+                     sl);
+    }
+    if (!done) {
+      meanwhile();
+      done = true;
+    }
+#pragma unroll
+    for (int p = 0; p < kPass; ++p) {
+      if (base + p * rpw < count) {  // the same in every lane
+        int c1 = C::pop(C::op(q, x[p], JACC));
+        int c2 = JACC ? C::pop(x[p]) : 0;
+        for (int o = lpr >> 1; o; o >>= 1) {
+          c1 += __shfl_xor_sync(kFull, c1, o);
+          if (JACC) c2 += __shfl_xor_sync(kFull, c2, o);
+        }
+        const int j = base + p * rpw + sub;
+        if (sl == 0 && j < count) out[j] = word_dist<JACC>(c1, c2, qpop);
+      }
+    }
+  }
+  if (!done) meanwhile();
+}
+
+template <int V, int JACC, int NS, bool VIS>
+__global__ void __launch_bounds__(kwQueries * 32)
+    word_walk_modes_kernel(WalkArgs a, int nq) {
+  __shared__ WarpModes states[kwQueries];
+  extern __shared__ int4 vsets[];  // VIS: each warp's visited set
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kwQueries + warp;
+  if (b >= nq) return;  // the whole warp; no block barrier below
+  WarpModes& ws = states[warp];
+  const int W = a.W, L = a.L, E = a.E, NL = E * L;
+  const float inf = inf_f();
+  const unsigned lt = (1u << lane) - 1u;
+  const float qpop = word_query(a, ws, b, lane);
+  K5_PROF_BEGIN
+  float d0, d1;
+  int k0, k1, sid;
+  const bool sok =
+      word_seeds<V, JACC>(a, ws, b, lane, qpop, sid, d0, k0, d1, k1);
+
+  int* vt = reinterpret_cast<int*>(vsets + (warp << (kwVisBits - 2)));
+  unsigned* vis = VIS ? a.vis + static_cast<long long>(b) * a.vwords
+                      : nullptr;
+  constexpr int kCapV = 1 << (kwVisBits - 1);  // the set's ids, at most
+  int nv = 0;  // the ids the set holds, at most
+  bool ovf = false;  // past the set: the global bitmap
+  if constexpr (VIS) {
+    for (int i = lane; i < (1 << (kwVisBits - 2)); i += 32)
+      vsets[(warp << (kwVisBits - 2)) + i] = make_int4(-1, -1, -1, -1);
+    __syncwarp();
+    if (sok) set_insert(vt, kwVisBits, sid);  // W <= 64 seeds fit
+    nv = __popc(__ballot_sync(kFull, sok));
+  }
+  int tj[NS];  // slot s: (member << 8) | neighbour, -1 past E L
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int t = 32 * s + lane;
+    tj[s] = t < NL ? ((t / L) << 8) | (t % L) : -1;
+  }
+  __syncwarp();
+  K5_MARK(kPhStart);
+
+  const int rlen = VIS ? var_rec_len(a.max_steps, E) : 0;
+  int steps = 0, scored = 0, nrec = 0;
+  while (true) {
+    float dlast;
+    const int nsel = word_select(a, ws, E, steps, lane, d0, k0, d1, k1,
+                                 dlast);
+    if (nsel == 0) break;
+    // only a new entry before the beam's last (as marked) can enter
+    const unsigned long long lastkey = walk_key(
+        dlast, __shfl_sync(kFull, W > 32 ? k1 : k0, (W - 1) & 31));
+    if (VIS && !ovf) ovf = nv + NL > kCapV;  // the step could fill it
+    if (VIS && ovf) {
+      for (int e = lane; e < nsel; e += 32)
+        if (nrec + e < rlen) ws.rec[nrec + e] = ws.sel_u[e];
+      nrec += nsel;
+    }
+    K5_MARK(kPhSelect);
+
+    // (A) the step's ids at once, then their flags (past the set their
+    // bitmap words) in flight while the tests on chip run
+    int v[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      v[s] = tj[s] >= 0 && (tj[s] >> 8) < nsel
+                 ? __ldg(a.nbrs +
+                         static_cast<long long>(ws.sel_u[tj[s] >> 8]) * L +
+                         (tj[s] & 255))
+                 : -1;
+    uint8_t tv[NS];
+    unsigned gw[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tv[s] = v[s] >= 0 ? __ldg(a.trav + min(v[s], a.cap)) : 0;
+      gw[s] = VIS && ovf && v[s] >= 0 ? __ldcg(vis + (v[s] >> 5)) : 0u;
+      if (E > 1 && s + 1 < NS) ws.sid[32 * s + lane] = v[s];
+    }
+    // first: the step's first copy of an id not in the visited set; fresh:
+    // also not in the beam (no bitmap), so its row loads
+    unsigned first = 0, fresh;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      bool f = v[s] >= 0;
+      if (E > 1) {
+        const unsigned same = __match_any_sync(kFull, f ? v[s] : -1 - lane);
+        f = f && !(same & lt);
+      }
+      if (VIS && f) f = set_find(vt, kwVisBits, v[s]) < 0;
+      first |= static_cast<unsigned>(f) << s;
+    }
+    if (E > 1 && NS > 1) {  // a copy in an earlier slot: masked
+      __syncwarp();
+#pragma unroll
+      for (int s0 = 0; s0 + 1 < NS; ++s0) {
+        if (32 * (s0 + 1) < NL) {  // the same in every lane
+#pragma unroll
+          for (int i = 0; i < 32; i += 4) {
+            const int4 e4 =
+                *reinterpret_cast<const int4*>(ws.sid + 32 * s0 + i);
+#pragma unroll
+            for (int s = s0 + 1; s < NS; ++s) {
+              const int x = v[s];
+              first &= ~(static_cast<unsigned>(
+                             (e4.x == x) | (e4.y == x) | (e4.z == x) |
+                             (e4.w == x))
+                         << s);
+            }
+          }
+        }
+      }
+    }
+    fresh = first;
+    if (!VIS) {  // an id in the beam (any copy) needs no row
+      unsigned inb = 0;
+#pragma unroll
+      for (int i = 0; i < kwMaxW; i += 4) {
+        if (i < W) {  // the same in every lane
+          const int4 kb = *reinterpret_cast<const int4*>(ws.bk + i);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int x = v[s];
+            inb |= static_cast<unsigned>(
+                       (kb.x >= 0 && (kb.x >> 1) == x) |
+                       (kb.y >= 0 && (kb.y >> 1) == x) |
+                       (kb.z >= 0 && (kb.z >> 1) == x) |
+                       (kb.w >= 0 && (kb.w >> 1) == x))
+                   << s;
+          }
+        }
+      }
+      fresh &= ~inb;
+    }
+    int F = 0, ci[NS];  // the rows to load, compacted
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const bool n = (fresh >> s) & 1u;
+      const unsigned bal = __ballot_sync(kFull, n);
+      ci[s] = F + __popc(bal & lt);
+      if (n) ws.cid[ci[s]] = v[s];
+      F += __popc(bal);
+    }
+    __syncwarp();
+    K5_MARK(kPhIds);
+
+    // (B) their distances; meanwhile the visited set takes the step's ids
+    warp_score_list<V, JACC>(a, ws.q, qpop, ws.cid, ws.cd, F, lane, [&] {
+      if (VIS && !ovf) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const bool f = (first >> s) & 1u;
+          if (f) set_insert(vt, kwVisBits, v[s]);
+          nv += __popc(__ballot_sync(kFull, f));
+        }
+      }
+    });
+    __syncwarp();
+    K5_MARK(kPhRows);
+
+    // (C) each entry as the plain walk has it, and the rows scored; those
+    // that can enter the beam are compacted
+    float ed[NS];
+    int ek[NS];
+    unsigned cand = 0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int x = v[s];
+      bool ok = ((first >> s) & 1u) && tv[s];
+      if (VIS) ok = ok && !((gw[s] >> (x & 31)) & 1u);
+      scored += __popc(__ballot_sync(kFull, ok));
+      ed[s] = ok && ((fresh >> s) & 1u) ? ws.cd[ci[s]] : inf;
+      ek[s] = ok ? 2 * x + 1 : -2;
+      cand |= static_cast<unsigned>(tj[s] >= 0 &&
+                                    walk_key(ed[s], ek[s]) < lastkey)
+              << s;
+    }
+    __syncwarp();  // cd is read, and every bitmap word tested
+    int C = 0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const bool c = (cand >> s) & 1u;
+      const unsigned bal = __ballot_sync(kFull, c);
+      if (c) {
+        const int j = C + __popc(bal & lt);
+        ws.cd[j] = ed[s];
+        ws.cid[j] = ek[s];
+      }
+      C += __popc(bal);
+      // past the set, every id of the step sets its bit, after every test
+      if (VIS && ovf && v[s] >= 0)
+        atomicOr(vis + (v[s] >> 5), 1u << (v[s] & 31));
+    }
+    __syncwarp();
+    K5_MARK(kPhDedup);
+
+    // (D) one sort and one merge a round of 32 candidates
+    for (int base = 0; base < C; base += 32) {
+      const int j = base + lane;
+      float nd = j < C ? ws.cd[j] : inf;
+      int nk = j < C ? ws.cid[j] : INT_MAX;  // pads sort last
+      warp_sort(nd, nk, lane);
+      K5_MARK(kPhSort);
+      warp_merge(ws, nd, nk, min(32, C - base), W, lane, d0, k0, d1, k1);
+      K5_MARK(kPhBeamMerge);
+    }
+    ++steps;
+  }
+  if (VIS && ovf) {  // leave the bitmap zero: clear what was set there
+    __threadfence();
+    __syncwarp();
+    if (nrec <= rlen) {
+#pragma unroll 4
+      for (int i = lane; i < nrec * L; i += 32) {
+        const int x = __ldg(a.nbrs +
+                            static_cast<long long>(ws.rec[i / L]) * L +
+                            i % L);
+        if (x >= 0) vis[x >> 5] = 0u;
+      }
+    } else {
+      for (int i = lane; i < a.vwords; i += 32) vis[i] = 0u;
+    }
+  }
+  word_outputs(a, b, W, lane, d0, k0, d1, k1, steps, scored);
+  K5_MARK(kPhFinish);
+  K5_PROF_END(steps);
+}
+
+// The modes' kernel for E L new entries a step and the bitmap.
+template <int V, int JACC, bool VIS>
+void (*word_modes_by_size(int nl))(WalkArgs, int) {
+  return nl <= 32   ? word_walk_modes_kernel<V, JACC, 1, VIS>
+         : nl <= 64  ? word_walk_modes_kernel<V, JACC, 2, VIS>
+         : nl <= 128 ? word_walk_modes_kernel<V, JACC, 4, VIS>
+                     : word_walk_modes_kernel<V, JACC, 8, VIS>;
+}
+
+template <int V, int JACC>
+void (*word_modes_kernel(const WalkArgs& a))(WalkArgs, int) {
+  const int nl = a.E * a.L;
+  return a.vis != nullptr ? word_modes_by_size<V, JACC, true>(nl)
+                          : word_modes_by_size<V, JACC, false>(nl);
 }
 
 // The vector width a row allows: 16-byte loads need a 16-byte aligned
 // base, a row stride of whole 16-byte units and d a multiple of the unit.
-// Word rows take the warp form where it fits (kw_fits), else the block
-// form.
+// Word rows take the warp forms where they fit (kw_fits), else the block
+// form; their modes run in another unit of the library (pgv_k4_word_walk).
 template <typename T>
 cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
                      cudaStream_t stream) {
@@ -2300,16 +2690,13 @@ cudaError_t dispatch(const WalkArgs& a, int b, size_t smem,
 #ifndef PGV_K4_WORDS_BLOCK  // probes/k4_words_profile.py's block-form build
   if constexpr (std::is_same<T, unsigned>::value) {
     if (kw_fits(a.d, a.W, a.L, a.S, a.m, a.upper_slot != nullptr)) {
-      cudaError_t err =
-          a.metric == 5 ? (vec ? launch_word_walk<4, 1>(a, b, stream)
-                               : launch_word_walk<1, 1>(a, b, stream))
-                        : (vec ? launch_word_walk<4, 0>(a, b, stream)
-                               : launch_word_walk<1, 0>(a, b, stream));
-      // the warp form leaves its bits set: the bitmaps are cleared after it
-      if (err == cudaSuccess && a.vis != nullptr)
-        err = cudaMemsetAsync(a.vis, 0,
-                              static_cast<size_t>(b) * a.vwords * 4, stream);
-      return err;
+      if (a.E != 1 || a.vis != nullptr)
+        return static_cast<cudaError_t>(
+            pgv_k4_word_walk(&a, vec ? 4 : 1, b, stream));
+      return a.metric == 5 ? (vec ? launch_word_walk<4, 1>(a, b, stream)
+                                  : launch_word_walk<1, 1>(a, b, stream))
+                           : (vec ? launch_word_walk<4, 0>(a, b, stream)
+                                  : launch_word_walk<1, 0>(a, b, stream));
     }
   }
 #endif
@@ -3408,6 +3795,31 @@ int pgv_k4_var_walk(const void* args, int dtype, int v, int b, size_t smem,
     default: kern = var_kernel<SparseRow, 1, false>(a);
   }
   return static_cast<int>(launch_kernel(kern, a, b, smem, st));
+}
+#endif
+
+#ifdef PGV_K4_WORDS
+// The word walk's modes (word_walk_modes_kernel) at the chunk width
+// pgv_k4_beam_walk's dispatch chose; the bitmap's walks hold their visited
+// sets in dynamic shared memory.
+int pgv_k4_word_walk(const void* args, int v, int b, void* stream) {
+  const WalkArgs& a = *static_cast<const WalkArgs*>(args);
+  void (*kern)(WalkArgs, int) =
+      v == 4 ? (a.metric == 5 ? word_modes_kernel<4, 1>(a)
+                              : word_modes_kernel<4, 0>(a))
+             : (a.metric == 5 ? word_modes_kernel<1, 1>(a)
+                              : word_modes_kernel<1, 0>(a));
+  const size_t smem =
+      a.vis != nullptr ? kwQueries * (size_t{4} << kwVisBits) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<(b + kwQueries - 1) / kwQueries, kwQueries * 32, smem,
+         static_cast<cudaStream_t>(stream)>>>(a, b);
+  return static_cast<int>(cudaGetLastError());
 }
 #endif
 

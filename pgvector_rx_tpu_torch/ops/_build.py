@@ -35,13 +35,12 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 #: the compile steps, one nvcc each, all started together: every source,
-#: and k4_beam.cu three times, its bf16 ranking's kernels (PGV_K4_PART=1)
-#: and the other walks' modes (PGV_K4_PART=2) apart from the rest (its
-#: longest step at ~190 s in one piece)
-_UNITS = tuple((src, ()) for src in _SOURCES if src.name != "k4_beam.cu") + (
-    (_CSRC / "k4_beam.cu", ("-DPGV_K4_PART=0",)),
-    (_CSRC / "k4_beam.cu", ("-DPGV_K4_PART=1",)),
-    (_CSRC / "k4_beam.cu", ("-DPGV_K4_PART=2",)))
+#: and k4_beam.cu four times, its bf16 ranking's kernels (PGV_K4_PART=1),
+#: the other block walks' modes (PGV_K4_PART=2) and the word walk's modes
+#: (PGV_K4_PART=3) apart from the rest (its longest step at ~190 s in one
+#: piece)
+_UNITS = tuple((src, ()) for src in _SOURCES if src.name != "k4_beam.cu") + \
+    tuple((_CSRC / "k4_beam.cu", (f"-DPGV_K4_PART={p}",)) for p in range(4))
 
 _lock = threading.Lock()
 _lib = None

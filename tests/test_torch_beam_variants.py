@@ -626,26 +626,72 @@ def test_k4_bf16_ranking_matches_plain(cuda, expand, descent, d, metric,
         assert any((c[i] != p_raw[i]).any() for i in (1, 4, 5))
 
 
+#: the word walk's cases beyond the three modes at _word_case's shape (8
+#: words a row, L = 16, 2,000 rows): name -> (mode, control, _word_case's
+#: w, m and n, the beam's width ef, the calls in a row on the current
+#: stream)
+WORD_CASES = {
+    "expand2_l32": (dict(expand=2), {}, dict(m=16)),
+    "expand8_l32": (dict(expand=8), {}, dict(m=16)),
+    "expand8_l32_visited": (dict(expand=8, visited=True),
+                            dict(visited=True), dict(m=16)),
+    "expand4_w3": (dict(expand=4), {}, dict(w=3)),
+    "expand4_visited_w3": (dict(expand=4, visited=True), dict(visited=True),
+                           dict(w=3)),
+    "expand4_w32": (dict(expand=4), {}, dict(w=32)),
+    "visited_w32": (dict(visited=True), {}, dict(w=32)),
+    "visited_twice": (dict(visited=True), {}, dict(calls=2)),
+    "visited_past_the_set": (dict(visited=True), {},
+                             dict(m=16, ef=64, n=20_000)),
+    "expand4_visited_past_the_set": (dict(expand=4, visited=True),
+                                     dict(visited=True),
+                                     dict(m=16, ef=64, n=20_000)),
+    "expand8_l32_visited_twice": (dict(expand=8, visited=True),
+                                  dict(visited=True),
+                                  dict(m=16, ef=64, n=20_000, calls=2)),
+    "expand4_wide_beam": (dict(expand=4), {}, dict(ef=80)),
+    "visited_wide_beam": (dict(visited=True), {}, dict(ef=80)),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["hamming", "jaccard"])
-@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("mode", list(MODES) + list(WORD_CASES))
 def test_k4_word_walk_modes_match_plain(cuda, metric, mode):
     """The word walk (one warp a query) in each mode equals the plain walk
-    from the same landing, ties included; the control differs."""
+    from the same landing, ties included; the control differs. The cases:
+    E = 4, the bitmap and both (_word_case's graph); E = 2 and 8 at L = 32
+    (E L = 256, the limit); 3 words a row (scalar loads) and 32 (the most
+    the warp form takes); two calls in a row on one stream's bitmap
+    scratch, each equal to the plain walk; walks over 20,000 rows at L =
+    32 and a beam of 64 that see more ids than the visited set in shared
+    memory holds (2,048: at E = 1 two thirds of the queries, at E = 4 and
+    8 all), so the global bitmap takes the rest and each walk clears its
+    words; a beam of 80 (wider than the warp form takes: the block form's
+    walk). The bitmap scratch is zero after every call."""
     from test_torch_bits import _word_case
 
-    kw, ctl = MODES[mode]
-    words, nb, trav, q, rng = _word_case(cuda, 8)
+    kw, ctl, case = (MODES[mode] + ({},)) if mode in MODES \
+        else WORD_CASES[mode]
+    case = dict(case)
+    calls, ef = case.pop("calls", 1), case.pop("ef", 40)
+    words, nb, trav, q, rng = _word_case(cuda, case.pop("w", 8), **case)
     upper = _upper_case(rng, words.shape[0] - 1, 8, cuda)
-    out = tbeam.descent_walk(words, nb, trav, *upper[:2], 8, *upper[2:],
-                             metric, q, 40, 192, **kw)
+    outs = []
+    for _ in range(calls):
+        outs.append(tbeam.descent_walk(words, nb, trav, *upper[:2], 8,
+                                       *upper[2:], metric, q, ef, 192, **kw))
+        torch.cuda.synchronize()
+        for buf in tbeam._VISITED_SCRATCH.values():
+            assert not bool(buf.any())
     li, ld = tbeam.descent_plain(words, trav, *upper[:2], 8, metric, q,
                                  *upper[2:])
     walk = (words, nb, trav, None, metric, q, li[:, None].to(torch.int32),
-            ld[:, None].float(), 40, 0, 192, False)
+            ld[:, None].float(), ef, 0, 192, False)
     p = _raw(tbeam._serve_finish(*tbeam._walk_plain(*walk, **kw)))
-    for a, b in zip(_raw(out[:3]), p):
-        np.testing.assert_array_equal(a, b)
+    for out in outs:
+        for a, b in zip(_raw(out[:3]), p):
+            np.testing.assert_array_equal(a, b)
     c = _raw(tbeam._serve_finish(*tbeam._walk_plain(*walk, **ctl)))
     assert any((a != b).any() for a, b in zip(p, c))
 
